@@ -1,0 +1,109 @@
+"""DynamicVoxelNet, the SST detection model (serving path).
+
+Port of ``geomae_tpu/models/detector.py`` (``DynamicVoxelNet``,
+``extract_scene``): voxelize -> DynamicScatterVFE -> window layouts ->
+SST blocks -> recover_bev -> SECOND stages -> SECONDFPN -> Anchor3DHead.
+
+The module tree carries the reference checkpoint's names
+(``voxel_encoder``, ``backbone.encoder_blocks``, ``backbone.conv_blocks``,
+``neck``, ``bbox_head``), so a reference ``state_dict`` loads with
+``load_state_dict(strict=True)``.  Parameters stay float32; the model
+computes in ``cfg.compute_dtype``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from geomae_tpu.config import FinetuneConfig
+
+from ..ops.voxelize import Scene, build_scene_batch
+from ..ops.windows import make_layouts
+from .anchor_head import Anchor3DHead, HeadOutputs
+from .second import SECONDFPN, SECONDStages, recover_bev
+from .sst import SSTStack, prepare_shift_data
+from .vfe import DynamicScatterVFE
+
+
+class _Backbone(nn.Module):
+    """The reference backbone's two halves under their checkpoint names."""
+
+    def __init__(self, cfg: FinetuneConfig, device=None):
+        super().__init__()
+        self.encoder_blocks = SSTStack(cfg.sst, cfg.num_blocks, device)
+        self.conv_blocks = SECONDStages(cfg.second, device)
+
+
+class DynamicVoxelNet(nn.Module):
+    def __init__(self, cfg: FinetuneConfig, device=None):
+        super().__init__()
+        if cfg.head_type != "anchor":
+            raise NotImplementedError("only the anchor head is ported")
+        self.cfg = cfg
+        self.voxel_encoder = DynamicScatterVFE(cfg.vfe, cfg.voxel, device)
+        self.backbone = _Backbone(cfg, device)
+        self.neck = SECONDFPN(cfg.fpn, device)
+        self.bbox_head = Anchor3DHead(cfg.head, device)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.compute_dtype)
+
+    def forward(self, scene: Scene) -> HeadOutputs:
+        cfg = self.cfg
+        table = scene.table
+        ny, nx = cfg.voxel.grid_size
+        feats = self.voxel_encoder(scene, self.dtype)
+        layouts = make_layouts(table.coords, table.valid, cfg.sst, cfg.voxel)
+        shift_data = prepare_shift_data(layouts, table.valid, cfg.sst)
+        x = self.backbone.encoder_blocks(feats, shift_data)
+        bev = recover_bev(x, table.coords, table.valid, ny, nx)
+        fpn = self.neck(self.backbone.conv_blocks(bev))
+        return self.bbox_head(fpn)
+
+
+def extract_scene(cfg: FinetuneConfig, points: torch.Tensor,
+                  point_valid: torch.Tensor) -> Scene:
+    return build_scene_batch(points, point_valid, cfg.voxel,
+                             cfg.caps.max_voxels)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Fill every parameter and buffer from ``generator``: He-uniform
+    weights (+-sqrt(6/fan_in), the ReLU gain) for the Linears and
+    convolutions, so that random weights keep activations of order one
+    through the 16 conv layers and the head's outputs depend on the input;
+    biases +-1/sqrt(fan_in); Xavier for the fused q/k/v projection; ones
+    and zeros for the norms.  Values are drawn on the CPU in a fixed module
+    order, so one seed gives the same weights on every device."""
+    def uniform(t: torch.Tensor, bound: float) -> None:
+        t.copy_(torch.empty(t.shape).uniform_(-bound, bound,
+                                              generator=generator))
+
+    for m in model.modules():
+        if isinstance(m, nn.MultiheadAttention):
+            fan_out, fan_in = m.in_proj_weight.shape
+            uniform(m.in_proj_weight, math.sqrt(6.0 / (fan_in + fan_out)))
+            m.in_proj_bias.zero_()
+        elif isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, nn.ConvTranspose2d):
+                # each output pixel sees in_channels x (kernel / stride) taps
+                fan_in = (m.in_channels * math.prod(m.kernel_size)
+                          // math.prod(m.stride))
+            else:
+                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(m.weight)
+            uniform(m.weight, math.sqrt(6.0 / fan_in))
+            if m.bias is not None:
+                uniform(m.bias, 1.0 / math.sqrt(fan_in))
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+            m.num_batches_tracked.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()

@@ -1,0 +1,150 @@
+"""SST encoder over window-sorted tokens (ungrouped, eval).
+
+Port of ``geomae_tpu/models/sst.py`` (``prepare_shift_data``,
+``WindowMHA``, ``EncoderLayer``, ``BasicShiftBlock``, ``SSTStack``).  Each
+encoder layer is two kernels: K6 (``ops/attention_qkv.py``: q/k/v
+projections and window attention) and K5 (``ops/ffn.py``: out-projection,
+residual, LN1, GELU FFN, residual, LN2).  Tokens stay in window-sorted
+order between layers: the stack permutes row-order tokens in once, each
+layer applies one composed permutation from the previous layer's order,
+and the stack permutes back at the end.
+
+Submodule names follow the reference checkpoint
+(``encoder_blocks.{i}.encoder_list.{j}.{win_attn.self_attn, linear1,
+linear2, norm1, norm2}``); ``nn.MultiheadAttention`` only holds the fused
+``in_proj`` and ``out_proj`` parameters that the kernels read.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from geomae_tpu.config import SSTConfig
+
+from ..ops.attention_qkv import band_attention_qkv
+from ..ops.ffn import post_attention_block
+from ..ops.windows import INT32_MAX, WindowLayout, positional_embedding
+from .norm import FastLayerNorm
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Batched row gather: x [B, V, ...], idx [B, V]."""
+    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
+
+
+def prepare_shift_data(layouts: Sequence[WindowLayout],
+                       key_valid: torch.Tensor, sst: SSTConfig) -> dict:
+    """Per-shift sorted tensors and the composed permutations.
+
+    Returns dict(layers=[per shift: win_id, pos_sorted, key_valid_sorted,
+    extent], entry=(perm, inv) into the blocks' order, cross=[per layer
+    (perm, inv) from the previous layer's order, or None])."""
+    layers = []
+    for lay in layouts:
+        iota = torch.arange(lay.win_id.shape[-1], device=lay.win_id.device)
+        extent = torch.where(lay.win_id != INT32_MAX, iota + 1, 0).amax(-1)
+        layers.append(dict(
+            win_id=lay.win_id,
+            pos_sorted=positional_embedding(_take(lay.coors_in_win, lay.perm),
+                                            sst),
+            key_valid_sorted=_take(key_valid, lay.perm),
+            extent=extent.to(torch.int32),
+        ))
+    n = len(layers)
+    entry = (layouts[1 % n].perm, layouts[1 % n].inv_perm)
+
+    def compose(a, b):            # tokens in order a -> order b
+        if a is b:
+            return None
+        return (_take(a.inv_perm, b.perm), _take(b.inv_perm, a.perm))
+
+    orders = [layouts[0], layouts[1 % n]]
+    cross = [compose(orders[-1], orders[0]), compose(orders[0], orders[1])]
+    return dict(layers=layers, entry=entry, cross=cross)
+
+
+class WindowMHA(nn.Module):
+    """Window attention (K6); returns the output before the
+    out-projection, which K5 applies."""
+
+    def __init__(self, d_model: int, nhead: int, device=None):
+        super().__init__()
+        self.nhead = nhead
+        self.self_attn = nn.MultiheadAttention(d_model, nhead, dropout=0.0,
+                                               device=device)
+
+    def forward(self, x_s: torch.Tensor, layer: dict) -> torch.Tensor:
+        C = x_s.shape[-1]
+        w = self.self_attn.in_proj_weight        # [3C, C] (out x in)
+        b = self.self_attn.in_proj_bias
+        q, k, v = (slice(0, C), slice(C, 2 * C), slice(2 * C, 3 * C))
+        return band_attention_qkv(
+            x_s, layer["pos_sorted"], w[q].t(), b[q], w[k].t(), b[k],
+            w[v].t(), b[v], layer["win_id"], layer["key_valid_sorted"],
+            self.nhead)
+
+
+class EncoderLayer(nn.Module):
+    """Attention + FFN with post-norm residuals, on tokens in this layer's
+    window-sorted order."""
+
+    def __init__(self, cfg: SSTConfig, device=None):
+        super().__init__()
+        if cfg.activation != "gelu":
+            raise NotImplementedError("the fused block is GELU only")
+        C, Fd = cfg.d_model, cfg.dim_feedforward
+        self.win_attn = WindowMHA(C, cfg.nhead, device)
+        self.linear1 = nn.Linear(C, Fd, device=device)
+        self.linear2 = nn.Linear(Fd, C, device=device)
+        self.norm1 = FastLayerNorm(C, eps=1e-5, device=device)
+        self.norm2 = FastLayerNorm(C, eps=1e-5, device=device)
+
+    def forward(self, x: torch.Tensor, layer: dict) -> torch.Tensor:
+        attn = self.win_attn(x, layer)
+        out = self.win_attn.self_attn.out_proj
+        return post_attention_block(
+            x, attn, out.weight.t(), out.bias, self.norm1.weight,
+            self.norm1.bias, self.linear1.weight.t(), self.linear1.bias,
+            self.linear2.weight.t(), self.linear2.bias, self.norm2.weight,
+            self.norm2.bias, layer["extent"], self.norm1.eps)
+
+
+class BasicShiftBlock(nn.Module):
+    """Two encoder layers: unshifted, then shifted windows.  Enters and
+    leaves in the last shift's order."""
+
+    def __init__(self, cfg: SSTConfig, device=None):
+        super().__init__()
+        self.encoder_list = nn.ModuleList(
+            [EncoderLayer(cfg, device) for _ in range(2)])
+
+    def forward(self, x: torch.Tensor, shift_data: dict) -> torch.Tensor:
+        layers = shift_data["layers"]
+        for i, enc in enumerate(self.encoder_list):
+            cross = shift_data["cross"][i]
+            if cross is not None:
+                x = _take(x, cross[0])
+            x = enc(x, layers[i % len(layers)])
+        return x
+
+
+class SSTStack(nn.ModuleList):
+    """A stack of BasicShiftBlocks sharing one shift data; a ModuleList so
+    its blocks carry the reference's ``encoder_blocks.{i}`` names."""
+
+    def __init__(self, cfg: SSTConfig, num_blocks: int, device=None):
+        super().__init__([BasicShiftBlock(cfg, device)
+                          for _ in range(num_blocks)])
+
+    def forward(self, x: torch.Tensor, shift_data: dict) -> torch.Tensor:
+        """x [B, V, C] in row order -> [B, V, C] in row order."""
+        if len(self) == 0:
+            return x
+        perm, inv = shift_data["entry"]
+        x = _take(x, perm)
+        for block in self:
+            x = block(x, shift_data)
+        return _take(x, inv)

@@ -1,0 +1,111 @@
+"""DynamicScatterVFE, the pillar feature encoder (eval mode, row-major).
+
+Port of ``geomae_tpu/models/vfe.py`` (``DynamicVFELayer``,
+``DynamicScatterVFE``):
+
+  point features [x y z intensity dt]
+    + offset from the pillar's point mean      (K2 segment_broadcast mean)
+    + offset from the pillar centre                            -> 11 ch
+  -> Linear(11, 64, no bias) + BN + ReLU
+  -> concat the pillar max back to each point  (K2 segment_broadcast max)
+  -> Linear(128, 128, no bias) + BN + ReLU
+  -> pillar max                                (K1 segment_reduce max)
+  -> voxel features [B, V, 128], 0 on invalid rows
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from geomae_tpu.config import VFEConfig, VoxelConfig
+
+from ..ops.segment import segment_broadcast, segment_reduce
+from ..ops.voxelize import Scene, low_voxel_coords
+from .norm import MaskedBatchNorm
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype (f32 parameters cast
+    at use, as flax's ``Dense(dtype=...)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class DynamicVFELayer(nn.Module):
+    """Linear (no bias) + BN + ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int, bn_eps: float,
+                 device=None):
+        super().__init__()
+        self.linear = Linear(in_channels, out_channels, bias=False,
+                             device=device)
+        self.norm = MaskedBatchNorm(out_channels, eps=bn_eps, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.norm(self.linear(x)))
+
+
+class DynamicScatterVFE(nn.Module):
+    def __init__(self, cfg: VFEConfig, voxel: VoxelConfig, device=None):
+        super().__init__()
+        if cfg.with_distance:
+            raise NotImplementedError("with_distance is not ported")
+        self.cfg, self.voxel = cfg, voxel
+        in_ch = cfg.in_channels + 3 * (cfg.with_cluster_center
+                                       + cfg.with_voxel_center)
+        chans = list(cfg.feat_channels)
+        layers = []
+        for i, ch in enumerate(chans):
+            # every layer but the first sees its input concat its max
+            layers.append(DynamicVFELayer(in_ch if i == 0 else 2 * chans[i - 1],
+                                          ch, cfg.bn_eps, device))
+        self.vfe_layers = nn.ModuleList(layers)
+
+    def decorations(self, scene: Scene) -> torch.Tensor:
+        """[B, P, 11] f32 point features with the cluster and pillar-centre
+        offsets, 0 on invalid points."""
+        points, valid = scene.points, scene.valid
+        p2v = scene.table.point2voxel
+        v_cap = scene.table.valid.shape[-1]
+        xyz = points[..., :3]
+        feats = [points]
+        if self.cfg.with_cluster_center:
+            d = torch.where(valid[..., None], xyz, 0.0).float()
+            pmean = segment_broadcast(d, p2v, v_cap, "mean")
+            feats.append(xyz - pmean.to(points.dtype))
+        if self.cfg.with_voxel_center:
+            # pillar centres from each point's own coords (the table row's
+            # formula); overflow and sentinel points read pillar 0
+            _, ry, rx = self.voxel.sub_voxel_ratio_low
+            low = low_voxel_coords(xyz, self.voxel)
+            incap = p2v < v_cap
+            py = torch.where(incap, low[..., 1] // ry, 0).to(points.dtype)
+            px = torch.where(incap, low[..., 2] // rx, 0).to(points.dtype)
+            r = self.voxel.point_cloud_range
+            vx, vy, vz = self.voxel.voxel_size
+            feats.append(torch.stack([
+                points[..., 0] - (px * vx + (vx / 2 + r[0])),
+                points[..., 1] - (py * vy + (vy / 2 + r[1])),
+                points[..., 2] - (vz / 2 + r[2]),
+            ], -1))
+        x = torch.cat(feats, -1)
+        return torch.where(valid[..., None], x, 0.0)
+
+    def forward(self, scene: Scene, dtype: torch.dtype) -> torch.Tensor:
+        """Voxel features [B, V, feat_channels[-1]] in ``dtype``."""
+        table = scene.table
+        p2v = table.point2voxel
+        v_cap = table.valid.shape[-1]
+        pv = scene.valid[..., None]
+        x = self.decorations(scene).to(dtype)
+        last = len(self.vfe_layers) - 1
+        for i, layer in enumerate(self.vfe_layers):
+            x = layer(x)
+            if i != last:
+                mb = segment_broadcast(x, p2v, v_cap, "max")
+                x = torch.cat([x, torch.where(pv, mb, 0.0).to(dtype)], -1)
+        vmax = segment_reduce(x, p2v, v_cap, "max")
+        return torch.where(table.valid[..., None], vmax, 0.0).to(dtype)
