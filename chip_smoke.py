@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port's detection serving path and fine-tune
-train step on one CUDA GPU.
+"""Smoke run of the PyTorch port's detection serving path, fine-tune train
+step and GeoMAE pretrain train step on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,11 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
   A. holds each kernel against its plain PyTorch version on the card, at
      the serving path's shapes (batch 1) and at the train step's (batch 4:
      the forward kernels as the step calls them, K6 with its statistics,
-     then the gather, K2 sum and the backward kernels), in float32 and
-     bfloat16, and times both with CUDA events;
+     then the gather, K2 sum and the backward kernels) and at the pretrain
+     step's (K3 and K4 at batch 4; K6 with statistics, K5, K7 and K5's
+     backward on the encoder's visible tokens), in float32 and bfloat16,
+     and times both, and one PyTorch library call of the same function
+     where there is one, with CUDA events;
   B. serves 3 synthetic frames through ``inference_detector`` at the full
      width of ``geomae_finetune_nus()`` in bfloat16, checks the detections
      and that each kernel launched the expected number of times per frame;
@@ -24,16 +27,30 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
   E. runs one float32 train step (batch 1) on the GPU (kernels) and on
      the CPU (plain versions) from the same seeded weights and batch and
      compares the losses, every parameter's gradient, and the parameters
-     and batch statistics after the update.
+     and batch statistics after the update;
+  F. trains ``geomae_pretrain_nus()`` at full width in bfloat16, batch 4,
+     on seeded ``synthetic_batch`` clouds: seven finite loss terms every
+     step, each kernel's launches per step, every parameter moved, a loss
+     that falls over ten steps on one repeated batch and mask, the median
+     step time and the peak device memory;
+  G. runs one float32 pretrain step (batch 1) on the GPU (kernels) and on
+     the CPU (plain versions) from the same seeded weights, batch and
+     mask: the targets, then the losses, gradients, updates and batch
+     statistics.
 
 Any failed check exits non-zero.  The line before the last is a JSON
 summary of the kernels: ``launches`` sums the served frames of B and the
-train steps of D; ``ms`` and ``plain_ms`` are the times of one call of
-each distinct call the two paths make of the kernel in its dtype, summed
-(``segment_broadcast``: f32 mean + bf16 max forward at both shapes + f32
-sum backward);
-``max_abs_err`` is the largest over those calls and, for a backward
-kernel, over its outputs.  The last line is
+train steps of D and F; ``ms``, ``plain_ms``, ``library_ms`` and
+``bound_ms`` are the times of one call of each distinct call the paths
+make of the kernel in its dtype, summed (``segment_broadcast``: f32 mean
++ bf16 max forward at both shapes + f32 sum backward; the SST kernels at
+the serving, the decoder and the encoder shapes); ``bound_ms`` is the
+least time the card could take for those calls, each call's larger of
+its bytes over the HBM rate and its operations over the peak rate of its
+dtype (``work``), and ``bound_by`` names the side that sets most of it;
+``library_ms`` is null where no single PyTorch call computes the
+function; ``max_abs_err`` is the largest over those calls and, for a
+backward kernel, over its outputs.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -57,14 +74,28 @@ REPEAT = 10          # then steps on the last batch again
 PER_FRAME = {"segment_reduce": 1, "segment_broadcast": 2,
              "band_attention_qkv": 12, "post_attention_block": 12,
              "segment_gather": 0, "band_attention_qkv_backward": 0,
-             "post_attention_block_backward": 0}
+             "post_attention_block_backward": 0, "slot_outer_segment_sum": 0,
+             "expand_rows": 0}
 # per train step: the forward's, then the backward's: K7 and K5's
 # backward per layer, the K1 max's gather, the K2 max's K2 sum (the
 # decorations' K2 mean carries no gradient)
 PER_STEP = {"segment_reduce": 1, "segment_broadcast": 2 + 1,
             "band_attention_qkv": 12, "post_attention_block": 12,
             "segment_gather": 1, "band_attention_qkv_backward": 12,
-            "post_attention_block_backward": 12}
+            "post_attention_block_backward": 12, "slot_outer_segment_sum": 0,
+            "expand_rows": 0}
+
+
+def per_pretrain_step(cfg) -> dict:
+    """Kernel launches per pretrain step: the VFE's as in a fine-tune
+    step, K3 and K4 once for the targets, and K6, K5, K7 and K5's backward
+    once per SST layer: the encoder's and both decoder branches' (2 layers
+    a block; 12 + 2 x 4 at the shipped config)."""
+    layers = 2 * (cfg.mae.encoder_blocks + 2 * cfg.mae.decoder_blocks)
+    sst = ("band_attention_qkv", "post_attention_block",
+           "band_attention_qkv_backward", "post_attention_block_backward")
+    return dict(PER_STEP, slot_outer_segment_sum=1, expand_rows=1,
+                **{k: layers for k in sst})
 # (atol, rtol) per kernel and dtype, at both shapes.  f32: the kernel and
 # the plain version sum in other orders (cuBLAS, atomics).  bf16: the same
 # order differences may move a compute-dtype rounding to the other side,
@@ -117,8 +148,21 @@ TOL = {
                                             torch.bfloat16: (2e-2, 2e-2)},
     ("band_attention_qkv_backward", ""): {torch.float32: (1e-4, 1e-4),
                                           torch.bfloat16: (2e-2, 2e-2)},
+    # the pretrain targets' own, f32 only.  K3: the counts (0/1 payloads)
+    # exact; a cell's sums of the same n terms in two orders differ by at
+    # most 2 (n - 1) 2^-24 sum |terms|, so atol 2^-23 scales by count x
+    # sum |terms| per cell.  K4 is a copy: exact.
+    ("slot_outer_segment_sum", ""): {torch.float32: (2 ** -23, 0.0)},
+    ("expand_rows", ""): {torch.float32: (0.0, 0.0)},
 }
 SERVING = list(TOL)[:5]      # the rows at the serving shapes
+TRAIN = list(TOL)[:11]       # the fine-tune step's rows
+# the pretrain step's new rows: the targets' kernels, then the SST kernels
+# on the encoder's visible tokens
+PRETRAIN = [("slot_outer_segment_sum", ""), ("expand_rows", ""),
+            ("band_attention_qkv", ""), ("post_attention_block", ""),
+            ("post_attention_block_backward", ""),
+            ("band_attention_qkv_backward", "")]
 # a backward kernel's outputs: its per-token cotangents, then its
 # parameter gradients
 BACKWARD_OUTPUTS = {
@@ -137,7 +181,9 @@ PATH_DTYPE = {("segment_reduce", "max"): torch.bfloat16,
               ("segment_gather", ""): torch.bfloat16,
               ("segment_broadcast", "sum"): torch.float32,
               ("post_attention_block_backward", ""): torch.bfloat16,
-              ("band_attention_qkv_backward", ""): torch.bfloat16}
+              ("band_attention_qkv_backward", ""): torch.bfloat16,
+              ("slot_outer_segment_sum", ""): torch.float32,
+              ("expand_rows", ""): torch.float32}
 KERNELS = {
     "segment_reduce": ("geomae_tpu_torch/csrc/segment.cu",
                        "geomae_tpu/ops/pallas_segreduce.py:220"),
@@ -155,7 +201,17 @@ KERNELS = {
     "post_attention_block_backward": (
         "geomae_tpu_torch/csrc/post_attention.cu",
         "geomae_tpu/ops/pallas_ffn.py:287"),
+    "slot_outer_segment_sum": ("geomae_tpu_torch/csrc/targets.cu",
+                               "geomae_tpu/ops/pallas_segreduce.py:345"),
+    "expand_rows": ("geomae_tpu_torch/csrc/targets.cu",
+                    "geomae_tpu/ops/pallas_segreduce.py:777"),
 }
+# The least time of a call: each input row the data uses read once and
+# each output written once over the HBM rate, or the call's arithmetic (2
+# operations a multiply-add) over the dense peak of its dtype, whichever
+# is larger.  One H100 SXM by NVIDIA's data sheet, at 700 W.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PARITY_TOL = (1e-3, 1e-3)      # f32 GPU against CPU, whole model
 # phase E, f32 GPU against CPU, one train step.  The forwards agree to
 # about 2e-5 relative (f32 sums in other orders), and every pre-activation
@@ -177,7 +233,27 @@ STEP_TOL = {
     # the gradient noise above, which the gradient bound holds; a |g| near
     # AdamW's eps; the key bias's gradient, zero but for rounding) to 2 lr
     "update": (1e-3, 0.1, 2.001),
+    "ulps": 0,               # f32 ulps of the parameter added to both
 }
+# phase G, f32 GPU against CPU, one pretrain step.  The targets: the
+# occupancy exact; the centroids in metres (a normalised target times its
+# sub-voxel edge) at 2e-5 m, five f32 ulps of a coordinate 32-64 m out:
+# a centroid is its points' sum over their count plus the sample mean,
+# and the mean (a reduction over about 120k points) and the med and top
+# sums (of 8 and 128 sub-voxel sums) add in other orders on the two
+# devices, each rounding worth an ulp of 3.8e-6 m there (three measured
+# on the top centroids, 1.14e-5 m); the normals' axes at 1 - |cos| <=
+# 1e-4 on pillars whose two smallest eigenvalues lie apart (ROADMAP.md
+# R1), their signs counted.  The step runs on the CPU's
+# targets on both devices, so it holds the model and its kernels: the
+# encoder and decoders have no ReLU (GELU is smooth), so only the VFE's
+# two ReLUs can flip between devices, upstream of everything else; the
+# gradients are held at 1e-3 relative norm.  The lr is 1e-5 at step 0,
+# where an f32 ulp of a weight of 0.25 is 3e-3 lr, so each side's own
+# rounding of the updated weight (two ulps) adds to the update bound.
+PRETRAIN_STEP_TOL = dict(STEP_TOL, grad=1e-3, ulps=2)
+CENTROID_TOL_M = 2e-5
+NORMAL_TOL = 1e-4
 
 
 class Failed(Exception):
@@ -201,9 +277,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def compare(label: str, got: torch.Tensor, want: torch.Tensor, atol: float,
-            rtol: float, failures: list, scale=None) -> float:
-    """``got`` within atol (times ``scale``, per row, where given) plus
-    rtol relative of ``want``; returns the largest absolute error."""
+            rtol: float, failures: list, scale=None,
+            scale_name: str = "max(1, row's max |ref|)") -> float:
+    """``got`` within atol (times ``scale``, per element, where given)
+    plus rtol relative of ``want``; returns the largest absolute error."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     bound = atol * (1.0 if scale is None else scale) + rtol * w.abs()
@@ -211,9 +288,10 @@ def compare(label: str, got: torch.Tensor, want: torch.Tensor, atol: float,
     ok = bool(torch.isfinite(g).all()) and g.shape == w.shape and not bool(
         (err > bound).any())
     # the largest error as a share of its own bound: 1 is the limit
-    share = f", worst share of bound {float((err / bound).max()):.3f}" \
-        if atol or rtol else ""
-    rows = "" if scale is None else " x max(1, row's max |ref|)"
+    pos = bound > 0
+    share = f", worst share of bound {float((err[pos] / bound[pos]).max()):.3f}" \
+        if (atol or rtol) and bool(pos.any()) else ""
+    rows = "" if scale is None else f" x {scale_name}"
     print(f"  {label}: max_abs_err {max_abs:.3e} (atol {atol:g}{rows}, rtol "
           f"{rtol:g}{share}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -249,16 +327,131 @@ def compare_grads(label: str, name: str, got, want, dtype, tol,
     return max(errs)
 
 
-def check(label: str, name: str, got, want, dtype, tol,
-          failures: list) -> float:
+def check(label: str, name: str, got, want, dtype, tol, failures: list,
+          args) -> float:
     """One phase-A row: a backward kernel's outputs, K6's output and
-    statistics, or one tensor."""
+    statistics, K3's counts and sums, or one tensor."""
+    if name == "slot_outer_segment_sum":
+        from geomae_tpu_torch.ops.targets import slot_outer_segment_sum_plain
+        vals, slot, seg, S, V = args
+        mag = slot_outer_segment_sum_plain(vals.abs(), slot, seg, S, V)
+        return max(compare(f"{label} counts", got[..., 3], want[..., 3], 0.0,
+                           0.0, failures),
+                   compare(f"{label} sums", got[..., :3], want[..., :3],
+                           *tol, failures, scale=want[..., 3:] * mag[..., :3],
+                           scale_name="count x sum |terms|"))
     if name in BACKWARD_OUTPUTS:
         return compare_grads(label, name, got, want, dtype, tol, failures)
     if isinstance(got, tuple):
         return max([compare(f"{label} {part}", a, b, *tol, failures)
                     for part, a, b in zip(("out", "lse"), got, want)])
     return compare(label, got, want, *tol, failures)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def window_stats(win_id: torch.Tensor):
+    """(tokens, windows, sum over windows of size^2, size histogram) of a
+    window-sorted layout [B, V]."""
+    n, wins, pairs, sizes = 0, 0, 0, []
+    for w in win_id:
+        w = w[w != 2 ** 31 - 1]
+        c = torch.unique_consecutive(w, return_counts=True)[1].long()
+        n, wins, pairs = n + w.numel(), wins + c.numel(), \
+            pairs + int((c * c).sum())
+        sizes.append(c.cpu())
+    edges = [1, 2, 5, 9, 17, 33, 65, 129, 145]
+    hist = torch.histogram(torch.cat(sizes).float(),
+                           torch.tensor(edges, dtype=torch.float32))
+    return n, wins, pairs, {f"{a}-{b - 1}": int(h) for a, b, h in zip(
+        edges, edges[1:], hist.hist)}
+
+
+def work(name: str, args, got):
+    """(bytes, operations) of one call on this run's data: each input row
+    the data uses read once, each output written once; 2 operations a
+    multiply-add, the projections and the pairs of tokens that share a
+    window (attention), the rows up to each sample's extent (K5)."""
+    outs = got if isinstance(got, tuple) else (got,)
+    out_b = nbytes(*outs)
+    if name in ("segment_reduce", "segment_broadcast"):
+        x, seg, V, _ = args
+        n, C = int((seg < V).sum()), x.shape[-1]
+        return n * C * x.element_size() + nbytes(seg) + out_b, n * C
+    if name == "segment_gather":
+        return nbytes(*args) + out_b, 0
+    if name == "slot_outer_segment_sum":
+        vals, slot, seg, _, V = args
+        n = int((seg < V).sum())
+        return (n * (vals.shape[-1] * vals.element_size() + 4) + nbytes(seg)
+                + out_b, n * vals.shape[-1])
+    if name == "expand_rows":
+        feats, key, cells = args
+        n = int((key < cells).sum())
+        return n * feats.shape[-1] * 4 + nbytes(key) + out_b, 0
+    if name.startswith("band_attention_qkv"):
+        x, pos, weights = args[0], args[1], args[2:8]
+        n, _, pairs, _ = window_stats(args[8])
+        C = x.shape[-1]
+        rows = n * C * (x.element_size() + pos.element_size())
+        in_b = rows + nbytes(*weights, args[8], args[9], *args[11:])
+        backward = name.endswith("backward")
+        ops = (18 if backward else 6) * n * C * C \
+            + (10 if backward else 4) * C * pairs
+        return in_b + out_b, ops
+    x, weights, extent = args[0], args[2:12], args[12]
+    n, C, Fd = int(extent.sum()), x.shape[-1], args[6].shape[1]
+    in_b = 2 * n * C * x.element_size() + nbytes(*weights, extent,
+                                                 *args[13:])
+    ops = (6 if name.endswith("backward") else 2) * n * (C * C + 2 * C * Fd)
+    return in_b + out_b, ops
+
+
+def library_call(name: str, op: str, args):
+    """One PyTorch call that computes the kernel's function on the same
+    inputs (into a buffer made beforehand), or None where no single call
+    does: K2 reduces and broadcasts back, K5 chains three products with
+    two LayerNorms, K6 and K7 project inside the window attention.  Timed
+    for comparison only; the port calls none of them."""
+    def flat(seg, V):
+        B = seg.shape[0]
+        return (torch.where(seg < V, seg, V).long() + (V + 1) * torch.arange(
+            B, device=seg.device)[:, None]).reshape(-1)
+
+    if name == "segment_reduce" and op == "max":
+        x, seg, V, _ = args
+        B, P, C = x.shape
+        idx = flat(seg, V)[:, None].expand(-1, C).contiguous()
+        out = torch.zeros(B * (V + 1), C, dtype=x.dtype, device=x.device)
+        src = x.reshape(-1, C)
+        return lambda: out.scatter_reduce_(0, idx, src, "amax",
+                                           include_self=False)
+    if name == "segment_gather":
+        table, seg = args
+        B, V, C = table.shape
+        padded = torch.cat([table, table.new_zeros(B, 1, C)], 1).reshape(-1, C)
+        idx = flat(seg, V)
+        return lambda: torch.index_select(padded, 0, idx)
+    if name == "slot_outer_segment_sum":
+        vals, slot, seg, S, V = args
+        B, P, cv = vals.shape
+        idx = torch.where(seg < V, seg.long() * S + slot.long(), V * S) \
+            + (V * S + 1) * torch.arange(B, device=seg.device)[:, None]
+        out = torch.zeros(B * (V * S + 1), cv, device=vals.device)
+        idx, src = idx.reshape(-1), vals.reshape(-1, cv)
+        return lambda: out.index_add_(0, idx, src)
+    if name == "expand_rows":
+        feats, key, cells = args
+        B, V, C = feats.shape
+        ok = key < cells
+        idx = (key.long() + (cells + 1) * torch.arange(
+            B, device=key.device)[:, None])[ok]
+        out = torch.zeros(B * (cells + 1), C, device=feats.device)
+        src = feats[ok]
+        return lambda: out.index_copy_(0, idx, src)
+    return None
 
 
 def startup():
@@ -317,36 +510,64 @@ def kernel_inputs(cfg, batch: int, device):
     t = scene.table
     layouts = make_layouts(t.coords, t.valid, cfg.sst, cfg.voxel)
     shift = prepare_shift_data(layouts, t.valid, cfg.sst)
-    occ = []
-    for lay in shift["layers"]:
-        w = lay["win_id"][0]
-        w = w[w != 2 ** 31 - 1]
-        occ.append(int(torch.unique_consecutive(
-            w, return_counts=True)[1].max()))
-    print(f"batch {batch}: {valid.sum(1).tolist()} points, pillars "
-          f"{t.num_voxels.tolist()} (cap {t.valid.shape[1]}), "
-          f"{(t.point2voxel < t.valid.shape[1]).sum(1).tolist()} points in "
-          f"cap, largest window per shift {occ} (first sample)")
+    describe(f"batch {batch}", scene, valid, shift)
     return scene, shift
 
 
-def phase_a(cfg, batch: int, keys, results: dict, failures: list) -> None:
-    """The rows ``keys`` of TOL at a batch of ``batch``: 1 is the serving
-    path's, more the train step's, whose forward runs under grad (K6 then
-    writes its statistics)."""
-    from geomae_tpu_torch.ops import attention_qkv, ffn, segment
+def describe(what: str, scene, valid, shift) -> None:
+    """Points, pillars and the window histogram of the kernels' inputs."""
+    t = scene.table
+    print(f"{what}: {valid.sum(1).tolist()} points, pillars "
+          f"{t.num_voxels.tolist()} (cap {t.valid.shape[1]}), "
+          f"{(t.point2voxel < t.valid.shape[1]).sum(1).tolist()} points in "
+          f"cap")
+    for i, lay in enumerate(shift["layers"]):
+        n, wins, pairs, hist = window_stats(lay["win_id"])
+        print(f"  shift {i}: tokens {n} in {wins} windows, sum of size^2 "
+              f"{pairs}; window sizes {hist}")
 
-    train = batch > 1
-    print(f"phase A: kernels against their plain versions, "
-          f"{'train-step' if train else 'serving'} shapes")
+
+def pretrain_inputs(cfg, device):
+    """The pretrain step's kernel inputs at batch 4: the sorted scene (for
+    K3 and K4) and the encoder's window layout over the visible pillars,
+    a random 30 % of them compacted into ``max_visible`` slots."""
+    from geomae_tpu_torch.models.mae import (encoder_shift_data,
+                                             sample_mask, visible_rows)
+    from geomae_tpu_torch.ops.voxelize import build_scene_batch
+    from geomae_tpu_torch.train.pretrain import synthetic_batch
+
+    b = synthetic_batch(cfg, cfg.data.batch_size, seed=SEED, device=device)
+    scene = build_scene_batch(b["points"], b["point_valid"], cfg.voxel,
+                              cfg.caps.max_voxels)
+    keep = sample_mask(torch.Generator(device=device).manual_seed(SEED),
+                       scene.table.valid, cfg.mae.random_mask_ratio)
+    vis_raw, _, vis_valid = visible_rows(keep, cfg.caps.max_visible)
+    shift = encoder_shift_data(scene.table, vis_raw, vis_valid, cfg)
+    describe(f"pretrain batch {cfg.data.batch_size}, the encoder's "
+             f"{vis_valid.sum(1).tolist()} visible tokens of "
+             f"{cfg.caps.max_visible}", scene, b["point_valid"], shift)
+    return scene, shift
+
+
+def phase_a(cfg, what: str, inputs, keys, results: dict,
+            failures: list) -> None:
+    """The rows ``keys`` of TOL on ``inputs`` = (scene, shift data): the
+    segment and target kernels on the scene's points and pillars, the SST
+    kernels on the shift data's tokens.  A train step's forward runs under
+    grad (K6 then writes its statistics)."""
+    from geomae_tpu_torch.models import mae
+    from geomae_tpu_torch.ops import attention_qkv, ffn, segment, targets
+
+    print(f"phase A: kernels against their plain versions, {what} shapes")
     dev = torch.device(DEVICE)
-    scene, shift = kernel_inputs(cfg, batch, dev)
+    scene, shift = inputs
     p2v = scene.table.point2voxel
     B, P = p2v.shape
+    train = B > 1
     V = scene.table.valid.shape[1]
     C, Fd = cfg.sst.d_model, cfg.sst.dim_feedforward
     F0, F1 = cfg.vfe.feat_channels[0], cfg.vfe.feat_channels[-1]
-    g = torch.Generator(device=dev).manual_seed(SEED + batch)
+    g = torch.Generator(device=dev).manual_seed(SEED + B)
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
@@ -356,6 +577,7 @@ def phase_a(cfg, batch: int, keys, results: dict, failures: list) -> None:
         return torch.randint(-2, 3, (B, P, c), generator=g, device=dev) * 0.5
 
     lay = shift["layers"][1]
+    Vt = lay["win_id"].shape[1]              # tokens
     attn_w = [randn(C, C, scale=C ** -0.5) if i % 2 == 0
               else randn(C, scale=0.1) for i in range(6)]
     ffn_w = [randn(C, C, scale=0.1), randn(C, scale=0.1),
@@ -363,8 +585,17 @@ def phase_a(cfg, batch: int, keys, results: dict, failures: list) -> None:
              randn(C, Fd, scale=0.1), randn(Fd, scale=0.1),
              randn(Fd, C, scale=0.1), randn(C, scale=0.1),
              1 + randn(C, scale=0.1), randn(C, scale=0.1)]
-    x_tok, a_tok, d_tok = randn(B, V, C), randn(B, V, C), randn(B, V, C)
+    x_tok, a_tok, d_tok = randn(B, Vt, C), randn(B, Vt, C), randn(B, Vt, C)
     xyz = torch.where(scene.valid[..., None], scene.points[..., :3], 0.0)
+    if any(k[0] in ("slot_outer_segment_sum", "expand_rows") for k in keys):
+        # the targets' inputs: centred (z, y, x, 1) point rows, then each
+        # pillar's moment row and BEV cell
+        mu, vals4 = mae._centered_vals4(scene, V)
+        S = cfg.voxel.num_slots_low
+        sums = targets.slot_outer_segment_sum_plain(vals4, scene.slot_sort,
+                                                    p2v, S, V)
+        feats13, key13 = mae._moment_feats(scene.table, cfg.voxel, sums, mu)
+        cells = cfg.voxel.grid_size[0] * cfg.voxel.grid_size[1]
 
     def case(name, op, dt):
         """(kernel, plain version, arguments) of one row."""
@@ -381,6 +612,13 @@ def phase_a(cfg, batch: int, keys, results: dict, failures: list) -> None:
         if name == "segment_gather":
             return (segment.segment_gather, segment.segment_gather_plain,
                     (randn(B, V, 2 * C).to(dt), p2v))
+        if name == "slot_outer_segment_sum":
+            return (targets.slot_outer_segment_sum,
+                    targets.slot_outer_segment_sum_plain,
+                    (vals4, scene.slot_sort, p2v, S, V))
+        if name == "expand_rows":
+            return (targets.expand_rows, targets.expand_rows_plain,
+                    (feats13, key13, cells))
         if name == "segment_reduce_backward":
             x = ties(F1).to(dt)
             return (segment.segment_reduce_backward,
@@ -421,18 +659,31 @@ def phase_a(cfg, batch: int, keys, results: dict, failures: list) -> None:
                      f"{tuple(args[0].shape)}")
             got = kern(*args)
             torch.cuda.synchronize()
-            err = check(label, name, got, plain(*args), dt, tol, failures)
+            err = check(label, name, got, plain(*args), dt, tol, failures,
+                        args)
             ms = cuda_ms(lambda: kern(*args))
             plain_ms = cuda_ms(lambda: plain(*args), iters=3 if train else 5,
                                warmup=1)
             print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            if PATH_DTYPE.get(key) == dt:
-                results.setdefault(name, []).append((err, ms, plain_ms))
+            if PATH_DTYPE.get(key) != dt:
+                continue
+            lib = library_call(name, op, args)
+            lib_ms = None if lib is None else cuda_ms(lib, iters=5, warmup=1)
+            nb, ops = work(name, args, got)
+            t_bytes = nb / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[dt] * 1e3
+            print(f"    library call {'none' if lib is None else f'{lib_ms:.4f} ms'}"
+                  f"; bound {max(t_bytes, t_ops):.4f} ms: {nb / 1e6:.1f} MB "
+                  f"({t_bytes:.4f} ms), {ops / 1e9:.3f} GFLOP ({t_ops:.4f} ms)")
+            results.setdefault(name, []).append(
+                (err, ms, plain_ms, t_bytes, t_ops, lib_ms))
 
 
 def reset_counts():
-    from geomae_tpu_torch.ops import attention_qkv, ffn, segment
-    fns = {"segment_reduce": segment.segment_reduce,
+    from geomae_tpu_torch.ops import attention_qkv, ffn, segment, targets
+    fns = {"slot_outer_segment_sum": targets.slot_outer_segment_sum,
+           "expand_rows": targets.expand_rows,
+           "segment_reduce": segment.segment_reduce,
            "segment_broadcast": segment.segment_broadcast,
            "segment_gather": segment.segment_gather,
            "band_attention_qkv": attention_qkv.band_attention_qkv,
@@ -599,7 +850,7 @@ def phase_e(cfg, failures: list) -> None:
     cfg32 = replace(cfg, compute_dtype="float32")
     print("phase E: one float32 train step (batch 1), GPU kernels against "
           "CPU plain versions, same seeded weights and batch")
-    batch = synthetic_batch(cfg32, 1, seed=SEED + 50)
+    batch = synthetic_batch(cfg32, 1, seed=SEED + 50, device="cpu")
     got = {}
     for dev in (DEVICE, "cpu"):
         t = time.perf_counter()
@@ -618,32 +869,40 @@ def phase_e(cfg, failures: list) -> None:
                     grads, old, new, state.tx.lr(0))
         print(f"  {dev}: {time.perf_counter() - t:.1f} s, losses "
               f"{got[dev][0]}")
-    (lg, gg, og, ng, lr), (lc, gc, oc, nc, _) = got[DEVICE], got["cpu"]
+    compare_step(got[DEVICE], got["cpu"], STEP_TOL, failures)
+
+
+def compare_step(gpu, cpu, tol: dict, failures: list) -> None:
+    """One train step on the GPU against the same step on the CPU:
+    (losses, gradients, state before, state after, lr) of each."""
+    (lg, gg, og, ng, lr), (lc, gc, oc, nc, _) = gpu, cpu
     for k in lc:
         rel = abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12)
-        if rel > STEP_TOL["loss"]:
+        if rel > tol["loss"]:
             failures.append(f"loss {k}: GPU {lg[k]} CPU {lc[k]}")
     rel = {k: float((gg[k] - gc[k]).norm() / gc[k].norm().clamp_min(1e-30))
            for k in gc}
     worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
     print(f"  gradients: worst relative norm errors {worst} (bound "
-          f"{STEP_TOL['grad']:g}, {len(rel)} parameters)")
+          f"{tol['grad']:g}, {len(rel)} parameters)")
     failures += [f"gradient {k}: {e:.2e}" for k, e in rel.items()
-                 if not e <= STEP_TOL["grad"]]
-    sel_tol, rel_g, any_tol = STEP_TOL["update"]
+                 if not e <= tol["grad"]]
+    sel_tol, rel_g, any_tol = tol["update"]
+    eps = torch.finfo(torch.float32).eps
     upd_worst, stat_worst, n_sel, n_all, n_flip = 0.0, 0.0, 0, 0, 0
     for k in nc:
         if k.endswith("num_batches_tracked"):
             if not int(ng[k]) == int(nc[k]) == 1:
                 failures.append(f"{k}: {int(ng[k])}, {int(nc[k])}")
         elif "running_" in k:
-            a, s2 = STEP_TOL["stats"]
+            a, s2 = tol["stats"]
             d = (ng[k] - nc[k]).abs()
             stat_worst = max(stat_worst, float(d.max()))
             if bool((d > a + s2 * nc[k].abs()).any()):
                 failures.append(f"batch statistic {k}")
         else:
             d = ((ng[k] - og[k]) - (nc[k] - oc[k])).abs() / lr
+            d = d - tol["ulps"] * eps * oc[k].abs() / lr
             big = gc[k].abs() > rel_g * gc[k].square().mean().sqrt()
             sel = big & (gg[k].sign() == gc[k].sign())
             n_sel, n_all = n_sel + int(sel.sum()), n_all + sel.numel()
@@ -652,21 +911,171 @@ def phase_e(cfg, failures: list) -> None:
                             else 0.0)
             if bool((d[sel] > sel_tol).any()) or bool((d > any_tol).any()):
                 failures.append(f"updated parameter {k}")
-    print(f"  updates: worst difference {upd_worst:.3e} lr on the {n_sel} of "
-          f"{n_all} elements where |g| > {rel_g:g} of its tensor's rms and "
-          f"the signs agree ({n_flip} more where they differ; bound "
-          f"{sel_tol:g} lr; elsewhere {any_tol:g} lr); batch "
+    ulps = f", beyond {tol['ulps']} f32 ulps of the weight" if tol["ulps"] \
+        else ""
+    print(f"  updates: worst difference {upd_worst:.3e} lr{ulps} on the "
+          f"{n_sel} of {n_all} elements where |g| > {rel_g:g} of its "
+          f"tensor's rms and the signs agree ({n_flip} more where they "
+          f"differ; bound {sel_tol:g} lr; elsewhere {any_tol:g} lr); batch "
           f"statistics: worst abs difference {stat_worst:.3e}")
+
+
+def phase_f(cfg, failures: list) -> dict:
+    from geomae_tpu_torch.profile_serving import host_ms
+    from geomae_tpu_torch.train.pretrain import (init_state, make_train_step,
+                                                 synthetic_batch)
+
+    bz = cfg.data.batch_size
+    print(f"phase F: pretrain steps, {cfg.compute_dtype}, batch {bz}, full "
+          f"width: {DISTINCT} batches, then {REPEAT} more steps on the last "
+          "with the same mask")
+    state = init_state(cfg, DEVICE, torch.Generator().manual_seed(SEED))
+    step = make_train_step(cfg)
+    names = [k for k, _ in state.model.named_parameters()]
+    before = [p.detach().clone() for p in state.model.parameters()]
+    batches = [synthetic_batch(cfg, bz, seed=SEED + 20 + i, device=DEVICE)
+               for i in range(DISTINCT)]
+    n = DISTINCT + REPEAT
+    torch.cuda.reset_peak_memory_stats()
+    fns = reset_counts()
+    times, losses = [], []
+    for i in range(n):
+        batch = batches[min(i, DISTINCT - 1)]
+        # the mask generator, seeded alike on every step of the repeat
+        gen = torch.Generator(device=DEVICE).manual_seed(
+            SEED + min(i, DISTINCT - 1))
+        (_, l), ms = host_ms(lambda: step(state, batch, gen))
+        losses.append({k: float(v) for k, v in l.items()})
+        times.append(ms)
+        print(f"  step {i}: {ms:.1f} ms, " + ", ".join(
+            f"{k} {v:.4f}" for k, v in losses[-1].items()))
+    launches = check_launches(fns, per_pretrain_step(cfg), n,
+                              "pretrain steps", failures)
+    if not all(len(l) == 7 and all(np.isfinite(v) for v in l.values())
+               for l in losses):
+        failures.append("a pretrain step's seven losses are not all finite")
+    still = [k for k, a, p in zip(names, before, state.model.parameters())
+             if torch.equal(a, p.detach())]
+    print(f"  parameters changed: {len(names) - len(still)} of {len(names)} "
+          f"tensors (mask_token and the six heads among them)")
+    if still:
+        failures.append(f"parameters did not change: {still[:5]}")
+    rep = [l["loss"] for l in losses[DISTINCT - 1:]]
+    print(f"  loss on the repeated batch and mask: {rep[0]:.4f} -> "
+          f"{rep[-1]:.4f} over {len(rep) - 1} steps")
+    if not rep[-1] < rep[0]:
+        failures.append("the pretrain loss did not fall on the repeated "
+                        "batch")
+    print(f"  step time median {float(np.median(times[1:])):.1f} ms over "
+          f"{n - 1} steps after the first ({times[0]:.1f} ms); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    return launches
+
+
+def compare_targets(tg, tc, valid, cfg, failures: list) -> None:
+    """Phase G's targets: GPU (K3, K4) against CPU (plain versions) on the
+    pillar rows ``valid``."""
+    voxel = cfg.voxel
+    for name in ("low_occ", "med_occ"):
+        same = torch.equal(getattr(tg, name).cpu(), getattr(tc, name))
+        print(f"  {name}: {'equal' if same else 'DIFFERENT'} "
+              f"({int(getattr(tc, name).sum())} occupied)")
+        if not same:
+            failures.append(f"target {name} differs")
+    # sub-voxel edges (z, y, x) in metres of each level
+    vx, vy, vz = voxel.voxel_size
+    for name, ratio in (("low_tgt", voxel.sub_voxel_ratio_low),
+                        ("med_tgt", voxel.sub_voxel_ratio_med),
+                        ("centroid_top", (1, 1, 1))):
+        edge = torch.tensor([vz / ratio[0], vy / ratio[1], vx / ratio[2]])
+        compare(f"{name} in metres", getattr(tg, name).cpu() * edge,
+                getattr(tc, name) * edge, CENTROID_TOL_M, 0.0, failures)
+    cv = tc.curv
+    apart = valid & (cv[..., 1] - cv[..., 2] > 1e-2 * cv[..., 0])
+    cos = (tg.normal.cpu() * tc.normal).sum(-1)
+    miss = int((1 - cos[apart].abs() > NORMAL_TOL).sum())
+    print(f"  normals: {int(apart.sum())} of {int(valid.sum())} pillars with "
+          f"separated small eigenvalues; worst 1 - |cos| there "
+          f"{float((1 - cos[apart].abs()).max()):.3e} (bound {NORMAL_TOL:g}, "
+          f"{miss} over); sign flipped on {int((cos[apart] < 0).sum())} of "
+          f"them and on {int((cos[valid & ~apart] < 0).sum())} of the "
+          f"{int((valid & ~apart).sum())} others")
+    if miss or not apart.any():
+        failures.append("normals differ between the devices")
+
+
+def phase_g(cfg, failures: list) -> None:
+    from geomae_tpu_torch.config import replace
+    from geomae_tpu_torch.models.mae import (GeoMAETargets, pretrain_loss,
+                                             sample_mask)
+    from geomae_tpu_torch.ops.voxelize import build_scene_batch
+    from geomae_tpu_torch.train.pretrain import (init_state, synthetic_batch,
+                                                 targets_and_mask)
+
+    cfg32 = replace(cfg, compute_dtype="float32")
+    print("phase G: one float32 pretrain step (batch 1), GPU kernels against "
+          "CPU plain versions, same seeded weights, batch and mask")
+    batch = synthetic_batch(cfg32, 1, seed=SEED + 60, device="cpu")
+    # a CUDA and a CPU generator draw different numbers: one keep for both
+    keep = sample_mask(torch.Generator().manual_seed(SEED),
+                       build_scene_batch(batch["points"], batch["point_valid"],
+                                         cfg32.voxel,
+                                         cfg32.caps.max_voxels).table.valid,
+                       cfg32.mae.random_mask_ratio)
+    scenes, own = {}, {}
+    for dev in (DEVICE, "cpu"):
+        scenes[dev], own[dev], _ = targets_and_mask(
+            cfg32, {k: v.to(dev) for k, v in batch.items()},
+            keep=keep.to(dev))
+    compare_targets(own[DEVICE], own["cpu"], scenes["cpu"].table.valid, cfg32,
+                    failures)
+    # the step on both devices learns the CPU's targets, so that it holds
+    # the model and its kernels; each device's own targets give its loss
+    # beside, where a flipped normal moves loss_curv_around
+    got, own_losses = {}, {}
+    for dev in (DEVICE, "cpu"):
+        t = time.perf_counter()
+        state = init_state(cfg32, dev, torch.Generator().manual_seed(SEED))
+        old = {k: v.detach().cpu().clone()
+               for k, v in state.model.state_dict().items()}
+        kd = keep.to(dev)
+        preds = state.model(scenes[dev], kd)
+        losses = pretrain_loss(preds, GeoMAETargets(
+            *[a.to(dev) for a in own["cpu"]]), scenes[dev], kd, cfg32)
+        with torch.no_grad():
+            own_losses[dev] = {k: float(v) for k, v in pretrain_loss(
+                preds, own[dev], scenes[dev], kd, cfg32).items()}
+        losses["loss"].backward()
+        grads = {k: p.grad.detach().cpu().clone()
+                 for k, p in state.model.named_parameters()}
+        state.tx.step()
+        new = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        got[dev] = ({k: float(v.detach()) for k, v in losses.items()},
+                    grads, old, new, state.tx.lr(0))
+        print(f"  {dev}: {time.perf_counter() - t:.1f} s, losses "
+              f"{got[dev][0]}")
+    compare_step(got[DEVICE], got["cpu"], PRETRAIN_STEP_TOL, failures)
+    rel = {k: abs(own_losses[DEVICE][k] - v) / max(abs(v), 1e-12)
+           for k, v in own_losses["cpu"].items()}
+    print(f"  losses on each device's own targets, relative difference: "
+          f"{rel}")
+    failures += [f"own-target loss {k}: {e:.2e}" for k, e in rel.items()
+                 if k not in ("loss_curv_around", "loss")
+                 and not e <= PRETRAIN_STEP_TOL["loss"]]
 
 
 def main() -> None:
     from geomae_tpu_torch.apis import geomae_finetune_nus
+    from geomae_tpu_torch.config import geomae_pretrain_nus
 
     startup()
     cfg = geomae_finetune_nus()
+    pcfg = geomae_pretrain_nus()
+    dev = torch.device(DEVICE)
     failures: list = []
     results: dict = {}
-    phase_a(cfg, 1, SERVING, results, failures)
+    phase_a(cfg, "serving", kernel_inputs(cfg, 1, dev), SERVING, results,
+            failures)
     if failures:
         raise Failed(f"phase A: {failures}")
     launches = phase_b(cfg, failures)
@@ -675,24 +1084,42 @@ def main() -> None:
     phase_c(cfg, failures)
     if failures:
         raise Failed(f"phase C: {failures}")
-    phase_a(cfg, cfg.data.batch_size, list(TOL), results, failures)
+    phase_a(cfg, "fine-tune step", kernel_inputs(cfg, cfg.data.batch_size,
+                                                 dev), TRAIN, results,
+            failures)
     if failures:
-        raise Failed(f"phase A (train shapes): {failures}")
+        raise Failed(f"phase A (fine-tune step shapes): {failures}")
     train_launches = phase_d(cfg, failures)
     if failures:
         raise Failed(f"phase D: {failures}")
     phase_e(cfg, failures)
     if failures:
         raise Failed(f"phase E: {len(failures)} failures, {failures[:5]}")
+    phase_a(pcfg, "pretrain step", pretrain_inputs(pcfg, dev), PRETRAIN,
+            results, failures)
+    if failures:
+        raise Failed(f"phase A (pretrain step shapes): {failures}")
+    pretrain_launches = phase_f(pcfg, failures)
+    if failures:
+        raise Failed(f"phase F: {failures}")
+    phase_g(pcfg, failures)
+    if failures:
+        raise Failed(f"phase G: {len(failures)} failures, {failures[:5]}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rows = results[name]
+        t_bytes, t_ops = sum(r[3] for r in rows), sum(r[4] for r in rows)
+        libs = [r[5] for r in rows if r[5] is not None]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name] + train_launches[name],
+            launches=launches[name] + train_launches[name]
+            + pretrain_launches[name],
             max_abs_err=max(r[0] for r in rows),
             ms=sum(r[1] for r in rows),
-            plain_ms=sum(r[2] for r in rows)))
+            plain_ms=sum(r[2] for r in rows),
+            bound_ms=sum(max(r[3], r[4]) for r in rows),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=sum(libs) if libs else None))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,12 +15,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from geomae_tpu import config as C
-# the configurations the port serves come from the JAX package's config
-# module, which imports no JAX; re-exported so callers need only the port
-from geomae_tpu.config import geomae_finetune_nus, replace  # noqa: F401
-from geomae_tpu.data.transforms import pad_points, points_range_filter
-
+from . import config as C
+# re-exported so callers of the serving API need no other module
+from .config import geomae_finetune_nus, replace  # noqa: F401
+from .data.transforms import pad_points, points_range_filter
 from .models.anchor_head import Detections, predict
 from .models.anchors import grid_anchors, head_featmap_size
 from .models.detector import DynamicVoxelNet, extract_scene, init_weights
@@ -34,7 +32,7 @@ class Detector3D:
 
     def __init__(self, cfg: Optional[C.FinetuneConfig] = None,
                  checkpoint: Optional[str] = None,
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str = "cuda",
                  generator: Optional[torch.Generator] = None):
         self.cfg = cfg or C.geomae_finetune_nus()
         self.device = torch.device(device)
@@ -83,7 +81,7 @@ def to_batch(cfg: C.FinetuneConfig, points: np.ndarray,
 
 def init_model(checkpoint: Optional[str] = None,
                cfg: Optional[C.FinetuneConfig] = None,
-               device: torch.device | str = "cpu",
+               device: torch.device | str = "cuda",
                generator: Optional[torch.Generator] = None) -> Detector3D:
     return Detector3D(cfg, checkpoint, device, generator)
 

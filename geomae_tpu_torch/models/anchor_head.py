@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 import torch.nn as nn
 
-from geomae_tpu.config import AnchorHeadConfig
+from ..config import AnchorHeadConfig
 
 from ..core import boxes as B
 from ..ops.rotated_iou import boxes_iou_bev

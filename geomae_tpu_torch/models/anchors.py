@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from geomae_tpu.config import AnchorHeadConfig, FinetuneConfig
+from ..config import AnchorHeadConfig, FinetuneConfig
 
 
 def grid_anchors(cfg: AnchorHeadConfig, featmap_size) -> np.ndarray:

@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn as nn
 
-from geomae_tpu.config import FinetuneConfig
+from ..config import FinetuneConfig
 
 from ..ops.voxelize import Scene, build_scene_batch
 from ..ops.windows import make_layouts

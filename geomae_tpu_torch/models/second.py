@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from geomae_tpu.config import FPNConfig, SECONDConfig
+from ..config import FPNConfig, SECONDConfig
 
 from .norm import MaskedBatchNorm2d
 

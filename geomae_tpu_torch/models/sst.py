@@ -23,7 +23,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from geomae_tpu.config import SSTConfig
+from ..config import SSTConfig
 
 from ..ops.attention_qkv import band_attention_qkv
 from ..ops.ffn import post_attention_block

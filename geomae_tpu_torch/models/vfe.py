@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from geomae_tpu.config import VFEConfig, VoxelConfig
+from ..config import VFEConfig, VoxelConfig
 
 from ..ops.segment import segment_broadcast, segment_reduce
 from ..ops.voxelize import Scene, low_voxel_coords

@@ -37,6 +37,8 @@ _SIGNATURES = {
     "geomae_post_attention_block": [_I] + [_P] * 14 + [_I, _I, _F, _P],
     "geomae_post_attention_block_bwd": [_I] + [_P] * 21
     + [_I, _I, _F, _I, _P],
+    "geomae_slot_outer_segment_sum": [_P] * 4 + [_I] * 4 + [_P],
+    "geomae_expand_rows": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

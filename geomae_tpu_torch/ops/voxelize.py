@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from geomae_tpu.config import VoxelConfig
+from ..config import VoxelConfig
 
 INT32_MAX = 2 ** 31 - 1
 

@@ -12,7 +12,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from geomae_tpu.config import SSTConfig, VoxelConfig
+from ..config import SSTConfig, VoxelConfig
 
 INT32_MAX = 2 ** 31 - 1
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from geomae_tpu.config import FinetuneConfig, VoxelConfig
+from .config import FinetuneConfig, VoxelConfig
 
 
 def _clusters(rng: np.random.Generator, voxel: VoxelConfig, max_points: int,

@@ -17,8 +17,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from geomae_tpu.config import FinetuneConfig
-from geomae_tpu.data.transforms import pad_boxes, pad_points
+from ..config import FinetuneConfig
+from ..data.transforms import pad_boxes, pad_points
 
 from ..models.anchor_head import head_loss
 from ..models.anchors import grid_anchors, head_featmap_size
@@ -36,7 +36,7 @@ class TrainState:
     tx: AdamW
 
 
-def init_state(cfg: FinetuneConfig, device: torch.device | str = "cpu",
+def init_state(cfg: FinetuneConfig, device: torch.device | str = "cuda",
                generator: Optional[torch.Generator] = None) -> TrainState:
     """A fresh model on ``device`` with weights from ``generator``
     (default: seeded with ``cfg.seed``, see ``init_weights``), in training
@@ -84,7 +84,7 @@ def make_train_step(cfg: FinetuneConfig):
 
 
 def synthetic_batch(cfg: FinetuneConfig, batch_size: int, seed: int = 0,
-                    device: torch.device | str = "cpu") -> Dict:
+                    device: torch.device | str = "cuda") -> Dict:
     """A batch of ``clustered_scene`` frames from ``seed``, padded to the
     point cap and ``cfg.max_gt_boxes``, on ``device``."""
     rng = np.random.default_rng(seed)

@@ -12,11 +12,12 @@ parameter.
 * The lr and beta1 of update t (from 0) are the schedules' values at t;
   the bias correction of the first moment takes the current beta1,
   ``mu / (1 - beta1_t ** (t + 1))``, as optax's injected adam does.
-* The JAX mask drops every flax path containing "norm": the LayerNorms
-  and, through their ``MaskedBatchNorm`` scopes, every BatchNorm.  Here
-  the names (``backbone.conv_blocks.0.1.weight``) do not say so, so the
-  mask comes from the module types: no decay for the parameters of any
-  BatchNorm or LayerNorm.
+* The JAX mask drops every flax path containing "norm" (the LayerNorms
+  and, through their ``MaskedBatchNorm`` scopes, every BatchNorm) and the
+  GeoMAE ``mask_token``.  Here the names (``backbone.conv_blocks.0.1.
+  weight``) do not say "norm", so that part of the mask comes from the
+  module types: no decay for the parameters of any BatchNorm or
+  LayerNorm, nor for a parameter named ``mask_token``.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import List
 import torch
 import torch.nn as nn
 
-from geomae_tpu.config import OptimConfig
+from ..config import OptimConfig
 
 from .schedules import cyclic_momentum_schedule, cyclic_schedule
 
@@ -37,6 +38,8 @@ def decay_mask(model: nn.Module) -> List[bool]:
     applies."""
     no_decay = {id(p) for m in model.modules() if isinstance(m, _NORMS)
                 for p in m.parameters(recurse=False)}
+    no_decay |= {id(p) for name, p in model.named_parameters()
+                 if name.rsplit(".", 1)[-1] == "mask_token"}
     return [id(p) not in no_decay for p in model.parameters()]
 
 

@@ -1,0 +1,126 @@
+"""GeoMAE pretrain step: init, train step, synthetic batches.
+
+Port of ``geomae_tpu/train/pretrain.py`` (``build_model``, ``forward``,
+``init_state``, ``make_train_step``, ``dummy_batch``).  One step is
+``forward`` (voxelize, geometric targets without gradient, the random
+mask, ``GeoMAE`` in training mode, ``pretrain_loss``) -> backward -> clip
++ AdamW, the counterpart of ``value_and_grad`` -> ``apply_gradients``.
+On a CUDA device the targets run K3 and K4, the VFE the segment kernels,
+and the encoder's and both decoder branches' SST layers K6 / K5 with
+their backward K7 / K5-backward.
+
+The mask is drawn from a ``torch.Generator`` on the batch's device; a
+caller that needs the same mask on two devices (a CUDA generator and a
+CPU one draw different numbers) passes ``keep`` instead.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import PretrainConfig
+from ..data.transforms import pad_points
+from ..models.detector import init_weights
+from ..models.mae import (GeoMAE, GeoMAETargets, compute_targets_batch,
+                          pretrain_loss, sample_mask)
+from ..ops.voxelize import Scene, build_scene_batch
+from ..synthetic import clustered_frame
+from .finetune import TrainState
+from .optim import AdamW
+
+
+def build_model(cfg: PretrainConfig, device=None) -> GeoMAE:
+    return GeoMAE(cfg, device=device)
+
+
+@torch.no_grad()
+def targets_and_mask(cfg: PretrainConfig, batch: Dict,
+                     generator: Optional[torch.Generator] = None,
+                     keep: Optional[torch.Tensor] = None
+                     ) -> Tuple[Scene, GeoMAETargets, torch.Tensor]:
+    """(scene, targets, keep) of ``batch`` (points [B, P, 5], point_valid
+    [B, P]): the sorted scene, its geometric targets, and ``keep`` or a
+    mask drawn from ``generator``."""
+    scene = build_scene_batch(batch["points"], batch["point_valid"],
+                              cfg.voxel, cfg.caps.max_voxels)
+    targets = compute_targets_batch(scene, cfg)
+    if keep is None:
+        keep = sample_mask(generator, scene.table.valid,
+                           cfg.mae.random_mask_ratio)
+    return scene, targets, keep
+
+
+def forward(cfg: PretrainConfig, model: GeoMAE, batch: Dict,
+            generator: Optional[torch.Generator] = None,
+            keep: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Voxelize -> targets -> mask -> model -> loss; the loss dict (f32
+    scalars).  The BN statistics update in the model when it trains."""
+    scene, targets, keep = targets_and_mask(cfg, batch, generator, keep)
+    return pretrain_loss(model(scene, keep), targets, scene, keep, cfg)
+
+
+@torch.no_grad()
+def init_weights_geomae(model: GeoMAE, generator: torch.Generator) -> None:
+    """``detector.init_weights`` (He-uniform Linears, Xavier q/k/v, unit
+    norms) and the ``mask_token`` Xavier-uniform over its (1, C) shape, as
+    the JAX initializer draws it; values drawn on the CPU in module order,
+    so one seed gives the same weights on every device."""
+    init_weights(model, generator)
+    t = model.backbone.mask_token
+    bound = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
+    t.copy_(torch.empty(t.shape).uniform_(-bound, bound, generator=generator))
+
+
+def init_state(cfg: PretrainConfig, device: torch.device | str = "cuda",
+               generator: Optional[torch.Generator] = None) -> TrainState:
+    """A fresh GeoMAE on ``device`` with weights from ``generator``
+    (default: seeded with ``cfg.seed``), in training mode, and its
+    optimizer (``cfg.optim``: AdamW, clip, the cyclic lr)."""
+    model = build_model(cfg, device="meta").to_empty(device=device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    init_weights_geomae(model, generator)
+    model.train()
+    return TrainState(step=0, model=model, tx=AdamW(model, cfg.optim))
+
+
+def make_train_step(cfg: PretrainConfig):
+    """``train_step(state, batch, generator, keep=None) -> (state,
+    losses)``: one update in place.  ``losses`` holds the six terms and
+    their sum ``loss``, detached f32 scalars on the batch's device;
+    ``generator`` (on the batch's device) draws the mask unless ``keep``
+    [B, V] is given."""
+
+    def loss_fn(model: GeoMAE, batch, generator=None, keep=None):
+        return forward(cfg, model, batch, generator, keep)
+
+    def train_step(state: TrainState, batch,
+                   generator: Optional[torch.Generator] = None,
+                   keep: Optional[torch.Tensor] = None):
+        state.model.train()
+        for p in state.model.parameters():
+            p.grad = None
+        losses = loss_fn(state.model, batch, generator, keep)
+        losses["loss"].backward()
+        state.tx.step()
+        state.step += 1
+        return state, {k: v.detach() for k, v in losses.items()}
+
+    train_step.loss_fn = loss_fn
+    return train_step
+
+
+def synthetic_batch(cfg: PretrainConfig, batch_size: int, seed: int = 0,
+                    device: torch.device | str = "cuda") -> Dict:
+    """A batch of ``clustered_frame`` clouds (``bench.py``'s distribution)
+    from ``seed``, padded to the point cap, on ``device``."""
+    rng = np.random.default_rng(seed)
+    pts, valid = zip(*[pad_points(clustered_frame(rng, cfg.voxel,
+                                                  cfg.caps.max_points),
+                                  cfg.caps.max_points)
+                       for _ in range(batch_size)])
+    return dict(points=torch.from_numpy(np.stack(pts)).to(device),
+                point_valid=torch.from_numpy(np.stack(valid)).to(device))

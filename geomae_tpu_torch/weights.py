@@ -1,8 +1,9 @@
-"""Flax fine-tune weights -> this port's ``state_dict``.
+"""Flax weights -> this port's ``state_dict``.
 
 The mapping of ``geomae_tpu/train/torch_import.py`` run backwards, so a
 checkpoint of the JAX package loads into :class:`~geomae_tpu_torch.models.
-detector.DynamicVoxelNet` with ``load_state_dict(strict=True)``:
+detector.DynamicVoxelNet` (fine-tune) or :class:`~geomae_tpu_torch.models.
+mae.GeoMAE` (pretrain) with ``load_state_dict(strict=True)``:
 
 * Dense ``kernel`` [in, out] -> Linear ``weight`` = kernel.T
 * q/k/v projections -> ``in_proj_weight`` / ``in_proj_bias`` (rows q, k, v)
@@ -13,7 +14,11 @@ detector.DynamicVoxelNet` with ``load_state_dict(strict=True)``:
 * BN scale / bias / mean / var -> weight / bias / running_mean /
   running_var (+ ``num_batches_tracked`` = 0); LayerNorm scale -> weight.
 
-SST leaves arrive stacked over blocks (the JAX stack is an ``nn.scan``).
+SST leaves arrive stacked over blocks (the JAX stack is an ``nn.scan``);
+the GeoMAE decoder pair's leaves (``decoders/...``) also over the group
+axis G = 2 of the JAX ``SSTStackPair``, whose group 0 is the centroid
+branch and 1 the density branch.  ``mask_token`` and the heads carry
+across as they are (the heads as Linears).
 Every step is a transpose, flip, split or concatenation, linear in the
 leaves, so ``from_flax(grads, {})`` also carries a JAX gradient tree into
 the port's parameter names (the train-step tests compare gradients so).
@@ -28,6 +33,9 @@ import torch
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
+_HEADS = ("decoder_pred_low", "decoder_pred_med", "decoder_pred_top",
+          "decoder_pred_density_top", "cls_pred_low", "cls_pred_med")
+_BRANCHES = ("decoder_centroid_blocks", "decoder_density_blocks")
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()):
@@ -87,6 +95,17 @@ def _key(path: Tuple[str, ...], v: np.ndarray, sd: Dict) -> None:
         for i in range(v.shape[0]):
             _sst_leaf(sd, f"backbone.encoder_blocks.{i}.encoder_list.{j}",
                       p[4:], v[i])
+    elif p[0] == "decoders" and p[1:3] == ("blocks", "block"):
+        j = int(p[3].split("_")[1])
+        for i in range(v.shape[0]):
+            for g, stack in enumerate(_BRANCHES):
+                _sst_leaf(sd, f"backbone.{stack}.{i}.encoder_list.{j}",
+                          p[4:], v[i, g])
+    elif p[0] == "mask_token":
+        sd["backbone.mask_token"] = v
+    elif p[0] in _HEADS:
+        name, val = _linear(p[1], v)
+        sd[f"backbone.{p[0]}.{name}"] = val
     elif p[0] == "second":
         m = re.fullmatch(r"stage(\d+)_(down|conv(\d+))", p[1])
         i = int(m.group(1))
@@ -113,8 +132,9 @@ def _key(path: Tuple[str, ...], v: np.ndarray, sd: Dict) -> None:
 
 
 def from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax fine-tune ``params`` and ``batch_stats`` trees (arrays of any
-    kind numpy can read) -> the port's ``state_dict``."""
+    """Flax ``params`` and ``batch_stats`` trees of a fine-tune
+    ``DynamicVoxelNet`` or a pretrain ``GeoMAE`` (arrays of any kind numpy
+    can read) -> the port's ``state_dict``."""
     sd: Dict = {}
     for tree in (params, batch_stats):
         for path, v in _flatten(tree):

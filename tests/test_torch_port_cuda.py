@@ -26,12 +26,18 @@ ignores a shift shared by all keys), so its own largest value is
 rounding noise, larger in bf16, where each token's dk is rounded before
 the sum.  K6's statistics (the
 log-sum-exp per row and head) are held at K6's bound.
+
+The targets' kernels: K3's counts (0/1 payloads) and K4 (a copy) are
+exact; K3's sums of the same terms in another order differ by at most
+2 (n - 1) 2^-24 sum |terms| for a cell of n points, held at
+count x 2^-23 x sum |terms|.  The SST kernels also run at the pretrain
+encoder's shape: [B, 8192, 128] visible tokens, 30 % of the pillars.
 """
 import numpy as np
 import pytest
 import torch
 
-from geomae_tpu_torch.ops import attention_qkv, ffn, segment
+from geomae_tpu_torch.ops import attention_qkv, ffn, segment, targets
 
 INT_MAX = 2 ** 31 - 1
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
@@ -320,3 +326,163 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         segment.segment_reduce(x, seg, 4, "sum")
     with pytest.raises(ValueError):       # non-contiguous
         segment.segment_reduce(x.transpose(1, 2), seg.int()[:, :32], 4, "sum")
+
+
+def slot_case(rng, dev, B=2, P=20000, V=1500, S=128):
+    """Ascending pillar ids (runs of up to 40 points, some pillars of one
+    slot, so a lane sums over chunks), slots in [0, S), a zeroed sentinel
+    suffix, rows past the last id empty."""
+    seg = np.sort(rng.integers(0, V - 50, (B, P)), axis=1).astype(np.int32)
+    seg[:, 100:300] = seg[:, 100:101]                 # one long pillar
+    slot = rng.integers(0, S, (B, P)).astype(np.int32)
+    slot[:, 100:300] = 7                              # 200 points, one slot
+    vals = rng.normal(0, 10, (B, P, 4)).astype(np.float32)
+    vals[..., 3] = 1.0
+    for b in range(B):
+        n = int(rng.integers(P // 2, P - 1000))
+        seg[b, n:] = V
+        vals[b, n:] = 0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return t(vals), t(slot), t(seg), S, V
+
+
+@pytest.mark.parametrize("S", [32, 64, 96, 128])
+def test_slot_outer_segment_sum(dev, S):
+    """K3 against index_add_: counts exact, sums within their f32 order
+    bound, rows past the ids and the sentinel suffix left out, and two
+    launches bitwise equal (no atomics)."""
+    vals, slot, seg, S, V = slot_case(np.random.default_rng(8), dev, S=S)
+    before = targets.slot_outer_segment_sum.launches
+    got = targets.slot_outer_segment_sum(vals, slot, seg, S, V)
+    assert targets.slot_outer_segment_sum.launches == before + 1
+    want = targets.slot_outer_segment_sum_plain(vals, slot, seg, S, V)
+    assert got.shape == want.shape == (seg.shape[0], V, S, 4)
+    check(got[..., 3], want[..., 3], 0, 0)
+    mag = targets.slot_outer_segment_sum_plain(vals.abs(), slot, seg, S, V)
+    bound = 2 ** -23 * want[..., 3:] * mag
+    assert ((got - want).abs() <= bound).all()
+    assert int(got[..., 3].sum()) == int((seg < V).sum())
+    assert (got[:, V - 50:] == 0).all()
+    assert torch.equal(got, targets.slot_outer_segment_sum(vals, slot, seg,
+                                                           S, V))
+
+
+def expand_case(rng, dev, B=2, V=3000, C=13, n_cells=160000):
+    feats = rng.normal(0, 100, (B, V, C)).astype(np.float32)
+    key = np.full((B, V), n_cells, np.int32)
+    for b in range(B):
+        n = int(rng.integers(V // 2, V))
+        key[b, :n] = np.sort(rng.choice(n_cells, n, replace=False))
+        key[b, n:] = n_cells
+        feats[b, n:] = 0
+    key[0, 0] = 0                      # the first and the last cell
+    key[1, int((key[1] < n_cells).sum()) - 1] = n_cells - 1
+    return torch.from_numpy(feats).to(dev), torch.from_numpy(key).to(dev), \
+        n_cells
+
+
+def test_expand_rows(dev):
+    """K4 against its plain version: exact everywhere, the sentinel row
+    n_cells 0."""
+    feats, key, n = expand_case(np.random.default_rng(9), dev)
+    before = targets.expand_rows.launches
+    got = targets.expand_rows(feats, key, n)
+    assert targets.expand_rows.launches == before + 1
+    check(got, targets.expand_rows_plain(feats, key, n), 0, 0)
+    assert (got[:, n] == 0).all()
+    assert torch.equal(got[0, 0], feats[0, 0])
+
+
+def test_targets_on_the_card_match_the_cpu(dev):
+    """``compute_targets_batch`` through K3 and K4 against the CPU's plain
+    versions at ``tiny_pretrain_config()``: occupancy exact, centroids at
+    1e-5, the normals' axes at |cos| > 1 - 1e-4 where the two smallest
+    eigenvalues are apart."""
+    from geomae_tpu_torch.config import tiny_pretrain_config
+    from geomae_tpu_torch.models.mae import compute_targets_batch
+    from geomae_tpu_torch.ops.voxelize import build_scene_batch
+    from geomae_tpu_torch.train.pretrain import synthetic_batch
+
+    cfg = tiny_pretrain_config()
+    batch = synthetic_batch(cfg, 2, seed=1, device="cpu")
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        scene = build_scene_batch(batch["points"].to(d),
+                                  batch["point_valid"].to(d), cfg.voxel,
+                                  cfg.caps.max_voxels)
+        counts = (targets.slot_outer_segment_sum.launches,
+                  targets.expand_rows.launches)
+        out[d.type] = compute_targets_batch(scene, cfg)
+        launched = (targets.slot_outer_segment_sum.launches - counts[0],
+                    targets.expand_rows.launches - counts[1])
+        assert launched == ((1, 1) if d.type == "cuda" else (0, 0))
+    g, c = out["cuda"], out["cpu"]
+    for name in ("low_occ", "med_occ"):
+        assert torch.equal(getattr(g, name).cpu(), getattr(c, name))
+    for name in ("low_tgt", "med_tgt", "centroid_top"):
+        check(getattr(g, name).cpu(), getattr(c, name), 1e-5, 1e-5)
+    cv = c.curv
+    sel = (cv[..., 1] - cv[..., 2] > 1e-2 * cv[..., 0]) & (cv[..., 0] > 0)
+    cos = (g.normal.cpu() * c.normal).sum(-1)[sel]
+    assert sel.any() and (cos.abs() > 1 - 1e-4).all()
+
+
+def encoder_tokens(dev, B=2, seed=0):
+    """The pretrain encoder's window layout: full-width clouds, the random
+    30 % of their pillars compacted into 8,192 visible slots."""
+    from geomae_tpu_torch.config import geomae_pretrain_nus
+    from geomae_tpu_torch.models.mae import (encoder_shift_data,
+                                             sample_mask, visible_rows)
+    from geomae_tpu_torch.ops.voxelize import build_scene_batch
+    from geomae_tpu_torch.train.pretrain import synthetic_batch
+
+    cfg = geomae_pretrain_nus()
+    b = synthetic_batch(cfg, B, seed=seed, device=dev)
+    table = build_scene_batch(b["points"], b["point_valid"], cfg.voxel,
+                              cfg.caps.max_voxels).table
+    keep = sample_mask(torch.Generator(device=dev).manual_seed(seed),
+                       table.valid, cfg.mae.random_mask_ratio)
+    vis_raw, _, vis_valid = visible_rows(keep, cfg.caps.max_visible)
+    layer = encoder_shift_data(table, vis_raw, vis_valid, cfg)["layers"][1]
+    assert layer["win_id"].shape == (B, cfg.caps.max_visible)
+    return layer
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sst_kernels_at_the_encoder_shape(dev, dtype):
+    """K6 (with statistics), K5, K7 and K5's backward on the visible
+    tokens' layout, each against its plain version."""
+    lay = encoder_tokens(dev)
+    B, V = lay["win_id"].shape
+    C, F = ffn.KERNEL_C, ffn.KERNEL_F
+    g = torch.Generator(device=dev).manual_seed(7)
+    r = lambda *s, scale=0.1: torch.randn(*s, generator=g, device=dev) * scale
+    x, a, d = (r(B, V, C, scale=1.0).to(dtype) for _ in range(3))
+    ws = [r(C, C, scale=C ** -0.5) if i % 2 == 0 else r(C) for i in range(6)]
+    qkv = (x, lay["pos_sorted"], *ws, lay["win_id"], lay["key_valid_sorted"],
+           8)
+    out, lse = attention_qkv._forward(*qkv, stats=True)
+    check(out, attention_qkv.band_attention_qkv_plain(*qkv), *TOL[dtype])
+    check(lse, attention_qkv.band_attention_qkv_lse_plain(*qkv), *TOL[dtype])
+    check_grads(attention_qkv.band_attention_qkv_backward(*qkv, out, lse, d),
+                attention_qkv.band_attention_qkv_backward_plain(*qkv, out,
+                                                                d),
+                dtype, 1)
+    fw = [r(C, C), r(C), 1 + r(C), r(C), r(C, F), r(F), r(F, C), r(C),
+          1 + r(C), r(C)]
+    block = (x, a, *fw, lay["extent"])
+    check(ffn.post_attention_block(*block),
+          ffn.post_attention_block_plain(*block), *TOL[dtype])
+    check_grads(ffn.post_attention_block_backward(*block, d),
+                ffn.post_attention_block_backward_plain(*block, d), dtype, 2)
+
+
+def test_target_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    vals = torch.zeros(1, 64, 4, device=dev)
+    ids = torch.zeros(1, 64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):       # 100 slots
+        targets.slot_outer_segment_sum(vals, ids, ids, 100, 4)
+    with pytest.raises(ValueError):       # int64 ids
+        targets.slot_outer_segment_sum(vals, ids, ids.long(), 128, 4)
+    with pytest.raises(ValueError):       # bf16 payload
+        targets.expand_rows(vals.bfloat16(), ids, 10)

@@ -201,13 +201,15 @@ def test_detector3d_serves_and_loads_checkpoints(tiny, tmp_path):
     """Seeded init is deterministic; a saved state_dict loads strictly
     and serves the same detections."""
     cfg = tiny.cfg
-    a = Detector3D(cfg, generator=torch.Generator().manual_seed(3))
-    b = Detector3D(cfg, generator=torch.Generator().manual_seed(3))
+    a = Detector3D(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(3))
+    b = Detector3D(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(3))
     for k, v in a.model.state_dict().items():
         assert torch.equal(v, b.model.state_dict()[k]), k
     path = tmp_path / "det.pth"
     torch.save({"state_dict": tiny.model.state_dict()}, path)
-    c = init_model(str(path), cfg)
+    c = init_model(str(path), cfg, device="cpu")
     raw = tiny.pts[0][tiny.valid[0]]
     res = inference_detector(c, raw)
     n = len(res["scores"])
@@ -223,7 +225,9 @@ def test_detector3d_serves_and_loads_checkpoints(tiny, tmp_path):
 
 def test_serving_api_imports_no_jax():
     code = ("import sys, geomae_tpu_torch.apis; "
-            "bad = [m for m in ('jax', 'flax') if m in sys.modules]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', "
+            "'geomae_tpu') or m.startswith(('jax.', 'flax.', "
+            "'geomae_tpu.'))]; "
             "sys.exit(str(bad) if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

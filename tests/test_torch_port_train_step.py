@@ -162,9 +162,9 @@ def test_loss_falls_on_a_repeated_batch():
     batch: every loss finite, the last below the first, every parameter
     moved."""
     cfg = tiny_finetune_config()
-    state = FT.init_state(cfg, generator=torch.Generator().manual_seed(1))
+    state = FT.init_state(cfg, "cpu", torch.Generator().manual_seed(1))
     train_step = FT.make_train_step(cfg)
-    batch = FT.synthetic_batch(cfg, 2, seed=3)
+    batch = FT.synthetic_batch(cfg, 2, seed=3, device="cpu")
     before = [p.detach().clone() for p in state.model.parameters()]
     losses = []
     for _ in range(5):
@@ -180,7 +180,9 @@ def test_loss_falls_on_a_repeated_batch():
 def test_train_step_imports_no_jax():
     code = ("import sys, geomae_tpu_torch.train.finetune, "
             "geomae_tpu_torch.profile_train; "
-            "bad = [m for m in ('jax', 'flax') if m in sys.modules]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', "
+            "'geomae_tpu') or m.startswith(('jax.', 'flax.', "
+            "'geomae_tpu.'))]; "
             "sys.exit(str(bad) if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
