@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port's detection serving path, fine-tune train
-step and GeoMAE pretrain train step on one CUDA GPU.
+step, GeoMAE pretrain train step and trainer entry point on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,10 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      step's (K3 and K4 at batch 4; K6 with statistics, K5, K7 and K5's
      backward on the encoder's visible tokens), in float32 and bfloat16,
      and times both, and one PyTorch library call of the same function
-     where there is one, with CUDA events;
+     where there is one, with CUDA events; K8 (window attention over
+     projected q, k, v) forward and backward at all three shapes; and one
+     SST block on the ``band`` route (K8) against the ``qkv`` route (K6)
+     with the same weights;
   B. serves 3 synthetic frames through ``inference_detector`` at the full
      width of ``geomae_finetune_nus()`` in bfloat16, checks the detections
      and that each kernel launched the expected number of times per frame;
@@ -36,11 +39,19 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
   G. runs one float32 pretrain step (batch 1) on the GPU (kernels) and on
      the CPU (plain versions) from the same seeded weights, batch and
      mask: the targets, then the losses, gradients, updates and batch
-     statistics.
+     statistics;
+  H. drives the trainer entry point (``python -m geomae_tpu_torch.train``,
+     its ``main(argv)`` in process) at full width in bfloat16, batch 4,
+     on the ``band`` attention route (K8): pretrain to step 3 with a
+     checkpoint every step, restore that checkpoint into a fresh state
+     (bitwise), resume to step 6, fine-tune 4 steps from the pretrain
+     checkpoint, and serve 2 frames from the fine-tune checkpoint.
 
-Any failed check exits non-zero.  The line before the last is a JSON
-summary of the kernels: ``launches`` sums the served frames of B and the
-train steps of D and F; ``ms``, ``plain_ms``, ``library_ms`` and
+Phases B, D and F run a second, shorter time on the ``band`` route, so
+that the two routes' frame and step times come from one run and the same
+batches.  Any failed check exits non-zero.  The line before the last is a JSON
+summary of the kernels: ``launches`` sums the served frames and train steps of
+B, D, F (both routes) and H; ``ms``, ``plain_ms``, ``library_ms`` and
 ``bound_ms`` are the times of one call of each distinct call the paths
 make of the kernel in its dtype, summed (``segment_broadcast``: f32 mean
 + bf16 max forward at both shapes + f32 sum backward; the SST kernels at
@@ -68,6 +79,8 @@ FRAMES = 3
 DEVICE = "cuda"
 DISTINCT = 3         # train steps on distinct batches (the first warms up)
 REPEAT = 10          # then steps on the last batch again
+BAND_REPEAT = 4      # the repeat of the shorter runs on the band route
+BAND_OPTION = "sst.attention_impl=band"
 # kernel launches per served frame: 6 SST blocks of 2 layers; the VFE's
 # cluster mean and max gather-back, and its final pillar max; nothing of
 # the backward
@@ -75,7 +88,8 @@ PER_FRAME = {"segment_reduce": 1, "segment_broadcast": 2,
              "band_attention_qkv": 12, "post_attention_block": 12,
              "segment_gather": 0, "band_attention_qkv_backward": 0,
              "post_attention_block_backward": 0, "slot_outer_segment_sum": 0,
-             "expand_rows": 0}
+             "expand_rows": 0, "band_attention_fused": 0,
+             "band_attention_fused_backward": 0}
 # per train step: the forward's, then the backward's: K7 and K5's
 # backward per layer, the K1 max's gather, the K2 max's K2 sum (the
 # decorations' K2 mean carries no gradient)
@@ -83,7 +97,8 @@ PER_STEP = {"segment_reduce": 1, "segment_broadcast": 2 + 1,
             "band_attention_qkv": 12, "post_attention_block": 12,
             "segment_gather": 1, "band_attention_qkv_backward": 12,
             "post_attention_block_backward": 12, "slot_outer_segment_sum": 0,
-            "expand_rows": 0}
+            "expand_rows": 0, "band_attention_fused": 0,
+            "band_attention_fused_backward": 0}
 
 
 def per_pretrain_step(cfg) -> dict:
@@ -96,6 +111,18 @@ def per_pretrain_step(cfg) -> dict:
            "band_attention_qkv_backward", "post_attention_block_backward")
     return dict(PER_STEP, slot_outer_segment_sum=1, expand_rows=1,
                 **{k: layers for k in sst})
+
+
+def on_route(per: dict, cfg) -> dict:
+    """``per`` (launches on the default ``qkv`` route) on ``cfg``'s
+    attention route: on ``band`` K8 and its backward take K6's and K7's
+    launches, which fall to 0."""
+    if cfg.sst.attention_impl not in ("band", "pallas"):
+        return per
+    return dict(per, band_attention_qkv=0, band_attention_qkv_backward=0,
+                band_attention_fused=per["band_attention_qkv"],
+                band_attention_fused_backward=per[
+                    "band_attention_qkv_backward"])
 # (atol, rtol) per kernel and dtype, at both shapes.  f32: the kernel and
 # the plain version sum in other orders (cuBLAS, atomics).  bf16: the same
 # order differences may move a compute-dtype rounding to the other side,
@@ -154,15 +181,21 @@ TOL = {
     # sum |terms| per cell.  K4 is a copy: exact.
     ("slot_outer_segment_sum", ""): {torch.float32: (2 ** -23, 0.0)},
     ("expand_rows", ""): {torch.float32: (0.0, 0.0)},
+    # K8 at K6's and K7's rules: output and statistics; dq, dk, dv per row
+    ("band_attention_fused", ""): {torch.float32: (1e-4, 1e-4),
+                                   torch.bfloat16: (2e-2, 2e-2)},
+    ("band_attention_fused_backward", ""): {torch.float32: (1e-4, 1e-4),
+                                            torch.bfloat16: (2e-2, 2e-2)},
 }
-SERVING = list(TOL)[:5]      # the rows at the serving shapes
-TRAIN = list(TOL)[:11]       # the fine-tune step's rows
+K8 = list(TOL)[-2:]
+SERVING = list(TOL)[:5] + K8[:1]     # the rows at the serving shapes
+TRAIN = list(TOL)[:11] + K8          # the fine-tune step's rows
 # the pretrain step's new rows: the targets' kernels, then the SST kernels
 # on the encoder's visible tokens
 PRETRAIN = [("slot_outer_segment_sum", ""), ("expand_rows", ""),
             ("band_attention_qkv", ""), ("post_attention_block", ""),
             ("post_attention_block_backward", ""),
-            ("band_attention_qkv_backward", "")]
+            ("band_attention_qkv_backward", "")] + K8
 # a backward kernel's outputs: its per-token cotangents, then its
 # parameter gradients
 BACKWARD_OUTPUTS = {
@@ -171,6 +204,7 @@ BACKWARD_OUTPUTS = {
         ("wo", "bo", "s1", "t1", "w1", "b1", "w2", "b2", "s2", "t2")),
     "band_attention_qkv_backward": (
         ("dx",), ("wq", "bq", "wk", "bk", "wv", "bv")),
+    "band_attention_fused_backward": (("dq", "dk", "dv"), ()),
 }
 # the dtype each call of the two paths runs in
 PATH_DTYPE = {("segment_reduce", "max"): torch.bfloat16,
@@ -183,7 +217,9 @@ PATH_DTYPE = {("segment_reduce", "max"): torch.bfloat16,
               ("post_attention_block_backward", ""): torch.bfloat16,
               ("band_attention_qkv_backward", ""): torch.bfloat16,
               ("slot_outer_segment_sum", ""): torch.float32,
-              ("expand_rows", ""): torch.float32}
+              ("expand_rows", ""): torch.float32,
+              ("band_attention_fused", ""): torch.bfloat16,
+              ("band_attention_fused_backward", ""): torch.bfloat16}
 KERNELS = {
     "segment_reduce": ("geomae_tpu_torch/csrc/segment.cu",
                        "geomae_tpu/ops/pallas_segreduce.py:220"),
@@ -205,6 +241,11 @@ KERNELS = {
                                "geomae_tpu/ops/pallas_segreduce.py:345"),
     "expand_rows": ("geomae_tpu_torch/csrc/targets.cu",
                     "geomae_tpu/ops/pallas_segreduce.py:777"),
+    "band_attention_fused": ("geomae_tpu_torch/csrc/band_attention.cu",
+                             "geomae_tpu/ops/pallas_attention.py:545"),
+    "band_attention_fused_backward": (
+        "geomae_tpu_torch/csrc/band_attention.cu",
+        "geomae_tpu/ops/pallas_attention.py:422"),
 }
 # The least time of a call: each input row the data uses read once and
 # each output written once over the HBM rate, or the call's arithmetic (2
@@ -213,6 +254,16 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PARITY_TOL = (1e-3, 1e-3)      # f32 GPU against CPU, whole model
+# the band route against the qkv route, same weights: the two compute one
+# function with the same dtype points (the projections round, then add
+# their bias, inside K6 and outside K8), in another summation order.  One
+# encoder layer is held at the kernels' own bounds.  A block is two
+# post-norm layers: in bf16 the second layer's LayerNorm rescales the
+# first layer's flipped roundings (an ulp of an activation between 2 and 4
+# is 1.6e-2), so the block is held at twice the layer's bound (at the
+# layer's bound the first run read 1.32 of it); in f32 at the same.
+ROUTE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+BLOCK_FACTOR = {torch.float32: 1, torch.bfloat16: 2}
 # phase E, f32 GPU against CPU, one train step.  The forwards agree to
 # about 2e-5 relative (f32 sums in other orders), and every pre-activation
 # within that distance of 0 may take the other side of a ReLU on the other
@@ -307,9 +358,13 @@ def compare_grads(label: str, name: str, got, want, dtype, tol,
     largest).  Returns the largest absolute error."""
     tokens, params = BACKWARD_OUTPUTS[name]
     n = len(tokens)
-    errs = [compare(f"{label} {t}", a, b, *tol, failures,
-                    scale=b.float().abs().amax(-1, keepdim=True).clamp_min(1))
+    rows = lambda t: t.flatten(2)         # [B, V, H, D] -> [B, V, C]
+    errs = [compare(f"{label} {t}", rows(a), rows(b), *tol, failures,
+                    scale=rows(b).float().abs().amax(-1, keepdim=True)
+                    .clamp_min(1))
             for t, a, b in zip(tokens, got, want)]
+    if not params:
+        return max(errs)
     top = max(float(b.abs().max()) for b in want[n:])
     shares = []
     for p, a, b in zip(params, got[n:], want[n:]):
@@ -391,6 +446,18 @@ def work(name: str, args, got):
         feats, key, cells = args
         n = int((key < cells).sum())
         return n * feats.shape[-1] * 4 + nbytes(key) + out_b, 0
+    if name.startswith("band_attention_fused"):
+        # q, k, v (and in the backward out, dO and the statistics) rows of
+        # the real tokens read once; scores and values, 4 D operations per
+        # same-window pair and head forward, 10 D backward
+        q, win_id = args[0], args[3]
+        n, _, pairs, _ = window_stats(win_id)
+        C = q.shape[2] * q.shape[3]
+        backward = name.endswith("backward")
+        in_b = (5 if backward else 3) * n * C * q.element_size() \
+            + nbytes(win_id, args[4]) + (n * q.shape[2] * 4 if backward
+                                         else 0)
+        return in_b + out_b, (10 if backward else 4) * C * pairs
     if name.startswith("band_attention_qkv"):
         x, pos, weights = args[0], args[1], args[2:8]
         n, _, pairs, _ = window_stats(args[8])
@@ -413,8 +480,12 @@ def library_call(name: str, op: str, args):
     """One PyTorch call that computes the kernel's function on the same
     inputs (into a buffer made beforehand), or None where no single call
     does: K2 reduces and broadcasts back, K5 chains three products with
-    two LayerNorms, K6 and K7 project inside the window attention.  Timed
-    for comparison only; the port calls none of them."""
+    two LayerNorms, K6 and K7 project inside the window attention.  For
+    K8: ``scaled_dot_product_attention`` over all V x V pairs under a
+    boolean [B, 1, V, V] same-window-and-valid-key mask built beforehand
+    (fully masked rows give NaN there, 0 in K8), and for its backward
+    ``torch.autograd.grad`` through that call.  Timed for comparison only;
+    the port calls none of them."""
     def flat(seg, V):
         B = seg.shape[0]
         return (torch.where(seg < V, seg, V).long() + (V + 1) * torch.arange(
@@ -442,6 +513,32 @@ def library_call(name: str, op: str, args):
         out = torch.zeros(B * (V * S + 1), cv, device=vals.device)
         idx, src = idx.reshape(-1), vals.reshape(-1, cv)
         return lambda: out.index_add_(0, idx, src)
+    if name.startswith("band_attention_fused"):
+        import torch.nn.functional as F
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        q, k, v, win_id, key_valid = args[:5]
+        real = win_id != 2 ** 31 - 1
+        mask = ((win_id[:, :, None] == win_id[:, None, :])
+                & key_valid[:, None, :] & real[:, :, None])[:, None]
+        heads = lambda t: t.transpose(1, 2)       # [B, H, V, D]
+        backward = name.endswith("backward")
+        qh, kh, vh = (heads(t).detach().requires_grad_(backward)
+                      for t in (q, k, v))
+        # the fused backends only: the unfused one would hold V x V scores
+        # per head
+
+        def sdpa():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                              SDPBackend.FLASH_ATTENTION]):
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask)
+
+        if not backward:
+            return sdpa
+        out, g = sdpa(), heads(args[-1])
+        return lambda: torch.autograd.grad(out, (qh, kh, vh), g,
+                                           retain_graph=True)
     if name == "expand_rows":
         feats, key, cells = args
         B, V, C = feats.shape
@@ -556,7 +653,8 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
     kernels on the shift data's tokens.  A train step's forward runs under
     grad (K6 then writes its statistics)."""
     from geomae_tpu_torch.models import mae
-    from geomae_tpu_torch.ops import attention_qkv, ffn, segment, targets
+    from geomae_tpu_torch.ops import (attention, attention_qkv, ffn, segment,
+                                      targets)
 
     print(f"phase A: kernels against their plain versions, {what} shapes")
     dev = torch.device(DEVICE)
@@ -602,6 +700,27 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
         qkv = (x_tok.to(dt), lay["pos_sorted"], *attn_w, lay["win_id"],
                lay["key_valid_sorted"], cfg.sst.nhead)
         block = (x_tok.to(dt), a_tok.to(dt), *ffn_w, lay["extent"])
+        if name.startswith("band_attention_fused"):
+            # K8 on q, k, v projected from K6's inputs, as the band route
+            # projects them
+            xp = qkv[0] + qkv[1].to(dt)
+            heads = (B, Vt, cfg.sst.nhead, C // cfg.sst.nhead)
+            q, k, v = (ffn.dense(t, w, b).reshape(heads) for t, w, b in zip(
+                (xp, xp, qkv[0]), attn_w[0::2], attn_w[1::2]))
+            band = (q, k, v, lay["win_id"], lay["key_valid_sorted"])
+            if name.endswith("backward"):
+                out, lse = attention._forward(*band, stats=True)
+                return (attention.band_attention_fused_backward,
+                        lambda *a: attention.band_attention_backward_plain(
+                            *a[:-2], a[-1]),
+                        (*band, out, lse, d_tok.to(dt).reshape(heads)))
+            if not train:
+                return (attention.band_attention_fused,
+                        attention.band_attention, band)
+            return (lambda *a: attention._forward(*a, stats=True),
+                    lambda *a: (attention.band_attention(*a),
+                                attention.band_attention_lse_plain(
+                                    a[0], a[1], a[3], a[4])), band)
         if name == "segment_reduce":
             return (segment.segment_reduce, segment.segment_reduce_plain,
                     (randn(B, P, F1).to(dt), p2v, V, op))
@@ -680,7 +799,8 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
 
 
 def reset_counts():
-    from geomae_tpu_torch.ops import attention_qkv, ffn, segment, targets
+    from geomae_tpu_torch.ops import (attention, attention_qkv, ffn, segment,
+                                      targets)
     fns = {"slot_outer_segment_sum": targets.slot_outer_segment_sum,
            "expand_rows": targets.expand_rows,
            "segment_reduce": segment.segment_reduce,
@@ -691,29 +811,32 @@ def reset_counts():
                attention_qkv.band_attention_qkv_backward,
            "post_attention_block": ffn.post_attention_block,
            "post_attention_block_backward":
-               ffn.post_attention_block_backward}
+               ffn.post_attention_block_backward,
+           "band_attention_fused": attention.band_attention_fused,
+           "band_attention_fused_backward":
+               attention.band_attention_fused_backward}
     for fn in fns.values():
         fn.launches = 0
     attention_qkv.band_attention_qkv.stats = 0
+    attention.band_attention_fused.stats = 0
     return fns
 
 
 def check_launches(fns, per: dict, n: int, what: str,
                    failures: list) -> dict:
     """The launches since reset_counts against ``per`` x ``n``."""
-    from geomae_tpu_torch.ops import attention_qkv
-
     launches = {k: fn.launches for k, fn in fns.items()}
-    stats = attention_qkv.band_attention_qkv.stats
-    print(f"  launches in {n} {what}: {launches}; K6 with statistics: "
-          f"{stats}")
+    stats = {k: fns[k].stats for k in ("band_attention_qkv",
+                                       "band_attention_fused")}
+    print(f"  launches in {n} {what}: {launches}; K6 and K8 with "
+          f"statistics: {list(stats.values())}")
     for k, count in per.items():
         if launches[k] != count * n:
             failures.append(f"{k} launched {launches[k]} times in {n} "
                             f"{what}, expected {count * n}")
-    if stats != (launches["band_attention_qkv"] if per[
-            "band_attention_qkv_backward"] else 0):
-        failures.append(f"K6 wrote statistics {stats} times in {what}")
+    for k, wrote in stats.items():     # statistics under grad only
+        if wrote != (launches[k] if per[k + "_backward"] else 0):
+            failures.append(f"{k} wrote statistics {wrote} times in {what}")
     return launches
 
 
@@ -723,7 +846,8 @@ def phase_b(cfg, failures: list) -> dict:
     from geomae_tpu_torch.synthetic import clustered_frame
 
     print(f"phase B: {FRAMES} frames through inference_detector, "
-          f"{cfg.compute_dtype}, full width")
+          f"{cfg.compute_dtype}, full width, attention route "
+          f"{cfg.sst.attention_impl}")
     det = init_model(cfg=cfg, device=DEVICE,
                      generator=torch.Generator().manual_seed(SEED))
     frames = [clustered_frame(np.random.default_rng(SEED + 1 + f),
@@ -737,7 +861,8 @@ def phase_b(cfg, failures: list) -> dict:
         outs.append(res)
         print(f"  frame {f}: {len(raw)} points -> {len(res['scores'])} "
               f"detections in {ms:.1f} ms")
-    launches = check_launches(fns, PER_FRAME, FRAMES, "frames", failures)
+    launches = check_launches(fns, on_route(PER_FRAME, cfg), FRAMES, "frames",
+                              failures)
     for res in outs:
         n = len(res["scores"])
         ok = (res["boxes"].shape == (n, 9)
@@ -798,21 +923,21 @@ def phase_c(cfg, failures: list) -> None:
                 a.cpu(), b, *PARITY_TOL, failures)
 
 
-def phase_d(cfg, failures: list) -> dict:
+def phase_d(cfg, failures: list, repeat: int = REPEAT) -> dict:
     from geomae_tpu_torch.profile_serving import host_ms
     from geomae_tpu_torch.train.finetune import (init_state, make_train_step,
                                                  synthetic_batch)
 
     bz = cfg.data.batch_size
     print(f"phase D: fine-tune train steps, {cfg.compute_dtype}, batch {bz}, "
-          f"full width: {DISTINCT} batches, then {REPEAT} more steps on the "
-          "last")
+          f"full width, attention route {cfg.sst.attention_impl}: {DISTINCT} "
+          f"batches, then {repeat} more steps on the last")
     state = init_state(cfg, DEVICE, torch.Generator().manual_seed(SEED))
     step = make_train_step(cfg)
     before = [p.detach().clone() for p in state.model.parameters()]
     batches = [synthetic_batch(cfg, bz, seed=SEED + 10 + i, device=DEVICE)
                for i in range(DISTINCT)]
-    n = DISTINCT + REPEAT
+    n = DISTINCT + repeat
     torch.cuda.reset_peak_memory_stats()
     fns = reset_counts()
     times, losses = [], []
@@ -823,7 +948,8 @@ def phase_d(cfg, failures: list) -> dict:
         times.append(ms)
         print(f"  step {i}: {ms:.1f} ms, " + ", ".join(
             f"{k} {v:.4f}" for k, v in losses[-1].items()))
-    launches = check_launches(fns, PER_STEP, n, "train steps", failures)
+    launches = check_launches(fns, on_route(PER_STEP, cfg), n, "train steps",
+                              failures)
     if not all(np.isfinite(v) for l in losses for v in l.values()):
         failures.append("a train step's losses are not finite")
     moved = [not torch.equal(a, p.detach())
@@ -920,22 +1046,22 @@ def compare_step(gpu, cpu, tol: dict, failures: list) -> None:
           f"statistics: worst abs difference {stat_worst:.3e}")
 
 
-def phase_f(cfg, failures: list) -> dict:
+def phase_f(cfg, failures: list, repeat: int = REPEAT) -> dict:
     from geomae_tpu_torch.profile_serving import host_ms
     from geomae_tpu_torch.train.pretrain import (init_state, make_train_step,
                                                  synthetic_batch)
 
     bz = cfg.data.batch_size
     print(f"phase F: pretrain steps, {cfg.compute_dtype}, batch {bz}, full "
-          f"width: {DISTINCT} batches, then {REPEAT} more steps on the last "
-          "with the same mask")
+          f"width, attention route {cfg.sst.attention_impl}: {DISTINCT} "
+          f"batches, then {repeat} more steps on the last with the same mask")
     state = init_state(cfg, DEVICE, torch.Generator().manual_seed(SEED))
     step = make_train_step(cfg)
     names = [k for k, _ in state.model.named_parameters()]
     before = [p.detach().clone() for p in state.model.parameters()]
     batches = [synthetic_batch(cfg, bz, seed=SEED + 20 + i, device=DEVICE)
                for i in range(DISTINCT)]
-    n = DISTINCT + REPEAT
+    n = DISTINCT + repeat
     torch.cuda.reset_peak_memory_stats()
     fns = reset_counts()
     times, losses = [], []
@@ -949,7 +1075,7 @@ def phase_f(cfg, failures: list) -> dict:
         times.append(ms)
         print(f"  step {i}: {ms:.1f} ms, " + ", ".join(
             f"{k} {v:.4f}" for k, v in losses[-1].items()))
-    launches = check_launches(fns, per_pretrain_step(cfg), n,
+    launches = check_launches(fns, on_route(per_pretrain_step(cfg), cfg), n,
                               "pretrain steps", failures)
     if not all(len(l) == 7 and all(np.isfinite(v) for v in l.values())
                for l in losses):
@@ -1064,9 +1190,235 @@ def phase_g(cfg, failures: list) -> None:
                  and not e <= PRETRAIN_STEP_TOL["loss"]]
 
 
+def phase_routes(cfg, inputs, failures: list) -> None:
+    """One encoder layer, then one SST block (two layers), with the same
+    seeded weights on the ``qkv`` route (K6) and on the ``band`` route
+    (Linears, then K8), on the fine-tune batch's tokens: the two routes
+    compute one function."""
+    from geomae_tpu_torch.config import replace
+    from geomae_tpu_torch.models.detector import init_weights
+    from geomae_tpu_torch.models.sst import SSTStack
+
+    print("routes: one encoder layer and one SST block, attention route "
+          "band (K8) against qkv (K6), same weights")
+    _, shift = inputs
+    B, V = shift["layers"][0]["win_id"].shape
+    g = torch.Generator().manual_seed(SEED + 7)
+    stacks = {}
+    for route in ("qkv", "band"):
+        stack = SSTStack(replace(cfg.sst, attention_impl=route), 1,
+                         device=DEVICE)
+        if stacks:
+            stack.load_state_dict(stacks["qkv"].state_dict())
+        else:
+            init_weights(stack, g)
+            with torch.no_grad():
+                for name, p in stack.named_parameters():
+                    if name.endswith("in_proj_bias"):
+                        p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        stacks[route] = stack.eval()
+    x = torch.randn(B, V, cfg.sst.d_model, generator=g).to(DEVICE)
+    fns = reset_counts()
+    for dt, tol in ROUTE_TOL.items():
+        with torch.no_grad():
+            # the layer takes tokens in its own sorted order: x as it is
+            layer = {r: m[0].encoder_list[0](x.to(dt), shift["layers"][0])
+                     for r, m in stacks.items()}
+            block = {r: m(x.to(dt), shift) for r, m in stacks.items()}
+        torch.cuda.synchronize()
+        for what, got, f in (("encoder layer", layer, 1),
+                             ("SST block", block, BLOCK_FACTOR[dt])):
+            compare(f"{what} {str(dt)[6:]} {tuple(x.shape)}, max |x| "
+                    f"{float(got['qkv'].float().abs().max()):.3e}",
+                    got["band"], got["qkv"], f * tol[0], f * tol[1], failures)
+    n = 3 * len(ROUTE_TOL)
+    if (fns["band_attention_qkv"].launches,
+            fns["band_attention_fused"].launches) != (n, n):
+        failures.append("the two routes did not launch K6 and K8 "
+                        f"{n} times each")
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a train state by name: the model's ``state_dict``
+    and the optimizer's moments."""
+    out = dict(state.model.state_dict())
+    for key, ts in (("mu", state.tx.mu), ("nu", state.tx.nu)):
+        out.update({f"{key}.{i}": t for i, t in enumerate(ts)})
+    return out
+
+
+def phase_h(pcfg, cfg, failures: list) -> dict:
+    """The trainer entry point on the band route; returns the launches of
+    its four runs, summed."""
+    import os
+    import shutil
+    import tempfile
+
+    from geomae_tpu_torch.apis import inference_detector, init_model
+    from geomae_tpu_torch.config import apply_overrides
+    from geomae_tpu_torch.profile_serving import host_ms
+    from geomae_tpu_torch.synthetic import clustered_frame
+    from geomae_tpu_torch.train import finetune, pretrain
+    from geomae_tpu_torch.train.__main__ import main as train_main
+    from geomae_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                   load_weights)
+
+    bz = pcfg.data.batch_size
+    print(f"phase H: the trainer entry point, {pcfg.compute_dtype}, batch "
+          f"{bz}, full width, attention route band: pretrain to step 3, "
+          "restore, resume to 6, fine-tune 4 steps from the pretrain "
+          "checkpoint, serve 2 frames from the fine-tune checkpoint")
+    pcfg = apply_overrides(pcfg, [BAND_OPTION])
+    cfg = apply_overrides(cfg, [BAND_OPTION])
+    total: dict = {}
+    work = tempfile.mkdtemp(prefix="geomae_smoke_")
+    pre, ft = os.path.join(work, "pre"), os.path.join(work, "ft")
+    common = ["--synthetic", "--device", DEVICE, "--batch-size", str(bz),
+              "--seed", str(SEED), "--ckpt-interval", "1", "--log-interval", "1", "--cfg-options",
+              BAND_OPTION]
+
+    def run(what, argv, per, steps):
+        """One CLI run: its launches, finite logged losses, timings."""
+        torch.cuda.reset_peak_memory_stats()
+        fns = reset_counts()
+        trainer = train_main(argv)
+        torch.cuda.synchronize()
+        launches = check_launches(fns, on_route(per, cfg), steps,
+                                  f"{what} steps", failures)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        t = trainer.timings
+        print(f"  {what}: host ms per step, median: " + ", ".join(
+            f"{k} {float(np.median(v)):.1f}" for k, v in t.items())
+            + f" (first step {t['step'][0]:.1f}); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        with open(os.path.join(trainer.work_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        new = [r for r in rows if r["mode"] == "train"][-steps:]
+        if len(new) != steps or not all(
+                np.isfinite(v) for r in new for v in r.values()
+                if isinstance(v, float)):
+            failures.append(f"{what}: metrics.jsonl rows missing or not "
+                            f"finite ({len(new)} of {steps})")
+        if not os.path.getsize(os.path.join(trainer.work_dir, "train.log")):
+            failures.append(f"{what}: train.log is empty")
+        return trainer
+
+    def unmoved(state, fresh):
+        return [k for (k, a), b in zip(state.model.named_parameters(),
+                                       fresh.model.parameters())
+                if torch.equal(a.detach(), b.detach())]
+
+    try:
+        tr = run("pretrain", ["pretrain", "--work-dir", pre, "--total-steps",
+                              "3", *common], per_pretrain_step(pcfg), 3)
+        fresh = lambda: pretrain.init_state(
+            replace_total(pcfg, 3), DEVICE,
+            torch.Generator().manual_seed(SEED))
+        still = unmoved(tr.state, fresh())
+        if tr.state.step != 3 or still:
+            failures.append(f"pretrain: step {tr.state.step}, parameters "
+                            f"that did not move: {still[:5]}")
+        ckpt = os.path.join(pre, "ckpt")
+        if CheckpointManager(ckpt).all_steps() != [1, 2, 3]:
+            failures.append(f"checkpoints {os.listdir(ckpt)}")
+        restored = CheckpointManager(ckpt).restore(fresh())
+        saved, back = state_tensors(tr.state), state_tensors(restored)
+        differ = [k for k in saved if not torch.equal(saved[k], back[k])]
+        same = (restored.step, restored.tx.count) == (3, tr.state.tx.count)
+        print(f"  restored checkpoint 3 into a fresh state: "
+              f"{len(saved) - len(differ)} of {len(saved)} tensors bitwise "
+              f"equal, step and update count {'equal' if same else 'DIFFER'}")
+        if differ or not same or saved.keys() != back.keys():
+            failures.append(f"restored state differs: {differ[:5]}")
+
+        tr2 = run("resumed pretrain", ["pretrain", "--work-dir", pre,
+                                       "--total-steps", "6", *common],
+                  per_pretrain_step(pcfg), 3)
+        with open(os.path.join(pre, "train.log")) as f:
+            log = f.read()
+        if "resumed from step 3" not in log or tr2.state.step != 6:
+            failures.append("the second trainer did not resume from step 3 "
+                            f"to 6 (step {tr2.state.step})")
+        if CheckpointManager(ckpt).all_steps() != [4, 5, 6]:
+            failures.append(f"checkpoints kept {os.listdir(ckpt)}")
+
+        # a 4-step cyclic schedule peaks at 10 x lr within two steps, and
+        # AdamW moves every weight by about lr a step whatever its
+        # gradient: at the config's 1e-4 the detector, served in eval mode
+        # on BN statistics that four steps barely moved, gave non-finite
+        # boxes; 1e-6 keeps the served model sane and still moves every
+        # parameter
+        tr3 = run("fine-tune", ["finetune", "--work-dir", ft, "--total-steps",
+                                "4", "--load-from", ckpt, *common,
+                                "optim.lr=1e-6"], PER_STEP, 4)
+        with open(os.path.join(ft, "train.log")) as f:
+            log = f.read()
+        start = finetune.init_state(
+            apply_overrides(replace_total(cfg, 4), ["optim.lr=1e-6"]), DEVICE,
+            torch.Generator().manual_seed(SEED))
+        imported = finetune.load_pretrained(start.model,
+                                            load_weights(ckpt, DEVICE))
+        shared = [k for k, _ in start.model.named_parameters()
+                  if k.startswith(("voxel_encoder.",
+                                   "backbone.encoder_blocks."))]
+        said = f"imported {len(imported)}/" in log
+        print(f"  fine-tune imported {len(imported)} tensors (every VFE and "
+              f"encoder-block parameter: {len(shared)}), logged: {said}")
+        if sorted(imported) != sorted(shared) or not imported or not said:
+            failures.append("the fine-tune run did not import every VFE and "
+                            "encoder-block tensor of the pretrain checkpoint")
+        still = unmoved(tr3.state, start)
+        if tr3.state.step != 4 or still:
+            failures.append(f"fine-tune: step {tr3.state.step}, parameters "
+                            f"that did not move: {still[:5]}")
+
+        det = init_model(checkpoint=os.path.join(ft, "ckpt"), cfg=cfg,
+                         device=DEVICE)
+        want = tr3.state.model.state_dict()
+        differ = [k for k, v in det.model.state_dict().items()
+                  if not torch.equal(v, want[k])]
+        if differ:
+            failures.append(f"served weights differ from the fine-tune "
+                            f"state's: {differ[:5]}")
+        frames = [clustered_frame(np.random.default_rng(SEED + 70 + f),
+                                  cfg.voxel, cfg.caps.max_points)
+                  for f in range(2)]
+        fns = reset_counts()
+        for f, raw in enumerate(frames):
+            res, ms = host_ms(lambda: inference_detector(det, raw))
+            n = len(res["scores"])
+            print(f"  frame {f}: {len(raw)} points -> {n} detections in "
+                  f"{ms:.1f} ms")
+            ok = (n > 0 and res["boxes"].shape == (n, 9)
+                  and np.isfinite(res["boxes"]).all()
+                  and ((res["scores"] > 0) & (res["scores"] <= 1)).all()
+                  and ((res["labels"] >= 0)
+                       & (res["labels"] < cfg.head.num_classes)).all())
+            if not ok:
+                failures.append(
+                    f"served frame {f} malformed: {n} boxes, "
+                    f"{int((~np.isfinite(res['boxes'])).sum())} non-finite "
+                    f"box values, scores in [{res['scores'].min()}, "
+                    f"{res['scores'].max()}]")
+        served = check_launches(fns, on_route(PER_FRAME, cfg), 2, "frames",
+                                failures)
+        for k, v in served.items():
+            total[k] += v
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+def replace_total(cfg, total_steps: int):
+    """``cfg`` with the schedule length the CLI sets from --total-steps."""
+    from geomae_tpu_torch.config import replace
+    return replace(cfg, optim=replace(cfg.optim, total_steps=total_steps))
+
+
 def main() -> None:
     from geomae_tpu_torch.apis import geomae_finetune_nus
-    from geomae_tpu_torch.config import geomae_pretrain_nus
+    from geomae_tpu_torch.config import apply_overrides, geomae_pretrain_nus
 
     startup()
     cfg = geomae_finetune_nus()
@@ -1078,18 +1430,22 @@ def main() -> None:
             failures)
     if failures:
         raise Failed(f"phase A: {failures}")
-    launches = phase_b(cfg, failures)
+    runs = [phase_b(cfg, failures)]
+    runs.append(phase_b(apply_overrides(cfg, [BAND_OPTION]), failures))
     if failures:
         raise Failed(f"phase B: {failures}")
     phase_c(cfg, failures)
     if failures:
         raise Failed(f"phase C: {failures}")
-    phase_a(cfg, "fine-tune step", kernel_inputs(cfg, cfg.data.batch_size,
-                                                 dev), TRAIN, results,
-            failures)
+    inputs = kernel_inputs(cfg, cfg.data.batch_size, dev)
+    phase_a(cfg, "fine-tune step", inputs, TRAIN, results, failures)
+    phase_routes(cfg, inputs, failures)
+    del inputs
     if failures:
         raise Failed(f"phase A (fine-tune step shapes): {failures}")
-    train_launches = phase_d(cfg, failures)
+    runs.append(phase_d(cfg, failures))
+    runs.append(phase_d(apply_overrides(cfg, [BAND_OPTION]), failures,
+                        BAND_REPEAT))
     if failures:
         raise Failed(f"phase D: {failures}")
     phase_e(cfg, failures)
@@ -1099,12 +1455,17 @@ def main() -> None:
             results, failures)
     if failures:
         raise Failed(f"phase A (pretrain step shapes): {failures}")
-    pretrain_launches = phase_f(pcfg, failures)
+    runs.append(phase_f(pcfg, failures))
+    runs.append(phase_f(apply_overrides(pcfg, [BAND_OPTION]), failures,
+                        BAND_REPEAT))
     if failures:
         raise Failed(f"phase F: {failures}")
     phase_g(pcfg, failures)
     if failures:
         raise Failed(f"phase G: {len(failures)} failures, {failures[:5]}")
+    runs.append(phase_h(pcfg, cfg, failures))
+    if failures:
+        raise Failed(f"phase H: {failures}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rows = results[name]
@@ -1112,8 +1473,7 @@ def main() -> None:
         libs = [r[5] for r in rows if r[5] is not None]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name] + train_launches[name]
-            + pretrain_launches[name],
+            launches=sum(r[name] for r in runs),
             max_abs_err=max(r[0] for r in rows),
             ms=sum(r[1] for r in rows),
             plain_ms=sum(r[2] for r in rows),

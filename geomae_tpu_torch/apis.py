@@ -22,13 +22,15 @@ from .data.transforms import pad_points, points_range_filter
 from .models.anchor_head import Detections, predict
 from .models.anchors import grid_anchors, head_featmap_size
 from .models.detector import DynamicVoxelNet, extract_scene, init_weights
+from .train.checkpoint import load_weights
 
 
 class Detector3D:
     """Builds the model on ``device``, fills it from ``checkpoint`` (a
     file holding a reference-style ``state_dict``, optionally under a
-    ``"state_dict"`` key) or else from ``generator`` (default: seeded with
-    ``cfg.seed``), and predicts."""
+    ``"state_dict"`` key, or a trainer checkpoint: its ``ckpt/`` directory
+    or one step's file; ``train/checkpoint.load_weights``) or else from
+    ``generator`` (default: seeded with ``cfg.seed``), and predicts."""
 
     def __init__(self, cfg: Optional[C.FinetuneConfig] = None,
                  checkpoint: Optional[str] = None,
@@ -43,10 +45,8 @@ class Detector3D:
                 generator = torch.Generator().manual_seed(self.cfg.seed)
             init_weights(self.model, generator)
         else:
-            obj = torch.load(checkpoint, map_location=self.device,
-                             weights_only=True)
-            self.model.load_state_dict(obj.get("state_dict", obj),
-                                       strict=True)
+            self.model.load_state_dict(
+                load_weights(checkpoint, self.device), strict=True)
         self.model.eval()
         self.anchors = torch.from_numpy(grid_anchors(
             self.cfg.head, head_featmap_size(self.cfg))).to(self.device)

@@ -170,11 +170,14 @@ class SSTConfig:
     pos_temperature: float = 10000.0
     normalize_pos: bool = False
     activation: str = "gelu"
-    # the JAX package's attention route; the port always runs the window
-    # attention with in-kernel q/k/v projections (K6, ops/attention_qkv.py)
+    # the attention route (models/sst.py): "auto" and "qkv" run the window
+    # attention with in-kernel q/k/v projections (K6, ops/attention_qkv.py);
+    # "band" and "pallas" project q, k, v with plain Linears and run K8
+    # (ops/attention.py); "einsum" the same projections and the plain
+    # band_attention
     attention_impl: str = "auto"      # "auto"|"qkv"|"band"|"pallas"|"einsum"
-    # the JAX package's post-attention route; the port always runs the
-    # fused out-proj + LN1 + FFN + LN2 block (K5, ops/ffn.py)
+    # the post-attention route: "auto" and "fused" run the fused out-proj +
+    # LN1 + FFN + LN2 block (K5, ops/ffn.py); "xla" the unfused chain
     ffn_impl: str = "auto"            # "auto"|"fused"|"xla"
     # token layout for windowed attention: "band" sorts tokens by window
     # (the port's only layout); "tilepack" is a JAX-package layout that

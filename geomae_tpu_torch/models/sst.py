@@ -1,10 +1,16 @@
 """SST encoder over window-sorted tokens (ungrouped).
 
 Port of ``geomae_tpu/models/sst.py`` (``prepare_shift_data``,
-``WindowMHA``, ``EncoderLayer``, ``BasicShiftBlock``, ``SSTStack``).  Each
-encoder layer is two kernels: K6 (``ops/attention_qkv.py``: q/k/v
-projections and window attention) and K5 (``ops/ffn.py``: out-projection,
-residual, LN1, GELU FFN, residual, LN2).  Tokens stay in window-sorted
+``WindowMHA``, ``EncoderLayer``, ``BasicShiftBlock``, ``SSTStack``).  By
+default each encoder layer is two kernels: K6 (``ops/attention_qkv.py``:
+q/k/v projections and window attention) and K5 (``ops/ffn.py``:
+out-projection, residual, LN1, GELU FFN, residual, LN2).
+``cfg.attention_impl`` and ``cfg.ffn_impl`` pick the other routes of the
+JAX package (``ATTENTION_ROUTES``, ``FFN_ROUTES``): q/k/v projected by
+``F.linear`` and then K8 (``ops/attention.py``) or the plain
+``band_attention``; the post-attention chain unfused in plain torch.  The
+parameter names are the same on every route, so one ``state_dict`` serves
+them all.  Tokens stay in window-sorted
 order between layers: the stack permutes row-order tokens in once, each
 layer applies one composed permutation from the previous layer's order,
 and the stack permutes back at the end.
@@ -22,9 +28,11 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..config import SSTConfig
 
+from ..ops.attention import band_attention, band_attention_fused
 from ..ops.attention_qkv import band_attention_qkv
 from ..ops.ffn import post_attention_block
 from ..ops.windows import INT32_MAX, WindowLayout, positional_embedding
@@ -68,37 +76,79 @@ def prepare_shift_data(layouts: Sequence[WindowLayout],
     return dict(layers=layers, entry=entry, cross=cross)
 
 
-class WindowMHA(nn.Module):
-    """Window attention (K6); returns the output before the
-    out-projection, which K5 applies."""
+# cfg.attention_impl -> route, as geomae_tpu/models/sst.py:_select_attention
+# resolves it on the TPU: "qkv" is K6 (projections inside the kernel),
+# "band" K8 over projected q, k, v, "einsum" the plain band_attention
+ATTENTION_ROUTES = {"auto": "qkv", "qkv": "qkv", "band": "band",
+                    "pallas": "band", "einsum": "einsum"}
+# cfg.ffn_impl -> K5 ("fused") or the unfused chain ("xla")
+FFN_ROUTES = {"auto": "fused", "fused": "fused", "xla": "xla"}
 
-    def __init__(self, d_model: int, nhead: int, device=None):
+
+def _route(table: dict, field: str, value: str) -> str:
+    if value not in table:
+        raise ValueError(f"sst.{field}={value!r}: expected one of "
+                         f"{sorted(table)}")
+    return table[value]
+
+
+def _dense(t: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor) -> torch.Tensor:
+    """A Linear outside the kernels, at their dtype points (and flax
+    ``Dense``'s): the parameters cast to t's dtype, the product rounded to
+    it, then the bias added in it.  ``weight`` is [out, in]."""
+    return F.linear(t, weight.to(t.dtype)) + bias.to(t.dtype)
+
+
+class WindowMHA(nn.Module):
+    """Window attention on the route ``attention_impl`` names; returns the
+    output before the out-projection, which the encoder layer applies."""
+
+    def __init__(self, d_model: int, nhead: int, device=None,
+                 attention_impl: str = "auto"):
         super().__init__()
         self.nhead = nhead
+        self.route = _route(ATTENTION_ROUTES, "attention_impl",
+                            attention_impl)
         self.self_attn = nn.MultiheadAttention(d_model, nhead, dropout=0.0,
                                                device=device)
 
     def forward(self, x_s: torch.Tensor, layer: dict) -> torch.Tensor:
-        C = x_s.shape[-1]
+        B, V, C = x_s.shape
         w = self.self_attn.in_proj_weight        # [3C, C] (out x in)
         b = self.self_attn.in_proj_bias
         q, k, v = (slice(0, C), slice(C, 2 * C), slice(2 * C, 3 * C))
-        return band_attention_qkv(
-            x_s, layer["pos_sorted"], w[q].t(), b[q], w[k].t(), b[k],
-            w[v].t(), b[v], layer["win_id"], layer["key_valid_sorted"],
-            self.nhead)
+        win_id, key_valid = layer["win_id"], layer["key_valid_sorted"]
+        if self.route == "qkv":
+            return band_attention_qkv(
+                x_s, layer["pos_sorted"], w[q].t(), b[q], w[k].t(), b[k],
+                w[v].t(), b[v], win_id, key_valid, self.nhead)
+        # q and k see x + pos, v sees x; three products, each output
+        # contiguous as the kernel takes it
+        qk_in = x_s + layer["pos_sorted"].to(x_s.dtype)
+        shape = (B, V, self.nhead, C // self.nhead)
+        qh, kh, vh = (_dense(t, w[rows], b[rows]).reshape(shape)
+                      for t, rows in ((qk_in, q), (qk_in, k), (x_s, v)))
+        attend = band_attention_fused if self.route == "band" \
+            else band_attention
+        return attend(qh, kh, vh, win_id, key_valid).reshape(B, V, C)
 
 
 class EncoderLayer(nn.Module):
     """Attention + FFN with post-norm residuals, on tokens in this layer's
-    window-sorted order."""
+    window-sorted order.  The fused block (K5) is GELU only; another
+    activation takes the unfused chain, as in the JAX package."""
 
     def __init__(self, cfg: SSTConfig, device=None):
         super().__init__()
-        if cfg.activation != "gelu":
-            raise NotImplementedError("the fused block is GELU only")
+        if cfg.activation not in ("gelu", "relu"):
+            raise ValueError(f"sst.activation={cfg.activation!r}: expected "
+                             "'gelu' or 'relu'")
         C, Fd = cfg.d_model, cfg.dim_feedforward
-        self.win_attn = WindowMHA(C, cfg.nhead, device)
+        self.fused = _route(FFN_ROUTES, "ffn_impl", cfg.ffn_impl) == "fused" \
+            and cfg.activation == "gelu"
+        self.act = F.gelu if cfg.activation == "gelu" else F.relu
+        self.win_attn = WindowMHA(C, cfg.nhead, device, cfg.attention_impl)
         self.linear1 = nn.Linear(C, Fd, device=device)
         self.linear2 = nn.Linear(Fd, C, device=device)
         self.norm1 = FastLayerNorm(C, eps=1e-5, device=device)
@@ -107,11 +157,17 @@ class EncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, layer: dict) -> torch.Tensor:
         attn = self.win_attn(x, layer)
         out = self.win_attn.self_attn.out_proj
-        return post_attention_block(
-            x, attn, out.weight.t(), out.bias, self.norm1.weight,
-            self.norm1.bias, self.linear1.weight.t(), self.linear1.bias,
-            self.linear2.weight.t(), self.linear2.bias, self.norm2.weight,
-            self.norm2.bias, layer["extent"], self.norm1.eps)
+        if self.fused:
+            return post_attention_block(
+                x, attn, out.weight.t(), out.bias, self.norm1.weight,
+                self.norm1.bias, self.linear1.weight.t(), self.linear1.bias,
+                self.linear2.weight.t(), self.linear2.bias,
+                self.norm2.weight, self.norm2.bias, layer["extent"],
+                self.norm1.eps)
+        lin = lambda m, t: _dense(t, m.weight, m.bias)
+        x = self.norm1(x + lin(out, attn))
+        return self.norm2(x + lin(self.linear2, self.act(lin(self.linear1,
+                                                             x))))
 
 
 class BasicShiftBlock(nn.Module):

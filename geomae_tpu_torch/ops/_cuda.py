@@ -34,6 +34,8 @@ _SIGNATURES = {
     "geomae_segment_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     "geomae_band_attention_qkv": [_I] + [_P] * 12 + [_I, _I, _P],
     "geomae_band_attention_qkv_bwd": [_I] + [_P] * 19 + [_I] * 3 + [_P],
+    "geomae_band_attention": [_I] + [_P] * 7 + [_I, _I, _P],
+    "geomae_band_attention_bwd": [_I] + [_P] * 11 + [_I, _I, _P],
     "geomae_post_attention_block": [_I] + [_P] * 14 + [_I, _I, _F, _P],
     "geomae_post_attention_block_bwd": [_I] + [_P] * 21
     + [_I, _I, _F, _I, _P],
@@ -73,12 +75,14 @@ def library_path() -> Path:
 
 
 def build(out: Path) -> None:
-    """Compile every ``csrc/*.cu`` into ``out``; ptxas's resource report
-    (registers, shared memory, spills) goes to ``out`` + ``.log``."""
+    """Compile every ``csrc/*.cu`` into ``out``, the sources in parallel
+    (``--threads 0``: one compilation per source, as many at once as the
+    host has cores); ptxas's resource report (registers, shared memory,
+    spills) goes to ``out`` + ``.log``."""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+           "--threads", "0", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
            *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
     res = subprocess.run(cmd, capture_output=True, text=True)
     Path(f"{out}.log").write_text(" ".join(cmd) + "\n" + res.stdout

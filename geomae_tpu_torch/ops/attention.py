@@ -1,29 +1,50 @@
-"""Windowed attention over window-sorted tokens (plain PyTorch).
+"""Windowed attention over window-sorted, already projected q, k, v: the
+plain PyTorch versions and the CUDA wrappers of K8, forward and backward.
 
-Port of ``geomae_tpu/ops/attention.py:band_attention``.  Tokens are
-sorted by window id (``ops/windows.py``), so each window is a contiguous
-run and attention is exact per window.  The JAX function reaches the
-keys through a fixed band of neighbouring tiles; here each chunk of
+``band_attention`` is the port of ``geomae_tpu/ops/attention.py:
+band_attention`` (the JAX einsum route) and the plain version of K8's
+forward; ``band_attention_fused`` replaces ``geomae_tpu/ops/
+pallas_attention.py:band_attention_pallas`` and its backward
+``_pallas_backward`` (the kernels are ``csrc/band_attention.cu``).  Tokens
+are sorted by window id (``ops/windows.py``), so each window is a
+contiguous run and attention is exact per window.  The JAX functions reach
+the keys through a fixed band of neighbouring tiles; here each chunk of
 queries takes the exact key range that covers its windows (two sorted
 searches), which holds windows of any size.
 
-Dtype points follow the TPU kernel this is the plain version of
-(``pallas_attention_qkv._fwd_kernel``): scores and the softmax sum in
-f32, the probabilities cast to v's dtype for the value product, f32
-accumulation.  Padding rows (``win_id == INT32_MAX``) and rows with no
-visible key return 0.
+Dtype points follow the TPU kernel (``pallas_attention._fwd_body``,
+``_dq_body``, ``_dkv_body``): scores and the softmax sum in f32, the
+1/sqrt(D) scale on the f32 score, the probabilities cast to v's dtype for
+the value product, f32 accumulation; in the backward D = rowsum(dO * out)
+in f32, ds and p cast to the compute dtype before their products, dq and
+dk scaled after the f32 sum.  Padding rows (``win_id == INT32_MAX``) and
+rows with no visible key return 0 and get zero gradients.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.  The kernels take C = 128 in 8 heads of 16 (the shipped SST
+width) in float32 or bfloat16; the plain versions take any H and D.
+Under grad ``band_attention_fused`` is an ``autograd.Function``: the
+forward kernel also writes each (row, head)'s log-sum-exp of the scaled
+scores ([B, V, H] f32, where the TPU kernel keeps the running max m and
+the sum l apart; lse = m + log l), and the backward kernel returns dq, dk
+and dv, each key's dk and dv rounded once (the TPU rounds per query tile).
 """
 from __future__ import annotations
 
 import torch
 
+from . import _cuda
+
 INT32_MAX = 2 ** 31 - 1
+KERNEL_HEADS = 8
+KERNEL_HEAD_DIM = 16
+PLAIN_Q_CHUNK = 1024      # queries per score block of the plain versions
 
 
 def band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    win_id: torch.Tensor, key_valid: torch.Tensor | None = None,
                    scale: float | None = None,
-                   q_chunk: int = 1024) -> torch.Tensor:
+                   q_chunk: int = PLAIN_Q_CHUNK) -> torch.Tensor:
     """q, k, v: [B, V, H, D] in window-sorted order; win_id int32 [B, V]
     ascending per row with INT32_MAX padding last; key_valid bool [B, V].
     ``scale`` defaults to 1/sqrt(D).  Returns [B, V, H, D] in v's dtype."""
@@ -54,3 +75,175 @@ def band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out[b, q0:q1] = torch.where(nonempty[:, None, None], o,
                                         0.0).to(v.dtype)
     return out
+
+
+def plain_blocks(q, k, win_id, key_valid, scale: float):
+    """Over each sample's real queries in chunks of PLAIN_Q_CHUNK, for f32
+    q, k [B, V, H, D]: (b, q0, q1, ks, ke, lse, p): the chunk's exact key
+    range [ks, ke), per (head, query) the log-sum-exp of the masked scores
+    ``scale`` x q k^T [H, q, 1] (-inf without a valid key) and the softmax
+    [H, q, k] (0 where masked)."""
+    n_real = (win_id != INT32_MAX).sum(1).tolist()
+    for b in range(q.shape[0]):
+        w, kv = win_id[b], key_valid[b]
+        for q0 in range(0, n_real[b], PLAIN_Q_CHUNK):
+            q1 = min(q0 + PLAIN_Q_CHUNK, n_real[b])
+            ks = int(torch.searchsorted(w, w[q0:q0 + 1]))
+            ke = int(torch.searchsorted(w, w[q1 - 1:q1], right=True))
+            s = torch.einsum("qhd,khd->hqk", q[b, q0:q1],
+                             k[b, ks:ke]) * scale
+            mask = ((w[q0:q1, None] == w[None, ks:ke])
+                    & kv[None, ks:ke])[None]
+            s = s.masked_fill(~mask, float("-inf"))
+            lse = torch.logsumexp(s, -1, keepdim=True)
+            p = torch.where(mask, torch.exp(s - torch.where(
+                torch.isfinite(lse), lse, 0.0)), 0.0)
+            yield b, q0, q1, ks, ke, lse, p
+
+
+def plain_lse(q, k, win_id, key_valid, scale: float) -> torch.Tensor:
+    """Per (row, head) the log-sum-exp of the masked scores ``scale`` x
+    q k^T of f32 q, k [B, V, H, D]: [B, V, H] f32, 0 for a padding row or
+    a row with no valid key."""
+    out = torch.zeros(q.shape[:3], device=q.device)
+    for b, q0, q1, _, _, lse, _ in plain_blocks(q, k, win_id, key_valid,
+                                                scale):
+        out[b, q0:q1] = torch.where(torch.isfinite(lse), lse, 0.0)[..., 0].t()
+    return out
+
+
+def band_attention_lse_plain(q, k, win_id, key_valid) -> torch.Tensor:
+    """The forward kernel's statistics under grad: lse [B, V, H] f32."""
+    return plain_lse(q.float(), k.float(), win_id, key_valid,
+                     q.shape[-1] ** -0.5)
+
+
+def band_attention_backward_plain(q, k, v, win_id, key_valid, out, g):
+    """The backward kernel's function, written from its formulas: (dq, dk,
+    dv) [B, V, H, D] in the inputs' dtype for the cotangent ``g`` of the
+    forward's ``out``.  With p the per-window softmax (recomputed exactly)
+    and D = rowsum(g * out) per (row, head) in f32:
+    dv = p^T g, ds = p (g v^T - D), dq = scale ds k, dk = scale ds^T q;
+    p and ds are rounded to the inputs' dtype before their products, dq,
+    dk and dv once at the end."""
+    dt = q.dtype
+    rt = lambda t: t.to(dt).float()
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    dvo = (gf * out.float()).sum(-1)                         # [B, V, H]
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for b, q0, q1, ks, ke, _, p in plain_blocks(qf, kf, win_id, key_valid,
+                                                scale):
+        gb = gf[b, q0:q1]
+        dp = torch.einsum("qhd,khd->hqk", gb, vf[b, ks:ke])
+        ds = rt(p * (dp - dvo[b, q0:q1].t()[..., None]))
+        dq[b, q0:q1] += torch.einsum("hqk,khd->qhd", ds, kf[b, ks:ke])
+        dk[b, ks:ke] += torch.einsum("hqk,qhd->khd", ds, qf[b, q0:q1])
+        dv[b, ks:ke] += torch.einsum("hqk,qhd->khd", rt(p), gb)
+    return (dq * scale).to(dt), (dk * scale).to(dt), dv.to(dt)
+
+
+def _check(name, q, k, v, win_id, key_valid, *more):
+    """What the kernels take; returns (B, V)."""
+    _cuda.require(q.device.type == "cuda",
+                  f"{name}: no kernel for device {q.device}")
+    _cuda.require(q.dim() == 4 and q.shape[2:] == (KERNEL_HEADS,
+                                                   KERNEL_HEAD_DIM)
+                  and q.dtype in _cuda.DTYPE_CODE,
+                  f"{name}: the kernel takes [B, V, {KERNEL_HEADS}, "
+                  f"{KERNEL_HEAD_DIM}] float32 or bfloat16, got {q.dtype} "
+                  f"{tuple(q.shape)}")
+    for t in (k, v, *more):
+        _cuda.require(t.shape == q.shape and t.dtype == q.dtype,
+                      f"{name}: q, k, v and the cotangents must share "
+                      f"{q.dtype} {tuple(q.shape)}, got {t.dtype} "
+                      f"{tuple(t.shape)}")
+    B, V = q.shape[:2]
+    _cuda.require(win_id.dtype == torch.int32 and win_id.shape == (B, V),
+                  f"{name}: win_id must be int32 {(B, V)}")
+    _cuda.require(key_valid.dtype == torch.bool
+                  and key_valid.shape == (B, V),
+                  f"{name}: key_valid must be bool {(B, V)}")
+    _cuda.require_cuda(name, q, k, v, win_id, key_valid, *more)
+    for t in (q, k, v, *more):
+        _cuda.require(t.data_ptr() % 16 == 0,
+                      f"{name}: tensors must be 16-byte aligned")
+    return B, V
+
+
+def _forward(q, k, v, win_id, key_valid, stats: bool):
+    """(out, lse): lse [B, V, H] f32 when ``stats`` on a CUDA tensor, else
+    None (the plain backward recomputes its softmax)."""
+    if q.device.type == "cpu":
+        return band_attention(q, k, v, win_id, key_valid), None
+    name = "band_attention_fused"
+    B, V = _check(name, q, k, v, win_id, key_valid)
+    out = torch.empty_like(v)
+    lse = (torch.empty((B, V, KERNEL_HEADS), dtype=torch.float32,
+                       device=q.device) if stats else None)
+    code = _cuda.library().geomae_band_attention(
+        _cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        win_id.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, V, _cuda.stream(q))
+    band_attention_fused.launches += 1
+    band_attention_fused.stats += lse is not None
+    _cuda.check(code, name)
+    return out, lse
+
+
+def band_attention_fused_backward(q, k, v, win_id, key_valid, out, lse, g):
+    """K8's backward: (dq, dk, dv) for the cotangent ``g`` of ``out``, in
+    the inputs' dtype.  ``lse`` is the forward kernel's statistics (unused
+    by the plain version)."""
+    if q.device.type == "cpu":
+        return band_attention_backward_plain(q, k, v, win_id, key_valid, out,
+                                             g)
+    name = "band_attention_fused_backward"
+    B, V = _check(name, q, k, v, win_id, key_valid, out, g)
+    _cuda.require(lse is not None and lse.dtype == torch.float32
+                  and lse.shape == (B, V, KERNEL_HEADS),
+                  f"{name}: lse must be the forward's f32 "
+                  f"{(B, V, KERNEL_HEADS)}")
+    _cuda.require_cuda(name, q, lse)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    code = _cuda.library().geomae_band_attention_bwd(
+        _cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        win_id.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, V, _cuda.stream(q))
+    band_attention_fused_backward.launches += 1
+    _cuda.check(code, name)
+    return dq, dk, dv
+
+
+band_attention_fused_backward.launches = 0
+
+
+class _BandAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, win_id, key_valid):
+        out, lse = _forward(q, k, v, win_id, key_valid, stats=True)
+        ctx.save_for_backward(q, k, v, win_id, key_valid, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, win_id, key_valid, out, lse = ctx.saved_tensors
+        dq, dk, dv = band_attention_fused_backward(
+            q, k, v, win_id, key_valid, out, lse, g.contiguous())
+        return dq, dk, dv, None, None
+
+
+def band_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         win_id: torch.Tensor,
+                         key_valid: torch.Tensor) -> torch.Tensor:
+    """K8.  q, k, v [B, V, H, D] contiguous, window-sorted; win_id int32
+    [B, V] (INT32_MAX padding last); key_valid bool [B, V].  Returns the
+    attention output [B, V, H, D] in v's dtype."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _BandAttention.apply(q, k, v, win_id, key_valid)
+    return _forward(q, k, v, win_id, key_valid, stats=False)[0]
+
+
+band_attention_fused.launches = 0
+band_attention_fused.stats = 0      # launches that wrote the statistics

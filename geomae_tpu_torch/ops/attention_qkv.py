@@ -32,13 +32,12 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .attention import INT32_MAX, band_attention
+from .attention import band_attention, plain_blocks, plain_lse
 from .ffn import dense
 
 KERNEL_C = 128
 KERNEL_HEADS = 8
 BWD_BLOCKS_PER_SM = 2     # the backward kernel's 98 KB of shared memory
-PLAIN_Q_CHUNK = 1024      # queries per score block of the plain backward
 
 
 def _scale_pow2(head_dim: int) -> bool:
@@ -83,29 +82,6 @@ def _plain_qkv(x, pos, wq, bq, wk, bk, wv, bv, nheads: int):
             fold)
 
 
-def _plain_blocks(q, k, win_id, key_valid, s_scale: float):
-    """Over each sample's real queries in chunks of PLAIN_Q_CHUNK:
-    (b, q0, q1, ks, ke, lse, p): the chunk's exact key range [ks, ke), per
-    (head, query) the log-sum-exp of the masked scores [H, q, 1] (-inf
-    without a valid key) and the softmax [H, q, k] (0 where masked)."""
-    n_real = (win_id != INT32_MAX).sum(1).tolist()
-    for b in range(q.shape[0]):
-        w, kv = win_id[b], key_valid[b]
-        for q0 in range(0, n_real[b], PLAIN_Q_CHUNK):
-            q1 = min(q0 + PLAIN_Q_CHUNK, n_real[b])
-            ks = int(torch.searchsorted(w, w[q0:q0 + 1]))
-            ke = int(torch.searchsorted(w, w[q1 - 1:q1], right=True))
-            s = torch.einsum("qhd,khd->hqk", q[b, q0:q1],
-                             k[b, ks:ke]) * s_scale
-            mask = ((w[q0:q1, None] == w[None, ks:ke])
-                    & kv[None, ks:ke])[None]
-            s = s.masked_fill(~mask, float("-inf"))
-            lse = torch.logsumexp(s, -1, keepdim=True)
-            p = torch.where(mask, torch.exp(s - torch.where(
-                torch.isfinite(lse), lse, 0.0)), 0.0)
-            yield b, q0, q1, ks, ke, lse, p
-
-
 def band_attention_qkv_lse_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id,
                                  key_valid, nheads: int) -> torch.Tensor:
     """The forward kernel's statistics under grad: per (row, head) the
@@ -113,11 +89,7 @@ def band_attention_qkv_lse_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id,
     padding row or a row with no valid key."""
     _, q, k, _, scale, fold = _plain_qkv(x, pos, wq, bq, wk, bk, wv, bv,
                                          nheads)
-    out = torch.zeros(q.shape[:3], device=x.device)
-    for b, q0, q1, _, _, lse, _ in _plain_blocks(
-            q, k, win_id, key_valid, 1.0 if fold else scale):
-        out[b, q0:q1] = torch.where(torch.isfinite(lse), lse, 0.0)[..., 0].t()
-    return out
+    return plain_lse(q, k, win_id, key_valid, 1.0 if fold else scale)
 
 
 def band_attention_qkv_backward_plain(x, pos, wq, bq, wk, bk, wv, bv,
@@ -138,7 +110,7 @@ def band_attention_qkv_backward_plain(x, pos, wq, bq, wk, bk, wv, bv,
     gh = g.float().reshape(shape)
     dvo = (gh * out.float().reshape(shape)).sum(-1)          # [B, V, H]
     dq, dk, dv = (torch.zeros(shape, device=x.device) for _ in range(3))
-    for b, q0, q1, ks, ke, _, p in _plain_blocks(
+    for b, q0, q1, ks, ke, _, p in plain_blocks(
             q, k, win_id, key_valid, 1.0 if fold else scale):
         qb, kb, vb, gb = q[b, q0:q1], k[b, ks:ke], v[b, ks:ke], gh[b, q0:q1]
         dp = torch.einsum("qhd,khd->hqk", gb, vb)

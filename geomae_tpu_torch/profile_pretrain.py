@@ -2,6 +2,7 @@
 
     python -m geomae_tpu_torch.profile_pretrain
         [--trace build/pretrain_trace.json]
+        [--cfg-options sst.attention_impl=band]
 
 Trains ``geomae_pretrain_nus()`` at full width in bf16, batch 4
 (``cfg.data.batch_size``, the batch ``bench.py`` times on the TPU), from
@@ -42,7 +43,7 @@ PRETRAIN_KERNELS = KERNEL_NAMES + ("slot_outer_kernel", "expand_rows_kernel")
 
 
 def main() -> None:
-    from .config import geomae_pretrain_nus
+    from .config import apply_overrides, geomae_pretrain_nus
     from .models.mae import pretrain_loss
     from .train.pretrain import (init_state, make_train_step,
                                  synthetic_batch, targets_and_mask)
@@ -51,6 +52,9 @@ def main() -> None:
     ap.add_argument("--trace", type=Path,
                     default=Path("build/pretrain_trace.json"),
                     help="where the chrome trace of the profiled step goes")
+    ap.add_argument("--cfg-options", nargs="+", default=None,
+                    metavar="KEY=VAL",
+                    help="config overrides, e.g. sst.attention_impl=band")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_pretrain: no CUDA GPU")
@@ -61,7 +65,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    cfg = geomae_pretrain_nus()
+    cfg = apply_overrides(geomae_pretrain_nus(), args.cfg_options)
     bz = cfg.data.batch_size
     state = init_state(cfg, "cuda", torch.Generator().manual_seed(SEED))
     step = make_train_step(cfg)

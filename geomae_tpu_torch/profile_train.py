@@ -1,6 +1,7 @@
 """Where the time of a fine-tune train step goes, on one CUDA GPU.
 
     python -m geomae_tpu_torch.profile_train
+        [--cfg-options sst.attention_impl=band]
         [--trace build/train_trace.json]
 
 Trains ``geomae_finetune_nus()`` at full width in bf16, batch 4
@@ -39,17 +40,22 @@ STEPS = 8
 KERNEL_NAMES = ("segment_reduce_kernel", "segment_broadcast_kernel",
                 "segment_gather_kernel", "band_attention_qkv_kernel",
                 "band_attention_qkv_bwd_kernel", "post_attention_kernel",
-                "post_attention_bwd_kernel", "sum_partials_kernel")
+                "post_attention_bwd_kernel", "sum_partials_kernel",
+                "band_attention_kernel", "band_attention_bwd_kernel")
 
 
 def main() -> None:
     from .apis import geomae_finetune_nus
+    from .config import apply_overrides
     from .train.finetune import init_state, make_train_step, synthetic_batch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", type=Path,
                     default=Path("build/train_trace.json"),
                     help="where the chrome trace of the profiled step goes")
+    ap.add_argument("--cfg-options", nargs="+", default=None,
+                    metavar="KEY=VAL",
+                    help="config overrides, e.g. sst.attention_impl=band")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA GPU")
@@ -60,7 +66,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    cfg = geomae_finetune_nus()
+    cfg = apply_overrides(geomae_finetune_nus(), args.cfg_options)
     bz = cfg.data.batch_size
     state = init_state(cfg, "cuda", torch.Generator().manual_seed(SEED))
     step = make_train_step(cfg)

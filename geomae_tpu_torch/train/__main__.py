@@ -1,0 +1,147 @@
+"""Train CLI of the port: the counterpart of ``tools/train.py``.
+
+    # GeoMAE pretrain on generated scenes, tiny model, on the CPU
+    python -m geomae_tpu_torch.train pretrain --synthetic --tiny \\
+        --device cpu --total-steps 3 --batch-size 2 --work-dir /tmp/pre
+    # run it again with --total-steps 5: the log says "resumed from step 3"
+
+    # detection fine-tune from that pretrain checkpoint
+    python -m geomae_tpu_torch.train finetune --synthetic --tiny \\
+        --device cpu --total-steps 2 --batch-size 2 \\
+        --load-from /tmp/pre/ckpt --work-dir /tmp/ft
+
+    # full width on a CUDA GPU, the K8 attention route
+    python -m geomae_tpu_torch.train pretrain --synthetic \\
+        --cfg-options sst.attention_impl=band --total-steps 20
+
+Runs on ``--device cuda`` unless told otherwise.  The nuScenes and Waymo
+datasets, the Waymo preset and the CenterHead preset are not ported yet
+and raise ``NotImplementedError`` (``ROADMAP.md`` has the queue).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import config as C
+from ..data.loader import PrefetchLoader
+from ..data.synthetic import SyntheticDet, SyntheticSSL
+from ..utils.logging import get_root_logger
+from .trainer import Trainer
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(prog="python -m geomae_tpu_torch.train",
+                                description="geomae_tpu_torch trainer")
+    p.add_argument("task", choices=["pretrain", "finetune"])
+    p.add_argument("--preset", default="nus",
+                   choices=["nus", "waymo", "nus_centerhead"],
+                   help="config family (dataset geometry + model variant)")
+    p.add_argument("--work-dir", default="work_dirs/run")
+    p.add_argument("--data-root", default=None,
+                   help="a dataset on disk (not ported yet: raises)")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="batch (default: the config's, 4)")
+    p.add_argument("--total-steps", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--load-from", default=None,
+                   help="weights-only init (fine-tune from a pretrain "
+                        "checkpoint: a weights file, a ckpt/ directory or "
+                        "one step's file)")
+    p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on generated scenes (smoke tests)")
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny model config (CPU-friendly)")
+    p.add_argument("--num-workers", type=int, default=4)
+    p.add_argument("--log-interval", type=int, default=50,
+                   help="log the losses every N steps")
+    p.add_argument("--ckpt-interval", type=int, default=1000,
+                   help="checkpoint every N steps (and at the end)")
+    p.add_argument("--eval-interval", type=int, default=0,
+                   help="run the eval hook every N steps (0 = off)")
+    p.add_argument("--eval-frames", type=int, default=8,
+                   help="frames per eval-hook pass")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the model and the steps")
+    p.add_argument("--cfg-options", nargs="+", default=None,
+                   metavar="KEY=VAL",
+                   help="dotted-path config overrides, e.g. "
+                        "optim.lr=3e-5 sst.attention_impl=band "
+                        "voxel.voxel_size=0.2,0.2,8")
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Trainer:
+    """Parse ``argv`` (default: the command line), train, and return the
+    finished ``Trainer``."""
+    args = parse_args(argv)
+    if args.preset != "nus":
+        raise NotImplementedError(
+            f"--preset {args.preset}: the Waymo dataset and the CenterHead "
+            "are not ported yet (ROADMAP.md, section 1)")
+    if not args.synthetic:
+        raise NotImplementedError(
+            "the nuScenes and Waymo datasets are not ported yet "
+            "(ROADMAP.md, section 1): pass --synthetic")
+    # the run's log from the start, so that the weight import lands in it
+    get_root_logger(os.path.join(args.work_dir, "train.log"))
+    pretrain = args.task == "pretrain"
+    if pretrain:
+        cfg = C.tiny_pretrain_config() if args.tiny \
+            else C.geomae_pretrain_nus()
+    else:
+        cfg = C.tiny_finetune_config() if args.tiny \
+            else C.geomae_finetune_nus()
+    if args.cfg_options:
+        cfg = C.apply_overrides(cfg, args.cfg_options)
+
+    batch = args.batch_size or cfg.data.batch_size
+    ds = (SyntheticSSL if pretrain else SyntheticDet)(cfg)
+    steps_per_epoch = max(len(ds) // batch, 1)
+    if args.total_steps:
+        total = args.total_steps
+    else:
+        total = steps_per_epoch * (args.epochs or (72 if pretrain else 20))
+    cfg = C.replace(cfg, optim=C.replace(cfg.optim, total_steps=total))
+
+    loader = PrefetchLoader(ds, batch, num_workers=args.num_workers,
+                            seed=args.seed)
+    gen = torch.Generator().manual_seed(args.seed)
+    eval_fn = eval_loader = None
+    if pretrain:
+        from .pretrain import init_state, make_eval_hook, make_train_step
+        state = init_state(cfg, args.device, gen)
+        if args.eval_interval:
+            eval_fn = make_eval_hook(cfg)
+            n_eval = max(args.eval_frames // batch, 1)
+            eval_loader = [
+                {k: np.stack([ds.__getitem__((j * batch + i) % len(ds),
+                                             seed=10**6)[k]
+                              for i in range(batch)])
+                 for k in ("points", "point_valid")}
+                for j in range(n_eval)]
+    else:
+        from .checkpoint import load_weights
+        from .finetune import init_state, make_train_step
+        pre = load_weights(args.load_from, args.device) \
+            if args.load_from else None
+        state = init_state(cfg, args.device, gen, pretrain=pre)
+    trainer = Trainer(make_train_step(cfg), state, loader, args.work_dir,
+                      total, with_rng=pretrain, seed=args.seed,
+                      log_interval=args.log_interval,
+                      ckpt_interval=args.ckpt_interval,
+                      resume=not args.no_resume, eval_fn=eval_fn,
+                      eval_loader=eval_loader,
+                      eval_interval=args.eval_interval)
+    trainer.run()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

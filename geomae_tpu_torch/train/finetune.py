@@ -1,7 +1,9 @@
-"""Detection fine-tune step: init, train step, synthetic batches.
+"""Detection fine-tune: init (with the pretrain weight import), train
+step, predict function, synthetic batches.
 
 Port of ``geomae_tpu/train/finetune.py`` (``init_state``,
-``make_train_step``, ``dummy_batch``) for the anchor head.  One step is
+``load_pretrained``, ``make_train_step``, ``make_predict_fn``,
+``dummy_batch``) for the anchor head.  One step is
 ``loss_fn`` (voxelize, ``DynamicVoxelNet`` in training mode, ``head_loss``)
 -> backward -> clip + AdamW, the counterpart of ``value_and_grad`` ->
 ``apply_gradients``.  On a CUDA device the SST layers run K6/K7 and
@@ -11,8 +13,7 @@ JAX step's ``mutable=["batch_stats"]`` does.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,33 +21,55 @@ import torch
 from ..config import FinetuneConfig
 from ..data.transforms import pad_boxes, pad_points
 
-from ..models.anchor_head import head_loss
+from ..models.anchor_head import Detections, head_loss, predict
 from ..models.anchors import grid_anchors, head_featmap_size
 from ..models.detector import DynamicVoxelNet, extract_scene, init_weights
 from ..synthetic import clustered_scene
+from ..utils.logging import get_root_logger
 from .optim import AdamW
-
-
-@dataclass
-class TrainState:
-    """The model (parameters and BN statistics), the optimizer (moments
-    and its update count) and the step counter."""
-    step: int
-    model: DynamicVoxelNet
-    tx: AdamW
+from .state import TrainState
 
 
 def init_state(cfg: FinetuneConfig, device: torch.device | str = "cuda",
-               generator: Optional[torch.Generator] = None) -> TrainState:
+               generator: Optional[torch.Generator] = None,
+               pretrain: Optional[Mapping[str, torch.Tensor]] = None
+               ) -> TrainState:
     """A fresh model on ``device`` with weights from ``generator``
-    (default: seeded with ``cfg.seed``, see ``init_weights``), in training
-    mode, and its optimizer."""
+    (default: seeded with ``cfg.seed``, see ``init_weights``), then from
+    the GeoMAE ``state_dict`` ``pretrain`` where given
+    (``load_pretrained``), in training mode, and its optimizer."""
     model = DynamicVoxelNet(cfg, device="meta").to_empty(device=device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)
+    if pretrain is not None:
+        load_pretrained(model, pretrain)
     model.train()
     return TrainState(step=0, model=model, tx=AdamW(model, cfg.optim))
+
+
+@torch.no_grad()
+def load_pretrained(model: torch.nn.Module,
+                    pretrain: Mapping[str, torch.Tensor]) -> List[str]:
+    """Weights-only import of a pretrain checkpoint (``load_from``
+    semantics): the GeoMAE ``voxel_encoder`` and ``backbone.
+    encoder_blocks`` share their names with the detector, so every
+    parameter of ``model`` with a tensor of the same name and shape in
+    ``pretrain`` takes its values, in place; a tensor whose shape differs
+    is skipped.  Parameters only: the BN running statistics stay the
+    detector's own, as the JAX package imports its ``params`` tree alone.
+    At least one tensor must match.  Returns the imported names."""
+    params = dict(model.named_parameters())
+    names = [k for k, p in params.items()
+             if k in pretrain and pretrain[k].shape == p.shape]
+    if not names:
+        raise ValueError("no pretrained weights matched the detector")
+    for k in names:
+        params[k].copy_(pretrain[k])
+    get_root_logger().info(
+        "imported %d/%d pretrained tensors into the detector", len(names),
+        len(params))
+    return names
 
 
 def make_train_step(cfg: FinetuneConfig):
@@ -81,6 +104,27 @@ def make_train_step(cfg: FinetuneConfig):
 
     train_step.loss_fn = loss_fn
     return train_step
+
+
+def make_predict_fn(cfg: FinetuneConfig, wnms: bool = False):
+    """``predict_fn(state, batch) -> Detections``: the model in eval mode
+    (left in training mode afterwards), anchor head, greedy NMS."""
+    if wnms:
+        raise NotImplementedError(
+            "weighted NMS is not ported yet (ROADMAP.md, P14)")
+    anchors_np = grid_anchors(cfg.head, head_featmap_size(cfg))
+
+    @torch.no_grad()
+    def predict_fn(state: TrainState, batch) -> Detections:
+        anchors = torch.from_numpy(anchors_np).to(batch["points"].device)
+        scene = extract_scene(cfg, batch["points"], batch["point_valid"])
+        state.model.eval()
+        try:
+            return predict(state.model(scene), anchors, cfg.head)
+        finally:
+            state.model.train()
+
+    return predict_fn
 
 
 def synthetic_batch(cfg: FinetuneConfig, batch_size: int, seed: int = 0,

@@ -65,6 +65,22 @@ class AdamW:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
 
+    def state_dict(self) -> dict:
+        """The moments (in ``model.parameters()`` order) and the update
+        count, for a checkpoint."""
+        return {"mu": list(self.mu), "nu": list(self.nu),
+                "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy a ``state_dict()`` into this optimizer's own tensors."""
+        for own, saved in ((self.mu, sd["mu"]), (self.nu, sd["nu"])):
+            if [t.shape for t in own] != [t.shape for t in saved]:
+                raise ValueError("optimizer moments do not match the model")
+            for a, b in zip(own, saved):
+                a.copy_(b)
+        self.count = int(sd["count"])
+
     @torch.no_grad()
     def clip(self) -> torch.Tensor:
         """Scale the gradients to global norm ``grad_clip_norm`` if they

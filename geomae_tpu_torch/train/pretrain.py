@@ -1,7 +1,8 @@
 """GeoMAE pretrain step: init, train step, synthetic batches.
 
 Port of ``geomae_tpu/train/pretrain.py`` (``build_model``, ``forward``,
-``init_state``, ``make_train_step``, ``dummy_batch``).  One step is
+``init_state``, ``make_train_step``, ``make_eval_step``,
+``make_eval_hook``, ``dummy_batch``).  One step is
 ``forward`` (voxelize, geometric targets without gradient, the random
 mask, ``GeoMAE`` in training mode, ``pretrain_loss``) -> backward -> clip
 + AdamW, the counterpart of ``value_and_grad`` -> ``apply_gradients``.
@@ -28,8 +29,8 @@ from ..models.mae import (GeoMAE, GeoMAETargets, compute_targets_batch,
                           pretrain_loss, sample_mask)
 from ..ops.voxelize import Scene, build_scene_batch
 from ..synthetic import clustered_frame
-from .finetune import TrainState
 from .optim import AdamW
+from .state import TrainState
 
 
 def build_model(cfg: PretrainConfig, device=None) -> GeoMAE:
@@ -111,6 +112,47 @@ def make_train_step(cfg: PretrainConfig):
 
     train_step.loss_fn = loss_fn
     return train_step
+
+
+def make_eval_step(cfg: PretrainConfig):
+    """``eval_step(state, batch, generator) -> losses``: the forward in
+    eval mode (running BN statistics, no update, no gradient); the model
+    is left in training mode."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch,
+                  generator: Optional[torch.Generator] = None,
+                  keep: Optional[torch.Tensor] = None):
+        state.model.eval()
+        try:
+            return forward(cfg, state.model, batch, generator, keep)
+        finally:
+            state.model.train()
+
+    return eval_step
+
+
+def make_eval_hook(cfg: PretrainConfig):
+    """``eval_fn(state, loader) -> mean loss dict`` for the trainer's
+    periodic evaluation.  ``loader`` yields host batches (numpy arrays or
+    tensors); the mask generator is seeded with 0 for every batch, so the
+    metric is comparable across evaluations."""
+    estep = make_eval_step(cfg)
+
+    def hook(state: TrainState, loader) -> Dict[str, float]:
+        device = next(state.model.parameters()).device
+        sums: Dict[str, float] = {}
+        n = 0
+        for batch in loader:
+            batch = {k: torch.as_tensor(v).to(device)
+                     for k, v in batch.items()}
+            gen = torch.Generator(device=device).manual_seed(0)
+            for k, v in estep(state, batch, gen).items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            n += 1
+        return {k: v / max(n, 1) for k, v in sums.items()}
+
+    return hook
 
 
 def synthetic_batch(cfg: PretrainConfig, batch_size: int, seed: int = 0,

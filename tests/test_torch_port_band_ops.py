@@ -1,0 +1,310 @@
+"""K8 (window attention over projected q, k, v) and the SST routes in the
+port against the JAX package, f32, on the CPU: the plain forward, its
+statistics and the plain backward (what the CUDA kernels are held to)
+against ``band_attention_pallas`` in interpret mode and against autograd
+of the plain forward; a window wider than the TPU band against the einsum
+route; one ``SSTStack`` at the shipped width on every attention and FFN
+route against the JAX stack from the same carried weights; and the weight
+mapping of the JAX band route's three Dense projections."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from geomae_tpu.config import SSTConfig as JaxSSTConfig
+from geomae_tpu.config import VoxelConfig as JaxVoxelConfig
+from geomae_tpu.models.sst import SSTStack as JaxSST
+from geomae_tpu.models.sst import prepare_shift_data as jax_shift_data
+from geomae_tpu.ops import windows as jwin
+from geomae_tpu.ops.attention import band_attention as jax_band_attention
+from geomae_tpu.ops.pallas_attention import _pallas_forward as jax_band_fwd
+from geomae_tpu.ops.pallas_attention import band_attention_pallas
+from geomae_tpu_torch.config import SSTConfig, VoxelConfig
+from geomae_tpu_torch.models.sst import SSTStack, prepare_shift_data
+from geomae_tpu_torch.ops import attention, windows
+from geomae_tpu_torch.weights import from_flax
+
+INT_MAX = np.iinfo(np.int32).max
+t = torch.from_numpy
+
+
+def make_case(rng, B=2, V=256, H=4, D=8, win_size=5):
+    """The cases of ``tests/test_pallas_attention.py``: sorted window ids
+    with variable occupancy, an INT32_MAX tail, 30 % invalid keys."""
+    q, k, v = (rng.normal(size=(B, V, H, D)).astype(np.float32)
+               for _ in range(3))
+    win = np.full((B, V), INT_MAX, np.int32)
+    for b in range(B):
+        n_valid = int(rng.integers(V // 2, V))
+        ids, w = [], 0
+        while len(ids) < n_valid:
+            ids.extend([w] * int(rng.integers(1, win_size + 1)))
+            w += 1
+        win[b, :n_valid] = ids[:n_valid]
+    kv = (rng.random((B, V)) > 0.3) & (win != INT_MAX)
+    return q, k, v, win, kv
+
+
+def pallas(q, k, v, win, kv):
+    return band_attention_pallas(q, k, v, jnp.asarray(win), jnp.asarray(kv),
+                                 tile=64, pad=128, interpret=True)
+
+
+@pytest.mark.parametrize("shape", [dict(), dict(B=1, V=128, H=2),
+                                   dict(B=1, V=256, H=2, win_size=40)])
+def test_forward_and_statistics_match_pallas(shape):
+    """Output at 2e-5 + 2e-4 relative on the real rows (the JAX test's own
+    bound against its einsum route), padding rows exactly 0; statistics:
+    the kernel's m + log l on rows with a valid key at 1e-5 (f32
+    exponentials summed in another order), 0 elsewhere."""
+    q, k, v, win, kv = make_case(np.random.default_rng(0), **shape)
+    kv[0, win[0] == win[0, 0]] = False          # a window without a key
+    want, stats = jax_band_fwd(*map(jnp.asarray, (q, k, v, win, kv)), 64,
+                               128, True)
+    got = attention.band_attention(t(q), t(k), t(v), t(win), t(kv)).numpy()
+    real = win != INT_MAX
+    np.testing.assert_allclose(got[real], np.asarray(want)[real], rtol=2e-4,
+                               atol=2e-5)
+    assert (got[~real] == 0).all() and (got[0, 0] == 0).all()
+    H = q.shape[2]
+    stats = np.asarray(stats)
+    m, l = stats[..., :H], stats[..., H:]
+    lse = attention.band_attention_lse_plain(t(q), t(k), t(win),
+                                             t(kv)).numpy()
+    seen = l > 0
+    assert seen.any() and (~seen & real[..., None]).any()
+    np.testing.assert_allclose(
+        lse[seen], (m + np.log(np.where(seen, l, 1)))[seen], rtol=0,
+        atol=1e-5)
+    assert (lse[~seen] == 0).all()
+
+
+def plain_grads(q, k, v, win, kv, g):
+    """(dq, dk, dv) of the plain backward for the cotangent g, and the
+    same through autograd of the plain forward."""
+    leaves = [t(a.copy()).requires_grad_() for a in (q, k, v)]
+    out = attention.band_attention(*leaves, t(win), t(kv))
+    auto = torch.autograd.grad(out, leaves, t(g))
+    plain = attention.band_attention_backward_plain(
+        t(q), t(k), t(v), t(win), t(kv), out.detach(), t(g))
+    return [a.numpy() for a in plain], [a.numpy() for a in auto]
+
+
+@pytest.mark.parametrize("empty_window", [False, True])
+def test_backward_matches_pallas_and_autograd(empty_window):
+    """The plain backward, written from the kernel's formulas, against
+    ``jax.grad`` of the interpret-mode kernel (2e-5 + 2e-4 relative, the
+    JAX test's bound) and against autograd of the plain forward (1e-5 of
+    the largest value: the same sums in another order).  With a window
+    whose keys are all invalid: its rows' dq exactly 0, everything
+    finite."""
+    q, k, v, win, kv = make_case(np.random.default_rng(1), B=1, V=128, H=2)
+    if empty_window:
+        kv[0, win[0] == win[0, 0]] = False
+    real = (win != INT_MAX)[..., None, None]
+    g = (np.random.default_rng(2).normal(size=q.shape) * real).astype(
+        np.float32)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(pallas(q_, k_, v_, win, kv) * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    plain, auto = plain_grads(q, k, v, win, kv, g)
+    for a, b, w in zip(plain, auto, want):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, np.asarray(w), rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max())
+    if empty_window:
+        rows = win[0] == win[0, 0]
+        assert (plain[0][0, rows] == 0).all()
+        assert (np.asarray(want[0])[0, rows] == 0).all()
+    pad = win[0] == INT_MAX
+    assert pad.any() and all((a[0, pad] == 0).all() for a in plain)
+
+
+def test_wide_window_matches_the_einsum_route():
+    """Windows of up to 300 tokens, wider than the TPU kernel's +-192
+    band: forward and backward against the JAX einsum ``band_attention``
+    with a band wide enough to be exact (tile 128, 3 bands).  Forward
+    1e-5; gradients 2e-5 of the largest value."""
+    rng = np.random.default_rng(3)
+    q, k, v, win, kv = make_case(rng, B=2, V=1024, H=2, D=16, win_size=300)
+    assert max(np.bincount(w[w != INT_MAX]).max() for w in win) > 192
+    g = (rng.normal(size=q.shape) * (win != INT_MAX)[..., None, None]
+         ).astype(np.float32)
+
+    def fwd(q_, k_, v_):
+        return jax_band_attention(q_, k_, v_, jnp.asarray(win),
+                                  jnp.asarray(kv), 128, 3)
+
+    jq = tuple(map(jnp.asarray, (q, k, v)))
+    want = np.asarray(fwd(*jq))
+    want_g = jax.grad(lambda *a: jnp.sum(fwd(*a) * g), argnums=(0, 1, 2))(*jq)
+    got = attention.band_attention(t(q), t(k), t(v), t(win), t(kv)).numpy()
+    real = win != INT_MAX
+    np.testing.assert_allclose(got[real], want[real], rtol=1e-5, atol=1e-5)
+    plain, _ = plain_grads(q, k, v, win, kv, g)
+    for a, w in zip(plain, want_g):
+        w = np.asarray(w)
+        np.testing.assert_allclose(a, w, rtol=0, atol=2e-5 * np.abs(w).max())
+
+
+def test_fused_wrapper_takes_the_plain_versions_on_the_cpu():
+    """On CPU tensors the K8 wrapper is the plain forward and, under grad,
+    the plain backward (an ``autograd.Function``); a tensor on another
+    device than CPU or CUDA is refused."""
+    q, k, v, win, kv = make_case(np.random.default_rng(4))
+    args = (t(q), t(k), t(v), t(win), t(kv))
+    assert torch.equal(attention.band_attention_fused(*args),
+                       attention.band_attention(*args))
+    leaves = [a.clone().requires_grad_() for a in args[:3]]
+    out = attention.band_attention_fused(*leaves, *args[3:])
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    got = torch.autograd.grad(out, leaves, g)
+    want = attention.band_attention_backward_plain(*args, out.detach(), g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError):
+        attention.band_attention_fused(*[a.to("meta") for a in args])
+
+
+# ---------------------------------------------------------------------------
+# the SST routes
+# ---------------------------------------------------------------------------
+
+B, V, C = 2, 384, 128
+ROUTES = [(a, f) for a in ("qkv", "band", "einsum") for f in ("fused", "xla")]
+
+
+def sst_cfgs(attention_impl="einsum", ffn_impl="xla"):
+    kw = dict(d_model=C, nhead=8, dim_feedforward=256,
+              attention_impl=attention_impl, ffn_impl=ffn_impl)
+    return JaxSSTConfig(**kw), SSTConfig(**kw)
+
+
+@pytest.fixture(scope="module")
+def stack():
+    """Tokens on a 40 x 40 corner of the grid (12 x 12 windows of up to
+    about 40 tokens), the JAX stack's output and parameter gradients on
+    its einsum / xla route, and the same weights in the port's names."""
+    rng = np.random.default_rng(5)
+    jc, _ = sst_cfgs()
+    cells = np.stack([rng.choice(1600, V, replace=False) for _ in range(B)])
+    coords = np.stack([np.zeros_like(cells), cells // 40, cells % 40],
+                      -1).astype(np.int32)
+    valid = np.arange(V)[None] < np.array([[V - 37], [V - 90]])
+    x = rng.normal(0, 0.5, (B, V, C)).astype(np.float32)
+    w = (rng.normal(size=(B, V, C)) * valid[..., None]).astype(np.float32)
+    shift = jax_shift_data(
+        jwin.make_layouts(jnp.asarray(coords), jnp.asarray(valid), jc,
+                          JaxVoxelConfig()),
+        None, jnp.asarray(valid), jc, JaxVoxelConfig())
+    net = JaxSST(jc, 1, jnp.float32)
+    params = net.init(jax.random.PRNGKey(0), jnp.asarray(x), shift)["params"]
+    # biases and norm parameters away from their 0 / 1 init
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, a: a if p[-1].key == "kernel" else
+        a + rng.normal(0, 0.1, a.shape).astype(np.float32), params)
+
+    def loss(p):
+        out = net.apply({"params": p}, jnp.asarray(x), shift)
+        return jnp.sum(out * w), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    strip = lambda sd: {k[len("backbone.encoder_blocks."):]: v
+                        for k, v in sd.items()}
+    return dict(coords=coords, valid=valid, x=x, w=w, out=np.asarray(out),
+                params=params, sd=strip(from_flax({"encoder": params}, {})),
+                grads=strip(from_flax({"encoder": grads}, {})))
+
+
+@pytest.mark.parametrize("attention_impl,ffn_impl", ROUTES)
+def test_sst_routes_match_the_jax_stack(stack, attention_impl, ffn_impl):
+    """One block (two layers) at C = 128, V = 384 on each route, from one
+    ``state_dict``: the output on valid rows at 1e-4 (two post-norm layers
+    in f32, sums over 128 channels in other orders) and every parameter
+    gradient at 1e-4 relative norm, against the JAX einsum / xla route."""
+    _, tc = sst_cfgs(attention_impl, ffn_impl)
+    model = SSTStack(tc, 1)
+    model.load_state_dict(stack["sd"], strict=True)
+    tv = t(stack["valid"])
+    shift = prepare_shift_data(
+        windows.make_layouts(t(stack["coords"]), tv, tc, VoxelConfig()), tv,
+        tc)
+    out = model(t(stack["x"]), shift)
+    (out * t(stack["w"])).sum().backward()
+    v = stack["valid"]
+    np.testing.assert_allclose(out.detach().numpy()[v], stack["out"][v],
+                               rtol=1e-4, atol=1e-4)
+    grads = dict(model.named_parameters())
+    assert grads.keys() == stack["grads"].keys()
+    for k, want in stack["grads"].items():
+        err = float((grads[k].grad - want).norm() / want.norm())
+        assert err <= 1e-4, (k, err)
+
+
+def test_band_route_matches_the_jax_pallas_routes(stack):
+    """The port's band / fused block against the JAX stack on its own
+    band / fused route, the Pallas kernels in interpret mode: 1e-4 on
+    valid rows."""
+    jc, tc = sst_cfgs("band", "fused")
+    shift = jax_shift_data(
+        jwin.make_layouts(jnp.asarray(stack["coords"]),
+                          jnp.asarray(stack["valid"]), jc, JaxVoxelConfig()),
+        None, jnp.asarray(stack["valid"]), jc, JaxVoxelConfig())
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(JaxSST(jc, 1, jnp.float32).apply(
+            {"params": stack["params"]}, jnp.asarray(stack["x"]), shift))
+    model = SSTStack(tc, 1)
+    model.load_state_dict(stack["sd"], strict=True)
+    tv = t(stack["valid"])
+    tshift = prepare_shift_data(
+        windows.make_layouts(t(stack["coords"]), tv, tc, VoxelConfig()), tv,
+        tc)
+    with torch.no_grad():
+        got = model(t(stack["x"]), tshift).numpy()
+    v = stack["valid"]
+    np.testing.assert_allclose(got[v], want[v], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("field,value", [("attention_impl", "flash"),
+                                         ("ffn_impl", "fast"),
+                                         ("activation", "silu")])
+def test_unknown_route_raises(field, value):
+    with pytest.raises(ValueError, match=field):
+        SSTStack(SSTConfig(**{field: value}), 1)
+
+
+def test_relu_takes_the_unfused_chain():
+    """``activation="relu"`` runs the unfused chain under any ``ffn_impl``
+    (the fused block is GELU only), as in the JAX package."""
+    layer = SSTStack(SSTConfig(activation="relu", ffn_impl="fused"), 1)[0]
+    assert not layer.encoder_list[0].fused
+    assert SSTStack(SSTConfig(), 1)[0].encoder_list[0].fused
+
+
+def test_band_route_projections_map_onto_in_proj(stack):
+    """The JAX stack declares the same parameter tree on its qkv, band and
+    einsum routes (shapes from ``jax.eval_shape``), and ``from_flax`` puts
+    the three Dense kernels of the band route into ``in_proj_weight`` rows
+    q, k, v, transposed, as it does for the qkv route's."""
+    x = jax.ShapeDtypeStruct((B, 384, C), jnp.float32)
+    jc, _ = sst_cfgs()
+    shift = jax_shift_data(
+        jwin.make_layouts(jnp.asarray(stack["coords"]),
+                          jnp.asarray(stack["valid"]), jc, JaxVoxelConfig()),
+        None, jnp.asarray(stack["valid"]), jc, JaxVoxelConfig())
+    trees = {}
+    for impl in ("qkv", "band", "einsum"):
+        net = JaxSST(sst_cfgs(impl, "fused")[0], 1, jnp.float32)
+        shapes = jax.eval_shape(
+            lambda: net.init(jax.random.PRNGKey(0), x, shift))["params"]
+        trees[impl] = {jax.tree_util.keystr(p): a.shape for p, a in
+                       jax.tree_util.tree_leaves_with_path(shapes)}
+    assert trees["band"] == trees["qkv"] == trees["einsum"]
+    attn = stack["params"]["blocks"]["block"]["encoder_0"]["win_attn"]
+    got = stack["sd"]["0.encoder_list.0.win_attn.self_attn.in_proj_weight"]
+    want = np.concatenate([np.asarray(attn[n]["kernel"])[0].T
+                           for n in ("q_proj", "k_proj", "v_proj")])
+    assert np.array_equal(got.numpy(), want)

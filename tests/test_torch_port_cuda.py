@@ -32,12 +32,18 @@ exact; K3's sums of the same terms in another order differ by at most
 2 (n - 1) 2^-24 sum |terms| for a cell of n points, held at
 count x 2^-23 x sum |terms|.  The SST kernels also run at the pretrain
 encoder's shape: [B, 8192, 128] visible tokens, 30 % of the pillars.
+
+K8 (window attention over projected q, k, v; ``ops/attention.py``): the
+output and the statistics at K6's bound, the backward's dq, dk, dv at the
+per-row rule of the other backward cotangents (it has no parameter
+gradients), at three layouts: one sample, a batch, and the encoder's.
 """
 import numpy as np
 import pytest
 import torch
 
-from geomae_tpu_torch.ops import attention_qkv, ffn, segment, targets
+from geomae_tpu_torch.ops import (attention, attention_qkv, ffn, segment,
+                                  targets)
 
 INT_MAX = 2 ** 31 - 1
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
@@ -162,7 +168,8 @@ def check_grads(got, want, dtype, n_token):
         bound = atol * w.abs().amax(-1, keepdim=True).clamp_min(1) \
             + rtol * w.abs()
         assert ((a.float() - w).abs() <= bound).all()
-    top = max(float(b.float().abs().max()) for b in want[n_token:])
+    top = max([float(b.float().abs().max()) for b in want[n_token:]],
+              default=0.0)
     for i, (a, b) in enumerate(zip(got[n_token:], want[n_token:])):
         assert a.dtype == torch.float32
         ref = max(float(b.float().abs().max()), WGRAD_FLOOR[dtype] * top)
@@ -486,3 +493,90 @@ def test_target_wrappers_refuse_what_the_kernels_do_not_take(dev):
         targets.slot_outer_segment_sum(vals, ids, ids.long(), 128, 4)
     with pytest.raises(ValueError):       # bf16 payload
         targets.expand_rows(vals.bfloat16(), ids, 10)
+
+
+def band_case(dtype, dev, win, kv, seed=10):
+    """q, k, v and a cotangent [B, V, 8, 16] from a seed, on ``dev``."""
+    B, V = win.shape
+    g = torch.Generator().manual_seed(seed)
+    shape = (B, V, attention.KERNEL_HEADS, attention.KERNEL_HEAD_DIM)
+    q, k, v, d = (torch.randn(shape, generator=g).to(dtype).to(dev)
+                  for _ in range(4))
+    return q, k, v, win.to(dev), kv.to(dev), d
+
+
+def band_layout(which, dev):
+    """(win_id, key_valid): one sample of windows up to 150 tokens, a batch
+    of four, or the pretrain encoder's layout at reduced batch."""
+    if which == "encoder":
+        lay = encoder_tokens(dev)
+        return lay["win_id"], lay["key_valid_sorted"]
+    rng = np.random.default_rng(11)
+    return windows(rng, B=1 if which == "one" else 4, V=2048)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("which", ["one", "batch", "encoder"])
+def test_band_attention_fused(dev, dtype, which):
+    """K8 forward: output and statistics against the plain versions; the
+    output without statistics is the same; padding rows are 0."""
+    q, k, v, win, kv, _ = band_case(dtype, dev, *band_layout(which, dev))
+    before = attention.band_attention_fused.launches
+    out, lse = attention._forward(q, k, v, win, kv, stats=True)
+    assert attention.band_attention_fused.launches == before + 1
+    check(out, attention.band_attention(q, k, v, win, kv), *TOL[dtype])
+    assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
+    check(lse, attention.band_attention_lse_plain(q, k, win, kv),
+          *TOL[dtype])
+    check(attention.band_attention_fused(q, k, v, win, kv), out, 0, 0)
+    assert (out[win == INT_MAX] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("which", ["one", "batch", "encoder"])
+def test_band_attention_fused_backward(dev, dtype, which):
+    """K8 backward from the forward kernel's statistics against the plain
+    backward (which recomputes its softmax); two launches bitwise equal
+    (no atomics)."""
+    q, k, v, win, kv, d = band_case(dtype, dev, *band_layout(which, dev))
+    out, lse = attention._forward(q, k, v, win, kv, stats=True)
+    before = attention.band_attention_fused_backward.launches
+    got = attention.band_attention_fused_backward(q, k, v, win, kv, out, lse,
+                                                  d)
+    assert attention.band_attention_fused_backward.launches == before + 1
+    want = attention.band_attention_backward_plain(q, k, v, win, kv, out, d)
+    flat = lambda ts: [t.flatten(2) for t in ts]
+    check_grads(flat(got), flat(want), dtype, 3)
+    for t in got:
+        assert t.dtype == dtype and (t[win == INT_MAX] == 0).all()
+    again = attention.band_attention_fused_backward(q, k, v, win, kv, out,
+                                                    lse, d)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_band_attention_fused_autograd_and_refusals(dev):
+    """Under grad: one forward launch with statistics, one backward
+    launch, gradients in the inputs' dtype; without grad no statistics.
+    Other head shapes and dtypes are refused."""
+    q, k, v, win, kv, d = band_case(torch.bfloat16, dev,
+                                    *band_layout("one", dev))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    f, b = attention.band_attention_fused, \
+        attention.band_attention_fused_backward
+    counts = lambda: (f.launches, f.stats, b.launches)
+    before = counts()
+    f(q, k, v, win, kv).backward(d)
+    assert [c - a for c, a in zip(counts(), before)] == [1, 1, 1]
+    assert all(t.grad.dtype == torch.bfloat16
+               and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+    with torch.no_grad():
+        before = counts()
+        f(q, k, v, win, kv)
+        assert [c - a for c, a in zip(counts(), before)] == [1, 0, 0]
+    bad = torch.randn(1, 64, 4, 8, device=dev)
+    w64, kv64 = win[:, :64].contiguous(), kv[:, :64].contiguous()
+    with pytest.raises(ValueError):       # 4 heads of 8
+        f(bad, bad, bad, w64, kv64)
+    half = torch.randn(1, 64, 8, 16, device=dev).half()
+    with pytest.raises(ValueError):       # float16
+        f(half, half, half, w64, kv64)

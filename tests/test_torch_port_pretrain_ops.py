@@ -418,18 +418,24 @@ def test_geomae_state_dict_is_the_reference_layout(tiny):
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """``geomae_tpu_torch``, every module in it, and ``chip_smoke`` load no
-    module named ``geomae_tpu`` or ``geomae_tpu.*``, and no JAX or flax."""
+    """``geomae_tpu_torch``, every module in it (the trainer, checkpoint,
+    loader, logging and CLI modules among them), and ``chip_smoke`` load
+    no module named ``geomae_tpu`` or ``geomae_tpu.*``, and no JAX, flax,
+    optax or orbax."""
     code = (
         "import importlib, pkgutil, sys, geomae_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(geomae_tpu_torch.__path__, "
         "'geomae_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or "
-        "m == 'geomae_tpu' or m.startswith(('jax.', 'flax.', "
-        "'geomae_tpu.')))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'orbax', 'geomae_tpu'))\n"
         "n = sum(m.startswith('geomae_tpu_torch.') for m in sys.modules)\n"
-        "sys.exit(str(bad) if bad or n < 30 else 0)\n")
+        "new = ['train.trainer', 'train.checkpoint', 'train.state', "
+        "'train.__main__', 'data.loader', 'data.synthetic', "
+        "'utils.logging']\n"
+        "bad += [m for m in new if 'geomae_tpu_torch.' + m not in "
+        "sys.modules]\n"
+        "sys.exit(str(bad) if bad or n < 45 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
