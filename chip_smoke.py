@@ -13,7 +13,9 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      backward on the encoder's visible tokens), in float32 and bfloat16,
      and times both, and one PyTorch library call of the same function
      where there is one, with CUDA events; K8 (window attention over
-     projected q, k, v) forward and backward at all three shapes; and one
+     projected q, k, v) forward and backward (bf16 on the tensor cores,
+     f32 on the CUDA cores; two launches bitwise equal) and the
+     backward's D prologue at all three shapes; and one
      SST block on the ``band`` route (K8) against the ``qkv`` route (K6)
      with the same weights;
   B. serves 3 synthetic frames through ``inference_detector`` at the full
@@ -66,7 +68,12 @@ its bytes over the HBM rate and its operations over the peak rate of its
 dtype (``work``), and ``bound_by`` names the side that sets most of it;
 ``library_ms`` is null where no single PyTorch call computes the
 function; ``max_abs_err`` is the largest over those calls and, for a
-backward kernel, over its outputs.  The last line is
+backward kernel, over its outputs.  ``band_attention_fused_backward``
+is K8's backward kernel alone, timed and bounded from its prologue's D;
+the prologue (``band_attention_delta``) is a row of its own, so the two
+add up to the wrapper.  Phase A prints each kernel's and library call's
+time behind a device spin (the kernels line's) and at the host's pace
+(``probe.cuda_ms``).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -95,7 +102,7 @@ PER_FRAME = {"segment_reduce": 1, "segment_broadcast": 2,
              "segment_gather": 0, "band_attention_qkv_backward": 0,
              "post_attention_block_backward": 0, "slot_outer_segment_sum": 0,
              "expand_rows": 0, "band_attention_fused": 0,
-             "band_attention_fused_backward": 0}
+             "band_attention_fused_backward": 0, "band_attention_delta": 0}
 # per train step: the forward's, then the backward's: K7 and K5's
 # backward per layer, the K1 max's gather, the K2 max's K2 sum (the
 # decorations' K2 mean carries no gradient)
@@ -104,7 +111,7 @@ PER_STEP = {"segment_reduce": 1, "segment_broadcast": 2 + 1,
             "segment_gather": 1, "band_attention_qkv_backward": 12,
             "post_attention_block_backward": 12, "slot_outer_segment_sum": 0,
             "expand_rows": 0, "band_attention_fused": 0,
-            "band_attention_fused_backward": 0}
+            "band_attention_fused_backward": 0, "band_attention_delta": 0}
 
 
 def per_pretrain_step(cfg) -> dict:
@@ -122,7 +129,8 @@ def per_pretrain_step(cfg) -> dict:
 def on_route(per: dict, cfg) -> dict:
     """``per`` (launches on the ``qkv`` route) on the attention route
     ``cfg`` resolves to (``models.sst.attention_route``): on ``band`` K8
-    and its backward take K6's and K7's launches, which fall to 0."""
+    and its backward take K6's and K7's launches, which fall to 0, and the
+    backward's D prologue launches once with each K8 backward."""
     from geomae_tpu_torch.models.sst import attention_route
 
     sst = cfg.sst
@@ -133,7 +141,8 @@ def on_route(per: dict, cfg) -> dict:
     return dict(per, band_attention_qkv=0, band_attention_qkv_backward=0,
                 band_attention_fused=per["band_attention_qkv"],
                 band_attention_fused_backward=per[
-                    "band_attention_qkv_backward"])
+                    "band_attention_qkv_backward"],
+                band_attention_delta=per["band_attention_qkv_backward"])
 # (atol, rtol) per kernel and dtype, at both shapes.  f32: the kernel and
 # the plain version sum in other orders (cuBLAS, atomics).  bf16: the same
 # order differences may move a compute-dtype rounding to the other side,
@@ -197,9 +206,19 @@ TOL = {
                                    torch.bfloat16: (2e-2, 2e-2)},
     ("band_attention_fused_backward", ""): {torch.float32: (1e-4, 1e-4),
                                             torch.bfloat16: (2e-2, 2e-2)},
+    # K8 backward's prologue, D = rowsum(dO * out): 16 products, exact in
+    # f32, added in another order: atol scaled by sum |terms| (``check``)
+    ("band_attention_delta", ""): {torch.float32: (15 * 2 ** -24, 0.0),
+                                   torch.bfloat16: (15 * 2 ** -24, 0.0)},
 }
-K8 = list(TOL)[-2:]
-SERVING = list(TOL)[:5] + K8[:1]     # the rows at the serving shapes
+K8 = list(TOL)[-3:]
+# kernels without atomics, whose two launches must agree bit for bit
+DETERMINISTIC = {"band_attention_fused_backward", "band_attention_delta",
+                 "expand_rows"}
+# the rows at the serving shapes: the serving path's kernels, and K8's
+# backward and its prologue, held there too but not summed into the
+# kernels line (a served frame runs no backward)
+SERVING = list(TOL)[:5] + K8
 TRAIN = list(TOL)[:11] + K8          # the fine-tune step's rows
 # the pretrain step's new rows: the targets' kernels, then the SST kernels
 # on the encoder's visible tokens
@@ -230,7 +249,8 @@ PATH_DTYPE = {("segment_reduce", "max"): torch.bfloat16,
               ("slot_outer_segment_sum", ""): torch.float32,
               ("expand_rows", ""): torch.float32,
               ("band_attention_fused", ""): torch.bfloat16,
-              ("band_attention_fused_backward", ""): torch.bfloat16}
+              ("band_attention_fused_backward", ""): torch.bfloat16,
+              ("band_attention_delta", ""): torch.bfloat16}
 KERNELS = {
     "segment_reduce": ("geomae_tpu_torch/csrc/segment.cu",
                        "geomae_tpu/ops/pallas_segreduce.py:220"),
@@ -257,6 +277,9 @@ KERNELS = {
     "band_attention_fused_backward": (
         "geomae_tpu_torch/csrc/band_attention.cu",
         "geomae_tpu/ops/pallas_attention.py:422"),
+    # the einsum that _pallas_backward runs before its two kernels
+    "band_attention_delta": ("geomae_tpu_torch/csrc/band_attention.cu",
+                             "geomae_tpu/ops/pallas_attention.py:431"),
 }
 # The least time of a call: each input row the data uses read once and
 # each output written once over the HBM rate, or the call's arithmetic (2
@@ -320,22 +343,6 @@ NORMAL_TOL = 1e-4
 
 class Failed(Exception):
     pass
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
 
 
 def compare(label: str, got: torch.Tensor, want: torch.Tensor, atol: float,
@@ -408,6 +415,13 @@ def check(label: str, name: str, got, want, dtype, tol, failures: list,
                            scale_name="count x sum |terms|"))
     if name in BACKWARD_OUTPUTS:
         return compare_grads(label, name, got, want, dtype, tol, failures)
+    if name == "band_attention_delta":
+        from geomae_tpu_torch.ops.attention import band_attention_delta_plain
+        out, g, win_id = args
+        return compare(label, got, want, *tol, failures,
+                       scale=band_attention_delta_plain(out.abs(), g.abs(),
+                                                        win_id),
+                       scale_name="sum |terms|")
     if isinstance(got, tuple):
         return max([compare(f"{label} {part}", a, b, *tol, failures)
                     for part, a, b in zip(("out", "lse"), got, want)])
@@ -457,16 +471,24 @@ def work(name: str, args, got):
         feats, key, cells = args
         n = int((key < cells).sum())
         return n * feats.shape[-1] * 4 + nbytes(key) + out_b, 0
+    if name == "band_attention_delta":
+        # the real tokens' rows of out and dO, the window ids; D of every
+        # row written (0 on padding)
+        out, _, win_id = args
+        n, C = window_stats(win_id)[0], out.shape[2] * out.shape[3]
+        return 2 * n * C * out.element_size() + nbytes(win_id) + out_b, \
+            2 * n * C
     if name.startswith("band_attention_fused"):
-        # q, k, v (and in the backward out, dO and the statistics) rows of
-        # the real tokens read once; scores and values, 4 D operations per
-        # same-window pair and head forward, 10 D backward
+        # q, k, v (and in the backward dO, the statistics and the
+        # prologue's D) rows of the real tokens read once; scores and
+        # values, 4 D operations per same-window pair and head forward, 10
+        # D backward
         q, win_id = args[0], args[3]
         n, _, pairs, _ = window_stats(win_id)
         C = q.shape[2] * q.shape[3]
         backward = name.endswith("backward")
-        in_b = (5 if backward else 3) * n * C * q.element_size() \
-            + nbytes(win_id, args[4]) + (n * q.shape[2] * 4 if backward
+        in_b = (4 if backward else 3) * n * C * q.element_size() \
+            + nbytes(win_id, args[4]) + (2 * n * q.shape[2] * 4 if backward
                                          else 0)
         return in_b + out_b, (10 if backward else 4) * C * pairs
     if name.startswith("band_attention_qkv"):
@@ -491,7 +513,9 @@ def library_call(name: str, op: str, args):
     """One PyTorch call that computes the kernel's function on the same
     inputs (into a buffer made beforehand), or None where no single call
     does: K2 reduces and broadcasts back, K5 chains three products with
-    two LayerNorms, K6 and K7 project inside the window attention.  For
+    two LayerNorms, K6 and K7 project inside the window attention, and
+    K8 backward's D prologue wants f32 sums of bf16 products (``einsum``
+    of bf16 returns bf16, so it is a product and a sum).  For
     K8: ``scaled_dot_product_attention`` over all V x V pairs under a
     boolean [B, 1, V, V] same-window-and-valid-key mask built beforehand
     (fully masked rows give NaN there, 0 in K8), and for its backward
@@ -669,6 +693,7 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
     from geomae_tpu_torch.models import mae
     from geomae_tpu_torch.ops import (attention, attention_qkv, ffn, segment,
                                       targets)
+    from geomae_tpu_torch.probe import cuda_ms
 
     print(f"phase A: kernels against their plain versions, {what} shapes")
     dev = torch.device(DEVICE)
@@ -714,7 +739,7 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
         qkv = (x_tok.to(dt), lay["pos_sorted"], *attn_w, lay["win_id"],
                lay["key_valid_sorted"], cfg.sst.nhead)
         block = (x_tok.to(dt), a_tok.to(dt), *ffn_w, lay["extent"])
-        if name.startswith("band_attention_fused"):
+        if name.startswith(("band_attention_fused", "band_attention_delta")):
             # K8 on q, k, v projected from K6's inputs, as the band route
             # projects them
             xp = qkv[0] + qkv[1].to(dt)
@@ -722,12 +747,22 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
             q, k, v = (ffn.dense(t, w, b).reshape(heads) for t, w, b in zip(
                 (xp, xp, qkv[0]), attn_w[0::2], attn_w[1::2]))
             band = (q, k, v, lay["win_id"], lay["key_valid_sorted"])
+            g_out = d_tok.to(dt).reshape(heads)
+            if name == "band_attention_delta":
+                out = attention._forward(*band, stats=False)[0]
+                return (attention.band_attention_delta,
+                        attention.band_attention_delta_plain,
+                        (out, g_out, lay["win_id"]))
             if name.endswith("backward"):
+                # the kernel alone, after its prologue (a row of its own)
                 out, lse = attention._forward(*band, stats=True)
-                return (attention.band_attention_fused_backward,
+                delta = attention.band_attention_delta(out, g_out,
+                                                       lay["win_id"])
+                return (lambda *a: attention._backward(*a[:5], a[6], delta,
+                                                       a[7]),
                         lambda *a: attention.band_attention_backward_plain(
                             *a[:-2], a[-1]),
-                        (*band, out, lse, d_tok.to(dt).reshape(heads)))
+                        (*band, out, lse, g_out))
             if not train:
                 return (attention.band_attention_fused,
                         attention.band_attention, band)
@@ -794,19 +829,34 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
             torch.cuda.synchronize()
             err = check(label, name, got, plain(*args), dt, tol, failures,
                         args)
+            if name in DETERMINISTIC:
+                again = kern(*args)
+                same = all(torch.equal(a, b) for a, b in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    again if isinstance(again, tuple) else (again,)))
+                print(f"    two launches bitwise equal: {same}")
+                if not same:
+                    failures.append(f"{label}: two launches differ")
             ms = cuda_ms(lambda: kern(*args))
+            host = cuda_ms(lambda: kern(*args), spin=False)
             plain_ms = cuda_ms(lambda: plain(*args), iters=3 if train else 5,
                                warmup=1)
-            print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            if PATH_DTYPE.get(key) != dt:
+            print(f"    kernel {ms:.4f} ms (host-paced {host:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms")
+            if PATH_DTYPE.get(key) != dt or (not train and name in (
+                    "band_attention_fused_backward", "band_attention_delta")):
                 continue
             lib = library_call(name, op, args)
             lib_ms = None if lib is None else cuda_ms(lib, iters=5, warmup=1)
+            lib_host = None if lib is None else cuda_ms(lib, iters=5,
+                                                        warmup=1, spin=False)
             nb, ops = work(name, args, got)
             t_bytes = nb / HBM_BYTES_PER_S * 1e3
             t_ops = ops / PEAK_OPS[dt] * 1e3
-            print(f"    library call {'none' if lib is None else f'{lib_ms:.4f} ms'}"
-                  f"; bound {max(t_bytes, t_ops):.4f} ms: {nb / 1e6:.1f} MB "
+            print("    library call " + ("none" if lib is None else
+                                         f"{lib_ms:.4f} ms (host-paced "
+                                         f"{lib_host:.4f} ms)")
+                  + f"; bound {max(t_bytes, t_ops):.4f} ms: {nb / 1e6:.1f} MB "
                   f"({t_bytes:.4f} ms), {ops / 1e9:.3f} GFLOP ({t_ops:.4f} ms)")
             results.setdefault(name, []).append(
                 (err, ms, plain_ms, t_bytes, t_ops, lib_ms))
@@ -828,7 +878,8 @@ def reset_counts():
                ffn.post_attention_block_backward,
            "band_attention_fused": attention.band_attention_fused,
            "band_attention_fused_backward":
-               attention.band_attention_fused_backward}
+               attention.band_attention_fused_backward,
+           "band_attention_delta": attention.band_attention_delta}
     for fn in fns.values():
         fn.launches = 0
     attention_qkv.band_attention_qkv.stats = 0

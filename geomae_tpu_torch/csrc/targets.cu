@@ -32,12 +32,13 @@
 // with key ascending and unique below n_cells and the sentinel n_cells on
 // a suffix of rows.  The TPU kernel routes each chunk of cells through a
 // one-hot matmul against a window of rows (hi/lo split for exactness).
-// Here a block owns 256 consecutive cells: each thread finds its cell's
-// row by binary search in the sorted keys, then the block writes the
-// cells' rows (a copy, or zeros) once, coalesced.  A copy: exact.  Row
-// n_cells is 0: the JAX contract sums every sentinel row there, and the
-// targets' sentinel rows are zero (an empty pillar's moments); the caller
-// drops that row.  Bound: memory (33 MB written at the pretrain step).
+// Here a block owns 512 consecutive cells: one round of probes by the
+// whole block brackets the run of sorted keys that falls in them, the
+// block marks each cell's row, then writes the cells' values (a copy, or
+// zeros) once, 16 bytes a thread.  A copy: exact.  Row n_cells is 0: the JAX contract
+// sums every sentinel row there, and the targets' sentinel rows are zero
+// (an empty pillar's moments); the caller drops that row.  Bound: memory
+// (33 MB written at the pretrain step); one pass at the write rate.
 #include "common.cuh"
 
 namespace geomae {
@@ -46,7 +47,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kCellsPerBlock = 256;
+constexpr int kSpan = 512;   // output cells a block of K4 owns
 
 template <int SPL>  // slots per lane: S = 32 * SPL
 __global__ void __launch_bounds__(kThreads)
@@ -110,31 +111,79 @@ cudaError_t launch_slot_outer(const float* vals, const int* slot,
   return cudaGetLastError();
 }
 
+// A block owns kSpan consecutive output cells [c0, c0 + n) of one batch
+// row.  The keys of those cells are one run of the sorted key row: one
+// round of kThreads evenly spaced probes (one load deep) brackets it
+// within a probe step at each end, the block scans the bracket and marks
+// each cell's row in shared memory, then writes the span's n x C values
+// once, the row or 0: float4 stores over the span's 16-byte-aligned body,
+// scalar stores over its unaligned head and tail (a span starts at
+// (b (n_cells + 1) + c0) C values, not a multiple of 4 at C = 13).
 __global__ void __launch_bounds__(kThreads)
 expand_rows_kernel(const float* __restrict__ feats, const int* __restrict__ key,
                    float* __restrict__ out, int V, int C, int n_cells) {
-  __shared__ int src[kCellsPerBlock];
+  __shared__ int src[kSpan];
   const int b = blockIdx.y;
   const int n_out = n_cells + 1;
-  const int c0 = blockIdx.x * kCellsPerBlock;
+  const int c0 = blockIdx.x * kSpan;
+  const int n = min(kSpan, n_out - c0);
   const int* kb = key + (size_t)b * V;
-  for (int t = threadIdx.x; t < kCellsPerBlock; t += blockDim.x) {
-    const int c = c0 + t;
-    int r = -1;
-    if (c < n_cells) {
-      const int i = lower_bound_i32(kb, V, c);
-      if (i < V && kb[i] == c) r = i;
-    }
-    src[t] = r;
+  for (int j = threadIdx.x; j < n; j += kThreads) src[j] = -1;
+  // Probes t s below c0 (or c1) are a prefix of n0 (n1) probes, so the
+  // keys in [c0, c1) lie in rows [(n0 - 1) s + 1, n1 s); row n_cells (the
+  // sentinel's) takes no key.
+  const int c1 = min(c0 + n, n_cells);
+  const int s = (V + kThreads - 1) / kThreads, probe = threadIdx.x * s;
+  const int kp = probe < V ? kb[probe] : n_cells;
+  const int n0 = __syncthreads_count(probe < V && kp < c0);
+  const int n1 = __syncthreads_count(probe < V && kp < c1);
+  const int lo = n0 ? (n0 - 1) * s + 1 : 0, hi = min(n1 * s, V);
+  for (int r = lo + threadIdx.x; r < hi; r += kThreads) {
+    const int k = kb[r];
+    if (k >= c0 && k < c1) src[k - c0] = r;
   }
   __syncthreads();
-  const int ncell = min(kCellsPerBlock, n_out - c0);
+
   const float* fb = feats + (size_t)b * V * C;
-  float* ob = out + ((size_t)b * n_out + c0) * C;
-  for (int i = threadIdx.x; i < ncell * C; i += blockDim.x) {
-    const int j = i / C;
+  const size_t f0 = ((size_t)b * n_out + c0) * C;   // the span's first value
+  float* ob = out + f0;
+  const int len = n * C;
+  const int head = min(len, (int)((4 - f0 % 4) % 4));
+  const int body = (len - head) / 4;
+  auto value = [&](int j, int ch) {
     const int r = src[j];
-    ob[i] = r >= 0 ? fb[(size_t)r * C + (i - j * C)] : 0.f;
+    return r >= 0 ? fb[(size_t)r * C + ch] : 0.f;
+  };
+  // Thread t stores the float4s t, t + kThreads, ...: the one at value e
+  // starts in cell j at channel ch, advanced without a division per turn.
+  const int step = 4 * kThreads, dj = step / C, dch = step - dj * C;
+  int e = head + 4 * threadIdx.x;
+  int j = e / C, ch = e - j * C;
+  for (int i = threadIdx.x; i < body; i += kThreads) {
+    float v[4];
+    int jj = j, cc = ch;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      v[u] = value(jj, cc);
+      if (++cc == C) {
+        cc = 0;
+        ++jj;
+      }
+    }
+    *reinterpret_cast<float4*>(ob + e) = make_float4(v[0], v[1], v[2], v[3]);
+    e += step;
+    j += dj;
+    ch += dch;
+    if (ch >= C) {
+      ch -= C;
+      ++j;
+    }
+  }
+  const int rest = len - head - 4 * body;      // the tail, fewer than 4
+  if (threadIdx.x < head + rest) {
+    const int e = threadIdx.x < head ? threadIdx.x
+                                     : head + 4 * body + threadIdx.x - head;
+    ob[e] = value(e / C, e % C);
   }
 }
 
@@ -165,7 +214,7 @@ int geomae_slot_outer_segment_sum(const float* vals, const int* slot,
 int geomae_expand_rows(const float* feats, const int* key, float* out, int B,
                        int V, int C, int n_cells, void* stream) {
   using namespace geomae;
-  const dim3 grid((n_cells + 1 + kCellsPerBlock - 1) / kCellsPerBlock, B);
+  const dim3 grid((n_cells + 1 + kSpan - 1) / kSpan, B);
   expand_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       feats, key, out, V, C, n_cells);
   return cudaGetLastError();

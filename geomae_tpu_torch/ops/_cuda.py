@@ -35,6 +35,7 @@ _SIGNATURES = {
     "geomae_band_attention_qkv": [_I] + [_P] * 12 + [_I, _I, _P],
     "geomae_band_attention_qkv_bwd": [_I] + [_P] * 19 + [_I] * 3 + [_P],
     "geomae_band_attention": [_I] + [_P] * 7 + [_I, _I, _P],
+    "geomae_band_attention_delta": [_I] + [_P] * 4 + [_I, _I, _P],
     "geomae_band_attention_bwd": [_I] + [_P] * 11 + [_I, _I, _P],
     "geomae_post_attention_block": [_I] + [_P] * 14 + [_I, _I, _F, _P],
     "geomae_post_attention_block_bwd": [_I] + [_P] * 21

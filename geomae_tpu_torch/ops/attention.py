@@ -26,8 +26,12 @@ width) in float32 or bfloat16; the plain versions take any H and D.
 Under grad ``band_attention_fused`` is an ``autograd.Function``: the
 forward kernel also writes each (row, head)'s log-sum-exp of the scaled
 scores ([B, V, H] f32, where the TPU kernel keeps the running max m and
-the sum l apart; lse = m + log l), and the backward kernel returns dq, dk
-and dv, each key's dk and dv rounded once (the TPU rounds per query tile).
+the sum l apart; lse = m + log l).  The backward runs a prologue kernel
+that computes D once for every real row (``band_attention_delta``), then
+one kernel that returns dq, dk and dv, each key's dk and dv rounded once (the
+TPU rounds per query tile): bf16 on the tensor cores over 64-token tiles
+(``band_attention_backward_tiles_plain`` is its decomposition in plain
+PyTorch), f32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -39,6 +43,9 @@ INT32_MAX = 2 ** 31 - 1
 KERNEL_HEADS = 8
 KERNEL_HEAD_DIM = 16
 PLAIN_Q_CHUNK = 1024      # queries per score block of the plain versions
+KERNEL_TILE = 64          # tokens a tile (and rows a chunk) of the bf16
+                          # backward kernel
+NO_KEY = -2 ** 31         # a window id no window has: a row without a key
 
 
 def band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,6 +125,14 @@ def band_attention_lse_plain(q, k, win_id, key_valid) -> torch.Tensor:
                      q.shape[-1] ** -0.5)
 
 
+def band_attention_delta_plain(out, g, win_id) -> torch.Tensor:
+    """The backward's prologue: D = rowsum(g * out) per (row, head) in
+    f32, [B, V, H] for out, g [B, V, H, D] (a bf16 product is exact in
+    f32); 0 on padding rows (``win_id == INT32_MAX``)."""
+    d = (g.float() * out.float()).sum(-1)
+    return torch.where((win_id != INT32_MAX)[..., None], d, 0.0)
+
+
 def band_attention_backward_plain(q, k, v, win_id, key_valid, out, g):
     """The backward kernel's function, written from its formulas: (dq, dk,
     dv) [B, V, H, D] in the inputs' dtype for the cotangent ``g`` of the
@@ -130,7 +145,7 @@ def band_attention_backward_plain(q, k, v, win_id, key_valid, out, g):
     rt = lambda t: t.to(dt).float()
     scale = q.shape[-1] ** -0.5
     qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
-    dvo = (gf * out.float()).sum(-1)                         # [B, V, H]
+    dvo = band_attention_delta_plain(out, g, win_id)        # [B, V, H]
     dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
     for b, q0, q1, ks, ke, _, p in plain_blocks(qf, kf, win_id, key_valid,
                                                 scale):
@@ -143,8 +158,58 @@ def band_attention_backward_plain(q, k, v, win_id, key_valid, out, g):
     return (dq * scale).to(dt), (dk * scale).to(dt), dv.to(dt)
 
 
-def _check(name, q, k, v, win_id, key_valid, *more):
-    """What the kernels take; returns (B, V)."""
+def band_attention_backward_tiles_plain(q, k, v, win_id, key_valid, out,
+                                        lse, g, tile: int = KERNEL_TILE,
+                                        chunk: int = KERNEL_TILE):
+    """The bf16 backward kernel's decomposition in plain PyTorch: the same
+    function as ``band_attention_backward_plain``, from the forward's
+    ``lse`` [B, V, H] and D from ``band_attention_delta_plain``.  Each
+    ``tile`` of tokens takes the exact key range of its real tokens'
+    windows and walks it in ``chunk`` rows, once with the tile as queries
+    (dq) and once as keys (dk, dv, gathered: complete when the range
+    ends); a pair counts where the two window ids match and the key is
+    valid, padding rows never match.  Dtype points as the plain backward's.
+    """
+    dt = q.dtype
+    rt = lambda t: t.to(dt).float()
+    B, V, H, D = q.shape
+    scale = D ** -0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    dd = band_attention_delta_plain(out, g, win_id)
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for b in range(B):
+        w = win_id[b]
+        real = w != INT32_MAX
+        kw = torch.where(real & key_valid[b], w, NO_KEY)   # window as key
+        n_real = int(real.sum())
+        for t0 in range(0, n_real, tile):
+            r = slice(t0, min(t0 + tile, V))
+            last = min(t0 + tile, n_real) - 1
+            ks = int(torch.searchsorted(w, w[t0:t0 + 1]))
+            ke = int(torch.searchsorted(w, w[last:last + 1], right=True))
+            for k0 in range(ks, ke, chunk):
+                c = slice(k0, min(k0 + chunk, ke))
+                # the tile as queries, the chunk as keys
+                s = torch.einsum("ihd,jhd->hij", qf[b, r], kf[b, c]) * scale
+                p = torch.where(w[r, None] == kw[None, c], torch.exp(
+                    s - lse[b, r].t()[..., None]), 0.0)
+                dp = torch.einsum("ihd,jhd->hij", gf[b, r], vf[b, c])
+                ds = rt(p * (dp - dd[b, r].t()[..., None]))
+                dq[b, r] += torch.einsum("hij,jhd->ihd", ds, kf[b, c])
+                # the tile as keys, the chunk as queries
+                s = torch.einsum("ihd,jhd->hij", kf[b, r], qf[b, c]) * scale
+                p = torch.where(kw[r, None] == w[None, c], torch.exp(
+                    s - lse[b, c].t()[:, None]), 0.0)
+                dp = torch.einsum("ihd,jhd->hij", vf[b, r], gf[b, c])
+                ds = rt(p * (dp - dd[b, c].t()[:, None]))
+                dv[b, r] += torch.einsum("hij,jhd->ihd", rt(p), gf[b, c])
+                dk[b, r] += torch.einsum("hij,jhd->ihd", ds, qf[b, c])
+    return (dq * scale).to(dt), (dk * scale).to(dt), dv.to(dt)
+
+
+def _check_rows(name, q, *more):
+    """q and ``more`` [B, V, 8, 16] of one float dtype, on one CUDA
+    device, contiguous and 16-byte aligned."""
     _cuda.require(q.device.type == "cuda",
                   f"{name}: no kernel for device {q.device}")
     _cuda.require(q.dim() == 4 and q.shape[2:] == (KERNEL_HEADS,
@@ -153,21 +218,27 @@ def _check(name, q, k, v, win_id, key_valid, *more):
                   f"{name}: the kernel takes [B, V, {KERNEL_HEADS}, "
                   f"{KERNEL_HEAD_DIM}] float32 or bfloat16, got {q.dtype} "
                   f"{tuple(q.shape)}")
-    for t in (k, v, *more):
+    for t in more:
         _cuda.require(t.shape == q.shape and t.dtype == q.dtype,
                       f"{name}: q, k, v and the cotangents must share "
                       f"{q.dtype} {tuple(q.shape)}, got {t.dtype} "
                       f"{tuple(t.shape)}")
+    _cuda.require_cuda(name, q, *more)
+    for t in (q, *more):
+        _cuda.require(t.data_ptr() % 16 == 0,
+                      f"{name}: tensors must be 16-byte aligned")
+
+
+def _check(name, q, k, v, win_id, key_valid, *more):
+    """What the kernels take; returns (B, V)."""
+    _check_rows(name, q, k, v, *more)
     B, V = q.shape[:2]
     _cuda.require(win_id.dtype == torch.int32 and win_id.shape == (B, V),
                   f"{name}: win_id must be int32 {(B, V)}")
     _cuda.require(key_valid.dtype == torch.bool
                   and key_valid.shape == (B, V),
                   f"{name}: key_valid must be bool {(B, V)}")
-    _cuda.require_cuda(name, q, k, v, win_id, key_valid, *more)
-    for t in (q, k, v, *more):
-        _cuda.require(t.data_ptr() % 16 == 0,
-                      f"{name}: tensors must be 16-byte aligned")
+    _cuda.require_cuda(name, q, win_id, key_valid)
     return B, V
 
 
@@ -191,10 +262,37 @@ def _forward(q, k, v, win_id, key_valid, stats: bool):
     return out, lse
 
 
+def band_attention_delta(out, g, win_id):
+    """The backward's prologue kernel: D = rowsum(g * out) per (row, head),
+    f32 [B, V, H], computed once for every real row; 0 on padding rows,
+    which it does not read."""
+    if out.device.type == "cpu":
+        return band_attention_delta_plain(out, g, win_id)
+    name = "band_attention_delta"
+    _check_rows(name, out, g)
+    B, V = out.shape[:2]
+    _cuda.require(win_id.dtype == torch.int32 and win_id.shape == (B, V),
+                  f"{name}: win_id must be int32 {(B, V)}")
+    _cuda.require_cuda(name, out, win_id)
+    delta = torch.empty((B, V, KERNEL_HEADS), dtype=torch.float32,
+                        device=out.device)
+    code = _cuda.library().geomae_band_attention_delta(
+        _cuda.DTYPE_CODE[out.dtype], g.data_ptr(), out.data_ptr(),
+        win_id.data_ptr(), delta.data_ptr(), B, V, _cuda.stream(out))
+    band_attention_delta.launches += 1
+    _cuda.check(code, name)
+    return delta
+
+
+band_attention_delta.launches = 0
+
+
 def band_attention_fused_backward(q, k, v, win_id, key_valid, out, lse, g):
     """K8's backward: (dq, dk, dv) for the cotangent ``g`` of ``out``, in
     the inputs' dtype.  ``lse`` is the forward kernel's statistics (unused
-    by the plain version)."""
+    by the plain version).  On the card the prologue computes D, then one
+    kernel the three gradients: bf16 on the tensor cores, f32 on the CUDA
+    cores."""
     if q.device.type == "cpu":
         return band_attention_backward_plain(q, k, v, win_id, key_valid, out,
                                              g)
@@ -205,14 +303,22 @@ def band_attention_fused_backward(q, k, v, win_id, key_valid, out, lse, g):
                   f"{name}: lse must be the forward's f32 "
                   f"{(B, V, KERNEL_HEADS)}")
     _cuda.require_cuda(name, q, lse)
+    return _backward(q, k, v, win_id, key_valid, lse,
+                     band_attention_delta(out, g, win_id), g)
+
+
+def _backward(q, k, v, win_id, key_valid, lse, delta, g):
+    """The backward kernel alone, from the prologue's ``delta``: (dq, dk,
+    dv) on CUDA tensors that ``band_attention_fused_backward`` checked."""
+    B, V = q.shape[:2]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     code = _cuda.library().geomae_band_attention_bwd(
         _cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        win_id.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        win_id.data_ptr(), key_valid.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, V, _cuda.stream(q))
     band_attention_fused_backward.launches += 1
-    _cuda.check(code, name)
+    _cuda.check(code, "band_attention_fused_backward")
     return dq, dk, dv
 
 

@@ -1,0 +1,118 @@
+"""Timing on the card, and builds of a kernel source with parts swapped
+out: what ``chip_smoke.py`` and the kernel probes (``probe_k4``,
+``probe_k5_backward``, ``probe_k8_backward``) share.
+
+``cuda_ms`` times a call with CUDA events.  ``build_variants`` compiles
+one ``csrc/`` source once per variant (a list of text edits), in
+parallel, and ``time_variants`` times a set of calls on each build, every
+build twice, in turns.  A build with a part swapped out computes garbage;
+only its time means something.
+
+Needs a CUDA GPU and ``nvcc``: its numbers are the card's.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+from pathlib import Path
+
+import torch
+
+from .ops import _cuda
+
+# the device spin cuda_ms enqueues its calls behind: about 5 ms at the
+# H100's 1.98 GHz boost clock, longer than the host takes to enqueue 20
+# calls of a wrapper
+SPIN_CYCLES = 10_000_000
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, spin: bool = True) -> float:
+    """Mean time of one call, from CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls.  With ``spin`` the calls are
+    enqueued while the device spins (``torch.cuda._sleep``), so a call
+    shorter than the host's cost of enqueuing it (a wrapper's checks, its
+    allocation, the ctypes call: tens of microseconds) is timed on the
+    device; without it, or for a call that waits for the device on the
+    host (the plain versions), the time is the host's pace."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def build_variants(source: str, variants: dict, out: Path) -> dict:
+    """{name: loaded library} of ``csrc/<source>`` (with ``segment.cu``,
+    which holds the error strings) built under ``out/<name>`` once per
+    variant, each a list of (old, new) text edits; the builds run in
+    parallel.  Raises when an edit no longer applies or nvcc fails."""
+    src = (_cuda.CSRC / source).read_text()
+    procs = {}
+    for name, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"{name}: {source} no longer holds "
+                                   f"{old.strip()!r}")
+            text = text.replace(old, new)
+        d = out / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        (d / source).write_text(text)
+        for header in _cuda.CSRC.glob("*.cuh"):
+            (d / header.name).write_text(header.read_text())
+        cmd = [_cuda.nvcc(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-o", str(d / "lib.so"),
+               str(d / source), str(_cuda.CSRC / "segment.cu")]
+        procs[name] = (d / "lib.so", subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (path, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        libs[name] = _load(path)
+    return libs
+
+
+def _load(path: Path) -> ctypes.CDLL:
+    """The library at ``path`` with the signatures of the entry points it
+    holds (a build of one source holds those of that source only)."""
+    lib = ctypes.CDLL(str(path))
+    for fn, args in _cuda._SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+    lib.geomae_error_string.argtypes = [ctypes.c_int]
+    lib.geomae_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def time_variants(libs: dict, calls: dict, turns: int = 2) -> None:
+    """Print the device time (``cuda_ms``) of each of ``calls`` ({label:
+    zero-argument call through the wrappers}) on each build, every build
+    ``turns`` times, in turns; the wrappers launch the build's kernels."""
+    saved = _cuda._lib
+    try:
+        for turn in range(turns):
+            for name, lib in libs.items():
+                _cuda._lib = lib
+                times = [f"{what} {cuda_ms(fn):.4f} ms"
+                         for what, fn in calls.items()]
+                print(f"turn {turn} {name}: " + ", ".join(times))
+    finally:
+        _cuda._lib = saved

@@ -8,19 +8,17 @@ one part of the per-tile pass removed (its row-wise epilogues, its
 tensor-core products, its weight loads), then times
 ``post_attention_block_backward`` in bf16 on each build at the fine-tune
 step's [4, 20480] and the pretrain encoder's [4, 8192] tokens with CUDA
-events (20 calls after 3 warm-up, every build twice, in turns).  A build
-with a part removed computes garbage; only its time means something.
+events (``probe.cuda_ms``: 20 calls after 3 warm-up, enqueued behind a
+device spin, every build twice, in turns).  A build with a part removed
+computes garbage; only its time means something.
 
 Raises without a CUDA GPU: its numbers are the card's.
 """
 from __future__ import annotations
 
-import ctypes
-import subprocess
-from pathlib import Path
-
 import torch
 
+from . import probe
 from .ops import _cuda, ffn
 
 OUT = _cuda.BUILD_DIR.parent / "probe_k5"
@@ -43,47 +41,6 @@ VARIANTS = {
 }
 
 
-def build_all() -> dict:
-    """One library per variant, compiled in parallel."""
-    src = (_cuda.CSRC / "post_attention.cu").read_text()
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source no longer holds "
-                                   f"{old.strip()!r}")
-            text = text.replace(old, new)
-        d = OUT / name.replace(" ", "_")
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "post_attention.cu").write_text(text)
-        for header in _cuda.CSRC.glob("*.cuh"):
-            (d / header.name).write_text(header.read_text())
-        cmd = [_cuda.nvcc(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-o", str(d / "lib.so"),
-               str(d / "post_attention.cu"), str(_cuda.CSRC / "segment.cu")]
-        procs[name] = (d / "lib.so", subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (path, proc) in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        libs[name] = path
-    return libs
-
-
-def load(path: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
-    for fn, args in (("geomae_post_attention_block_bwd_bf16",
-                      _cuda._SIGNATURES["geomae_post_attention_block_bwd_bf16"]),
-                     ("geomae_error_string", [ctypes.c_int])):
-        getattr(lib, fn).argtypes = args
-    lib.geomae_post_attention_block_bwd_bf16.restype = ctypes.c_int
-    lib.geomae_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def inputs(B: int, V: int):
     g = torch.Generator().manual_seed(5)
     r = lambda *s, scale=0.1: torch.randn(*s, generator=g) * scale
@@ -95,39 +52,15 @@ def inputs(B: int, V: int):
     return [t.cuda() for t in (x, attn, *ws, nv, dy)]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("probe_k5_backward: no CUDA GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
-    libs = {name: load(path) for name, path in build_all().items()}
-    shapes = {(4, 20480): inputs(4, 20480), (4, 8192): inputs(4, 8192)}
-    saved, bwd = _cuda._lib, ffn.post_attention_block_backward
-    try:
-        for turn in range(2):
-            for name, lib in libs.items():
-                _cuda._lib = lib
-                times = [
-                    f"{B}x{V} {cuda_ms(lambda: bwd(*a)):.4f} ms"
-                    for (B, V), a in shapes.items()]
-                print(f"turn {turn} {name}: " + ", ".join(times))
-    finally:
-        _cuda._lib = saved
+    print(probe.card())
+    libs = probe.build_variants("post_attention.cu", VARIANTS, OUT)
+    bwd = ffn.post_attention_block_backward
+    probe.time_variants(libs, {
+        f"{B}x{V}": (lambda a=inputs(B, V): bwd(*a))
+        for B, V in ((4, 20480), (4, 8192))})
 
 
 if __name__ == "__main__":

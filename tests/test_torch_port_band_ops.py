@@ -5,7 +5,12 @@ against ``band_attention_pallas`` in interpret mode and against autograd
 of the plain forward; a window wider than the TPU band against the einsum
 route; one ``SSTStack`` at the shipped width on every attention and FFN
 route against the JAX stack from the same carried weights; and the weight
-mapping of the JAX band route's three Dense projections."""
+mapping of the JAX band route's three Dense projections.  The bf16
+backward kernel's decomposition (``band_attention_backward_tiles_plain``:
+64-token tiles as queries and as keys over exact key ranges, D from
+``band_attention_delta_plain``) against the plain backward, against
+``_pallas_backward`` in interpret mode on windows of 1 to 300 tokens, and
+the delta against the JAX einsum on bf16 inputs."""
 import dataclasses
 
 import jax
@@ -21,6 +26,7 @@ from geomae_tpu.models.sst import SSTStack as JaxSST
 from geomae_tpu.models.sst import prepare_shift_data as jax_shift_data
 from geomae_tpu.ops import windows as jwin
 from geomae_tpu.ops.attention import band_attention as jax_band_attention
+from geomae_tpu.ops.pallas_attention import _pallas_backward as jax_band_bwd
 from geomae_tpu.ops.pallas_attention import _pallas_forward as jax_band_fwd
 from geomae_tpu.ops.pallas_attention import band_attention_pallas
 from geomae_tpu_torch.config import SSTConfig, VoxelConfig
@@ -169,6 +175,119 @@ def test_fused_wrapper_takes_the_plain_versions_on_the_cpu():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(ValueError):
         attention.band_attention_fused(*[a.to("meta") for a in args])
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward kernel's decomposition
+# ---------------------------------------------------------------------------
+
+WINDOW_SIZES = (1, 63, 64, 65, 20, 144, 300)    # the 20-token one: no key
+
+
+def sized_windows(rng, H=2, D=8, V=768):
+    """Two samples of windows of 1, 63, 64, 65, 144 and 300 tokens and one
+    of 20 tokens whose keys are all invalid (in order, then reversed),
+    20 % of the other keys invalid, an INT32_MAX tail; q, k, v and a
+    cotangent that is 0 on the tail; the keyless window's rows."""
+    win = np.full((2, V), INT_MAX, np.int32)
+    kv = rng.random((2, V)) > 0.2
+    keyless = np.zeros((2, V), bool)
+    for b, sizes in enumerate((WINDOW_SIZES, WINDOW_SIZES[::-1])):
+        r = 0
+        for w, n in enumerate(sizes):
+            win[b, r:r + n] = 3 * w
+            keyless[b, r:r + n] = n == 20
+            r += n
+    kv &= (win != INT_MAX) & ~keyless
+    q, k, v = (rng.normal(size=(2, V, H, D)).astype(np.float32)
+               for _ in range(3))
+    g = (rng.normal(size=q.shape) * (win != INT_MAX)[..., None, None]
+         ).astype(np.float32)
+    return q, k, v, win, kv, g, keyless
+
+
+def tiles_plain(q, k, v, win, kv, g, **tiling):
+    """(dq, dk, dv) of the kernel's decomposition from the plain forward's
+    output and statistics, with the plain backward's (dq, dk, dv)."""
+    args = (t(q), t(k), t(v), t(win), t(kv))
+    out = attention.band_attention(*args)
+    lse = attention.band_attention_lse_plain(args[0], args[1], *args[3:])
+    got = attention.band_attention_backward_tiles_plain(*args, out, lse, t(g),
+                                                        **tiling)
+    want = attention.band_attention_backward_plain(*args, out, t(g))
+    return got, want
+
+
+@pytest.mark.parametrize("case,tiling", [
+    ("random", dict()), ("random", dict(tile=32, chunk=16)),
+    ("sizes", dict()), ("sizes", dict(tile=16, chunk=64))])
+def test_tiled_backward_matches_the_plain_backward(case, tiling):
+    """The decomposition against the plain backward in f32 (1e-5 of the
+    largest value: the same terms summed in another order), on the
+    Pallas tests' random layout and on windows of 1 to 300 tokens; every
+    row of the keyless window and of the tail exactly 0 in dq, and the
+    tail 0 in dk and dv."""
+    rng = np.random.default_rng(12)
+    if case == "random":
+        q, k, v, win, kv = make_case(rng, B=2, V=300, H=2, D=8, win_size=90)
+        g = (rng.normal(size=q.shape) * (win != INT_MAX)[..., None, None]
+             ).astype(np.float32)
+    else:
+        q, k, v, win, kv, g, keyless = sized_windows(rng)
+    got, want = tiles_plain(q, k, v, win, kv, g, **tiling)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+    pad = t(win == INT_MAX)
+    assert pad.any() and all((a[pad] == 0).all() for a in got)
+    if case == "sizes":
+        assert (got[0][t(keyless)] == 0).all()
+
+
+def test_tiled_backward_matches_pallas_on_window_sizes():
+    """The decomposition against ``_pallas_backward`` in interpret mode
+    with a band wide enough for 300-token windows (tile 128, pad 320),
+    from the Pallas forward's output and statistics: 2e-5 + 2e-4
+    relative (the JAX test's bound); dq of the keyless window 0 in both."""
+    q, k, v, win, kv, g, keyless = sized_windows(np.random.default_rng(13))
+    jargs = tuple(map(jnp.asarray, (q, k, v, win, kv)))
+    out, stats = jax_band_fwd(*jargs, 128, 320, True)
+    want = jax_band_bwd(*jargs, out, stats, jnp.asarray(g), 128, 320, True)
+    args = (t(q), t(k), t(v), t(win), t(kv))
+    lse = attention.band_attention_lse_plain(args[0], args[1], *args[3:])
+    got = attention.band_attention_backward_tiles_plain(
+        *args, t(np.array(out)), lse, t(g))
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=2e-5)
+    assert (got[0].numpy()[keyless] == 0).all()
+    assert (np.asarray(want[0])[keyless] == 0).all()
+
+
+def test_delta_matches_the_jax_einsum_in_bf16():
+    """D = rowsum(g * out) per (row, head) on bf16 inputs against the JAX
+    package's ``einsum(..., preferred_element_type=f32)``: every product
+    is exact in f32, so only the order of 16 f32 additions differs (at
+    most 15 x 2^-24 x sum |terms|); 0 on the padding rows."""
+    rng = np.random.default_rng(14)
+    g, out = (rng.normal(size=(2, 200, 8, 16)).astype(np.float32)
+              for _ in range(2))
+    jg, jo = (jnp.asarray(a, jnp.bfloat16) for a in (g, out))
+    want = np.asarray(jnp.einsum("bvhd,bvhd->bvh", jg, jo,
+                                 preferred_element_type=jnp.float32))
+    tg, to = (torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+              for a in (jg, jo))
+    win = torch.zeros(2, 200, dtype=torch.int32)
+    win[0, 150:] = INT_MAX                   # a padding suffix
+    real = (win != INT_MAX).numpy()
+    got = attention.band_attention_delta_plain(to, tg, win)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    mag = attention.band_attention_delta_plain(to.abs(), tg.abs(),
+                                               win).numpy()
+    err = np.abs(got.numpy() - want)
+    assert (err[real] <= 15 * 2.0 ** -24 * mag[real]).all()
+    assert (got.numpy()[~real] == 0).all() and (mag[real] > 0).all()
 
 
 # ---------------------------------------------------------------------------

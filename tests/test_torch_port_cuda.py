@@ -36,7 +36,10 @@ encoder's shape: [B, 8192, 128] visible tokens, 30 % of the pillars.
 K8 (window attention over projected q, k, v; ``ops/attention.py``): the
 output and the statistics at K6's bound, the backward's dq, dk, dv at the
 per-row rule of the other backward cotangents (it has no parameter
-gradients), at three layouts: one sample, a batch, and the encoder's.
+gradients), at four layouts: one sample, a batch, the encoder's, and
+windows of 1 to 300 tokens with one that has no valid key.  Its
+prologue (D = rowsum(dO * out)) sums 16 exact products in another order.
+K4 also on spans with no key, a full span and an all-sentinel sample.
 """
 import numpy as np
 import pytest
@@ -592,6 +595,46 @@ def test_sst_kernels_at_the_encoder_shape(dev, dtype):
                 ffn.post_attention_block_backward_plain(*block, d), dtype, 2)
 
 
+def expand_spans(n_cells, V=1500, C=13, B=3, seed=15):
+    """K4's edge cases at B = 3, C = 13 (so batch rows 1 and 2 start 4 and
+    8 bytes past a 16-byte boundary): sample 0 occupies the whole
+    512-cell span [512, 1024) and the first cell, with spans of no key
+    after them; sample 1
+    random cells with the last one; sample 2 is all sentinel."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(0, 100, (B, V, C)).astype(np.float32)
+    key = np.full((B, V), n_cells, np.int32)
+    full = np.arange(512, 1024)[:max(0, min(512, n_cells - 512))]
+    k0 = np.concatenate([[0], full])
+    key[0, :k0.size] = k0
+    k1 = np.sort(rng.choice(n_cells - 1, min(n_cells - 1, V // 3),
+                            replace=False))
+    k1 = np.append(k1, n_cells - 1) if n_cells > 1 else np.array([0])
+    key[1, :k1.size] = k1
+    feats[key == n_cells] = 0
+    t = lambda a: torch.from_numpy(a).cuda()
+    return t(feats), t(key)
+
+
+@pytest.mark.parametrize("n_cells,V,C", [(1, 1500, 13), (600, 1500, 13),
+                                         (1024, 1500, 13), (5000, 1500, 13),
+                                         (160000, 70000, 13),
+                                         (5000, 1500, 30)])
+def test_expand_rows_spans(dev, n_cells, V, C):
+    """K4 on spans with no key, a fully occupied span and an all-sentinel
+    sample, unaligned batch rows, a probe step longer than the block
+    (V = 70,000: a bracket of more than 256 rows to scan), and another
+    channel count (C = 30): exact against the plain version, row n_cells
+    0, one launch."""
+    feats, key = expand_spans(n_cells, V, C)
+    before = targets.expand_rows.launches
+    got = targets.expand_rows(feats, key, n_cells)
+    assert targets.expand_rows.launches == before + 1
+    check(got, targets.expand_rows_plain(feats, key, n_cells), 0, 0)
+    assert (got[:, n_cells] == 0).all() and (got[2] == 0).all()
+    assert torch.equal(got[0, 0], feats[0, 0])
+
+
 def test_target_wrappers_refuse_what_the_kernels_do_not_take(dev):
     vals = torch.zeros(1, 64, 4, device=dev)
     ids = torch.zeros(1, 64, dtype=torch.int32, device=dev)
@@ -613,9 +656,34 @@ def band_case(dtype, dev, win, kv, seed=10):
     return q, k, v, win.to(dev), kv.to(dev), d
 
 
+WINDOW_SIZES = (1, 63, 64, 65, 20, 144, 300)    # the 20-token one: no key
+
+
+def sized_windows(V=768):
+    """(win_id, key_valid, keyless): two samples of windows of 1, 63, 64,
+    65, 144 and 300 tokens and one of 20 whose keys are all invalid (in
+    order, then reversed), 20 % of the other keys invalid, an INT32_MAX
+    tail; keyless marks the 20-token window's rows."""
+    rng = np.random.default_rng(12)
+    win = np.full((2, V), INT_MAX, np.int32)
+    kv = rng.random((2, V)) > 0.2
+    keyless = np.zeros((2, V), bool)
+    for b, sizes in enumerate((WINDOW_SIZES, WINDOW_SIZES[::-1])):
+        r = 0
+        for w, n in enumerate(sizes):
+            win[b, r:r + n] = 3 * w
+            keyless[b, r:r + n] = n == 20
+            r += n
+    kv &= (win != INT_MAX) & ~keyless
+    return tuple(map(torch.from_numpy, (win, kv, keyless)))
+
+
 def band_layout(which, dev):
     """(win_id, key_valid): one sample of windows up to 150 tokens, a batch
-    of four, or the pretrain encoder's layout at reduced batch."""
+    of four, the pretrain encoder's layout at reduced batch, or windows of
+    1 to 300 tokens and one without a valid key."""
+    if which == "sizes":
+        return sized_windows()[:2]
     if which == "encoder":
         lay = encoder_tokens(dev)
         return lay["win_id"], lay["key_valid_sorted"]
@@ -624,7 +692,7 @@ def band_layout(which, dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("which", ["one", "batch", "encoder"])
+@pytest.mark.parametrize("which", ["one", "batch", "encoder", "sizes"])
 def test_band_attention_fused(dev, dtype, which):
     """K8 forward: output and statistics against the plain versions; the
     output without statistics is the same; padding rows are 0."""
@@ -641,25 +709,46 @@ def test_band_attention_fused(dev, dtype, which):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("which", ["one", "batch", "encoder"])
+@pytest.mark.parametrize("which", ["one", "batch", "encoder", "sizes"])
 def test_band_attention_fused_backward(dev, dtype, which):
     """K8 backward from the forward kernel's statistics against the plain
-    backward (which recomputes its softmax); two launches bitwise equal
-    (no atomics)."""
+    backward (which recomputes its softmax), per row; one prologue and
+    one backward launch; zero on padding rows (and dq on the rows of a
+    window without a valid key); two launches bitwise equal (no
+    atomics)."""
     q, k, v, win, kv, d = band_case(dtype, dev, *band_layout(which, dev))
     out, lse = attention._forward(q, k, v, win, kv, stats=True)
-    before = attention.band_attention_fused_backward.launches
-    got = attention.band_attention_fused_backward(q, k, v, win, kv, out, lse,
-                                                  d)
-    assert attention.band_attention_fused_backward.launches == before + 1
+    f, p = attention.band_attention_fused_backward, \
+        attention.band_attention_delta
+    before = (f.launches, p.launches)
+    got = f(q, k, v, win, kv, out, lse, d)
+    assert (f.launches, p.launches) == (before[0] + 1, before[1] + 1)
     want = attention.band_attention_backward_plain(q, k, v, win, kv, out, d)
     flat = lambda ts: [t.flatten(2) for t in ts]
     check_grads(flat(got), flat(want), dtype, 3)
     for t in got:
         assert t.dtype == dtype and (t[win == INT_MAX] == 0).all()
-    again = attention.band_attention_fused_backward(q, k, v, win, kv, out,
-                                                    lse, d)
+    if which == "sizes":
+        assert (got[0][sized_windows()[2].to(dev)] == 0).all()
+    again = f(q, k, v, win, kv, out, lse, d)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_band_attention_delta(dev, dtype):
+    """The backward's prologue against its plain twin: 16 products, exact
+    in f32, added in another order (at most 15 x 2^-24 x sum |terms|); 0
+    on padding rows."""
+    q, k, v, win, kv, d = band_case(dtype, dev, *band_layout("batch", dev))
+    out = attention.band_attention_fused(q, k, v, win, kv)
+    before = attention.band_attention_delta.launches
+    got = attention.band_attention_delta(out, d, win)
+    assert attention.band_attention_delta.launches == before + 1
+    want = attention.band_attention_delta_plain(out, d, win)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    mag = attention.band_attention_delta_plain(out.abs(), d.abs(), win)
+    assert ((got - want).abs() <= 15 * 2.0 ** -24 * mag).all()
+    assert (got[win == INT_MAX] == 0).all()
 
 
 def test_band_attention_fused_autograd_and_refusals(dev):
