@@ -12,17 +12,36 @@
 //
 // Bound: with no projection inside, a call moves 4 rows of C values per
 // token and computes 4 * C operations per same-window pair forward (10 * C
-// backward); at 144-token windows that is far more arithmetic than bytes.
-// The forward runs on the CUDA cores and waits for shared-memory reads of
-// the key rows and the exp per pair.  The TPU
-// kernel streams a fixed +-192-token band with an f32 copy of the window
-// ids through double-buffered DMA; none of that is carried over.  As in
-// window_attention.cu a block takes 32 queries, finds the exact key range
-// of their windows by binary search in the sorted ids and streams keys in
-// chunks of 32 through shared memory with an online softmax, so a window
-// of any size is exact and no key outside the tile's windows is read.  One
-// thread owns one (query, head) pair; a warp is one head of 32 queries, so
-// each key row read from shared memory is a broadcast.
+// backward); at 144-token windows that is far more arithmetic than bytes,
+// yet the bytes bound it on this card (0.0259 ms at [4, 20480] forward,
+// against 0.0042 ms of tensor-core work).  The TPU kernel streams a fixed
+// +-192-token band with an f32 copy of the window ids through
+// double-buffered DMA; none of that is carried over.  Each block takes a
+// tile of queries, finds the exact key range of the tile's windows in the
+// sorted ids (in the bf16 kernels key_range_warp: 32-way searches by one
+// warp, three dependent loads where a binary search takes fifteen; the
+// f32 kernels keep key_range, binary searches by one thread, for the same
+// range), and streams the keys in chunks through shared memory with an
+// online softmax, so a window of any size is exact and no key outside the
+// tile's windows is read.
+//
+// bfloat16 forward, on the tensor cores (band_attention_fwd_tc_kernel):
+// 64-token tiles of 4 warps x 16 rows, 4 heads a block, 64-key chunks;
+// S = Q K^T and O += P V on mma.sync m16n8k16, P built and masked on the
+// accumulators and rounded into the value product's A fragments.  128
+// registers (88 bytes spilled), 46,592 bytes of shared memory: four blocks
+// an SM.  About a fifth of its bound (PERF.md): the products take about
+// 0.15 of its time and the exps 0.11, the rest is the per-element masking
+// and online softmax, staging and the key range (probe_forwards); 8 heads
+// a block (255 registers) and three blocks an SM are slower.  The dtype
+// points below hold but one: P is rounded against the running max of the
+// chunks seen so far, then O rescales in f32 (band_attention_tiles_plain
+// is this order in plain PyTorch).
+//
+// float32 forward, on the CUDA cores (band_attention_kernel): a block takes
+// 32 queries and walks the keys one at a time, chunks of 32 staged in f32;
+// one thread owns one (query, head) pair, a warp is one head of 32
+// queries, so each key row read from shared memory is a broadcast.
 //
 // Dtype points of _fwd_body: the score accumulates in f32 from the compute
 // dtype's q and k and the 1/sqrt(D) scale multiplies the f32 score; the
@@ -145,7 +164,9 @@ __device__ __forceinline__ void axpy_head(float w, const float* __restrict__ b,
 
 // The exact key range [ks, ke) of the windows of the tile's real queries
 // [q0, q0 + nq) in one sample's sorted ids wb[0, V); ks == ke for a tile
-// of padding only.  Called by one thread.
+// of padding only.  Called by one thread.  Only the f32 kernels call it:
+// they stay as they were, the parity path; key_range_warp below returns
+// the same range faster and serves the bf16 kernels.
 __device__ __forceinline__ void key_range(const int* __restrict__ wb, int V,
                                           int q0, int nq, int* range) {
   int ks = 0, ke = 0;
@@ -160,12 +181,58 @@ __device__ __forceinline__ void key_range(const int* __restrict__ wb, int V,
   range[1] = ke;
 }
 
-template <typename T>
+// The first index in the ascending a[lo, hi) whose value is >= v (hi if
+// none), searched by a whole warp: every round its lanes probe 32 evenly
+// spaced points of the bracket, so a bracket of 20,480 ids takes three
+// dependent loads where a binary search takes fifteen.  Every lane of the
+// warp calls it and gets the result.
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
+                                                int lo, int hi, int v) {
+  const int lane = threadIdx.x % 32;
+  while (hi - lo > 32) {           // the answer lies in [lo, hi]
+    const int step = (hi - lo + 31) / 32;
+    const int i = lo + lane * step;
+    const unsigned ge = __ballot_sync(0xffffffffu, i >= hi || a[i] >= v);
+    if (ge == 0) {                 // past the last probe
+      lo += 31 * step + 1;
+      continue;
+    }
+    const int f = __ffs(ge) - 1;
+    if (f == 0) return lo;
+    hi = min(hi, lo + f * step);
+    lo += (f - 1) * step + 1;
+  }
+  const unsigned ge =
+      __ballot_sync(0xffffffffu, lo + lane >= hi || a[lo + lane] >= v);
+  return ge ? lo + __ffs(ge) - 1 : hi;
+}
+
+// key_range searched by a whole warp (warp_lower_bound); its lane 0
+// writes the range.
+__device__ __forceinline__ void key_range_warp(const int* __restrict__ wb,
+                                               int V, int q0, int nq,
+                                               int* range) {
+  int ks = 0, ke = 0;
+  const int first = wb[q0];
+  if (first != kInt32Max) {
+    int last_q = q0 + nq - 1;      // padding is a suffix
+    if (wb[last_q] == kInt32Max)
+      last_q = warp_lower_bound(wb, q0 + 1, last_q, kInt32Max) - 1;
+    ks = warp_lower_bound(wb, 0, q0, first);
+    ke = warp_lower_bound(wb, last_q + 1, V, wb[last_q] + 1);
+  }
+  if (threadIdx.x % 32 == 0) {
+    range[0] = ks;
+    range[1] = ke;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-band_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ win,
+band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const int* __restrict__ win,
                       const uint8_t* __restrict__ key_valid,
-                      T* __restrict__ out, float* __restrict__ lse, int V) {
+                      float* __restrict__ out, float* __restrict__ lse,
+                      int V) {
   extern __shared__ float smem[];
   float* s_k = smem;              // [KC][C] k rows
   float* s_v = s_k + KC * C;      // [KC][C] v rows
@@ -179,8 +246,8 @@ band_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t row0 = (size_t)b * V;
   const int* wb = win + row0;
   const uint8_t* kvb = key_valid + row0;
-  const T* kb = k + row0 * C;
-  const T* vb = v + row0 * C;
+  const float* kb = k + row0 * C;
+  const float* vb = v + row0 * C;
 
   const int h = threadIdx.x / TQ;   // warp-uniform
   const int i = threadIdx.x % TQ;
@@ -194,7 +261,7 @@ band_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) qr[d] = 0.f;
-  if (my_win != kInt32Max) load_head<T>(q + (row0 + qi) * C + h * D, qr);
+  if (my_win != kInt32Max) load_head<float>(q + (row0 + qi) * C + h * D, qr);
 
   float m = -INFINITY, l = 0.f, acc[D];
 #pragma unroll
@@ -203,8 +270,8 @@ band_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = ks; k0 < ke; k0 += KC) {
     const int nk = min(KC, ke - k0);
     __syncthreads();   // the previous chunk is consumed
-    stage<T>(kb, k0, nk, s_k);
-    stage<T>(vb, k0, nk, s_v);
+    stage<float>(kb, k0, nk, s_k);
+    stage<float>(vb, k0, nk, s_v);
     if (threadIdx.x < KC) {
       const int r = threadIdx.x;
       s_win[r] = r < nk ? wb[k0 + r] : kInt32Max;
@@ -221,7 +288,7 @@ band_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l = l * corr + p;
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] *= corr;
-      axpy_head(round_t<T>(p), &s_v[j * C + h * D], acc);
+      axpy_head(p, &s_v[j * C + h * D], acc);
       m = mn;
     }
   }
@@ -229,23 +296,23 @@ band_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (i < nq) {
     const bool seen = my_win != kInt32Max && l > 0.f;
     const float inv = seen ? 1.f / l : 0.f;
-    T* o = out + (row0 + qi) * C + h * D;
+    float* o = out + (row0 + qi) * C + h * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = from_f<T>(acc[d] * inv);
+    for (int d = 0; d < D; ++d) o[d] = acc[d] * inv;
     if (lse) lse[(row0 + qi) * H + h] = seen ? m + logf(l) : 0.f;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* win,
-                   const uint8_t* key_valid, void* out, float* lse, int B,
-                   int V, cudaStream_t stream) {
-  cudaError_t e = allow_smem(band_attention_kernel<T>, kFwdSmemBytes);
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const int* win, const uint8_t* key_valid, void* out,
+                       float* lse, int B, int V, cudaStream_t stream) {
+  cudaError_t e = allow_smem(band_attention_kernel, kFwdSmemBytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((V + TQ - 1) / TQ, B);
-  band_attention_kernel<T><<<grid, kThreads, kFwdSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), win, key_valid, static_cast<T*>(out), lse, V);
+  band_attention_kernel<<<grid, kThreads, kFwdSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), win, key_valid, static_cast<float*>(out),
+      lse, V);
   return cudaGetLastError();
 }
 
@@ -443,6 +510,7 @@ constexpr int kNoKey = -kInt32Max - 1; // a column that is no valid key
 constexpr int kNoQuery = kNoKey + 1;   // a column past the key range
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kScaleLog2e = kScale * kLog2e;
+constexpr float kLn2 = 0.6931471805599453f;
 static_assert(H % kHG == 0 && kCW % 8 == 0, "whole heads, 16-byte rows");
 static_assert(kTile == kChunk && kChunk % 16 == 0, "one row loader");
 
@@ -524,7 +592,7 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
     for (int hh = 0; hh < kHG; ++hh) sm.stat[buf][hh][threadIdx.x] = cs[hh];
   };
 
-  if (threadIdx.x == 0) key_range(wb, V, t0, nt, s_range);
+  if (threadIdx.x / 32 == 0) key_range_warp(wb, V, t0, nt, s_range);
   __syncthreads();
   const int ks = s_range[0], ke = s_range[1];
   if (ks < ke) {                   // else a tile of padding: zeros out
@@ -714,6 +782,254 @@ cudaError_t launch_bwd_tc(const BwdArgs& args, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// bf16 forward on the tensor cores.  A block takes a tile of kTile query
+// rows and kFwdHeads heads; each warp owns 16 rows and keeps, per head,
+// their output accumulator (16 x 16 in f32), running max and sum in
+// registers over the tile's exact key range, streamed in chunks of kChunk
+// key rows
+// (the heads' k and v channels, double-buffered through cp.async).  Per
+// head and 16 keys a warp runs two m16n8k16 products for S = Q K^T and two
+// for O += P V.  S is masked per element by one integer compare of the
+// row's window id against the column's (kNoKey where the key is not valid
+// or lies past the range) and folded into an online softmax per chunk in
+// log2 units: the row's running max moves once a chunk, O and the sum
+// rescale in f32, and P = 2^(s scale log2 e - max) is rounded to bf16 into
+// the A fragments of the value product (the C layout of m16n8k16 is its A
+// layout); the sum adds the unrounded P.  A warp skips a chunk whose keys
+// pair none of its rows.  One warp finds the tile's key range
+// (key_range_warp).
+constexpr int kFwdHeads = 4;           // heads a block
+static_assert(kFwdHeads == 4, "the lse store writes a float4 of heads");
+constexpr int kFwdWarps = kTile / 16;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+static_assert(kFwdThreads >= kChunk, "a thread per chunk row's window id");
+
+struct FwdTcSmem {
+  static constexpr int kRS = kFwdHeads * D + kPad;   // bf16 row stride
+  __nv_bfloat16 q[kTile * kRS];        // the tile's q rows, then its output
+  __nv_bfloat16 kv[2][2][kChunk * kRS];   // per buffer: k rows, v rows
+  int win[2][kChunk];                  // per buffer: the key's window id
+};                                     // or kNoKey
+
+__global__ void __launch_bounds__(kFwdThreads, 4)
+band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const int* __restrict__ win,
+                             const uint8_t* __restrict__ key_valid,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int V) {
+  constexpr int kRS = FwdTcSmem::kRS;
+  constexpr int kPieces = kFwdHeads * D / 8;  // 16-byte pieces a staged row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdTcSmem& sm = *reinterpret_cast<FwdTcSmem*>(smem_raw);
+  __shared__ int s_range[2];
+
+  const int b = blockIdx.z, h0 = blockIdx.y * kFwdHeads;
+  const int t0 = blockIdx.x * kTile;
+  const int nt = min(kTile, V - t0);
+  const size_t row0 = (size_t)b * V;
+  const int* wb = win + row0;
+  const uint8_t* kvb = key_valid + row0;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+
+  if (warp == 0) key_range_warp(wb, V, t0, nt, s_range);
+  __syncthreads();
+  const int ks = s_range[0], ke = s_range[1];
+
+  // rows [r0, r0 + n) of the block's heads of src into dst [kChunk][kRS];
+  // rows past n are zero-filled (finite: a masked product with them
+  // stays 0)
+  auto copy_rows = [&](const __nv_bfloat16* src, int r0, int n,
+                       __nv_bfloat16* dst) {
+    for (int e = threadIdx.x; e < kChunk * kPieces; e += kFwdThreads) {
+      const int r = e / kPieces, c = (e % kPieces) * 8;
+      cp_async_16(dst + r * kRS + c,
+                  src + (row0 + r0 + (r < n ? r : 0)) * C + h0 * D + c,
+                  r < n);
+    }
+  };
+  // key row k0 + threadIdx.x's window id, kNoKey without a valid key
+  auto key_win = [&](int k0) {
+    const int r = k0 + threadIdx.x;
+    return r < ke && kvb[r] ? wb[r] : kNoKey;
+  };
+  int cw = kNoKey;
+  if (ks < ke) {                   // else a tile of padding: zeros out
+    copy_rows(q, t0, nt, sm.q);
+    copy_rows(k, ks, min(kChunk, ke - ks), sm.kv[0][0]);
+    copy_rows(v, ks, min(kChunk, ke - ks), sm.kv[0][1]);
+    if (threadIdx.x < kChunk) sm.win[0][threadIdx.x] = key_win(ks);
+  }
+  cp_async_commit();
+
+  // the lane's rows g and g + 8 of the warp's 16: window id (INT32_MAX on
+  // padding and past V: matches no key)
+  int qwin[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int r = 16 * warp + g + 8 * rh;
+    qwin[rh] = r < nt ? wb[t0 + r] : kInt32Max;
+  }
+
+  // per head: O (channels 8 n + 2 t + (0, 1) of rows g, g + 8), the
+  // running max (log2 units) and the lane's part of the sum of P
+  float o[kFwdHeads][2][4] = {}, m[kFwdHeads][2], l[kFwdHeads][2] = {};
+#pragma unroll
+  for (int hh = 0; hh < kFwdHeads; ++hh) m[hh][0] = m[hh][1] = -INFINITY;
+
+  int buf = 0;
+  for (int k0 = ks; k0 < ke; k0 += kChunk, buf ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();               // chunk k0 landed; the other buffer is free
+    const int k1 = k0 + kChunk;
+    if (k1 < ke) {                 // prefetch the next chunk
+      copy_rows(k, k1, min(kChunk, ke - k1), sm.kv[buf ^ 1][0]);
+      copy_rows(v, k1, min(kChunk, ke - k1), sm.kv[buf ^ 1][1]);
+      cp_async_commit();
+      if (threadIdx.x < kChunk) cw = key_win(k1);
+    }
+    // bit 4 j + 2 rh + e: row g + 8 rh sees column 8 j + 2 t + e
+    uint32_t seen = 0;
+#pragma unroll
+    for (int j = 0; j < kChunk / 8; ++j) {
+      const int2 w =
+          *reinterpret_cast<const int2*>(&sm.win[buf][8 * j + 2 * t]);
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh)
+        seen |= ((qwin[rh] == w.x ? 1u : 0u) | (qwin[rh] == w.y ? 2u : 0u))
+                << (4 * j + 2 * rh);
+    }
+    if (__any_sync(0xffffffffu, seen != 0)) {
+      const __nv_bfloat16* ck = sm.kv[buf][0];
+      const __nv_bfloat16* cv = sm.kv[buf][1];
+#pragma unroll
+      for (int hh = 0; hh < kFwdHeads; ++hh) {
+        uint32_t aq[4];
+        ldmatrix_x4(aq, sm.q + (16 * warp + lane % 16) * kRS + hh * D +
+                            (lane / 16) * 8);
+        float s[kChunk / 8][4];
+#pragma unroll
+        for (int jj = 0; jj < kChunk / 16; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[2 * jj][e] = s[2 * jj + 1][e] = 0.f;
+          uint32_t bk[4];
+          ldmatrix_x4(bk, ck + (16 * jj + lane % 8 + (lane / 16) * 8) * kRS +
+                              hh * D + ((lane / 8) % 2) * 8);
+          mma_bf16_16816(s[2 * jj], aq, &bk[0]);
+          mma_bf16_16816(s[2 * jj + 1], aq, &bk[2]);
+        }
+        // the masked scores and the rows' chunk max, in log2 units (the
+        // scale is positive: the max of the scaled scores is the scaled
+        // max)
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < kChunk / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[j][i] = (seen >> (4 * j + i)) & 1u ? s[j][i] : -INFINITY;
+            mx[i / 2] = fmaxf(mx[i / 2], s[j][i]);
+          }
+        float base[2];
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          mx[rh] = fmaxf(mx[rh], __shfl_xor_sync(0xffffffffu, mx[rh], 1));
+          mx[rh] = fmaxf(mx[rh], __shfl_xor_sync(0xffffffffu, mx[rh], 2));
+          const float mn = fmaxf(m[hh][rh], mx[rh] * kScaleLog2e);
+          base[rh] = mn == -INFINITY ? 0.f : mn;   // no key seen yet
+          const float corr = ex2(m[hh][rh] - base[rh]);
+          m[hh][rh] = mn;
+          l[hh][rh] *= corr;
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            o[hh][n][2 * rh] *= corr;
+            o[hh][n][2 * rh + 1] *= corr;
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < kChunk / 16; ++jj) {
+          uint32_t ap[4];          // P of keys 16 jj .. 16 jj + 15, bf16
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+            for (int rh = 0; rh < 2; ++rh) {
+              const float* sj = s[2 * jj + h2];
+              const float p0 = ex2(fmaf(sj[2 * rh], kScaleLog2e, -base[rh]));
+              const float p1 =
+                  ex2(fmaf(sj[2 * rh + 1], kScaleLog2e, -base[rh]));
+              l[hh][rh] += p0 + p1;
+              ap[2 * h2 + rh] = pack_bf16(p0, p1);
+            }
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, cv + (16 * jj + lane % 8 +
+                                      ((lane / 8) % 2) * 8) * kRS +
+                                    hh * D + (lane / 16) * 8);
+          mma_bf16_16816(o[hh][0], ap, &bv[0]);
+          mma_bf16_16816(o[hh][1], ap, &bv[2]);
+        }
+      }
+    }
+    if (k1 < ke && threadIdx.x < kChunk) sm.win[buf ^ 1][threadIdx.x] = cw;
+  }
+
+  // O / l rounded once, staged over the warp's own q rows (no other warp
+  // reads them, and no copy into them is in flight), then written 16 bytes
+  // a lane; lse = max + log l in natural units, 0 where a row sees no key;
+  // rows past V are not written
+  __syncwarp();
+#pragma unroll
+  for (int hh = 0; hh < kFwdHeads; ++hh)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float sum = l[hh][rh];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[hh][rh] = sum;
+      const float inv = sum > 0.f ? 1.f / sum : 0.f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        *reinterpret_cast<uint32_t*>(
+            sm.q + (16 * warp + g + 8 * rh) * kRS + hh * D + 8 * n + 2 * t) =
+            pack_bf16(o[hh][n][2 * rh] * inv, o[hh][n][2 * rh + 1] * inv);
+    }
+  if (lse && t == 0) {             // the rows' 4 heads, one 16-byte store
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int r = 16 * warp + g + 8 * rh;
+      float st[kFwdHeads];
+#pragma unroll
+      for (int hh = 0; hh < kFwdHeads; ++hh)
+        st[hh] = l[hh][rh] > 0.f ? m[hh][rh] * kLn2 + logf(l[hh][rh]) : 0.f;
+      if (r < nt)
+        *reinterpret_cast<float4*>(lse + (row0 + t0 + r) * H + h0) =
+            make_float4(st[0], st[1], st[2], st[3]);
+    }
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * kPieces; e += 32) {
+    const int r = 16 * warp + e / kPieces, c = (e % kPieces) * 8;
+    if (r >= nt) continue;
+    *reinterpret_cast<uint4*>(out + (row0 + t0 + r) * C + h0 * D + c) =
+        *reinterpret_cast<const uint4*>(sm.q + r * kRS + c);
+  }
+}
+
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
+                          const int* win, const uint8_t* key_valid, void* out,
+                          float* lse, int B, int V, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  constexpr int kBytes = sizeof(FwdTcSmem);
+  cudaError_t e = allow_smem(band_attention_fwd_tc_kernel, kBytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((V + kTile - 1) / kTile, H / kFwdHeads, B);
+  band_attention_fwd_tc_kernel<<<grid, kFwdThreads, kBytes, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), win, key_valid, static_cast<bf*>(out), lse,
+      V);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace geomae
 
@@ -731,9 +1047,9 @@ int geomae_band_attention(int dtype, const void* q, const void* k,
   using namespace geomae;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch<float>(q, k, v, win, key_valid, out, lse, B, V, s);
+    return launch_f32(q, k, v, win, key_valid, out, lse, B, V, s);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, win, key_valid, out, lse, B, V, s);
+    return launch_fwd_tc(q, k, v, win, key_valid, out, lse, B, V, s);
   return cudaErrorInvalidValue;
 }
 

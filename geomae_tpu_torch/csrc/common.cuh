@@ -53,6 +53,34 @@ inline cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// The blocks of a persistent grid: as many of the kernel's blocks as
+// reside on all of the device's SMs at once (its registers and shared
+// memory decide), at most `tiles`, at least 1.  `resident` is the
+// caller's cache of that count per device (0: not yet asked), so a launch
+// adds no device query after the first.
+constexpr int kMaxDevices = 64;
+
+template <typename K>
+inline cudaError_t persistent_grid(K kernel, int threads, int smem,
+                                   int tiles, int (&resident)[kMaxDevices],
+                                   int* blocks) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms, per_sm;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+    if (e != cudaSuccess) return e;
+    resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  *blocks = tiles < 1 ? 1 : (tiles < resident[dev] ? tiles : resident[dev]);
+  return cudaSuccess;
+}
+
 // Weight gradients of the backward kernels.  On the TPU the grid runs in
 // order and one VMEM accumulator collects a weight gradient across all
 // tiles; here blocks run in no order, so each block of a persistent grid

@@ -12,16 +12,33 @@
 // given, GELU is the exact erf form.  Rows at or past nv[b] (the extent of
 // the real tokens) return 0.
 //
-// Bound: arithmetic on the CUDA cores: 2*(C*C + 2*C*F) FLOPs per token
-// against 3*C values moved, so the weights, not the tokens, dominate the
-// traffic.  A block takes a tile of 32 tokens and keeps every
-// intermediate ([32, C] residuals, the [32, F] hidden) in shared memory,
-// so one read of x and attn and one write of y reach device memory, as on
-// the TPU.  Wo, W1 and W2 (160 KB in bf16) do not fit beside the tiles in
-// a block's 227 KB, so they stream through the read-only cache: each
-// thread owns one output column, reads each weight once per tile, and
-// reuses it for 16 or 32 token rows held in registers.  The first Hopper
-// step up is wgmma with the weights staged in shared memory tiles.
+// Forward.  Bound: 2*(C*C + 2*C*F) = 147,456 operations a token against
+// 768 bytes moved in bf16 (x and attn read, y written; the weights, 160
+// KB, once a call): at [4, 20480] the bytes take 0.0189 ms, the tensor
+// cores' share of the operations 0.0136 ms, so bytes bound it.
+//
+// bfloat16, on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// accumulate; mma.cuh): post_attention_fwd_tc_kernel is passes 0-3 of the
+// tile pass below, the part that the backward's per-tile pass recomputes,
+// through the same device functions (the product pass, the staging, the
+// row-wise steps), so the two round at the same points by construction.
+// A persistent grid walks 64-token tiles; each block streams the weights
+// through a two-buffer cp.async ring and keeps the tile's rows in 109,568
+// bytes of shared memory (attn then xm, x then o2, o then a1 and h over
+// it); 123 registers: two blocks an SM, so one block's row-wise work
+// overlaps the other's products.  It stands at about a tenth of its bound
+// (PERF.md): the products take a few per cent of its time, the row-wise
+// loops (bias, residual, two LayerNorms with their warp reductions, exact
+// GELU) about 0.44 and the weight ring's waits about 0.17
+// (probe_forwards); one block an SM with a three-buffer ring is slower.
+//
+// float32, on the CUDA cores (post_attention_kernel): tensor cores take no
+// f32 operand without TF32 rounding.  A block takes a tile of 32 tokens
+// and keeps every intermediate ([32, C] residuals, the [32, F] hidden) in
+// shared memory, so one read of x and attn and one write of y reach device
+// memory, as on the TPU; the weights stream through the read-only cache,
+// each thread owning one output column for 16 or 32 token rows held in
+// registers.  Bound: the CUDA cores' f32 rate, 0.20 ms at [4, 20480].
 //
 // Backward: the kernels recompute the forward from x and attn (as the TPU
 // kernel does) and back-propagate through both LayerNorms, the FFN and
@@ -40,7 +57,7 @@
 // and the bf16 rows the weight gradients need, xm, da1, h and dz2: 1,536
 // bytes a token, each a value JAX also holds in bf16 before its product,
 // so storing it is exact), then the weight gradients split over 2,048-token
-// chunks (wgrad_kernel).  The tile pass takes 150 registers and 197,120
+// chunks (wgrad_kernel).  The tile pass takes 180 registers and 197,120
 // bytes of dynamic shared memory, one block per SM; the weight pass 80
 // registers and 36,864 bytes.  Bound: the card could do the 6 products in
 // 0.04 ms at [4, 20480] (operations); the tile pass stands far above that
@@ -198,15 +215,18 @@ __device__ __forceinline__ float dgelu(float a) {
          a * expf(-0.5f * a * a) * 0.39894228040143268f;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-post_attention_kernel(const T* __restrict__ x, const T* __restrict__ attn,
-                      const T* __restrict__ wo, const T* __restrict__ bo,
+post_attention_kernel(const float* __restrict__ x,
+                      const float* __restrict__ attn,
+                      const float* __restrict__ wo,
+                      const float* __restrict__ bo,
                       const float* __restrict__ s1, const float* __restrict__ t1,
-                      const T* __restrict__ w1, const T* __restrict__ b1,
-                      const T* __restrict__ w2, const T* __restrict__ b2,
+                      const float* __restrict__ w1,
+                      const float* __restrict__ b1,
+                      const float* __restrict__ w2,
+                      const float* __restrict__ b2,
                       const float* __restrict__ s2, const float* __restrict__ t2,
-                      const int* __restrict__ nv, T* __restrict__ y, int V,
+                      const int* __restrict__ nv, float* __restrict__ y, int V,
                       float eps) {
   extern __shared__ float smem[];
   float* s_z = smem;             // [TT][C] x, then z2 = xm + o2
@@ -221,67 +241,64 @@ post_attention_kernel(const T* __restrict__ x, const T* __restrict__ attn,
   const int rows = min(TT, V - r0);
   if (nr <= 0) {
     for (int i = threadIdx.x; i < rows * C; i += kThreads)
-      y[base + i] = from_f<T>(0.f);
+      y[base + i] = 0.f;
     return;
   }
 
   for (int i = threadIdx.x; i < TT * C; i += kThreads) {
     const bool in = i < nr * C;
-    s_z[i] = in ? to_f<T>(x[base + i]) : 0.f;
-    s_a[i] = in ? to_f<T>(attn[base + i]) : 0.f;
+    s_z[i] = in ? x[base + i] : 0.f;
+    s_a[i] = in ? attn[base + i] : 0.f;
   }
   __syncthreads();
 
   {  // o = attn Wo + bo;  z = x + o
-    using P = Proj<T, C, C>;
+    using P = Proj<float, C, C>;
     float acc[P::RPT];
     P::run(s_a, wo, acc);
     const int c = P::col();
-    const float bc = to_f<T>(bo[c]);
+    const float bc = bo[c];
 #pragma unroll
     for (int j = 0; j < P::RPT; ++j)
-      s_o[P::row(j) * C + c] = round_t<T>(round_t<T>(acc[j]) + bc);
+      s_o[P::row(j) * C + c] = acc[j] + bc;
   }
   __syncthreads();
   for (int i = threadIdx.x; i < TT * C; i += kThreads)
-    s_a[i] = round_t<T>(s_z[i] + s_o[i]);
+    s_a[i] = s_z[i] + s_o[i];
   __syncthreads();
-  layer_norm<T>(s_a, s_a, s1, t1, eps);           // s_a = xm
+  layer_norm<float>(s_a, s_a, s1, t1, eps);       // s_a = xm
   __syncthreads();
 
   {  // h = gelu(xm W1 + b1)
-    using P = Proj<T, C, F>;
+    using P = Proj<float, C, F>;
     float acc[P::RPT];
     P::run(s_a, w1, acc);
     const int c = P::col();
-    const float bc = to_f<T>(b1[c]);
+    const float bc = b1[c];
 #pragma unroll
-    for (int j = 0; j < P::RPT; ++j) {
-      const float a1 = round_t<T>(round_t<T>(acc[j]) + bc);
-      s_h[P::row(j) * F + c] = round_t<T>(gelu(a1));
-    }
+    for (int j = 0; j < P::RPT; ++j)
+      s_h[P::row(j) * F + c] = gelu(acc[j] + bc);
   }
   __syncthreads();
 
   {  // o2 = h W2 + b2;  z2 = xm + o2
-    using P = Proj<T, F, C>;
+    using P = Proj<float, F, C>;
     float acc[P::RPT];
     P::run(s_h, w2, acc);
     const int c = P::col();
-    const float bc = to_f<T>(b2[c]);
+    const float bc = b2[c];
 #pragma unroll
     for (int j = 0; j < P::RPT; ++j) {
       const int r = P::row(j);
-      const float o2 = round_t<T>(round_t<T>(acc[j]) + bc);
-      s_z[r * C + c] = round_t<T>(s_a[r * C + c] + o2);
+      s_z[r * C + c] = s_a[r * C + c] + (acc[j] + bc);
     }
   }
   __syncthreads();
-  layer_norm<T>(s_z, s_z, s2, t2, eps);
+  layer_norm<float>(s_z, s_z, s2, t2, eps);
   __syncthreads();
 
   for (int i = threadIdx.x; i < rows * C; i += kThreads)
-    y[base + i] = from_f<T>(i < nr * C ? s_z[i] : 0.f);
+    y[base + i] = i < nr * C ? s_z[i] : 0.f;
 }
 
 // Parameter gradients, f32, in one buffer (a block's partial and the
@@ -598,33 +615,45 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(WgradArgs p) {
       }
 }
 
-// The per-tile pass: a tile of 64 tokens, eight warps.  For every product
-// a pair of warps takes 16 rows, each warp 64 of the pass's 128 columns,
-// with mma.sync.  The activations that feed a later product are bf16 rows
-// in shared memory; the weights stream through a ring of three k-chunk
-// buffers shared by the block (two chunks in flight, cp.async).  Every
-// product is a pass of N = 128 output columns over K = 128 or 256: 8
-// passes and 20 chunks of 64 k-rows per tile.  After a pass
-// the warps stage the product, rounded to bf16, in shared memory, and the
-// row-wise work (bias, residual, both LayerNorms and their backward, GELU)
-// loops over 8 rows per warp with the lanes across the columns; each lane
-// keeps its columns' vector-gradient sums in registers over all tiles.  A
-// tile's attn, x and dy rows arrive by cp.async beside the weights, and the
-// vector parameters sit in shared memory, so no epilogue waits on device
-// memory.
+// The tensor-core tile pass, shared by the bf16 forward
+// (post_attention_fwd_tc_kernel) and the bf16 backward's per-tile pass
+// (post_attention_bwd_tile_kernel): a tile of 64 tokens, eight warps.  For
+// every product a pair of warps takes 16 rows, each warp 64 of the pass's
+// 128 columns, with mma.sync.  The activations that feed a later product
+// are bf16 rows in shared memory; the weights stream through a ring of
+// k-chunk buffers shared by the block (cp.async, the next chunks in flight
+// while one is consumed, across tiles too).  Every product is a pass of N =
+// 128 output columns over K = 128 or 256: passes 0-3 are the forward (o =
+// attn Wo, a1 = xm W1 in two halves, o2 = h W2; chunks 0-9 of 64 k-rows),
+// passes 4-7 the backward's (20 chunks in all).  After a pass the warps
+// stage the product, rounded to bf16, in shared memory, and the row-wise
+// work (bias, residual, both LayerNorms, GELU, and in the backward their
+// derivatives) loops over 8 rows per warp with the lanes across the
+// columns.  The forward's row-wise steps are device functions that both
+// kernels call (residual_stats, ln_out, bias_gelu), so the backward's
+// recompute rounds where the forward does by construction.  A tile's rows
+// arrive by cp.async beside the weights, and the vector parameters sit in
+// shared memory, so no epilogue waits on device memory.
 constexpr int kTT = 64;                       // tokens per tile
 constexpr int kTileThreads = 256;
 constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kWarpRows = kTT / kTileWarps;   // rows a warp's row loops take
 constexpr int kSC = C + kPad;                 // shared row strides
 constexpr int kSF = F + kPad;
 constexpr int kKc = 64;                       // k-rows per weight chunk
 constexpr int kChunkElems = C * (kKc + kPad); // >= kKc * kSC
-constexpr int kTileChunks = 20;
-constexpr int kRing = 3;                      // weight chunk buffers
+constexpr int kTileChunks = 20;               // the backward's stream
+constexpr int kFwdChunks = 10;                // the forward's: passes 0-3
+constexpr int kRing = 3;                      // the backward's chunk buffers
+constexpr int kFwdRing = 2;                   // the forward's
 constexpr int kVecFloats = kGradFloats - kWeightFloats;   // 6 C + F
 constexpr int kTileSmemBytes =
     (4 * kTT * kSC + 2 * kTT * kSF + kRing * kChunkElems) * 2 +
     kVecFloats * 4 + 2 * kTT * 4;
+constexpr int kFwdSmemBytes =
+    (2 * kTT * kSC + kTT * kSF + kFwdRing * kChunkElems) * 2 +
+    kVecFloats * 4;
+static_assert(2 * kFwdSmemBytes <= 227 * 1024, "two forward blocks an SM");
 // the vector gradients within kVecFloats (the tail of the grads layout),
 // and the vector parameters in the same places
 constexpr int kVbo = 0, kVs1 = C, kVt1 = 2 * C, kVb1 = 3 * C,
@@ -633,6 +662,7 @@ constexpr int kVbo = 0, kVs1 = C, kVt1 = 2 * C, kVb1 = 3 * C,
 // pass -> its first chunk; the weight it reads, whether as W^T ([N][K]
 // as stored) or W ([K][N]), the row stride and the first output column
 __constant__ int kPassStart[9] = {0, 2, 4, 6, 10, 12, 14, 18, 20};
+static_assert(kFwdChunks == 10, "kPassStart[4]: the forward's chunks");
 
 struct TileArgs {
   const __nv_bfloat16 *x, *attn, *dy, *wo, *bo, *w1, *b1, *w2, *b2;
@@ -645,13 +675,24 @@ struct TileArgs {
   float eps;
 };
 
+struct FwdArgs {
+  const __nv_bfloat16 *x, *attn, *wo, *bo, *w1, *b1, *w2, *b2;
+  const float *s1, *t1, *s2, *t2;
+  const int* nv;
+  __nv_bfloat16* y;
+  int B, V;
+  float eps;
+};
+
 struct PassW {
   const __nv_bfloat16* w;
   int ld, n0;
   bool trans;
 };
 
-__device__ __forceinline__ PassW pass_weight(const TileArgs& p, int pass) {
+// Args: TileArgs or FwdArgs (the weights wo, w1, w2)
+template <class Args>
+__device__ __forceinline__ PassW pass_weight(const Args& p, int pass) {
   switch (pass) {
     case 0: return {p.wo, C, 0, false};     // o = attn Wo
     case 1: return {p.w1, F, 0, false};     // a1 = xm W1, two halves
@@ -672,7 +713,8 @@ __device__ __forceinline__ int pass_of(int q) {
 
 // chunk q of the tile's stream into buf: W rows k0.. (cols n0..n0+127) or
 // W^T's, i.e. W rows n0..n0+127, cols k0..; 1024 16-byte pieces
-__device__ __forceinline__ void load_chunk(const TileArgs& p, int q,
+template <class Args>
+__device__ __forceinline__ void load_chunk(const Args& p, int q,
                                            __nv_bfloat16* buf) {
   const int pass = pass_of(q);
   const PassW w = pass_weight(p, pass);
@@ -686,6 +728,68 @@ __device__ __forceinline__ void load_chunk(const TileArgs& p, int q,
       const int r = i / (C / 8), c = (i % (C / 8)) * 8;
       cp_async_16(buf + r * kSC + c, w.w + (size_t)(k0 + r) * w.ld + w.n0 + c);
     }
+  }
+}
+
+// acc += the warp's 16 rows of A (row stride lda, columns k0..k0+63) times
+// the chunk in wb, over the warp's 64 output columns
+__device__ __forceinline__ void chunk_product(float (&acc)[8][4],
+                                              const __nv_bfloat16* A,
+                                              int lda, int k0,
+                                              const __nv_bfloat16* wb,
+                                              bool trans) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nw = 64 * (warp % 2);             // the warp's columns
+#pragma unroll
+  for (int kk = 0; kk < kKc; kk += 16) {
+    uint32_t af[4];
+    ldmatrix_x4(af, A + (16 * (warp / 2) + lane % 16) * lda + k0 + kk +
+                        (lane / 16) * 8);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t bf[4];
+      if (trans)
+        ldmatrix_x4(bf, wb + (nw + j * 16 + lane % 8 + (lane / 16) * 8) *
+                                 (kKc + kPad) +
+                            kk + ((lane / 8) % 2) * 8);
+      else
+        ldmatrix_x4_trans(bf, wb + (kk + lane % 8 + ((lane / 8) % 2) * 8) *
+                                       kSC +
+                                  nw + j * 16 + (lane / 16) * 8);
+      mma_bf16_16816(acc[2 * j], af, &bf[0]);
+      mma_bf16_16816(acc[2 * j + 1], af, &bf[2]);
+    }
+  }
+}
+
+// One product pass of a tile: acc = A (row stride lda) times the pass's
+// weight, over its chunks of the stream of kChunks a tile, through the ring
+// of Ring buffers at s_w; cnt counts the chunks the block has consumed.
+// Each chunk step waits for its chunk (at the tile's first also for the
+// tile's rows, committed after the chunks in flight), frees the buffer of
+// the chunk before it and prefetches the chunk Ring - 1 ahead, into the
+// next tile's stream while the block has one (more_tiles).
+template <int Ring, int kChunks, class Args>
+__device__ __forceinline__ void product_pass(const Args& p, int pass,
+                                             const __nv_bfloat16* A,
+                                             int lda, bool more_tiles,
+                                             __nv_bfloat16* s_w, int& cnt,
+                                             float (&acc)[8][4]) {
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  for (int q = kPassStart[pass]; q < kPassStart[pass + 1]; ++q, ++cnt) {
+    if (q == 0) cp_async_wait<0>();
+    else cp_async_wait<Ring - 2>();
+    __syncthreads();               // chunk q landed; chunk q - 1 consumed
+    const int ahead = q + Ring - 1;
+    if (ahead < kChunks || more_tiles)
+      load_chunk(p, ahead % kChunks,
+                 s_w + ((cnt + Ring - 1) % Ring) * kChunkElems);
+    cp_async_commit();
+    chunk_product(acc, A, lda, (q - kPassStart[pass]) * kKc,
+                  s_w + (cnt % Ring) * kChunkElems, pass >= 4);
   }
 }
 
@@ -729,6 +833,165 @@ __device__ __forceinline__ void stage(const float (&acc)[8][4],
   __syncthreads();               // the pair's halves, for the row loops
 }
 
+// The forward's row-wise steps on the lane's 4 columns of one row (the
+// warp's lanes hold the row's 128 columns).  z = x + (o + b), given the
+// staged product o in z and rounded at the forward's points, and the f32
+// LayerNorm statistics of z over the row: mu, rs = 1 / sqrt(var + eps),
+// var = E[z^2] - mu^2.
+__device__ __forceinline__ void residual_stats(float (&z)[4],
+                                               const float (&x)[4],
+                                               const float (&b)[4],
+                                               float eps, float& mu,
+                                               float& rs) {
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    z[u] = rbf(x[u] + rbf(z[u] + b[u]));
+    sum += z[u];
+    sq += z[u] * z[u];
+  }
+  mu = warp_sum(sum) / C;
+  rs = 1.f / sqrtf(warp_sum(sq) / C - mu * mu + eps);
+}
+
+// y = LayerNorm(z) with its statistics, scale s and bias t, rounded
+__device__ __forceinline__ void ln_out(const float (&z)[4], float mu,
+                                       float rs, const float (&s)[4],
+                                       const float (&t)[4], float (&y)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) y[u] = rbf((z[u] - mu) * rs * s[u] + t[u]);
+}
+
+// a1 = a1 + b (given the staged product in a1), h = gelu(a1), 0 where the
+// row is not real
+__device__ __forceinline__ void bias_gelu(float (&a1)[4], const float (&b)[4],
+                                          bool real, float (&h)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    a1[u] = rbf(a1[u] + b[u]);
+    h[u] = real ? rbf(gelu(a1[u])) : 0.f;
+  }
+}
+
+// The vector parameters into s_par (the kV* places) as f32
+template <class Args>
+__device__ __forceinline__ void load_vector_params(const Args& p,
+                                                   float* s_par) {
+  for (int i = threadIdx.x; i < C; i += kTileThreads) {
+    s_par[kVbo + i] = to_f(p.bo[i]);
+    s_par[kVs1 + i] = p.s1[i];
+    s_par[kVt1 + i] = p.t1[i];
+    s_par[kVb2 + i] = to_f(p.b2[i]);
+    s_par[kVs2 + i] = p.s2[i];
+    s_par[kVt2 + i] = p.t2[i];
+  }
+  for (int i = threadIdx.x; i < F; i += kTileThreads)
+    s_par[kVb1 + i] = to_f(p.b1[i]);
+}
+
+// The bf16 forward: passes 0-3 of the tile pass and their epilogues.  Its
+// shared memory (109,568 bytes: attn then xm, x then o2, o then a1 and h
+// over it, a two-buffer weight ring, the vector parameters) lets two blocks
+// share an SM, so one block's row-wise work overlaps the other's products.
+__global__ void __launch_bounds__(kTileThreads, 2)
+post_attention_fwd_tc_kernel(FwdArgs p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s_x = s_a + kTT * kSC;       // x, then o2 (pass 3)
+  __nv_bfloat16* s_h = s_x + kTT * kSC;       // o (pass 0), then a1 and h
+  __nv_bfloat16* s_w = s_h + kTT * kSF;       // the weight chunk ring
+  float* s_par = reinterpret_cast<float*>(s_w + kFwdRing * kChunkElems);
+  // s_a: attn, then xm (over attn, pass 0)
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int c = 4 * lane;        // the lane's columns in the row loops
+  load_vector_params(p, s_par);
+
+  const int tiles_per_row = (p.V + kTT - 1) / kTT;
+  const int tiles = p.B * tiles_per_row;
+  for (int q = 0; q < kFwdRing - 1; ++q) {      // the stream's first chunks
+    if ((int)blockIdx.x < tiles) load_chunk(p, q, s_w + q * kChunkElems);
+    cp_async_commit();
+  }
+  int cnt = 0;                                  // chunks consumed
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b = tile / tiles_per_row;
+    const int r0 = (tile - b * tiles_per_row) * kTT;
+    const int nr = min(kTT, min(p.V, p.nv[b]) - r0);   // real rows
+    const int rows = min(kTT, p.V - r0);                // rows inside V
+    const size_t row0 = (size_t)b * p.V + r0;
+    if (nr <= 0) {                // past nv: zeros; the ring stays as it is
+      const uint2 zero = make_uint2(0u, 0u);
+      for (int i = threadIdx.x; i < rows * C / 4; i += kTileThreads)
+        reinterpret_cast<uint2*>(p.y + row0 * C)[i] = zero;
+      continue;
+    }
+    __syncthreads();              // the previous tile's rows are consumed
+    for (int i = threadIdx.x; i < kTT * C / 8; i += kTileThreads) {
+      const int r = i / (C / 8), k = (i % (C / 8)) * 8;
+      const size_t g = (row0 + (r < nr ? r : 0)) * C + k;
+      cp_async_16(s_a + r * kSC + k, p.attn + g, r < nr);
+      cp_async_16(s_x + r * kSC + k, p.x + g, r < nr);
+    }
+    cp_async_commit();
+    const bool more = tile + (int)gridDim.x < tiles;
+
+    float acc[8][4];
+    float par[3][4];
+    // o = attn Wo; z = x + (o + bo); xm = LN1(z), over attn
+    product_pass<kFwdRing, kFwdChunks>(p, 0, s_a, kSC, more, s_w, cnt, acc);
+    stage(acc, s_h, kSF, 0);
+    ldf4(s_par + kVbo + c, par[0]);
+    ldf4(s_par + kVs1 + c, par[1]);
+    ldf4(s_par + kVt1 + c, par[2]);
+#pragma unroll 2
+    for (int i = 0; i < kWarpRows; ++i) {
+      const int r = kWarpRows * warp + i;
+      float z[4], x[4], xm[4], mu, rs;
+      ld4(s_h + r * kSF + c, z);
+      ld4(s_x + r * kSC + c, x);            // 0 on rows not real
+      residual_stats(z, x, par[0], p.eps, mu, rs);
+      ln_out(z, mu, rs, par[1], par[2], xm);
+      st4(s_a + r * kSC + c, xm);
+    }
+    // a1 = xm W1 + b1, h = gelu(a1), in two halves of 128 columns
+    for (int pass = 1; pass <= 2; ++pass) {
+      const int n0 = pass_weight(p, pass).n0;
+      product_pass<kFwdRing, kFwdChunks>(p, pass, s_a, kSC, more, s_w, cnt,
+                                         acc);
+      stage(acc, s_h, kSF, n0);
+      ldf4(s_par + kVb1 + n0 + c, par[0]);
+#pragma unroll 2
+      for (int i = 0; i < kWarpRows; ++i) {
+        const int r = kWarpRows * warp + i;
+        float a1[4], h[4];
+        ld4(s_h + r * kSF + n0 + c, a1);
+        bias_gelu(a1, par[0], r < nr, h);
+        st4(s_h + r * kSF + n0 + c, h);
+      }
+    }
+    // o2 = h W2; z2 = xm + (o2 + b2); y = LN2(z2), written out
+    product_pass<kFwdRing, kFwdChunks>(p, 3, s_h, kSF, more, s_w, cnt, acc);
+    stage(acc, s_x, kSC, 0);                  // x was consumed in pass 0
+    ldf4(s_par + kVb2 + c, par[0]);
+    ldf4(s_par + kVs2 + c, par[1]);
+    ldf4(s_par + kVt2 + c, par[2]);
+#pragma unroll 2
+    for (int i = 0; i < kWarpRows; ++i) {
+      const int r = kWarpRows * warp + i;
+      float z2[4], xm[4], y[4], mu, rs;
+      ld4(s_x + r * kSC + c, z2);
+      ld4(s_a + r * kSC + c, xm);
+      residual_stats(z2, xm, par[0], p.eps, mu, rs);
+      ln_out(z2, mu, rs, par[1], par[2], y);
+      if (r >= nr) y[0] = y[1] = y[2] = y[3] = 0.f;
+      if (r < rows) st4(p.y + (row0 + r) * C + c, y);
+    }
+  }
+  cp_async_wait<0>();            // chunks prefetched for no tile
+}
+
 __global__ void __launch_bounds__(kTileThreads, 1)
 post_attention_bwd_tile_kernel(TileArgs p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -749,16 +1012,7 @@ post_attention_bwd_tile_kernel(TileArgs p) {
   // t1, b1 (two halves), b2, s2, t2
   float vs[8][4] = {};
   constexpr int kBo = 0, kS1 = 1, kT1 = 2, kB1 = 3, kB2 = 5, kS2 = 6, kT2 = 7;
-  for (int i = threadIdx.x; i < C; i += kTileThreads) {
-    s_par[kVbo + i] = to_f(p.bo[i]);
-    s_par[kVs1 + i] = p.s1[i];
-    s_par[kVt1 + i] = p.t1[i];
-    s_par[kVb2 + i] = to_f(p.b2[i]);
-    s_par[kVs2 + i] = p.s2[i];
-    s_par[kVt2 + i] = p.t2[i];
-  }
-  for (int i = threadIdx.x; i < F; i += kTileThreads)
-    s_par[kVb1 + i] = to_f(p.b1[i]);
+  load_vector_params(p, s_par);
 
   const int tiles_per_row = (p.V + kTT - 1) / kTT;
   const int tiles = p.B * tiles_per_row;
@@ -797,29 +1051,10 @@ post_attention_bwd_tile_kernel(TileArgs p) {
       cp_async_16(s_dy + r * kSC + k, p.dy + g, r < nr);
     }
     cp_async_commit();
+    const bool more = tile + (int)gridDim.x < tiles;
 
     float acc[8][4];
-
-    for (int q = 0; q < kTileChunks; ++q, ++cnt) {
-      // chunk q landed (at q = 0 also the tile's rows, committed after
-      // the chunks in flight); chunk q - 1 consumed
-      if (q == 0) cp_async_wait<0>();
-      else cp_async_wait<kRing - 2>();
-      __syncthreads();
-      const int ahead = q + kRing - 1;          // the chunk to prefetch
-      if (ahead < kTileChunks || tile + (int)gridDim.x < tiles)
-        load_chunk(p, ahead % kTileChunks,
-                   s_w + ((cnt + kRing - 1) % kRing) * kChunkElems);
-      cp_async_commit();
-
-      const int pass = pass_of(q);
-      const bool trans = pass >= 4;
-      if (q == kPassStart[pass]) {
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
-      }
+    for (int pass = 0; pass < 8; ++pass) {
       // this pass's A rows: attn, xm, xm, h, dz2, dz2, da1, dz1
       const __nv_bfloat16* A;
       int lda;
@@ -827,30 +1062,7 @@ post_attention_bwd_tile_kernel(TileArgs p) {
       else if (pass == 6) { A = s_a1; lda = kSF; }
       else if (pass == 4 || pass == 5) { A = s_dz2; lda = kSC; }
       else { A = s_b0; lda = kSC; }
-      const int k0 = (q - kPassStart[pass]) * kKc;
-      const __nv_bfloat16* wb = s_w + (cnt % kRing) * kChunkElems;
-      const int nw = 64 * (warp % 2);           // the warp's columns
-#pragma unroll
-      for (int kk = 0; kk < kKc; kk += 16) {
-        uint32_t af[4];
-        ldmatrix_x4(af, A + (16 * (warp / 2) + lane % 16) * lda + k0 + kk +
-                            (lane / 16) * 8);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t bf[4];
-          if (trans)
-            ldmatrix_x4(bf, wb + (nw + j * 16 + lane % 8 + (lane / 16) * 8) *
-                                     (kKc + kPad) +
-                                kk + ((lane / 8) % 2) * 8);
-          else
-            ldmatrix_x4_trans(bf, wb + (kk + lane % 8 + ((lane / 8) % 2) * 8) *
-                                           kSC +
-                                      nw + j * 16 + (lane / 16) * 8);
-          mma_bf16_16816(acc[2 * j], af, &bf[0]);
-          mma_bf16_16816(acc[2 * j + 1], af, &bf[2]);
-        }
-      }
-      if (q + 1 != kPassStart[pass + 1]) continue;
+      product_pass<kRing, kTileChunks>(p, pass, A, lda, more, s_w, cnt, acc);
 
       // ---- the pass's epilogue: the product staged in shared memory, then
       // a loop over the warp's 8 rows with the lanes across 128 columns (4
@@ -864,27 +1076,18 @@ post_attention_bwd_tile_kernel(TileArgs p) {
         ldf4(s_par + kVs1 + c, par[1]);
         ldf4(s_par + kVt1 + c, par[2]);
 #pragma unroll 2
-        for (int i = 0; i < 8; ++i) {
-          const int r = 8 * warp + i;
-          float z[4], x[4], xm[4], sum = 0.f, sq = 0.f;
+        for (int i = 0; i < kWarpRows; ++i) {
+          const int r = kWarpRows * warp + i;
+          float z[4], x[4], xm[4], mu, rs;
           ld4(s_z + r * kSC + c, z);
           ld4(s_dz2 + r * kSC + c, x);          // 0 on rows not real
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            z[u] = rbf(x[u] + rbf(z[u] + par[0][u]));
-            sum += z[u];
-            sq += z[u] * z[u];
-          }
+          residual_stats(z, x, par[0], p.eps, mu, rs);
           st4(s_z + r * kSC + c, z);
-          const float mu = warp_sum(sum) / C;
-          const float rs = 1.f / sqrtf(warp_sum(sq) / C - mu * mu + p.eps);
           if (lane == 0) {
             s_stat[2 * r] = mu;
             s_stat[2 * r + 1] = rs;
           }
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            xm[u] = rbf((z[u] - mu) * rs * par[1][u] + par[2][u]);
+          ln_out(z, mu, rs, par[1], par[2], xm);
           st4(s_b0 + r * kSC + c, xm);           // over attn
           if (r < rows) {
             if (r >= nr) xm[0] = xm[1] = xm[2] = xm[3] = 0.f;
@@ -895,15 +1098,11 @@ post_attention_bwd_tile_kernel(TileArgs p) {
         stage(acc, s_a1, kSF, n0);
         ldf4(s_par + kVb1 + n0 + c, par[0]);
 #pragma unroll 2
-        for (int i = 0; i < 8; ++i) {
-          const int r = 8 * warp + i;
+        for (int i = 0; i < kWarpRows; ++i) {
+          const int r = kWarpRows * warp + i;
           float a1[4], h[4];
           ld4(s_a1 + r * kSF + n0 + c, a1);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            a1[u] = rbf(a1[u] + par[0][u]);
-            h[u] = r < nr ? rbf(gelu(a1[u])) : 0.f;
-          }
+          bias_gelu(a1, par[0], r < nr, h);
           st4(s_a1 + r * kSF + n0 + c, a1);
           st4(s_h + r * kSF + n0 + c, h);
           if (r < rows) st4(p.h + (row0 + r) * F + n0 + c, h);
@@ -913,20 +1112,13 @@ post_attention_bwd_tile_kernel(TileArgs p) {
         ldf4(s_par + kVb2 + c, par[0]);
         ldf4(s_par + kVs2 + c, par[1]);
 #pragma unroll 2
-        for (int i = 0; i < 8; ++i) {
-          const int r = 8 * warp + i;
-          float z2[4], xm[4], dy[4], sum = 0.f, sq = 0.f;
+        for (int i = 0; i < kWarpRows; ++i) {
+          const int r = kWarpRows * warp + i;
+          float z2[4], xm[4], dy[4], mu, rs;
           ld4(s_dz2 + r * kSC + c, z2);
           ld4(s_b0 + r * kSC + c, xm);
           ld4(s_dy + r * kSC + c, dy);          // 0 on rows not real
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            z2[u] = rbf(xm[u] + rbf(z2[u] + par[0][u]));
-            sum += z2[u];
-            sq += z2[u] * z2[u];
-          }
-          const float mu = warp_sum(sum) / C;
-          const float rs = 1.f / sqrtf(warp_sum(sq) / C - mu * mu + p.eps);
+          residual_stats(z2, xm, par[0], p.eps, mu, rs);
           float sg = 0.f, sgx = 0.f;
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
@@ -950,8 +1142,8 @@ post_attention_bwd_tile_kernel(TileArgs p) {
       } else if (pass <= 5) {   // da1 = (dz2 W2^T) gelu'(a1), over a1
         stage(acc, s_h, kSF, n0);               // h was consumed in pass 3
 #pragma unroll 2
-        for (int i = 0; i < 8; ++i) {
-          const int r = 8 * warp + i;
+        for (int i = 0; i < kWarpRows; ++i) {
+          const int r = kWarpRows * warp + i;
           float dh[4], a1[4];
           ld4(s_h + r * kSF + n0 + c, dh);
           ld4(s_a1 + r * kSF + n0 + c, a1);
@@ -968,8 +1160,8 @@ post_attention_bwd_tile_kernel(TileArgs p) {
         stage(acc, s_b0, kSC, 0);               // xm was consumed in pass 3
         ldf4(s_par + kVs1 + c, par[1]);
 #pragma unroll 2
-        for (int i = 0; i < 8; ++i) {
-          const int r = 8 * warp + i;
+        for (int i = 0; i < kWarpRows; ++i) {
+          const int r = kWarpRows * warp + i;
           float d[4], dz2[4], z[4];
           ld4(s_b0 + r * kSC + c, d);
           ld4(s_dz2 + r * kSC + c, dz2);
@@ -998,6 +1190,7 @@ post_attention_bwd_tile_kernel(TileArgs p) {
         }
       } else {                  // dattn = dz1 Wo^T, from the fragments
         const int g = lane / 4, t = lane % 4;
+        const int nw = 64 * (warp % 2);
 #pragma unroll
         for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
@@ -1030,22 +1223,21 @@ post_attention_bwd_tile_kernel(TileArgs p) {
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* attn, const void* wo,
-                   const void* bo, const float* s1, const float* t1,
-                   const void* w1, const void* b1, const void* w2,
-                   const void* b2, const float* s2, const float* t2,
-                   const int* nv, void* y, int B, int V, float eps,
-                   cudaStream_t stream) {
-  cudaError_t e = allow_smem(post_attention_kernel<T>, kSmemBytes);
+cudaError_t launch_f32(const void* x, const void* attn, const void* wo,
+                       const void* bo, const float* s1, const float* t1,
+                       const void* w1, const void* b1, const void* w2,
+                       const void* b2, const float* s2, const float* t2,
+                       const int* nv, void* y, int B, int V, float eps,
+                       cudaStream_t stream) {
+  using f = const float*;
+  cudaError_t e = allow_smem(post_attention_kernel, kSmemBytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((V + TT - 1) / TT, B);
-  post_attention_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(attn),
-      static_cast<const T*>(wo), static_cast<const T*>(bo), s1, t1,
-      static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<const T*>(b2), s2, t2, nv,
-      static_cast<T*>(y), V, eps);
+  post_attention_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<f>(x), static_cast<f>(attn), static_cast<f>(wo),
+      static_cast<f>(bo), s1, t1, static_cast<f>(w1), static_cast<f>(b1),
+      static_cast<f>(w2), static_cast<f>(b2), s2, t2, nv,
+      static_cast<float*>(y), V, eps);
   return cudaGetLastError();
 }
 
@@ -1059,6 +1251,20 @@ cudaError_t launch_bwd(const BwdArgs& args, float* grads, int nblocks,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return sum_partials(args.partial, nblocks, kGradFloats, grads, stream);
+}
+
+cudaError_t launch_fwd_tc(const FwdArgs& a, cudaStream_t stream) {
+  cudaError_t e = allow_smem(post_attention_fwd_tc_kernel, kFwdSmemBytes);
+  if (e != cudaSuccess) return e;
+  static int resident[kMaxDevices] = {};
+  int blocks;
+  e = persistent_grid(post_attention_fwd_tc_kernel, kTileThreads,
+                      kFwdSmemBytes, a.B * ((a.V + kTT - 1) / kTT), resident,
+                      &blocks);
+  if (e != cudaSuccess) return e;
+  post_attention_fwd_tc_kernel<<<blocks, kTileThreads, kFwdSmemBytes,
+                                 stream>>>(a);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_wgrad(const WgradArgs& w, int chunks, float* grads,
@@ -1115,12 +1321,16 @@ int geomae_post_attention_block(int dtype, const void* x, const void* attn,
   using namespace geomae;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch<float>(x, attn, wo, bo, s1, t1, w1, b1, w2, b2, s2, t2, nv,
-                         y, B, V, eps, s);
-  if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(x, attn, wo, bo, s1, t1, w1, b1, w2, b2, s2,
-                                 t2, nv, y, B, V, eps, s);
-  return cudaErrorInvalidValue;
+    return launch_f32(x, attn, wo, bo, s1, t1, w1, b1, w2, b2, s2, t2, nv, y,
+                      B, V, eps, s);
+  if (dtype != kBFloat16) return cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  const FwdArgs a{static_cast<const bf*>(x),  static_cast<const bf*>(attn),
+                  static_cast<const bf*>(wo), static_cast<const bf*>(bo),
+                  static_cast<const bf*>(w1), static_cast<const bf*>(b1),
+                  static_cast<const bf*>(w2), static_cast<const bf*>(b2),
+                  s1, t1, s2, t2, nv, static_cast<bf*>(y), B, V, eps};
+  return launch_fwd_tc(a, s);
 }
 
 // Backward of geomae_post_attention_block.  dy [B, V, 128] and the

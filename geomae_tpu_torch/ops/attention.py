@@ -23,7 +23,9 @@ rows with no visible key return 0 and get zero gradients.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  The kernels take C = 128 in 8 heads of 16 (the shipped SST
 width) in float32 or bfloat16; the plain versions take any H and D.
-Under grad ``band_attention_fused`` is an ``autograd.Function``: the
+The bf16 forward runs on the tensor cores over 64-token tiles with an
+online softmax per 64-key chunk (``band_attention_tiles_plain`` is its
+order in plain PyTorch), the f32 forward on the CUDA cores.  Under grad ``band_attention_fused`` is an ``autograd.Function``: the
 forward kernel also writes each (row, head)'s log-sum-exp of the scaled
 scores ([B, V, H] f32, where the TPU kernel keeps the running max m and
 the sum l apart; lse = m + log l).  The backward runs a prologue kernel
@@ -44,7 +46,7 @@ KERNEL_HEADS = 8
 KERNEL_HEAD_DIM = 16
 PLAIN_Q_CHUNK = 1024      # queries per score block of the plain versions
 KERNEL_TILE = 64          # tokens a tile (and rows a chunk) of the bf16
-                          # backward kernel
+                          # kernels
 NO_KEY = -2 ** 31         # a window id no window has: a row without a key
 
 
@@ -82,6 +84,59 @@ def band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out[b, q0:q1] = torch.where(nonempty[:, None, None], o,
                                         0.0).to(v.dtype)
     return out
+
+
+def band_attention_tiles_plain(q, k, v, win_id, key_valid,
+                              tile: int = KERNEL_TILE,
+                              chunk: int = KERNEL_TILE):
+    """The bf16 forward kernel's order in plain PyTorch: (out [B, V, H, D]
+    in v's dtype, lse [B, V, H] f32), the function of ``band_attention``
+    and ``band_attention_lse_plain``.  Each ``tile`` of query rows takes
+    the exact key range of its real rows' windows and walks it in
+    ``chunk`` keys with an online softmax: per chunk the row's running max
+    m moves to the chunk's masked max, O and the sum l rescale by exp(m_old
+    - m), p = exp(s - m) is rounded to v's dtype before the value product
+    and l adds the unrounded p; out = O (1 / l), lse = m + log l, both 0
+    where a row sees no key.  A pair counts where the two window ids match
+    and the key is valid; padding rows never match."""
+    B, V, H, D = q.shape
+    rt = lambda t: t.to(v.dtype).float()
+    scale = D ** -0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.zeros(qf.shape, device=q.device)
+    lse = torch.zeros((B, V, H), device=q.device)
+    for b in range(B):
+        w = win_id[b]
+        kw = torch.where(key_valid[b], w, NO_KEY)        # window as key
+        n_real = int((w != INT32_MAX).sum())
+        for t0 in range(0, n_real, tile):
+            r = slice(t0, min(t0 + tile, V))
+            last = min(t0 + tile, n_real) - 1
+            ks = int(torch.searchsorted(w, w[t0:t0 + 1]))
+            ke = int(torch.searchsorted(w, w[last:last + 1], right=True))
+            n = r.stop - r.start
+            m = torch.full((H, n), float("-inf"), device=q.device)
+            lsum = torch.zeros((H, n), device=q.device)
+            o = torch.zeros((H, n, D), device=q.device)
+            for k0 in range(ks, ke, chunk):
+                c = slice(k0, min(k0 + chunk, ke))
+                s = torch.einsum("ihd,jhd->hij", qf[b, r], kf[b, c]) * scale
+                s = s.masked_fill(~(w[r, None] == kw[None, c]),
+                                  float("-inf"))
+                mn = torch.maximum(m, s.amax(-1))
+                base = torch.where(mn == float("-inf"), 0.0, mn)
+                corr = torch.exp(m - base)
+                p = torch.exp(s - base[..., None])
+                lsum = lsum * corr + p.sum(-1)
+                o = o * corr[..., None] + torch.einsum(
+                    "hij,jhd->hid", rt(p), vf[b, c])
+                m = mn
+            seen = lsum > 0
+            inv = torch.where(seen, 1.0 / lsum, 0.0)
+            out[b, r] = (o * inv[..., None]).transpose(0, 1)
+            lse[b, r] = torch.where(seen, m + torch.log(
+                torch.where(seen, lsum, 1.0)), 0.0).t()
+    return out.to(v.dtype), lse
 
 
 def plain_blocks(q, k, win_id, key_valid, scale: float):

@@ -23,12 +23,15 @@ float32 or bfloat16.  Under grad the block is an ``autograd.Function``
 whose backward (``post_attention_block_backward``) returns dx, dattn and
 the ten parameter gradients in f32 with the dtype points of
 ``pallas_ffn._bwd_body``; rows at or past ``nv`` give zero dx and dattn
-and add nothing to the parameter gradients.  In bfloat16 the backward
-runs on the tensor cores in two passes, whose plain twins are
+and add nothing to the parameter gradients.  In bfloat16 the forward
+runs on the tensor cores (the first four products of the backward's
+per-tile pass, sharing its code; its plain version is
+``post_attention_block_plain``), and the backward in two passes, whose
+plain twins are
 ``post_attention_block_backward_tile_plain`` (per 64-token tile: dx,
 dattn, the bf16 rows the weight gradients need, the vector gradients)
 and ``weight_grads_plain`` (the three weight gradients, split over token
-chunks); in float32 on the CUDA cores in one kernel.
+chunks); in float32 each on the CUDA cores in one kernel.
 """
 from __future__ import annotations
 

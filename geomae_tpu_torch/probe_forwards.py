@@ -1,0 +1,108 @@
+"""Where the time of K5's and K8's bf16 forwards goes, on one CUDA GPU.
+
+    python -m geomae_tpu_torch.probe_forwards
+
+Builds ``csrc/post_attention.cu`` and ``csrc/band_attention.cu`` (each
+with ``segment.cu``, which holds the error strings) several times into
+``build/probe_forwards/``: as they are and with one design choice
+changed or one part removed, then times ``post_attention_block`` and
+``band_attention_fused`` (under its statistics, as a train step calls
+it) in bf16 on each build with CUDA events (``probe.cuda_ms``: 20 calls
+after 3 warm-up, enqueued behind a device spin, every build twice, in
+turns).  K5 at the fine-tune step's [4, 20480], the pretrain encoder's
+[4, 8192] and the served frame's [1, 20480] tokens; K8 on the fine-tune
+step's layer-1 windows and the pretrain encoder's.  A build with a part
+removed computes garbage; only its time means something.
+
+Raises without a CUDA GPU: its numbers are the card's.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import probe
+from .ops import _cuda, attention, ffn
+from .probe_k8_backward import FAKE_MMA, inputs, layouts
+
+OUT = _cuda.BUILD_DIR.parent / "probe_forwards"
+# K5: one block an SM with a three-buffer weight ring (128 KB of shared
+# memory) in place of two blocks an SM with two buffers; and the tile
+# pass's shared parts removed one at a time (the backward built alongside
+# changes too)
+K5_VARIANTS = {
+    "as built": [],
+    "one block, ring of 3": [
+        ("constexpr int kFwdRing = 2;", "constexpr int kFwdRing = 3;"),
+        ("static_assert(2 * kFwdSmemBytes", "static_assert(1 * kFwdSmemBytes"),
+        ("__launch_bounds__(kTileThreads, 2)",
+         "__launch_bounds__(kTileThreads, 1)")],
+    "no products": [
+        ("      mma_bf16_16816(acc[2 * j], af, &bf[0]);\n"
+         "      mma_bf16_16816(acc[2 * j + 1], af, &bf[2]);",
+         "      acc[2 * j][0] += __uint_as_float(af[0] ^ bf[0]);\n"
+         "      acc[2 * j + 1][0] += __uint_as_float(af[1] ^ bf[2]);")],
+    "no weight loads": [("      load_chunk(p, ahead % kChunks,",
+                         "      if (false) load_chunk(p, ahead % kChunks,")],
+    "no row loops": [("constexpr int kWarpRows = kTT / kTileWarps;",
+                      "constexpr int kWarpRows = 0;")],
+    # the forward's row loops (4 and 6 spaces in; the backward's are 8)
+    "row loops unrolled 4": [
+        ("#pragma unroll 2\n    for (int i",
+         "#pragma unroll 4\n    for (int i"),
+        ("#pragma unroll 2\n      for (int i",
+         "#pragma unroll 4\n      for (int i")],
+    "rsqrtf": [("  rs = 1.f / sqrtf(", "  rs = rsqrtf(")],
+}
+K8_VARIANTS = {
+    "as built": [],
+    "serial search": [
+        ("  if (warp == 0) key_range_warp(wb, V, t0, nt, s_range);",
+         "  if (threadIdx.x == 0) key_range(wb, V, t0, nt, s_range);")],
+    # all 8 heads: two blocks an SM, and the lse store takes two float4s
+    "8 heads a block": [
+        ("constexpr int kFwdHeads = 4;", "constexpr int kFwdHeads = 8;"),
+        ("static_assert(kFwdHeads == 4,", "static_assert(kFwdHeads == 8,"),
+        ("__launch_bounds__(kFwdThreads, 4)",
+         "__launch_bounds__(kFwdThreads, 2)"),
+        ("            make_float4(st[0], st[1], st[2], st[3]);",
+         "            make_float4(st[0], st[1], st[2], st[3]),\n"
+         "        *reinterpret_cast<float4*>(lse + (row0 + t0 + r) * H + 4) ="
+         "\n            make_float4(st[4], st[5], st[6], st[7]);")],
+    "3 blocks an SM": [("__launch_bounds__(kFwdThreads, 4)",
+                        "__launch_bounds__(kFwdThreads, 3)")],
+    "no exps": [("ex2(fmaf(sj[", "(fmaf(sj[")],
+    "no products": [('#include "mma.cuh"', FAKE_MMA),
+                    ("          mma_bf16_16816(", "          fake_mma(")],
+}
+
+
+def k5_inputs(B: int, V: int):
+    g = torch.Generator().manual_seed(5)
+    r = lambda *s, scale=0.1: torch.randn(*s, generator=g) * scale
+    C, F = ffn.KERNEL_C, ffn.KERNEL_F
+    x, attn = (r(B, V, C, scale=1.0).bfloat16() for _ in range(2))
+    ws = [r(C, C), r(C), 1 + r(C), r(C), r(C, F), r(F), r(F, C), r(C),
+          1 + r(C), r(C)]
+    nv = torch.full((B,), V, dtype=torch.int32)
+    return [t.cuda() for t in (x, attn, *ws, nv)]
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_forwards: no CUDA GPU")
+    print(probe.card())
+    k5 = probe.build_variants("post_attention.cu", K5_VARIANTS, OUT / "k5")
+    k8 = probe.build_variants("band_attention.cu", K8_VARIANTS, OUT / "k8")
+    print("K5 forward, bf16")
+    probe.time_variants(k5, {
+        f"{B}x{V}": (lambda a=k5_inputs(B, V): ffn.post_attention_block(*a))
+        for B, V in ((4, 20480), (4, 8192), (1, 20480))})
+    print("K8 forward with statistics, bf16")
+    probe.time_variants(k8, {
+        f"{what} {tuple(a[0].shape[:2])}":
+            (lambda a=a: attention._forward(*a[:5], stats=True))
+        for what, a in ((w, inputs(*lay)) for w, lay in layouts().items())})
+
+
+if __name__ == "__main__":
+    main()

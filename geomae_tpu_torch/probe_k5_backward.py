@@ -22,15 +22,18 @@ from . import probe
 from .ops import _cuda, ffn
 
 OUT = _cuda.BUILD_DIR.parent / "probe_k5"
-EPILOGUE = "      if (q + 1 != kPassStart[pass + 1]) continue;"
-MMA = ("          mma_bf16_16816(acc[2 * j], af, &bf[0]);\n"
-       "          mma_bf16_16816(acc[2 * j + 1], af, &bf[2]);")
-LOAD = "        load_chunk(p, ahead % kTileChunks,"
+# the edits reach the tile pass's shared device functions (chunk_product,
+# product_pass) too, so the forward built alongside computes garbage as well
+EPILOGUE = ("      product_pass<kRing, kTileChunks>(p, pass, A, lda, more, "
+            "s_w, cnt, acc);")
+MMA = ("      mma_bf16_16816(acc[2 * j], af, &bf[0]);\n"
+       "      mma_bf16_16816(acc[2 * j + 1], af, &bf[2]);")
+LOAD = "      load_chunk(p, ahead % kChunks,"
 # each product's operands still loaded, so the compiler keeps the loads
-NO_MMA = ("          acc[2 * j][0] += __uint_as_float(af[0] ^ bf[0]);\n"
-          "          acc[2 * j + 1][0] += __uint_as_float(af[1] ^ bf[2]);")
-NO_EPILOGUE = "      if (true) continue;"
-NO_LOAD = "        if (false) load_chunk(p, ahead % kTileChunks,"
+NO_MMA = ("      acc[2 * j][0] += __uint_as_float(af[0] ^ bf[0]);\n"
+          "      acc[2 * j + 1][0] += __uint_as_float(af[1] ^ bf[2]);")
+NO_EPILOGUE = EPILOGUE + "\n      if (true) continue;"
+NO_LOAD = "      if (false) load_chunk(p, ahead % kChunks,"
 VARIANTS = {
     "as built": [],
     "no epilogues": [(EPILOGUE, NO_EPILOGUE)],

@@ -40,9 +40,11 @@ STEPS = 8
 KERNEL_NAMES = ("segment_reduce_kernel", "segment_broadcast_kernel",
                 "segment_gather_kernel", "band_attention_qkv_kernel",
                 "band_attention_qkv_bwd_kernel", "post_attention_kernel",
-                "post_attention_bwd_kernel", "post_attention_bwd_tile_kernel",
+                "post_attention_fwd_tc_kernel", "post_attention_bwd_kernel",
+                "post_attention_bwd_tile_kernel",
                 "wgrad_kernel", "sum_partials_kernel",
-                "band_attention_kernel", "band_attention_delta_kernel",
+                "band_attention_kernel", "band_attention_fwd_tc_kernel",
+                "band_attention_delta_kernel",
                 "band_attention_bwd_tc_kernel",
                 "band_attention_bwd_f32_kernel")
 

@@ -265,6 +265,48 @@ def test_tiled_backward_matches_pallas_on_window_sizes():
     assert (np.asarray(want[0])[keyless] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_forward_matches_the_plain_forward_and_pallas(dtype):
+    """The bf16 forward kernel's order (``band_attention_tiles_plain``:
+    64-token tiles over exact key ranges, an online softmax per 64-key
+    chunk, p rounded to v's dtype against the running max) on windows of
+    1 to 300 tokens, against ``band_attention`` and against
+    ``band_attention_pallas`` in interpret mode (tile 128, pad 320), on the
+    same values: f32 at 2e-5 + 2e-4 relative (the file's bound); bf16 at
+    2e-2 + 2e-2 relative per row (atol times the row's max(1, largest
+    |ref|)), where p is rounded against another max.  Its lse against
+    ``band_attention_lse_plain`` at 1e-5 on the rows that see a key,
+    exactly 0 elsewhere; the padding rows and the keyless window's rows
+    are 0."""
+    q, k, v, win, kv, _, keyless = sized_windows(np.random.default_rng(15))
+    tdt = getattr(torch, dtype)
+    args = [t(a).to(tdt) for a in (q, k, v)] + [t(win), t(kv)]
+    out, lse = attention.band_attention_tiles_plain(*args)
+    assert out.dtype == tdt and lse.dtype == torch.float32
+    jq = [jnp.asarray(a.float().numpy()).astype(dtype) for a in args[:3]]
+    pal = band_attention_pallas(*jq, jnp.asarray(win), jnp.asarray(kv),
+                                tile=128, pad=320, interpret=True)
+    pal = t(np.array(pal.astype(jnp.float32)))
+    atol, rtol = (2e-5, 2e-4) if dtype == "float32" else (2e-2, 2e-2)
+    got = out.float().flatten(2)
+    for want in (attention.band_attention(*args), pal):
+        w = want.float().flatten(2)
+        scale = (1.0 if dtype == "float32"
+                 else w.abs().amax(-1, keepdim=True).clamp_min(1))
+        assert ((got - w).abs() <= atol * scale + rtol * w.abs()).all()
+    real = win != INT_MAX
+    seen = np.zeros_like(real)
+    for b in range(win.shape[0]):
+        for w_id in np.unique(win[b][real[b]]):
+            rows = win[b] == w_id
+            seen[b, rows] = kv[b, rows].any()
+    assert (~seen & real).any() and (~seen[keyless]).all()
+    want = attention.band_attention_lse_plain(args[0], args[1], *args[3:])
+    torch.testing.assert_close(lse[t(seen)], want[t(seen)], rtol=0,
+                               atol=1e-5)
+    assert (lse[t(~seen)] == 0).all() and (out[t(~seen)] == 0).all()
+
+
 def test_delta_matches_the_jax_einsum_in_bf16():
     """D = rowsum(g * out) per (row, head) on bf16 inputs against the JAX
     package's ``einsum(..., preferred_element_type=f32)``: every product

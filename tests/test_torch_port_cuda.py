@@ -33,6 +33,12 @@ exact; K3's sums of the same terms in another order differ by at most
 count x 2^-23 x sum |terms|.  The SST kernels also run at the pretrain
 encoder's shape: [B, 8192, 128] visible tokens, 30 % of the pillars.
 
+K5's and K8's bf16 forwards (the tensor-core kernels) also against their
+plain versions per row at extents of 0, a part of V and V, V not a
+multiple of the 64-token tile, and (K8) against its tile twin
+``band_attention_tiles_plain`` on windows of 1 to 300 tokens with one
+launch a call and two launches bitwise equal.
+
 K8 (window attention over projected q, k, v; ``ops/attention.py``): the
 output and the statistics at K6's bound, the backward's dq, dk, dv at the
 per-row rule of the other backward cotangents (it has no parameter
@@ -255,6 +261,27 @@ def test_post_attention_block_backward(dev, dtype):
     want = ffn.post_attention_block_backward_plain(*args)
     check_grads(got, want, dtype, 2)
     assert (got[0][0, 613:] == 0).all() and (got[1][0, 613:] == 0).all()
+
+
+@pytest.mark.parametrize("B,V,nv", [(1, 1000, (1000,)), (1, 777, (500,)),
+                                    (4, 1000, (613, 0, 1000, 64)),
+                                    (4, 8192, (8192, 2500, 8192, 7001))])
+def test_post_attention_block_bf16(dev, B, V, nv):
+    """The bf16 forward on the tensor cores against the plain version, per
+    row: nv < V, nv = 0 for a sample, V not a multiple of the 64-token
+    tile, B = 1 and 4; one launch a call; rows past nv exactly 0; two
+    launches bitwise equal (no atomics)."""
+    args = ffn_case(torch.bfloat16, dev, B=B, V=V)[:13]
+    args[12] = torch.tensor(nv, dtype=torch.int32, device=dev)
+    before = ffn.post_attention_block.launches
+    got = ffn.post_attention_block(*args)
+    assert ffn.post_attention_block.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    check_grads((got,), (ffn.post_attention_block_plain(*args),),
+                torch.bfloat16, 1)
+    past = torch.arange(V, device=dev)[None, :] >= args[12][:, None]
+    assert (got[past] == 0).all()
+    assert torch.equal(got, ffn.post_attention_block(*args))
 
 
 def wgrad_rows(dev, B, V, nv, seed=7):
@@ -732,6 +759,30 @@ def test_band_attention_fused_backward(dev, dtype, which):
         assert (got[0][sized_windows()[2].to(dev)] == 0).all()
     again = f(q, k, v, win, kv, out, lse, d)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("V", [768, 700])
+def test_band_attention_fused_bf16_against_its_tiles(dev, V):
+    """The bf16 forward on the tensor cores against its plain twin
+    (``band_attention_tiles_plain``: the kernel's tiles, chunks and online
+    softmax), on windows of 1 to 300 tokens with one that has no valid
+    key, V a multiple of the 64-token tile and not: the output per row at
+    TOL; the statistics at 1e-4 + 1e-5 relative (f32 in log2 units with
+    ex2.approx against natural exp); one launch a call; padding rows and
+    the keyless window's rows 0 with lse 0; two launches bitwise equal
+    (no atomics)."""
+    win, kv, keyless = sized_windows(V)
+    q, k, v, win, kv, _ = band_case(torch.bfloat16, dev, win, kv)
+    before = attention.band_attention_fused.launches
+    out, lse = attention._forward(q, k, v, win, kv, stats=True)
+    assert attention.band_attention_fused.launches == before + 1
+    want, want_lse = attention.band_attention_tiles_plain(q, k, v, win, kv)
+    check_grads((out.flatten(2),), (want.flatten(2),), torch.bfloat16, 1)
+    check(lse, want_lse, 1e-4, 1e-5)
+    empty = (win == INT_MAX) | keyless.to(dev)
+    assert (out[empty] == 0).all() and (lse[empty] == 0).all()
+    again = attention._forward(q, k, v, win, kv, stats=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

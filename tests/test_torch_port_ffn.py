@@ -44,6 +44,37 @@ def test_matches_pallas_interpret_with_short_extent():
     assert (got[~before] == 0).all()
 
 
+def test_bf16_matches_pallas_interpret_with_short_extent():
+    """The plain version in bfloat16 (what the bf16 kernel is held to on
+    the card) against the Pallas kernel in interpret mode in bfloat16, on
+    the same values: 2e-2 + 2e-2 relative per row (atol times the row's
+    max(1, largest |ref|)): both round at the same points, but f32 sums in
+    another order may move a rounding to the other side.  Rows past
+    ``nv`` are exactly 0 in the port, the tiles past ``nv`` in both."""
+    x, attn, ws = make_case(np.random.default_rng(4), B=2, V=256,
+                            dtype=jnp.bfloat16)
+    nv = np.array([100, 256], np.int32)
+    bf = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))
+                                    ).bfloat16()
+    got = post_attention_block_plain(
+        bf(x), bf(attn), *[torch.from_numpy(np.array(ws[k][0]))
+                           for k in ORDER], torch.from_numpy(nv))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    want = np.array(jax_block(x, attn, *[ws[k] for k in ORDER],
+                              jnp.asarray(nv), 1e-5, TILE, True
+                              ).astype(jnp.float32))
+    rows = np.arange(256)
+    before = rows[None, :] < nv[:, None]
+    skipped = rows[None, :] >= -(-nv[:, None] // TILE) * TILE
+    g, w = got[before], want[before]
+    bound = 2e-2 * np.maximum(np.abs(w).max(-1, keepdims=True), 1) \
+        + 2e-2 * np.abs(w)
+    assert (np.abs(g - w) <= bound).all()
+    assert skipped.any() and (want[skipped] == 0).all()
+    assert (got[~before] == 0).all()
+
+
 def test_matches_xla_chain():
     x, attn, ws = make_case(np.random.default_rng(1), B=2, V=128)
     got = port(x, attn, ws)
