@@ -17,7 +17,9 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      two launches bitwise equal); K8 (window attention over projected q,
      k, v) forward and backward (bf16 on the tensor cores, f32 on the
      CUDA cores; two launches bitwise equal) and the backward's D
-     prologue at all three shapes; and one
+     prologue at all three shapes; the bf16 projections that K6 and K7
+     run around K8's kernels (``qkv_project``, ``qkv_project_backward``;
+     two launches bitwise equal) at all three shapes; and one
      SST block on the ``band`` route (K8) against the ``qkv`` route (K6)
      with the same weights;
   B. serves 3 synthetic frames through ``inference_detector`` at the full
@@ -104,16 +106,19 @@ PER_FRAME = {"segment_reduce": 1, "segment_broadcast": 2,
              "segment_gather": 0, "band_attention_qkv_backward": 0,
              "post_attention_block_backward": 0, "slot_outer_segment_sum": 0,
              "expand_rows": 0, "band_attention_fused": 0,
-             "band_attention_fused_backward": 0, "band_attention_delta": 0}
+             "band_attention_fused_backward": 0, "band_attention_delta": 0,
+             "qkv_project": 12, "qkv_project_backward": 0}
 # per train step: the forward's, then the backward's: K7 and K5's
 # backward per layer, the K1 max's gather, the K2 max's K2 sum (the
-# decorations' K2 mean carries no gradient)
+# decorations' K2 mean carries no gradient); in bf16 K6 projects q, k, v
+# once a layer forward and K7 again, then runs the projections' backward
 PER_STEP = {"segment_reduce": 1, "segment_broadcast": 2 + 1,
             "band_attention_qkv": 12, "post_attention_block": 12,
             "segment_gather": 1, "band_attention_qkv_backward": 12,
             "post_attention_block_backward": 12, "slot_outer_segment_sum": 0,
             "expand_rows": 0, "band_attention_fused": 0,
-            "band_attention_fused_backward": 0, "band_attention_delta": 0}
+            "band_attention_fused_backward": 0, "band_attention_delta": 0,
+            "qkv_project": 2 * 12, "qkv_project_backward": 12}
 
 
 def per_pretrain_step(cfg) -> dict:
@@ -123,16 +128,18 @@ def per_pretrain_step(cfg) -> dict:
     a block; 12 + 2 x 4 at the shipped config)."""
     layers = 2 * (cfg.mae.encoder_blocks + 2 * cfg.mae.decoder_blocks)
     sst = ("band_attention_qkv", "post_attention_block",
-           "band_attention_qkv_backward", "post_attention_block_backward")
+           "band_attention_qkv_backward", "post_attention_block_backward",
+           "qkv_project_backward")
     return dict(PER_STEP, slot_outer_segment_sum=1, expand_rows=1,
-                **{k: layers for k in sst})
+                qkv_project=2 * layers, **{k: layers for k in sst})
 
 
 def on_route(per: dict, cfg) -> dict:
     """``per`` (launches on the ``qkv`` route) on the attention route
     ``cfg`` resolves to (``models.sst.attention_route``): on ``band`` K8
-    and its backward take K6's and K7's launches, which fall to 0, and the
-    backward's D prologue launches once with each K8 backward."""
+    and its backward take K6's and K7's launches, which fall to 0 with
+    the bf16 projections' kernels, and the backward's D prologue launches
+    once with each K8 backward."""
     from geomae_tpu_torch.models.sst import attention_route
 
     sst = cfg.sst
@@ -141,6 +148,7 @@ def on_route(per: dict, cfg) -> dict:
         return per
     assert route == "band", route
     return dict(per, band_attention_qkv=0, band_attention_qkv_backward=0,
+                qkv_project=0, qkv_project_backward=0,
                 band_attention_fused=per["band_attention_qkv"],
                 band_attention_fused_backward=per[
                     "band_attention_qkv_backward"],
@@ -212,23 +220,34 @@ TOL = {
     # f32, added in another order: atol scaled by sum |terms| (``check``)
     ("band_attention_delta", ""): {torch.float32: (15 * 2 ** -24, 0.0),
                                    torch.bfloat16: (15 * 2 ** -24, 0.0)},
+    # the bf16 projections of K6 and K7 on the tensor cores (bf16 only:
+    # f32 K6 and K7 project inside their CUDA-core kernels): q, k, v at
+    # K6's bound; their backward's dx per row and its parameter gradients
+    # at K7's rules
+    ("qkv_project", ""): {torch.bfloat16: (2e-2, 2e-2)},
+    ("qkv_project_backward", ""): {torch.bfloat16: (2e-2, 2e-2)},
 }
-K8 = list(TOL)[-3:]
+K8 = [("band_attention_fused", ""), ("band_attention_fused_backward", ""),
+      ("band_attention_delta", "")]
+PROJECTIONS = [("qkv_project", ""), ("qkv_project_backward", "")]
 # kernels without atomics, whose two launches must agree bit for bit
 DETERMINISTIC = {"band_attention_fused", "band_attention_fused_backward",
                  "band_attention_delta", "post_attention_block",
-                 "expand_rows"}
+                 "expand_rows", "qkv_project", "qkv_project_backward"}
 # the rows at the serving shapes: the serving path's kernels, and K8's
-# backward and its prologue, held there too but not summed into the
-# kernels line (a served frame runs no backward)
-SERVING = list(TOL)[:5] + K8
-TRAIN = list(TOL)[:11] + K8          # the fine-tune step's rows
+# backward and its prologue and the projections' backward, held there
+# too but not summed into the kernels line (a served frame runs no
+# backward)
+SERVING = list(TOL)[:5] + K8 + PROJECTIONS
+NOT_SERVED = {"band_attention_fused_backward", "band_attention_delta",
+              "qkv_project_backward"}
+TRAIN = list(TOL)[:11] + K8 + PROJECTIONS    # the fine-tune step's rows
 # the pretrain step's new rows: the targets' kernels, then the SST kernels
 # on the encoder's visible tokens
 PRETRAIN = [("slot_outer_segment_sum", ""), ("expand_rows", ""),
             ("band_attention_qkv", ""), ("post_attention_block", ""),
             ("post_attention_block_backward", ""),
-            ("band_attention_qkv_backward", "")] + K8
+            ("band_attention_qkv_backward", "")] + K8 + PROJECTIONS
 # a backward kernel's outputs: its per-token cotangents, then its
 # parameter gradients
 BACKWARD_OUTPUTS = {
@@ -238,6 +257,7 @@ BACKWARD_OUTPUTS = {
     "band_attention_qkv_backward": (
         ("dx",), ("wq", "bq", "wk", "bk", "wv", "bv")),
     "band_attention_fused_backward": (("dq", "dk", "dv"), ()),
+    "qkv_project_backward": (("dx",), ("wq", "bq", "wk", "bk", "wv", "bv")),
 }
 # the dtype each call of the two paths runs in
 PATH_DTYPE = {("segment_reduce", "max"): torch.bfloat16,
@@ -253,7 +273,9 @@ PATH_DTYPE = {("segment_reduce", "max"): torch.bfloat16,
               ("expand_rows", ""): torch.float32,
               ("band_attention_fused", ""): torch.bfloat16,
               ("band_attention_fused_backward", ""): torch.bfloat16,
-              ("band_attention_delta", ""): torch.bfloat16}
+              ("band_attention_delta", ""): torch.bfloat16,
+              ("qkv_project", ""): torch.bfloat16,
+              ("qkv_project_backward", ""): torch.bfloat16}
 KERNELS = {
     "segment_reduce": ("geomae_tpu_torch/csrc/segment.cu",
                        "geomae_tpu/ops/pallas_segreduce.py:220"),
@@ -283,6 +305,12 @@ KERNELS = {
     # the einsum that _pallas_backward runs before its two kernels
     "band_attention_delta": ("geomae_tpu_torch/csrc/band_attention.cu",
                              "geomae_tpu/ops/pallas_attention.py:431"),
+    # the projections inside K6's and K7's pallas_calls, which the bf16
+    # port runs as kernels of their own around K8's
+    "qkv_project": ("geomae_tpu_torch/csrc/window_attention.cu",
+                    "geomae_tpu/ops/pallas_attention_qkv.py:291"),
+    "qkv_project_backward": ("geomae_tpu_torch/csrc/window_attention.cu",
+                             "geomae_tpu/ops/pallas_attention_qkv.py:789"),
 }
 # The least time of a call: each input row the data uses read once and
 # each output written once over the HBM rate, or the call's arithmetic (2
@@ -293,29 +321,26 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PARITY_TOL = (1e-3, 1e-3)      # f32 GPU against CPU, whole model
 # the band route against the qkv route, same weights: the two compute one
 # function (the projections round, then add their bias, inside K6 and
-# outside K8), with one dtype point apart in bf16: K8's forward rounds
-# the probabilities against its running max of each 64-key chunk, K6
-# against its running max at each key (JAX rounds against the row's
-# max).  In f32 a layer and a block are held to each other at the
-# kernels' own bounds.  In bf16 post-norm layers carry a flipped rounding
-# (an ulp of an activation between 2 and 4 is 1.6e-2) through both
-# LayerNorms: two routes that round alike cancel those chains, two that
-# round apart do not, as two layers do not (the block read 1.32 of the
-# layer's bound in its first run).  So the bf16 block is held to the qkv
-# block at twice the kernels' bound, and the bf16 layer of each route to
-# that route's f32 layer at LAYER_F32_LIMIT of the bound, the band route
-# no further than LAYER_BAND_MARGIN beyond the qkv route.  The limits come
-# from ``python -m geomae_tpu_torch.probe_routes`` (four seeds, on K8's
-# forward of this tree and of the CUDA-core one before it; H100): a sound
-# layer reads 1.21-1.46 of the bound from its f32 layer on either route,
-# the band route at most 0.06 beyond the qkv route; with the band route's
-# attention rounded to 6 or 5 mantissa bits 1.30-1.64 (no check at one
-# layer tells those from sound), to fp8 e4m3's 3 bits 3.46-4.20, with the
-# last key of every window dropped 118-142.
+# outside K8).  In bf16 both run K8's forward on the tensor cores after
+# projections that accumulate 16-k steps in f32 on the tensor cores (K6's
+# qkv_project, the band route's three Linears), so they round alike.  In
+# f32 a layer and a block are held to each other at the kernels' own
+# bounds, and so is the bf16 layer.  In bf16 post-norm layers carry a
+# flipped rounding (an ulp of an activation between 2 and 4 is 1.6e-2)
+# through both LayerNorms, and two layers compound them (the block read
+# 1.32 of the layer's bound in its first run), so the bf16 block is held
+# at twice the bound; each route's bf16 layer is also held to its own
+# f32 layer at LAYER_F32_LIMIT of the bound.  ``python -m
+# geomae_tpu_torch.probe_routes`` (four seeds, H100): band against qkv
+# reads 0.000 in bf16 (1.02-1.22 with a K6 that rounded its probabilities
+# per key beside K8's per chunk, 0.76-0.92 when both rounded per key), a
+# sound layer 1.21-1.46 of the bound from its f32 layer; with the band
+# route's attention rounded to 6 or 5 mantissa bits 1.31-1.64 (no check
+# at one layer tells those from sound), to fp8 e4m3's 3 bits 3.46-4.20,
+# with the last key of every window dropped 118-142.
 ROUTE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 BLOCK_FACTOR = {torch.float32: 1, torch.bfloat16: 2}
 LAYER_F32_LIMIT = 2.0
-LAYER_BAND_MARGIN = 0.15
 # phase E, f32 GPU against CPU, one train step.  The forwards agree to
 # about 2e-5 relative (f32 sums in other orders), and every pre-activation
 # within that distance of 0 may take the other side of a ReLU on the other
@@ -441,8 +466,9 @@ def check(label: str, name: str, got, want, dtype, tol, failures: list,
                                                         win_id),
                        scale_name="sum |terms|")
     if isinstance(got, tuple):
+        parts = ("q", "k", "v") if name == "qkv_project" else ("out", "lse")
         return max([compare(f"{label} {part}", a, b, *tol, failures)
-                    for part, a, b in zip(("out", "lse"), got, want)])
+                    for part, a, b in zip(parts, got, want)])
     return compare(label, got, want, *tol, failures)
 
 
@@ -509,6 +535,20 @@ def work(name: str, args, got):
             + nbytes(win_id, args[4]) + (2 * n * q.shape[2] * 4 if backward
                                          else 0)
         return in_b + out_b, (10 if backward else 4) * C * pairs
+    if name == "qkv_project":
+        # the real tokens' rows of x and pos, the weights and window ids;
+        # q, k, v written for every row (0 on padding); three products
+        x, pos = args[0], args[1]
+        n, C = window_stats(args[8])[0], x.shape[-1]
+        in_b = n * C * (x.element_size() + pos.element_size()) \
+            + nbytes(*args[2:9])
+        return in_b + out_b, 6 * n * C * C
+    if name == "qkv_project_backward":
+        # every row of x, pos, dq, dk, dv and the weights; dx and the f32
+        # parameter gradients; six products (three for dx, three weight
+        # gradients)
+        n, C = args[0].shape[0] * args[0].shape[1], args[0].shape[-1]
+        return nbytes(*args) + out_b, 12 * n * C * C
     if name.startswith("band_attention_qkv"):
         x, pos, weights = args[0], args[1], args[2:8]
         n, _, pairs, _ = window_stats(args[8])
@@ -531,7 +571,9 @@ def library_call(name: str, op: str, args):
     """One PyTorch call that computes the kernel's function on the same
     inputs (into a buffer made beforehand), or None where no single call
     does: K2 reduces and broadcasts back, K5 chains three products with
-    two LayerNorms, K6 and K7 project inside the window attention, and
+    two LayerNorms, K6 and K7 project inside the window attention, their
+    bf16 projections and the projections' backward are three products
+    each (rounded, with their biases), and
     K8 backward's D prologue wants f32 sums of bf16 products (``einsum``
     of bf16 returns bf16, so it is a product and a sum).  For
     K8: ``scaled_dot_product_attention`` over all V x V pairs under a
@@ -824,6 +866,22 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
             return (ffn.post_attention_block_backward,
                     ffn.post_attention_block_backward_plain,
                     (*block, d_tok.to(dt)))
+        if name == "qkv_project":
+            return (attention_qkv.qkv_project,
+                    attention_qkv.qkv_project_plain, qkv[:9])
+        if name == "qkv_project_backward":
+            # the cotangents K8's backward gives K7's projections' backward
+            heads = (B, Vt, cfg.sst.nhead, C // cfg.sst.nhead)
+            q, k, v = (t.view(heads) for t in attention_qkv.qkv_project(
+                *qkv[:9]))
+            band = (q, k, v, lay["win_id"], lay["key_valid_sorted"])
+            out, lse = attention._forward(*band, stats=True)
+            ds = attention.band_attention_fused_backward(
+                *band, out, lse, d_tok.to(dt).view(heads))
+            return (attention_qkv.qkv_project_backward,
+                    attention_qkv.qkv_project_backward_plain,
+                    (*qkv[:2], *attn_w[0::2],
+                     *[d.reshape(B, Vt, C) for d in ds]))
         if name == "band_attention_qkv" and not train:
             return (attention_qkv.band_attention_qkv,
                     attention_qkv.band_attention_qkv_plain, qkv)
@@ -861,8 +919,8 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
                                warmup=1)
             print(f"    kernel {ms:.4f} ms (host-paced {host:.4f} ms), plain "
                   f"{plain_ms:.4f} ms")
-            if PATH_DTYPE.get(key) != dt or (not train and name in (
-                    "band_attention_fused_backward", "band_attention_delta")):
+            if PATH_DTYPE.get(key) != dt or (not train
+                                             and name in NOT_SERVED):
                 continue
             lib = library_call(name, op, args)
             lib_ms = None if lib is None else cuda_ms(lib, iters=5, warmup=1)
@@ -897,7 +955,9 @@ def reset_counts():
            "band_attention_fused": attention.band_attention_fused,
            "band_attention_fused_backward":
                attention.band_attention_fused_backward,
-           "band_attention_delta": attention.band_attention_delta}
+           "band_attention_delta": attention.band_attention_delta,
+           "qkv_project": attention_qkv.qkv_project,
+           "qkv_project_backward": attention_qkv.qkv_project_backward}
     for fn in fns.values():
         fn.launches = 0
     attention_qkv.band_attention_qkv.stats = 0
@@ -1301,24 +1361,20 @@ def phase_routes(cfg, inputs, failures: list) -> None:
         compare(f"SST block {name}, max |x| "
                 f"{float(block['qkv'].float().abs().max()):.3e}",
                 block["band"], block["qkv"], f * tol[0], f * tol[1], failures)
+        compare(f"encoder layer {name}", layer["band", dt],
+                layer["qkv", dt], *tol, failures)
         if dt == torch.float32:
-            compare(f"encoder layer {name}", layer["band", dt],
-                    layer["qkv", dt], *tol, failures)
             continue
         f32 = torch.float32
         got = {r: share(layer[r, dt], layer[r, f32], tol)
                for r in stacks}
-        ok = (max(got.values()) <= LAYER_F32_LIMIT
-              and got["band"] <= got["qkv"] + LAYER_BAND_MARGIN)
+        ok = max(got.values()) <= LAYER_F32_LIMIT
         print(f"  encoder layer {name}, each route against its f32 layer, "
               f"share of the bound {tol[0]:g} + {tol[1]:g} relative: band "
               f"{got['band']:.3f}, qkv {got['qkv']:.3f} (limit "
-              f"{LAYER_F32_LIMIT:g}, band at most qkv + "
-              f"{LAYER_BAND_MARGIN:g}); band against qkv "
-              f"{share(layer['band', dt], layer['qkv', dt], tol):.3f} "
-              f"{'ok' if ok else 'FAIL'}")
+              f"{LAYER_F32_LIMIT:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"encoder layer {name}")
+            failures.append(f"encoder layer {name} against f32")
     n = 3 * len(ROUTE_TOL)
     if (fns["band_attention_qkv"].launches,
             fns["band_attention_fused"].launches) != (n, n):

@@ -1,5 +1,5 @@
 // K6 band_attention_qkv: window attention with the q/k/v projections
-// computed inside the kernel, forward (K6) and backward (K7).
+// inside, forward (K6) and backward (K7).
 //
 // Replaces geomae_tpu/ops/pallas_attention_qkv.py: band_attention_qkv
 // (_pallas_forward / _fwd_kernel) and its backward, which the JAX package
@@ -10,15 +10,45 @@
 //   out_h = softmax(q_h k_h^T / sqrt(D) + mask) v_h   for each head h
 // where a key is visible when it lies in the query's window and
 // key_valid is set.  Rows with win_id == INT32_MAX (padding) and rows
-// with no visible key return exactly 0.
+// with no visible key return exactly 0.  The projections keep the JAX
+// dtype points (pallas_attention_qkv._proj): x + pos rounded to the
+// compute dtype, f32 accumulation, the product rounded, then the bias
+// added in the compute dtype.
 //
-// Bound: arithmetic on the CUDA cores.  Per 32-query tile the block
-// projects the tile's queries once and the keys of every window the tile
-// touches (about 2-5x the tile in keys, since a 12x12 window holds up to
-// 144 tokens), 2*C*C FLOPs per projected row, against C bytes per row
-// read; scores and the value sum add about 4*C FLOPs per (query, key)
-// pair of one window.  The TPU kernel streams a fixed +-192-token band
-// around each tile through the MXU; here the block finds the exact key
+// bfloat16, on the tensor cores: the projections and the attention are
+// separate launches.  The TPU kernel projects each key inside the
+// attention, once for every query tile whose band holds it (2-5 times);
+// here qkv_project_kernel projects every token once, and K8's bf16
+// kernels (csrc/band_attention.cu, reached through their C entry points)
+// run the attention on the projected rows.  Their dtype points are K6's:
+// the f32 score times 0.25 equals K6's score of q folded by 0.25 (a power
+// of two, so the fold is exact), ds and p are rounded before their
+// products, dq, dk and dv once, dq and dk scaled after the f32 sum.  The
+// one difference: K8's forward rounds P against the running max of each
+// 64-key chunk, the CUDA-core K6 against its running max at each key.
+//   forward:  qkv_project_kernel, then K8's forward (with lse under grad);
+//   backward: qkv_project_kernel again (q, k, v are not kept), K8's D
+//             prologue and backward (dq, dk, dv), then
+//             qkv_project_dx_kernel (dx = rt(rt(dq Wq^T) + rt(dk Wk^T +
+//             dv Wv^T))) and qkv_wgrad_kernel ((x+pos)^T dq, (x+pos)^T dk,
+//             x^T dv and the bias sums, split over row chunks, the chunk
+//             partials summed in order by sum_partials).
+// All products run on mma.sync m16n8k16 (bf16 in, f32 accumulate;
+// mma.cuh).  Bound: bytes (the weights stay in shared memory): the
+// projections move 1,280 bytes a token (x and pos read, q, k, v
+// written), their backward's two kernels about 2,300 (dq, dk, dv read by
+// both, x and pos, dx written).
+//
+// float32, on the CUDA cores (band_attention_qkv_kernel and
+// band_attention_qkv_bwd_kernel, first below): the projections stay
+// inside the attention (tensor cores take no f32 operand without TF32
+// rounding).
+//
+// f32 forward (K6): per 32-query tile the block projects the tile's
+// queries once and the keys of every window the tile touches (about 2-5x
+// the tile in keys, since a 12x12 window holds up to 144 tokens), 2*C*C
+// FLOPs per projected row; scores and the value sum add about 4*C FLOPs
+// per (query, key) pair of one window.  The block finds the exact key
 // range [first token of the first query's window, last token of the last
 // query's window) by binary search in the sorted window ids, so no key
 // outside the tile's windows is projected and no window size is too big:
@@ -26,32 +56,26 @@
 // softmax, which holds any window exactly.  One thread owns one
 // (query, head) pair and keeps its q row, running max, sum and 16-wide
 // accumulator in registers; a warp is one head of 32 queries, so every
-// key row read from shared memory is a broadcast.  The projections keep
-// the JAX dtype points: f32 accumulation, then the compute dtype, then
-// the bias added in the compute dtype.  Weights are read through the
-// read-only cache; the first Hopper step up is wgmma on staged tiles.
-// Under grad the forward also writes each (row, head)'s log-sum-exp of
-// the scores, lse = m + log(l), for the backward (the TPU keeps m and l).
+// key row read from shared memory is a broadcast.  Under grad the forward
+// also writes each (row, head)'s log-sum-exp of the scores, lse = m +
+// log(l), for the backward (the TPU keeps m and l).
 //
-// Backward (K7), one kernel for both JAX variants: a block takes a tile of
-// 32 tokens, which are queries AND keys, and walks the same exact key
-// range as the forward, recomputing q, k and v of each 32-token chunk.
-// For a tile token i and a chunk token j of its window, with
+// f32 backward (K7), one kernel for both JAX variants: a block takes a
+// tile of 32 tokens, which are queries AND keys, and walks the same exact
+// key range as the forward, recomputing q, k and v of each 32-token
+// chunk.  For a tile token i and a chunk token j of its window, with
 // p = exp(s - lse) and D = rowsum(dO * O) per (row, head):
 //   as query:  ds = p (dO_i . v_j - D_i);  dq_i += ds k_j
 //   as key:    dv_j += p dO_i;  ds = p (dO_i . v_j - D_i);  dk_j += ds q_i
 // so the key side, a scatter across query tiles on the TPU, is a gather
-// here: every key's dk and dv are complete when its tile's loop ends.  The
-// dtype points are _bwd_merged_kernel's: ds and p rounded to the compute
-// dtype before their products, dq, dk, dv rounded once, then
-// dx = dq Wq^T + (dk Wk^T + dv Wv^T) projected inside the kernel, and the
+// here: every key's dk and dv are complete when its tile's loop ends.
+// Then dx = dq Wq^T + (dk Wk^T + dv Wv^T) projected inside the kernel, and the
 // weight products (x+pos)^T dq, (x+pos)^T dk, x^T dv with the bias sums
 // added to a per-block f32 partial (common.cuh), summed in a second pass.
-// Bound: the CUDA cores (three projections per chunk, about 3.5x the
-// forward's work per (query, key) pair).
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace geomae {
 namespace {
@@ -77,17 +101,16 @@ constexpr int RPT = KC / RG;       // rows per thread
 
 // acc[j] += sum_k a[r][k] W[k][c] for the 32 rows of `a` (shared,
 // [32][C]).  Thread: column c = tid % C, rows r = tid / C + RG * j.
-template <typename T>
 __device__ __forceinline__ void matmul_rows(const float* __restrict__ a,
-                                            const T* __restrict__ W,
+                                            const float* __restrict__ W,
                                             float (&acc)[RPT]) {
   const int c = threadIdx.x % C;
   const int r0 = threadIdx.x / C;
   for (int k = 0; k < C; k += 4) {
-    const float w0 = to_f<T>(W[(k + 0) * C + c]);
-    const float w1 = to_f<T>(W[(k + 1) * C + c]);
-    const float w2 = to_f<T>(W[(k + 2) * C + c]);
-    const float w3 = to_f<T>(W[(k + 3) * C + c]);
+    const float w0 = W[(k + 0) * C + c];
+    const float w1 = W[(k + 1) * C + c];
+    const float w2 = W[(k + 2) * C + c];
+    const float w3 = W[(k + 3) * C + c];
 #pragma unroll
     for (int j = 0; j < RPT; ++j) {
       const float4 v = *reinterpret_cast<const float4*>(&a[(r0 + RG * j) * C + k]);
@@ -101,49 +124,51 @@ __device__ __forceinline__ void matmul_rows(const float* __restrict__ a,
 
 // out[r][c] = round_t(round_t(sum_k a[r][k] W[k][c]) + bias[c]) for the 32
 // rows of `a`.
-template <typename T>
 __device__ __forceinline__ void project(const float* __restrict__ a,
-                                        const T* __restrict__ W,
-                                        const T* __restrict__ bias,
+                                        const float* __restrict__ W,
+                                        const float* __restrict__ bias,
                                         float* __restrict__ out) {
   const int c = threadIdx.x % C;
   const int r0 = threadIdx.x / C;
   float acc[RPT] = {};
-  matmul_rows<T>(a, W, acc);
-  const float bc = to_f<T>(bias[c]);
+  matmul_rows(a, W, acc);
+  const float bc = bias[c];
 #pragma unroll
   for (int j = 0; j < RPT; ++j)
-    out[(r0 + RG * j) * C + c] = round_t<T>(round_t<T>(acc[j]) + bc);
+    out[(r0 + RG * j) * C + c] = acc[j] + bc;
 }
 
 // Stage rows [r0, r0 + n) of x into s_x and of round_t(x + pos) into s_xp;
 // rows past n read 0.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ x,
-                                           const T* __restrict__ pos, int r0,
-                                           int n, float* s_x, float* s_xp) {
+__device__ __forceinline__ void stage_rows(const float* __restrict__ x,
+                                           const float* __restrict__ pos,
+                                           int r0, int n, float* s_x,
+                                           float* s_xp) {
   for (int i = threadIdx.x; i < KC * C; i += kThreads) {
     const int r = i / C;
     float xv = 0.f, xp = 0.f;
     if (r < n) {
       const size_t g = (size_t)(r0 + r) * C + (i - r * C);
-      xv = to_f<T>(x[g]);
-      xp = round_t<T>(xv + to_f<T>(pos[g]));
+      xv = x[g];
+      xp = xv + pos[g];
     }
     s_x[i] = xv;
     s_xp[i] = xp;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ pos,
-                          const T* __restrict__ wq, const T* __restrict__ bq,
-                          const T* __restrict__ wk, const T* __restrict__ bk,
-                          const T* __restrict__ wv, const T* __restrict__ bv,
+band_attention_qkv_kernel(const float* __restrict__ x,
+                          const float* __restrict__ pos,
+                          const float* __restrict__ wq,
+                          const float* __restrict__ bq,
+                          const float* __restrict__ wk,
+                          const float* __restrict__ bk,
+                          const float* __restrict__ wv,
+                          const float* __restrict__ bv,
                           const int* __restrict__ win,
                           const uint8_t* __restrict__ key_valid,
-                          T* __restrict__ out, float* __restrict__ lse,
+                          float* __restrict__ out, float* __restrict__ lse,
                           int V) {
   extern __shared__ float smem[];
   float* s_x = smem;              // [KC][C] x rows
@@ -160,9 +185,9 @@ band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ pos,
   const size_t row0 = (size_t)b * V;
   const int* wb = win + row0;
   const uint8_t* kvb = key_valid + row0;
-  const T* xb = x + row0 * C;
-  const T* pb = pos + row0 * C;
-  T* ob = out + row0 * C;
+  const float* xb = x + row0 * C;
+  const float* pb = pos + row0 * C;
+  float* ob = out + row0 * C;
 
   const int h = threadIdx.x / TQ;   // warp-uniform
   const int i = threadIdx.x % TQ;
@@ -186,14 +211,14 @@ band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ pos,
 
   float q[D];
   if (ks < ke) {
-    stage_rows<T>(xb, pb, q0, nq, s_x, s_xp);
+    stage_rows(xb, pb, q0, nq, s_x, s_xp);
     __syncthreads();
-    project<T>(s_xp, wq, bq, s_k);
+    project(s_xp, wq, bq, s_k);
     __syncthreads();
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const float v = s_k[i * C + h * D + d];
-      q[d] = round_t<T>(v * kScale);
+      q[d] = v * kScale;
     }
   }
 
@@ -204,15 +229,15 @@ band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ pos,
   for (int k0 = ks; k0 < ke; k0 += KC) {
     const int nk = min(KC, ke - k0);
     __syncthreads();   // the previous chunk (or the q rows) is consumed
-    stage_rows<T>(xb, pb, k0, nk, s_x, s_xp);
+    stage_rows(xb, pb, k0, nk, s_x, s_xp);
     if (threadIdx.x < KC) {
       const int r = threadIdx.x;
       s_win[r] = r < nk ? wb[k0 + r] : kInt32Max;
       s_kv[r] = r < nk ? (int)kvb[k0 + r] : 0;
     }
     __syncthreads();
-    project<T>(s_xp, wk, bk, s_k);
-    project<T>(s_x, wv, bv, s_v);
+    project(s_xp, wk, bk, s_k);
+    project(s_x, wv, bv, s_v);
     __syncthreads();
     if (my_win == kInt32Max) continue;
     for (int j = 0; j < nk; ++j) {
@@ -231,15 +256,14 @@ band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ pos,
       const float corr = expf(m - mn);
       const float p = expf(s - mn);
       l = l * corr + p;
-      const float pr = round_t<T>(p);
       const float4* vr = reinterpret_cast<const float4*>(&s_v[j * C + h * D]);
 #pragma unroll
       for (int d4 = 0; d4 < D / 4; ++d4) {
         const float4 vv = vr[d4];
-        acc[4 * d4 + 0] = fmaf(pr, vv.x, acc[4 * d4 + 0] * corr);
-        acc[4 * d4 + 1] = fmaf(pr, vv.y, acc[4 * d4 + 1] * corr);
-        acc[4 * d4 + 2] = fmaf(pr, vv.z, acc[4 * d4 + 2] * corr);
-        acc[4 * d4 + 3] = fmaf(pr, vv.w, acc[4 * d4 + 3] * corr);
+        acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0] * corr);
+        acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1] * corr);
+        acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2] * corr);
+        acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3] * corr);
       }
       m = mn;
     }
@@ -248,28 +272,27 @@ band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ pos,
   if (i < nq) {
     const bool seen = my_win != kInt32Max && l > 0.f;
     const float inv = seen ? 1.f / l : 0.f;
-    T* o = ob + (size_t)qi * C + h * D;
+    float* o = ob + (size_t)qi * C + h * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = from_f<T>(acc[d] * inv);
+    for (int d = 0; d < D; ++d) o[d] = acc[d] * inv;
     if (lse) lse[(row0 + qi) * H + h] = seen ? m + logf(l) : 0.f;
   }
 }
 
-template <typename T>
 cudaError_t launch(const void* x, const void* pos, const void* wq,
                    const void* bq, const void* wk, const void* bk,
                    const void* wv, const void* bv, const int* win,
                    const uint8_t* key_valid, void* out, float* lse, int B,
                    int V, cudaStream_t stream) {
-  cudaError_t e = allow_smem(band_attention_qkv_kernel<T>, kSmemBytes);
+  cudaError_t e = allow_smem(band_attention_qkv_kernel, kSmemBytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((V + TQ - 1) / TQ, B);
-  band_attention_qkv_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(pos),
-      static_cast<const T*>(wq), static_cast<const T*>(bq),
-      static_cast<const T*>(wk), static_cast<const T*>(bk),
-      static_cast<const T*>(wv), static_cast<const T*>(bv), win, key_valid,
-      static_cast<T*>(out), lse, V);
+  band_attention_qkv_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(pos),
+      static_cast<const float*>(wq), static_cast<const float*>(bq),
+      static_cast<const float*>(wk), static_cast<const float*>(bk),
+      static_cast<const float*>(wv), static_cast<const float*>(bv), win,
+      key_valid, static_cast<float*>(out), lse, V);
   return cudaGetLastError();
 }
 
@@ -295,7 +318,6 @@ struct BwdArgs {
   int B, V;
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 band_attention_qkv_bwd_kernel(BwdArgs p) {
   extern __shared__ float smem[];
@@ -311,11 +333,17 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
   float* s_dd = s_lse + KC * H;                          // [KC][H] D
   __shared__ int s_range[2];
 
-  const T* x = static_cast<const T*>(p.x);
-  const T* pos = static_cast<const T*>(p.pos);
-  const T* out = static_cast<const T*>(p.out);
-  const T* dout = static_cast<const T*>(p.dout);
-  T* dx = static_cast<T*>(p.dx);
+  const float* x = static_cast<const float*>(p.x);
+  const float* pos = static_cast<const float*>(p.pos);
+  const float* out = static_cast<const float*>(p.out);
+  const float* dout = static_cast<const float*>(p.dout);
+  float* dx = static_cast<float*>(p.dx);
+  const float* wq = static_cast<const float*>(p.wq);
+  const float* bq = static_cast<const float*>(p.bq);
+  const float* wk = static_cast<const float*>(p.wk);
+  const float* bk = static_cast<const float*>(p.bk);
+  const float* wv = static_cast<const float*>(p.wv);
+  const float* bv = static_cast<const float*>(p.bv);
   float* P = p.partial + (size_t)blockIdx.x * kGradFloats;
 
   const int h = threadIdx.x / TQ;  // warp-uniform
@@ -331,8 +359,8 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
     const size_t row0 = (size_t)b * p.V;
     const int* wb = p.win + row0;
     const uint8_t* kvb = p.key_valid + row0;
-    const T* xb = x + row0 * C;
-    const T* pb = pos + row0 * C;
+    const float* xb = x + row0 * C;
+    const float* pb = pos + row0 * C;
 
     __syncthreads();               // the previous tile's buffers are consumed
     if (threadIdx.x == 0) {
@@ -350,7 +378,7 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
     const int ks = s_range[0], ke = s_range[1];
     if (ks >= ke) {                // padding only: no gradient
       for (int e = threadIdx.x; e < nq * C; e += kThreads)
-        dx[(row0 + q0) * C + e] = from_f<T>(0.f);
+        dx[(row0 + q0) * C + e] = 0.f;
       continue;
     }
 
@@ -358,18 +386,18 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
     const size_t qi = row0 + q0 + i;
     const int my_win = (i < nq) ? wb[q0 + i] : kInt32Max;
     const bool my_kv = (i < nq) && kvb[q0 + i];
-    stage_rows<T>(xb, pb, q0, nq, s_x, s_xp);
+    stage_rows(xb, pb, q0, nq, s_x, s_xp);
     __syncthreads();
-    project<T>(s_xp, static_cast<const T*>(p.wq), static_cast<const T*>(p.bq), s_q);
-    project<T>(s_xp, static_cast<const T*>(p.wk), static_cast<const T*>(p.bk), s_k);
-    project<T>(s_x, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s_v);
+    project(s_xp, wq, bq, s_q);
+    project(s_xp, wk, bk, s_k);
+    project(s_x, wv, bv, s_v);
     __syncthreads();
     float q[D], k[D], v[D], g[D], dq[D] = {}, dk[D] = {}, dv[D] = {};
     float lse_i = 0.f, d_i = 0.f;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const int c = i * C + h * D + d;
-      q[d] = round_t<T>(s_q[c] * kScale);
+      q[d] = s_q[c] * kScale;
       k[d] = s_k[c];
       v[d] = s_v[c];
       g[d] = 0.f;
@@ -377,8 +405,8 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
     if (my_win != kInt32Max) {
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        g[d] = to_f<T>(dout[qi * C + h * D + d]);
-        d_i = fmaf(g[d], to_f<T>(out[qi * C + h * D + d]), d_i);
+        g[d] = dout[qi * C + h * D + d];
+        d_i = fmaf(g[d], out[qi * C + h * D + d], d_i);
       }
       lse_i = p.lse[qi * H + h];
     }
@@ -386,7 +414,7 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
     for (int k0 = ks; k0 < ke; k0 += KC) {
       const int nk = min(KC, ke - k0);
       __syncthreads();             // the previous chunk is consumed
-      stage_rows<T>(xb, pb, k0, nk, s_x, s_xp);
+      stage_rows(xb, pb, k0, nk, s_x, s_xp);
       {  // thread (row r, head hh): dO row, D, lse; window ids
         const int r = threadIdx.x % KC, hh = threadIdx.x / KC;
         float dd = 0.f, l = 0.f;
@@ -395,8 +423,8 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
           const size_t gi = row0 + k0 + r;
 #pragma unroll
           for (int d = 0; d < D; ++d) {
-            const float gv = to_f<T>(dout[gi * C + hh * D + d]);
-            dd = fmaf(gv, to_f<T>(out[gi * C + hh * D + d]), dd);
+            const float gv = dout[gi * C + hh * D + d];
+            dd = fmaf(gv, out[gi * C + hh * D + d], dd);
             dst[d] = gv;
           }
           l = p.lse[gi * H + hh];
@@ -412,12 +440,12 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
         }
       }
       __syncthreads();
-      project<T>(s_xp, static_cast<const T*>(p.wq), static_cast<const T*>(p.bq), s_q);
-      project<T>(s_xp, static_cast<const T*>(p.wk), static_cast<const T*>(p.bk), s_k);
-      project<T>(s_x, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s_v);
+      project(s_xp, wq, bq, s_q);
+      project(s_xp, wk, bk, s_k);
+      project(s_x, wv, bv, s_v);
       __syncthreads();
       for (int e = threadIdx.x; e < KC * C; e += kThreads)
-        s_q[e] = round_t<T>(s_q[e] * kScale);
+        s_q[e] = s_q[e] * kScale;
       __syncthreads();
       if (my_win == kInt32Max) continue;
       for (int j = 0; j < nk; ++j) {
@@ -432,7 +460,7 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
             dp = fmaf(g[d], vj[d], dp);
           }
           const float pr = expf(sc - lse_i);
-          const float ds = round_t<T>(pr * (dp - d_i));
+          const float ds = pr * (dp - d_i);
 #pragma unroll
           for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
         }
@@ -446,11 +474,10 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
             dp = fmaf(gj[d], v[d], dp);
           }
           const float pr = expf(sc - s_lse[j * H + h]);
-          const float pc = round_t<T>(pr);
-          const float ds = round_t<T>(pr * (dp - s_dd[j * H + h]));
+          const float ds = pr * (dp - s_dd[j * H + h]);
 #pragma unroll
           for (int d = 0; d < D; ++d) {
-            dv[d] = fmaf(pc, gj[d], dv[d]);
+            dv[d] = fmaf(pr, gj[d], dv[d]);
             dk[d] = fmaf(ds, qj[d], dk[d]);
           }
         }
@@ -462,24 +489,23 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const int c = i * C + h * D + d;
-      s_q[c] = round_t<T>(dq[d] * kScale);
-      s_k[c] = round_t<T>(dk[d]);
-      s_v[c] = round_t<T>(dv[d]);
+      s_q[c] = dq[d] * kScale;
+      s_k[c] = dk[d];
+      s_v[c] = dv[d];
     }
-    stage_rows<T>(xb, pb, q0, nq, s_x, s_xp);
+    stage_rows(xb, pb, q0, nq, s_x, s_xp);
     __syncthreads();
     {  // dx = (dq Wq^T) + (dk Wk^T + dv Wv^T)
       float aq[RPT] = {}, akv[RPT] = {};
-      matmul_rows<T>(s_q, static_cast<const T*>(p.wqT), aq);
-      matmul_rows<T>(s_k, static_cast<const T*>(p.wkT), akv);
-      matmul_rows<T>(s_v, static_cast<const T*>(p.wvT), akv);
+      matmul_rows(s_q, static_cast<const float*>(p.wqT), aq);
+      matmul_rows(s_k, static_cast<const float*>(p.wkT), akv);
+      matmul_rows(s_v, static_cast<const float*>(p.wvT), akv);
       const int c = threadIdx.x % C;
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
         const int r = threadIdx.x / C + RG * j;
         if (r < nq)
-          dx[(row0 + q0 + r) * C + c] = from_f<T>(round_t<T>(aq[j]) +
-                                                  round_t<T>(akv[j]));
+          dx[(row0 + q0 + r) * C + c] = aq[j] + akv[j];
       }
     }
     accum_outer<kThreads, TQ, C, C>(s_xp, s_q, P);
@@ -499,16 +525,440 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
   }
 }
 
-template <typename T>
 cudaError_t launch_bwd(const BwdArgs& args, float* grads, int nblocks,
                        cudaStream_t stream) {
-  cudaError_t e = allow_smem(band_attention_qkv_bwd_kernel<T>, kBwdSmemBytes);
+  cudaError_t e = allow_smem(band_attention_qkv_bwd_kernel, kBwdSmemBytes);
   if (e != cudaSuccess) return e;
-  band_attention_qkv_bwd_kernel<T><<<nblocks, kThreads, kBwdSmemBytes,
+  band_attention_qkv_bwd_kernel<<<nblocks, kThreads, kBwdSmemBytes,
                                      stream>>>(args);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return sum_partials(args.partial, nblocks, kGradFloats, grads, stream);
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores: the projections (K6 forward and K7's
+// recompute), dx and the weight gradients (K7)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// qkv_project_kernel and qkv_project_dx_kernel: a persistent grid, one
+// block an SM (the three weights, 96 KB, stay in its shared memory for
+// all its tiles), each block walking 64-row tiles of the flattened [B *
+// V] rows.  A tile's rows arrive by cp.async into one of two buffers
+// while the block computes on the other.  16 warps: warp w takes rows
+// 16 (w / 4).. and output columns 32 (w % 4).., for all three products
+// at once (q, k, v forward; dq Wq^T and dk Wk^T + dv Wv^T backward), so
+// an A fragment is loaded once for every product that reads it.  The
+// products are staged rounded in shared memory and written 16 bytes a
+// lane.  (8 warps of 64 columns, and a ring of weight chunks streamed
+// for each tile at two blocks an SM, K5's way, measured slower: PERF.md.)
+constexpr int kPT = 64;                  // rows a tile
+constexpr int kWarpCols = 32;            // output columns a warp
+constexpr int kColGroups = C / kWarpCols;
+constexpr int kPThreads = 32 * (kPT / 16) * kColGroups;
+constexpr int kRS = C + kPad;            // bf16 row stride in shared memory
+constexpr int kTileElems = kPT * kRS;
+constexpr int kWElems = C * kRS;
+constexpr int kPieces = C / 8;           // 16-byte pieces a row
+
+struct ProjSmem {                        // forward
+  bf16 w[3][kWElems];                    // Wq, Wk, Wv as stored, [in][out]
+  bf16 in[2][2][kTileElems];             // per buffer: x rows, pos rows
+  bf16 out[3][kTileElems];               // q, k, v of the tile
+  float bias[3][C];
+};
+struct DxSmem {                          // backward's dx
+  bf16 w[3][kWElems];
+  bf16 in[2][3][kTileElems];             // per buffer: dq, dk, dv rows
+  bf16 out[kTileElems];                  // dx of the tile
+};
+static_assert(sizeof(ProjSmem) <= 227 * 1024 && sizeof(DxSmem) <= 227 * 1024,
+              "one block an SM");
+
+struct ProjArgs {
+  const bf16 *x, *pos, *wq, *bq, *wk, *bk, *wv, *bv;
+  const int* win;
+  bf16 *q, *k, *v;
+  int rows;                              // B * V
+};
+struct DxArgs {
+  const bf16 *wq, *wk, *wv, *dq, *dk, *dv;
+  bf16* dx;
+  int rows;
+};
+
+__device__ __forceinline__ float rbf(float v) {
+  return round_t<bf16>(v);
+}
+
+// two bf16 pairs added in f32 and rounded back: round(a + b), elementwise
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  const float2 fa = unpack_bf16(a), fb = unpack_bf16(b);
+  return pack_bf16(fa.x + fb.x, fa.y + fb.y);
+}
+
+// the three [C][C] weights as stored into w (row stride kRS)
+__device__ __forceinline__ void load_weights(bf16 (*w)[kWElems],
+                                             const bf16* wq, const bf16* wk,
+                                             const bf16* wv) {
+  for (int e = threadIdx.x; e < 3 * C * kPieces; e += kPThreads) {
+    const int m = e / (C * kPieces), r = (e / kPieces) % C;
+    const int c = (e % kPieces) * 8;
+    const bf16* src = m == 0 ? wq : m == 1 ? wk : wv;
+    cp_async_16(&w[m][r * kRS + c], src + (size_t)r * C + c);
+  }
+}
+
+// rows [r0, r0 + 64) of the [rows][C] tensors s0, s1 (and s2 when N is
+// 3) into the N tiles at dst; rows past `rows` are zero-filled
+template <int N>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* s0,
+                                           const bf16* s1, const bf16* s2,
+                                           int r0, int rows) {
+  for (int e = threadIdx.x; e < N * kPT * kPieces; e += kPThreads) {
+    const int a = e / (kPT * kPieces), r = (e / kPieces) % kPT;
+    const int c = (e % kPieces) * 8;
+    const bool ok = r0 + r < rows;
+    const bf16* src = a == 0 ? s0 : a == 1 ? s1 : s2;
+    cp_async_16(dst + a * kTileElems + r * kRS + c,
+                src + (size_t)(ok ? r0 + r : 0) * C + c, ok);
+  }
+}
+
+// the warp's first row and output column in a tile
+__device__ __forceinline__ int warp_row() {
+  return 16 * (threadIdx.x / 32 / kColGroups);
+}
+__device__ __forceinline__ int warp_col() {
+  return kWarpCols * (threadIdx.x / 32 % kColGroups);
+}
+
+// the warp's A fragment (16 rows x 16 k) of a tile at column kk
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
+                                       int kk) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(a, tile + (warp_row() + lane % 16) * kRS + kk +
+                     (lane / 16) * 8);
+}
+
+// acc += A (the fragment) times W over the warp's columns and k rows
+// kk..kk+15: W as stored [k][n] (forward, trans) or W^T read from W's rows
+// [n][k] (backward)
+template <bool kWT>
+__device__ __forceinline__ void mma_w(float (&acc)[kWarpCols / 8][4],
+                                      const uint32_t (&a)[4], const bf16* w,
+                                      int kk) {
+  const int lane = threadIdx.x % 32, nw = warp_col();
+#pragma unroll
+  for (int j = 0; j < kWarpCols / 16; ++j) {
+    uint32_t b[4];
+    if (kWT)
+      ldmatrix_x4(b, w + (nw + 16 * j + lane % 8 + (lane / 16) * 8) * kRS +
+                         kk + ((lane / 8) % 2) * 8);
+    else
+      ldmatrix_x4_trans(b, w + (kk + lane % 8 + ((lane / 8) % 2) * 8) * kRS +
+                               nw + 16 * j + (lane / 16) * 8);
+    mma_bf16_16816(acc[2 * j], a, &b[0]);
+    mma_bf16_16816(acc[2 * j + 1], a, &b[2]);
+  }
+}
+
+// the N staged [64][kRS] tiles at src, rows below `rows`, to rows r0..
+// of d0, d1 (and d2 when N is 3), 16 bytes a lane
+template <int N>
+__device__ __forceinline__ void write_tile(bf16* d0, bf16* d1, bf16* d2,
+                                           const bf16* src, int r0,
+                                           int rows) {
+  for (int e = threadIdx.x; e < N * kPT * kPieces; e += kPThreads) {
+    const int a = e / (kPT * kPieces), r = (e / kPieces) % kPT;
+    const int c = (e % kPieces) * 8;
+    bf16* dst = a == 0 ? d0 : a == 1 ? d1 : d2;
+    if (r0 + r < rows)
+      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * C + c) =
+          *reinterpret_cast<const uint4*>(src + a * kTileElems + r * kRS + c);
+  }
+}
+
+// q, k, v [rows][C] of x and pos: per row round(round((x + pos) W) + b)
+// (x for v), 0 on padding rows (win == INT32_MAX), which K8 then reads as
+// finite values
+__global__ void __launch_bounds__(kPThreads, 1)
+qkv_project_kernel(ProjArgs p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ProjSmem& sm = *reinterpret_cast<ProjSmem*>(smem_raw);
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r16 = warp_row(), nw = warp_col();
+  const int tiles = (p.rows + kPT - 1) / kPT;
+
+  load_weights(sm.w, p.wq, p.wk, p.wv);
+  if ((int)blockIdx.x < tiles)
+    stage_tile<2>(sm.in[0][0], p.x, p.pos, nullptr, blockIdx.x * kPT,
+                  p.rows);
+  cp_async_commit();
+  for (int e = threadIdx.x; e < 3 * C; e += kPThreads) {
+    const bf16* b = e < C ? p.bq : e < 2 * C ? p.bk : p.bv;
+    sm.bias[e / C][e % C] = to_f<bf16>(b[e % C]);
+  }
+
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    const int r0 = tile * kPT;
+    cp_async_wait<0>();
+    __syncthreads();               // tile landed; the other buffer and the
+                                   // output tiles are free
+    if (tile + (int)gridDim.x < tiles) {
+      stage_tile<2>(sm.in[buf ^ 1][0], p.x, p.pos, nullptr,
+                    r0 + gridDim.x * kPT, p.rows);
+      cp_async_commit();
+    }
+    // the lane's rows g, g + 8: real (not padding, not past the end)
+    bool real[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int r = r0 + r16 + g + 8 * rh;
+      real[rh] = r < p.rows && __ldg(p.win + r) != kInt32Max;
+    }
+    float acc[3][kWarpCols / 8][4] = {};
+    const bf16* xs = sm.in[buf][0];
+    const bf16* ps = sm.in[buf][1];
+#pragma unroll 2
+    for (int kk = 0; kk < C; kk += 16) {
+      uint32_t ax[4], axp[4];
+      load_a(ax, xs, kk);
+      load_a(axp, ps, kk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) axp[i] = add_bf16x2(ax[i], axp[i]);
+      mma_w<false>(acc[0], axp, sm.w[0], kk);
+      mma_w<false>(acc[1], axp, sm.w[1], kk);
+      mma_w<false>(acc[2], ax, sm.w[2], kk);
+    }
+#pragma unroll
+    for (int o = 0; o < 3; ++o)
+#pragma unroll
+      for (int nb = 0; nb < kWarpCols / 8; ++nb) {
+        const int c = nw + 8 * nb + 2 * t;
+        const float b0 = sm.bias[o][c], b1 = sm.bias[o][c + 1];
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const float* a = &acc[o][nb][2 * rh];
+          *reinterpret_cast<uint32_t*>(&sm.out[o][(r16 + g + 8 * rh) * kRS +
+                                                   c]) =
+              real[rh] ? pack_bf16(rbf(a[0]) + b0, rbf(a[1]) + b1) : 0u;
+        }
+      }
+    __syncthreads();
+    write_tile<3>(p.q, p.k, p.v, sm.out[0], r0, p.rows);
+  }
+  cp_async_wait<0>();
+}
+
+// dx [rows][C] = round(round(dq Wq^T) + round(dk Wk^T + dv Wv^T))
+__global__ void __launch_bounds__(kPThreads, 1)
+qkv_project_dx_kernel(DxArgs p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DxSmem& sm = *reinterpret_cast<DxSmem*>(smem_raw);
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r16 = warp_row(), nw = warp_col();
+  const int tiles = (p.rows + kPT - 1) / kPT;
+
+  load_weights(sm.w, p.wq, p.wk, p.wv);
+  if ((int)blockIdx.x < tiles)
+    stage_tile<3>(sm.in[0][0], p.dq, p.dk, p.dv, blockIdx.x * kPT, p.rows);
+  cp_async_commit();
+
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    const int r0 = tile * kPT;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (tile + (int)gridDim.x < tiles) {
+      stage_tile<3>(sm.in[buf ^ 1][0], p.dq, p.dk, p.dv,
+                    r0 + gridDim.x * kPT, p.rows);
+      cp_async_commit();
+    }
+    float aq[kWarpCols / 8][4] = {}, akv[kWarpCols / 8][4] = {};
+#pragma unroll 2
+    for (int kk = 0; kk < C; kk += 16) {
+      uint32_t a[4];
+      load_a(a, sm.in[buf][0], kk);
+      mma_w<true>(aq, a, sm.w[0], kk);
+      load_a(a, sm.in[buf][1], kk);
+      mma_w<true>(akv, a, sm.w[1], kk);
+      load_a(a, sm.in[buf][2], kk);
+      mma_w<true>(akv, a, sm.w[2], kk);
+    }
+#pragma unroll
+    for (int nb = 0; nb < kWarpCols / 8; ++nb)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int e = 2 * rh;
+        *reinterpret_cast<uint32_t*>(
+            &sm.out[(r16 + g + 8 * rh) * kRS + nw + 8 * nb + 2 * t]) =
+            pack_bf16(rbf(aq[nb][e]) + rbf(akv[nb][e]),
+                      rbf(aq[nb][e + 1]) + rbf(akv[nb][e + 1]));
+      }
+    __syncthreads();
+    write_tile<1>(p.dx, nullptr, nullptr, sm.out, r0, p.rows);
+  }
+  cp_async_wait<0>();
+}
+
+// Weight gradients, split-K over chunks of rows: block (chunk,
+// z) adds A^T D over its chunk's rows for product z, A^T D being
+// (x+pos)^T dq (z = 0), (x+pos)^T dk (1), x^T dv (2), all [C][C], and
+// the column sums of D (the bias gradient), then writes them into its
+// chunk's partial; sum_partials adds the chunks in order.  Eight warps,
+// warp w takes output rows 32 (w / 2).. and columns 64 (w % 2)..; 64-row
+// steps of A (x and pos, added and rounded in the fragments) and D arrive
+// by cp.async, double-buffered.  Rows past the end are zero-filled; a
+// padding row adds its dq, dk, dv, which K8's backward writes as 0.
+constexpr int kQwThreads = 256;
+
+struct WgSmem {
+  bf16 t[2][3][kTileElems];              // per buffer: x, pos, D rows
+  float bsum[4][C];                      // the bias sums' four row groups
+};
+
+struct QwArgs {
+  const bf16 *x, *pos, *dq, *dk, *dv;
+  float* partial;                        // [chunks][kGradFloats]
+  int rows;
+  int chunk_rows;                        // a multiple of 64
+};
+
+__global__ void __launch_bounds__(kQwThreads, 2)
+qkv_wgrad_kernel(QwArgs p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WgSmem& sm = *reinterpret_cast<WgSmem*>(smem_raw);
+  const int z = blockIdx.x % 3, chunk = blockIdx.x / 3;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4, q = lane / 8;
+  const int wm = 32 * (warp / 2), wn = 64 * (warp % 2);
+  const bf16* dsrc = z == 0 ? p.dq : z == 1 ? p.dk : p.dv;
+  const int c0 = chunk * p.chunk_rows;
+  const int steps = (min(p.chunk_rows, p.rows - c0) + kPT - 1) / kPT;
+  // bias sums: thread (column pair cp, row group rg) over 16 rows a step
+  const int cp = threadIdx.x % 64, rg = threadIdx.x / 64;
+  float bs0 = 0.f, bs1 = 0.f;
+
+  // step s's x (and pos for z < 2) and D rows into buffer b
+  auto stage = [&](int s, int b) {
+    const int r0 = c0 + s * kPT;
+    for (int e = threadIdx.x; e < 3 * kPT * kPieces; e += kQwThreads) {
+      const int a = e / (kPT * kPieces), r = (e / kPieces) % kPT;
+      const int c = (e % kPieces) * 8;
+      if (a == 1 && z == 2) continue;    // x^T dv reads no pos
+      const bool ok = r0 + r < p.rows;
+      const bf16* src = a == 0 ? p.x : a == 1 ? p.pos : dsrc;
+      cp_async_16(&sm.t[b][a][r * kRS + c],
+                  src + (size_t)(ok ? r0 + r : 0) * C + c, ok);
+    }
+  };
+
+  float acc[2][8][4] = {};
+  stage(0, 0);
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    const int b = s & 1;
+    cp_async_wait<0>();
+    __syncthreads();                     // step s landed; step s - 1 consumed
+    if (s + 1 < steps) {
+      stage(s + 1, b ^ 1);
+      cp_async_commit();
+    }
+    const bf16* sa = sm.t[b][0];
+    const bf16* sp = sm.t[b][1];
+    const bf16* sd = sm.t[b][2];
+#pragma unroll
+    for (int kk = 0; kk < kPT; kk += 16) {
+      uint32_t af[2][4], bf[4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {      // A^T: rows are tokens (k), cols m
+        const int o = (kk + lane % 8 + (q / 2) * 8) * kRS + wm + i * 16 +
+                      (q % 2) * 8;
+        ldmatrix_x4_trans(af[i], sa + o);
+        if (z < 2) {
+          uint32_t ap[4];
+          ldmatrix_x4_trans(ap, sp + o);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) af[i][e] = add_bf16x2(af[i][e], ap[e]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)        // D: rows are tokens (k), cols n
+        ldmatrix_x4_trans(bf[j], sd + (kk + lane % 8 + (q % 2) * 8) * kRS +
+                                     wn + j * 16 + (q / 2) * 8);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mma_bf16_16816(acc[i][j], af[i], &bf[j / 2][(j % 2) * 2]);
+    }
+#pragma unroll 4
+    for (int r = 16 * rg; r < 16 * rg + 16; ++r) {
+      const float2 d = unpack_bf16(
+          *reinterpret_cast<const uint32_t*>(&sd[r * kRS + 2 * cp]));
+      bs0 += d.x;
+      bs1 += d.y;
+    }
+  }
+  cp_async_wait<0>();
+  float* out = p.partial + (size_t)chunk * kGradFloats;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wm + i * 16 + g + 8 * h, n = wn + j * 8 + 2 * t;
+        *reinterpret_cast<float2*>(&out[z * C * C + m * C + n]) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+  sm.bsum[rg][2 * cp] = bs0;
+  sm.bsum[rg][2 * cp + 1] = bs1;
+  __syncthreads();
+  if (threadIdx.x < C) {
+    const int c = threadIdx.x;
+    out[3 * C * C + z * C + c] =
+        ((sm.bsum[0][c] + sm.bsum[1][c]) + sm.bsum[2][c]) + sm.bsum[3][c];
+  }
+}
+
+int g_proj_resident[kMaxDevices];
+int g_dx_resident[kMaxDevices];
+
+cudaError_t launch_project(const ProjArgs& a, cudaStream_t stream) {
+  constexpr int kBytes = sizeof(ProjSmem);
+  cudaError_t e = allow_smem(qkv_project_kernel, kBytes);
+  int blocks;
+  if (e == cudaSuccess)
+    e = persistent_grid(qkv_project_kernel, kPThreads, kBytes,
+                        (a.rows + kPT - 1) / kPT, g_proj_resident, &blocks);
+  if (e != cudaSuccess) return e;
+  qkv_project_kernel<<<blocks, kPThreads, kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_project_bwd(const DxArgs& d, const QwArgs& w, int chunks,
+                               float* grads, cudaStream_t stream) {
+  constexpr int kDxBytes = sizeof(DxSmem), kWgBytes = sizeof(WgSmem);
+  cudaError_t e = allow_smem(qkv_project_dx_kernel, kDxBytes);
+  if (e == cudaSuccess) e = allow_smem(qkv_wgrad_kernel, kWgBytes);
+  int blocks;
+  if (e == cudaSuccess)
+    e = persistent_grid(qkv_project_dx_kernel, kPThreads, kDxBytes,
+                        (d.rows + kPT - 1) / kPT, g_dx_resident, &blocks);
+  if (e != cudaSuccess) return e;
+  qkv_project_dx_kernel<<<blocks, kPThreads, kDxBytes, stream>>>(d);
+  if (chunks > 0)
+    qkv_wgrad_kernel<<<3 * chunks, kQwThreads, kWgBytes, stream>>>(w);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return sum_partials(w.partial, chunks, kGradFloats, grads, stream);
 }
 
 }  // namespace
@@ -530,12 +980,9 @@ int geomae_band_attention_qkv(int dtype, const void* x, const void* pos,
   using namespace geomae;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch<float>(x, pos, wq, bq, wk, bk, wv, bv, win, key_valid, out,
+    return launch(x, pos, wq, bq, wk, bk, wv, bv, win, key_valid, out,
                          lse, B, V, s);
-  if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(x, pos, wq, bq, wk, bk, wv, bv, win,
-                                 key_valid, out, lse, B, V, s);
-  return cudaErrorInvalidValue;
+  return cudaErrorInvalidValue;   // bf16: qkv_project, then K8
 }
 
 // Backward of geomae_band_attention_qkv.  The forward's inputs, its out
@@ -555,10 +1002,59 @@ int geomae_band_attention_qkv_bwd(
                      wqT, wkT,  wvT, out, dout, win, key_valid, lse,
                      dx,  partial, B, V};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_bwd<float>(args, grads, nblocks, s);
-  if (dtype == kBFloat16)
-    return launch_bwd<__nv_bfloat16>(args, grads, nblocks, s);
-  return cudaErrorInvalidValue;
+  if (dtype == kFloat32) return launch_bwd(args, grads, nblocks, s);
+  return cudaErrorInvalidValue;   // bf16: K8's backward between the
+                                  // projections' kernels
+}
+
+// bf16 projections of K6 on the tensor cores: x, pos, q, k, v [B, V, 128];
+// W [128, 128] (in x out); b [128]; win [B, V] int32.  Per row q =
+// round(round((x + pos) Wq) + bq), k likewise with Wk, v from x with Wv,
+// x + pos rounded first; 0 on padding rows (win == INT32_MAX).
+int geomae_qkv_project(const void* x, const void* pos, const void* wq,
+                       const void* bq, const void* wk, const void* bk,
+                       const void* wv, const void* bv, const int* win,
+                       void* q, void* k, void* v, int B, int V,
+                       void* stream) {
+  using namespace geomae;
+  using bf = __nv_bfloat16;
+  const ProjArgs a{static_cast<const bf*>(x),  static_cast<const bf*>(pos),
+                   static_cast<const bf*>(wq), static_cast<const bf*>(bq),
+                   static_cast<const bf*>(wk), static_cast<const bf*>(bk),
+                   static_cast<const bf*>(wv), static_cast<const bf*>(bv),
+                   win,
+                   static_cast<bf*>(q),        static_cast<bf*>(k),
+                   static_cast<bf*>(v),        B * V};
+  return launch_project(a, static_cast<cudaStream_t>(stream));
+}
+
+// Backward of the bf16 projections for the cotangents dq, dk, dv [B, V,
+// 128] of q, k, v: dx [B, V, 128] = round(round(dq Wq^T) + round(dk Wk^T
+// + dv Wv^T)), and grads [3 * 128 * 128 + 3 * 128] f32 (dWq, dWk, dWv,
+// dbq, dbk, dbv) = ((x+pos)^T dq, (x+pos)^T dk, x^T dv, the column sums
+// of dq, dk, dv) over every row.  The weight gradients split the rows
+// into chunks of chunk_rows (a multiple of 64); partial: f32 [chunks,
+// len(grads)], chunks = ceil(B * V / chunk_rows).
+int geomae_qkv_project_bwd(const void* x, const void* pos, const void* wq,
+                           const void* wk, const void* wv, const void* dq,
+                           const void* dk, const void* dv, void* dx,
+                           float* partial, float* grads, int B, int V,
+                           int chunk_rows, int chunks, void* stream) {
+  using namespace geomae;
+  using bf = __nv_bfloat16;
+  const int rows = B * V;
+  if (chunk_rows <= 0 || chunk_rows % kPT != 0 ||
+      chunks != (rows + chunk_rows - 1) / chunk_rows)
+    return cudaErrorInvalidValue;
+  const DxArgs d{static_cast<const bf*>(wq), static_cast<const bf*>(wk),
+                 static_cast<const bf*>(wv), static_cast<const bf*>(dq),
+                 static_cast<const bf*>(dk), static_cast<const bf*>(dv),
+                 static_cast<bf*>(dx),       rows};
+  const QwArgs w{static_cast<const bf*>(x),  static_cast<const bf*>(pos),
+                 static_cast<const bf*>(dq), static_cast<const bf*>(dk),
+                 static_cast<const bf*>(dv), partial, rows, chunk_rows};
+  return launch_project_bwd(d, w, chunks, grads,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -34,6 +34,8 @@ _SIGNATURES = {
     "geomae_segment_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     "geomae_band_attention_qkv": [_I] + [_P] * 12 + [_I, _I, _P],
     "geomae_band_attention_qkv_bwd": [_I] + [_P] * 19 + [_I] * 3 + [_P],
+    "geomae_qkv_project": [_P] * 12 + [_I, _I, _P],
+    "geomae_qkv_project_bwd": [_P] * 11 + [_I] * 4 + [_P],
     "geomae_band_attention": [_I] + [_P] * 7 + [_I, _I, _P],
     "geomae_band_attention_delta": [_I] + [_P] * 4 + [_I, _I, _P],
     "geomae_band_attention_bwd": [_I] + [_P] * 11 + [_I, _I, _P],

@@ -1,6 +1,6 @@
-"""K6 band_attention_qkv: window attention with in-kernel q/k/v
-projections; the CUDA wrappers of its forward (K6) and backward (K7) and
-their plain versions.
+"""K6 band_attention_qkv: window attention with the q/k/v projections
+inside; the CUDA wrappers of its forward (K6) and backward (K7), of the
+bf16 projections they run on the tensor cores, and their plain versions.
 
 Replaces ``geomae_tpu/ops/pallas_attention_qkv.py:band_attention_qkv``
 (forward, and its backward ``_pallas_backward_merged`` /
@@ -16,15 +16,23 @@ package, without its group axis.  ``pos`` is cast to x's dtype; the
 projections accumulate in f32, cast to x's dtype, then add the bias in
 that dtype (``pallas_attention_qkv._proj``).
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.  The kernels take C = 128 in 8 heads of 16 (the shipped
-SST width) in float32 or bfloat16; windows may be of any size.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernels
+or raises.  The kernels take C = 128 in 8 heads of 16 (the shipped SST
+width) in float32 or bfloat16; windows may be of any size.  In bfloat16
+each token is projected once on the tensor cores (``qkv_project``) and
+K8's bf16 kernels (``csrc/band_attention.cu``, reached through their C
+entry points, so ``attention.band_attention_fused``'s counts stay the
+band route's) run the attention; the backward recomputes the
+projections, runs K8's D prologue and backward, then
+``qkv_project_backward`` (dx and the parameter gradients).  K8 rounds its
+probabilities against the running max of each 64-key chunk.  In float32
+one CUDA-core kernel each way projects inside the attention.
 
-Under grad the attention is an ``autograd.Function``: the forward kernel
-also writes each (row, head)'s log-sum-exp of the scores ([B, V, 8] f32),
-and the backward (``band_attention_qkv_backward``) returns dx, which sums
-the query-side and key-side terms, and dWq, dbq, dWk, dbk, dWv, dbv in
-f32.  ``pos`` gets no cotangent, as in the JAX package.  Without grad the
+Under grad the attention is an ``autograd.Function``: the forward also
+writes each (row, head)'s log-sum-exp of the scores ([B, V, 8] f32), and
+the backward (``band_attention_qkv_backward``) returns dx, which sums the
+query-side and key-side terms, and dWq, dbq, dWk, dbk, dWv, dbv in f32.
+``pos`` gets no cotangent, as in the JAX package.  Without grad the
 forward launches without the statistics, as in serving.
 """
 from __future__ import annotations
@@ -32,12 +40,13 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .attention import band_attention, plain_blocks, plain_lse
+from .attention import INT32_MAX, band_attention, plain_blocks, plain_lse
 from .ffn import dense
 
 KERNEL_C = 128
 KERNEL_HEADS = 8
-BWD_BLOCKS_PER_SM = 2     # the backward kernel's 98 KB of shared memory
+BWD_BLOCKS_PER_SM = 2     # the f32 backward kernel's 98 KB of shared memory
+WGRAD_BLOCKS_PER_SM = 2   # the bf16 weight-gradient kernel's 104 KB
 
 
 def _scale_pow2(head_dim: int) -> bool:
@@ -47,14 +56,43 @@ def _scale_pow2(head_dim: int) -> bool:
     return head_dim == (1 << lb) and lb % 2 == 0
 
 
+def qkv_project_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id):
+    """The projections (q, k, v) [B, V, C] in x's dtype: x + pos rounded
+    to it, then ``dense`` (f32 accumulation, the product rounded, the
+    bias added in x's dtype); 0 on padding rows (``win_id ==
+    INT32_MAX``), as the kernel writes them."""
+    xp = x + pos.to(x.dtype)
+    real = (win_id != INT32_MAX)[..., None]
+    return tuple(torch.where(real, dense(a, w, b), 0.0)
+                 for a, w, b in ((xp, wq, bq), (xp, wk, bk), (x, wv, bv)))
+
+
+def qkv_project_backward_plain(x, pos, wq, wk, wv, dq, dk, dv):
+    """The projections' backward for the cotangents dq, dk, dv [B, V, C]
+    of q, k, v: (dx, dWq, dbq, dWk, dbk, dWv, dbv), dx = rt(rt(dq Wq^T) +
+    rt(dk Wk^T + dv Wv^T)) in x's dtype (rt: rounded to it), the weight
+    products (x+pos)^T dq, (x+pos)^T dk, x^T dv and the bias sums in f32,
+    over every row (padding rows add their cotangents as given: K8's
+    backward writes 0 there)."""
+    dt = x.dtype
+    C = x.shape[-1]
+    rt = lambda t: t.to(dt).float()
+    W = lambda w: w.to(dt).float()
+    dq, dk, dv = dq.float(), dk.float(), dv.float()
+    dx = rt(rt(dq @ W(wq).t()) + rt(dk @ W(wk).t() + dv @ W(wv).t()))
+    flat = lambda t: t.float().reshape(-1, C)
+    xp = x + pos.to(dt)
+    grads = []
+    for a, d in ((xp, dq), (xp, dk), (x, dv)):
+        grads += [flat(a).t() @ flat(d), flat(d).sum(0)]
+    return (dx.to(dt), *grads)
+
+
 def band_attention_qkv_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id,
                              key_valid, nheads: int) -> torch.Tensor:
     B, V, C = x.shape
     D = C // nheads
-    xp = x + pos.to(x.dtype)
-    q = dense(xp, wq, bq)
-    k = dense(xp, wk, bk)
-    v = dense(x, wv, bv)
+    q, k, v = qkv_project_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id)
     scale = D ** -0.5
     if _scale_pow2(D):
         q, scale = q * scale, 1.0
@@ -64,22 +102,20 @@ def band_attention_qkv_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id,
     return out.reshape(B, V, C)
 
 
-def _plain_qkv(x, pos, wq, bq, wk, bk, wv, bv, nheads: int):
-    """(x + pos, q, k, v, scale, fold): q, k, v f32 [B, V, H, D] as the
-    kernels round them, q already scaled when ``fold``."""
+def _plain_qkv(x, pos, wq, bq, wk, bk, wv, bv, win_id, nheads: int):
+    """(q, k, v, scale, fold): q, k, v f32 [B, V, H, D] as the kernels
+    round them, q already scaled when ``fold``."""
     B, V, C = x.shape
     D = C // nheads
     dt = x.dtype
-    xp = x + pos.to(dt)
-    q, k, v = (dense(xp, wq, bq).float(), dense(xp, wk, bk).float(),
-               dense(x, wv, bv).float())
+    q, k, v = (t.float() for t in qkv_project_plain(x, pos, wq, bq, wk, bk,
+                                                    wv, bv, win_id))
     scale = D ** -0.5
     fold = _scale_pow2(D)
     if fold:
         q = (q * scale).to(dt).float()
     shape = (B, V, nheads, D)
-    return (xp, q.reshape(shape), k.reshape(shape), v.reshape(shape), scale,
-            fold)
+    return q.reshape(shape), k.reshape(shape), v.reshape(shape), scale, fold
 
 
 def band_attention_qkv_lse_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id,
@@ -87,8 +123,8 @@ def band_attention_qkv_lse_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id,
     """The forward kernel's statistics under grad: per (row, head) the
     log-sum-exp of the masked, scaled scores, [B, V, H] f32; 0 for a
     padding row or a row with no valid key."""
-    _, q, k, _, scale, fold = _plain_qkv(x, pos, wq, bq, wk, bk, wv, bv,
-                                         nheads)
+    q, k, _, scale, fold = _plain_qkv(x, pos, wq, bq, wk, bk, wv, bv,
+                                      win_id, nheads)
     return plain_lse(q, k, win_id, key_valid, 1.0 if fold else scale)
 
 
@@ -100,12 +136,12 @@ def band_attention_qkv_backward_plain(x, pos, wq, bq, wk, bk, wv, bv,
     ``g`` its cotangent.  The softmax is recomputed exactly per window (as
     ``band_attention`` does); ds and p are rounded to x's dtype before
     their products, dq, dk and dv once at the end
-    (``_bwd_merged_kernel``)."""
+    (``_bwd_merged_kernel``), then ``qkv_project_backward_plain``."""
     B, V, C = x.shape
     dt = x.dtype
     rt = lambda t: t.to(dt).float()
-    xp, q, k, v, scale, fold = _plain_qkv(x, pos, wq, bq, wk, bk, wv, bv,
-                                          nheads)
+    q, k, v, scale, fold = _plain_qkv(x, pos, wq, bq, wk, bk, wv, bv,
+                                      win_id, nheads)
     shape = q.shape
     gh = g.float().reshape(shape)
     dvo = (gh * out.float().reshape(shape)).sum(-1)          # [B, V, H]
@@ -118,50 +154,154 @@ def band_attention_qkv_backward_plain(x, pos, wq, bq, wk, bk, wv, bv,
         dq[b, q0:q1] += torch.einsum("hqk,khd->qhd", ds, kb)
         dk[b, ks:ke] += torch.einsum("hqk,qhd->khd", ds, qb)
         dv[b, ks:ke] += torch.einsum("hqk,qhd->khd", rt(p), gb)
-    dqc = rt(dq.reshape(B, V, C) * scale)
-    dkc = rt(dk.reshape(B, V, C) * (1.0 if fold else scale))
-    dvc = rt(dv.reshape(B, V, C))
-    W = lambda t: t.to(dt).float()
-    dx = rt(rt(dqc @ W(wq).t()) + rt(dkc @ W(wk).t() + dvc @ W(wv).t()))
-    flat = lambda t: t.float().reshape(-1, C)
-    grads = []
-    for a, d in ((xp, dqc), (xp, dkc), (x, dvc)):
-        grads += [flat(a).t() @ flat(d), flat(d).sum(0)]
-    return (dx.to(dt), *grads)
+    return qkv_project_backward_plain(
+        x, pos, wq, wk, wv, (dq.reshape(B, V, C) * scale).to(dt),
+        (dk.reshape(B, V, C) * (1.0 if fold else scale)).to(dt),
+        dv.reshape(B, V, C).to(dt))
 
 
-def _check_qkv(name, x, nheads):
+def _check_qkv(name, x, nheads, dtypes=tuple(_cuda.DTYPE_CODE)):
     _cuda.require(x.device.type == "cuda",
                   f"{name}: no kernel for device {x.device}")
+    kinds = " or ".join(str(d)[6:] for d in dtypes)
     _cuda.require(x.dim() == 3 and x.shape[2] == KERNEL_C
-                  and nheads == KERNEL_HEADS and x.dtype in _cuda.DTYPE_CODE,
-                  f"{name}: the kernel takes [B, V, {KERNEL_C}] float32 or "
-                  f"bfloat16 in {KERNEL_HEADS} heads, got {x.dtype} "
-                  f"{tuple(x.shape)} in {nheads}")
+                  and nheads == KERNEL_HEADS and x.dtype in dtypes,
+                  f"{name}: the kernel takes [B, V, {KERNEL_C}] {kinds} in "
+                  f"{KERNEL_HEADS} heads, got {x.dtype} {tuple(x.shape)} in "
+                  f"{nheads}")
 
 
-def _kernel_inputs(name, x, pos, ws, win_id, key_valid):
-    """pos and the weights in x's dtype, all checked and contiguous."""
+def _kernel_inputs(name, x, pos, ws, win_id=None, key_valid=None):
+    """pos and the weights ([C, C], and [C] after each when ``ws`` holds
+    the biases too) in x's dtype, all checked and contiguous; in bf16
+    also 16-byte aligned (the kernels copy rows 16 bytes at a time)."""
     B, V, C = x.shape
     pos = pos.to(x.dtype).contiguous()
     ws = [w.to(x.dtype).contiguous() for w in ws]
-    _cuda.require_cuda(name, x, pos, win_id, key_valid, *ws)
+    ids = [t for t in (win_id, key_valid) if t is not None]
+    _cuda.require_cuda(name, x, pos, *ids, *ws)
     _cuda.require(pos.shape == x.shape, f"{name}: pos {tuple(pos.shape)}")
-    for w, shape in zip(ws, [(C, C), (C,)] * 3):
+    shapes = [(C, C), (C,)] * 3 if len(ws) == 6 else [(C, C)] * 3
+    for w, shape in zip(ws, shapes):
         _cuda.require(w.shape == shape,
                       f"{name}: weight {tuple(w.shape)}, expected {shape}")
-    _cuda.require(win_id.dtype == torch.int32 and win_id.shape == (B, V),
+    _cuda.require(win_id is None or (win_id.dtype == torch.int32
+                                     and win_id.shape == (B, V)),
                   f"{name}: win_id must be int32 {(B, V)}")
-    _cuda.require(key_valid.dtype == torch.bool
-                  and key_valid.shape == (B, V),
+    _cuda.require(key_valid is None or (key_valid.dtype == torch.bool
+                                        and key_valid.shape == (B, V)),
                   f"{name}: key_valid must be bool {(B, V)}")
+    if x.dtype == torch.bfloat16:
+        _aligned(name, x, pos, *ws)
     return pos, ws
+
+
+def _aligned(name, *ts):
+    for t in ts:
+        _cuda.require(t.data_ptr() % 16 == 0,
+                      f"{name}: tensors must be 16-byte aligned")
+
+
+def _cotangents(name, x, *ts):
+    """Each of ``ts`` of x's shape and dtype, on its device, contiguous
+    and (bf16) 16-byte aligned."""
+    for t in ts:
+        _cuda.require(t.shape == x.shape and t.dtype == x.dtype,
+                      f"{name}: cotangents and outputs must be {x.dtype} "
+                      f"{tuple(x.shape)}, got {t.dtype} {tuple(t.shape)}")
+    _cuda.require_cuda(name, x, *ts)
+    if x.dtype == torch.bfloat16:
+        _aligned(name, *ts)
+
+
+def _grads(grads, C):
+    """The kernels' f32 [3 C C + 3 C] as (dWq, dbq, dWk, dbk, dWv, dbv)."""
+    dwq, dwk, dwv, dbq, dbk, dbv = grads.split([C * C] * 3 + [C] * 3)
+    return dwq.view(C, C), dbq, dwk.view(C, C), dbk, dwv.view(C, C), dbv
+
+
+def _project(x, pos, ws, win_id):
+    """The bf16 projections' kernel on checked inputs: (q, k, v)."""
+    B, V, _ = x.shape
+    q, k, v = (torch.empty_like(x) for _ in range(3))
+    code = _cuda.library().geomae_qkv_project(
+        x.data_ptr(), pos.data_ptr(), *[w.data_ptr() for w in ws],
+        win_id.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), B, V,
+        _cuda.stream(x))
+    qkv_project.launches += 1
+    _cuda.check(code, "qkv_project")
+    return q, k, v
+
+
+def wgrad_chunk_rows(x) -> int:
+    """Rows a chunk of the bf16 weight gradients: a multiple of 64 that
+    gives about one block (a chunk and one of the three products) for
+    each place on the device's SMs, so the grid fills the card once
+    (``probe_qkv``: fewer, longer chunks leave SMs idle, more add partial
+    sums to write and add)."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    chunks = max(1, sms * WGRAD_BLOCKS_PER_SM // 3)
+    return 64 * max(1, -(-x.shape[0] * x.shape[1] // (64 * chunks)))
+
+
+def _project_backward(x, pos, weights, dq, dk, dv):
+    """The bf16 projections' backward kernels on checked inputs: (dx, dWq,
+    dbq, dWk, dbk, dWv, dbv)."""
+    B, V, C = x.shape
+    chunk_rows = wgrad_chunk_rows(x)
+    chunks = -(-B * V // chunk_rows)
+    n = 3 * C * C + 3 * C
+    partial = torch.empty((chunks, n), dtype=torch.float32, device=x.device)
+    grads = torch.empty(n, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    code = _cuda.library().geomae_qkv_project_bwd(
+        x.data_ptr(), pos.data_ptr(), *[w.data_ptr() for w in weights],
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dx.data_ptr(),
+        partial.data_ptr(), grads.data_ptr(), B, V, chunk_rows, chunks,
+        _cuda.stream(x))
+    qkv_project_backward.launches += 1
+    _cuda.check(code, "qkv_project_backward")
+    return (dx, *_grads(grads, C))
+
+
+def qkv_project(x, pos, wq, bq, wk, bk, wv, bv, win_id):
+    """The projections of K6's bf16 path: (q, k, v) [B, V, C] in x's
+    dtype, 0 on padding rows; on the card bf16 only, C = 128, on the
+    tensor cores (each token once)."""
+    if x.device.type == "cpu":
+        return qkv_project_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id)
+    name = "qkv_project"
+    _check_qkv(name, x, KERNEL_HEADS, (torch.bfloat16,))
+    pos, ws = _kernel_inputs(name, x, pos, (wq, bq, wk, bk, wv, bv), win_id)
+    return _project(x, pos, ws, win_id)
+
+
+qkv_project.launches = 0
+
+
+def qkv_project_backward(x, pos, wq, wk, wv, dq, dk, dv):
+    """The projections' backward (``qkv_project_backward_plain``): dx in
+    x's dtype, the six parameter gradients in f32; on the card bf16
+    only, C = 128: dx on the tensor cores a 64-row tile at a time, the
+    weight gradients split over chunks of rows (``wgrad_chunk_rows``)
+    whose f32 partials are summed in order (two calls agree bitwise)."""
+    if x.device.type == "cpu":
+        return qkv_project_backward_plain(x, pos, wq, wk, wv, dq, dk, dv)
+    name = "qkv_project_backward"
+    _check_qkv(name, x, KERNEL_HEADS, (torch.bfloat16,))
+    pos, ws = _kernel_inputs(name, x, pos, (wq, wk, wv))
+    _cotangents(name, x, dq, dk, dv)
+    return _project_backward(x, pos, ws, dq, dk, dv)
+
+
+qkv_project_backward.launches = 0
 
 
 def _forward(x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid, nheads,
              stats: bool):
     """(out, lse): lse [B, V, 8] f32 when ``stats`` on a CUDA tensor, else
-    None (the plain backward recomputes its softmax)."""
+    None (the plain backward recomputes its softmax).  bf16: the
+    projections, then K8's forward; f32: the CUDA-core kernel."""
     if x.device.type == "cpu":
         return band_attention_qkv_plain(x, pos, wq, bq, wk, bk, wv, bv,
                                         win_id, key_valid, nheads), None
@@ -173,11 +313,19 @@ def _forward(x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid, nheads,
     out = torch.empty_like(x)
     lse = (torch.empty((B, V, nheads), dtype=torch.float32, device=x.device)
            if stats else None)
-    code = _cuda.library().geomae_band_attention_qkv(
-        _cuda.DTYPE_CODE[x.dtype], x.data_ptr(), pos.data_ptr(),
-        *[w.data_ptr() for w in ws], win_id.data_ptr(),
-        key_valid.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, V, _cuda.stream(x))
+    lib, dtype = _cuda.library(), _cuda.DTYPE_CODE[x.dtype]
+    lse_ptr = None if lse is None else lse.data_ptr()
+    if x.dtype == torch.bfloat16:
+        q, k, v = _project(x, pos, ws, win_id)
+        code = lib.geomae_band_attention(
+            dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            win_id.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
+            lse_ptr, B, V, _cuda.stream(x))
+    else:
+        code = lib.geomae_band_attention_qkv(
+            dtype, x.data_ptr(), pos.data_ptr(), *[w.data_ptr() for w in ws],
+            win_id.data_ptr(), key_valid.data_ptr(), out.data_ptr(), lse_ptr,
+            B, V, _cuda.stream(x))
     band_attention_qkv.launches += 1
     band_attention_qkv.stats += lse is not None
     _cuda.check(code, name)
@@ -188,7 +336,10 @@ def band_attention_qkv_backward(x, pos, wq, bq, wk, bk, wv, bv, win_id,
                                 key_valid, nheads: int, out, lse, g):
     """K7: (dx, dWq, dbq, dWk, dbk, dWv, dbv) for the cotangent ``g`` of
     ``out``; dx in x's dtype, the rest f32.  ``lse`` is the forward
-    kernel's statistics (unused by the plain version)."""
+    kernel's statistics (unused by the plain version).  bf16: the
+    projections again, K8's D prologue and backward (dq, dk, dv; 0 on
+    padding rows), then the projections' backward; f32: the CUDA-core
+    kernel."""
     if x.device.type == "cpu":
         return band_attention_qkv_backward_plain(
             x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid, nheads, out, g)
@@ -200,27 +351,41 @@ def band_attention_qkv_backward(x, pos, wq, bq, wk, bk, wv, bv, win_id,
     _cuda.require(lse is not None and lse.dtype == torch.float32
                   and lse.shape == (B, V, nheads),
                   f"{name}: lse must be the forward's f32 {(B, V, nheads)}")
-    _cuda.require(out.shape == x.shape and g.shape == x.shape
-                  and out.dtype == x.dtype and g.dtype == x.dtype,
-                  f"{name}: out and g must be {x.dtype} {tuple(x.shape)}")
-    _cuda.require_cuda(name, x, out, lse, g)
+    _cotangents(name, x, out, g)
+    _cuda.require_cuda(name, x, lse)
+    lib, dtype, stream = _cuda.library(), _cuda.DTYPE_CODE[x.dtype], \
+        _cuda.stream(x)
+    if x.dtype == torch.bfloat16:
+        q, k, v = _project(x, pos, ws, win_id)
+        delta = torch.empty((B, V, nheads), dtype=torch.float32,
+                            device=x.device)
+        _cuda.check(lib.geomae_band_attention_delta(
+            dtype, g.data_ptr(), out.data_ptr(), win_id.data_ptr(),
+            delta.data_ptr(), B, V, stream), name)
+        dq, dk, dv = (torch.empty_like(x) for _ in range(3))
+        code = lib.geomae_band_attention_bwd(
+            dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            win_id.data_ptr(), key_valid.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, V, stream)
+        band_attention_qkv_backward.launches += 1
+        _cuda.check(code, name)
+        return _project_backward(x, pos, ws[0::2], dq, dk, dv)
     wT = [w.t().contiguous() for w in ws[0::2]]
     blocks = _cuda.persistent_blocks(x, BWD_BLOCKS_PER_SM, B * -(-V // 32))
     n = 3 * C * C + 3 * C
     partial = torch.zeros((blocks, n), dtype=torch.float32, device=x.device)
     grads = torch.empty(n, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    code = _cuda.library().geomae_band_attention_qkv_bwd(
-        _cuda.DTYPE_CODE[x.dtype], x.data_ptr(), pos.data_ptr(),
+    code = lib.geomae_band_attention_qkv_bwd(
+        dtype, x.data_ptr(), pos.data_ptr(),
         *[w.data_ptr() for w in ws], *[w.data_ptr() for w in wT],
         win_id.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
         lse.data_ptr(), g.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-        grads.data_ptr(), B, V, blocks, _cuda.stream(x))
+        grads.data_ptr(), B, V, blocks, stream)
     band_attention_qkv_backward.launches += 1
     _cuda.check(code, name)
-    dwq, dwk, dwv, dbq, dbk, dbv = grads.split([C * C] * 3 + [C] * 3)
-    return (dx, dwq.view(C, C), dbq, dwk.view(C, C), dbk, dwv.view(C, C),
-            dbv)
+    return (dx, *_grads(grads, C))
 
 
 band_attention_qkv_backward.launches = 0

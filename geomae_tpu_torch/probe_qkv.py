@@ -1,0 +1,248 @@
+"""K6's and K7's bf16 projections on one CUDA GPU: the weight-gradient
+chunk size, and where K7's parameter-gradient noise comes from.
+
+    python -m geomae_tpu_torch.probe_qkv            # chunk sizes
+    python -m geomae_tpu_torch.probe_qkv grads      # K7's gradient noise
+
+Chunk sizes: times ``qkv_project`` and ``qkv_project_backward`` at [4,
+20480] and [4, 8192] (bf16 rows and weights, so the wrappers cast
+nothing) with ``probe.cuda_ms`` (20 calls after 3 warm-up, enqueued
+behind a device spin, every setting twice, in turns), the weight
+gradients over chunks of ``attention_qkv.wgrad_chunk_rows`` rows (about
+2 x SMs blocks) and over fixed chunks of 512, 1,024 and 2,048 rows.
+
+Gradient noise: bf16 K7's six parameter gradients against the plain
+backward on ``k7_case`` inputs, each as a share of the bound of the
+``cuda`` tests (``check_grads``: 1e-3 of max(its own largest value, 0.1
+of the largest of the six); the key bias's gradient is analytically 0,
+so its bound is the floor), at [1, 777], [2, 1024] and [4, 8192].  Then,
+with ``qkv_project`` in the package: how many bf16 roundings of q, k
+and v differ from those of projections summed in f64, for the kernel,
+a build of it that sums each k16 product in IEEE f32 (``IEEE_K16``),
+the plain version (an f32 GEMM) and the f64 projections themselves;
+and the shares through each mix of K7's stages (those projections, the
+attention backward, the projections' backward, each a kernel or plain),
+so the share can be laid to a stage; last, the kernel's and the IEEE
+k16 build's times at [4, 8192], twice in turns.  The first line alone
+also runs against a package without ``qkv_project`` (one whose bf16 K7
+is one kernel).
+
+Raises without a CUDA GPU: its numbers are the card's.
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from . import probe
+from .ops import _cuda, attention, attention_qkv
+
+INT32_MAX = 2 ** 31 - 1
+GRAD_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv")
+
+
+def calls(B: int, V: int) -> dict:
+    """{label: call} of the two wrappers on seeded bf16 rows, a padding
+    suffix of a tenth of V."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    r = lambda *s, sc=1.0: (torch.randn(*s, generator=g, device="cuda")
+                            * sc).to(torch.bfloat16)
+    C = attention_qkv.KERNEL_C
+    x, pos = r(B, V, C), r(B, V, C)
+    ws = [r(C, C, sc=C ** -0.5) if i % 2 == 0 else r(C, sc=0.1)
+          for i in range(6)]
+    win = torch.arange(V, device="cuda", dtype=torch.int32).div(
+        100, rounding_mode="floor").expand(B, V).contiguous()
+    win[:, V - V // 10:] = INT32_MAX
+    ds = [r(B, V, C) for _ in range(3)]
+    return {f"qkv_project [{B}, {V}]":
+            lambda: attention_qkv.qkv_project(x, pos, *ws, win),
+            f"qkv_project_backward [{B}, {V}]":
+            lambda: attention_qkv.qkv_project_backward(x, pos, *ws[0::2],
+                                                       *ds)}
+
+
+def chunk_sizes() -> None:
+    todo = {**calls(4, 20480), **calls(4, 8192)}
+    sized = attention_qkv.wgrad_chunk_rows
+    try:
+        for turn in range(2):
+            for n in (None, 512, 1024, 2048):
+                attention_qkv.wgrad_chunk_rows = sized if n is None \
+                    else lambda x, n=n: n
+                name = "SM-sized chunks" if n is None else f"chunks of {n}"
+                print(f"turn {turn} {name}: " + ", ".join(
+                    f"{what} {probe.cuda_ms(fn):.4f} ms"
+                    for what, fn in todo.items()))
+    finally:
+        attention_qkv.wgrad_chunk_rows = sized
+
+
+def k7_case(B: int, V: int, seed: int = 0):
+    """bf16 K7's inputs on the card: (args, dout), args = (x, pos, wq, bq,
+    wk, bk, wv, bv, win_id, key_valid).  Windows of 1-144 tokens (a 12 x
+    12 window's most) with gaps in their ids over a padding suffix, a
+    fifth of the keys invalid; f32 pos and weights (the wrapper casts
+    them), bf16 x and cotangent, from a generator on the card."""
+    rng = np.random.default_rng(B + V)
+    win = np.full((B, V), INT32_MAX, np.int32)
+    for b in range(B):
+        n, ids, w = int(rng.integers(V // 2, V - 100)), [], 0
+        while len(ids) < n:
+            ids.extend([w] * int(rng.integers(1, 145)))
+            w += 3
+        win[b, :n] = ids[:n]
+    kv = (rng.random((B, V)) > 0.2) & (win != INT32_MAX)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, sc=1.0: torch.randn(*s, generator=g, device="cuda") * sc
+    C = attention_qkv.KERNEL_C
+    ws = [r(C, C, sc=C ** -0.5) if i % 2 == 0 else r(C, sc=0.1)
+          for i in range(6)]
+    x, pos = r(B, V, C).to(torch.bfloat16), r(B, V, C)
+    dout = r(B, V, C).to(torch.bfloat16)
+    ids = [torch.from_numpy(a).cuda() for a in (win, kv)]
+    return [x, pos, *ws, *ids], dout
+
+
+def grad_shares(got, want) -> str:
+    """Each parameter gradient's largest error over the bound of the
+    ``cuda`` tests' ``check_grads`` in bf16."""
+    top = max(float(b.abs().max()) for b in want[1:])
+    share = lambda a, b: float((a - b).abs().max()) / (
+        1e-3 * max(float(b.abs().max()), 0.1 * top))
+    return ", ".join(f"d{n} {share(a, b):.3f}"
+                     for n, a, b in zip(GRAD_NAMES, got[1:], want[1:]))
+
+
+def exact_project(x, pos, wq, bq, wk, bk, wv, bv, win_id):
+    """``qkv_project_plain`` with the products summed in f64 (then
+    rounded to f32 and to x's dtype): the projections as near to exact
+    as their dtype points allow."""
+    dt = x.dtype
+    xp = x + pos.to(dt)
+    real = (win_id != INT32_MAX)[..., None]
+    return tuple(
+        torch.where(real, (a.double() @ w.to(dt).double()).float().to(dt)
+                    + b.to(dt), 0.0)
+        for a, w, b in ((xp, wq, bq), (xp, wk, bk), (x, wv, bv)))
+
+
+def ieee_project(lib):
+    """``qkv_project`` through ``lib``, a build of the sources whose
+    projection sums each k16 product in IEEE f32 (the ``IEEE_K16``
+    edit)."""
+    def f(x, pos, wq, bq, wk, bk, wv, bv, win_id):
+        pos, ws = attention_qkv._kernel_inputs(
+            "qkv_project", x, pos, (wq, bq, wk, bk, wv, bv), win_id)
+        q, k, v = (torch.empty_like(x) for _ in range(3))
+        B, V, _ = x.shape
+        code = lib.geomae_qkv_project(
+            x.data_ptr(), pos.data_ptr(), *[w.data_ptr() for w in ws],
+            win_id.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), B,
+            V, _cuda.stream(x))
+        _cuda.check(code, "qkv_project (IEEE k16)")
+        return q, k, v
+    return f
+
+
+# the projection's k loop with each k16 step's products summed on the
+# tensor cores from 0, then added to the running sums in IEEE f32
+MMA_STEP = """      mma_w<false>(acc[0], axp, sm.w[0], kk);
+      mma_w<false>(acc[1], axp, sm.w[1], kk);
+      mma_w<false>(acc[2], ax, sm.w[2], kk);
+"""
+IEEE_K16 = """      float part[3][kWarpCols / 8][4] = {};
+      mma_w<false>(part[0], axp, sm.w[0], kk);
+      mma_w<false>(part[1], axp, sm.w[1], kk);
+      mma_w<false>(part[2], ax, sm.w[2], kk);
+#pragma unroll
+      for (int o = 0; o < 3; ++o)
+#pragma unroll
+        for (int nb = 0; nb < kWarpCols / 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[o][nb][e] += part[o][nb][e];
+"""
+
+
+def stages(args, dout, out, projections: dict) -> dict:
+    """{label: K7's output} through each mix of the stages: the
+    projections (``projections``: {name: function}), K8's or the plain
+    attention backward (K8's on its own forward's out and statistics,
+    the plain one on ``out``), the projections' backward kernel or plain
+    version."""
+    x, pos, wq, bq, wk, bk, wv, bv, win, kv = args
+    B, V, C = x.shape
+    h = (B, V, attention_qkv.KERNEL_HEADS, C // attention_qkv.KERNEL_HEADS)
+    res = {}
+    for proj, f in projections.items():
+        q, k, v = (t.view(h) for t in f(*args[:9]))
+        for bw in ("K8", "plain"):
+            if bw == "K8":
+                o8, l8 = attention._forward(q, k, v, win, kv, stats=True)
+                d = attention.band_attention_fused_backward(
+                    q, k, v, win, kv, o8, l8, dout.view(h))
+            else:
+                d = attention.band_attention_backward_plain(
+                    q, k, v, win, kv, out.view(h), dout.view(h))
+            d = [t.reshape(B, V, C).to(x.dtype).contiguous() for t in d]
+            for pb in ("kernel", "plain"):
+                fb = attention_qkv.qkv_project_backward if pb == "kernel" \
+                    else attention_qkv.qkv_project_backward_plain
+                res[f"projections {proj}, attention backward {bw}, "
+                    f"projections' backward {pb}"] = fb(x, pos, wq, wk, wv,
+                                                       *d)
+    return res
+
+
+def grads() -> None:
+    heads = attention_qkv.KERNEL_HEADS
+    split = hasattr(attention_qkv, "qkv_project")
+    projections = {}
+    if split:
+        lib = probe.build_variants(
+            "window_attention.cu", {"IEEE k16": [(MMA_STEP, IEEE_K16)]},
+            _cuda.BUILD_DIR.parent / "probe_qkv")["IEEE k16"]
+        projections = {"kernel": attention_qkv.qkv_project,
+                       "IEEE k16": ieee_project(lib),
+                       "plain": attention_qkv.qkv_project_plain,
+                       "f64": exact_project}
+    for B, V in ((1, 777), (2, 1024), (4, 8192)):
+        args, dout = k7_case(B, V)
+        out, lse = attention_qkv._forward(*args, heads, stats=True)
+        want = attention_qkv.band_attention_qkv_backward_plain(
+            *args, heads, out, dout)
+        got = attention_qkv.band_attention_qkv_backward(*args, heads, out,
+                                                        lse, dout)
+        print(f"[{B}, {V}] K7 against the plain backward: "
+              + grad_shares(got, want))
+        if not split:
+            continue
+        ref = exact_project(*args[:9])
+        print(f"[{B}, {V}] bf16 roundings of q, k, v unlike the f64 "
+              "projections': " + "; ".join(
+                  f"{name} " + ", ".join(
+                      f"{n} {int((a != b).sum())}"
+                      for n, a, b in zip("qkv", f(*args[:9]), ref))
+                  for name, f in projections.items()))
+        for label, got in stages(args, dout, out, projections).items():
+            print(f"[{B}, {V}] {label}: " + grad_shares(got, want))
+    timed = list(projections.items())[:2]     # the kernel, IEEE k16
+    for turn in range(2 if split else 0):
+        ms = [f"{name} {probe.cuda_ms(lambda: f(*args[:9])):.4f}"
+              for name, f in timed]
+        print(f"turn {turn} [{B}, {V}] ms (the wrapper's casts included): "
+              + ", ".join(ms))
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_qkv: no CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(probe.card())
+    grads() if sys.argv[1:] == ["grads"] else chunk_sizes()
+
+
+if __name__ == "__main__":
+    main()

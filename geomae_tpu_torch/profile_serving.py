@@ -2,6 +2,7 @@
 
     python -m geomae_tpu_torch.profile_serving
         [--trace build/serving_trace.json]
+        [--cfg-options sst.attention_impl=qkv]
 
 Serves synthetic frames (``synthetic.clustered_frame``) through
 ``inference_detector`` at the full width of ``geomae_finetune_nus()`` in
@@ -82,12 +83,16 @@ def busy_ms(intervals) -> float:
 
 def main() -> None:
     from .apis import geomae_finetune_nus, inference_detector, init_model
+    from .config import apply_overrides
     from .synthetic import clustered_frame
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", type=Path,
                     default=Path("build/serving_trace.json"),
                     help="where the chrome trace of the profiled frames goes")
+    ap.add_argument("--cfg-options", nargs="+", default=None,
+                    metavar="KEY=VAL",
+                    help="config overrides, e.g. sst.attention_impl=qkv")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: no CUDA GPU")
@@ -96,7 +101,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    cfg = geomae_finetune_nus()
+    cfg = apply_overrides(geomae_finetune_nus(), args.cfg_options)
     det = init_model(cfg=cfg, device="cuda",
                      generator=torch.Generator().manual_seed(SEED))
     n = WARMUP + FRAMES + 1 + PROFILED

@@ -46,7 +46,8 @@ KERNEL_NAMES = ("segment_reduce_kernel", "segment_broadcast_kernel",
                 "band_attention_kernel", "band_attention_fwd_tc_kernel",
                 "band_attention_delta_kernel",
                 "band_attention_bwd_tc_kernel",
-                "band_attention_bwd_f32_kernel")
+                "band_attention_bwd_f32_kernel", "qkv_project_kernel",
+                "qkv_project_dx_kernel", "qkv_wgrad_kernel")
 
 
 def main() -> None:

@@ -1,6 +1,9 @@
 """K6 band_attention_qkv: the port's plain version (what the CUDA kernel
 is held to) against the Pallas kernel in interpret mode and against XLA
-projections + the einsum band_attention of the JAX package.
+projections + the einsum band_attention of the JAX package; and the bf16
+kernels' decomposition (the projections' plain version ``qkv_project_plain``,
+then K8's plain ``band_attention``) against the plain K6 and the Pallas
+kernel.
 
 B=2, V=512, C=128, 8 heads of 16, window-sorted tokens with a padding
 suffix and key_valid-false rows.  Tolerance 1e-5: f32 projections over
@@ -12,9 +15,12 @@ import torch
 
 from geomae_tpu.ops.attention import band_attention as jax_band_attention
 from geomae_tpu.ops.pallas_attention_qkv import band_attention_qkv as jax_qkv
-from geomae_tpu_torch.ops.attention import band_attention
+from geomae_tpu_torch.ops.attention import (band_attention,
+                                            band_attention_lse_plain)
 from geomae_tpu_torch.ops.attention_qkv import (band_attention_qkv,
-                                                band_attention_qkv_plain)
+                                                band_attention_qkv_lse_plain,
+                                                band_attention_qkv_plain,
+                                                qkv_project, qkv_project_plain)
 
 INT_MAX = np.iinfo(np.int32).max
 B, V, C, H = 2, 512, 128, 8
@@ -120,3 +126,45 @@ def test_wrapper_dispatch():
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
     with pytest.raises(ValueError):
         band_attention_qkv(*meta)
+
+
+def composed(x, pos, ws, win, kv):
+    """The bf16 kernels' order in plain PyTorch: the projections, then K8
+    (the 1/sqrt(D) scale on the f32 score, where K6 folds it into q):
+    (out [B, V, C], lse [B, V, H])."""
+    q, k, v = (t.reshape(B, V, H, C // H)
+               for t in qkv_project_plain(x, pos, *ws, win))
+    return (band_attention(q, k, v, win, kv).reshape(B, V, C),
+            band_attention_lse_plain(q, k, win, kv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_projections_then_band_attention_are_the_plain_k6(dtype):
+    """The decomposition equals ``band_attention_qkv_plain`` and its
+    statistics bitwise: 0.25 is a power of two, so folding it into q (in
+    either dtype) or scaling the f32 score by it gives the same score.
+    The projections are 0 on padding rows."""
+    x, pos, win, kv, ws = make_case(np.random.default_rng(5))
+    t = lambda a: torch.from_numpy(a)
+    args = (t(x).to(dtype), t(pos), *map(t, ws), t(win), t(kv))
+    out, lse = composed(*args[:2], args[2:8], *args[8:])
+    assert torch.equal(out, band_attention_qkv_plain(*args, H))
+    assert torch.equal(lse, band_attention_qkv_lse_plain(*args, H))
+    pad = t(win) == INT_MAX
+    assert all((p[pad] == 0).all()
+               for p in qkv_project_plain(*args[:8], t(win)))
+    assert torch.equal(qkv_project(*args[:8], t(win))[0],
+                       qkv_project_plain(*args[:8], t(win))[0])
+
+
+def test_projections_then_band_attention_match_pallas_interpret():
+    """The decomposition in f32 against the Pallas kernel in interpret
+    mode, at ``test_matches_pallas_interpret``'s 1e-5."""
+    x, pos, win, kv, ws = make_case(np.random.default_rng(6))
+    t = torch.from_numpy
+    got = composed(t(x), t(pos), list(map(t, ws)), t(win), t(kv))[0]
+    j = [jnp.asarray(w)[None] for w in ws]
+    want = np.asarray(jax_qkv(jnp.asarray(x), jnp.asarray(pos), *j,
+                              jnp.asarray(win), jnp.asarray(kv), H, 128, 192,
+                              True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

@@ -39,6 +39,12 @@ multiple of the 64-token tile, and (K8) against its tile twin
 ``band_attention_tiles_plain`` on windows of 1 to 300 tokens with one
 launch a call and two launches bitwise equal.
 
+K6's and K7's bf16 projections (``qkv_project``, ``qkv_project_backward``,
+the tensor-core kernels that bf16 K6 and K7 run around K8's): q, k, v
+at K6's bound per row, 0 on padding rows; dx per row and the parameter
+gradients by the backward rule; one launch a call, two launches bitwise
+equal, at one sample, a batch and the encoder's [4, 8192].
+
 K8 (window attention over projected q, k, v; ``ops/attention.py``): the
 output and the statistics at K6's bound, the backward's dq, dk, dv at the
 per-row rule of the other backward cotangents (it has no parameter
@@ -51,6 +57,7 @@ import numpy as np
 import pytest
 import torch
 
+from geomae_tpu_torch import probe_qkv
 from geomae_tpu_torch.ops import (attention, attention_qkv, ffn, segment,
                                   targets)
 
@@ -373,6 +380,83 @@ def test_band_attention_qkv_backward(dev, dtype):
                                                           dout)
     check_grads(got, want, dtype, 1)
     assert (got[0][args[8] == INT_MAX] == 0).all()
+
+
+def test_band_attention_qkv_backward_one_sample(dev):
+    """bf16 K7 at one sample of 777 tokens (V not a multiple of the
+    64-row tile), windows of up to 144 tokens, by the rule above
+    (``probe_qkv.k7_case``, where ``probe_qkv grads`` lays each
+    gradient's share of its bound to a stage of K7)."""
+    args, dout = probe_qkv.k7_case(1, 777)
+    out, lse = attention_qkv._forward(*args, 8, stats=True)
+    got = attention_qkv.band_attention_qkv_backward(*args, 8, out, lse,
+                                                    dout)
+    want = attention_qkv.band_attention_qkv_backward_plain(*args, 8, out,
+                                                          dout)
+    check_grads(got, want, torch.bfloat16, 1)
+    assert (got[0][args[8] == INT_MAX] == 0).all()
+
+
+def projection_case(dev, B, V, seed=8):
+    """bf16 x and a window layout with a padding suffix; f32 pos and
+    weights (the wrappers cast them); three bf16 cotangents."""
+    win, _ = windows(np.random.default_rng(seed), B=B, V=V)
+    C = attention_qkv.KERNEL_C
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, V, C, generator=g).to(torch.bfloat16)
+    pos = torch.randn(B, V, C, generator=g)
+    ws = [torch.randn(C, C, generator=g) * C ** -0.5 if i % 2 == 0
+          else torch.randn(C, generator=g) * 0.1 for i in range(6)]
+    ds = [torch.randn(B, V, C, generator=g).to(torch.bfloat16)
+          for _ in range(3)]
+    return [a.to(dev) for a in (x, pos, *ws, win)], [d.to(dev) for d in ds]
+
+
+@pytest.mark.parametrize("B,V", [(1, 777), (2, 1024), (4, 8192)])
+def test_qkv_project_bf16(dev, B, V):
+    """K6's projections on the tensor cores against the plain version at
+    the bf16 bound, per row; padding rows exactly 0; V not a multiple of
+    the 64-row tile; one launch a call, two launches bitwise equal."""
+    args, _ = projection_case(dev, B, V)
+    before = attention_qkv.qkv_project.launches
+    got = attention_qkv.qkv_project(*args)
+    assert attention_qkv.qkv_project.launches == before + 1
+    check_grads(got, attention_qkv.qkv_project_plain(*args), torch.bfloat16,
+                3)
+    pad = args[8] == INT_MAX
+    assert pad.any() and all((t[pad] == 0).all() for t in got)
+    again = attention_qkv.qkv_project(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,V", [(1, 777), (2, 1024), (4, 8192)])
+def test_qkv_project_backward_bf16(dev, B, V):
+    """The projections' backward (dx on the tensor cores, the weight
+    gradients split over SM-sized row chunks, ``wgrad_chunk_rows``)
+    against the plain version: dx per row, the parameter gradients by the
+    rule of the other backward kernels; one launch a call, two launches
+    bitwise equal."""
+    args, ds = projection_case(dev, B, V)
+    x, pos, wq, _, wk, _, wv, _, _ = args
+    before = attention_qkv.qkv_project_backward.launches
+    got = attention_qkv.qkv_project_backward(x, pos, wq, wk, wv, *ds)
+    assert attention_qkv.qkv_project_backward.launches == before + 1
+    want = attention_qkv.qkv_project_backward_plain(x, pos, wq, wk, wv, *ds)
+    check_grads(got, want, torch.bfloat16, 1)
+    again = attention_qkv.qkv_project_backward(x, pos, wq, wk, wv, *ds)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_qkv_projections_take_bf16_only(dev):
+    """f32 K6 and K7 keep their CUDA-core kernels, so the projections'
+    kernels take bf16 alone."""
+    args, ds = projection_case(dev, 1, 256)
+    x32 = args[0].float()
+    with pytest.raises(ValueError):
+        attention_qkv.qkv_project(x32, *args[1:])
+    with pytest.raises(ValueError):
+        attention_qkv.qkv_project_backward(x32, args[1], *args[2:8:2],
+                                           *[d.float() for d in ds])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -8,7 +8,10 @@ widths, inputs from numpy seeds.
 * segment_gather and its backward against ``segment_gather_pallas``;
 * K5's twelve gradients and K7's seven against ``jax.grad`` of the Pallas
   kernels in interpret mode, and K7 over a window wider than the TPU's
-  band against the XLA einsum path;
+  band against the XLA einsum path; the bf16 kernels' decomposition of
+  K7 (the projections, K8's plain backward, the projections' plain
+  backward) against the plain K7 and ``jax.grad``, and the projections'
+  plain backward against autograd of their plain forward;
 * masked BatchNorm in training (statistics, running update, gradients);
 * anchor targets and the head loss, padded GT and the min_pos_iou
   branch included;
@@ -41,7 +44,7 @@ from geomae_tpu.train.optim import make_optimizer
 from geomae_tpu_torch.models import anchor_head
 from geomae_tpu_torch.models.anchor_head import HeadOutputs
 from geomae_tpu_torch.models.norm import MaskedBatchNorm, MaskedBatchNorm2d
-from geomae_tpu_torch.ops import attention_qkv, ffn, segment
+from geomae_tpu_torch.ops import attention, attention_qkv, ffn, segment
 from geomae_tpu_torch.train import schedules
 from geomae_tpu_torch.train.optim import AdamW
 
@@ -335,6 +338,83 @@ def test_band_attention_qkv_gradients_over_a_wide_window():
     got = grad_of(lambda x_, *p: attention_qkv.band_attention_qkv(
         x_, t(pos), *p, t(win), t(kv), H) * t(w), x, *ws)
     check_attention_grads(got, want)
+
+
+def composed_backward(x, pos, ws, win, kv, H, g):
+    """K7 as the bf16 kernels decompose it, in plain PyTorch: the
+    projections, K8's forward and plain backward (dq, dk, dv for the
+    cotangent g of the output), then the projections' backward."""
+    B_, V_, C = x.shape
+    heads = (B_, V_, H, C // H)
+    q, k, v = (a.reshape(heads) for a in attention_qkv.qkv_project_plain(
+        x, pos, *ws, win))
+    out = attention.band_attention(q, k, v, win, kv)
+    ds = attention.band_attention_backward_plain(q, k, v, win, kv, out,
+                                                 g.reshape(heads))
+    return attention_qkv.qkv_project_backward_plain(
+        x, pos, *ws[0::2], *[d.reshape(x.shape) for d in ds])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_decomposition_is_the_plain_k7(dtype):
+    """Projections -> K8's plain backward -> the projections' plain
+    backward equals ``band_attention_qkv_backward_plain`` bitwise (the
+    scale 0.25 is a power of two: on q before the scores or on the f32
+    score, on dk after its sum or folded into q, the same numbers), C 32
+    in 2 heads of 16, windows of up to 40 tokens, bf16 and f32."""
+    rng = np.random.default_rng(14)
+    H = 2
+    x, pos, win, kv, ws, w = window_case(rng, 2, 256, 32, 40)
+    args = (t(x).to(dtype), t(pos), *map(t, ws), t(win), t(kv))
+    g = t(w).to(dtype)
+    out = attention_qkv.band_attention_qkv_plain(*args, H)
+    want = attention_qkv.band_attention_qkv_backward_plain(*args, H, out, g)
+    got = composed_backward(args[0], args[1], list(args[2:8]), *args[8:],
+                            H, g)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_k7_decomposition_matches_pallas():
+    """The decomposition's gradients of sum(out * w) in f32 against
+    ``jax.grad`` of the interpret-mode kernel, at
+    ``check_attention_grads``'s 2e-5 of the largest gradient."""
+    rng = np.random.default_rng(15)
+    H = 2
+    x, pos, win, kv, ws, w = window_case(rng, 2, 256, 32, 40)
+
+    def loss(x_, *ws_):
+        out = jax_qkv(x_, jnp.asarray(pos), *[p[None] for p in ws_],
+                      jnp.asarray(win), jnp.asarray(kv), H, 64, 128, True)
+        return jnp.sum(out * w)
+
+    want = [np.asarray(a) for a in jax.grad(loss, argnums=tuple(range(7)))(
+        jnp.asarray(x), *map(jnp.asarray, ws))]
+    got = composed_backward(t(x), t(pos), list(map(t, ws)), t(win), t(kv),
+                            H, t(w))
+    check_attention_grads([a.numpy() for a in got], want)
+
+
+def test_projection_backward_is_the_projections_vjp():
+    """``qkv_project_backward_plain`` against autograd of
+    ``qkv_project_plain`` in f32, cotangents 0 on padding rows (as K8's
+    backward gives them): 1e-5 of each gradient's largest value (the same
+    products in another order)."""
+    rng = np.random.default_rng(16)
+    x, pos, win, _, ws, _ = window_case(rng, 2, 256, 32, 40)
+    real = (win != INT_MAX)[..., None]
+    ds = [t(rng.normal(size=x.shape).astype(np.float32) * real)
+          for _ in range(3)]
+    leaves = [t(a.copy()).requires_grad_() for a in [x] + ws]
+    outs = attention_qkv.qkv_project_plain(leaves[0], t(pos), *leaves[1:],
+                                           t(win))
+    sum((o * d).sum() for o, d in zip(outs, ds)).backward()
+    got = attention_qkv.qkv_project_backward_plain(t(x), t(pos), *map(
+        t, ws[0::2]), *ds)
+    for a, leaf in zip(got, leaves):
+        b = leaf.grad
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
 
 
 # ---------------------------------------------------------------------------
