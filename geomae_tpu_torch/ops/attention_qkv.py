@@ -133,10 +133,21 @@ def band_attention_qkv_backward_plain(x, pos, wq, bq, wk, bk, wv, bv,
                                       g):
     """The backward kernel's function: (dx, dWq, dbq, dWk, dbk, dWv, dbv),
     dx in x's dtype, the rest f32.  ``out`` is the forward's output and
-    ``g`` its cotangent.  The softmax is recomputed exactly per window (as
-    ``band_attention`` does); ds and p are rounded to x's dtype before
-    their products, dq, dk and dv once at the end
-    (``_bwd_merged_kernel``), then ``qkv_project_backward_plain``."""
+    ``g`` its cotangent: ``attention_grads_plain``, dq, dk and dv rounded
+    to x's dtype, then ``qkv_project_backward_plain``."""
+    dt = x.dtype
+    dq, dk, dv = attention_grads_plain(x, pos, wq, bq, wk, bk, wv, bv,
+                                       win_id, key_valid, nheads, out, g)
+    return qkv_project_backward_plain(x, pos, wq, wk, wv, dq.to(dt),
+                                      dk.to(dt), dv.to(dt))
+
+
+def attention_grads_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid,
+                          nheads: int, out, g):
+    """The f32 cotangents (dq, dk, dv) [B, V, C] of the projections q, k,
+    v, before the backward rounds them to x's dtype.  The softmax is
+    recomputed exactly per window (as ``band_attention`` does); ds and p
+    are rounded to x's dtype before their products (``_bwd_merged_kernel``)."""
     B, V, C = x.shape
     dt = x.dtype
     rt = lambda t: t.to(dt).float()
@@ -154,10 +165,9 @@ def band_attention_qkv_backward_plain(x, pos, wq, bq, wk, bk, wv, bv,
         dq[b, q0:q1] += torch.einsum("hqk,khd->qhd", ds, kb)
         dk[b, ks:ke] += torch.einsum("hqk,qhd->khd", ds, qb)
         dv[b, ks:ke] += torch.einsum("hqk,qhd->khd", rt(p), gb)
-    return qkv_project_backward_plain(
-        x, pos, wq, wk, wv, (dq.reshape(B, V, C) * scale).to(dt),
-        (dk.reshape(B, V, C) * (1.0 if fold else scale)).to(dt),
-        dv.reshape(B, V, C).to(dt))
+    return (dq.reshape(B, V, C) * scale,
+            dk.reshape(B, V, C) * (1.0 if fold else scale),
+            dv.reshape(B, V, C))
 
 
 def _check_qkv(name, x, nheads, dtypes=tuple(_cuda.DTYPE_CODE)):

@@ -15,16 +15,21 @@ Gradient noise: bf16 K7's six parameter gradients against the plain
 backward on ``k7_case`` inputs, each as a share of the bound of the
 ``cuda`` tests (``check_grads``: 1e-3 of max(its own largest value, 0.1
 of the largest of the six); the key bias's gradient is analytically 0,
-so its bound is the floor), at [1, 777], [2, 1024] and [4, 8192].  Then,
+so its bound is the floor), at [1, 777], [2, 1024] and [4, 8192]; then
+the largest |dbk| of K7, of the plain backward and of K7 with dbk
+replaced by dbq or dbv (the query's or the value's column sums: a
+planted fault) over ``dbk_bound``, the rule that holds dbk to 0 in
+``test_band_attention_qkv_backward_one_sample``.  Then,
 with ``qkv_project`` in the package: how many bf16 roundings of q, k
 and v differ from those of projections summed in f64, for the kernel,
 a build of it that sums each k16 product in IEEE f32 (``IEEE_K16``),
 the plain version (an f32 GEMM) and the f64 projections themselves;
 and the shares through each mix of K7's stages (those projections, the
 attention backward, the projections' backward, each a kernel or plain),
-so the share can be laid to a stage; last, the kernel's and the IEEE
-k16 build's times at [4, 8192], twice in turns.  The first line alone
-also runs against a package without ``qkv_project`` (one whose bf16 K7
+so the share can be laid to a stage, each also with its |dbk| over
+``dbk_bound``; last, the kernel's and the IEEE
+k16 build's times at [4, 8192], twice in turns.  The first two lines alone
+also run against a package without ``qkv_project`` (one whose bf16 K7
 is one kernel).
 
 Raises without a CUDA GPU: its numbers are the card's.
@@ -114,6 +119,24 @@ def grad_shares(got, want) -> str:
         1e-3 * max(float(b.abs().max()), 0.1 * top))
     return ", ".join(f"d{n} {share(a, b):.3f}"
                      for n, a, b in zip(GRAD_NAMES, got[1:], want[1:]))
+
+
+def dbk_bound(dk: torch.Tensor) -> torch.Tensor:
+    """Per channel c, the forward-error bound on a key-bias gradient whose
+    exact value is 0, summed as sum_j rt(dk_jc) (each f32 dk_jc rounded to
+    bf16, then summed in f32 over the n = B x V rows): (2^-8 + n 2^-24) x
+    sum_j |dk_jc|, dk the f32 cotangent of the keys [B, V, C] (derived in
+    ``tests/test_torch_port_cuda.py::
+    test_band_attention_qkv_backward_one_sample``)."""
+    n = dk.shape[0] * dk.shape[1]
+    return (2.0 ** -8 + n * 2.0 ** -24) * dk.float().abs().sum((0, 1))
+
+
+def dbk_shares(grads: dict, bound: torch.Tensor) -> str:
+    """Each {label: K7's outputs}'s largest |dbk| over ``dbk_bound``."""
+    i = GRAD_NAMES.index("bk") + 1
+    return ", ".join(f"{label} {float((g[i].abs() / bound).max()):.3f}"
+                     for label, g in grads.items())
 
 
 def exact_project(x, pos, wq, bq, wk, bk, wv, bv, win_id):
@@ -217,6 +240,13 @@ def grads() -> None:
                                                         lse, dout)
         print(f"[{B}, {V}] K7 against the plain backward: "
               + grad_shares(got, want))
+        bound = dbk_bound(attention_qkv.attention_grads_plain(
+            *args, heads, out, dout)[1])
+        plants = {f"K7 with dbk := d{n}": tuple(
+            g[GRAD_NAMES.index(n) + 1] if i == GRAD_NAMES.index("bk") + 1
+            else g for i, g in enumerate(got)) for n in ("bq", "bv")}
+        print(f"[{B}, {V}] |dbk| over dbk_bound: " + dbk_shares(
+            {"K7": got, "plain": want, **plants}, bound))
         if not split:
             continue
         ref = exact_project(*args[:9])
@@ -227,7 +257,8 @@ def grads() -> None:
                       for n, a, b in zip("qkv", f(*args[:9]), ref))
                   for name, f in projections.items()))
         for label, got in stages(args, dout, out, projections).items():
-            print(f"[{B}, {V}] {label}: " + grad_shares(got, want))
+            print(f"[{B}, {V}] {label}: " + grad_shares(got, want)
+                  + "; |dbk| over dbk_bound " + dbk_shares({"": got}, bound))
     timed = list(projections.items())[:2]     # the kernel, IEEE k16
     for turn in range(2 if split else 0):
         ms = [f"{name} {probe.cuda_ms(lambda: f(*args[:9])):.4f}"

@@ -172,11 +172,12 @@ WGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 WGRAD_FLOOR = {torch.float32: 1e-2, torch.bfloat16: 1e-1}
 
 
-def check_grads(got, want, dtype, n_token):
+def check_grads(got, want, dtype, n_token, judged_elsewhere=()):
     """The first ``n_token`` outputs per token at TOL, atol scaled by each
     row's max(1, largest |want|); each parameter gradient after them
     against WGRAD_TOL of max(its own largest |want|, WGRAD_FLOOR x the
-    largest of them)."""
+    largest of them).  Outputs whose indices are in ``judged_elsewhere``
+    count towards that largest but are left to the caller's own rule."""
     for a, b in zip(got, want):
         assert a.shape == b.shape and torch.isfinite(a.float()).all()
     atol, rtol = TOL[dtype]
@@ -189,6 +190,8 @@ def check_grads(got, want, dtype, n_token):
               default=0.0)
     for i, (a, b) in enumerate(zip(got[n_token:], want[n_token:])):
         assert a.dtype == torch.float32
+        if i + n_token in judged_elsewhere:
+            continue
         ref = max(float(b.float().abs().max()), WGRAD_FLOOR[dtype] * top)
         err = float((a - b.float()).abs().max())
         assert err <= WGRAD_TOL[dtype] * ref, (i, err, ref)
@@ -384,16 +387,43 @@ def test_band_attention_qkv_backward(dev, dtype):
 
 def test_band_attention_qkv_backward_one_sample(dev):
     """bf16 K7 at one sample of 777 tokens (V not a multiple of the
-    64-row tile), windows of up to 144 tokens, by the rule above
-    (``probe_qkv.k7_case``, where ``probe_qkv grads`` lays each
-    gradient's share of its bound to a stage of K7)."""
+    64-row tile), windows of up to 144 tokens (``probe_qkv.k7_case``).
+
+    dx and every parameter gradient but the key bias's by ``check_grads``.
+    The key bias's gradient dbk is analytically 0: softmax ignores a
+    shift shared by a row's keys, so sum_j ds_ij = 0 and sum_j dk_j =
+    sum_i q_i sum_j ds_ij = 0.  Both K7 and the plain backward compute it
+    as sum_j rt(dk_j), the f32 dk_j rounded to bf16 (rt) and summed in
+    f32, so what they return is rounding noise, and at one sample the two
+    noises differ by more than ``check_grads`` allows (1.628 of its bound;
+    the plain backward on projections summed in f64, a closer computation
+    of the same function, 1.171: ``probe_qkv grads``).  So each is held to
+    the exact value, 0, by the forward-error bound of the sum it
+    computes.  Per channel c: |rt(d) - d| <= 2^-8 |d| (bf16 keeps 8
+    significant bits, rounded to nearest), and a sum of n f32 terms in
+    any order is off by at most (n - 1) 2^-24 sum |terms| (to first
+    order), so
+
+        |sum_j rt(dk_jc)| <= |sum_j dk_jc| + 2^-8 sum_j |dk_jc|
+                             + (n - 1) 2^-24 sum_j |rt(dk_jc)|
+                          <= (2^-8 + n 2^-24) sum_j |dk_jc|,
+
+    taking sum_j dk_jc = 0, n = B x V (every row is a term; padding rows
+    add 0) and the f32 dk of the plain backward (``attention_grads_plain``)
+    for dk (``probe_qkv.dbk_bound``).  A dbk taken from dq's or dv's
+    column sums fails it (``probe_qkv grads``)."""
     args, dout = probe_qkv.k7_case(1, 777)
     out, lse = attention_qkv._forward(*args, 8, stats=True)
     got = attention_qkv.band_attention_qkv_backward(*args, 8, out, lse,
                                                     dout)
     want = attention_qkv.band_attention_qkv_backward_plain(*args, 8, out,
                                                           dout)
-    check_grads(got, want, torch.bfloat16, 1)
+    dbk = probe_qkv.GRAD_NAMES.index("bk") + 1
+    check_grads(got, want, torch.bfloat16, 1, judged_elsewhere=(dbk,))
+    bound = probe_qkv.dbk_bound(
+        attention_qkv.attention_grads_plain(*args, 8, out, dout)[1])
+    for dbk in (got[dbk], want[dbk]):
+        assert (dbk.abs() <= bound).all(), float((dbk.abs() / bound).max())
     assert (got[0][args[8] == INT_MAX] == 0).all()
 
 
