@@ -242,9 +242,10 @@ def grads() -> None:
               + grad_shares(got, want))
         bound = dbk_bound(attention_qkv.attention_grads_plain(
             *args, heads, out, dout)[1])
-        plants = {f"K7 with dbk := d{n}": tuple(
-            g[GRAD_NAMES.index(n) + 1] if i == GRAD_NAMES.index("bk") + 1
-            else g for i, g in enumerate(got)) for n in ("bq", "bv")}
+        dbk = GRAD_NAMES.index("bk") + 1
+        plants = {f"K7 with dbk := d{n}": tuple(got[:dbk]) + (
+            got[GRAD_NAMES.index(n) + 1],) + tuple(got[dbk + 1:])
+            for n in ("bq", "bv")}
         print(f"[{B}, {V}] |dbk| over dbk_bound: " + dbk_shares(
             {"K7": got, "plain": want, **plants}, bound))
         if not split:
