@@ -12,7 +12,9 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      step's (K3 and K4 at batch 4; K6 with statistics, K5, K7 and K5's
      backward on the encoder's visible tokens), in float32 and bfloat16,
      and times both, and one PyTorch library call of the same function
-     where there is one, with CUDA events (K5 forward and backward in
+     where there is one, with CUDA events (K1 and K2 two launches
+     bitwise equal, beside the scene's points-per-pillar histogram; K5
+     forward and backward in
      bf16 on the tensor cores, in f32 on the CUDA cores; K5's forward
      two launches bitwise equal); K8 (window attention over projected q,
      k, v) forward and backward (bf16 on the tensor cores, f32 on the
@@ -233,7 +235,8 @@ PROJECTIONS = [("qkv_project", ""), ("qkv_project_backward", "")]
 # kernels without atomics, whose two launches must agree bit for bit
 DETERMINISTIC = {"band_attention_fused", "band_attention_fused_backward",
                  "band_attention_delta", "post_attention_block",
-                 "expand_rows", "qkv_project", "qkv_project_backward"}
+                 "expand_rows", "qkv_project", "qkv_project_backward",
+                 "segment_reduce", "segment_broadcast"}
 # the rows at the serving shapes: the serving path's kernels, and K8's
 # backward and its prologue and the projections' backward, held there
 # too but not summed into the kernels line (a served frame runs no
@@ -895,6 +898,11 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
                 lambda *a: attention_qkv.band_attention_qkv_backward_plain(
                     *a[:-2], a[-1]), (*qkv, out, lse, d_tok.to(dt)))
 
+    if any(k[0].startswith("segment_") for k in keys):
+        from geomae_tpu_torch.probe_segment import pillar_histogram
+        hist, top = pillar_histogram(p2v, V)
+        print(f"  points per pillar in the cap (K1's and K2's segments): "
+              f"{hist}; largest pillar {top} points")
     for key in keys:
         name, op = key
         for dt, tol in TOL[key].items():

@@ -29,8 +29,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "geomae_segment_reduce": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "geomae_segment_broadcast": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "geomae_segment_work_bytes": [_I, _I, _I],
+    "geomae_segment_reduce": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "geomae_segment_broadcast": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "geomae_segment_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     "geomae_band_attention_qkv": [_I] + [_P] * 12 + [_I, _I, _P],
     "geomae_band_attention_qkv_bwd": [_I] + [_P] * 19 + [_I] * 3 + [_P],
@@ -47,6 +48,9 @@ _SIGNATURES = {
     "geomae_slot_outer_segment_sum": [_P] * 4 + [_I] * 4 + [_P],
     "geomae_expand_rows": [_P] * 3 + [_I] * 4 + [_P],
 }
+
+# entry points that return something other than a CUDA error code
+RESTYPES = {"geomae_segment_work_bytes": ctypes.c_longlong}
 
 _lib: ctypes.CDLL | None = None
 
@@ -109,7 +113,7 @@ def library() -> ctypes.CDLL:
         for name, args in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = args
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         lib.geomae_error_string.argtypes = [ctypes.c_int]
         lib.geomae_error_string.restype = ctypes.c_char_p
         _lib = lib

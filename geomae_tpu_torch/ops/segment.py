@@ -100,15 +100,24 @@ def _needs_grad(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
+def _work(lib, x: torch.Tensor) -> torch.Tensor:
+    """The kernels' workspace for x: the partials of the segments that a
+    block's edge cuts, which a second kernel combines."""
+    return torch.empty(lib.geomae_segment_work_bytes(*x.shape),
+                       dtype=torch.uint8, device=x.device)
+
+
 def _reduce(x, seg, num_segments, op):
     if x.device.type == "cpu":
         return segment_reduce_plain(x, seg, num_segments, op)
     B, P, C = x.shape
     out = torch.empty((B, num_segments, C), dtype=torch.float32,
                       device=x.device)
-    code = _cuda.library().geomae_segment_reduce(
+    lib = _cuda.library()
+    code = lib.geomae_segment_reduce(
         _cuda.DTYPE_CODE[x.dtype], x.data_ptr(), seg.data_ptr(),
-        out.data_ptr(), B, P, C, num_segments, _OPS[op], _cuda.stream(x))
+        out.data_ptr(), B, P, C, num_segments, _OPS[op],
+        _work(lib, x).data_ptr(), _cuda.stream(x))
     segment_reduce.launches += 1
     _cuda.check(code, "segment_reduce")
     return out
@@ -119,9 +128,11 @@ def _broadcast(x, seg, num_segments, op):
         return segment_broadcast_plain(x, seg, num_segments, op)
     B, P, C = x.shape
     out = torch.empty_like(x)
-    code = _cuda.library().geomae_segment_broadcast(
+    lib = _cuda.library()
+    code = lib.geomae_segment_broadcast(
         _cuda.DTYPE_CODE[x.dtype], x.data_ptr(), seg.data_ptr(),
-        out.data_ptr(), B, P, C, num_segments, _OPS[op], _cuda.stream(x))
+        out.data_ptr(), B, P, C, num_segments, _OPS[op],
+        _work(lib, x).data_ptr(), _cuda.stream(x))
     segment_broadcast.launches += 1
     _cuda.check(code, "segment_broadcast")
     return out

@@ -58,7 +58,7 @@ def card() -> str:
 
 def build_variants(source: str, variants: dict, out: Path) -> dict:
     """{name: loaded library} of ``csrc/<source>`` (with ``segment.cu``,
-    which holds the error strings) built under ``out/<name>`` once per
+    which holds the error strings, where it is another source) built under ``out/<name>`` once per
     variant, each a list of (old, new) text edits; the builds run in
     parallel.  Raises when an edit no longer applies or nvcc fails."""
     src = (_cuda.CSRC / source).read_text()
@@ -75,9 +75,11 @@ def build_variants(source: str, variants: dict, out: Path) -> dict:
         (d / source).write_text(text)
         for header in _cuda.CSRC.glob("*.cuh"):
             (d / header.name).write_text(header.read_text())
+        errors = [] if source == "segment.cu" else [
+            str(_cuda.CSRC / "segment.cu")]
         cmd = [_cuda.nvcc(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-o", str(d / "lib.so"),
-               str(d / source), str(_cuda.CSRC / "segment.cu")]
+               str(d / source), *errors]
         procs[name] = (d / "lib.so", subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -96,7 +98,7 @@ def _load(path: Path) -> ctypes.CDLL:
     for fn, args in _cuda._SIGNATURES.items():
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = _cuda.RESTYPES.get(fn, ctypes.c_int)
     lib.geomae_error_string.argtypes = [ctypes.c_int]
     lib.geomae_error_string.restype = ctypes.c_char_p
     return lib

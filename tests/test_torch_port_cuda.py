@@ -135,6 +135,71 @@ def test_segment_broadcast(dev, dtype, op, C):
     assert (got[seg == V] == 0).all()
 
 
+def skewed_segments(rng, P=45001, V=4000):
+    """Four batch rows of ascending ids, P not a multiple of any range the
+    kernels split the points into.  Row 0: pillars of 1-40 points with
+    gaps, runs of one-point pillars, one pillar of 20,000 points (longer
+    than several blocks' ranges), a sentinel suffix, empty rows before
+    V; row 1: no sentinel suffix, the last pillars one point each; row 2:
+    all sentinel; row 3: ``segments``' kind of layout."""
+    def pillars(n, first, most):
+        sizes = rng.integers(1, most + 1, n)
+        return np.repeat(np.arange(first, first + n), sizes)
+    row0 = np.concatenate([
+        pillars(300, 0, 40) * 2,                  # every other id empty
+        np.arange(600, 1600),                     # one-point pillars
+        np.full(20000, 1600),                     # one long pillar
+        pillars(800, 1601, 40)])[:P - 3000]
+    row1 = pillars(2400, 0, 40)[:P - 1500]
+    row1 = np.concatenate([row1, row1[-1] + 1 + np.arange(1500)])
+    row3 = np.sort(rng.integers(0, V - 20, P))
+    row3[int(rng.integers(P // 2, P - 100)):] = V
+    seg = np.full((4, P), V, np.int32)
+    seg[0, :len(row0)] = row0
+    seg[1] = row1
+    seg[3] = row3
+    return torch.from_numpy(seg), V
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [3, 5, 7, 64, 128])
+@pytest.mark.parametrize("which,op", [
+    ("reduce", "sum"), ("reduce", "max"), ("broadcast", "sum"),
+    ("broadcast", "mean"), ("broadcast", "max")])
+def test_segment_kernels_split_by_points(dev, dtype, C, which, op):
+    """K1 and K2 at the path's C (3, 64, 128) and at odd C (5, 7) on
+    ``skewed_segments``: max exactly, sums and means at the tolerances of
+    ``test_segment_reduce`` / ``test_segment_broadcast``, sentinel rows
+    exactly 0, one launch counted per call, two launches bitwise equal.
+    The payloads are quarters in [-8, 8], so every segment's sum is exact
+    in f32 in any order (at most 20,000 x 32 quarters) and the check holds
+    how the kernels split and recombine the long pillar, not in which
+    order they add: f32 sums of 20,000 normal terms in two orders differ
+    by about 2e-3, above the 1e-4 that the pillars of the path's scenes
+    (at most a few hundred points) are held to, here and in phase A."""
+    rng = np.random.default_rng(10 + C)
+    seg, V = skewed_segments(rng)
+    x = torch.from_numpy(rng.integers(-32, 33, seg.shape + (C,)) / 4).float()
+    x, seg = x.to(dtype).to(dev), seg.to(dev)
+    fn = segment.segment_reduce if which == "reduce" else \
+        segment.segment_broadcast
+    plain = segment.segment_reduce_plain if which == "reduce" else \
+        segment.segment_broadcast_plain
+    before = fn.launches
+    got = fn(x, seg, V, op)
+    assert fn.launches == before + 1
+    assert torch.equal(got, fn(x, seg, V, op))
+    want = plain(x, seg, V, op)
+    if op == "max":
+        check(got, want, 0, 0)
+    elif which == "reduce" or dtype == torch.float32:
+        check(got, want, 1e-4, 1e-5)
+    else:
+        check(got, want, 1e-4, 2 ** -7)
+    if which == "broadcast":
+        assert (got[seg >= V] == 0).all()
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_band_attention_qkv(dev, dtype):
     """Windows up to 150 tokens (more than a 12x12 window holds)."""
