@@ -28,25 +28,14 @@ from . import probe
 from .ops import _cuda, segment
 
 OUT = _cuda.BUILD_DIR.parent / "probe_segment"
-ROWS = "constexpr int kRowsPerGroup = 11;"
-STEPS = "constexpr int kScanSteps = 4;"
+STEPS = "constexpr int kSteps = 8;"
 SPAN = "  segment_span_kernel<T, VEC, kBroadcast>\n      <<<"
-NO_SPAN = (SPAN, "  if (false) " + SPAN.lstrip())
 VARIANTS = {
     "as built": [],
-    **{f"{n} rows a group": [(ROWS, ROWS.replace("11", str(n)))]
-       for n in (7, 15)},
-    **{f"{n} scan steps": [(STEPS, STEPS.replace("4", str(n)))]
-       for n in (2, 8)},
+    **{f"{n} steps": [(STEPS, STEPS.replace("8", str(n)))] for n in (4, 16)},
     # the first kernel alone (computes garbage where a block's edge cuts a
     # segment)
-    "no second kernel": [NO_SPAN],
-    # the design the scan replaced: rows of at most 4 channels walked by
-    # lane groups of one lane
-    "rows of at most 4 channels walked by lanes": [
-        ("vec == C && vec <= 4 ? kThreads * kScanSteps : ", ""),
-        ("    if (C == VEC) {", "    if (false) {"),
-        ("  if (C != VEC || VEC > 4) {", "  if (true) {")],
+    "no second kernel": [(SPAN, "  if (false) " + SPAN.lstrip())],
 }
 
 
