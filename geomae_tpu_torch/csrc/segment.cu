@@ -24,27 +24,28 @@
 //   rows are a suffix), one contiguous range, with 16-byte cp.async, all
 //   in flight at once (rows of at most 16 bytes go with the ids, sentinel
 //   rows and all: one round trip);
-// * each lane takes VEC channels of a row from there (8 bf16 or 4 f32,
-//   one 16-byte access; rows of at most 4 channels whole, other widths
-//   one channel a lane), LPR lanes a row, so a warp takes 32 / LPR rows
-//   at once (32 xyz rows of K2 mean, 2 rows of K1's 128 channels);
-// * a segment's sums come from a segmented scan over the rows a warp
-//   holds (shuffles in a fixed tree order, the segments' starts a
-//   ballot's bits) plus the carry from its rows before, kSteps times: no
-//   lane walks a segment alone and no branch splits a warp;
-// * a segment that the warp holds whole is done where it ends: K1 writes
-//   its row, K2 its value into its last row in shared memory; the
-//   partials of the segments cut by a warp's edge are combined in warp
-//   order and written the same way;
-// * K2 then hands every row the value in its segment's last row (found by
-//   a ballot) and copies all its rows back out with 16-byte stores, 0 for
+// * rows wider than 4 channels: a group of L lanes walks kRowsPerGroup of
+//   them there, each lane VEC channels of a row (8 bf16 or 4 f32, one
+//   16-byte access; other widths one channel a lane; bf16 max as packed
+//   bf16 pairs, exact), and starts a new sum where the id changes.
+//   kRowsPerGroup is odd, so the groups of a warp read rows in different
+//   banks;
+// * rows of at most 4 channels (K2 mean's 12-byte xyz): one lane a row, a
+//   warp 32 rows at once, each segment's sums from a segmented scan over
+//   the lanes (segment_scan_kernel), so no lane walks alone;
+// * a segment that ends inside a group (warp) is done: K1 writes its row
+//   from registers, K2 writes its value into the staged rows of its
+//   points; the partials of a segment cut by a group's (warp's) edge are
+//   combined in shared memory in group order and written the same way;
+// * K2 then copies all of its rows back out with 16-byte stores, 0 for
 //   the sentinel rows, so the whole grid zeroes the suffix;
 // * a segment cut by a block's edge leaves the block's partial in the
-//   workspace, and a second kernel (a warp per block edge) combines the
-//   partials in block order and writes the segment: K1 its row, K2 its
-//   points in that block, so a long pillar costs each block it touches
-//   what any other segment would.  K1's second kernel also fills the
-//   empty rows after the last segment with the whole grid.
+//   workspace, and a second kernel (a warp per block edge, launched while
+//   the first runs) combines the partials in block order and writes the
+//   segment: K1 its row, K2 its points in that block, so a long pillar
+//   costs each block it touches what any other segment would.  K1's
+//   second kernel also fills the empty rows after the last segment with
+//   the whole grid.
 //
 // Every sum is taken in a fixed order without atomics, so two launches
 // agree bit for bit, and max is exact in f32 as well as bf16 (the TPU
@@ -63,7 +64,8 @@ enum Op : int { kSum = 0, kMean = 1, kMax = 2 };
 constexpr float kNegFill = -3.0e38f;  // empty max rows, as on the TPU
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSteps = 8;             // rows a lane takes in a block
+constexpr int kRowsPerGroup = 11;     // points of a lane group (odd)
+constexpr int kScanSteps = 4;         // rows a lane scans (rows of <= 4 channels)
 constexpr int kNone = kInt32Max;      // first / last id of a group without points
 
 __device__ __forceinline__ float identity(int op) {
@@ -116,22 +118,21 @@ __device__ __forceinline__ void store_f32(float* p, const float (&f)[VEC]) {
   }
 }
 
-// How a launch splits the rows: VEC channels a lane (lane_vec), NV = C /
-// VEC vectors a row, LPR lanes a row (NV rounded up to a power of two, at
-// most 32; wider rows in chunks of 32 vectors), Q = 32 / LPR rows a warp
-// takes at once, kSteps such steps; R rows a block, nblk blocks a batch
-// row.
+// How a launch splits the rows: VEC channels a lane, L lanes a group
+// (lanes past C / VEC loop over channel chunks), G groups a block, R
+// points a block, nblk blocks a batch row.  Rows of at most 4 channels
+// (one lane a row) go to the scan kernel, kScanSteps rows a lane.
 struct Plan {
-  int vec, nv, lpr, R, nblk;
+  int vec, L, G, R, nblk;
 };
 
 __host__ __device__ inline Plan make_plan(int vec, int P, int C) {
   Plan pl;
   pl.vec = vec;
-  pl.nv = C / vec;
-  pl.lpr = 1;
-  while (pl.lpr < pl.nv && pl.lpr < 32) pl.lpr *= 2;
-  pl.R = kWarps * kSteps * (32 / pl.lpr);
+  const int nv = C / vec;
+  pl.L = nv < kThreads ? nv : kThreads;
+  pl.G = kThreads / pl.L;
+  pl.R = vec == C && vec <= 4 ? kThreads * kScanSteps : pl.G * kRowsPerGroup;
   pl.nblk = (P + pl.R - 1) / pl.R;
   return pl;
 }
@@ -166,8 +167,8 @@ inline Work work_at(void* base, const Plan& pl, int B, int C) {
 
 // Copy n elements of T from global src to shared dst (both contiguous,
 // dst 16-byte aligned), with every thread of the block: 16-byte cp.async
-// where src and n allow, else 4-byte cp.async or plain copies.  The caller waits (cp_async_wait) and
-// synchronises.
+// where src and n allow, else 4-byte cp.async or plain copies.  The
+// caller waits (cp_async_wait) and synchronises.
 template <typename T>
 __device__ __forceinline__ void copy_in(T* dst, const T* src, size_t n) {
   const size_t bytes = n * sizeof(T);
@@ -250,214 +251,445 @@ __device__ __forceinline__ void fill_gaps(float* out, Work w, const int* sid,
   }
 }
 
-// The first-pass kernel: one block per R rows of a batch row.  K1
+// The first-pass kernel: one block per R points of a batch row.  K1
 // (kBroadcast false) writes out [B, V, C] f32, K2 out [B, P, C] in T.
-//
-// Warp u owns kSteps x Q consecutive rows of the staged tile; at step t
-// its lanes take Q rows at once (LPR lanes a row, VEC channels a lane).
-// A segment's sums come from a segmented scan over the step's rows
-// (shuffles in a fixed tree order, the segments' starts a ballot's bits)
-// plus the carry from the step before, so no lane walks alone and no
-// branch splits the warp.  A segment that ends in the warp and began in
-// it is done where it ends: K1 writes its row, K2 writes its value into
-// its last row in the tile.  The warps' partials of the segments their
-// edges cut are combined in warp order and written the same way (or, cut
-// by the block's edge too, left to the second kernel).  K2 then hands
-// every row the value in its segment's last row (a ballot finds it, last
-// step first), and copies all its rows out, 0 for the sentinel rows.
+// The block stages the rows of its points in segments in shared memory
+// (one contiguous copy, 16 bytes a thread), walks them there, and K2
+// writes its results into the same rows and copies them all back out,
+// zeros for the sentinel suffix.
 template <typename T, int VEC, bool kBroadcast>
 __global__ void __launch_bounds__(kThreads)
 segment_rows_kernel(const T* __restrict__ x, const int* __restrict__ seg,
                     void* __restrict__ out_, Work w, int P, int C, int V,
-                    int op, int nv, int LPR, int nblk) {
+                    int op, int L, int G, int nblk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int ucnt[kWarps][2], ufirst[kWarps], ulast[kWarps];
-  const int Q = 32 / LPR, R = kWarps * kSteps * Q, W = LPR * VEC;
+  asm volatile("griddepcontrol.launch_dependents;\n");   // the second kernel may launch
+  const int b = blockIdx.y, k = blockIdx.x;
+  const int R = G * kRowsPerGroup;
+  const int p0 = k * R, n = min(R, P - p0);
+  const int NV = C / VEC;
   const size_t tile_bytes = ((size_t)R * C * sizeof(T) + 15) & ~(size_t)15;
-  T* tile = reinterpret_cast<T*>(smem_raw);                  // [R][C]
-  float* uval = reinterpret_cast<float*>(smem_raw + tile_bytes);  // [kWarps][2][W]
-  int* sid = reinterpret_cast<int*>(uval + kWarps * 2 * W) + 4;
+  const size_t part_bytes = ((size_t)G * 2 * L * VEC * sizeof(float) + 15) &
+                            ~(size_t)15;
+  T* tile = reinterpret_cast<T*>(smem_raw);               // [R][C]
+  float* gpart = reinterpret_cast<float*>(smem_raw + tile_bytes);
+  int* sid = reinterpret_cast<int*>(smem_raw + tile_bytes + part_bytes) + 4;
+  int* fid = sid + R + 4;                                 // [G]
+  int* lid = fid + G;                                     // [G]
+  int* gcnt = lid + G;                                    // [G][2]
+  int* gtot = gcnt + 2 * G;                               // [G][2]
+  const int* sb = seg + (size_t)b * P;
+  const T* xb = x + ((size_t)b * P + p0) * C;
+
+  const int nvalid = stage(tile, sid, xb, sb, p0, n, P, C, V);
+
+  const int g = threadIdx.x / L, l = threadIdx.x - g * L;
+  const bool in_group = g < G;
+  const int a0 = g * kRowsPerGroup, a1 = min(a0 + kRowsPerGroup, nvalid);
+  const bool has_points = in_group && a0 < a1;
+
+  if (!kBroadcast) fill_gaps(static_cast<float*>(out_), w, sid, b, p0, n, P, C, V, op);
+  if (in_group && l == 0) {
+    fid[g] = has_points ? sid[a0] : kNone;
+    lid[g] = has_points ? sid[a1 - 1] : kNone;
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  for (int v0 = 0; v0 < NV; v0 += L) {
+    const int vec = v0 + l;
+    const bool lane_on = vec < NV;
+    const size_t col = (size_t)vec * VEC;
+    // phase 1: walk the group's points; finish the segments that end in
+    // it, leave the partials of the ones its edges cut
+    int head_cnt = 0, tail_cnt = 0;   // this group's points of its cut segments
+    if (has_points) {
+      float acc[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[j] = identity(op);
+      // bf16 max needs no f32: a row's 8 channels in 4 packed maxima
+      constexpr bool kPacked = sizeof(T) == 2 && VEC == 8;
+      const bool packed = kPacked && op == kMax;
+      const __nv_bfloat162 lowest = __bfloat162bfloat162(
+          __float2bfloat16(-INFINITY));
+      __nv_bfloat162 m2[kPacked ? 4 : 1];
+#pragma unroll
+      for (int j = 0; j < (kPacked ? 4 : 1); ++j) m2[j] = lowest;
+      int start = a0;
+      for (int i = a0; i < a1; ++i) {
+        const int s = sid[i];
+        if (lane_on) {
+          if (packed) {
+            if constexpr (kPacked) {
+              const uint4 row =
+                  *reinterpret_cast<const uint4*>(tile + (size_t)i * C + col);
+              const __nv_bfloat162* h =
+                  reinterpret_cast<const __nv_bfloat162*>(&row);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) m2[j] = __hmax2(m2[j], h[j]);
+            }
+          } else {
+            float f[VEC];
+            load_vec<T, VEC>(tile + (size_t)i * C + col, f);
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) acc[j] = combine(acc[j], f[j], op);
+          }
+        }
+        if (i + 1 < a1 && sid[i + 1] == s) continue;
+        if constexpr (kPacked) {
+          if (packed) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              acc[2 * j] = __low2float(m2[j]);
+              acc[2 * j + 1] = __high2float(m2[j]);
+              m2[j] = lowest;
+            }
+          }
+        }
+        // the run [start, i] of id s ends in this group
+        const bool head = start == a0 && sid[a0 - 1] == s;
+        const bool tail = i == a1 - 1 && sid[a1] == s;
+        const int cnt = i - start + 1;
+        if (!head && !tail) {
+          if (op == kMean) {
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) acc[j] /= (float)cnt;
+          }
+          if (lane_on) {
+            if (kBroadcast) {
+              for (int r = start; r <= i; ++r)
+                store_vec<T, VEC>(tile + (size_t)r * C + col, acc);
+            } else {
+              store_f32<VEC>(static_cast<float*>(out_) +
+                             ((size_t)b * V + s) * C + col, acc);
+            }
+          }
+        } else {
+          for (int side = 0; side < 2; ++side) {
+            if (!(side ? tail : head)) continue;
+            if (lane_on) {
+              float* gp = gpart + ((size_t)(g * 2 + side) * L + l) * VEC;
+#pragma unroll
+              for (int j = 0; j < VEC; ++j) gp[j] = acc[j];
+            }
+            if (l == 0) gcnt[g * 2 + side] = cnt;
+            (side ? tail_cnt : head_cnt) = cnt;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[j] = identity(op);
+        start = i + 1;
+      }
+    }
+    __syncthreads();
+
+    // phase 2: the segments cut by a group's edge.  side 0: a group's
+    // first segment, if it began before the group; side 1: its last, if
+    // it goes on after it (once, where it is also side 0's).  The group
+    // where such a segment begins in the block (its owner) combines the
+    // groups' partials in group order: where the block's edge cuts the
+    // segment too, into the workspace for the second kernel; else K1
+    // writes its row, and K2 leaves the total in the owner's slot, from
+    // which, after a barrier, every group that holds part of the segment
+    // writes its points.
+    for (int pass = 0; pass < (kBroadcast ? 2 : 1); ++pass) {
+      for (int side = 0; has_points && side < 2; ++side) {
+        const int s = side ? lid[g] : fid[g];
+        const bool before = sid[a0 - 1] == s;
+        if (!(side ? sid[a1] == s : before) ||
+            (side && fid[g] == s && before))
+          continue;
+        const int ga = lower_bound_i32(lid, G, s);
+        const bool from_prev = sid[-1] == s && sid[0] == s;
+        const bool to_next = sid[n] == s && sid[n - 1] == s;
+        const int own = ga * 2 + (from_prev ? 0 : 1);
+        float* total = gpart + ((size_t)own * L + l) * VEC;
+        if (pass == 0) {
+          if (g != ga) continue;
+          const int gb = lower_bound_i32(fid, G, s + 1) - 1;
+          float val[VEC];
+          int cnt = 0;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) val[j] = identity(op);
+          for (int gx = ga; gx <= gb; ++gx) {
+            const int slot = (gx == gb && (gx > ga || from_prev)) ? 0 : 1;
+            cnt += gcnt[gx * 2 + slot];
+            if (lane_on) {
+              const float* gp =
+                  gpart + ((size_t)(gx * 2 + slot) * L + l) * VEC;
+#pragma unroll
+              for (int j = 0; j < VEC; ++j) val[j] = combine(val[j], gp[j], op);
+            }
+          }
+          if (from_prev || to_next) {
+            // cut by the block's edge: the block's partial, for the second
+            // kernel
+            const size_t blk = (size_t)b * nblk + k;
+            for (int bs = 0; bs < 2; ++bs) {
+              if (!(bs ? to_next : from_prev)) continue;
+              if (lane_on) {
+                float* bp = w.part + (blk * 2 + bs) * C + col;
+#pragma unroll
+                for (int j = 0; j < VEC; ++j) bp[j] = val[j];
+              }
+              if (l == 0) w.cnt[blk * 2 + bs] = cnt;
+            }
+            continue;
+          }
+          if (kBroadcast) {           // for the groups that hold it
+            if (lane_on) {
+#pragma unroll
+              for (int j = 0; j < VEC; ++j) total[j] = val[j];
+            }
+            if (l == 0) gtot[own] = cnt;
+          } else if (lane_on) {
+#pragma unroll
+            for (int j = 0; j < VEC; ++j)
+              val[j] = op == kMean ? val[j] / (float)cnt : val[j];
+            store_f32<VEC>(static_cast<float*>(out_) +
+                           ((size_t)b * V + s) * C + col, val);
+          }
+          continue;
+        }
+        // pass 1 (K2): this group's points of s
+        if (from_prev || to_next || !lane_on) continue;
+        const int cnt = gtot[own];
+        float val[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          val[j] = op == kMean ? total[j] / (float)cnt : total[j];
+        const int c = side ? tail_cnt : head_cnt;
+        const int r0 = side ? a1 - c : a0;
+        for (int r = r0; r < r0 + c; ++r)
+          store_vec<T, VEC>(tile + (size_t)r * C + col, val);
+      }
+      __syncthreads();
+    }
+  }
+  if (kBroadcast)
+    copy_out(static_cast<T*>(out_) + ((size_t)b * P + p0) * C, tile,
+             (size_t)nvalid * C, (size_t)n * C);
+  if (threadIdx.x == 0) {
+    w.fid[(size_t)b * nblk + k] = sid[0];
+    w.lid[(size_t)b * nblk + k] = sid[n - 1];
+  }
+}
+
+// shared memory of the scan kernel: its tile, then its ids
+template <typename T, int VEC>
+__host__ __device__ constexpr int scan_tile_bytes() {
+  return (kThreads * kScanSteps * VEC * (int)sizeof(T) + 15) & ~15;
+}
+
+// The first-pass kernel for rows of at most 4 channels (K2 mean's 12-byte
+// xyz rows): one lane a row.  Warp u of the block owns S x 32 consecutive
+// rows; at step t lane i takes row 32 t + i, so a warp reads 32 rows of
+// the staged tile at once, and every segment's sums come from a segmented
+// scan over the lanes (shuffles in a fixed tree order, the segments' starts
+// a ballot's bits) plus the carry of the step before: no lane walks alone
+// and no branch splits the warp.  The inclusive sums stay in registers;
+// the warps' partials of the segments their edges cut are combined in
+// warp order; a second sweep, last step first, hands each row its
+// segment's total (one shuffle from the segment's last row, found by a
+// ballot), which K2 writes into the tile and copies out and K1 writes
+// once per segment.
+template <typename T, int VEC, bool kBroadcast>
+__global__ void __launch_bounds__(kThreads)
+segment_scan_kernel(const T* __restrict__ x, const int* __restrict__ seg,
+                    void* __restrict__ out_, Work w, int P, int V, int op,
+                    int nblk) {
+  constexpr int S = kScanSteps;
+  constexpr int R = kWarps * 32 * S;
+  constexpr int C = VEC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);               // [R][C]
+  int* sid = reinterpret_cast<int*>(smem_raw + scan_tile_bytes<T, VEC>()) + 4;
+  __shared__ float uval[kWarps][2][VEC];                 // warps' partials
+  __shared__ int ucnt[kWarps][2], ufirst[kWarps], ulast[kWarps];
+  asm volatile("griddepcontrol.launch_dependents;\n");   // the second kernel may launch
   const int b = blockIdx.y, k = blockIdx.x;
   const int p0 = k * R, n = min(R, P - p0);
   const int nvalid = stage(tile, sid, x + ((size_t)b * P + p0) * C,
                            seg + (size_t)b * P, p0, n, P, C, V);
-  if (!kBroadcast)
-    fill_gaps(static_cast<float*>(out_), w, sid, b, p0, n, P, C, V, op);
+  if (!kBroadcast) fill_gaps(static_cast<float*>(out_), w, sid, b, p0, n, P, C, V, op);
   cp_async_wait();
   __syncthreads();
 
   const int u = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q = lane / LPR, lv = lane - q * LPR;
-  const int w0 = u * kSteps * Q;
-  const int we = max(w0, min(w0 + kSteps * Q, nvalid));
+  const int w0 = u * 32 * S, we = max(w0, min(w0 + 32 * S, nvalid));
   const bool has = w0 < we;
-  // the lanes that start a row
-  const unsigned M0 = LPR == 32 ? 1u : 0xffffffffu / ((1u << LPR) - 1);
+  // forward sweep: v[t] = the sum (max) of row 32 t + i's segment from
+  // its first row in this warp, c[t] its rows
+  float v[S][VEC];
+  int c[S];
+  float cv[VEC];
+  int cc = 0, cid = has ? sid[w0 - 1] : -1;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) cv[j] = identity(op);
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    const int r = w0 + 32 * t + lane;
+    const bool valid = r < we;
+    const int s = valid ? sid[r] : kNone;
+    float xv[VEC];
+    if (valid) {
+      load_vec<T, VEC>(tile + (size_t)r * C, xv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) xv[j] = identity(op);
+    }
+    int ps = __shfl_up_sync(~0u, s, 1);
+    if (lane == 0) ps = cid;
+    // the lanes that start a segment; at offset d lane i adds lane i - d's
+    // sum when no segment starts in (i - d, i]
+    const unsigned H = __ballot_sync(~0u, s != ps);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      float y[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) y[j] = __shfl_up_sync(~0u, xv[j], d);
+      if (lane >= d && !((H >> (lane - d + 1)) & ((1u << d) - 1))) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) xv[j] = combine(y[j], xv[j], op);
+      }
+    }
+    const unsigned upto = H & (0xffffffffu >> (31 - lane));
+    int cn;
+    if (!upto) {          // the segment the step before carried in
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) xv[j] = combine(cv[j], xv[j], op);
+      cn = lane + 1 + cc;
+    } else {
+      cn = lane - (31 - __clz(upto)) + 1;
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      v[t][j] = xv[j];
+      cv[j] = __shfl_sync(~0u, xv[j], 31);
+    }
+    c[t] = cn;
+    cc = __shfl_sync(~0u, cn, 31);
+    cid = __shfl_sync(~0u, s, 31);
+  }
+
   // the warp's first segment, if it began before the warp (head), and its
-  // last, if it goes on after it (tail)
+  // last, if it goes on after it (tail): their partials for the others
   const int sf = has ? sid[w0] : kNone, sl = has ? sid[we - 1] : kNone;
   const bool hcut = has && sid[w0 - 1] == sf, tcut = has && sid[we] == sl;
+  const int e1 = hcut ? w0 + lower_bound_i32(sid + w0, we - w0, sf + 1) - 1
+                      : -1;
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    const int r = w0 + 32 * t + lane;
+    for (int side = 0; side < 2; ++side) {
+      if (r != (side ? (tcut ? we - 1 : -1) : e1)) continue;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) uval[u][side][j] = v[t][j];
+      ucnt[u][side] = c[t];
+    }
+  }
   if (lane == 0) {
     ufirst[u] = sf;
     ulast[u] = sl;
   }
-  float* out1 = static_cast<float*>(out_) + (size_t)b * V * C;
+  __syncthreads();
 
-  for (int v0 = 0; v0 < nv; v0 += LPR) {
-    const int vec = v0 + lv;
-    const bool lane_on = vec < nv;
-    const int col = vec * VEC;
-    float* up = uval + (size_t)u * 2 * W + lv * VEC;     // [2][W] of warp u
-    // forward sweep
-    float cv[VEC];
-    int cc = 0, cid = has ? sid[w0 - 1] : -1, cstart = 0;
+  // the totals of the cut segments, over the warps that hold them in warp
+  // order; where the block's edge cuts one too, the block's partial goes
+  // to the workspace for the second kernel (span: this block writes none
+  // of its rows)
+  float fin[2][VEC];
+  bool span[2] = {false, false};
+  for (int side = 0; side < 2; ++side) {
+    const int s = side ? sl : sf;
+    if (!(side ? tcut : hcut)) continue;
+    int ua = u, ub = u;
+    while (ua > 0 && ulast[ua - 1] == s) --ua;
+    while (ub < kWarps - 1 && ufirst[ub + 1] == s) ++ub;
+    const bool from_prev = sid[-1] == s && sid[0] == s;
+    const bool to_next = sid[n] == s && sid[n - 1] == s;
+    float tot[VEC];
+    int cnt = 0;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) cv[j] = identity(op);
-    for (int t = 0; t < kSteps; ++t) {
-      const int r = w0 + t * Q + q;
-      const bool valid = r < we;
-      const int s = valid ? sid[r] : kNone;
-      float xv[VEC];
-      if (valid && lane_on) {
-        load_vec<T, VEC>(tile + (size_t)r * C + col, xv);
-      } else {
+    for (int j = 0; j < VEC; ++j) tot[j] = identity(op);
+    for (int ux = ua; ux <= ub; ++ux) {
+      const int slot = (ux == ub && (ux > ua || from_prev)) ? 0 : 1;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) xv[j] = identity(op);
-      }
-      int ps = __shfl_up_sync(~0u, s, LPR & 31);
-      if (q == 0) ps = cid;
-      // at offset d rows, row q adds row q - d's sum when no segment
-      // starts in rows q - d + 1 .. q
-      const unsigned H = __ballot_sync(~0u, s != ps) & M0;
-      for (int d = 1; d < Q; d <<= 1) {
-        float y[VEC];
+      for (int j = 0; j < VEC; ++j) tot[j] = combine(tot[j], uval[ux][slot][j], op);
+      cnt += ucnt[ux][slot];
+    }
+    span[side] = from_prev || to_next;
+    if (span[side]) {
+      const size_t blk = (size_t)b * nblk + k;
+      for (int bs = 0; bs < 2; ++bs) {
+        if (lane != 0 || !(bs ? to_next && u == ub : from_prev && u == ua))
+          continue;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j)
-          y[j] = __shfl_up_sync(~0u, xv[j], d * LPR);
-        if (q >= d &&
-            !((H >> ((q - d + 1) * LPR)) & ((2u << ((d - 1) * LPR)) - 1))) {
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) xv[j] = combine(y[j], xv[j], op);
-        }
-      }
-      const unsigned upto = H & (0xffffffffu >> (31 - q * LPR));
-      int cn, started;
-      if (!upto) {        // the segment the step before carried in
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) xv[j] = combine(cv[j], xv[j], op);
-        cn = q + 1 + cc;
-        started = cstart;
-      } else {
-        cn = q - (31 - __clz(upto)) / LPR + 1;
-        started = 1;
-      }
-      const int src = (Q - 1) * LPR + lv;
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) cv[j] = __shfl_sync(~0u, xv[j], src);
-      cc = __shfl_sync(~0u, cn, 31);
-      cid = __shfl_sync(~0u, s, 31);
-      cstart = __shfl_sync(~0u, started, 31);
-      const bool end = valid && sid[r + 1] != s;
-      if (end && started) {            // the whole segment is in this warp
-        float f[VEC];
-#pragma unroll
-        for (int j = 0; j < VEC; ++j)
-          f[j] = op == kMean ? xv[j] / (float)cn : xv[j];
-        if (lane_on) {
-          if (kBroadcast)
-            store_vec<T, VEC>(tile + (size_t)r * C + col, f);
-          else
-            store_f32<VEC>(out1 + (size_t)s * C + col, f);
-        }
-      } else if (valid && (end || r == we - 1)) {   // cut: the partials
-        for (int side = 0; side < 2; ++side) {
-          if (!(side ? r == we - 1 : !started)) continue;
-          if (lane_on) {
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) up[side * W + j] = xv[j];
-          }
-          if (lv == 0) ucnt[u][side] = cn;
-        }
+        for (int j = 0; j < VEC; ++j) w.part[(blk * 2 + bs) * C + j] = tot[j];
+        w.cnt[blk * 2 + bs] = cnt;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      fin[side][j] = op == kMean ? tot[j] / (float)cnt : tot[j];
+    if (!kBroadcast && !span[side] && u == ua && lane == 0)
+      store_f32<VEC>(static_cast<float*>(out_) + ((size_t)b * V + s) * C,
+                     fin[side]);
+  }
 
-    // the totals of the cut segments, over the warps that hold them in
-    // warp order; where the block's edge cuts one too, the block's partial
-    // goes to the workspace for the second kernel (span: this block writes
-    // none of its rows)
-    float fin[2][VEC];
-    int span[2] = {0, 0};
-    for (int side = 0; side < 2; ++side) {
-      const int s = side ? sl : sf;
-      if (!(side ? tcut : hcut)) continue;
-      int ua = u, ub = u;
-      while (ua > 0 && ulast[ua - 1] == s) --ua;
-      while (ub < kWarps - 1 && ufirst[ub + 1] == s) ++ub;
-      const bool from_prev = sid[-1] == s && sid[0] == s;
-      const bool to_next = sid[n] == s && sid[n - 1] == s;
-      float tot[VEC];
-      int cnt = 0;
+  // reverse sweep: each row takes its segment's total from the segment's
+  // last row in the step, or from the step after (the carry)
+  float carry[VEC];
+  bool carry_span = false;
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) tot[j] = identity(op);
-      for (int ux = ua; ux <= ub; ++ux) {
-        const int slot = (ux == ub && (ux > ua || from_prev)) ? 0 : 1;
-        const float* pp = uval + ((size_t)ux * 2 + slot) * W + lv * VEC;
+  for (int j = 0; j < VEC; ++j) carry[j] = 0.f;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) tot[j] = combine(tot[j], pp[j], op);
-        cnt += ucnt[ux][slot];
-      }
+  for (int t = S - 1; t >= 0; --t) {
+    const int r = w0 + 32 * t + lane;
+    const bool valid = r < we;
+    const int s = valid ? sid[r] : kNone;
+    const bool end = valid && sid[r + 1] != s;
+    float val[VEC];
+    int have = 0, sp = 0;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) val[j] = 0.f;
+    if (end && hcut && s == sf) {                  // the head, cut
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) val[j] = fin[0][j];
+      have = 1;
+      sp = span[0];
+    } else if (end) {                              // whole in this warp
 #pragma unroll
       for (int j = 0; j < VEC; ++j)
-        fin[side][j] = op == kMean ? tot[j] / (float)cnt : tot[j];
-      span[side] = from_prev || to_next;
-      if (q != 0) continue;            // lanes of row 0 write
-      if (span[side]) {
-        const size_t blk = (size_t)b * nblk + k;
-        for (int bs = 0; bs < 2; ++bs) {
-          if (!(bs ? to_next && u == ub : from_prev && u == ua)) continue;
-          if (lane_on) {
+        val[j] = op == kMean ? v[t][j] / (float)c[t] : v[t][j];
+      have = 1;
+      if (!kBroadcast)
+        store_f32<VEC>(static_cast<float*>(out_) + ((size_t)b * V + s) * C,
+                       val);
+    } else if (valid && r == we - 1) {             // the tail, cut
 #pragma unroll
-            for (int j = 0; j < VEC; ++j)
-              w.part[(blk * 2 + bs) * C + col + j] = tot[j];
-          }
-          if (lane == 0) w.cnt[blk * 2 + bs] = cnt;
-        }
-      } else if (kBroadcast && lane_on) {
-        // into this warp's last row of the segment
-        const int e = side ? we - 1
-                           : w0 + lower_bound_i32(sid + w0, we - w0, s + 1) - 1;
-        store_vec<T, VEC>(tile + (size_t)e * C + col, fin[side]);
-      } else if (!kBroadcast && lane_on && u == ua) {
-        store_f32<VEC>(out1 + (size_t)s * C + col, fin[side]);
-      }
+      for (int j = 0; j < VEC; ++j) val[j] = fin[1][j];
+      have = 1;
+      sp = span[1];
+    } else if (valid && lane == 31) {              // from the next step
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) val[j] = carry[j];
+      have = 1;
+      sp = carry_span;
     }
-    __syncwarp();
-
-    // K2: every row takes the value in its segment's last row in the warp
-    // (last step first, carrying the row to the step before)
-    if (kBroadcast) {
-      int carry = -1;
-      for (int t = kSteps - 1; t >= 0; --t) {
-        const int r = w0 + t * Q + q;
-        const bool valid = r < we;
-        const int s = valid ? sid[r] : kNone;
-        const bool last = valid && (sid[r + 1] != s || r == we - 1);
-        const unsigned E =
-            __ballot_sync(~0u, last) & M0 & (0xffffffffu << (q * LPR));
-        const int e = E ? w0 + t * Q + (__ffs(E) - 1) / LPR : carry;
-        carry = __shfl_sync(~0u, e, 0);
-        const bool skip = (hcut && span[0] && s == sf) ||
-                          (tcut && span[1] && s == sl);
-        if (valid && lane_on && !skip && r != e) {
-          float f[VEC];
-          load_vec<T, VEC>(tile + (size_t)e * C + col, f);
-          store_vec<T, VEC>(tile + (size_t)r * C + col, f);
-        }
-      }
-    }
-    __syncthreads();
+    // each lane takes the total from the first lane at or after it that
+    // holds one: its segment's last row here, or lane 31 with the carry
+    const unsigned E = __ballot_sync(~0u, have) & (0xffffffffu << lane);
+    const int from = E ? __ffs(E) - 1 : lane;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) val[j] = __shfl_sync(~0u, val[j], from);
+    sp = __shfl_sync(~0u, sp, from);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) carry[j] = __shfl_sync(~0u, val[j], 0);
+    carry_span = __shfl_sync(~0u, sp, 0);
+    if (kBroadcast && valid && !sp) store_vec<T, VEC>(tile + (size_t)r * C, val);
   }
+  __syncthreads();
   if (kBroadcast)
     copy_out(static_cast<T*>(out_) + ((size_t)b * P + p0) * C, tile,
              (size_t)nvalid * C, (size_t)n * C);
@@ -502,6 +734,7 @@ segment_span_kernel(void* __restrict__ out_, Work w, int P, int C, int V,
                     int op, int R, int nblk) {
   extern __shared__ float rows[];                        // [kWarps][C]
   const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");   // the first kernel's results
   if (!kBroadcast) {
     const int t0 = w.trail[b];
     float* o = static_cast<float*>(out_) + ((size_t)b * V + t0) * C;
@@ -638,24 +871,49 @@ cudaError_t launch_segment(const T* x, const int* seg, void* out, void* work,
                            cudaStream_t stream) {
   const Plan pl = make_plan(VEC, P, C);
   const Work w = work_at(work, pl, B, C);
-  const int smem = (((size_t)pl.R * C * sizeof(T) + 15) & ~(size_t)15) +
-                   kWarps * 2 * pl.lpr * VEC * sizeof(float) +
-                   (pl.R + 8) * sizeof(int);
-  cudaError_t e = allow_smem(segment_rows_kernel<T, VEC, kBroadcast>, smem);
-  if (e != cudaSuccess) return e;
-  segment_rows_kernel<T, VEC, kBroadcast>
-      <<<dim3(pl.nblk, B), kThreads, smem, stream>>>(
-          x, seg, out, w, P, C, V, op, pl.nv, pl.lpr, pl.nblk);
+  cudaError_t e;
+  if constexpr (VEC <= 4) {
+    if (C == VEC) {             // rows of at most 4 channels: the scan
+      const int smem = scan_tile_bytes<T, VEC>() + (pl.R + 8) * sizeof(int);
+      if ((e = allow_smem(segment_scan_kernel<T, VEC, kBroadcast>, smem)) !=
+          cudaSuccess)
+        return e;
+      segment_scan_kernel<T, VEC, kBroadcast>
+          <<<dim3(pl.nblk, B), kThreads, smem, stream>>>(
+              x, seg, out, w, P, V, op, pl.nblk);
+    }
+  }
+  if (C != VEC || VEC > 4) {
+    const int smem =
+        (((size_t)pl.R * C * sizeof(T) + 15) & ~(size_t)15) +
+        ((pl.G * 2 * pl.L * VEC * sizeof(float) + 15) & ~15) +
+        (pl.R + 8 + 6 * pl.G) * sizeof(int);
+    if ((e = allow_smem(segment_rows_kernel<T, VEC, kBroadcast>, smem)) !=
+        cudaSuccess)
+      return e;
+    segment_rows_kernel<T, VEC, kBroadcast>
+        <<<dim3(pl.nblk, B), kThreads, smem, stream>>>(
+            x, seg, out, w, P, C, V, op, pl.L, pl.G, pl.nblk);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const int smem2 = kWarps * C * sizeof(float);
-  if ((e = allow_smem(segment_span_kernel<T, VEC, kBroadcast>, smem2)) !=
-      cudaSuccess)
+  // the second kernel may launch while the first runs (programmatic
+  // dependent launch): its blocks wait for the first's results at their
+  // start, so its launch costs the stream nothing
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((2 * pl.nblk + kWarps - 1) / kWarps, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kWarps * C * sizeof(float);
+  cfg.stream = stream;
+  cudaLaunchAttribute early;
+  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &early;
+  cfg.numAttrs = 1;
+  if ((e = allow_smem(segment_span_kernel<T, VEC, kBroadcast>,
+                      (int)cfg.dynamicSmemBytes)) != cudaSuccess)
     return e;
-  segment_span_kernel<T, VEC, kBroadcast>
-      <<<dim3((2 * pl.nblk + kWarps - 1) / kWarps, B), kThreads, smem2,
-          stream>>>(
-          out, w, P, C, V, op, pl.R, pl.nblk);
-  return cudaGetLastError();
+  return cudaLaunchKernelEx(&cfg, segment_span_kernel<T, VEC, kBroadcast>,
+                            out, w, P, C, V, op, pl.R, pl.nblk);
 }
 
 template <typename T, bool kBroadcast>
@@ -706,9 +964,8 @@ long long geomae_segment_work_bytes(int B, int P, int C) {
 // x [B, P, C] (dtype), seg [B, P] int32 -> out [B, V, C] float32.
 // op: 0 sum, 2 max.  Empty rows: 0 (sum) or -3e38 (max).  work: a device
 // buffer of geomae_segment_work_bytes(B, P, C) bytes, 16-byte aligned.
-// A block stages kWarps x kSteps (at least 64) rows of x in shared
-// memory, so C is at most about 800 (f32) or 1,600 (bf16); wider rows
-// fail to launch.
+// A block stages kRowsPerGroup x G rows of x in shared memory, so C is
+// at most about 3,500 (f32) or 7,000 (bf16); wider rows fail to launch.
 int geomae_segment_reduce(int dtype, const void* x, const int* seg,
                           float* out, int B, int P, int C, int V, int op,
                           void* work, void* stream) {

@@ -28,14 +28,17 @@ from . import probe
 from .ops import _cuda, segment
 
 OUT = _cuda.BUILD_DIR.parent / "probe_segment"
-STEPS = "constexpr int kSteps = 8;"
-SPAN = "  segment_span_kernel<T, VEC, kBroadcast>\n      <<<"
+PACKED = "const bool packed = kPacked && op == kMax;"
+EARLY = "early.val.programmaticStreamSerializationAllowed = 1;"
+SPAN = "  return cudaLaunchKernelEx(&cfg, segment_span_kernel"
 VARIANTS = {
     "as built": [],
-    **{f"{n} steps": [(STEPS, STEPS.replace("8", str(n)))] for n in (4, 16)},
+    "bf16 max in f32": [(PACKED, "const bool packed = false;")],
+    "second kernel launched after the first": [
+        (EARLY, EARLY.replace("= 1", "= 0"))],
     # the first kernel alone (computes garbage where a block's edge cuts a
     # segment)
-    "no second kernel": [(SPAN, "  if (false) " + SPAN.lstrip())],
+    "no second kernel": [(SPAN, "  if (true) return cudaSuccess;\n" + SPAN)],
 }
 
 
