@@ -37,7 +37,8 @@ SEED = 0
 WARMUP = 2
 STEPS = 8
 # the port's kernels by the names nvcc gives them
-KERNEL_NAMES = ("segment_reduce_kernel", "segment_broadcast_kernel",
+KERNEL_NAMES = ("segment_rows_kernel", "segment_scan_kernel",
+                "segment_span_kernel",
                 "segment_gather_kernel", "band_attention_qkv_kernel",
                 "band_attention_qkv_bwd_kernel", "post_attention_kernel",
                 "post_attention_fwd_tc_kernel", "post_attention_bwd_kernel",

@@ -110,3 +110,22 @@ def test_wrappers_dispatch_on_device():
     with pytest.raises(ValueError):
         segment.segment_reduce(xt, st, V, "mean")
     assert segment.segment_reduce.launches == 0
+
+
+def test_probe_segment_skewed_frame_and_histogram():
+    """``probe_segment``'s skewed frame keeps the ids sorted dense ranks
+    over the same points in segments, with one pillar holding the given
+    share of them; its histogram counts every pillar once."""
+    from geomae_tpu_torch import probe_segment
+
+    _, seg = make_case(3, 4, False)
+    p2v = torch.from_numpy(seg[:1])
+    n = int((p2v < V).sum())
+    skew = probe_segment.skewed(p2v, V, share=0.25)
+    ids = skew[0, :n]
+    assert (skew[0, n:] == V).all() and bool((ids[1:] >= ids[:-1]).all())
+    assert set(ids.tolist()) == set(range(int(ids.max()) + 1))
+    assert int(torch.bincount(ids.long()).max()) >= int(n * 0.25)
+    hist, top = probe_segment.pillar_histogram(skew, V)
+    assert sum(hist.values()) == int(ids.max()) + 1
+    assert top == int(torch.bincount(ids.long()).max())
