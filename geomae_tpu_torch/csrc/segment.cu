@@ -123,12 +123,11 @@ __device__ __forceinline__ void store_f32(float* p, const float (&f)[VEC]) {
 // points a block, nblk blocks a batch row.  Rows of at most 4 channels
 // (one lane a row) go to the scan kernel, kScanSteps rows a lane.
 struct Plan {
-  int vec, L, G, R, nblk;
+  int L, G, R, nblk;
 };
 
 __host__ __device__ inline Plan make_plan(int vec, int P, int C) {
   Plan pl;
-  pl.vec = vec;
   const int nv = C / vec;
   pl.L = nv < kThreads ? nv : kThreads;
   pl.G = kThreads / pl.L;
@@ -221,14 +220,20 @@ template <typename T>
 __device__ __forceinline__ int stage(T* tile, int* sid, const T* xb,
                                      const int* sb, int p0, int n, int P,
                                      int C, int V) {
+  __shared__ int nvalid;
   copy_in(sid, sb + p0, n);
   if (threadIdx.x == 0) sid[-1] = p0 > 0 ? sb[p0 - 1] : -1;
   if (threadIdx.x == kThreads - 1) sid[n] = p0 + n < P ? sb[p0 + n] : -1;
+  if (threadIdx.x == 0) nvalid = n;
   const bool eager = C * sizeof(T) <= 16;
   if (eager) copy_in(tile, xb, (size_t)n * C);
   cp_async_wait();
   __syncthreads();
-  const int nvalid = lower_bound_i32(sid, n, V);
+  // the first sentinel row, if the block holds one (no search: the one
+  // row whose id reaches V where the row before did not)
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    if (sid[i] >= V && (i == 0 || sid[i - 1] < V)) nvalid = i;
+  __syncthreads();
   if (!eager) copy_in(tile, xb, (size_t)nvalid * C);
   return nvalid;
 }

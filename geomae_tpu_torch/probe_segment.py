@@ -1,10 +1,11 @@
 """K1 (``segment_reduce``) and K2 (``segment_broadcast``) on one CUDA GPU:
-the builds of ``csrc/segment.cu`` that were tried, timed at the path's
-shapes.
+their time at the path's shapes, on a skewed frame, and the first
+kernel's share of it.
 
     python -m geomae_tpu_torch.probe_segment
 
-Builds ``csrc/segment.cu`` once per entry of ``VARIANTS`` into
+Builds ``csrc/segment.cu`` once per entry of ``VARIANTS`` (as built,
+and without its second kernel: the first kernel's share) into
 ``build/probe_segment/``, then times the seven calls the VFE makes (K1
 max bf16 [B, 262144, 128] -> [B, 20480, 128], K2 max bf16 [B, 262144,
 64], K2 mean f32 [B, 262144, 3] at serving batch 1 (s) and training
@@ -28,14 +29,9 @@ from . import probe
 from .ops import _cuda, segment
 
 OUT = _cuda.BUILD_DIR.parent / "probe_segment"
-PACKED = "const bool packed = kPacked && op == kMax;"
-EARLY = "early.val.programmaticStreamSerializationAllowed = 1;"
 SPAN = "  return cudaLaunchKernelEx(&cfg, segment_span_kernel"
 VARIANTS = {
     "as built": [],
-    "bf16 max in f32": [(PACKED, "const bool packed = false;")],
-    "second kernel launched after the first": [
-        (EARLY, EARLY.replace("= 1", "= 0"))],
     # the first kernel alone (computes garbage where a block's edge cuts a
     # segment)
     "no second kernel": [(SPAN, "  if (true) return cudaSuccess;\n" + SPAN)],
