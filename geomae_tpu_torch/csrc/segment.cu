@@ -47,9 +47,11 @@
 //   second kernel also fills the empty rows after the last segment with
 //   the whole grid.
 //
-// Every sum is taken in a fixed order without atomics, so two launches
-// agree bit for bit, and max is exact in f32 as well as bf16 (the TPU
-// kept f32 max off its kernel because the MXU truncates it).
+// The only searches read ids already in shared memory (the block's first
+// sentinel row; the groups that hold a cut segment).  Every sum is taken
+// in a fixed order without atomics, so two launches agree bit for bit,
+// and max is exact in f32 as well as bf16 (the TPU kept f32 max off its
+// kernel because the MXU truncates it).
 //
 // The gather out[t] = table[seg[t]] (0 where seg >= S) routes rows through
 // a one-hot matmul on the TPU; here it is a copy of whole rows in 16-byte
@@ -220,20 +222,17 @@ template <typename T>
 __device__ __forceinline__ int stage(T* tile, int* sid, const T* xb,
                                      const int* sb, int p0, int n, int P,
                                      int C, int V) {
-  __shared__ int nvalid;
   copy_in(sid, sb + p0, n);
   if (threadIdx.x == 0) sid[-1] = p0 > 0 ? sb[p0 - 1] : -1;
   if (threadIdx.x == kThreads - 1) sid[n] = p0 + n < P ? sb[p0 + n] : -1;
-  if (threadIdx.x == 0) nvalid = n;
   const bool eager = C * sizeof(T) <= 16;
   if (eager) copy_in(tile, xb, (size_t)n * C);
   cp_async_wait();
   __syncthreads();
-  // the first sentinel row, if the block holds one (no search: the one
-  // row whose id reaches V where the row before did not)
-  for (int i = threadIdx.x; i < n; i += kThreads)
-    if (sid[i] >= V && (i == 0 || sid[i - 1] < V)) nvalid = i;
-  __syncthreads();
+  // the first sentinel row: a search of the staged ids in shared memory
+  // (log2 R steps, each thread alone; faster than a pass comparing each
+  // id with the one before and a barrier, probe_segment)
+  const int nvalid = lower_bound_i32(sid, n, V);
   if (!eager) copy_in(tile, xb, (size_t)nvalid * C);
   return nvalid;
 }
