@@ -30,19 +30,8 @@ from .ops import _cuda, segment
 
 OUT = _cuda.BUILD_DIR.parent / "probe_segment"
 SPAN = "  return cudaLaunchKernelEx(&cfg, segment_span_kernel"
-SEARCH = "  const int nvalid = lower_bound_i32(sid, n, V);\n"
-PASS = """  __shared__ int first_sentinel;
-  if (threadIdx.x == 0) first_sentinel = n;
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kThreads)
-    if (sid[i] >= V && (i == 0 || sid[i - 1] < V)) first_sentinel = i;
-  __syncthreads();
-  const int nvalid = first_sentinel;
-"""
 VARIANTS = {
     "as built": [],
-    "first sentinel row by comparing each id with the one before": [
-        (SEARCH, PASS)],
     # the first kernel alone (computes garbage where a block's edge cuts a
     # segment)
     "no second kernel": [(SPAN, "  if (true) return cudaSuccess;\n" + SPAN)],
