@@ -14,11 +14,11 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      and times both, and one PyTorch library call of the same function
      where there is one, with CUDA events (K1 and K2 two launches
      bitwise equal, beside the scene's points-per-pillar histogram; K5
-     forward and backward in
-     bf16 on the tensor cores, in f32 on the CUDA cores; K5's forward
-     two launches bitwise equal); K8 (window attention over projected q,
-     k, v) forward and backward (bf16 on the tensor cores, f32 on the
-     CUDA cores; two launches bitwise equal) and the backward's D
+     forward and backward in bf16 on the tensor cores, in f32 on the
+     CUDA cores; K5's forward two launches bitwise equal); K8 (window
+     attention over projected q, k, v) forward and backward (bf16 on
+     the tensor cores, f32 on the CUDA cores; two launches bitwise
+     equal) and the backward's D
      prologue at all three shapes; the bf16 projections that K6 and K7
      run around K8's kernels (``qkv_project``, ``qkv_project_backward``;
      two launches bitwise equal) at all three shapes; and one

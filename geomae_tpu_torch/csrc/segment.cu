@@ -67,8 +67,10 @@ constexpr float kNegFill = -3.0e38f;  // empty max rows, as on the TPU
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerGroup = 11;     // points of a lane group (odd)
-constexpr int kScanSteps = 4;         // rows a lane scans (rows of <= 4 channels)
-constexpr int kNone = kInt32Max;      // first / last id of a group without points
+// rows a lane scans (rows of at most 4 channels)
+constexpr int kScanSteps = 4;
+// the first and last id of a group (warp) without points
+constexpr int kNone = kInt32Max;
 
 __device__ __forceinline__ float identity(int op) {
   return op == kMax ? -INFINITY : 0.f;
@@ -267,7 +269,8 @@ segment_rows_kernel(const T* __restrict__ x, const int* __restrict__ seg,
                     void* __restrict__ out_, Work w, int P, int C, int V,
                     int op, int L, int G, int nblk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  asm volatile("griddepcontrol.launch_dependents;\n");   // the second kernel may launch
+  // the second kernel may launch now (it waits for this one's results)
+  asm volatile("griddepcontrol.launch_dependents;\n");
   const int b = blockIdx.y, k = blockIdx.x;
   const int R = G * kRowsPerGroup;
   const int p0 = k * R, n = min(R, P - p0);
@@ -292,7 +295,8 @@ segment_rows_kernel(const T* __restrict__ x, const int* __restrict__ seg,
   const int a0 = g * kRowsPerGroup, a1 = min(a0 + kRowsPerGroup, nvalid);
   const bool has_points = in_group && a0 < a1;
 
-  if (!kBroadcast) fill_gaps(static_cast<float*>(out_), w, sid, b, p0, n, P, C, V, op);
+  if (!kBroadcast)
+    fill_gaps(static_cast<float*>(out_), w, sid, b, p0, n, P, C, V, op);
   if (in_group && l == 0) {
     fid[g] = has_points ? sid[a0] : kNone;
     lid[g] = has_points ? sid[a1 - 1] : kNone;
@@ -510,12 +514,14 @@ segment_scan_kernel(const T* __restrict__ x, const int* __restrict__ seg,
   int* sid = reinterpret_cast<int*>(smem_raw + scan_tile_bytes<T, VEC>()) + 4;
   __shared__ float uval[kWarps][2][VEC];                 // warps' partials
   __shared__ int ucnt[kWarps][2], ufirst[kWarps], ulast[kWarps];
-  asm volatile("griddepcontrol.launch_dependents;\n");   // the second kernel may launch
+  // the second kernel may launch now (it waits for this one's results)
+  asm volatile("griddepcontrol.launch_dependents;\n");
   const int b = blockIdx.y, k = blockIdx.x;
   const int p0 = k * R, n = min(R, P - p0);
   const int nvalid = stage(tile, sid, x + ((size_t)b * P + p0) * C,
                            seg + (size_t)b * P, p0, n, P, C, V);
-  if (!kBroadcast) fill_gaps(static_cast<float*>(out_), w, sid, b, p0, n, P, C, V, op);
+  if (!kBroadcast)
+    fill_gaps(static_cast<float*>(out_), w, sid, b, p0, n, P, C, V, op);
   cp_async_wait();
   __syncthreads();
 
@@ -619,7 +625,8 @@ segment_scan_kernel(const T* __restrict__ x, const int* __restrict__ seg,
     for (int ux = ua; ux <= ub; ++ux) {
       const int slot = (ux == ub && (ux > ua || from_prev)) ? 0 : 1;
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) tot[j] = combine(tot[j], uval[ux][slot][j], op);
+      for (int j = 0; j < VEC; ++j)
+        tot[j] = combine(tot[j], uval[ux][slot][j], op);
       cnt += ucnt[ux][slot];
     }
     span[side] = from_prev || to_next;
@@ -691,7 +698,8 @@ segment_scan_kernel(const T* __restrict__ x, const int* __restrict__ seg,
 #pragma unroll
     for (int j = 0; j < VEC; ++j) carry[j] = __shfl_sync(~0u, val[j], 0);
     carry_span = __shfl_sync(~0u, sp, 0);
-    if (kBroadcast && valid && !sp) store_vec<T, VEC>(tile + (size_t)r * C, val);
+    if (kBroadcast && valid && !sp)
+      store_vec<T, VEC>(tile + (size_t)r * C, val);
   }
   __syncthreads();
   if (kBroadcast)
@@ -738,7 +746,7 @@ segment_span_kernel(void* __restrict__ out_, Work w, int P, int C, int V,
                     int op, int R, int nblk) {
   extern __shared__ float rows[];                        // [kWarps][C]
   const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");   // the first kernel's results
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the first's results
   if (!kBroadcast) {
     const int t0 = w.trail[b];
     float* o = static_cast<float*>(out_) + ((size_t)b * V + t0) * C;
@@ -926,13 +934,22 @@ cudaError_t dispatch(const void* x_, const int* seg, void* out, void* work,
                      cudaStream_t stream) {
   const T* x = static_cast<const T*>(x_);
   switch (lane_vec<T>(C)) {
-    case 1: return launch_segment<T, 1, kBroadcast>(x, seg, out, work, B, P, C, V, op, stream);
-    case 2: return launch_segment<T, 2, kBroadcast>(x, seg, out, work, B, P, C, V, op, stream);
-    case 3: return launch_segment<T, 3, kBroadcast>(x, seg, out, work, B, P, C, V, op, stream);
-    case 4: return launch_segment<T, 4, kBroadcast>(x, seg, out, work, B, P, C, V, op, stream);
+    case 1:
+      return launch_segment<T, 1, kBroadcast>(x, seg, out, work, B, P, C, V,
+                                              op, stream);
+    case 2:
+      return launch_segment<T, 2, kBroadcast>(x, seg, out, work, B, P, C, V,
+                                              op, stream);
+    case 3:
+      return launch_segment<T, 3, kBroadcast>(x, seg, out, work, B, P, C, V,
+                                              op, stream);
+    case 4:
+      return launch_segment<T, 4, kBroadcast>(x, seg, out, work, B, P, C, V,
+                                              op, stream);
     case 8:
       if constexpr (sizeof(T) == 2)
-        return launch_segment<T, 8, kBroadcast>(x, seg, out, work, B, P, C, V, op, stream);
+        return launch_segment<T, 8, kBroadcast>(x, seg, out, work, B, P, C,
+                                                V, op, stream);
   }
   return cudaErrorInvalidValue;
 }

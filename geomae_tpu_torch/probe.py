@@ -58,9 +58,10 @@ def card() -> str:
 
 def build_variants(source: str, variants: dict, out: Path) -> dict:
     """{name: loaded library} of ``csrc/<source>`` (with ``segment.cu``,
-    which holds the error strings, where it is another source) built under ``out/<name>`` once per
-    variant, each a list of (old, new) text edits; the builds run in
-    parallel.  Raises when an edit no longer applies or nvcc fails."""
+    which holds the error strings, where it is another source) built
+    under ``out/<name>`` once per variant, each a list of (old, new) text
+    edits; the builds run in parallel.  Raises when an edit no longer
+    applies or nvcc fails."""
     src = (_cuda.CSRC / source).read_text()
     procs = {}
     for name, edits in variants.items():
