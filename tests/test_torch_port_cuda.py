@@ -483,11 +483,11 @@ def test_band_attention_qkv_backward_one_sample(dev):
                                                     dout)
     want = attention_qkv.band_attention_qkv_backward_plain(*args, 8, out,
                                                           dout)
-    dbk = probe_qkv.GRAD_NAMES.index("bk") + 1
-    check_grads(got, want, torch.bfloat16, 1, judged_elsewhere=(dbk,))
+    i_bk = probe_qkv.GRAD_NAMES.index("bk") + 1
+    check_grads(got, want, torch.bfloat16, 1, judged_elsewhere=(i_bk,))
     bound = probe_qkv.dbk_bound(
         attention_qkv.attention_grads_plain(*args, 8, out, dout)[1])
-    for dbk in (got[dbk], want[dbk]):
+    for dbk in (got[i_bk], want[i_bk]):
         assert (dbk.abs() <= bound).all(), float((dbk.abs() / bound).max())
     assert (got[0][args[8] == INT_MAX] == 0).all()
 
