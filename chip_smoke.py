@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port's detection serving path, fine-tune train
-step, GeoMAE pretrain train step and trainer entry point on one CUDA GPU.
+step, GeoMAE pretrain train step, trainer entry point and data-parallel
+training on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -56,7 +57,18 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      with a checkpoint every step, restore that checkpoint into a fresh
      state (bitwise), resume to step 6, fine-tune 4 steps from the
      pretrain checkpoint, and serve 2 frames from the fine-tune
-     checkpoint.
+     checkpoint;
+  I. data parallelism (``geomae_tpu_torch.parallel``) at the full width
+     of ``geomae_pretrain_nus()`` on the ``band`` route: 3 bfloat16
+     steps at batch 4 under a one-rank NCCL group, bitwise equal to the
+     same steps without a group (losses, parameters, BN buffers), with
+     both step times, the gradient all-reduce's bytes and the
+     all-reduces a step; two gloo ranks, each a process on the one card
+     (NCCL refuses two ranks on one device), one float32 step at batch
+     1 a rank against one process on the batch of 2 (phase G's rules,
+     tightened: ``DP_TOL``); and ``python -m torch.distributed.run
+     --nproc_per_node 1 -m geomae_tpu_torch.train pretrain`` to step 3,
+     then resumed to 5.
 
 ``auto`` resolves to the ``band`` route at full width.  Phases B, D and F
 run first on the ``qkv`` route (K6 and K7, asked for by name), then a
@@ -64,7 +76,7 @@ second, shorter time on the ``band`` route, so that the two routes' frame
 and step times come from one run and the same batches.  Any failed check
 exits non-zero.  The line before the last is a JSON
 summary of the kernels: ``launches`` sums the served frames and train steps of
-B, D, F (both routes) and H; ``ms``, ``plain_ms``, ``library_ms`` and
+B, D, F (both routes), H and I's one-rank NCCL steps; ``ms``, ``plain_ms``, ``library_ms`` and
 ``bound_ms`` are the times of one call of each distinct call the paths
 make of the kernel in its dtype, summed (``segment_broadcast``: f32 mean
 + bf16 max forward at both shapes + f32 sum backward; the SST kernels at
@@ -383,6 +395,15 @@ STEP_TOL = {
 # where an f32 ulp of a weight of 0.25 is 3e-3 lr, so each side's own
 # rounding of the updated weight (two ulps) adds to the update bound.
 PRETRAIN_STEP_TOL = dict(STEP_TOL, grad=1e-3, ulps=2)
+# phase I, two gloo ranks against one process, one float32 pretrain step
+# on the card: the same kernels on rows split over two ranks, so sums in
+# another order, the BN moments and the gradients summed over the ranks.
+# Measured (H100 80GB HBM3, 700 W): losses 1.4e-6 relative, gradients 1.5e-4
+# relative norm (the VFE's first layer), updates 2.7e-7 lr with no sign
+# flip, so the gradient and update bounds are phase G's tightened to
+# about 3x and 40x what the card shows
+DP_TOL = dict(PRETRAIN_STEP_TOL, grad=5e-4, update=(1e-5, 0.1, 2.001),
+              stats=(1e-5, 2e-4))
 CENTROID_TOL_M = 2e-5
 NORMAL_TOL = 1e-4
 
@@ -1499,9 +1520,11 @@ def phase_h(pcfg, cfg, failures: list) -> dict:
         # a 4-step cyclic schedule peaks at 10 x lr within two steps, and
         # AdamW moves every weight by about lr a step whatever its
         # gradient: at the config's 1e-4 the detector, served in eval mode
-        # on BN statistics that four steps barely moved, gave non-finite
-        # boxes; 1e-6 keeps the served model sane and still moves every
-        # parameter
+        # on BN statistics that four steps barely moved, gives non-finite
+        # boxes, sizes decoded by exp with no clamp.  The JAX package does
+        # the same from the same weights (R5 in ROADMAP.md,
+        # tests/test_torch_port_f2.py); 1e-6 keeps the served model sane
+        # and still moves every parameter
         tr3 = run("fine-tune", ["finetune", "--work-dir", ft, "--total-steps",
                                 "4", "--load-from", ckpt, *common,
                                 "optim.lr=1e-6"], PER_STEP, 4)
@@ -1607,6 +1630,221 @@ def replace_total(cfg, total_steps: int):
     return replace(cfg, optim=replace(cfg.optim, total_steps=total_steps))
 
 
+DP_STEPS = 3          # phase I's one-rank NCCL steps, each way
+CLI_EXTRA: list = []  # more CLI arguments for phase I's torchrun runs
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_step(cfg, group, device):
+    """One float32 pretrain step of ``cfg`` on a seeded batch of 2 (the
+    rank's row with a group) and a seeded mask generator on ``device``:
+    (losses, gradients, state before, state after, lr) as
+    ``compare_step`` takes them; the gradients are the ones applied
+    (summed over the ranks, after the clip)."""
+    from geomae_tpu_torch.config import replace
+    from geomae_tpu_torch.parallel.mesh import shard_batch
+    from geomae_tpu_torch.train.pretrain import (init_state, make_train_step,
+                                                 synthetic_batch)
+
+    cfg32 = replace(cfg, compute_dtype="float32")
+    batch = synthetic_batch(cfg32, 2, seed=SEED + 95, device=device)
+    if group is not None:
+        batch = shard_batch(batch, group.rank, group.world)
+    state = init_state(cfg32, device, torch.Generator().manual_seed(SEED))
+    old = {k: v.detach().cpu().clone()
+           for k, v in state.model.state_dict().items()}
+    gen = torch.Generator(device=device).manual_seed(SEED + 95)
+    _, losses = make_train_step(cfg32, group)(state, batch, gen)
+    grads = {k: p.grad.detach().cpu().clone()
+             for k, p in state.model.named_parameters()}
+    new = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    return ({k: float(v) for k, v in losses.items()}, grads, old, new,
+            state.tx.lr(0))
+
+
+def gloo_rank(rank: int, port: int, work: str) -> None:
+    """Phase I's rank ``rank`` of 2: a gloo group over tcp on ``port``,
+    its replica on the one card (NCCL refuses two ranks on one device;
+    gloo all-reduces CUDA tensors), ``dp_step`` of the config and device
+    pickled in ``work``, the result saved there."""
+    import os
+    import pickle
+
+    import torch.distributed as dist
+    from geomae_tpu_torch.parallel.mesh import Group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(work, "cfg.pkl"), "rb") as f:
+        cfg, device = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        out = dp_step(cfg, Group(rank=rank, world=2,
+                                 device=torch.device(device)), device)
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_i(pcfg, failures: list) -> dict:
+    """Data parallelism on the card; returns the launches of the one-rank
+    NCCL steps."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from geomae_tpu_torch.config import apply_overrides
+    from geomae_tpu_torch.parallel.mesh import init_distributed
+    from geomae_tpu_torch.profile_serving import host_ms
+    from geomae_tpu_torch.train.pretrain import (init_state, make_train_step,
+                                                 synthetic_batch)
+
+    cfg = apply_overrides(pcfg, [BAND_OPTION])
+    bz = cfg.data.batch_size
+    print(f"phase I: data parallelism, pretrain, full width, band route: "
+          f"{DP_STEPS} {cfg.compute_dtype} steps at batch {bz} under a "
+          "one-rank NCCL group against the same steps without a group; "
+          "two gloo ranks on the card against one process, one float32 "
+          "step at batch 2; torchrun --nproc_per_node 1 through the CLI, "
+          "3 steps, resumed to 5")
+    batches = [synthetic_batch(cfg, bz, seed=SEED + 90 + i, device=DEVICE)
+               for i in range(DP_STEPS)]
+
+    def steps(group):
+        state = init_state(cfg, DEVICE, torch.Generator().manual_seed(SEED))
+        step = make_train_step(cfg, group)
+        losses, times = [], []
+        for i, b in enumerate(batches):
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 90 + i)
+            (_, l), ms = host_ms(lambda: step(state, b, gen))
+            losses.append(torch.stack(list(l.values())).cpu())
+            times.append(ms)
+        sd = {k: v.detach().clone() for k, v in
+              state.model.state_dict().items()}
+        return torch.stack(losses), sd, times, state.model
+
+    alone = steps(None)
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(env)
+    group = init_distributed(DEVICE)
+    reduce, calls = dist.all_reduce, []
+
+    def counted(t, *a, **k):
+        calls.append((t.numel(), str(t.dtype).split(".")[-1]))
+        return reduce(t, *a, **k)
+
+    dist.all_reduce = counted
+    try:
+        fns = reset_counts()
+        grouped = steps(group)
+        torch.cuda.synchronize()
+        launches = check_launches(fns, on_route(per_pretrain_step(cfg), cfg),
+                                  DP_STEPS, "one-rank NCCL pretrain steps",
+                                  failures)
+    finally:
+        dist.all_reduce = reduce
+        dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k)
+    differ = [k for k in alone[1] if not torch.equal(alone[1][k],
+                                                     grouped[1][k])]
+    same = torch.equal(alone[0], grouped[0])
+    print(f"  one-rank NCCL group against no group: losses "
+          f"{'bitwise equal' if same else 'DIFFER'}, "
+          f"{len(alone[1]) - len(differ)} of {len(alone[1])} state tensors "
+          "(parameters and BN buffers) bitwise equal")
+    if not same or differ:
+        failures.append(f"one-rank group differs: losses equal {same}, "
+                        f"state {differ[:5]}")
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in grouped[3].parameters())
+    hist: dict = {}
+    for c in calls:
+        hist[c] = hist.get(c, 0) + 1 / DP_STEPS
+    print(f"  step ms median {float(np.median(alone[2][1:]))} without a "
+          f"group, {float(np.median(grouped[2][1:]))} with (steps {alone[2]}"
+          f", {grouped[2]}); gradient all-reduce {grad_bytes} bytes; "
+          f"{len(calls) / DP_STEPS:g} all-reduces a step, by (elements, "
+          f"dtype): {hist}")
+
+    work = tempfile.mkdtemp(prefix="geomae_dp_")
+    try:
+        with open(os.path.join(work, "cfg.pkl"), "wb") as f:
+            pickle.dump((cfg, DEVICE), f)
+        port = free_port()
+        here = os.path.dirname(os.path.abspath(__file__))
+        penv = dict(os.environ, PYTHONPATH=here)
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as s; "
+             f"s.gloo_rank({r}, {port}, {work!r})"], cwd=here, env=penv,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode:
+                failures.append(f"gloo rank {r} exited {p.returncode}")
+                print(f"  gloo rank {r}: {out[-3000:]}")
+        if not any(p.returncode for p in procs):
+            ranks = [torch.load(os.path.join(work, f"rank{r}.pt"))
+                     for r in range(2)]
+            print(f"  two gloo ranks on {DEVICE}: "
+                  f"{time.perf_counter() - t:.1f} s")
+            rank_differ = [k for k in ranks[0][3]
+                           if not torch.equal(ranks[0][3][k], ranks[1][3][k])]
+            if rank_differ or ranks[0][0] != ranks[1][0]:
+                failures.append(f"the ranks' states differ: "
+                                f"{rank_differ[:5]}")
+            one = dp_step(cfg, None, DEVICE)
+            print(f"  losses, two ranks: {ranks[0][0]}; one process: "
+                  f"{one[0]}")
+            compare_step(ranks[0], one, DP_TOL, failures)
+        cli = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "geomae_tpu_torch.train",
+               "pretrain", "--synthetic", "--device", DEVICE, "--work-dir",
+               os.path.join(work, "cli"), "--ckpt-interval", "1",
+               "--log-interval", "1", "--seed", str(SEED), *CLI_EXTRA,
+               "--cfg-options", BAND_OPTION, "--total-steps"]
+        for total in (3, 5):
+            t = time.perf_counter()
+            res = subprocess.run(cli + [str(total)], cwd=here, env=penv,
+                                 capture_output=True, text=True, timeout=600)
+            print(f"  torchrun to step {total}: exit {res.returncode}, "
+                  f"{time.perf_counter() - t:.1f} s")
+            if res.returncode:
+                print(res.stdout[-2000:] + res.stderr[-3000:])
+                failures.append(f"torchrun to step {total} exited "
+                                f"{res.returncode}")
+                return launches
+        with open(os.path.join(work, "cli", "train.log")) as f:
+            log = f.read()
+        with open(os.path.join(work, "cli", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        kept = sorted(os.listdir(os.path.join(work, "cli", "ckpt")))
+        said = ("process group: rank 0 of 1" in log,
+                "resumed from step 3" in log)
+        print(f"  the CLI under torchrun: group and resume logged {said}, "
+              f"metric rows at steps {[r['step'] for r in rows]}, "
+              f"checkpoints {kept}")
+        if not all(said) or [r["step"] for r in rows] != [1, 2, 3, 4, 5] \
+                or kept != ["3.pt", "4.pt", "5.pt"] or not all(
+                    np.isfinite(r["loss"]) for r in rows):
+            failures.append("the CLI under torchrun")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     from geomae_tpu_torch.apis import geomae_finetune_nus
     from geomae_tpu_torch.config import apply_overrides, geomae_pretrain_nus
@@ -1657,6 +1895,9 @@ def main() -> None:
     runs.append(phase_h(pcfg, cfg, failures))
     if failures:
         raise Failed(f"phase H: {failures}")
+    runs.append(phase_i(pcfg, failures))
+    if failures:
+        raise Failed(f"phase I: {failures}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rows = results[name]

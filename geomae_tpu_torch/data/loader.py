@@ -4,7 +4,10 @@ Port of ``geomae_tpu/data/loader.py:PrefetchLoader``: worker threads build
 padded numpy batches ahead of the train loop, so host IO and augmentation
 overlap device compute (numpy releases the interpreter lock in its array
 work).  The trainer pins each batch and copies it to the card ahead of
-the step (``train/trainer.py``).
+the step (``train/trainer.py``).  In a data-parallel run each rank's
+loader builds only its rows of every global batch, each sample with the
+seed of its global position, so the ranks' rows stacked in rank order
+are the batch one process would build.
 """
 from __future__ import annotations
 
@@ -24,11 +27,16 @@ class PrefetchLoader:
       batch_size: global batch (stack along axis 0).
       num_workers: worker threads; 0 = synchronous.
       seed: shuffling + per-sample augmentation seed.
+      rank, world: this loader yields rows ``[rank * b, (rank + 1) * b)``
+        of each global batch, ``b = batch_size // world``.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 2, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 4):
+                 prefetch: int = 4, rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"a global batch of {batch_size} does not "
+                             f"divide over {world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -36,6 +44,8 @@ class PrefetchLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.rows = batch_size // world
+        self.first = rank * self.rows
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -51,8 +61,12 @@ class PrefetchLoader:
         return idx
 
     def _build_batch(self, indices, base_seed) -> dict:
-        samples = [self.dataset.__getitem__(int(i), seed=int(base_seed + j))
-                   for j, i in enumerate(indices)]
+        """This rank's rows of the global batch ``indices``: sample j of
+        the global batch takes the seed ``base_seed + j``."""
+        mine = range(self.first, self.first + self.rows)
+        samples = [self.dataset.__getitem__(int(indices[j]),
+                                            seed=int(base_seed + j))
+                   for j in mine]
         return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
     def __iter__(self) -> Iterator[dict]:

@@ -35,7 +35,7 @@ into the canonical ``slot_sort`` order of the targets.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,6 +48,8 @@ from ..ops.scatter import gather_injective, gather_rows_batched
 from ..ops.targets import expand_rows, slot_outer_segment_sum
 from ..ops.voxelize import Scene, VoxelTable
 from ..ops.windows import INT32_MAX, make_layouts
+from ..parallel.distributed import all_reduce_sum
+from ..parallel.mesh import Group
 from .sst import SSTStack, prepare_shift_data
 from .vfe import DynamicScatterVFE, Linear
 
@@ -234,13 +236,18 @@ def compute_targets_batch(scene: Scene, cfg: PretrainConfig) -> GeoMAETargets:
 
 @torch.no_grad()
 def sample_mask(generator: torch.Generator, valid: torch.Tensor,
-                mask_ratio: float) -> torch.Tensor:
+                mask_ratio: float,
+                group: Optional[Group] = None) -> torch.Tensor:
     """Random keep mask [B, V] bool, a subset of ``valid``: per sample keep
     ``floor(n_valid * (1 - mask_ratio))`` rows, those whose uniform draw
     from ``generator`` (on valid's device) lies below that order
-    statistic (``get_vanilla_mask_index`` of the reference)."""
+    statistic (``get_vanilla_mask_index`` of the reference).  With a
+    group, ``valid`` holds the rank's B rows of a global batch, and the
+    draw is rows ``[rank * B, (rank + 1) * B)`` of the whole batch's."""
     B, V = valid.shape
-    r = torch.rand((B, V), generator=generator, device=valid.device)
+    rank, world = (0, 1) if group is None else (group.rank, group.world)
+    r = torch.rand((world * B, V), generator=generator,
+                   device=valid.device)[rank * B:(rank + 1) * B]
     r = torch.where(valid, r, float("inf"))
     len_keep = torch.floor(valid.sum(1).float() * (1.0 - mask_ratio)).long()
     thr = torch.sort(r, 1).values.gather(1, len_keep.clamp(max=V - 1)[:, None])
@@ -380,32 +387,37 @@ def _bce_with_logits(logits: torch.Tensor, target) -> torch.Tensor:
 
 
 def pretrain_loss(preds: Dict[str, torch.Tensor], targets: GeoMAETargets,
-                  scene: Scene, keep: torch.Tensor,
-                  cfg: PretrainConfig) -> Dict[str, torch.Tensor]:
+                  scene: Scene, keep: torch.Tensor, cfg: PretrainConfig,
+                  group: Optional[Group] = None) -> Dict[str, torch.Tensor]:
     """The masked multi-term loss in f32 (``forward_loss`` of the
     reference): centroid MSE per occupied sub-voxel of the masked pillars
     at low / med / top (weights 10 / 8 / 10), the normal MSE on masked
     pillars (weight 4, logged as ``loss_curv_around`` like the
     reference), occupancy BCE over 2 logits at low / med (5 / 2), and
-    their sum ``loss``."""
+    their sum ``loss``.  With a group each term divides this rank's sum
+    by the whole batch's count (one all-reduce, no gradient), so the
+    terms summed over the ranks are the whole batch's."""
     m = cfg.mae
     mask_rows = scene.table.valid & ~keep
+    sel_low = targets.low_occ & mask_rows[..., None]
+    sel_med = targets.med_occ & mask_rows[..., None]
+    n_low, n_med, n_rows = all_reduce_sum(torch.stack(
+        [sel_low.sum(), sel_med.sum(), mask_rows.sum()]), group).unbind()
 
-    def sub_reg(pred, occ, tgt):
+    def sub_reg(pred, sel, tgt, n):
         err = (pred.float() - tgt).square().mean(-1)
-        sel = occ & mask_rows[..., None]
-        return torch.where(sel, err, 0.0).sum() / sel.sum().clamp_min(1)
+        return torch.where(sel, err, 0.0).sum() / n.clamp_min(1)
 
     def dense_reg(pred, tgt):
         err = (pred.float() - tgt.float()).square().mean(-1)
         return (torch.where(mask_rows, err, 0.0).sum()
-                / mask_rows.sum().clamp_min(1))
+                / n_rows.clamp_min(1))
 
     losses = dict(
-        loss_centroid_low=sub_reg(preds["reg_low"], targets.low_occ,
-                                  targets.low_tgt) * m.loss_ratio_low,
-        loss_centroid_med=sub_reg(preds["reg_med"], targets.med_occ,
-                                  targets.med_tgt) * m.loss_ratio_med,
+        loss_centroid_low=sub_reg(preds["reg_low"], sel_low,
+                                  targets.low_tgt, n_low) * m.loss_ratio_low,
+        loss_centroid_med=sub_reg(preds["reg_med"], sel_med,
+                                  targets.med_tgt, n_med) * m.loss_ratio_med,
         loss_centroid_top=dense_reg(preds["reg_top"], targets.centroid_top)
         * m.loss_ratio_top,
         loss_curv_around=dense_reg(preds["nor_top"], targets.normal)
@@ -417,7 +429,7 @@ def pretrain_loss(preds: Dict[str, torch.Tensor], targets: GeoMAETargets,
             bce = _bce_with_logits(lg[..., 0], 1.0 - t) \
                 + _bce_with_logits(lg[..., 1], t)
             num = torch.where(mask_rows[..., None], bce, 0.0).sum()
-            return num / (mask_rows.sum() * occ.shape[-1] * 2).clamp_min(1)
+            return num / (n_rows * occ.shape[-1] * 2).clamp_min(1)
 
         losses["loss_cls_low"] = cls(preds["cls_low"],
                                      targets.low_occ) * m.cls_loss_ratio_low

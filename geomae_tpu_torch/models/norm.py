@@ -12,9 +12,14 @@ through like the JAX function; the running mean and var move by the
 momentum (0.01) toward the batch mean and the unbiased batch var
 ``var * cnt / max(cnt - 1, 1)``, and ``num_batches_tracked`` counts the
 updates.  Either way the normalize is one affine ``x * a + b`` in x's
-dtype, with a and b computed in f32.  The cross-replica reduction of the
-JAX package (a global mean under ``jit`` over a mesh) is not ported: one
-process sees its whole batch.
+dtype, with a and b computed in f32.  Inside
+``parallel.distributed.synced_batch_norms(group)`` the masked count, sum
+and sum of squares are summed over the group's ranks in one
+differentiable all-reduce before the moments, so every rank normalizes
+with the whole batch's moments, its gradient flows through them, and
+the running statistics stay bitwise equal across ranks: the JAX
+package's global mean under ``jit`` over a mesh.  A rank whose mask is
+all false still takes part.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.ffn import fast_layer_norm
+from ..parallel.distributed import all_reduce_sum, batch_norm_group
 
 
 def _normalize(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
@@ -37,10 +43,15 @@ def _normalize(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
             xm = xf
         else:
             m = mask.reshape(-1, 1).to(torch.float32)
-            cnt = m.sum().clamp_min(1.0)
+            cnt = m.sum()
             xm = xf * m
-        mean = xm.sum(0) / cnt
-        var = torch.clamp((xm * xf).sum(0) / cnt - mean * mean, min=0.0)
+        C = xf.shape[-1]
+        sums = all_reduce_sum(torch.cat([cnt.reshape(1), xm.sum(0),
+                                         (xm * xf).sum(0)]),
+                              batch_norm_group())
+        cnt = sums[0].clamp_min(1.0)
+        mean = sums[1:C + 1] / cnt
+        var = torch.clamp(sums[C + 1:] / cnt - mean * mean, min=0.0)
         with torch.no_grad():
             unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
             bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)

@@ -14,7 +14,16 @@
     python -m geomae_tpu_torch.train pretrain --synthetic \\
         --cfg-options sst.attention_impl=band --total-steps 20
 
-Runs on ``--device cuda`` unless told otherwise.  The nuScenes and Waymo
+    # data parallel over 8 GPUs of one host (global batch 32)
+    torchrun --nproc_per_node 8 -m geomae_tpu_torch.train pretrain \\
+        --synthetic --total-steps 20
+
+Runs on ``--device cuda`` unless told otherwise.  Under ``torchrun``
+(``RANK`` / ``WORLD_SIZE`` set) each process joins a process group (NCCL
+on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and trains its rows
+of every global batch; ``--batch-size`` is the global batch, by default
+the config's per-device batch times the number of ranks, and must divide
+by it.  The nuScenes and Waymo
 datasets, the Waymo preset and the CenterHead preset are not ported yet
 and raise ``NotImplementedError`` (``ROADMAP.md`` has the queue).
 """
@@ -26,10 +35,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import config as C
 from ..data.loader import PrefetchLoader
 from ..data.synthetic import SyntheticDet, SyntheticSSL
+from ..parallel.mesh import Group, init_distributed, shard_batch
 from ..utils.logging import get_root_logger
 from .trainer import Trainer
 
@@ -45,7 +56,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--data-root", default=None,
                    help="a dataset on disk (not ported yet: raises)")
     p.add_argument("--batch-size", type=int, default=None,
-                   help="batch (default: the config's, 4)")
+                   help="global batch (default: the config's, 4, per "
+                        "rank)")
     p.add_argument("--total-steps", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--load-from", default=None,
@@ -79,8 +91,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     """Parse ``argv`` (default: the command line), train, and return the
-    finished ``Trainer``."""
+    finished ``Trainer``; under ``torchrun`` every rank calls it."""
     args = parse_args(argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
     if args.preset != "nus":
         raise NotImplementedError(
             f"--preset {args.preset}: the Waymo dataset and the CenterHead "
@@ -90,7 +104,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
             "the nuScenes and Waymo datasets are not ported yet "
             "(ROADMAP.md, section 1): pass --synthetic")
     # the run's log from the start, so that the weight import lands in it
-    get_root_logger(os.path.join(args.work_dir, "train.log"))
+    get_root_logger(os.path.join(args.work_dir, "train.log"), rank=rank)
     pretrain = args.task == "pretrain"
     if pretrain:
         cfg = C.tiny_pretrain_config() if args.tiny \
@@ -101,7 +115,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     if args.cfg_options:
         cfg = C.apply_overrides(cfg, args.cfg_options)
 
-    batch = args.batch_size or cfg.data.batch_size
+    batch = args.batch_size or cfg.data.batch_size * world
+    if batch % world:
+        raise ValueError(f"--batch-size {batch} (the global batch) does not "
+                         f"divide over {world} ranks")
     ds = (SyntheticSSL if pretrain else SyntheticDet)(cfg)
     steps_per_epoch = max(len(ds) // batch, 1)
     if args.total_steps:
@@ -110,35 +127,51 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         total = steps_per_epoch * (args.epochs or (72 if pretrain else 20))
     cfg = C.replace(cfg, optim=C.replace(cfg.optim, total_steps=total))
 
+    group = init_distributed(args.device) if "WORLD_SIZE" in os.environ \
+        else None
+    try:
+        return _train(args, cfg, pretrain, ds, batch, total, group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, pretrain: bool, ds, batch: int, total: int,
+           group: Optional[Group]) -> Trainer:
+    device = args.device if group is None else group.device
+    rank, world = (0, 1) if group is None else (group.rank, group.world)
+    if group is not None:
+        get_root_logger().info("process group: rank %d of %d, replica on %s",
+                               rank, world, device)
     loader = PrefetchLoader(ds, batch, num_workers=args.num_workers,
-                            seed=args.seed)
+                            seed=args.seed, rank=rank, world=world)
     gen = torch.Generator().manual_seed(args.seed)
     eval_fn = eval_loader = None
     if pretrain:
         from .pretrain import init_state, make_eval_hook, make_train_step
-        state = init_state(cfg, args.device, gen)
+        state = init_state(cfg, device, gen)
         if args.eval_interval:
             eval_fn = make_eval_hook(cfg)
             n_eval = max(args.eval_frames // batch, 1)
-            eval_loader = [
+            eval_loader = [shard_batch(
                 {k: np.stack([ds.__getitem__((j * batch + i) % len(ds),
                                              seed=10**6)[k]
                               for i in range(batch)])
-                 for k in ("points", "point_valid")}
+                 for k in ("points", "point_valid")}, rank, world)
                 for j in range(n_eval)]
     else:
         from .checkpoint import load_weights
         from .finetune import init_state, make_train_step
-        pre = load_weights(args.load_from, args.device) \
+        pre = load_weights(args.load_from, device) \
             if args.load_from else None
-        state = init_state(cfg, args.device, gen, pretrain=pre)
-    trainer = Trainer(make_train_step(cfg), state, loader, args.work_dir,
-                      total, with_rng=pretrain, seed=args.seed,
+        state = init_state(cfg, device, gen, pretrain=pre)
+    trainer = Trainer(make_train_step(cfg, group), state, loader,
+                      args.work_dir, total, with_rng=pretrain, seed=args.seed,
                       log_interval=args.log_interval,
                       ckpt_interval=args.ckpt_interval,
                       resume=not args.no_resume, eval_fn=eval_fn,
                       eval_loader=eval_loader,
-                      eval_interval=args.eval_interval)
+                      eval_interval=args.eval_interval, group=group)
     trainer.run()
     return trainer
 

@@ -8,7 +8,9 @@ A full-state checkpoint is one file ``<directory>/<step>.pt`` holding
 file holds ``{"state_dict": ...}`` or a bare ``state_dict``.  Files are
 written under a temporary name and renamed, so an interrupted save leaves
 no half-written checkpoint, and they are read with ``weights_only=True``
-(tensors, numbers, lists and dicts only).
+(tensors, numbers, lists and dicts only).  In a data-parallel run rank
+0 alone writes, and every rank waits at a barrier after each save; every
+rank restores from the file onto its own device.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..parallel.distributed import barrier
+from ..parallel.mesh import Group
 from .state import TrainState
 
 
@@ -33,14 +37,17 @@ def _steps(directory: str) -> List[int]:
 
 class CheckpointManager:
     """Saves a ``TrainState`` every ``save_interval_steps`` steps into
-    ``directory`` and keeps the newest ``max_to_keep``."""
+    ``directory`` and keeps the newest ``max_to_keep``; with ``group``,
+    rank 0 writes and the ranks meet at a barrier after each save."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 save_interval_steps: int = 1000):
+                 save_interval_steps: int = 1000,
+                 group: Optional[Group] = None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
+        self.group = group
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
@@ -54,17 +61,22 @@ class CheckpointManager:
 
     def save(self, state: TrainState, force: bool = False) -> bool:
         """Write ``state`` if its step is a multiple of the interval (or
-        ``force``) and not saved already; True when a file was written."""
+        ``force``) and not saved already; True when a file was written.
+        Every rank decides alike from the step alone, so that all of them
+        reach the barrier."""
         step = int(state.step)
-        if step in self.all_steps():
-            return False
         if not force and step % self.save_interval_steps:
             return False
-        _write({"step": step, "model": state.model.state_dict(),
-                "optim": state.tx.state_dict()}, self.path(step))
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
-        return True
+        wrote = False
+        if (self.group is None or self.group.rank == 0) \
+                and step not in self.all_steps():
+            _write({"step": step, "model": state.model.state_dict(),
+                    "optim": state.tx.state_dict()}, self.path(step))
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+            wrote = True
+        barrier(self.group)
+        return wrote
 
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> TrainState:

@@ -9,7 +9,11 @@ Port of ``geomae_tpu/train/finetune.py`` (``init_state``,
 ``apply_gradients``.  On a CUDA device the SST layers run K6/K7 and
 K5 with its backward, and the VFE the segment kernels with their
 gradients; the BN running statistics update in the forward, as the
-JAX step's ``mutable=["batch_stats"]`` does.
+JAX step's ``mutable=["batch_stats"]`` does.  A step made with a
+``group`` (``parallel/mesh.py``) computes on the rank's rows what one
+process computes on the whole batch, as the pretrain step does
+(``train/pretrain.py``): global BN moments and positive count, the
+gradients summed over the ranks, the whole batch's losses.
 """
 from __future__ import annotations
 
@@ -24,6 +28,9 @@ from ..data.transforms import pad_boxes, pad_points
 from ..models.anchor_head import Detections, head_loss, predict
 from ..models.anchors import grid_anchors, head_featmap_size
 from ..models.detector import DynamicVoxelNet, extract_scene, init_weights
+from ..parallel.distributed import (all_reduce_grads, sum_losses,
+                                    synced_batch_norms)
+from ..parallel.mesh import Group
 from ..synthetic import clustered_scene
 from ..utils.logging import get_root_logger
 from .optim import AdamW
@@ -72,12 +79,13 @@ def load_pretrained(model: torch.nn.Module,
     return names
 
 
-def make_train_step(cfg: FinetuneConfig):
+def make_train_step(cfg: FinetuneConfig, group: Optional[Group] = None):
     """``train_step(state, batch) -> (state, losses)``: one update in
     place; ``losses`` holds loss_cls, loss_bbox, loss_dir and their sum
     ``loss``, detached f32 scalars on the batch's device.  ``batch``:
     points [B, P, 5], point_valid [B, P], gt_boxes [B, G, 9], gt_labels
-    [B, G], gt_mask [B, G] tensors on one device."""
+    [B, G], gt_mask [B, G] tensors on one device; with ``group``, the
+    rank's rows of the global batch."""
     anchors_np = grid_anchors(cfg.head, head_featmap_size(cfg))
     anchors: Dict[torch.device, torch.Tensor] = {}
 
@@ -86,9 +94,11 @@ def make_train_step(cfg: FinetuneConfig):
         if dev not in anchors:
             anchors[dev] = torch.from_numpy(anchors_np).to(dev)
         scene = extract_scene(cfg, batch["points"], batch["point_valid"])
-        out = model(scene)
+        with synced_batch_norms(group):
+            out = model(scene)
         losses = head_loss(out, anchors[dev], batch["gt_boxes"],
-                           batch["gt_labels"], batch["gt_mask"], cfg.head)
+                           batch["gt_labels"], batch["gt_mask"], cfg.head,
+                           group)
         losses["loss"] = sum(losses.values())
         return losses
 
@@ -98,9 +108,10 @@ def make_train_step(cfg: FinetuneConfig):
             p.grad = None
         losses = loss_fn(state.model, batch)
         losses["loss"].backward()
+        all_reduce_grads(state.model, group)
         state.tx.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, sum_losses(losses, group)
 
     train_step.loss_fn = loss_fn
     return train_step

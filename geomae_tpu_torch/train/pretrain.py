@@ -10,6 +10,13 @@ On a CUDA device the targets run K3 and K4, the VFE the segment kernels,
 and the encoder's and both decoder branches' SST layers K6 / K5 with
 their backward K7 / K5-backward.
 
+Data parallelism: a step made with a ``group`` (``parallel/mesh.py``)
+runs on the rank's rows of the global batch, draws the rank's rows of
+the whole batch's mask, takes the batch norms' moments and the loss
+denominators over the whole batch, sums the gradients over the ranks
+before the clip and AdamW, and reports the whole batch's losses, so N
+ranks compute the step one process computes on the whole batch.
+
 The mask is drawn from a ``torch.Generator`` on the batch's device; a
 caller that needs the same mask on two devices (a CUDA generator and a
 CPU one draw different numbers) passes ``keep`` instead.
@@ -28,6 +35,9 @@ from ..models.detector import init_weights
 from ..models.mae import (GeoMAE, GeoMAETargets, compute_targets_batch,
                           pretrain_loss, sample_mask)
 from ..ops.voxelize import Scene, build_scene_batch
+from ..parallel.distributed import (all_reduce_grads, sum_losses,
+                                    synced_batch_norms)
+from ..parallel.mesh import Group
 from ..synthetic import clustered_frame
 from .optim import AdamW
 from .state import TrainState
@@ -40,27 +50,34 @@ def build_model(cfg: PretrainConfig, device=None) -> GeoMAE:
 @torch.no_grad()
 def targets_and_mask(cfg: PretrainConfig, batch: Dict,
                      generator: Optional[torch.Generator] = None,
-                     keep: Optional[torch.Tensor] = None
+                     keep: Optional[torch.Tensor] = None,
+                     group: Optional[Group] = None
                      ) -> Tuple[Scene, GeoMAETargets, torch.Tensor]:
     """(scene, targets, keep) of ``batch`` (points [B, P, 5], point_valid
     [B, P]): the sorted scene, its geometric targets, and ``keep`` or a
-    mask drawn from ``generator``."""
+    mask drawn from ``generator`` (with a group: the rank's rows of the
+    whole batch's draw)."""
     scene = build_scene_batch(batch["points"], batch["point_valid"],
                               cfg.voxel, cfg.caps.max_voxels)
     targets = compute_targets_batch(scene, cfg)
     if keep is None:
         keep = sample_mask(generator, scene.table.valid,
-                           cfg.mae.random_mask_ratio)
+                           cfg.mae.random_mask_ratio, group)
     return scene, targets, keep
 
 
 def forward(cfg: PretrainConfig, model: GeoMAE, batch: Dict,
             generator: Optional[torch.Generator] = None,
-            keep: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+            keep: Optional[torch.Tensor] = None,
+            group: Optional[Group] = None) -> Dict[str, torch.Tensor]:
     """Voxelize -> targets -> mask -> model -> loss; the loss dict (f32
-    scalars).  The BN statistics update in the model when it trains."""
-    scene, targets, keep = targets_and_mask(cfg, batch, generator, keep)
-    return pretrain_loss(model(scene, keep), targets, scene, keep, cfg)
+    scalars; with a group, the rank's terms of the whole batch's loss).
+    The BN statistics update in the model when it trains."""
+    scene, targets, keep = targets_and_mask(cfg, batch, generator, keep,
+                                            group)
+    with synced_batch_norms(group):
+        preds = model(scene, keep)
+    return pretrain_loss(preds, targets, scene, keep, cfg, group)
 
 
 @torch.no_grad()
@@ -88,15 +105,16 @@ def init_state(cfg: PretrainConfig, device: torch.device | str = "cuda",
     return TrainState(step=0, model=model, tx=AdamW(model, cfg.optim))
 
 
-def make_train_step(cfg: PretrainConfig):
+def make_train_step(cfg: PretrainConfig, group: Optional[Group] = None):
     """``train_step(state, batch, generator, keep=None) -> (state,
     losses)``: one update in place.  ``losses`` holds the six terms and
     their sum ``loss``, detached f32 scalars on the batch's device;
     ``generator`` (on the batch's device) draws the mask unless ``keep``
-    [B, V] is given."""
+    [B, V] is given.  With ``group``, ``batch`` and ``keep`` are the
+    rank's rows and every rank passes a generator in the same state."""
 
     def loss_fn(model: GeoMAE, batch, generator=None, keep=None):
-        return forward(cfg, model, batch, generator, keep)
+        return forward(cfg, model, batch, generator, keep, group)
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None,
@@ -106,9 +124,10 @@ def make_train_step(cfg: PretrainConfig):
             p.grad = None
         losses = loss_fn(state.model, batch, generator, keep)
         losses["loss"].backward()
+        all_reduce_grads(state.model, group)
         state.tx.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, sum_losses(losses, group)
 
     train_step.loss_fn = loss_fn
     return train_step

@@ -1,14 +1,21 @@
 """Training loop: the port's counterpart of ``geomae_tpu/train/trainer.py``.
 
-One process, one device: the step function updates the state in place;
-a host-side prefetch loader feeds it; the state is checkpointed every N
-steps and a relaunch on the same work dir resumes from the latest
-checkpoint; metrics go to ``train.log`` and ``metrics.jsonl``.  Data
-parallelism (the JAX trainer's mesh) is not ported yet.
+The step function updates the state in place; a host-side prefetch
+loader feeds it; the state is checkpointed every N steps and a relaunch
+on the same work dir resumes from the latest checkpoint; metrics go to
+``train.log`` and ``metrics.jsonl``.
 
-The mask generator of step ``s`` (pretrain) is seeded from ``(seed, s)``,
-so a resumed run draws the masks an uninterrupted run would have drawn.
-The JAX trainer restarts its key stream from ``PRNGKey(seed)`` on resume.
+Data parallelism, the JAX trainer's mesh: with a ``group``
+(``parallel/mesh.py``) every rank runs a Trainer over its replica, a step
+function made with that group and a loader of its rows.  The Trainer
+broadcasts rank 0's parameters and buffers once at start, as DDP does;
+rank 0 alone writes the checkpoints and logs; the eval hook's scalars
+are averaged over the ranks.
+
+The mask generator of step ``s`` (pretrain) is seeded from ``(seed, s)``
+on every rank, so a resumed run draws the masks an uninterrupted run
+would have drawn, and each rank takes its rows of one draw.  The JAX
+trainer restarts its key stream from ``PRNGKey(seed)`` on resume.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ from typing import Callable, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel.distributed import broadcast_module, gather_scalar_mean
+from ..parallel.mesh import Group
 from ..utils.logging import MetricsLogger, collect_env, get_root_logger
 from .checkpoint import CheckpointManager
 from .state import TrainState
@@ -47,6 +56,7 @@ class Trainer:
       with_rng: whether step_fn takes a per-step generator (pretrain does).
       eval_fn, eval_loader, eval_interval: ``eval_fn(state, eval_loader)``
         runs every ``eval_interval`` steps and once at the end.
+      group: the data-parallel group of a multi-rank run, else None.
 
     ``timings`` collects, per step, the host milliseconds spent waiting
     for the next batch (``data``), in the step (``step``; on a CUDA device
@@ -60,18 +70,22 @@ class Trainer:
                  seed: int = 0, log_interval: int = 50,
                  ckpt_interval: int = 1000, resume: bool = True,
                  eval_fn: Optional[Callable] = None, eval_loader=None,
-                 eval_interval: int = 0):
+                 eval_interval: int = 0, group: Optional[Group] = None):
         self.work_dir = os.path.abspath(work_dir)
         os.makedirs(self.work_dir, exist_ok=True)
-        self.logger = get_root_logger(os.path.join(self.work_dir, "train.log"))
-        self.metrics = MetricsLogger(self.work_dir, log_interval)
+        self.group = group
+        rank = 0 if group is None else group.rank
+        self.logger = get_root_logger(os.path.join(self.work_dir, "train.log"),
+                                      rank=rank)
+        self.metrics = MetricsLogger(self.work_dir, log_interval, rank)
         self.step_fn = step_fn
         self.loader = loader
         self.total_steps = total_steps
         self.with_rng = with_rng
         self.seed = seed
         self.ckpt = CheckpointManager(os.path.join(self.work_dir, "ckpt"),
-                                      save_interval_steps=ckpt_interval)
+                                      save_interval_steps=ckpt_interval,
+                                      group=group)
         self.eval_fn = eval_fn
         self.eval_loader = eval_loader
         self.eval_interval = eval_interval
@@ -81,6 +95,7 @@ class Trainer:
         if resume and self.ckpt.latest_step() is not None:
             state = self.ckpt.restore(state)
             self.logger.info("resumed from step %d", state.step)
+        broadcast_module(state.model, group)
         self.state = state
         for k, v in collect_env().items():
             self.logger.info("env %s: %s", k, v)
@@ -149,9 +164,11 @@ class Trainer:
         return self.state
 
     def evaluate(self, step: int) -> dict:
-        """Run the eval hook and log its scalars with mode ``val``."""
+        """Run the eval hook and log its scalars, averaged over the ranks,
+        with mode ``val``."""
         results = self.eval_fn(self.state, self.eval_loader)
-        scalars = {k: float(v) for k, v in results.items()}
+        scalars = {k: gather_scalar_mean(float(v), self.group)
+                   for k, v in results.items()}
         self.metrics.log(step, scalars, prefix="val", force=True)
         self.logger.info(
             "eval @ step %d: %s", step,

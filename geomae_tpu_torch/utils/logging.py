@@ -3,7 +3,10 @@
 
 Port of ``geomae_tpu/utils/logging.py`` (``get_root_logger``,
 ``MetricsLogger``, ``collect_env``); ``collect_env`` reports torch, its
-CUDA build and the card instead of JAX and its devices.
+CUDA build and the card instead of JAX and its devices.  In a
+data-parallel run rank 0 alone writes ``train.log`` and
+``metrics.jsonl``; the other ranks log errors only, as mmcv's root
+logger does.
 """
 from __future__ import annotations
 
@@ -22,17 +25,23 @@ _FMT = f"%(asctime)s - {_NAME} - %(levelname)s - %(message)s"
 
 
 def get_root_logger(log_file: Optional[str] = None,
-                    level: int = logging.INFO) -> logging.Logger:
+                    level: int = logging.INFO,
+                    rank: int = 0) -> logging.Logger:
     """The package's logger, writing to stdout and, where ``log_file`` is
     given, to that file: a handler for another file is closed and
-    replaced, so each run in a process logs into its own work dir."""
+    replaced, so each run in a process logs into its own work dir.  On a
+    rank other than 0 it opens no file and passes errors only."""
     logger = logging.getLogger(_NAME)
     if not logger.handlers:
         logger.setLevel(level)
         sh = logging.StreamHandler(sys.stdout)
         sh.setFormatter(logging.Formatter(_FMT))
         logger.addHandler(sh)
+    if rank != 0:
+        logger.setLevel(logging.ERROR)
+        return logger
     if log_file:
+        logger.setLevel(level)
         path = os.path.abspath(log_file)
         files = [h for h in logger.handlers
                  if isinstance(h, logging.FileHandler)]
@@ -50,13 +59,16 @@ def get_root_logger(log_file: Optional[str] = None,
 class MetricsLogger:
     """Logs loss dicts every ``interval`` steps: a text line and one
     ``metrics.jsonl`` row with ``step``, ``iter_time`` and ``mode`` (train
-    or val)."""
+    or val).  On a rank other than 0 it writes nothing."""
 
-    def __init__(self, work_dir: str, interval: int = 50):
+    def __init__(self, work_dir: str, interval: int = 50, rank: int = 0):
         self.interval = interval
-        self.logger = get_root_logger(os.path.join(work_dir, "train.log"))
+        self.rank = rank
+        self.logger = get_root_logger(os.path.join(work_dir, "train.log"),
+                                      rank=rank)
         self.path = os.path.join(work_dir, "metrics.jsonl")
-        open(self.path, "a").close()       # present even before a row
+        if rank == 0:
+            open(self.path, "a").close()   # present even before a row
         self._t0 = time.perf_counter()
         self._last_step = 0
 
@@ -64,7 +76,7 @@ class MetricsLogger:
             force: bool = False) -> None:
         """``metrics`` values may be tensors on the device: they are read
         (a device synchronisation) only on the steps that log."""
-        if step % self.interval and not force:
+        if self.rank != 0 or (step % self.interval and not force):
             return
         now = time.perf_counter()
         it_time = (now - self._t0) / max(step - self._last_step, 1)

@@ -419,9 +419,9 @@ def test_geomae_state_dict_is_the_reference_layout(tiny):
 
 def test_port_imports_nothing_of_the_jax_package():
     """``geomae_tpu_torch``, every module in it (the trainer, checkpoint,
-    loader, logging and CLI modules among them), and ``chip_smoke`` load
-    no module named ``geomae_tpu`` or ``geomae_tpu.*``, and no JAX, flax,
-    optax or orbax."""
+    loader, logging, CLI and data-parallel modules among them), and
+    ``chip_smoke`` load no module named ``geomae_tpu`` or
+    ``geomae_tpu.*``, and no JAX, flax, optax or orbax."""
     code = (
         "import importlib, pkgutil, sys, geomae_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(geomae_tpu_torch.__path__, "
@@ -432,7 +432,7 @@ def test_port_imports_nothing_of_the_jax_package():
         "n = sum(m.startswith('geomae_tpu_torch.') for m in sys.modules)\n"
         "new = ['train.trainer', 'train.checkpoint', 'train.state', "
         "'train.__main__', 'data.loader', 'data.synthetic', "
-        "'utils.logging']\n"
+        "'utils.logging', 'parallel.mesh', 'parallel.distributed']\n"
         "bad += [m for m in new if 'geomae_tpu_torch.' + m not in "
         "sys.modules]\n"
         "sys.exit(str(bad) if bad or n < 45 else 0)\n")
