@@ -1519,10 +1519,11 @@ def phase_h(pcfg, cfg, failures: list) -> dict:
 
         # a 4-step cyclic schedule peaks at 10 x lr within two steps, and
         # AdamW moves every weight by about lr a step whatever its
-        # gradient: at the config's 1e-4 the detector, served in eval mode
-        # on BN statistics that four steps barely moved, gives non-finite
-        # boxes, sizes decoded by exp with no clamp.  The JAX package does
-        # the same from the same weights (R5 in ROADMAP.md,
+        # gradient: at the config's 1e-4 the detector, started from
+        # init_weights and served in eval mode on BN statistics that four
+        # steps barely moved, gives non-finite boxes, sizes decoded by exp
+        # with no clamp.  The JAX package does the same from these weights,
+        # but not from its own init (F2 in ROADMAP.md, open;
         # tests/test_torch_port_f2.py); 1e-6 keeps the served model sane
         # and still moves every parameter
         tr3 = run("fine-tune", ["finetune", "--work-dir", ft, "--total-steps",
@@ -1631,7 +1632,6 @@ def replace_total(cfg, total_steps: int):
 
 
 DP_STEPS = 3          # phase I's one-rank NCCL steps, each way
-CLI_EXTRA: list = []  # more CLI arguments for phase I's torchrun runs
 
 
 def free_port() -> int:
@@ -1813,7 +1813,7 @@ def phase_i(pcfg, failures: list) -> dict:
                "--nproc_per_node", "1", "-m", "geomae_tpu_torch.train",
                "pretrain", "--synthetic", "--device", DEVICE, "--work-dir",
                os.path.join(work, "cli"), "--ckpt-interval", "1",
-               "--log-interval", "1", "--seed", str(SEED), *CLI_EXTRA,
+               "--log-interval", "1", "--seed", str(SEED),
                "--cfg-options", BAND_OPTION, "--total-steps"]
         for total in (3, 5):
             t = time.perf_counter()

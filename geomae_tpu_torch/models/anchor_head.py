@@ -17,7 +17,7 @@ reads them in the JAX package's (y, x, anchor, class) order.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 import torch.nn as nn
@@ -27,7 +27,6 @@ from ..config import AnchorHeadConfig
 from ..core import boxes as B
 from ..ops.rotated_iou import boxes_iou_bev
 from ..parallel.distributed import all_reduce_sum
-from ..parallel.mesh import Group
 from . import box_coder, losses
 from .second import Conv2d
 
@@ -133,11 +132,11 @@ def _sin_difference(pred: torch.Tensor, target: torch.Tensor):
 
 def head_loss(out: HeadOutputs, anchors: torch.Tensor,
               gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
-              gt_mask: torch.Tensor, cfg: AnchorHeadConfig,
-              group: Optional[Group] = None) -> dict:
+              gt_mask: torch.Tensor, cfg: AnchorHeadConfig) -> dict:
     """Batched loss dict (loss_cls, loss_bbox, loss_dir), f32 scalars;
-    gt_* [B, G, ...].  With a group the losses divide this rank's sums by
-    the whole batch's positive count (one all-reduce, no gradient)."""
+    gt_* [B, G, ...].  Inside ``data_parallel(group)`` the losses divide
+    this rank's sums by the whole batch's positive count (one all-reduce,
+    no gradient)."""
     Bz, C, code = out.cls.shape[0], cfg.num_classes, cfg.code_size
     flat = lambda t, n: t.permute(0, 2, 3, 1).reshape(Bz, -1, n).float()
     cls, reg, dirp = flat(out.cls, C), flat(out.reg, code), flat(out.dir, 2)
@@ -145,8 +144,8 @@ def head_loss(out: HeadOutputs, anchors: torch.Tensor,
         assign_targets(anchors, b, l, m, cfg)
         for b, l, m in zip(gt_boxes, gt_labels, gt_mask)])))
     # num_total_pos = sum(max(pos_i, 1))
-    num_pos = all_reduce_sum(torch.clamp(tg.num_pos, min=1).sum(),
-                             group).float()
+    num_pos, = all_reduce_sum(torch.clamp(tg.num_pos, min=1).sum())
+    num_pos = num_pos.float()
     loss_cls = losses.sigmoid_focal_loss(cls, tg.labels, C, cfg.focal_gamma,
                                          cfg.focal_alpha)
     loss_cls = (loss_cls * tg.label_weights).sum() / num_pos \

@@ -35,7 +35,7 @@ into the canonical ``slot_sort`` order of the targets.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -48,8 +48,7 @@ from ..ops.scatter import gather_injective, gather_rows_batched
 from ..ops.targets import expand_rows, slot_outer_segment_sum
 from ..ops.voxelize import Scene, VoxelTable
 from ..ops.windows import INT32_MAX, make_layouts
-from ..parallel.distributed import all_reduce_sum
-from ..parallel.mesh import Group
+from ..parallel.distributed import all_reduce_sum, current_group
 from .sst import SSTStack, prepare_shift_data
 from .vfe import DynamicScatterVFE, Linear
 
@@ -236,15 +235,16 @@ def compute_targets_batch(scene: Scene, cfg: PretrainConfig) -> GeoMAETargets:
 
 @torch.no_grad()
 def sample_mask(generator: torch.Generator, valid: torch.Tensor,
-                mask_ratio: float,
-                group: Optional[Group] = None) -> torch.Tensor:
+                mask_ratio: float) -> torch.Tensor:
     """Random keep mask [B, V] bool, a subset of ``valid``: per sample keep
     ``floor(n_valid * (1 - mask_ratio))`` rows, those whose uniform draw
     from ``generator`` (on valid's device) lies below that order
-    statistic (``get_vanilla_mask_index`` of the reference).  With a
-    group, ``valid`` holds the rank's B rows of a global batch, and the
-    draw is rows ``[rank * B, (rank + 1) * B)`` of the whole batch's."""
+    statistic (``get_vanilla_mask_index`` of the reference).  Inside
+    ``data_parallel(group)``, ``valid`` holds the rank's B rows of a
+    global batch, and the draw is rows ``[rank * B, (rank + 1) * B)`` of
+    the whole batch's."""
     B, V = valid.shape
+    group = current_group()
     rank, world = (0, 1) if group is None else (group.rank, group.world)
     r = torch.rand((world * B, V), generator=generator,
                    device=valid.device)[rank * B:(rank + 1) * B]
@@ -387,22 +387,22 @@ def _bce_with_logits(logits: torch.Tensor, target) -> torch.Tensor:
 
 
 def pretrain_loss(preds: Dict[str, torch.Tensor], targets: GeoMAETargets,
-                  scene: Scene, keep: torch.Tensor, cfg: PretrainConfig,
-                  group: Optional[Group] = None) -> Dict[str, torch.Tensor]:
+                  scene: Scene, keep: torch.Tensor,
+                  cfg: PretrainConfig) -> Dict[str, torch.Tensor]:
     """The masked multi-term loss in f32 (``forward_loss`` of the
     reference): centroid MSE per occupied sub-voxel of the masked pillars
     at low / med / top (weights 10 / 8 / 10), the normal MSE on masked
     pillars (weight 4, logged as ``loss_curv_around`` like the
     reference), occupancy BCE over 2 logits at low / med (5 / 2), and
-    their sum ``loss``.  With a group each term divides this rank's sum
-    by the whole batch's count (one all-reduce, no gradient), so the
-    terms summed over the ranks are the whole batch's."""
+    their sum ``loss``.  Inside ``data_parallel(group)`` each term divides
+    this rank's sum by the whole batch's count (one all-reduce, no
+    gradient), so the terms summed over the ranks are the whole batch's."""
     m = cfg.mae
     mask_rows = scene.table.valid & ~keep
     sel_low = targets.low_occ & mask_rows[..., None]
     sel_med = targets.med_occ & mask_rows[..., None]
-    n_low, n_med, n_rows = all_reduce_sum(torch.stack(
-        [sel_low.sum(), sel_med.sum(), mask_rows.sum()]), group).unbind()
+    n_low, n_med, n_rows = all_reduce_sum(sel_low.sum(), sel_med.sum(),
+                                          mask_rows.sum())
 
     def sub_reg(pred, sel, tgt, n):
         err = (pred.float() - tgt).square().mean(-1)

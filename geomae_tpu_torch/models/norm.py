@@ -13,7 +13,7 @@ momentum (0.01) toward the batch mean and the unbiased batch var
 ``var * cnt / max(cnt - 1, 1)``, and ``num_batches_tracked`` counts the
 updates.  Either way the normalize is one affine ``x * a + b`` in x's
 dtype, with a and b computed in f32.  Inside
-``parallel.distributed.synced_batch_norms(group)`` the masked count, sum
+``parallel.distributed.data_parallel(group)`` the masked count, sum
 and sum of squares are summed over the group's ranks in one
 differentiable all-reduce before the moments, so every rank normalizes
 with the whole batch's moments, its gradient flows through them, and
@@ -27,7 +27,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.ffn import fast_layer_norm
-from ..parallel.distributed import all_reduce_sum, batch_norm_group
+from ..parallel.distributed import all_reduce_sum
 
 
 def _normalize(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
@@ -45,13 +45,11 @@ def _normalize(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
             m = mask.reshape(-1, 1).to(torch.float32)
             cnt = m.sum()
             xm = xf * m
-        C = xf.shape[-1]
-        sums = all_reduce_sum(torch.cat([cnt.reshape(1), xm.sum(0),
-                                         (xm * xf).sum(0)]),
-                              batch_norm_group())
-        cnt = sums[0].clamp_min(1.0)
-        mean = sums[1:C + 1] / cnt
-        var = torch.clamp(sums[C + 1:] / cnt - mean * mean, min=0.0)
+        cnt, s1, s2 = all_reduce_sum(cnt, xm.sum(0), (xm * xf).sum(0))
+        if mask is not None:
+            cnt = cnt.clamp_min(1.0)
+        mean = s1 / cnt
+        var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
         with torch.no_grad():
             unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
             bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)

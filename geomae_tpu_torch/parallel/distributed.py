@@ -3,10 +3,12 @@
 Counterpart of ``geomae_tpu/parallel/distributed.py`` (``gather_results``,
 ``gather_scalar_mean``) and of the reductions XLA inserts under ``jit``
 over the JAX package's mesh: the gradient sum, the batch norms' global
-moments and the loss denominators.  Every function takes the run's
-``Group`` (``parallel/mesh.py``) or ``None``; with ``None`` it is the
-identity, so a run without a group computes what it did before this
-module existed.  The collectives run on the default process group.
+moments and the loss denominators.  The step-level functions take the
+run's ``Group`` (``parallel/mesh.py``) or ``None``; the model's code
+reads the group of the enclosing ``data_parallel`` block, which the
+step sets.  Without a group every function is the identity, so a run
+without one computes what it did before this module existed.  The
+collectives run on the default process group.
 
 Every rank calls the same collectives in the same order: the train
 steps do so by construction, since the ranks run one program on
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,24 +27,26 @@ import torch.nn as nn
 
 from .mesh import Group
 
-_BATCH_NORM_GROUP: contextvars.ContextVar[Optional[Group]] = \
-    contextvars.ContextVar("batch_norm_group", default=None)
+_GROUP: contextvars.ContextVar[Optional[Group]] = \
+    contextvars.ContextVar("data_parallel_group", default=None)
 
 
 @contextlib.contextmanager
-def synced_batch_norms(group: Optional[Group]) -> Iterator[None]:
-    """Within the block, the training-mode batch norms (``models/norm.py``)
-    take their moments over ``group``'s whole batch."""
-    token = _BATCH_NORM_GROUP.set(group)
+def data_parallel(group: Optional[Group]) -> Iterator[None]:
+    """Within the block, the model's reductions over the batch (the
+    training-mode batch norms' moments, the mask draw, the loss
+    denominators) cover ``group``'s whole batch.  A step sets it once
+    around its forward and loss."""
+    token = _GROUP.set(group)
     try:
         yield
     finally:
-        _BATCH_NORM_GROUP.reset(token)
+        _GROUP.reset(token)
 
 
-def batch_norm_group() -> Optional[Group]:
-    """The group of the enclosing ``synced_batch_norms`` block, if any."""
-    return _BATCH_NORM_GROUP.get()
+def current_group() -> Optional[Group]:
+    """The group of the enclosing ``data_parallel`` block, if any."""
+    return _GROUP.get()
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -61,10 +65,15 @@ class _AllReduceSum(torch.autograd.Function):
         return _AllReduceSum.apply(g)
 
 
-def all_reduce_sum(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, differentiable; ``x`` itself
-    without a group."""
-    return x if group is None else _AllReduceSum.apply(x)
+def all_reduce_sum(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The sums of ``xs`` (tensors of one dtype) over the ranks of the
+    enclosing ``data_parallel`` block, in one differentiable all-reduce;
+    ``xs`` themselves outside one."""
+    if current_group() is None:
+        return xs
+    flat = _AllReduceSum.apply(torch.cat([x.reshape(-1) for x in xs]))
+    parts = flat.split([x.numel() for x in xs])
+    return tuple(t.view_as(x) for t, x in zip(parts, xs))
 
 
 @torch.no_grad()

@@ -54,7 +54,7 @@ PRETRAIN_KERNELS = KERNEL_NAMES + ("slot_outer_kernel", "expand_rows_kernel")
 def main() -> None:
     from .config import apply_overrides, geomae_pretrain_nus
     from .models.mae import pretrain_loss
-    from .parallel.distributed import all_reduce_grads, synced_batch_norms
+    from .parallel.distributed import all_reduce_grads, data_parallel
     from .parallel.mesh import init_distributed
     from .train.pretrain import (init_state, make_train_step,
                                  synthetic_batch, targets_and_mask)
@@ -111,15 +111,12 @@ def main() -> None:
     batch, model = batches[-2], state.model
     for p in model.parameters():
         p.grad = None
-    (scene, tg, keep), t_tgt = host_ms(
-        lambda: targets_and_mask(cfg, batch, gen, None, group))
+    with data_parallel(group):
+        (scene, tg, keep), t_tgt = host_ms(
+            lambda: targets_and_mask(cfg, batch, gen))
+        losses, t_fwd = host_ms(lambda: pretrain_loss(
+            model(scene, keep), tg, scene, keep, cfg))
 
-    def forward():
-        with synced_batch_norms(group):
-            preds = model(scene, keep)
-        return pretrain_loss(preds, tg, scene, keep, cfg, group)
-
-    losses, t_fwd = host_ms(forward)
     _, t_bwd = host_ms(lambda: losses["loss"].backward())
     _, t_ar = host_ms(lambda: all_reduce_grads(model, group))
     _, t_opt = host_ms(state.tx.step)

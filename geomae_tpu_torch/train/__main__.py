@@ -151,7 +151,7 @@ def _train(args, cfg, pretrain: bool, ds, batch: int, total: int,
         from .pretrain import init_state, make_eval_hook, make_train_step
         state = init_state(cfg, device, gen)
         if args.eval_interval:
-            eval_fn = make_eval_hook(cfg)
+            eval_fn = make_eval_hook(cfg, group)
             n_eval = max(args.eval_frames // batch, 1)
             eval_loader = [shard_batch(
                 {k: np.stack([ds.__getitem__((j * batch + i) % len(ds),

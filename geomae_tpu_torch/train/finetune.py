@@ -28,8 +28,8 @@ from ..data.transforms import pad_boxes, pad_points
 from ..models.anchor_head import Detections, head_loss, predict
 from ..models.anchors import grid_anchors, head_featmap_size
 from ..models.detector import DynamicVoxelNet, extract_scene, init_weights
-from ..parallel.distributed import (all_reduce_grads, sum_losses,
-                                    synced_batch_norms)
+from ..parallel.distributed import (all_reduce_grads, data_parallel,
+                                    sum_losses)
 from ..parallel.mesh import Group
 from ..synthetic import clustered_scene
 from ..utils.logging import get_root_logger
@@ -94,11 +94,10 @@ def make_train_step(cfg: FinetuneConfig, group: Optional[Group] = None):
         if dev not in anchors:
             anchors[dev] = torch.from_numpy(anchors_np).to(dev)
         scene = extract_scene(cfg, batch["points"], batch["point_valid"])
-        with synced_batch_norms(group):
-            out = model(scene)
-        losses = head_loss(out, anchors[dev], batch["gt_boxes"],
-                           batch["gt_labels"], batch["gt_mask"], cfg.head,
-                           group)
+        with data_parallel(group):
+            losses = head_loss(model(scene), anchors[dev], batch["gt_boxes"],
+                               batch["gt_labels"], batch["gt_mask"],
+                               cfg.head)
         losses["loss"] = sum(losses.values())
         return losses
 

@@ -35,8 +35,8 @@ from ..models.detector import init_weights
 from ..models.mae import (GeoMAE, GeoMAETargets, compute_targets_batch,
                           pretrain_loss, sample_mask)
 from ..ops.voxelize import Scene, build_scene_batch
-from ..parallel.distributed import (all_reduce_grads, sum_losses,
-                                    synced_batch_norms)
+from ..parallel.distributed import (all_reduce_grads, data_parallel,
+                                    sum_losses)
 from ..parallel.mesh import Group
 from ..synthetic import clustered_frame
 from .optim import AdamW
@@ -50,19 +50,18 @@ def build_model(cfg: PretrainConfig, device=None) -> GeoMAE:
 @torch.no_grad()
 def targets_and_mask(cfg: PretrainConfig, batch: Dict,
                      generator: Optional[torch.Generator] = None,
-                     keep: Optional[torch.Tensor] = None,
-                     group: Optional[Group] = None
+                     keep: Optional[torch.Tensor] = None
                      ) -> Tuple[Scene, GeoMAETargets, torch.Tensor]:
     """(scene, targets, keep) of ``batch`` (points [B, P, 5], point_valid
     [B, P]): the sorted scene, its geometric targets, and ``keep`` or a
-    mask drawn from ``generator`` (with a group: the rank's rows of the
-    whole batch's draw)."""
+    mask drawn from ``generator`` (inside ``data_parallel(group)``: the
+    rank's rows of the whole batch's draw)."""
     scene = build_scene_batch(batch["points"], batch["point_valid"],
                               cfg.voxel, cfg.caps.max_voxels)
     targets = compute_targets_batch(scene, cfg)
     if keep is None:
         keep = sample_mask(generator, scene.table.valid,
-                           cfg.mae.random_mask_ratio, group)
+                           cfg.mae.random_mask_ratio)
     return scene, targets, keep
 
 
@@ -70,14 +69,13 @@ def forward(cfg: PretrainConfig, model: GeoMAE, batch: Dict,
             generator: Optional[torch.Generator] = None,
             keep: Optional[torch.Tensor] = None,
             group: Optional[Group] = None) -> Dict[str, torch.Tensor]:
-    """Voxelize -> targets -> mask -> model -> loss; the loss dict (f32
-    scalars; with a group, the rank's terms of the whole batch's loss).
-    The BN statistics update in the model when it trains."""
-    scene, targets, keep = targets_and_mask(cfg, batch, generator, keep,
-                                            group)
-    with synced_batch_norms(group):
-        preds = model(scene, keep)
-    return pretrain_loss(preds, targets, scene, keep, cfg, group)
+    """Voxelize -> targets -> mask -> model -> loss, inside
+    ``data_parallel(group)``; the loss dict (f32 scalars; with a group,
+    the rank's terms of the whole batch's loss).  The BN statistics
+    update in the model when it trains."""
+    with data_parallel(group):
+        scene, targets, keep = targets_and_mask(cfg, batch, generator, keep)
+        return pretrain_loss(model(scene, keep), targets, scene, keep, cfg)
 
 
 @torch.no_grad()
@@ -133,10 +131,11 @@ def make_train_step(cfg: PretrainConfig, group: Optional[Group] = None):
     return train_step
 
 
-def make_eval_step(cfg: PretrainConfig):
+def make_eval_step(cfg: PretrainConfig, group: Optional[Group] = None):
     """``eval_step(state, batch, generator) -> losses``: the forward in
     eval mode (running BN statistics, no update, no gradient); the model
-    is left in training mode."""
+    is left in training mode.  With ``group``, ``batch`` is the rank's
+    rows and the losses are the whole batch's, as the train step's."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch,
@@ -144,19 +143,21 @@ def make_eval_step(cfg: PretrainConfig):
                   keep: Optional[torch.Tensor] = None):
         state.model.eval()
         try:
-            return forward(cfg, state.model, batch, generator, keep)
+            return sum_losses(forward(cfg, state.model, batch, generator,
+                                      keep, group), group)
         finally:
             state.model.train()
 
     return eval_step
 
 
-def make_eval_hook(cfg: PretrainConfig):
+def make_eval_hook(cfg: PretrainConfig, group: Optional[Group] = None):
     """``eval_fn(state, loader) -> mean loss dict`` for the trainer's
     periodic evaluation.  ``loader`` yields host batches (numpy arrays or
     tensors); the mask generator is seeded with 0 for every batch, so the
-    metric is comparable across evaluations."""
-    estep = make_eval_step(cfg)
+    metric is comparable across evaluations.  With ``group`` the loader
+    yields the rank's rows and the means are the whole batches'."""
+    estep = make_eval_step(cfg, group)
 
     def hook(state: TrainState, loader) -> Dict[str, float]:
         device = next(state.model.parameters()).device

@@ -100,7 +100,7 @@ def bn_case(group) -> dict:
         bn.bias.normal_(generator=g)
     r = slice(None) if group is None else slice(group.rank, group.rank + 1)
     xr = x[r].clone().requires_grad_()
-    with D.synced_batch_norms(group):
+    with D.data_parallel(group):
         y = bn(xr, mask[r])
     (y * cot[r]).sum().backward()
     D.all_reduce_grads(bn, group)
@@ -128,28 +128,40 @@ class RankBatches:
                 self.cfg, WORLD, seed=i, device="cpu"), self.group).items()}
 
 
+def eval_case(group) -> dict:
+    """The pretrain eval hook over two global batches of 2."""
+    cfg = tcfg.tiny_pretrain_config()
+    state = PT.init_state(cfg, "cpu", torch.Generator().manual_seed(1))
+    return PT.make_eval_hook(cfg, group)(state, list(RankBatches(
+        cfg, 2, 20, group)))
+
+
+def trainer_run(group, work, name, total, start, n) -> TrainState:
+    """A Trainer of the tiny pretrain step on ``n`` global batches from
+    ``start``, evaluating every 3 steps, checkpointing every step."""
+    cfg = tcfg.tiny_pretrain_config()
+    cfg = tcfg.replace(cfg, optim=tcfg.replace(cfg.optim, total_steps=6))
+    state = PT.init_state(cfg, "cpu", torch.Generator().manual_seed(0))
+    tr = Trainer(PT.make_train_step(cfg, group), state,
+                 RankBatches(cfg, n, start, group), os.path.join(work, name),
+                 total_steps=total, seed=5, log_interval=1, ckpt_interval=1,
+                 eval_fn=PT.make_eval_hook(cfg, group),
+                 eval_loader=list(RankBatches(cfg, 1, 20, group)),
+                 eval_interval=3, group=group)
+    return tr.run()
+
+
 def trainer_case(group, work) -> dict:
     """3 steps, then resumed to 6, and an uninterrupted 6 steps; the
     checkpoint files this rank wrote."""
-    cfg = tcfg.tiny_pretrain_config()
-    cfg = tcfg.replace(cfg, optim=tcfg.replace(cfg.optim, total_steps=6))
     writes = []
     write = checkpoint._write
     checkpoint._write = lambda obj, path: (writes.append(
         os.path.basename(path)), write(obj, path))
-
-    def run(name, total, start, n):
-        state = PT.init_state(cfg, "cpu", torch.Generator().manual_seed(0))
-        tr = Trainer(PT.make_train_step(cfg, group), state,
-                     RankBatches(cfg, n, start, group),
-                     os.path.join(work, name), total_steps=total, seed=5,
-                     log_interval=1, ckpt_interval=1, group=group)
-        return tr.run()
-
     try:
-        run("resumed", 3, 0, 3)
-        resumed = run("resumed", 6, 3, 3)
-        whole = run("whole", 6, 0, 6)
+        trainer_run(group, work, "resumed", 3, 0, 3)
+        resumed = trainer_run(group, work, "resumed", 6, 3, 3)
+        whole = trainer_run(group, work, "whole", 6, 0, 6)
     finally:
         checkpoint._write = write
     tensors = lambda s: dict(s.model.state_dict(), step=torch.tensor(
@@ -198,7 +210,7 @@ def rank_main(rank: int, work: str) -> None:
                    bn=bn_case(group), gather=gather_case(group),
                    pretrain=pretrain_case(group),
                    finetune=finetune_case(group),
-                   trainer=trainer_case(group, work))
+                   eval=eval_case(group), trainer=trainer_case(group, work))
         out["jax"] = jax_weights_case(group, work)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     finally:
@@ -294,7 +306,9 @@ def ranks(tmp_path_factory):
     try:
         jax_side = jax_mesh_case(work)
         refs = dict(pretrain=pretrain_case(None),
-                    finetune=finetune_case(None), bn=bn_case(None))
+                    finetune=finetune_case(None), bn=bn_case(None),
+                    eval=eval_case(None))
+        trainer_run(None, work, "one_process", 6, 0, 6)
         for p in procs:
             p.wait(timeout=600)
     finally:
@@ -478,11 +492,35 @@ def test_gather_results_and_scalar_mean(ranks):
     assert D.gather_scalar_mean(2.5, None) == jdist.gather_scalar_mean(2.5)
 
 
+def test_two_rank_eval_hook_equals_one_process(ranks):
+    """The pretrain eval hook on two ranks, each on its rows of two global
+    batches, gives one process's means over the whole batches: each rank
+    draws its rows of the whole batch's mask and divides by the whole
+    batch's counts, and the terms are summed over the ranks.  2e-5
+    relative, as the train step's losses; the ranks bitwise equal."""
+    a, b = (r["eval"] for r in ranks.ranks)
+    assert a == b
+    want = ranks.refs["eval"]
+    assert a.keys() == want.keys()
+    for k, v in want.items():
+        np.testing.assert_allclose(a[k], v, rtol=2e-5, err_msg=k)
+
+
+def val_rows(work, name):
+    with open(os.path.join(work, name, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [{k: v for k, v in r.items() if k != "iter_time"}
+            for r in rows if r["mode"] == "val"]
+
+
 def test_two_rank_trainer_resume_equals_an_uninterrupted_run(ranks):
     """A two-rank Trainer run 3 steps, then resumed to 6 on the same work
     dir, equals an uninterrupted 6 steps bitwise, on each rank, and the
     ranks equal each other; rank 0 alone wrote checkpoints and logs (one
-    row a step in ``metrics.jsonl``, one resume line)."""
+    train row a step in ``metrics.jsonl``, one resume line).  Its eval
+    rows, at steps 3 and 6, equal the uninterrupted run's and hold to a
+    one-process Trainer's on the whole batches at 2e-5 relative, as the
+    step's losses (measured: 3.3e-7 at most)."""
     a, b = (r["trainer"] for r in ranks.ranks)
     for r in (a, b):
         assert_ranks_bitwise_equal(r["resumed"], r["whole"], "trainer")
@@ -492,7 +530,16 @@ def test_two_rank_trainer_resume_equals_an_uninterrupted_run(ranks):
                            "1.pt", "2.pt", "3.pt", "4.pt", "5.pt", "6.pt"]
     assert b["writes"] == []
     with open(os.path.join(ranks.work, "resumed", "metrics.jsonl")) as f:
-        assert [json.loads(line)["step"] for line in f] == [1, 2, 3, 4, 5, 6]
+        assert [json.loads(line)["step"] for line in f
+                if '"train"' in line] == [1, 2, 3, 4, 5, 6]
+    got = val_rows(ranks.work, "resumed")
+    assert [r["step"] for r in got] == [3, 6]
+    assert got == val_rows(ranks.work, "whole")
+    want = val_rows(ranks.work, "one_process")
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w.keys() - {"step", "mode"}:
+            np.testing.assert_allclose(g[k], w[k], rtol=2e-5, err_msg=k)
     with open(os.path.join(ranks.work, "resumed", "train.log")) as f:
         assert f.read().count("resumed from step 3") == 1
     assert ranks.ranks[0]["group"] == (0, 2, "cpu")
@@ -509,11 +556,13 @@ def test_rank_rows_of_the_mask_and_the_loader():
     whole = sample_mask(torch.Generator().manual_seed(9), valid, 0.7)
     for r in range(WORLD):
         grp = Group(rank=r, world=WORLD, device=torch.device("cpu"))
-        mine = sample_mask(torch.Generator().manual_seed(9),
-                           valid[2 * r:2 * r + 2], 0.7, grp)
+        with D.data_parallel(grp):
+            mine = sample_mask(torch.Generator().manual_seed(9),
+                               valid[2 * r:2 * r + 2], 0.7)
         assert torch.equal(mine, whole[2 * r:2 * r + 2])
-    assert torch.equal(sample_mask(torch.Generator().manual_seed(9), valid,
-                                   0.7, None), whole)
+    with D.data_parallel(None):
+        assert torch.equal(sample_mask(torch.Generator().manual_seed(9),
+                                       valid, 0.7), whole)
 
     ds = SyntheticSSL(tcfg.tiny_pretrain_config(), n=10)
     for workers in (0, 2):
