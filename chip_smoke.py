@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port's detection serving path, fine-tune train
-step, GeoMAE pretrain train step, trainer entry point and data-parallel
-training on one CUDA GPU.
+step, GeoMAE pretrain train step, trainer entry point, data-parallel
+training and training from datasets on disk on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -56,8 +56,8 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      batch 4, on the ``band`` attention route (K8): pretrain to step 3
      with a checkpoint every step, restore that checkpoint into a fresh
      state (bitwise), resume to step 6, fine-tune 4 steps from the
-     pretrain checkpoint, and serve 2 frames from the fine-tune
-     checkpoint;
+     pretrain checkpoint at the config's lr, and serve 2 frames from the
+     fine-tune checkpoint;
   I. data parallelism (``geomae_tpu_torch.parallel``) at the full width
      of ``geomae_pretrain_nus()`` on the ``band`` route: 3 bfloat16
      steps at batch 4 under a one-rank NCCL group, bitwise equal to the
@@ -68,7 +68,21 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      1 a rank against one process on the batch of 2 (phase G's rules,
      tightened: ``DP_TOL``); and ``python -m torch.distributed.run
      --nproc_per_node 1 -m geomae_tpu_torch.train pretrain`` to step 3,
-     then resumed to 5.
+     then resumed to 5;
+  J. training from disk: phase A's band-route kernels at the shapes of
+     ``geomae_pretrain_waymo()`` (24,576 pillars, a 468 x 468 grid), then
+     nuScenes-schema infos (``write_synthetic_infos``: 40 frames of
+     50,000 points and 9 sweeps, about 240k points in range) and
+     KITTI-format Waymo infos (150,000-point frames with 3 sweeps, past
+     the point cap) written to a temporary directory, and the CLI at full
+     width, bfloat16, batch 4, band route: pretrain 4 steps from
+     ``--data-root`` (the native point prep), fine-tune 4 steps with
+     ``--cbgs`` from that checkpoint at the config's lr, one test-mode
+     ``NuScenesDetDataset`` frame served from the fine-tune checkpoint
+     (finite boxes), and ``--preset waymo`` pretrain 3 steps; each run's
+     launches and finite losses, its host ms medians (data wait, step)
+     and peak memory, each dataset's host ms per sample, and one
+     profiled Waymo step's device busy time.
 
 ``auto`` resolves to the ``band`` route at full width.  Phases B, D and F
 run first on the ``qkv`` route (K6 and K7, asked for by name), then a
@@ -76,7 +90,7 @@ second, shorter time on the ``band`` route, so that the two routes' frame
 and step times come from one run and the same batches.  Any failed check
 exits non-zero.  The line before the last is a JSON
 summary of the kernels: ``launches`` sums the served frames and train steps of
-B, D, F (both routes), H and I's one-rank NCCL steps; ``ms``, ``plain_ms``, ``library_ms`` and
+B, D, F (both routes), H, I's one-rank NCCL steps and J; ``ms``, ``plain_ms``, ``library_ms`` and
 ``bound_ms`` are the times of one call of each distinct call the paths
 make of the kernel in its dtype, summed (``segment_broadcast``: f32 mean
 + bf16 max forward at both shapes + f32 sum backward; the SST kernels at
@@ -89,7 +103,8 @@ function; ``max_abs_err`` is the largest over those calls and, for a
 backward kernel, over its outputs.  ``band_attention_fused_backward``
 is K8's backward kernel alone, timed and bounded from its prologue's D;
 the prologue (``band_attention_delta``) is a row of its own, so the two
-add up to the wrapper.  Phase A prints each kernel's and library call's
+add up to the wrapper.  The nuScenes shapes' calls make the line's times;
+phase J's Waymo-shape rows are printed beside them.  Phase A prints each kernel's and library call's
 time behind a device spin (the kernels line's) and at the host's pace
 (``probe.cuda_ms``).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -263,6 +278,11 @@ PRETRAIN = [("slot_outer_segment_sum", ""), ("expand_rows", ""),
             ("band_attention_qkv", ""), ("post_attention_block", ""),
             ("post_attention_block_backward", ""),
             ("band_attention_qkv_backward", "")] + K8 + PROJECTIONS
+# phase J's rows at the Waymo pretrain shapes (24,576 pillars, a 468 x 468
+# grid): the kernels of the band route's pretrain step
+QKV_ROUTE = {"band_attention_qkv", "band_attention_qkv_backward",
+             "qkv_project", "qkv_project_backward"}
+WAYMO = [k for k in dict.fromkeys(TRAIN + PRETRAIN) if k[0] not in QKV_ROUTE]
 # a backward kernel's outputs: its per-token cotangents, then its
 # parameter gradients
 BACKWARD_OUTPUTS = {
@@ -697,6 +717,14 @@ def startup():
     t = time.perf_counter()
     _cuda.library()
     print(f"kernels: {path.name} "
+          f"{'built' if built else 'found'} in "
+          f"{time.perf_counter() - t:.1f} s")
+    from geomae_tpu_torch.data import _native
+    prep = _native.library_path()
+    built = not prep.exists()
+    t = time.perf_counter()
+    _native.library()
+    print(f"point prep (host C++): {prep.name} "
           f"{'built' if built else 'found'} in "
           f"{time.perf_counter() - t:.1f} s")
     log = path.with_name(path.name + ".log")
@@ -1420,6 +1448,42 @@ def state_tensors(state) -> dict:
     return out
 
 
+def cli_run(what: str, argv: list, per: dict, steps: int, total: dict,
+            failures: list):
+    """One run of the trainer CLI in process (``main(argv)``): its kernel
+    launches against ``per`` a step (added to ``total``), finite logged
+    losses, a train.log, and its host ms medians (``Trainer.timings``)
+    and peak device memory printed.  Returns the finished trainer."""
+    import os
+
+    from geomae_tpu_torch.train.__main__ import main as train_main
+
+    torch.cuda.reset_peak_memory_stats()
+    fns = reset_counts()
+    trainer = train_main(argv)
+    torch.cuda.synchronize()
+    launches = check_launches(fns, per, steps, f"{what} steps", failures)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    t = trainer.timings
+    print(f"  {what}: host ms per step, median: " + ", ".join(
+        f"{k} {float(np.median(v)):.1f}" for k, v in t.items())
+        + f" (first step {t['step'][0]:.1f}; data waits "
+        f"{[round(v, 1) for v in t['data']]}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    with open(os.path.join(trainer.work_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    new = [r for r in rows if r["mode"] == "train"][-steps:]
+    if len(new) != steps or not all(
+            np.isfinite(v) for r in new for v in r.values()
+            if isinstance(v, float)):
+        failures.append(f"{what}: metrics.jsonl rows missing or not "
+                        f"finite ({len(new)} of {steps})")
+    if not os.path.getsize(os.path.join(trainer.work_dir, "train.log")):
+        failures.append(f"{what}: train.log is empty")
+    return trainer
+
+
 def phase_h(pcfg, cfg, failures: list) -> dict:
     """The trainer entry point on the band route; returns the launches of
     its four runs, summed."""
@@ -1432,7 +1496,6 @@ def phase_h(pcfg, cfg, failures: list) -> dict:
     from geomae_tpu_torch.profile_serving import host_ms
     from geomae_tpu_torch.synthetic import clustered_frame
     from geomae_tpu_torch.train import finetune, pretrain
-    from geomae_tpu_torch.train.__main__ import main as train_main
     from geomae_tpu_torch.train.checkpoint import (CheckpointManager,
                                                    load_weights)
 
@@ -1451,31 +1514,8 @@ def phase_h(pcfg, cfg, failures: list) -> dict:
               BAND_OPTION]
 
     def run(what, argv, per, steps):
-        """One CLI run: its launches, finite logged losses, timings."""
-        torch.cuda.reset_peak_memory_stats()
-        fns = reset_counts()
-        trainer = train_main(argv)
-        torch.cuda.synchronize()
-        launches = check_launches(fns, on_route(per, cfg), steps,
-                                  f"{what} steps", failures)
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
-        t = trainer.timings
-        print(f"  {what}: host ms per step, median: " + ", ".join(
-            f"{k} {float(np.median(v)):.1f}" for k, v in t.items())
-            + f" (first step {t['step'][0]:.1f}); peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-        with open(os.path.join(trainer.work_dir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f if line.strip()]
-        new = [r for r in rows if r["mode"] == "train"][-steps:]
-        if len(new) != steps or not all(
-                np.isfinite(v) for r in new for v in r.values()
-                if isinstance(v, float)):
-            failures.append(f"{what}: metrics.jsonl rows missing or not "
-                            f"finite ({len(new)} of {steps})")
-        if not os.path.getsize(os.path.join(trainer.work_dir, "train.log")):
-            failures.append(f"{what}: train.log is empty")
-        return trainer
+        return cli_run(what, argv, on_route(per, cfg), steps, total,
+                       failures)
 
     def unmoved(state, fresh):
         return [k for (k, a), b in zip(state.model.named_parameters(),
@@ -1517,23 +1557,16 @@ def phase_h(pcfg, cfg, failures: list) -> dict:
         if CheckpointManager(ckpt).all_steps() != [4, 5, 6]:
             failures.append(f"checkpoints kept {os.listdir(ckpt)}")
 
-        # a 4-step cyclic schedule peaks at 10 x lr within two steps, and
-        # AdamW moves every weight by about lr a step whatever its
-        # gradient: at the config's 1e-4 the detector, started from
-        # init_weights and served in eval mode on BN statistics that four
-        # steps barely moved, gives non-finite boxes, sizes decoded by exp
-        # with no clamp.  The JAX package does the same from these weights,
-        # but not from its own init (F2 in ROADMAP.md, open;
-        # tests/test_torch_port_f2.py); 1e-6 keeps the served model sane
-        # and still moves every parameter
+        # at the config's lr: from the JAX initializer's distributions
+        # (init_weights_reference) the served boxes stay finite (F2,
+        # repaired; tests/test_torch_port_f2.py)
         tr3 = run("fine-tune", ["finetune", "--work-dir", ft, "--total-steps",
-                                "4", "--load-from", ckpt, *common,
-                                "optim.lr=1e-6"], PER_STEP, 4)
+                                "4", "--load-from", ckpt, *common],
+                  PER_STEP, 4)
         with open(os.path.join(ft, "train.log")) as f:
             log = f.read()
-        start = finetune.init_state(
-            apply_overrides(replace_total(cfg, 4), ["optim.lr=1e-6"]), DEVICE,
-            torch.Generator().manual_seed(SEED))
+        start = finetune.init_state(replace_total(cfg, 4), DEVICE,
+                                    torch.Generator().manual_seed(SEED))
         imported = finetune.load_pretrained(start.model,
                                             load_weights(ckpt, DEVICE))
         shared = [k for k, _ in start.model.named_parameters()
@@ -1845,9 +1878,210 @@ def phase_i(pcfg, failures: list) -> dict:
     return launches
 
 
+# phase J's data on disk: nuScenes-schema frames of 50,000 key points and
+# 9 sweeps of 25,000 (about 240k in range, the SSL set's realistic size);
+# 40 frames, as CBGS keeps int(0.1 n) rows of a one-class set (every
+# synthetic box is a car) and fine-tune batches take 4.  Waymo frames of
+# 150,000 points with 3 sweeps overflow the 262,144-point cap.
+NUS_FRAMES, NUS_POINTS, NUS_SWEEPS = 40, 50_000, 9
+WAYMO_FRAMES, WAYMO_POINTS, WAYMO_SWEEPS = 12, 150_000, 3
+J_PRETRAIN_STEPS, J_FINETUNE_STEPS, J_WAYMO_STEPS = 4, 4, 3
+
+
+def write_waymo_infos(root: str, n_frames: int, n_points: int,
+                      n_sweeps: int, pc_range) -> str:
+    """A KITTI-format Waymo tree under ``root``: 6-channel ``velodyne``
+    frames (x y z intensity elongation timestamp) of ``synthetic_scene``
+    clouds over ``pc_range``, a slowly moving ego pose per frame, each key
+    frame with ``n_sweeps`` sweeps (the earlier frames, with pose and
+    timestamp), camera-frame ``annos`` and ``calib``.  Returns the info
+    pickle's name."""
+    import os
+    import pickle
+
+    from geomae_tpu_torch.data.synthetic import synthetic_scene
+
+    rng = np.random.default_rng(SEED + 40)
+    os.makedirs(os.path.join(root, "velodyne"), exist_ok=True)
+    tr = np.array([[0, -1, 0, 0], [0, 0, -1, 0], [1, 0, 0, 0], [0, 0, 0, 1]],
+                  np.float64)
+    poses, infos = [], []
+    for i in range(n_frames + n_sweeps):
+        pose = np.eye(4)
+        a = 0.02 * i
+        pose[:3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                        [0, 0, 1]]
+        pose[:3, 3] = [0.5 * i, 0.1 * i, 0.0]
+        poses.append(pose)
+        pts, _, _ = synthetic_scene(rng, pc_range, n_points)
+        raw = np.concatenate([pts[:, :4], rng.uniform(0, 1, (n_points, 1)),
+                              np.full((n_points, 1), 0.1 * i)], 1)
+        raw.astype(np.float32).tofile(
+            os.path.join(root, "velodyne", f"{i:06d}.bin"))
+    for i in range(n_sweeps, n_frames + n_sweeps):
+        infos.append(dict(
+            point_cloud=dict(velodyne_path=f"velodyne/{i:06d}.bin",
+                             num_features=6),
+            pose=poses[i], timestamp=i * 100_000,
+            sweeps=[dict(velodyne_path=f"velodyne/{i - 1 - j:06d}.bin",
+                         pose=poses[i - 1 - j],
+                         timestamp=(i - 1 - j) * 100_000)
+                    for j in range(n_sweeps)],
+            calib=dict(R0_rect=np.eye(4), Tr_velo_to_cam=tr),
+            annos=dict(name=np.array(["Car", "Pedestrian"]),
+                       location=np.array([[2.0, 1.0, 10.0],
+                                          [-3.0, 1.0, 20.0]]),
+                       dimensions=np.array([[4.0, 1.5, 1.8],
+                                            [0.8, 1.7, 0.8]]),
+                       rotation_y=np.array([0.3, -1.2]))))
+    with open(os.path.join(root, "waymo_infos_train.pkl"), "wb") as f:
+        pickle.dump(infos, f)
+    return "waymo_infos_train.pkl"
+
+
+def sample_ms(ds, n: int = 3):
+    """Valid points and host ms of ``ds``'s first ``n`` training samples,
+    one at a time on this thread."""
+    counts, times = [], []
+    for i in range(n):
+        t = time.perf_counter()
+        s = ds.__getitem__(i, seed=SEED + i)
+        times.append(round((time.perf_counter() - t) * 1e3, 1))
+        counts.append(int(s["point_valid"].sum()))
+    return counts, times
+
+
+def phase_j(pcfg, cfg, wcfg, failures: list) -> dict:
+    """Training from disk through the CLI on the band route: returns the
+    launches of its runs, summed."""
+    import os
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from geomae_tpu_torch.apis import inference_detector, init_model
+    from geomae_tpu_torch.config import apply_overrides
+    from geomae_tpu_torch.data.nuscenes import NuScenesDetDataset
+    from geomae_tpu_torch.data.synthetic import write_synthetic_infos
+    from geomae_tpu_torch.profile_serving import DEVICE_CATS, busy_ms, host_ms
+    from geomae_tpu_torch.train.pretrain import make_train_step
+
+    bz = pcfg.data.batch_size
+    pcfg, cfg, wcfg = (apply_overrides(c, [BAND_OPTION])
+                       for c in (pcfg, cfg, wcfg))
+    print(f"phase J: training from disk through the CLI, "
+          f"{pcfg.compute_dtype}, batch {bz}, full width, band route: "
+          f"nuScenes pretrain {J_PRETRAIN_STEPS} steps, fine-tune "
+          f"{J_FINETUNE_STEPS} with CBGS from its checkpoint at the "
+          f"config's lr, one test-mode frame served, Waymo pretrain "
+          f"{J_WAYMO_STEPS} steps")
+    total: dict = {}
+    work = tempfile.mkdtemp(prefix="geomae_smoke_disk_")
+    nus, way = os.path.join(work, "nus"), os.path.join(work, "waymo")
+    pre, ft = os.path.join(work, "pre"), os.path.join(work, "ft")
+    try:
+        t = time.perf_counter()
+        write_synthetic_infos(nus, NUS_FRAMES, NUS_POINTS, NUS_SWEEPS)
+        ann = write_waymo_infos(way, WAYMO_FRAMES, WAYMO_POINTS,
+                                WAYMO_SWEEPS, wcfg.voxel.point_cloud_range)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(work) for f in fs)
+        print(f"  wrote {NUS_FRAMES} nuScenes frames ({NUS_POINTS} points, "
+              f"{NUS_SWEEPS} sweeps) and {WAYMO_FRAMES} Waymo frames "
+              f"({WAYMO_POINTS} points, {WAYMO_SWEEPS} sweeps): "
+              f"{size / 1e6:.0f} MB in {time.perf_counter() - t:.1f} s")
+        common = ["--device", DEVICE, "--batch-size", str(bz), "--seed",
+                  str(SEED), "--log-interval", "1", "--cfg-options",
+                  BAND_OPTION]
+        nus_args = ["--data-root", nus, "--ann-file", "infos.pkl"]
+        tr = cli_run("pretrain from disk", [
+            "pretrain", "--work-dir", pre, "--total-steps",
+            str(J_PRETRAIN_STEPS), *nus_args, *common],
+            on_route(per_pretrain_step(pcfg), cfg), J_PRETRAIN_STEPS, total,
+            failures)
+        n, ms = sample_ms(tr.loader.dataset)
+        print(f"    NuScenesSSLDataset (native: {tr.loader.dataset.native}):"
+              f" {n} valid points (cap {pcfg.caps.max_points}), host ms "
+              f"per sample {ms}")
+        tr2 = cli_run("fine-tune from disk, CBGS", [
+            "finetune", "--work-dir", ft, "--total-steps",
+            str(J_FINETUNE_STEPS), "--cbgs", "--load-from",
+            os.path.join(pre, "ckpt"), *nus_args, *common],
+            on_route(PER_STEP, cfg), J_FINETUNE_STEPS, total, failures)
+        ds = tr2.loader.dataset
+        n, ms = sample_ms(ds)
+        print(f"    {type(ds).__name__}: {len(ds)} rows of {NUS_FRAMES} "
+              f"frames; lr {tr2.state.model.cfg.optim.lr}; {n} valid "
+              f"points, host ms per sample {ms}")
+        if type(ds).__name__ != "CBGSDataset" or not len(ds):
+            failures.append(f"fine-tune from disk read {type(ds).__name__} "
+                            f"of {len(ds)} rows")
+
+        det = init_model(checkpoint=os.path.join(ft, "ckpt"), cfg=cfg,
+                         device=DEVICE)
+        frame = NuScenesDetDataset(tr2.state.model.cfg.data, cfg.voxel,
+                                   cfg.caps, test_mode=True)[0]
+        pts = frame["points"][frame["point_valid"]]
+        fns = reset_counts()
+        res, ms = host_ms(lambda: inference_detector(det, pts))
+        k = len(res["scores"])
+        print(f"  served a test-mode frame: {len(pts)} points -> {k} "
+              f"detections in {ms:.1f} ms, finite: "
+              f"{bool(np.isfinite(res['boxes']).all())}")
+        if not (k > 0 and np.isfinite(res["boxes"]).all()):
+            failures.append(f"served frame from disk: {k} boxes, "
+                            f"{int((~np.isfinite(res['boxes'])).sum())} "
+                            f"non-finite values")
+        served = check_launches(fns, on_route(PER_FRAME, cfg), 1, "frames",
+                                failures)
+        for name, v in served.items():
+            total[name] += v
+
+        tr3 = cli_run("Waymo pretrain from disk", [
+            "pretrain", "--preset", "waymo", "--work-dir",
+            os.path.join(work, "wpre"), "--total-steps", str(J_WAYMO_STEPS),
+            "--data-root", way, "--ann-file", ann, *common],
+            on_route(per_pretrain_step(wcfg), cfg), J_WAYMO_STEPS, total,
+            failures)
+        wc = tr3.state.model.cfg
+        if (wc.voxel.grid_size, wc.caps.max_voxels) != ((468, 468), 24576):
+            failures.append(f"the Waymo preset ran {wc.voxel.grid_size}, "
+                            f"{wc.caps.max_voxels} pillars")
+        # one more Waymo step under the profiler: the device's busy time
+        ws = tr3.loader.dataset
+        n, ms = sample_ms(ws)
+        print(f"    WaymoSSLDataset: {n} valid points (cap "
+              f"{wc.caps.max_points}), host ms per sample {ms}")
+        batch = {key: torch.from_numpy(np.stack(
+            [ws.__getitem__(i, seed=SEED)[key] for i in range(bz)]))
+            .to(DEVICE) for key in ("points", "point_valid")}
+        step = make_train_step(wc)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        host_ms(lambda: step(tr3.state, batch, gen))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = host_ms(lambda: step(tr3.state, batch, gen))
+        trace = os.path.join(work, "waymo_trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if "dur" in e and e.get("cat") in DEVICE_CATS]
+        busy = busy_ms((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3
+        print(f"  profiled Waymo pretrain step: wall {wall:.1f} ms, device "
+              f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}, "
+              f"device ops {len(events)}")
+        if not busy:
+            failures.append("the profiled Waymo step shows no device time")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def main() -> None:
     from geomae_tpu_torch.apis import geomae_finetune_nus
-    from geomae_tpu_torch.config import apply_overrides, geomae_pretrain_nus
+    from geomae_tpu_torch.config import (apply_overrides, geomae_pretrain_nus,
+                                         geomae_pretrain_waymo)
 
     startup()
     cfg = geomae_finetune_nus()
@@ -1898,6 +2132,14 @@ def main() -> None:
     runs.append(phase_i(pcfg, failures))
     if failures:
         raise Failed(f"phase I: {failures}")
+    wcfg = geomae_pretrain_waymo()
+    phase_a(wcfg, "Waymo pretrain step", pretrain_inputs(wcfg, dev), WAYMO,
+            {}, failures)
+    if failures:
+        raise Failed(f"phase A (Waymo pretrain step shapes): {failures}")
+    runs.append(phase_j(pcfg, cfg, wcfg, failures))
+    if failures:
+        raise Failed(f"phase J: {failures}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rows = results[name]

@@ -1,11 +1,17 @@
 """Synthetic labelled LiDAR scenes (numpy), the data of ``--synthetic``
-training runs and of tests.
+training runs and of tests, and info files on disk.
 
-The port's own copy of ``geomae_tpu/data/synthetic.py:synthetic_scene``:
-point clusters inside boxes over a ground plane, with box annotations
-consistent with the clusters.
+The port's own copy of ``geomae_tpu/data/synthetic.py``
+(``synthetic_scene``, ``write_synthetic_infos``): point clusters inside
+boxes over a ground plane, with box annotations consistent with the
+clusters, and the same scenes written as nuScenes-schema ``.bin`` files
+with an info pickle, byte for byte what the JAX package writes.
 """
 from __future__ import annotations
+
+import os
+import pickle
+from typing import Dict, List
 
 import numpy as np
 
@@ -42,6 +48,49 @@ def synthetic_scene(rng: np.random.Generator, pc_range, n_points: int,
                       rng.uniform(0, 0.45, n_points)], -1).astype(np.float32)
     pts = np.concatenate([xyz, extra], -1)
     return pts, np.asarray(boxes, np.float32), np.asarray(labels, np.int32)
+
+
+def write_synthetic_infos(tmpdir: str, n_frames: int = 3,
+                          n_points: int = 4000,
+                          n_sweeps: int = 2) -> str:
+    """Write .bin files + an info pkl in the nuScenes schema; returns the
+    pkl path.  Every box is a car."""
+    rng = np.random.default_rng(0)
+    infos: List[Dict] = []
+    os.makedirs(f"{tmpdir}/sweeps", exist_ok=True)
+    for i in range(n_frames):
+        pts, boxes, labels = synthetic_scene(
+            rng, (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0), n_points)
+        raw = np.concatenate([pts[:, :4],
+                              np.zeros((len(pts), 1), np.float32)], -1)
+        path = f"{tmpdir}/frame_{i}.bin"
+        raw.astype(np.float32).tofile(path)
+        sweeps = []
+        for j in range(n_sweeps):
+            spts, _, _ = synthetic_scene(
+                rng, (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0), n_points // 2)
+            sraw = np.concatenate([spts[:, :4],
+                                   np.zeros((len(spts), 1), np.float32)], -1)
+            spath = f"{tmpdir}/sweeps/frame_{i}_{j}.bin"
+            sraw.astype(np.float32).tofile(spath)
+            sweeps.append(dict(
+                data_path=spath,
+                sensor2lidar_rotation=np.eye(3),
+                sensor2lidar_translation=np.zeros(3),
+                timestamp=(1_000_000 * i - 100_000 * (j + 1)),
+            ))
+        infos.append(dict(
+            lidar_path=path, token=f"tok{i}", timestamp=1_000_000 * i,
+            sweeps=sweeps, gt_boxes=boxes[:, :7],
+            gt_velocity=boxes[:, 7:9],
+            gt_names=np.array(["car"] * len(boxes)),
+            valid_flag=np.ones(len(boxes), bool),
+            num_lidar_pts=np.full(len(boxes), 10),
+        ))
+    pkl_path = f"{tmpdir}/infos.pkl"
+    with open(pkl_path, "wb") as f:
+        pickle.dump(dict(infos=infos, metadata=dict(version="synthetic")), f)
+    return pkl_path
 
 
 class SyntheticSSL:

@@ -80,10 +80,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     through the 16 conv layers and the head's outputs depend on the input;
     biases +-1/sqrt(fan_in); Xavier for the fused q/k/v projection; ones
     and zeros for the norms.  Values are drawn on the CPU in a fixed module
-    order, so one seed gives the same weights on every device."""
+    order, so one seed gives the same weights on every device.  Random
+    weights that are served (``apis.Detector3D`` without a checkpoint)
+    start here; the training entry points start from
+    ``init_weights_reference``."""
     def uniform(t: torch.Tensor, bound: float) -> None:
-        t.copy_(torch.empty(t.shape).uniform_(-bound, bound,
-                                              generator=generator))
+        _uniform(t, bound, generator)
 
     for m in model.modules():
         if isinstance(m, nn.MultiheadAttention):
@@ -100,12 +102,96 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             uniform(m.weight, math.sqrt(6.0 / fan_in))
             if m.bias is not None:
                 uniform(m.bias, 1.0 / math.sqrt(fan_in))
-        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-            m.running_mean.zero_()
-            m.running_var.fill_(1.0)
-            m.num_batches_tracked.zero_()
-        elif isinstance(m, nn.LayerNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
+        elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
+            _unit_norm(m)
+
+
+# lecun_normal's truncated normal has the standard deviation of a unit
+# normal cut at +-2; flax divides by it so the draw's std is sqrt(1/fan_in)
+_TRUNC_STD = .87962566103423978
+
+
+@torch.no_grad()
+def init_weights_reference(model: nn.Module,
+                           generator: torch.Generator) -> None:
+    """Fill every parameter and buffer from ``generator`` with the
+    distribution the JAX package's initializer draws its counterpart from,
+    the init of the training entry points (``train/finetune.py``,
+    ``train/pretrain.py``).  Values are drawn on the CPU in module order,
+    as ``init_weights`` draws them.  Biases are zero (flax's default),
+    norms ones and zeros, BN running statistics 0 and 1.  Families:
+
+    * VFE Linears: ``variance_scaling(1/3, fan_in, uniform)``, bound
+      sqrt(1/fan_in) (``geomae_tpu/models/vfe.py:32``);
+    * anchor-head convs: the same (``anchor_head.py:50``);
+    * SECOND and FPN convs, transposed ones included: flax's default
+      ``lecun_normal``, a unit normal cut at +-2 and scaled to the std
+      sqrt(1/fan_in), fan_in = in x kh x kw of the flax kernel (kh, kw,
+      in, out) (``second.py:61-112``);
+    * SST q/k/v, out-projection and FFN Linears, and every other Linear
+      (GeoMAE's six heads): ``xavier_uniform``, bound
+      sqrt(6 / (fan_in + fan_out)) (``sst.py:199-291``,
+      ``mae.py:559-588``).  The GeoMAE decoder pair's kernels are [G = 2,
+      in, out] in JAX, and flax counts the group axis into both fans
+      (``sst.py:205-215, 393-406``), which halves their variance.
+
+    The mask token is GeoMAE's own (``train/pretrain.py``)."""
+    def uniform(t: torch.Tensor, bound: float) -> None:
+        _uniform(t, bound, generator)
+
+    def lecun_normal(t: torch.Tensor, fan_in: int) -> None:
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        t.copy_(nn.init.trunc_normal_(torch.empty(t.shape), 0.0, std,
+                                      -2 * std, 2 * std,
+                                      generator=generator))
+
+    def xavier(t: torch.Tensor, fan_in: int, fan_out: int,
+               groups: int) -> None:
+        uniform(t, math.sqrt(6.0 / (groups * (fan_in + fan_out))))
+
+    for name, m in model.named_modules():
+        groups = 2 if name.startswith(("backbone.decoder_centroid_blocks",
+                                       "backbone.decoder_density_blocks")) \
+            else 1
+        if isinstance(m, nn.MultiheadAttention):
+            C = m.embed_dim
+            for rows in m.in_proj_weight.split(C):     # q, k, v: [C, C]
+                xavier(rows, C, C, groups)
+            m.in_proj_bias.zero_()
+        elif isinstance(m, nn.Linear):
+            fan_out, fan_in = m.weight.shape
+            if name.startswith("voxel_encoder."):
+                uniform(m.weight, math.sqrt(1.0 / fan_in))
+            else:
+                xavier(m.weight, fan_in, fan_out, groups)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = m.in_channels * math.prod(m.kernel_size)
+            else:
+                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(m.weight)
+            if name.startswith("bbox_head."):
+                uniform(m.weight, math.sqrt(1.0 / fan_in))
+            else:
+                lecun_normal(m.weight, fan_in)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
+            _unit_norm(m)
+
+
+def _uniform(t: torch.Tensor, bound: float,
+             generator: torch.Generator) -> None:
+    """``t`` from U(-bound, bound), drawn on the CPU."""
+    t.copy_(torch.empty(t.shape).uniform_(-bound, bound, generator=generator))
+
+
+def _unit_norm(m: nn.Module) -> None:
+    """Ones and zeros for a norm's affine and running statistics."""
+    m.weight.fill_(1.0)
+    m.bias.zero_()
+    if isinstance(m, nn.modules.batchnorm._BatchNorm):
+        m.running_mean.zero_()
+        m.running_var.fill_(1.0)
+        m.num_batches_tracked.zero_()

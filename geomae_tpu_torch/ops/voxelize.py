@@ -1,11 +1,14 @@
 """Fixed-capacity dynamic voxelization by one sort.
 
 Port of ``geomae_tpu/ops/voxelize.py`` (``low_voxel_coords``,
-``sub_voxel_slots``, ``build_scene``).  Points are sorted ONCE by
-``pillar_key * num_slots_low + slot_sort``, so every later segment op sees
-ascending pillar ids; pillar rows are the ascending unique pillar keys,
-ranked densely, and a point of a pillar past the row capacity (or an
-invalid point) carries the sentinel id ``v_cap``, always as a suffix.
+``sub_voxel_slots``, ``build_scene``, ``scene_from_arrays``).  Points are
+sorted ONCE by ``pillar_key * num_slots_low + slot_sort``, so every later
+segment op sees ascending pillar ids; pillar rows are the ascending
+unique pillar keys, ranked densely, and a point of a pillar past the row
+capacity (or an invalid point) carries the sentinel id ``v_cap``, always
+as a suffix.  ``scene_from_arrays`` takes a scene the loader sorted on
+the host (``data/native_prep.build_scene_host``: a radix sort, stable
+too, so it equals this sort's scene).
 
 Batched over a leading axis ([B, P, D]) instead of the JAX ``vmap``.  The
 sort here is stable; the JAX sort is not inside equal keys, so the two
@@ -130,3 +133,16 @@ def build_scene_batch(points: torch.Tensor, point_valid: torch.Tensor,
     return Scene(points=points_s, valid=valid_s, table=table,
                  slot_low=slot_low_s, slot_med=slot_med_s,
                  slot_sort=slot_sort_s)
+
+
+def scene_from_arrays(batch) -> Scene:
+    """The Scene of a batch that the loader sorted on the host
+    (``data.native_prep.build_scene_host``, stacked): its ``points``,
+    ``point_valid``, ``slot_low``, ``slot_med``, ``slot_sort``, ``p2v``,
+    ``coords``, ``table_valid`` and ``num_voxels`` tensors."""
+    table = VoxelTable(coords=batch["coords"], valid=batch["table_valid"],
+                       num_voxels=batch["num_voxels"],
+                       point2voxel=batch["p2v"])
+    return Scene(points=batch["points"], valid=batch["point_valid"],
+                 table=table, slot_low=batch["slot_low"],
+                 slot_med=batch["slot_med"], slot_sort=batch["slot_sort"])

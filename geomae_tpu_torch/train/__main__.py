@@ -10,6 +10,20 @@
         --device cpu --total-steps 2 --batch-size 2 \\
         --load-from /tmp/pre/ckpt --work-dir /tmp/ft
 
+    # GeoMAE pretrain on nuScenes SSL infos on disk (the native point prep)
+    python -m geomae_tpu_torch.train pretrain --data-root data/nuscenes \\
+        --ann-file nuscenes_ssl_infos_train.pkl --work-dir work_dirs/pre
+
+    # detection fine-tune on nuScenes infos, class-balanced (CBGS, the
+    # default at full width), from the pretrain checkpoint
+    python -m geomae_tpu_torch.train finetune --data-root data/nuscenes \\
+        --ann-file nuscenes_infos_train.pkl --cbgs \\
+        --load-from work_dirs/pre/ckpt --work-dir work_dirs/ft
+
+    # Waymo multi-sweep pretrain on KITTI-format infos (6-channel bins)
+    python -m geomae_tpu_torch.train pretrain --preset waymo \\
+        --data-root data/waymo --ann-file waymo_infos_train.pkl
+
     # full width on a CUDA GPU, the K8 attention route
     python -m geomae_tpu_torch.train pretrain --synthetic \\
         --cfg-options sst.attention_impl=band --total-steps 20
@@ -23,9 +37,18 @@ Runs on ``--device cuda`` unless told otherwise.  Under ``torchrun``
 on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and trains its rows
 of every global batch; ``--batch-size`` is the global batch, by default
 the config's per-device batch times the number of ranks, and must divide
-by it.  The nuScenes and Waymo
-datasets, the Waymo preset and the CenterHead preset are not ported yet
-and raise ``NotImplementedError`` (``ROADMAP.md`` has the queue).
+by it.
+
+Datasets as ``tools/train.py`` picks them: pretrain reads
+``NuScenesSSLDataset`` (``--preset waymo``: ``WaymoSSLDataset``),
+fine-tune ``NuScenesDetDataset``, wrapped in ``CBGSDataset`` unless
+``--tiny`` or ``--cbgs`` says otherwise (``--preset waymo``:
+``WaymoDataset``, on the nuScenes fine-tune config, as the JAX CLI does;
+its 6-channel bins then need ``--cfg-options data.load_dim=6``).
+Without ``--data-root`` the config's own ``data.data_root`` is read
+(the Waymo preset's ``data/waymo``), where ``tools/train.py`` defaults
+to ``data/nuscenes`` for every preset.  The CenterHead preset is not
+ported yet and raises ``NotImplementedError`` (``ROADMAP.md``, P13).
 """
 from __future__ import annotations
 
@@ -39,7 +62,10 @@ import torch.distributed as dist
 
 from .. import config as C
 from ..data.loader import PrefetchLoader
+from ..data.nuscenes import (CBGSDataset, NuScenesDetDataset,
+                             NuScenesSSLDataset)
 from ..data.synthetic import SyntheticDet, SyntheticSSL
+from ..data.waymo import WaymoDataset, WaymoSSLDataset
 from ..parallel.mesh import Group, init_distributed, shard_batch
 from ..utils.logging import get_root_logger
 from .trainer import Trainer
@@ -54,7 +80,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="config family (dataset geometry + model variant)")
     p.add_argument("--work-dir", default="work_dirs/run")
     p.add_argument("--data-root", default=None,
-                   help="a dataset on disk (not ported yet: raises)")
+                   help="dataset root on disk (default: the config's "
+                        "data.data_root)")
+    p.add_argument("--ann-file", default=None,
+                   help="info pickle under --data-root (default: the "
+                        "config's data.ann_file)")
     p.add_argument("--batch-size", type=int, default=None,
                    help="global batch (default: the config's, 4, per "
                         "rank)")
@@ -71,6 +101,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--tiny", action="store_true",
                    help="tiny model config (CPU-friendly)")
     p.add_argument("--num-workers", type=int, default=4)
+    p.add_argument("--cbgs", action="store_true", default=None,
+                   help="class-balanced resampling of the nuScenes "
+                        "fine-tune set (default: on unless --tiny)")
     p.add_argument("--log-interval", type=int, default=50,
                    help="log the losses every N steps")
     p.add_argument("--ckpt-interval", type=int, default=1000,
@@ -95,23 +128,27 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     args = parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     rank = int(os.environ.get("RANK", "0"))
-    if args.preset != "nus":
+    if args.preset == "nus_centerhead":
         raise NotImplementedError(
-            f"--preset {args.preset}: the Waymo dataset and the CenterHead "
-            "are not ported yet (ROADMAP.md, section 1)")
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the nuScenes and Waymo datasets are not ported yet "
-            "(ROADMAP.md, section 1): pass --synthetic")
+            "--preset nus_centerhead: the CenterHead is not ported yet "
+            "(ROADMAP.md, section 1, P13)")
     # the run's log from the start, so that the weight import lands in it
     get_root_logger(os.path.join(args.work_dir, "train.log"), rank=rank)
     pretrain = args.task == "pretrain"
-    if pretrain:
+    waymo = args.preset == "waymo"
+    if pretrain and waymo:
+        cfg = C.tiny_pretrain_waymo_config() if args.tiny \
+            else C.geomae_pretrain_waymo()
+    elif pretrain:
         cfg = C.tiny_pretrain_config() if args.tiny \
             else C.geomae_pretrain_nus()
     else:
         cfg = C.tiny_finetune_config() if args.tiny \
             else C.geomae_finetune_nus()
+    if args.data_root or args.ann_file:
+        cfg = C.replace(cfg, data=C.replace(
+            cfg.data, data_root=args.data_root or cfg.data.data_root,
+            ann_file=args.ann_file or cfg.data.ann_file))
     if args.cfg_options:
         cfg = C.apply_overrides(cfg, args.cfg_options)
 
@@ -119,7 +156,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     if batch % world:
         raise ValueError(f"--batch-size {batch} (the global batch) does not "
                          f"divide over {world} ranks")
-    ds = (SyntheticSSL if pretrain else SyntheticDet)(cfg)
+    ds = dataset(args, cfg, pretrain, waymo)
     steps_per_epoch = max(len(ds) // batch, 1)
     if args.total_steps:
         total = args.total_steps
@@ -134,6 +171,25 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     finally:
         if group is not None:
             dist.destroy_process_group()
+
+
+def dataset(args, cfg, pretrain: bool, waymo: bool):
+    """The training set ``tools/train.py`` builds for these arguments."""
+    if args.synthetic:
+        return (SyntheticSSL if pretrain else SyntheticDet)(cfg)
+    data, dims = cfg.data, dict(load_dims=cfg.data.load_dim,
+                                use_dims=cfg.data.use_dim)
+    if pretrain and waymo:
+        return WaymoSSLDataset(data, cfg.voxel, cfg.caps, **dims)
+    if pretrain:
+        return NuScenesSSLDataset(data, cfg.voxel, cfg.caps)
+    if waymo:
+        return WaymoDataset(data, cfg.voxel, cfg.caps, cfg.max_gt_boxes,
+                            **dims)
+    ds = NuScenesDetDataset(data, cfg.voxel, cfg.caps, cfg.max_gt_boxes)
+    if args.cbgs or (args.cbgs is None and not args.tiny):
+        ds = CBGSDataset(ds)
+    return ds
 
 
 def _train(args, cfg, pretrain: bool, ds, batch: int, total: int,

@@ -27,7 +27,8 @@ from ..data.transforms import pad_boxes, pad_points
 
 from ..models.anchor_head import Detections, head_loss, predict
 from ..models.anchors import grid_anchors, head_featmap_size
-from ..models.detector import DynamicVoxelNet, extract_scene, init_weights
+from ..models.detector import (DynamicVoxelNet, extract_scene,
+                               init_weights_reference)
 from ..parallel.distributed import (all_reduce_grads, data_parallel,
                                     sum_losses)
 from ..parallel.mesh import Group
@@ -42,13 +43,14 @@ def init_state(cfg: FinetuneConfig, device: torch.device | str = "cuda",
                pretrain: Optional[Mapping[str, torch.Tensor]] = None
                ) -> TrainState:
     """A fresh model on ``device`` with weights from ``generator``
-    (default: seeded with ``cfg.seed``, see ``init_weights``), then from
-    the GeoMAE ``state_dict`` ``pretrain`` where given
-    (``load_pretrained``), in training mode, and its optimizer."""
+    (default: seeded with ``cfg.seed``) drawn as the JAX initializer draws
+    them (``init_weights_reference``), then from the GeoMAE
+    ``state_dict`` ``pretrain`` where given (``load_pretrained``), in
+    training mode, and its optimizer."""
     model = DynamicVoxelNet(cfg, device="meta").to_empty(device=device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    init_weights(model, generator)
+    init_weights_reference(model, generator)
     if pretrain is not None:
         load_pretrained(model, pretrain)
     model.train()

@@ -31,10 +31,10 @@ import torch
 
 from ..config import PretrainConfig
 from ..data.transforms import pad_points
-from ..models.detector import init_weights
+from ..models.detector import init_weights_reference
 from ..models.mae import (GeoMAE, GeoMAETargets, compute_targets_batch,
                           pretrain_loss, sample_mask)
-from ..ops.voxelize import Scene, build_scene_batch
+from ..ops.voxelize import Scene, build_scene_batch, scene_from_arrays
 from ..parallel.distributed import (all_reduce_grads, data_parallel,
                                     sum_losses)
 from ..parallel.mesh import Group
@@ -55,9 +55,14 @@ def targets_and_mask(cfg: PretrainConfig, batch: Dict,
     """(scene, targets, keep) of ``batch`` (points [B, P, 5], point_valid
     [B, P]): the sorted scene, its geometric targets, and ``keep`` or a
     mask drawn from ``generator`` (inside ``data_parallel(group)``: the
-    rank's rows of the whole batch's draw)."""
-    scene = build_scene_batch(batch["points"], batch["point_valid"],
-                              cfg.voxel, cfg.caps.max_voxels)
+    rank's rows of the whole batch's draw).  A batch that carries ``p2v``
+    was sorted on the host (``NuScenesSSLDataset(precompute_scene=
+    True)``) and skips the device sort."""
+    if "p2v" in batch:
+        scene = scene_from_arrays(batch)
+    else:
+        scene = build_scene_batch(batch["points"], batch["point_valid"],
+                                  cfg.voxel, cfg.caps.max_voxels)
     targets = compute_targets_batch(scene, cfg)
     if keep is None:
         keep = sample_mask(generator, scene.table.valid,
@@ -79,12 +84,16 @@ def forward(cfg: PretrainConfig, model: GeoMAE, batch: Dict,
 
 
 @torch.no_grad()
-def init_weights_geomae(model: GeoMAE, generator: torch.Generator) -> None:
-    """``detector.init_weights`` (He-uniform Linears, Xavier q/k/v, unit
-    norms) and the ``mask_token`` Xavier-uniform over its (1, C) shape, as
-    the JAX initializer draws it; values drawn on the CPU in module order,
-    so one seed gives the same weights on every device."""
-    init_weights(model, generator)
+def init_weights_reference_geomae(model: GeoMAE,
+                                  generator: torch.Generator) -> None:
+    """GeoMAE's weights from the JAX initializer's distributions:
+    ``detector.init_weights_reference`` (the VFE, the encoder, the
+    decoder pair with its grouped fans, and the six heads, Xavier-uniform
+    with zero biases, ``geomae_tpu/models/mae.py:559-588``), then the
+    ``mask_token`` Xavier-uniform over its (1, C) shape (``mae.py:540``);
+    values drawn on the CPU in module order, so one seed gives the same
+    weights on every device."""
+    init_weights_reference(model, generator)
     t = model.backbone.mask_token
     bound = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
     t.copy_(torch.empty(t.shape).uniform_(-bound, bound, generator=generator))
@@ -93,12 +102,13 @@ def init_weights_geomae(model: GeoMAE, generator: torch.Generator) -> None:
 def init_state(cfg: PretrainConfig, device: torch.device | str = "cuda",
                generator: Optional[torch.Generator] = None) -> TrainState:
     """A fresh GeoMAE on ``device`` with weights from ``generator``
-    (default: seeded with ``cfg.seed``), in training mode, and its
-    optimizer (``cfg.optim``: AdamW, clip, the cyclic lr)."""
+    (default: seeded with ``cfg.seed``) drawn as the JAX initializer
+    draws them (``init_weights_reference_geomae``), in training mode, and
+    its optimizer (``cfg.optim``: AdamW, clip, the cyclic lr)."""
     model = build_model(cfg, device="meta").to_empty(device=device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    init_weights_geomae(model, generator)
+    init_weights_reference_geomae(model, generator)
     model.train()
     return TrainState(step=0, model=model, tx=AdamW(model, cfg.optim))
 

@@ -4,8 +4,10 @@ checkpoints (bitwise round trip, retention, the path forms of
 ``load_weights``); the ``Trainer`` (resume equals an uninterrupted run
 bitwise, the eval hook's schedule, an empty loader); the loader; the CLI
 (pretrain, then fine-tune from its checkpoint, then serving from the
-fine-tune checkpoint; the unported presets); and the tiny pretrain step on
-the ``band`` attention route against the JAX step on its einsum route."""
+fine-tune checkpoint; the same from info files on disk, nuScenes with CBGS
+and Waymo; the unported CenterHead preset); the training init against
+the JAX initializer's distributions; and the tiny pretrain step on the
+``band`` attention route against the JAX step on its einsum route."""
 import json
 import os
 
@@ -22,10 +24,15 @@ from geomae_tpu.data.synthetic import synthetic_scene as jax_scene
 from geomae_tpu.models import mae as jmae
 from geomae_tpu.ops.voxelize import build_scene_batch as jax_build
 from geomae_tpu.train import finetune as JFT
-from geomae_tpu_torch.apis import init_model
+from geomae_tpu.train import pretrain as JPT
+from geomae_tpu_torch.apis import inference_detector, init_model
 from geomae_tpu_torch.data.loader import PrefetchLoader
+from geomae_tpu_torch.data.nuscenes import (CBGSDataset, NuScenesDetDataset,
+                                            NuScenesSSLDataset)
 from geomae_tpu_torch.data.synthetic import (SyntheticDet, SyntheticSSL,
-                                             synthetic_scene)
+                                             synthetic_scene,
+                                             write_synthetic_infos)
+from geomae_tpu_torch.data.waymo import WaymoDataset, WaymoSSLDataset
 from geomae_tpu_torch.models.detector import DynamicVoxelNet
 from geomae_tpu_torch.models.mae import GeoMAE
 from geomae_tpu_torch.train import finetune as FT
@@ -36,6 +43,7 @@ from geomae_tpu_torch.train.checkpoint import (CheckpointManager,
 from geomae_tpu_torch.train.trainer import Trainer
 from geomae_tpu_torch.utils.logging import collect_env
 from geomae_tpu_torch.weights import from_flax
+from test_torch_port_data import write_waymo_infos
 from test_torch_port_pretrain_ops import frames, randomized_geomae
 from test_torch_port_weights import randomized_state
 
@@ -314,13 +322,145 @@ def test_cli_pretrain_then_finetune_then_serve(tmp_path):
     assert not det.model.training
 
 
-@pytest.mark.parametrize("argv", [
-    ["pretrain", "--synthetic", "--preset", "waymo"],
-    ["finetune", "--synthetic", "--preset", "nus_centerhead"],
-    ["pretrain", "--data-root", "data/nuscenes"]])
-def test_cli_unported_paths_raise(argv):
+def test_cli_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_main([*argv, "--tiny", "--device", "cpu"])
+        train_main(["finetune", "--synthetic", "--preset", "nus_centerhead",
+                    "--tiny", "--device", "cpu"])
+
+
+def test_cli_from_disk_pretrain_then_cbgs_finetune_then_serve(tmp_path):
+    """The CLI on nuScenes infos on disk (``write_synthetic_infos``: 20
+    frames, all boxes cars): pretrain 2 steps on ``NuScenesSSLDataset``
+    (the native point prep), fine-tune 2 steps with ``--cbgs`` from that
+    checkpoint (a one-class set keeps int(0.1 n) = 2 rows, one batch),
+    then serve a test-mode frame of the same files from the fine-tune
+    checkpoint: finite boxes."""
+    root = str(tmp_path / "nus")
+    write_synthetic_infos(root, n_frames=20, n_points=4000, n_sweeps=2)
+    pre, ft = str(tmp_path / "pre"), str(tmp_path / "ft")
+    common = ["--tiny", "--device", "cpu", "--batch-size", "2",
+              "--num-workers", "2", "--total-steps", "2", "--data-root",
+              root, "--ann-file", "infos.pkl", "--log-interval", "1"]
+    tr = train_main(["pretrain", "--work-dir", pre, *common])
+    assert isinstance(tr.loader.dataset, NuScenesSSLDataset)
+    assert tr.loader.dataset.native and len(tr.loader.dataset) == 20
+    tr2 = train_main(["finetune", "--cbgs", "--work-dir", ft, "--load-from",
+                      os.path.join(pre, "ckpt"), *common])
+    ds = tr2.loader.dataset
+    assert isinstance(ds, CBGSDataset) and len(ds) == 2
+    assert tr2.state.step == 2 and tr2.ckpt.all_steps() == [2]
+    for d in (pre, ft):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        assert len(rows) == 2 and all(np.isfinite(r["loss"]) for r in rows)
+    with open(os.path.join(ft, "train.log")) as f:
+        assert "imported 54/87 pretrained tensors" in f.read()
+    cfg = tr2.state.model.cfg
+    assert cfg.data.data_root == root
+    det = init_model(checkpoint=os.path.join(ft, "ckpt"), cfg=cfg,
+                     device="cpu")
+    frame = NuScenesDetDataset(cfg.data, cfg.voxel, cfg.caps, test_mode=True)
+    pts = frame[3]["points"][frame[3]["point_valid"]]
+    res = inference_detector(det, pts)
+    assert np.isfinite(res["boxes"]).all() and res["boxes"].shape[1] == 9
+    # without --cbgs a --tiny fine-tune reads every frame
+    tr3 = train_main(["finetune", "--work-dir", str(tmp_path / "ft2"),
+                      *common])
+    assert isinstance(tr3.loader.dataset, NuScenesDetDataset)
+
+
+def test_cli_waymo_pretrain_from_disk_then_resume(tmp_path):
+    """``--preset waymo`` reads KITTI-format Waymo infos
+    (``WaymoSSLDataset``, 6-channel frames, pose-relative sweeps) at the
+    tiny Waymo geometry; a second run resumes; a fine-tune from it reads
+    ``WaymoDataset``."""
+    root = str(tmp_path / "waymo")
+    ann = write_waymo_infos(root, n_frames=4)
+    work = str(tmp_path / "pre")
+    common = ["pretrain", "--preset", "waymo", "--tiny", "--device", "cpu",
+              "--batch-size", "2", "--num-workers", "0", "--data-root", root,
+              "--ann-file", ann, "--work-dir", work]
+    tr = train_main([*common, "--total-steps", "2"])
+    assert isinstance(tr.loader.dataset, WaymoSSLDataset)
+    cfg = tr.state.model.cfg
+    assert cfg.voxel == tcfg.tiny_pretrain_waymo_config().voxel
+    assert (tr.loader.dataset.load_dims, tr.loader.dataset.use_dims) == (6, 5)
+    tr2 = train_main([*common, "--total-steps", "3"])
+    assert tr2.state.step == 3
+    with open(os.path.join(work, "train.log")) as f:
+        assert "resumed from step 2" in f.read()
+    # fine-tune on the same infos (WaymoDataset, on the nuScenes fine-tune
+    # config as in tools/train.py; its frames have 6 channels)
+    tr3 = train_main(["finetune", "--preset", "waymo", "--tiny", "--device",
+                      "cpu", "--batch-size", "2", "--num-workers", "0",
+                      "--data-root", root, "--ann-file", ann, "--work-dir",
+                      str(tmp_path / "ft"), "--total-steps", "1",
+                      "--load-from", os.path.join(work, "ckpt"),
+                      "--cfg-options", "data.load_dim=6"])
+    assert isinstance(tr3.loader.dataset, WaymoDataset)
+    assert tr3.state.step == 1
+
+
+@pytest.mark.parametrize("preset,root", [("nus", "data/nuscenes"),
+                                         ("waymo", "data/waymo")])
+def test_cli_data_root_defaults_to_the_config(tmp_path, preset, root):
+    """Without ``--data-root`` the preset's own root is read (the JAX CLI
+    would read data/nuscenes for every preset)."""
+    with pytest.raises(FileNotFoundError, match=root):
+        train_main(["pretrain", "--preset", preset, "--tiny", "--device",
+                    "cpu", "--work-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("task", ["finetune", "pretrain"])
+def test_training_init_draws_the_jax_initializers_distributions(task):
+    """``init_state``'s weights (``init_weights_reference``) against the
+    JAX package's initializer, tensor by tensor, at the full widths of
+    ``geomae_finetune_nus()`` / ``geomae_pretrain_nus()`` (the pillar
+    grid and caps cut: no parameter's shape depends on them).  A tensor
+    that JAX sets to a constant (biases, norms, BN statistics) equals it
+    bitwise; a tensor of 4,096 entries or more has a std within 5 % of
+    the JAX draw's, and its largest |w| at its family's bound (the
+    uniform families' bound, 2 / 0.8796 std for LeCun's truncated
+    normal), read from the JAX draw's own largest |w|, within 2 %."""
+    def cut(C):
+        cfg = getattr(C, f"geomae_{task}_nus")()
+        h = 32 * cfg.voxel.voxel_size[0]              # a 64 x 64 grid
+        return C.replace(
+            cfg, voxel=C.replace(cfg.voxel, point_cloud_range=(
+                -h, -h, -5.0, h, h, 3.0)),
+            caps=C.replace(cfg.caps, max_points=1024, max_voxels=256,
+                           max_visible=128), compute_dtype="float32")
+
+    jc, tc = cut(jcfg), cut(tcfg)
+    jstate, _ = (JFT if task == "finetune" else JPT).init_state(
+        jc, 1, jax.random.PRNGKey(0))
+    want = from_flax(jstate.params, jstate.batch_stats)
+    state = (FT if task == "finetune" else PT).init_state(
+        tc, "cpu", torch.Generator().manual_seed(0))
+    got = state.model.state_dict()
+    assert got.keys() == want.keys()
+    n_big = 0
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape, k
+        if w.numel() == 1 or bool((w == w.flatten()[0]).all()):
+            assert torch.equal(g, w), k
+            continue
+        assert w.numel() >= 128, k        # every drawn tensor is large
+        if w.numel() < 4096:
+            continue
+        n_big += 1
+        ratio = float(g.float().std() / w.float().std())
+        assert abs(ratio - 1) < 0.05, (k, ratio)
+        # the family's bound: at 4,096 draws or more the largest |w| of
+        # either package lies within 1 % of it (a uniform of the same std
+        # as LeCun's truncated normal stops at 0.76 of its bound)
+        top = float(g.abs().max()) / float(w.abs().max())
+        assert abs(top - 1) < 0.02, (k, top)
+    # the detector: 12 SST layers x 4, 16 SECOND convs, 3 FPN ups, 3 head
+    # convs, a VFE Linear; GeoMAE: 12 + 8 SST layers x 4, a VFE Linear, 4
+    # heads
+    assert n_big == (71 if task == "finetune" else 85)
 
 
 def test_predict_fn_and_collect_env():
