@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port's detection serving path, fine-tune train
 step, GeoMAE pretrain train step, trainer entry point, data-parallel
-training and training from datasets on disk on one CUDA GPU.
+training, training from datasets on disk, the CenterHead and the eval
+entry point on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -82,7 +83,24 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      (finite boxes), and ``--preset waymo`` pretrain 3 steps; each run's
      launches and finite losses, its host ms medians (data wait, step)
      and peak memory, each dataset's host ms per sample, and one
-     profiled Waymo step's device busy time.
+     profiled Waymo step's device busy time;
+  K. the CenterHead and evaluation, from phase J's files, at the full
+     width of ``geomae_finetune_nus_centerhead()`` (0.256 m pillars, 6
+     tasks, 10 classes), bfloat16, band route: ``--preset
+     nus_centerhead`` fine-tunes 4 steps at batch 4 through the CLI
+     (every task's losses finite, launches per step, host ms medians,
+     peak memory, one profiled step's device busy time), 3 distinct
+     batches then 4 steps on the last in process (the loss falls), 3
+     test-mode frames served from its checkpoint (finite boxes, at most
+     ``topk``, labels in [0, 10), scores above the threshold, launches per
+     frame as phase B's, one profiled frame) and ``aug_test`` over 4
+     flips; phases C and E on the CenterHead config in float32, with the
+     NMS keep masks on the card against the CPU on the same candidates;
+     ``python -m geomae_tpu_torch.test`` in process on phase J's anchor
+     checkpoint over 8 frames with and without ``--wnms`` (finite
+     metrics, one results-JSON entry a token, ms a frame); the served
+     CenterHead frames scored with ``eval.nuscenes_eval.evaluate``, and
+     the ground truth scored as its own prediction at mAP 1.0.
 
 ``auto`` resolves to the ``band`` route at full width.  Phases B, D and F
 run first on the ``qkv`` route (K6 and K7, asked for by name), then a
@@ -90,7 +108,7 @@ second, shorter time on the ``band`` route, so that the two routes' frame
 and step times come from one run and the same batches.  Any failed check
 exits non-zero.  The line before the last is a JSON
 summary of the kernels: ``launches`` sums the served frames and train steps of
-B, D, F (both routes), H, I's one-rank NCCL steps and J; ``ms``, ``plain_ms``, ``library_ms`` and
+B, D, F (both routes), H, I's one-rank NCCL steps, J and K; ``ms``, ``plain_ms``, ``library_ms`` and
 ``bound_ms`` are the times of one call of each distinct call the paths
 make of the kernel in its dtype, summed (``segment_broadcast``: f32 mean
 + bf16 max forward at both shapes + f32 sum backward; the SST kernels at
@@ -112,8 +130,10 @@ time behind a device spin (the kernels line's) and at the host's pace
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -396,7 +416,11 @@ STEP_TOL = {
     # the gradient noise above, which the gradient bound holds; a |g| near
     # AdamW's eps; the key bias's gradient, zero but for rounding) to 2 lr
     "update": (1e-3, 0.1, 2.001),
-    "ulps": 0,               # f32 ulps of the parameter added to both
+    # each side rounds the updated weight once: a BN scale at 1.0 moved by
+    # lr 1e-4 lands one f32 ulp apart (1.19e-7, 1.19e-3 lr) when the two
+    # updates straddle a rounding boundary (the CenterHead's 37 BNs met
+    # it), so both are held beyond two ulps of the weight, as phase G is
+    "ulps": 2,
 }
 # phase G, f32 GPU against CPU, one pretrain step.  The targets: the
 # occupancy exact; the centroids in metres (a normalised target times its
@@ -1079,14 +1103,14 @@ def phase_b(cfg, failures: list) -> dict:
     return launches
 
 
-def phase_c(cfg, failures: list) -> None:
+def phase_c(cfg, failures: list):
     from geomae_tpu_torch.apis import Detector3D, replace, to_batch
     from geomae_tpu_torch.models.detector import extract_scene
     from geomae_tpu_torch.synthetic import clustered_frame
 
     cfg32 = replace(cfg, compute_dtype="float32")
-    print("phase C: one frame in float32, GPU kernels against CPU plain "
-          "versions, same seeded weights")
+    print(f"phase C: one frame in float32, GPU kernels against CPU plain "
+          f"versions, same seeded weights, {cfg.head_type} head")
     raw = clustered_frame(np.random.default_rng(SEED + 1), cfg.voxel,
                           cfg.caps.max_points)
     got = {}
@@ -1118,9 +1142,25 @@ def phase_c(cfg, failures: list) -> None:
     compare(f"FPN output {tuple(fc.shape)}, max |x| "
             f"{float(fc.abs().max()):.3e}", fg.cpu(), fc, *PARITY_TOL,
             failures)
-    for name, a, b in zip(og._fields, og, oc):
+    for name, a, b in zip(head_names(og), head_maps(og), head_maps(oc)):
         compare(f"head {name} {tuple(b.shape)}, std {float(b.std()):.3e}",
                 a.cpu(), b, *PARITY_TOL, failures)
+    return og, oc
+
+
+def head_names(out) -> list:
+    """The names of a head's outputs: the anchor head's fields, or one per
+    CenterHead task (its six maps)."""
+    if isinstance(out, list):
+        return [f"task{i} ({', '.join(d)})" for i, d in enumerate(out)]
+    return list(out._fields)
+
+
+def head_maps(out) -> list:
+    """A head's outputs, each CenterHead task's maps flattened into one."""
+    if isinstance(out, list):
+        return [torch.cat([t.flatten() for t in d.values()]) for d in out]
+    return list(out)
 
 
 def phase_d(cfg, failures: list, repeat: int = REPEAT) -> dict:
@@ -1174,8 +1214,9 @@ def phase_e(cfg, failures: list) -> None:
                                                  synthetic_batch)
 
     cfg32 = replace(cfg, compute_dtype="float32")
-    print("phase E: one float32 train step (batch 1), GPU kernels against "
-          "CPU plain versions, same seeded weights and batch")
+    print(f"phase E: one float32 train step (batch 1), GPU kernels against "
+          f"CPU plain versions, same seeded weights and batch, "
+          f"{cfg.head_type} head")
     batch = synthetic_batch(cfg32, 1, seed=SEED + 50, device="cpu")
     got = {}
     for dev in (DEVICE, "cpu"):
@@ -1951,20 +1992,17 @@ def sample_ms(ds, n: int = 3):
     return counts, times
 
 
-def phase_j(pcfg, cfg, wcfg, failures: list) -> dict:
-    """Training from disk through the CLI on the band route: returns the
-    launches of its runs, summed."""
+def phase_j(pcfg, cfg, wcfg, failures: list, work: str) -> dict:
+    """Training from disk through the CLI on the band route, its files and
+    runs under ``work`` (phase K reads them): returns the launches of its
+    runs, summed."""
     import os
-    import shutil
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
 
     from geomae_tpu_torch.apis import inference_detector, init_model
     from geomae_tpu_torch.config import apply_overrides
     from geomae_tpu_torch.data.nuscenes import NuScenesDetDataset
     from geomae_tpu_torch.data.synthetic import write_synthetic_infos
-    from geomae_tpu_torch.profile_serving import DEVICE_CATS, busy_ms, host_ms
+    from geomae_tpu_torch.profile_serving import host_ms
     from geomae_tpu_torch.train.pretrain import make_train_step
 
     bz = pcfg.data.batch_size
@@ -1977,105 +2015,343 @@ def phase_j(pcfg, cfg, wcfg, failures: list) -> dict:
           f"config's lr, one test-mode frame served, Waymo pretrain "
           f"{J_WAYMO_STEPS} steps")
     total: dict = {}
-    work = tempfile.mkdtemp(prefix="geomae_smoke_disk_")
     nus, way = os.path.join(work, "nus"), os.path.join(work, "waymo")
     pre, ft = os.path.join(work, "pre"), os.path.join(work, "ft")
-    try:
-        t = time.perf_counter()
-        write_synthetic_infos(nus, NUS_FRAMES, NUS_POINTS, NUS_SWEEPS)
-        ann = write_waymo_infos(way, WAYMO_FRAMES, WAYMO_POINTS,
-                                WAYMO_SWEEPS, wcfg.voxel.point_cloud_range)
-        size = sum(os.path.getsize(os.path.join(d, f))
-                   for d, _, fs in os.walk(work) for f in fs)
-        print(f"  wrote {NUS_FRAMES} nuScenes frames ({NUS_POINTS} points, "
-              f"{NUS_SWEEPS} sweeps) and {WAYMO_FRAMES} Waymo frames "
-              f"({WAYMO_POINTS} points, {WAYMO_SWEEPS} sweeps): "
-              f"{size / 1e6:.0f} MB in {time.perf_counter() - t:.1f} s")
-        common = ["--device", DEVICE, "--batch-size", str(bz), "--seed",
-                  str(SEED), "--log-interval", "1", "--cfg-options",
-                  BAND_OPTION]
-        nus_args = ["--data-root", nus, "--ann-file", "infos.pkl"]
-        tr = cli_run("pretrain from disk", [
-            "pretrain", "--work-dir", pre, "--total-steps",
-            str(J_PRETRAIN_STEPS), *nus_args, *common],
-            on_route(per_pretrain_step(pcfg), cfg), J_PRETRAIN_STEPS, total,
-            failures)
-        n, ms = sample_ms(tr.loader.dataset)
-        print(f"    NuScenesSSLDataset (native: {tr.loader.dataset.native}):"
-              f" {n} valid points (cap {pcfg.caps.max_points}), host ms "
-              f"per sample {ms}")
-        tr2 = cli_run("fine-tune from disk, CBGS", [
-            "finetune", "--work-dir", ft, "--total-steps",
-            str(J_FINETUNE_STEPS), "--cbgs", "--load-from",
-            os.path.join(pre, "ckpt"), *nus_args, *common],
-            on_route(PER_STEP, cfg), J_FINETUNE_STEPS, total, failures)
-        ds = tr2.loader.dataset
-        n, ms = sample_ms(ds)
-        print(f"    {type(ds).__name__}: {len(ds)} rows of {NUS_FRAMES} "
-              f"frames; lr {tr2.state.model.cfg.optim.lr}; {n} valid "
-              f"points, host ms per sample {ms}")
-        if type(ds).__name__ != "CBGSDataset" or not len(ds):
-            failures.append(f"fine-tune from disk read {type(ds).__name__} "
-                            f"of {len(ds)} rows")
+    t = time.perf_counter()
+    write_synthetic_infos(nus, NUS_FRAMES, NUS_POINTS, NUS_SWEEPS)
+    ann = write_waymo_infos(way, WAYMO_FRAMES, WAYMO_POINTS,
+                            WAYMO_SWEEPS, wcfg.voxel.point_cloud_range)
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(work) for f in fs)
+    print(f"  wrote {NUS_FRAMES} nuScenes frames ({NUS_POINTS} points, "
+          f"{NUS_SWEEPS} sweeps) and {WAYMO_FRAMES} Waymo frames "
+          f"({WAYMO_POINTS} points, {WAYMO_SWEEPS} sweeps): "
+          f"{size / 1e6:.0f} MB in {time.perf_counter() - t:.1f} s")
+    common = ["--device", DEVICE, "--batch-size", str(bz), "--seed",
+              str(SEED), "--log-interval", "1", "--cfg-options",
+              BAND_OPTION]
+    nus_args = ["--data-root", nus, "--ann-file", "infos.pkl"]
+    tr = cli_run("pretrain from disk", [
+        "pretrain", "--work-dir", pre, "--total-steps",
+        str(J_PRETRAIN_STEPS), *nus_args, *common],
+        on_route(per_pretrain_step(pcfg), cfg), J_PRETRAIN_STEPS, total,
+        failures)
+    n, ms = sample_ms(tr.loader.dataset)
+    print(f"    NuScenesSSLDataset (native: {tr.loader.dataset.native}):"
+          f" {n} valid points (cap {pcfg.caps.max_points}), host ms "
+          f"per sample {ms}")
+    tr2 = cli_run("fine-tune from disk, CBGS", [
+        "finetune", "--work-dir", ft, "--total-steps",
+        str(J_FINETUNE_STEPS), "--cbgs", "--load-from",
+        os.path.join(pre, "ckpt"), *nus_args, *common],
+        on_route(PER_STEP, cfg), J_FINETUNE_STEPS, total, failures)
+    ds = tr2.loader.dataset
+    n, ms = sample_ms(ds)
+    print(f"    {type(ds).__name__}: {len(ds)} rows of {NUS_FRAMES} "
+          f"frames; lr {tr2.state.model.cfg.optim.lr}; {n} valid "
+          f"points, host ms per sample {ms}")
+    if type(ds).__name__ != "CBGSDataset" or not len(ds):
+        failures.append(f"fine-tune from disk read {type(ds).__name__} "
+                        f"of {len(ds)} rows")
 
-        det = init_model(checkpoint=os.path.join(ft, "ckpt"), cfg=cfg,
-                         device=DEVICE)
-        frame = NuScenesDetDataset(tr2.state.model.cfg.data, cfg.voxel,
-                                   cfg.caps, test_mode=True)[0]
-        pts = frame["points"][frame["point_valid"]]
-        fns = reset_counts()
-        res, ms = host_ms(lambda: inference_detector(det, pts))
-        k = len(res["scores"])
-        print(f"  served a test-mode frame: {len(pts)} points -> {k} "
-              f"detections in {ms:.1f} ms, finite: "
-              f"{bool(np.isfinite(res['boxes']).all())}")
-        if not (k > 0 and np.isfinite(res["boxes"]).all()):
-            failures.append(f"served frame from disk: {k} boxes, "
-                            f"{int((~np.isfinite(res['boxes'])).sum())} "
-                            f"non-finite values")
-        served = check_launches(fns, on_route(PER_FRAME, cfg), 1, "frames",
-                                failures)
-        for name, v in served.items():
-            total[name] += v
+    det = init_model(checkpoint=os.path.join(ft, "ckpt"), cfg=cfg,
+                     device=DEVICE)
+    frame = NuScenesDetDataset(tr2.state.model.cfg.data, cfg.voxel,
+                               cfg.caps, test_mode=True)[0]
+    pts = frame["points"][frame["point_valid"]]
+    fns = reset_counts()
+    res, ms = host_ms(lambda: inference_detector(det, pts))
+    k = len(res["scores"])
+    print(f"  served a test-mode frame: {len(pts)} points -> {k} "
+          f"detections in {ms:.1f} ms, finite: "
+          f"{bool(np.isfinite(res['boxes']).all())}")
+    if not (k > 0 and np.isfinite(res["boxes"]).all()):
+        failures.append(f"served frame from disk: {k} boxes, "
+                        f"{int((~np.isfinite(res['boxes'])).sum())} "
+                        f"non-finite values")
+    served = check_launches(fns, on_route(PER_FRAME, cfg), 1, "frames",
+                            failures)
+    for name, v in served.items():
+        total[name] += v
 
-        tr3 = cli_run("Waymo pretrain from disk", [
-            "pretrain", "--preset", "waymo", "--work-dir",
-            os.path.join(work, "wpre"), "--total-steps", str(J_WAYMO_STEPS),
-            "--data-root", way, "--ann-file", ann, *common],
-            on_route(per_pretrain_step(wcfg), cfg), J_WAYMO_STEPS, total,
-            failures)
-        wc = tr3.state.model.cfg
-        if (wc.voxel.grid_size, wc.caps.max_voxels) != ((468, 468), 24576):
-            failures.append(f"the Waymo preset ran {wc.voxel.grid_size}, "
-                            f"{wc.caps.max_voxels} pillars")
-        # one more Waymo step under the profiler: the device's busy time
-        ws = tr3.loader.dataset
-        n, ms = sample_ms(ws)
-        print(f"    WaymoSSLDataset: {n} valid points (cap "
-              f"{wc.caps.max_points}), host ms per sample {ms}")
-        batch = {key: torch.from_numpy(np.stack(
-            [ws.__getitem__(i, seed=SEED)[key] for i in range(bz)]))
-            .to(DEVICE) for key in ("points", "point_valid")}
-        step = make_train_step(wc)
-        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-        host_ms(lambda: step(tr3.state, batch, gen))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, wall = host_ms(lambda: step(tr3.state, batch, gen))
-        trace = os.path.join(work, "waymo_trace.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            events = [e for e in json.load(f)["traceEvents"]
-                      if "dur" in e and e.get("cat") in DEVICE_CATS]
-        busy = busy_ms((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3
-        print(f"  profiled Waymo pretrain step: wall {wall:.1f} ms, device "
-              f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}, "
-              f"device ops {len(events)}")
-        if not busy:
-            failures.append("the profiled Waymo step shows no device time")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    tr3 = cli_run("Waymo pretrain from disk", [
+        "pretrain", "--preset", "waymo", "--work-dir",
+        os.path.join(work, "wpre"), "--total-steps", str(J_WAYMO_STEPS),
+        "--data-root", way, "--ann-file", ann, *common],
+        on_route(per_pretrain_step(wcfg), cfg), J_WAYMO_STEPS, total,
+        failures)
+    wc = tr3.state.model.cfg
+    if (wc.voxel.grid_size, wc.caps.max_voxels) != ((468, 468), 24576):
+        failures.append(f"the Waymo preset ran {wc.voxel.grid_size}, "
+                        f"{wc.caps.max_voxels} pillars")
+    # one more Waymo step under the profiler: the device's busy time
+    ws = tr3.loader.dataset
+    n, ms = sample_ms(ws)
+    print(f"    WaymoSSLDataset: {n} valid points (cap "
+          f"{wc.caps.max_points}), host ms per sample {ms}")
+    batch = {key: torch.from_numpy(np.stack(
+        [ws.__getitem__(i, seed=SEED)[key] for i in range(bz)]))
+        .to(DEVICE) for key in ("points", "point_valid")}
+    step = make_train_step(wc)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    host_ms(lambda: step(tr3.state, batch, gen))
+    profiled("Waymo pretrain step", lambda: step(tr3.state, batch, gen),
+             os.path.join(work, "waymo_trace.json"), failures)
     return total
+
+
+K_STEPS = 4            # phase K's CenterHead fine-tune steps from disk
+K_EVAL_FRAMES = 8      # test-mode frames the eval CLI scores
+
+
+def phase_k(cfg, failures: list, work: str) -> dict:
+    """The CenterHead (``geomae_finetune_nus_centerhead()``) and the eval
+    entry point on the band route, from phase J's files under ``work``:
+    returns the launches of its steps and frames, summed."""
+    import os
+
+    from geomae_tpu_torch import test as eval_cli
+    from geomae_tpu_torch.apis import inference_detector, init_model
+    from geomae_tpu_torch.config import (apply_overrides,
+                                         geomae_finetune_nus_centerhead)
+    from geomae_tpu_torch.data.nuscenes import NUS_CLASSES, NuScenesDetDataset
+    from geomae_tpu_torch.eval.nuscenes_eval import evaluate
+    from geomae_tpu_torch.profile_serving import host_ms, stage_ms
+    from geomae_tpu_torch.train import finetune
+
+    ccfg = apply_overrides(geomae_finetune_nus_centerhead(), [BAND_OPTION])
+    cfg = apply_overrides(cfg, [BAND_OPTION])
+    ch = ccfg.center_head
+    bz = ccfg.data.batch_size
+    print(f"phase K: the CenterHead ({ccfg.voxel.grid_size[0]} x "
+          f"{ccfg.voxel.grid_size[1]} pillars of {ccfg.voxel.voxel_size[0]} "
+          f"m, {len(ch.tasks)} tasks, {ch.num_classes} classes), "
+          f"{ccfg.compute_dtype}, batch {bz}, full width, band route: "
+          f"fine-tune {K_STEPS} steps from disk through the CLI, a repeated "
+          f"batch, {FRAMES} frames served from its checkpoint, test-time "
+          f"augmentation, f32 GPU against CPU; the eval CLI on phase J's "
+          f"fine-tune checkpoint over {K_EVAL_FRAMES} frames")
+    total: dict = {}
+    nus, cft = os.path.join(work, "nus"), os.path.join(work, "cft")
+    common = ["--device", DEVICE, "--batch-size", str(bz), "--seed",
+              str(SEED), "--log-interval", "1", "--cfg-options", BAND_OPTION]
+
+    # 1. fine-tune from disk through the CLI
+    tr = cli_run("CenterHead fine-tune from disk", [
+        "finetune", "--preset", "nus_centerhead", "--work-dir", cft,
+        "--total-steps", str(K_STEPS), "--data-root", nus, "--ann-file",
+        "infos.pkl", *common], on_route(PER_STEP, ccfg), K_STEPS, total,
+        failures)
+    with open(os.path.join(cft, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    terms = [f"task{i}.loss_{k}" for i in range(len(ch.tasks))
+             for k in ("heatmap", "bbox")] + ["loss"]
+    if len(rows) != K_STEPS or not all(
+            np.isfinite(r.get(k, np.nan)) for r in rows for k in terms):
+        failures.append(f"CenterHead losses missing or not finite: {rows}")
+    print(f"    losses of the last step: " + ", ".join(
+        f"{k} {rows[-1].get(k, float('nan')):.4f}" for k in terms))
+    run_cfg = tr.state.model.cfg
+    ds = tr.loader.dataset
+    batch = {key: torch.from_numpy(np.stack(
+        [ds.__getitem__(i, seed=SEED)[key] for i in range(bz)])).to(DEVICE)
+        for key in ("points", "point_valid", "gt_boxes", "gt_labels",
+                    "gt_mask")}
+    step = finetune.make_train_step(run_cfg)
+    host_ms(lambda: step(tr.state, batch))
+    profiled("CenterHead fine-tune step", lambda: step(tr.state, batch),
+             os.path.join(work, "center_step_trace.json"), failures)
+
+    # 2. a repeated batch in process: the loss falls
+    state = finetune.init_state(ccfg, DEVICE,
+                                torch.Generator().manual_seed(SEED))
+    step = finetune.make_train_step(ccfg)
+    batches = [finetune.synthetic_batch(ccfg, bz, seed=SEED + 30 + i,
+                                        device=DEVICE)
+               for i in range(DISTINCT)]
+    n = DISTINCT + BAND_REPEAT
+    fns = reset_counts()
+    losses, times = [], []
+    for i in range(n):
+        b = batches[min(i, DISTINCT - 1)]
+        (_, lo), ms = host_ms(lambda: step(state, b))
+        losses.append(float(lo["loss"]))
+        times.append(ms)
+        if not all(np.isfinite(float(v)) for v in lo.values()):
+            failures.append(f"CenterHead step {i}: a loss is not finite")
+    launches = check_launches(fns, on_route(PER_STEP, ccfg), n,
+                              "CenterHead train steps", failures)
+    for k, v in launches.items():
+        total[k] += v
+    rep = losses[DISTINCT - 1:]
+    print(f"  in process: losses {[round(v, 4) for v in losses]}; on the "
+          f"repeated batch {rep[0]:.4f} -> {rep[-1]:.4f} over {len(rep) - 1} "
+          f"steps; step median {float(np.median(times[1:])):.1f} ms")
+    if not rep[-1] < rep[0]:
+        failures.append("the CenterHead loss did not fall on the repeated "
+                        "batch")
+    del state, batches
+
+    # 3. serve from the checkpoint
+    det = init_model(checkpoint=os.path.join(cft, "ckpt"), cfg=ccfg,
+                     device=DEVICE)
+    test_ds = NuScenesDetDataset(run_cfg.data, ccfg.voxel, ccfg.caps,
+                                 test_mode=True)
+    frames = []
+    for i in range(FRAMES):
+        f = test_ds[i]
+        frames.append(f["points"][f["point_valid"]])
+    fns = reset_counts()
+    served, ms_all = [], []
+    for f, pts in enumerate(frames):
+        res, ms = host_ms(lambda: inference_detector(det, pts))
+        served.append(res)
+        ms_all.append(ms)
+        k = len(res["scores"])
+        ok = (0 < k <= ch.topk and res["boxes"].shape == (k, 9)
+              and np.isfinite(res["boxes"]).all()
+              and ((res["labels"] >= 0)
+                   & (res["labels"] < ch.num_classes)).all()
+              and (res["scores"] > ch.score_threshold).all())
+        print(f"  frame {f}: {len(pts)} points -> {k} detections in "
+              f"{ms:.1f} ms")
+        if not ok:
+            failures.append(f"CenterHead frame {f} malformed: {k} boxes")
+    # 4. test-time augmentation: four flips of the last frame
+    (merged, ms) = host_ms(lambda: det.aug_test(frames[-1]))
+    print(f"  aug_test (4 flips): {len(merged['scores'])} merged boxes in "
+          f"{ms:.1f} ms, finite: {bool(np.isfinite(merged['boxes']).all())}")
+    if not (len(merged["scores"]) and np.isfinite(merged["boxes"]).all()):
+        failures.append("aug_test's merged boxes")
+    launches = check_launches(fns, on_route(PER_FRAME, ccfg), FRAMES + 4,
+                              "CenterHead frames (3 served, 4 flipped)",
+                              failures)
+    for k, v in launches.items():
+        total[k] += v
+    print(f"  served frame median {float(np.median(ms_all)):.1f} ms")
+    stages = stage_ms(det, frames[-1])
+    print("  stages of one more frame (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stages.items()))
+    profiled("CenterHead served frame",
+             lambda: inference_detector(det, frames[0]),
+             os.path.join(work, "center_frame_trace.json"), failures)
+
+    # 5. f32 GPU against CPU: a frame (with the NMS keep masks), a step
+    og, oc = phase_c(ccfg, failures)
+    compare_center_nms(og, oc, ccfg, failures)
+    phase_e(ccfg, failures)
+
+    # 6. the eval entry point on phase J's anchor fine-tune checkpoint
+    results = {}
+    for wnms in (False, True):
+        out = os.path.join(work, f"results_{wnms}.json")
+        argv = ["--work-dir", os.path.join(work, "ft"), "--data-root", nus,
+                "--ann-file", "infos.pkl", "--max-frames",
+                str(K_EVAL_FRAMES), "--device", DEVICE, "--out", out,
+                "--cfg-options", BAND_OPTION] + (["--wnms"] if wnms else [])
+        fns = reset_counts()
+        metrics, ms = host_ms(lambda: eval_cli.main(argv))
+        with open(out) as f:
+            tokens = list(json.load(f)["results"])
+        # one forward a batch of 4 frames
+        launches = check_launches(fns, on_route(PER_FRAME, cfg),
+                                  -(-K_EVAL_FRAMES // 4),
+                                  "eval batches", failures)
+        for k, v in launches.items():
+            total[k] += v
+        results[wnms] = metrics
+        print(f"  eval CLI{' --wnms' if wnms else ''}: {ms:.0f} ms for "
+              f"{K_EVAL_FRAMES} frames, restore included "
+              f"({ms / K_EVAL_FRAMES:.1f} ms a frame); mAP "
+              f"{metrics['mAP']:.4f}, NDS {metrics['NDS']:.4f}; "
+              f"{len(tokens)} tokens in the results JSON")
+        if (len(tokens) != K_EVAL_FRAMES
+                or not all(np.isfinite(v) and v >= 0
+                           for v in metrics.values())
+                or not (0 <= metrics["mAP"] <= 1 and 0 <= metrics["NDS"] <= 1)):
+            failures.append(f"eval CLI (wnms {wnms}): {metrics}, "
+                            f"{len(tokens)} tokens")
+
+    # 7. the CenterHead's served frames scored in process
+    gts = []
+    for i in range(FRAMES):
+        b, lab = test_ds.get_ann(i)
+        gts.append(dict(boxes=b, labels=lab))
+    m = evaluate(served, gts, NUS_CLASSES)
+    own = evaluate([dict(g, scores=np.ones(len(g["labels"]), np.float32))
+                    for g in gts], gts, NUS_CLASSES)
+    print(f"  served CenterHead frames scored: mAP {m['mAP']:.4f}, NDS "
+          f"{m['NDS']:.4f}; the ground truth as its own prediction: mAP "
+          f"{own['mAP']!r}")
+    if not all(np.isfinite(v) for v in m.values()) \
+            or abs(own["mAP"] - 1.0) > 1e-12:
+        failures.append(f"scoring the served frames: {m}, {own}")
+    return total
+
+
+def compare_center_nms(og, oc, cfg, failures: list) -> None:
+    """The CenterHead's rotated NMS on the card against the CPU, on the
+    same candidates (the CPU decode's, every task at once): the keep
+    masks equal, but in a ranking where some pair's IoU lies within 1e-5
+    of the threshold on either device."""
+    from geomae_tpu_torch.models.center_head import decode_task
+    from geomae_tpu_torch.ops.rotated_iou import (boxes_iou_bev_batched,
+                                                  nms_bev)
+
+    ch = cfg.center_head
+    dec = [decode_task(p, ch, cfg.voxel) for p in oc]
+    boxes = torch.stack([d[0][0][:, [0, 1, 3, 4, 6]] for d in dec])
+    ok = torch.stack([d[3][0] for d in dec])
+    scores = torch.stack([d[1][0] for d in dec])
+    keep = {}
+    near = torch.zeros(len(dec), dtype=torch.bool)
+    for dev in ("cpu", DEVICE):
+        b = boxes.to(dev)
+        keep[dev] = nms_bev(b, scores.to(dev), ok.to(dev), ch.nms_thr,
+                            ch.post_max_size).cpu()
+        iou = boxes_iou_bev_batched(b).cpu()
+        near |= ((iou - ch.nms_thr).abs() < 1e-5).flatten(1).any(1)
+    differ = (keep["cpu"] != keep[DEVICE]).any(1)
+    print(f"  NMS keep masks over {tuple(boxes.shape[:2])} candidates: "
+          f"{int(keep['cpu'].sum())} kept on the CPU, "
+          f"{int(keep[DEVICE].sum())} on the card; tasks that differ "
+          f"{differ.nonzero().flatten().tolist()}, tasks with an IoU near "
+          f"the threshold {near.nonzero().flatten().tolist()}")
+    if bool((differ & ~near).any()):
+        failures.append("CenterHead NMS keep masks differ between the card "
+                        "and the CPU")
+
+
+def profiled(what: str, fn, trace: str, failures: list) -> None:
+    """One call of ``fn`` under ``torch.profiler``: its wall ms, the
+    device's busy ms (union of kernel, copy and memset intervals), the
+    idle share and the device operations, printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geomae_tpu_torch.profile_serving import DEVICE_CATS, busy_ms, host_ms
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = host_ms(fn)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if "dur" in e and e.get("cat") in DEVICE_CATS]
+    busy = busy_ms((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3
+    print(f"  profiled {what}: wall {wall:.1f} ms, device busy {busy:.2f} "
+          f"ms, idle share {1 - busy / wall:.3f}, device ops {len(events)}")
+    if not busy:
+        failures.append(f"the profiled {what} shows no device time")
+
+
+def passed(what: str, failures: list, clock: list) -> None:
+    """Stop on ``what``'s failures; else print the seconds it took since
+    ``clock[0]``, the end of the one before, and restart the clock."""
+    if failures:
+        raise Failed(f"{what}: {len(failures)} failures, {failures[:5]}")
+    now = time.perf_counter()
+    print(f"{what} passed in {now - clock[0]:.1f} s")
+    clock[0] = now
 
 
 def main() -> None:
@@ -2089,57 +2365,51 @@ def main() -> None:
     dev = torch.device(DEVICE)
     failures: list = []
     results: dict = {}
+    clock = [time.perf_counter()]
     phase_a(cfg, "serving", kernel_inputs(cfg, 1, dev), SERVING, results,
             failures)
-    if failures:
-        raise Failed(f"phase A: {failures}")
+    passed("phase A (serving shapes)", failures, clock)
     runs = [phase_b(apply_overrides(cfg, [QKV_OPTION]), failures)]
     runs.append(phase_b(apply_overrides(cfg, [BAND_OPTION]), failures))
-    if failures:
-        raise Failed(f"phase B: {failures}")
+    passed("phase B", failures, clock)
     phase_c(cfg, failures)
-    if failures:
-        raise Failed(f"phase C: {failures}")
+    passed("phase C", failures, clock)
     inputs = kernel_inputs(cfg, cfg.data.batch_size, dev)
     phase_a(cfg, "fine-tune step", inputs, TRAIN, results, failures)
     phase_routes(cfg, inputs, failures)
     del inputs
-    if failures:
-        raise Failed(f"phase A (fine-tune step shapes): {failures}")
+    passed("phase A (fine-tune step shapes)", failures, clock)
     runs.append(phase_d(apply_overrides(cfg, [QKV_OPTION]), failures))
     runs.append(phase_d(apply_overrides(cfg, [BAND_OPTION]), failures,
                         BAND_REPEAT))
-    if failures:
-        raise Failed(f"phase D: {failures}")
+    passed("phase D", failures, clock)
     phase_e(cfg, failures)
-    if failures:
-        raise Failed(f"phase E: {len(failures)} failures, {failures[:5]}")
+    passed("phase E", failures, clock)
     phase_a(pcfg, "pretrain step", pretrain_inputs(pcfg, dev), PRETRAIN,
             results, failures)
-    if failures:
-        raise Failed(f"phase A (pretrain step shapes): {failures}")
+    passed("phase A (pretrain step shapes)", failures, clock)
     runs.append(phase_f(apply_overrides(pcfg, [QKV_OPTION]), failures))
     runs.append(phase_f(apply_overrides(pcfg, [BAND_OPTION]), failures,
                         BAND_REPEAT))
-    if failures:
-        raise Failed(f"phase F: {failures}")
+    passed("phase F", failures, clock)
     phase_g(pcfg, failures)
-    if failures:
-        raise Failed(f"phase G: {len(failures)} failures, {failures[:5]}")
+    passed("phase G", failures, clock)
     runs.append(phase_h(pcfg, cfg, failures))
-    if failures:
-        raise Failed(f"phase H: {failures}")
+    passed("phase H", failures, clock)
     runs.append(phase_i(pcfg, failures))
-    if failures:
-        raise Failed(f"phase I: {failures}")
+    passed("phase I", failures, clock)
     wcfg = geomae_pretrain_waymo()
     phase_a(wcfg, "Waymo pretrain step", pretrain_inputs(wcfg, dev), WAYMO,
             {}, failures)
-    if failures:
-        raise Failed(f"phase A (Waymo pretrain step shapes): {failures}")
-    runs.append(phase_j(pcfg, cfg, wcfg, failures))
-    if failures:
-        raise Failed(f"phase J: {failures}")
+    passed("phase A (Waymo pretrain step shapes)", failures, clock)
+    work = tempfile.mkdtemp(prefix="geomae_smoke_disk_")
+    try:
+        runs.append(phase_j(pcfg, cfg, wcfg, failures, work))
+        passed("phase J", failures, clock)
+        runs.append(phase_k(cfg, failures, work))
+        passed("phase K", failures, clock)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rows = results[name]

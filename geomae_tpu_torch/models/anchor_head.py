@@ -2,16 +2,20 @@
 
 Port of ``geomae_tpu/models/anchor_head.py`` (``Anchor3DHead``,
 ``assign_targets``, ``head_loss``, ``Detections``, ``_nms_from_iou``,
-``predict``).  Training assigns each anchor by MaxIoU over nearest-BEV
-(axis-aligned) IoU (positive at 0.6, negative below 0.3, each GT's best
-anchors positive from 0.3, the later GT winning), computed in chunks of
-16,384 anchors so the [anchors x GT] IoU matrix never materializes, and
-takes the focal, smooth-L1 (sin-difference rotation) and direction
-losses over the number of positives.  In prediction, per sample, the top
-``nms_pre`` anchors by their best class score are decoded, rotated-BEV
-NMS runs per class at ``nms_thr`` over the scores above ``score_thr``,
-the best ``max_num`` survivors across classes are kept, and the yaw gets
-the direction classifier's fix.  The head's maps are NCHW here; ``predict``
+``predict``, ``decode_pre_nms``, ``predict_wnms``).  Training assigns
+each anchor by MaxIoU over nearest-BEV (axis-aligned) IoU (positive at
+0.6, negative below 0.3, each GT's best anchors positive from 0.3, the
+later GT winning), computed in chunks of 16,384 anchors so the [anchors
+x GT] IoU matrix never materializes, and takes the focal, smooth-L1
+(sin-difference rotation) and direction losses over the number of
+positives.  In prediction, per sample, the top ``nms_pre`` anchors by
+their best class score are decoded, rotated-BEV NMS runs per class at
+``nms_thr`` over the scores above ``score_thr``, the best ``max_num``
+survivors across classes are kept, and the yaw gets the direction
+classifier's fix; with weighted NMS the top anchors are decoded on the
+device and merged per class on the host (``predict_wnms``,
+``core/wnms.py``).  Top-k selections take the lower index first among
+ties, as ``jax.lax.top_k``.  The head's maps are NCHW here; ``predict``
 reads them in the JAX package's (y, x, anchor, class) order.
 """
 from __future__ import annotations
@@ -19,13 +23,14 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..config import AnchorHeadConfig
 
 from ..core import boxes as B
-from ..ops.rotated_iou import boxes_iou_bev
+from ..ops.rotated_iou import boxes_iou_bev, greedy_keep
 from ..parallel.distributed import all_reduce_sum
 from . import box_coder, losses
 from .second import Conv2d
@@ -163,22 +168,13 @@ def head_loss(out: HeadOutputs, anchors: torch.Tensor,
 
 def _nms_from_iou(iou: torch.Tensor, order: torch.Tensor,
                   valid_sorted: torch.Tensor, thr: float) -> torch.Tensor:
-    """Greedy NMS for a batch of rankings at once.
-
-    iou [K, K] over the candidates; order [N, K] one ranking per row (here
-    one per class); valid_sorted [N, K].  Returns the keep mask [N, K] in
-    ranked order.  Step i lets the i-th ranked box of every row, if still
-    alive and valid, remove every other box it overlaps above ``thr``:
-    the JAX loop per class, run for all classes together.
-    """
-    N, K = order.shape
+    """Greedy NMS for a batch of rankings at once: iou [K, K] over the
+    candidates; order [N, K] one ranking per row (here one per class);
+    valid_sorted [N, K].  Returns the keep mask [N, K] in ranked order:
+    the JAX loop per class, run for all classes together
+    (``greedy_keep``)."""
     sup = iou[order[:, :, None], order[:, None, :]] > thr      # [N, K, K]
-    sup.diagonal(dim1=1, dim2=2).fill_(False)
-    alive = torch.ones_like(valid_sorted)
-    for i in range(K):
-        keep_i = alive[:, i] & valid_sorted[:, i]
-        alive &= ~(sup[:, i] & keep_i[:, None])
-    return alive & valid_sorted
+    return greedy_keep(sup, valid_sorted)
 
 
 class Candidates(NamedTuple):
@@ -190,19 +186,35 @@ class Candidates(NamedTuple):
     order: torch.Tensor       # [C, k] candidates by descending class score
 
 
-def candidates(cls: torch.Tensor, reg: torch.Tensor, dirp: torch.Tensor,
-               anchors: torch.Tensor, cfg: AnchorHeadConfig) -> Candidates:
-    """One sample's head maps [A*X, H, W] -> its decoded candidates."""
+def top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest of each row of ``x``, the lower index first among
+    equal values (``jax.lax.top_k``'s order; ``torch.topk`` promises
+    none): (values, indices)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def _decode_top(cls: torch.Tensor, reg: torch.Tensor, dirp: torch.Tensor,
+                anchors: torch.Tensor, cfg: AnchorHeadConfig):
+    """One sample's head maps [A*X, H, W] -> its top ``nms_pre`` anchors
+    by best class score, decoded: (boxes [k, 9], sigmoid scores [k, C],
+    direction bins [k])."""
     C = cfg.num_classes
     scores = torch.sigmoid(cls.permute(1, 2, 0).reshape(-1, C).float())
     reg = reg.permute(1, 2, 0).reshape(-1, cfg.code_size).float()
     dir_score = dirp.permute(1, 2, 0).reshape(-1, 2).argmax(-1)
-    k = min(cfg.nms_pre, scores.shape[0])
-    top = torch.topk(scores.amax(-1), k).indices
-    boxes = box_coder.decode(reg[top], anchors[top])
-    scores = scores[top].t()
+    top = top_k(scores.amax(-1), min(cfg.nms_pre, scores.shape[0]))[1]
+    return box_coder.decode(reg[top], anchors[top]), scores[top], \
+        dir_score[top]
+
+
+def candidates(cls: torch.Tensor, reg: torch.Tensor, dirp: torch.Tensor,
+               anchors: torch.Tensor, cfg: AnchorHeadConfig) -> Candidates:
+    """One sample's head maps [A*X, H, W] -> its decoded candidates."""
+    boxes, scores, dir_score = _decode_top(cls, reg, dirp, anchors, cfg)
+    scores = scores.t()
     bev = B.bev(boxes)
-    return Candidates(boxes=boxes, scores=scores, dir_score=dir_score[top],
+    return Candidates(boxes=boxes, scores=scores, dir_score=dir_score,
                       iou=boxes_iou_bev(bev, bev),
                       order=torch.argsort(-scores, dim=1, stable=True))
 
@@ -213,7 +225,7 @@ def select(c: Candidates, keep_sorted: torch.Tensor, cfg: AnchorHeadConfig):
     k = c.boxes.shape[0]
     keep = torch.zeros_like(keep_sorted).scatter_(1, c.order, keep_sorted)
     scores_c = torch.where(keep, c.scores, -1.0).reshape(-1)  # class-major
-    sc_top, idx = torch.topk(scores_c, cfg.max_num)
+    sc_top, idx = top_k(scores_c, cfg.max_num)
     cand = idx % k
     labels = torch.div(idx, k, rounding_mode="floor").to(torch.int32)
     boxes = c.boxes[cand]
@@ -235,3 +247,59 @@ def predict(out: HeadOutputs, anchors: torch.Tensor,
         keep_sorted = _nms_from_iou(c.iou, c.order, ok_sorted, cfg.nms_thr)
         results.append(select(c, keep_sorted, cfg))
     return Detections(*[torch.stack(t) for t in zip(*results)])
+
+
+def decode_pre_nms(out: HeadOutputs, anchors: torch.Tensor,
+                   cfg: AnchorHeadConfig):
+    """Batched top-``nms_pre`` decode without NMS, the device half of the
+    weighted-NMS prediction: (boxes [B, k, code_size], scores [B, k, C],
+    direction bins [B, k])."""
+    return tuple(torch.stack(t) for t in zip(*[
+        _decode_top(c, r, d, anchors, cfg)
+        for c, r, d in zip(out.cls, out.reg, out.dir)]))
+
+
+def predict_wnms(boxes, scores, dir_scores, cfg: AnchorHeadConfig,
+                 thr_suppress: float = 0.1, thr_vote: float = 0.7,
+                 use_3d: bool = False) -> Detections:
+    """The host half of the weighted-NMS prediction over
+    ``decode_pre_nms``'s outputs (the reference's wnms_cpu branch): the
+    per-class weighted merge (``core/wnms.py``) on the CPU, then the
+    direction-aware yaw of the merged boxes; each class's IoU matrix is
+    computed on the predictions' device.  Returns ``Detections`` padded
+    to ``cfg.max_num`` rows (scores -1, invalid), on the CPU."""
+    from ..core.wnms import box3d_multiclass_wnms
+
+    device = boxes.device if isinstance(boxes, torch.Tensor) else "cpu"
+    boxes = torch.as_tensor(boxes).float().cpu().numpy()
+    scores = torch.as_tensor(scores).float().cpu().numpy()
+    dir_scores = torch.as_tensor(dir_scores).cpu().numpy()
+    Bn, _, code = boxes.shape
+    m = cfg.max_num
+    out_b = np.zeros((Bn, m, code), np.float32)
+    out_s = np.full((Bn, m), -1.0, np.float32)
+    out_l = np.zeros((Bn, m), np.int32)
+    out_v = np.zeros((Bn, m), bool)
+    for b in range(Bn):
+        # sigmoid scores take a dummy background column
+        sc = np.concatenate(
+            [scores[b], np.zeros((scores.shape[1], 1), np.float32)], -1)
+        bx, ss, ll, ds = box3d_multiclass_wnms(
+            boxes[b, :, :7], sc, cfg.score_thr, m, thr_suppress, thr_vote,
+            use_3d, dir_scores[b], device)
+        n = len(ss)
+        if n == 0:
+            continue
+        # dir_limit_offset 1 on the merged boxes
+        dir_rot = B.limit_period(torch.from_numpy(bx[:, 6]) - cfg.dir_offset,
+                                 1, math.pi).numpy()
+        out_b[b, :n, :7] = bx
+        out_b[b, :n, 6] = dir_rot + cfg.dir_offset \
+            + np.pi * ds.astype(np.float32)
+        out_s[b, :n] = ss
+        out_l[b, :n] = ll
+        out_v[b, :n] = True
+    return Detections(boxes=torch.from_numpy(out_b),
+                      scores=torch.from_numpy(out_s),
+                      labels=torch.from_numpy(out_l),
+                      valid=torch.from_numpy(out_v))

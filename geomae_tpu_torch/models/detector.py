@@ -2,7 +2,8 @@
 
 Port of ``geomae_tpu/models/detector.py`` (``DynamicVoxelNet``,
 ``extract_scene``): voxelize -> DynamicScatterVFE -> window layouts ->
-SST blocks -> recover_bev -> SECOND stages -> SECONDFPN -> Anchor3DHead.
+SST blocks -> recover_bev -> SECOND stages -> SECONDFPN -> Anchor3DHead,
+or the CenterHead with ``cfg.head_type == "center"``.
 
 The module tree carries the reference checkpoint's names
 (``voxel_encoder``, ``backbone.encoder_blocks``, ``backbone.conv_blocks``,
@@ -15,6 +16,7 @@ gradients reach the parameters through the kernels' backward.
 from __future__ import annotations
 
 import math
+from typing import Dict, List
 
 import torch
 import torch.nn as nn
@@ -24,6 +26,7 @@ from ..config import FinetuneConfig
 from ..ops.voxelize import Scene, build_scene_batch
 from ..ops.windows import make_layouts
 from .anchor_head import Anchor3DHead, HeadOutputs
+from .center_head import CenterHead
 from .second import SECONDFPN, SECONDStages, recover_bev
 from .sst import SSTStack, prepare_shift_data
 from .vfe import DynamicScatterVFE
@@ -41,19 +44,22 @@ class _Backbone(nn.Module):
 class DynamicVoxelNet(nn.Module):
     def __init__(self, cfg: FinetuneConfig, device=None):
         super().__init__()
-        if cfg.head_type != "anchor":
-            raise NotImplementedError("only the anchor head is ported")
+        if cfg.head_type not in ("anchor", "center"):
+            raise ValueError(f"head_type {cfg.head_type!r}: anchor or center")
         self.cfg = cfg
         self.voxel_encoder = DynamicScatterVFE(cfg.vfe, cfg.voxel, device)
         self.backbone = _Backbone(cfg, device)
         self.neck = SECONDFPN(cfg.fpn, device)
-        self.bbox_head = Anchor3DHead(cfg.head, device)
+        self.bbox_head = CenterHead(cfg.center_head, device) \
+            if cfg.head_type == "center" else Anchor3DHead(cfg.head, device)
 
     @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
-    def forward(self, scene: Scene) -> HeadOutputs:
+    def forward(self, scene: Scene) -> HeadOutputs | List[Dict]:
+        """The anchor head's ``HeadOutputs``, or the CenterHead's list of
+        per-task dicts of maps."""
         cfg = self.cfg
         table = scene.table
         ny, nx = cfg.voxel.grid_size
@@ -104,6 +110,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 uniform(m.bias, 1.0 / math.sqrt(fan_in))
         elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
             _unit_norm(m)
+    _center_prior(model)
 
 
 # lecun_normal's truncated normal has the standard deviation of a unit
@@ -124,6 +131,9 @@ def init_weights_reference(model: nn.Module,
     * VFE Linears: ``variance_scaling(1/3, fan_in, uniform)``, bound
       sqrt(1/fan_in) (``geomae_tpu/models/vfe.py:32``);
     * anchor-head convs: the same (``anchor_head.py:50``);
+    * CenterHead convs: flax's default ``lecun_normal`` (below), the
+      heatmap's final bias the constant ``init_bias`` (-2.19) and the
+      other biases zero (``center_head.py:40-84``);
     * SECOND and FPN convs, transposed ones included: flax's default
       ``lecun_normal``, a unit normal cut at +-2 and scaled to the std
       sqrt(1/fan_in), fan_in = in x kh x kw of the flax kernel (kh, kw,
@@ -149,6 +159,7 @@ def init_weights_reference(model: nn.Module,
                groups: int) -> None:
         uniform(t, math.sqrt(6.0 / (groups * (fan_in + fan_out))))
 
+    anchor_head = isinstance(getattr(model, "bbox_head", None), Anchor3DHead)
     for name, m in model.named_modules():
         groups = 2 if name.startswith(("backbone.decoder_centroid_blocks",
                                        "backbone.decoder_density_blocks")) \
@@ -171,7 +182,7 @@ def init_weights_reference(model: nn.Module,
                 fan_in = m.in_channels * math.prod(m.kernel_size)
             else:
                 fan_in, _ = nn.init._calculate_fan_in_and_fan_out(m.weight)
-            if name.startswith("bbox_head."):
+            if name.startswith("bbox_head.") and anchor_head:
                 uniform(m.weight, math.sqrt(1.0 / fan_in))
             else:
                 lecun_normal(m.weight, fan_in)
@@ -179,6 +190,13 @@ def init_weights_reference(model: nn.Module,
                 m.bias.zero_()
         elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
             _unit_norm(m)
+    _center_prior(model)
+
+
+def _center_prior(model: nn.Module) -> None:
+    """The CenterHead's heatmap bias at its prior, where there is one."""
+    if isinstance(getattr(model, "bbox_head", None), CenterHead):
+        model.bbox_head.fill_heatmap_bias()
 
 
 def _uniform(t: torch.Tensor, bound: float,

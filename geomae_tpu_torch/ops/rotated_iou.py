@@ -1,10 +1,12 @@
-"""Rotated BEV IoU, branch-free.
+"""Rotated BEV IoU, branch-free, and the greedy NMS over it.
 
 Port of ``geomae_tpu/ops/rotated_iou.py`` (``rect_intersection_area``,
-``boxes_iou_bev``).  Each pair of rectangles gives 24 candidate vertices
+``boxes_iou_bev``, ``nms_bev``, ``circle_nms``).  Each pair of rectangles gives 24 candidate vertices
 (16 edge crossings, 4 corners of A in B, 4 of B in A); the intersection is
 convex, so sorting the valid candidates by angle around their mean and
-taking the shoelace area gives its area.
+taking the shoelace area gives its area.  The NMS functions take many
+rankings at once (the CenterHead's tasks, the samples of a batch) and
+run one greedy loop for all of them (``greedy_keep``).
 """
 from __future__ import annotations
 
@@ -98,3 +100,80 @@ def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
         for chunk in boxes_a.split(row_chunk)])
     union = area_a[:, None] + area_b[None, :] - inter
     return inter / union.clamp_min(1e-8)
+
+
+def boxes_iou_bev_batched(boxes: torch.Tensor,
+                          pairs_per_chunk: int = 1 << 20) -> torch.Tensor:
+    """Rotated BEV IoU of every pair within each row of boxes [N, K, 5]:
+    [N, K, K].  The N * K query rows go through ``rect_intersection_area``
+    in chunks of about ``pairs_per_chunk`` pairs, so many rankings cost a
+    few calls instead of one call per ranking."""
+    N, K = boxes.shape[:2]
+    area = boxes[..., 2] * boxes[..., 3]
+    a = boxes[:, :, None, :].expand(N, K, K, 5).reshape(N * K, K, 5)
+    b = boxes[:, None, :, :].expand(N, K, K, 5).reshape(N * K, K, 5)
+    rows = max(pairs_per_chunk // max(K, 1), 1)
+    inter = torch.cat([rect_intersection_area(x, y) for x, y in
+                       zip(a.split(rows), b.split(rows))]).reshape(N, K, K)
+    union = area[:, :, None] + area[:, None, :] - inter
+    return inter / union.clamp_min(1e-8)
+
+
+def greedy_keep(sup: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Greedy suppression for N rankings at once: sup [N, K, K] (candidate
+    i of a row suppresses j where set), valid [N, K], each row in ranked
+    order.  Step i lets the i-th candidate of every row, if still alive
+    and valid, remove every other candidate it suppresses: the JAX
+    ``fori_loop`` of ``nms_bev`` run for all rows together.  Returns the
+    keep mask [N, K]."""
+    sup = sup.clone()
+    sup.diagonal(dim1=1, dim2=2).fill_(False)
+    alive = torch.ones_like(valid)
+    for i in range(valid.shape[1]):
+        keep_i = alive[:, i] & valid[:, i]
+        alive &= ~(sup[:, i] & keep_i[:, None])
+    return alive & valid
+
+
+def _first(keep: torch.Tensor, max_out: int) -> torch.Tensor:
+    """The first ``max_out`` kept candidates of each row (ranked order)."""
+    return keep & (keep.long().cumsum(-1) <= max_out)
+
+
+def _thresholds(thr, n: int, device) -> torch.Tensor:
+    """One threshold per row [n, 1, 1], from a number or a sequence."""
+    t = torch.as_tensor(thr, dtype=torch.float32, device=device)
+    return t.expand(n).reshape(n, 1, 1)
+
+
+def nms_bev(boxes5: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+            iou_thr, max_out: int) -> torch.Tensor:
+    """Greedy rotated-BEV NMS (``geomae_tpu/ops/rotated_iou.py:nms_bev``)
+    over candidates already sorted by descending score: boxes5 [..., K,
+    5], scores and valid [..., K]; every leading index is a ranking of its
+    own, and all of them share one greedy loop of K steps.  ``iou_thr``
+    is a number or one threshold per ranking (the leading axes
+    flattened).  A candidate is suppressed by a kept one above it whose
+    IoU exceeds the threshold.  Returns the keep mask [..., K], at most
+    ``max_out`` set per ranking, best first."""
+    lead, K = valid.shape[:-1], valid.shape[-1]
+    b = boxes5.reshape(-1, K, 5)
+    sup = boxes_iou_bev_batched(b) > _thresholds(iou_thr, b.shape[0],
+                                                 b.device)
+    keep = greedy_keep(sup, valid.reshape(-1, K))
+    return _first(keep, max_out).reshape(*lead, K)
+
+
+def circle_nms(centers: torch.Tensor, scores: torch.Tensor,
+               valid: torch.Tensor, min_radius: float,
+               max_out: int) -> torch.Tensor:
+    """Greedy centre-distance NMS (``geomae_tpu/ops/rotated_iou.py:
+    circle_nms``, CenterPoint's ``circle_nms``): a kept candidate
+    suppresses every later one closer than ``min_radius``.  centers [...,
+    K, 2] sorted by descending score, valid [..., K], batched as
+    ``nms_bev``.  Returns the keep mask [..., K]."""
+    lead, K = valid.shape[:-1], valid.shape[-1]
+    c = centers.reshape(-1, K, 2)
+    d2 = ((c[:, :, None] - c[:, None]) ** 2).sum(-1)
+    keep = greedy_keep(d2 < min_radius ** 2, valid.reshape(-1, K))
+    return _first(keep, max_out).reshape(*lead, K)

@@ -1,11 +1,12 @@
 """Where the time of a served frame goes, on one CUDA GPU.
 
     python -m geomae_tpu_torch.profile_serving
-        [--trace build/serving_trace.json]
+        [--trace build/serving_trace.json] [--preset nus_centerhead]
         [--cfg-options sst.attention_impl=qkv]
 
 Serves synthetic frames (``synthetic.clustered_frame``) through
-``inference_detector`` at the full width of ``geomae_finetune_nus()`` in
+``inference_detector`` at the full width of ``geomae_finetune_nus()``
+(``--preset nus_centerhead``: ``geomae_finetune_nus_centerhead()``) in
 bf16, with weights drawn from a seeded generator, and prints
 
   * the card (nvidia-smi name, power limit, SM clock, power draw);
@@ -46,27 +47,40 @@ def host_ms(fn):
     return out, (time.perf_counter() - t) * 1e3
 
 
+def preset_config(preset: str):
+    """The full-width fine-tune config of a CLI preset name."""
+    from . import config as C
+    return C.geomae_finetune_nus_centerhead() if preset == "nus_centerhead" \
+        else C.geomae_finetune_nus()
+
+
 @torch.no_grad()
 def stage_ms(det, raw: np.ndarray) -> dict:
     """Milliseconds of each stage of one served frame: request to tensors,
-    voxelize, model, decode + rotated IoU, greedy NMS over every class at
-    once, final selection."""
+    voxelize, model, then decode + rotated IoU, greedy NMS over every
+    class at once, final selection (the CenterHead: its decode, NMS and
+    selection as one stage)."""
     from .apis import to_batch
     from .models.anchor_head import _nms_from_iou, candidates, select
+    from .models.center_head import center_head_decode
     from .models.detector import extract_scene
 
     cfg = det.cfg
     batch, t_batch = host_ms(lambda: to_batch(cfg, raw, det.device))
     scene, t_vox = host_ms(lambda: extract_scene(cfg, *batch))
     out, t_model = host_ms(lambda: det.model(scene))
+    stages = {"to_batch": t_batch, "voxelize": t_vox, "model": t_model}
+    if cfg.head_type == "center":
+        _, t_dec = host_ms(lambda: center_head_decode(
+            out, cfg.center_head, cfg.voxel))
+        return dict(stages, **{"decode+nms+select": t_dec})
     one = [t[0] for t in out]
     c, t_cand = host_ms(lambda: candidates(*one, det.anchors, cfg.head))
     ok_sorted = torch.gather(c.scores > cfg.head.score_thr, 1, c.order)
     keep, t_nms = host_ms(lambda: _nms_from_iou(c.iou, c.order, ok_sorted,
                                                 cfg.head.nms_thr))
     _, t_sel = host_ms(lambda: select(c, keep, cfg.head))
-    return {"to_batch": t_batch, "voxelize": t_vox, "model": t_model,
-            "decode+iou": t_cand,
+    return {**stages, "decode+iou": t_cand,
             f"nms[{c.order.shape[0]}x{c.order.shape[1]}]": t_nms,
             "select": t_sel}
 
@@ -82,7 +96,7 @@ def busy_ms(intervals) -> float:
 
 
 def main() -> None:
-    from .apis import geomae_finetune_nus, inference_detector, init_model
+    from .apis import inference_detector, init_model
     from .config import apply_overrides
     from .synthetic import clustered_frame
 
@@ -90,6 +104,9 @@ def main() -> None:
     ap.add_argument("--trace", type=Path,
                     default=Path("build/serving_trace.json"),
                     help="where the chrome trace of the profiled frames goes")
+    ap.add_argument("--preset", default="nus",
+                    choices=["nus", "nus_centerhead"],
+                    help="the model: the anchor head or the CenterHead")
     ap.add_argument("--cfg-options", nargs="+", default=None,
                     metavar="KEY=VAL",
                     help="config overrides, e.g. sst.attention_impl=qkv")
@@ -101,7 +118,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    cfg = apply_overrides(geomae_finetune_nus(), args.cfg_options)
+    cfg = apply_overrides(preset_config(args.preset), args.cfg_options)
     det = init_model(cfg=cfg, device="cuda",
                      generator=torch.Generator().manual_seed(SEED))
     n = WARMUP + FRAMES + 1 + PROFILED

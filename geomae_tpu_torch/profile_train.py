@@ -1,10 +1,11 @@
 """Where the time of a fine-tune train step goes, on one CUDA GPU.
 
     python -m geomae_tpu_torch.profile_train
-        [--cfg-options sst.attention_impl=qkv]
+        [--cfg-options sst.attention_impl=qkv] [--preset nus_centerhead]
         [--trace build/train_trace.json]
 
-Trains ``geomae_finetune_nus()`` at full width in bf16, batch 4
+Trains ``geomae_finetune_nus()`` (``--preset nus_centerhead``:
+``geomae_finetune_nus_centerhead()``) at full width in bf16, batch 4
 (``cfg.data.batch_size``), from seeded weights on seeded
 ``clustered_scene`` batches, and prints
 
@@ -31,7 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .profile_serving import DEVICE_CATS, busy_ms, host_ms
+from .profile_serving import DEVICE_CATS, busy_ms, host_ms, preset_config
 
 SEED = 0
 WARMUP = 2
@@ -52,7 +53,6 @@ KERNEL_NAMES = ("segment_rows_kernel", "segment_scan_kernel",
 
 
 def main() -> None:
-    from .apis import geomae_finetune_nus
     from .config import apply_overrides
     from .train.finetune import init_state, make_train_step, synthetic_batch
 
@@ -60,6 +60,9 @@ def main() -> None:
     ap.add_argument("--trace", type=Path,
                     default=Path("build/train_trace.json"),
                     help="where the chrome trace of the profiled step goes")
+    ap.add_argument("--preset", default="nus",
+                    choices=["nus", "nus_centerhead"],
+                    help="the model: the anchor head or the CenterHead")
     ap.add_argument("--cfg-options", nargs="+", default=None,
                     metavar="KEY=VAL",
                     help="config overrides, e.g. sst.attention_impl=qkv")
@@ -73,7 +76,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    cfg = apply_overrides(geomae_finetune_nus(), args.cfg_options)
+    cfg = apply_overrides(preset_config(args.preset), args.cfg_options)
     bz = cfg.data.batch_size
     state = init_state(cfg, "cuda", torch.Generator().manual_seed(SEED))
     step = make_train_step(cfg)

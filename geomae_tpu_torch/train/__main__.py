@@ -20,6 +20,11 @@
         --ann-file nuscenes_infos_train.pkl --cbgs \\
         --load-from work_dirs/pre/ckpt --work-dir work_dirs/ft
 
+    # the CenterHead variant (0.256 m pillars, SECOND [3, 5], 6 tasks)
+    python -m geomae_tpu_torch.train finetune --preset nus_centerhead \
+        --data-root data/nuscenes --ann-file nuscenes_infos_train.pkl \
+        --load-from work_dirs/pre/ckpt --work-dir work_dirs/ft_center
+
     # Waymo multi-sweep pretrain on KITTI-format infos (6-channel bins)
     python -m geomae_tpu_torch.train pretrain --preset waymo \\
         --data-root data/waymo --ann-file waymo_infos_train.pkl
@@ -45,10 +50,12 @@ fine-tune ``NuScenesDetDataset``, wrapped in ``CBGSDataset`` unless
 ``--tiny`` or ``--cbgs`` says otherwise (``--preset waymo``:
 ``WaymoDataset``, on the nuScenes fine-tune config, as the JAX CLI does;
 its 6-channel bins then need ``--cfg-options data.load_dim=6``).
-Without ``--data-root`` the config's own ``data.data_root`` is read
-(the Waymo preset's ``data/waymo``), where ``tools/train.py`` defaults
-to ``data/nuscenes`` for every preset.  The CenterHead preset is not
-ported yet and raises ``NotImplementedError`` (``ROADMAP.md``, P13).
+``--preset nus_centerhead`` fine-tunes ``geomae_finetune_nus_centerhead()``
+(``--tiny``: ``tiny_finetune_center_config()``) on the same nuScenes
+sets; its pretrain is the nuScenes one.  Without ``--data-root`` the
+config's own ``data.data_root`` is read (the Waymo preset's
+``data/waymo``), where ``tools/train.py`` defaults to ``data/nuscenes``
+for every preset.
 """
 from __future__ import annotations
 
@@ -128,10 +135,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     args = parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     rank = int(os.environ.get("RANK", "0"))
-    if args.preset == "nus_centerhead":
-        raise NotImplementedError(
-            "--preset nus_centerhead: the CenterHead is not ported yet "
-            "(ROADMAP.md, section 1, P13)")
     # the run's log from the start, so that the weight import lands in it
     get_root_logger(os.path.join(args.work_dir, "train.log"), rank=rank)
     pretrain = args.task == "pretrain"
@@ -142,6 +145,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     elif pretrain:
         cfg = C.tiny_pretrain_config() if args.tiny \
             else C.geomae_pretrain_nus()
+    elif args.preset == "nus_centerhead":
+        cfg = C.tiny_finetune_center_config() if args.tiny \
+            else C.geomae_finetune_nus_centerhead()
     else:
         cfg = C.tiny_finetune_config() if args.tiny \
             else C.geomae_finetune_nus()

@@ -3,9 +3,10 @@ step, predict function, synthetic batches.
 
 Port of ``geomae_tpu/train/finetune.py`` (``init_state``,
 ``load_pretrained``, ``make_train_step``, ``make_predict_fn``,
-``dummy_batch``) for the anchor head.  One step is
-``loss_fn`` (voxelize, ``DynamicVoxelNet`` in training mode, ``head_loss``)
--> backward -> clip + AdamW, the counterpart of ``value_and_grad`` ->
+``dummy_batch``) for the anchor head and the CenterHead.  One step is
+``loss_fn`` (voxelize, ``DynamicVoxelNet`` in training mode,
+``head_loss`` or ``center_head_loss``) -> backward -> clip + AdamW, the
+counterpart of ``value_and_grad`` ->
 ``apply_gradients``.  On a CUDA device the SST layers run K6/K7 and
 K5 with its backward, and the VFE the segment kernels with their
 gradients; the BN running statistics update in the forward, as the
@@ -25,8 +26,10 @@ import torch
 from ..config import FinetuneConfig
 from ..data.transforms import pad_boxes, pad_points
 
-from ..models.anchor_head import Detections, head_loss, predict
+from ..models.anchor_head import (Detections, decode_pre_nms, head_loss,
+                                  predict, predict_wnms)
 from ..models.anchors import grid_anchors, head_featmap_size
+from ..models.center_head import center_head_decode, center_head_loss
 from ..models.detector import (DynamicVoxelNet, extract_scene,
                                init_weights_reference)
 from ..parallel.distributed import (all_reduce_grads, data_parallel,
@@ -81,25 +84,37 @@ def load_pretrained(model: torch.nn.Module,
     return names
 
 
+def _anchors(cfg: FinetuneConfig) -> Optional[np.ndarray]:
+    """The anchor head's anchors; None for the CenterHead."""
+    if cfg.head_type == "center":
+        return None
+    return grid_anchors(cfg.head, head_featmap_size(cfg))
+
+
 def make_train_step(cfg: FinetuneConfig, group: Optional[Group] = None):
     """``train_step(state, batch) -> (state, losses)``: one update in
-    place; ``losses`` holds loss_cls, loss_bbox, loss_dir and their sum
-    ``loss``, detached f32 scalars on the batch's device.  ``batch``:
+    place; ``losses`` holds loss_cls, loss_bbox, loss_dir (the CenterHead:
+    ``task{i}.loss_heatmap`` and ``task{i}.loss_bbox`` per task) and their
+    sum ``loss``, detached f32 scalars on the batch's device.  ``batch``:
     points [B, P, 5], point_valid [B, P], gt_boxes [B, G, 9], gt_labels
     [B, G], gt_mask [B, G] tensors on one device; with ``group``, the
     rank's rows of the global batch."""
-    anchors_np = grid_anchors(cfg.head, head_featmap_size(cfg))
+    anchors_np = _anchors(cfg)
     anchors: Dict[torch.device, torch.Tensor] = {}
 
     def loss_fn(model: DynamicVoxelNet, batch) -> Dict[str, torch.Tensor]:
         dev = batch["points"].device
-        if dev not in anchors:
-            anchors[dev] = torch.from_numpy(anchors_np).to(dev)
+        gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"])
         scene = extract_scene(cfg, batch["points"], batch["point_valid"])
         with data_parallel(group):
-            losses = head_loss(model(scene), anchors[dev], batch["gt_boxes"],
-                               batch["gt_labels"], batch["gt_mask"],
-                               cfg.head)
+            out = model(scene)
+            if cfg.head_type == "center":
+                losses = center_head_loss(out, *gt, cfg.center_head,
+                                          cfg.voxel)
+            else:
+                if dev not in anchors:
+                    anchors[dev] = torch.from_numpy(anchors_np).to(dev)
+                losses = head_loss(out, anchors[dev], *gt, cfg.head)
         losses["loss"] = sum(losses.values())
         return losses
 
@@ -120,21 +135,30 @@ def make_train_step(cfg: FinetuneConfig, group: Optional[Group] = None):
 
 def make_predict_fn(cfg: FinetuneConfig, wnms: bool = False):
     """``predict_fn(state, batch) -> Detections``: the model in eval mode
-    (left in training mode afterwards), anchor head, greedy NMS."""
-    if wnms:
-        raise NotImplementedError(
-            "weighted NMS is not ported yet (ROADMAP.md, P14)")
-    anchors_np = grid_anchors(cfg.head, head_featmap_size(cfg))
+    (left in training mode afterwards), then the anchor head's decode and
+    greedy NMS per class, or the CenterHead's decode and NMS per task.
+    With ``wnms`` (anchor head only) the top anchors are decoded on the
+    device (``decode_pre_nms``) and merged by weighted NMS on the host
+    (``predict_wnms``), whose ``Detections`` lie on the CPU."""
+    if wnms and cfg.head_type == "center":
+        raise ValueError("wnms applies to the anchor head only")
+    anchors_np = _anchors(cfg)
 
     @torch.no_grad()
     def predict_fn(state: TrainState, batch) -> Detections:
-        anchors = torch.from_numpy(anchors_np).to(batch["points"].device)
         scene = extract_scene(cfg, batch["points"], batch["point_valid"])
         state.model.eval()
         try:
-            return predict(state.model(scene), anchors, cfg.head)
+            out = state.model(scene)
         finally:
             state.model.train()
+        if cfg.head_type == "center":
+            return center_head_decode(out, cfg.center_head, cfg.voxel)
+        anchors = torch.from_numpy(anchors_np).to(batch["points"].device)
+        if wnms:
+            return predict_wnms(*decode_pre_nms(out, anchors, cfg.head),
+                                cfg.head)
+        return predict(out, anchors, cfg.head)
 
     return predict_fn
 

@@ -12,7 +12,11 @@ mae.GeoMAE` (pretrain) with ``load_state_dict(strict=True)``:
   spatially flipped back (torch's transposed conv correlates with the
   flipped kernel relative to ``lax.conv_transpose``)
 * BN scale / bias / mean / var -> weight / bias / running_mean /
-  running_var (+ ``num_batches_tracked`` = 0); LayerNorm scale -> weight.
+  running_var (+ ``num_batches_tracked`` = 0); LayerNorm scale -> weight;
+* the CenterHead's ``bbox_head/shared_{conv,bn}`` ->
+  ``bbox_head.shared_conv.{conv,bn}`` and ``bbox_head/task_{i}/{head}_
+  {conv0,bn0,final}`` -> ``bbox_head.task_heads.{i}.{head}.{0.conv,
+  0.bn,1}``, the reference ``CenterHead`` / ``SeparateHead``'s names.
 
 SST leaves arrive stacked over blocks (the JAX stack is an ``nn.scan``);
 the GeoMAE decoder pair's leaves (``decoders/...``) also over the group
@@ -124,6 +128,22 @@ def _key(path: Tuple[str, ...], v: np.ndarray, sd: Dict) -> None:
             sd[f"{base}.0.weight"] = _conv("kernel", v)[1]
         else:     # stride >= 1: a ConvTranspose2d in the reference
             sd[f"{base}.0.weight"] = _deconv(v)
+    elif p[0] == "bbox_head" and p[1] in ("shared_conv", "shared_bn"):
+        if p[1] == "shared_conv":
+            sd["bbox_head.shared_conv.conv.weight"] = _conv(p[2], v)[1]
+        else:
+            sd[f"bbox_head.shared_conv.bn.{_BN[p[2]]}"] = v
+    elif p[0] == "bbox_head" and p[1].startswith("task_"):
+        # CenterHead: task_{i}/{head}_{conv0,bn0,final}
+        head, part = p[2].rsplit("_", 1)
+        base = f"bbox_head.task_heads.{int(p[1][5:])}.{head}"
+        if part == "conv0":
+            sd[f"{base}.0.conv.weight"] = _conv(p[3], v)[1]
+        elif part == "bn0":
+            sd[f"{base}.0.bn.{_BN[p[3]]}"] = v
+        else:
+            name, val = _conv(p[3], v)
+            sd[f"{base}.1.{name}"] = val
     elif p[0] == "bbox_head":
         name, val = _conv(p[2], v)
         sd[f"bbox_head.{p[1]}.{name}"] = val

@@ -86,6 +86,17 @@ def finetune_case(group) -> dict:
                        rows(batch, group))
 
 
+def center_case(group) -> dict:
+    """The CenterHead's fine-tune step (``tiny_finetune_center_config()``):
+    its heatmap and bbox loss denominators and its BN moments are whole-
+    batch values."""
+    cfg = tcfg.tiny_finetune_center_config()
+    state = FT.init_state(cfg, "cpu", torch.Generator().manual_seed(1))
+    batch = FT.synthetic_batch(cfg, WORLD, seed=FINETUNE_SEED, device="cpu")
+    return step_record(FT.make_train_step(cfg, group), state,
+                       rows(batch, group))
+
+
 def bn_case(group) -> dict:
     """A MaskedBatchNorm in training mode, forward and backward; the
     second row's mask is all false."""
@@ -210,6 +221,7 @@ def rank_main(rank: int, work: str) -> None:
                    bn=bn_case(group), gather=gather_case(group),
                    pretrain=pretrain_case(group),
                    finetune=finetune_case(group),
+                   center=center_case(group),
                    eval=eval_case(group), trainer=trainer_case(group, work))
         out["jax"] = jax_weights_case(group, work)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
@@ -306,8 +318,8 @@ def ranks(tmp_path_factory):
     try:
         jax_side = jax_mesh_case(work)
         refs = dict(pretrain=pretrain_case(None),
-                    finetune=finetune_case(None), bn=bn_case(None),
-                    eval=eval_case(None))
+                    finetune=finetune_case(None), center=center_case(None),
+                    bn=bn_case(None), eval=eval_case(None))
         trainer_run(None, work, "one_process", 6, 0, 6)
         for p in procs:
             p.wait(timeout=600)
@@ -451,6 +463,38 @@ def test_two_rank_finetune_step_equals_one_process(ranks):
         np.testing.assert_allclose(a["losses"][k], v, rtol=2e-5, err_msg=k)
     assert_grads_close(a["grads"], want["grads"], 1e-5)
     n_bn = sum(k.endswith("running_mean") for k in want["after"])
+    assert_buffers_close(a["after"], want["after"], 2e-4, 1e-5, 2 * n_bn)
+    assert_updates_agree(a["before"], a["after"], want["after"], a["grads"],
+                         want["grads"], want["lr"])
+
+
+def test_two_rank_centerhead_step_equals_one_process(ranks):
+    """The CenterHead's fine-tune step, two ranks against one process, on
+    a batch whose rows hold different numbers of each task's objects and
+    peak pixels (so a per-rank heatmap or bbox count would differ):
+    losses at 2e-5 relative, gradients at 1e-5 relative norm, BN
+    statistics (the head's 37 among them) at 2e-4 relative, parameters
+    by the sign-agreement rule; the ranks bitwise equal."""
+    from geomae_tpu_torch.models.center_head import compute_center_targets
+
+    cfg = tcfg.tiny_finetune_center_config()
+    batch = FT.synthetic_batch(cfg, WORLD, seed=FINETUNE_SEED, device="cpu")
+    tg = compute_center_targets(batch["gt_boxes"], batch["gt_labels"],
+                                batch["gt_mask"], cfg.center_head, cfg.voxel,
+                                (10, 10))
+    peaks = (tg.heatmap == 1).sum((1, 2, 3)).tolist()
+    first = tg.mask & (tg.cls == 0)              # the first task's objects
+    objs = first.sum(1).tolist()
+    assert peaks[0] != peaks[1] and objs[0] != objs[1], (peaks, objs)
+    a, b = (r["center"] for r in ranks.ranks)
+    assert_ranks_bitwise_equal(a, b, "center")
+    want = ranks.refs["center"]
+    assert len(want["losses"]) == 13
+    for k, v in want["losses"].items():
+        np.testing.assert_allclose(a["losses"][k], v, rtol=2e-5, err_msg=k)
+    assert_grads_close(a["grads"], want["grads"], 1e-5)
+    n_bn = sum(k.endswith("running_mean") for k in want["after"])
+    assert n_bn == 2 + 4 + 2 + 37          # VFE, SECOND, FPN, head
     assert_buffers_close(a["after"], want["after"], 2e-4, 1e-5, 2 * n_bn)
     assert_updates_agree(a["before"], a["after"], want["after"], a["grads"],
                          want["grads"], want["lr"])

@@ -5,9 +5,10 @@ checkpoints (bitwise round trip, retention, the path forms of
 bitwise, the eval hook's schedule, an empty loader); the loader; the CLI
 (pretrain, then fine-tune from its checkpoint, then serving from the
 fine-tune checkpoint; the same from info files on disk, nuScenes with CBGS
-and Waymo; the unported CenterHead preset); the training init against
-the JAX initializer's distributions; and the tiny pretrain step on the
-``band`` attention route against the JAX step on its einsum route."""
+and Waymo; the CenterHead preset); the training init against the JAX
+initializer's distributions (the anchor and the CenterHead detectors,
+GeoMAE); and the tiny pretrain step on the ``band`` attention route
+against the JAX step on its einsum route."""
 import json
 import os
 
@@ -322,10 +323,28 @@ def test_cli_pretrain_then_finetune_then_serve(tmp_path):
     assert not det.model.training
 
 
-def test_cli_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_main(["finetune", "--synthetic", "--preset", "nus_centerhead",
-                    "--tiny", "--device", "cpu"])
+def test_cli_unported_paths_raise(tmp_path):
+    """Once the unported CenterHead preset, which raised; now it trains:
+    ``--preset nus_centerhead --tiny`` fine-tunes 2 synthetic steps of
+    ``tiny_finetune_center_config()`` with finite per-task losses and a
+    checkpoint."""
+    from geomae_tpu_torch.models.center_head import CenterHead
+
+    tr = train_main(["finetune", "--synthetic", "--preset", "nus_centerhead",
+                     "--tiny", "--device", "cpu", "--batch-size", "2",
+                     "--num-workers", "0", "--total-steps", "2",
+                     "--log-interval", "1", "--work-dir",
+                     str(tmp_path / "ft")])
+    tiny = tcfg.tiny_finetune_center_config()
+    assert tr.state.model.cfg == tcfg.replace(tiny, optim=tcfg.replace(
+        tiny.optim, total_steps=2))
+    assert isinstance(tr.state.model.bbox_head, CenterHead)
+    assert tr.state.step == 2 and tr.ckpt.all_steps() == [2]
+    with open(tmp_path / "ft" / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert len(rows) == 2 and all(
+        len(r) >= 13 and np.isfinite(r["loss"]) and
+        np.isfinite(r["task5.loss_bbox"]) for r in rows)
 
 
 def test_cli_from_disk_pretrain_then_cbgs_finetune_then_serve(tmp_path):
@@ -411,19 +430,24 @@ def test_cli_data_root_defaults_to_the_config(tmp_path, preset, root):
                     "cpu", "--work-dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("task", ["finetune", "pretrain"])
+PRESETS = {"finetune": "geomae_finetune_nus", "pretrain": "geomae_pretrain_nus",
+           "center": "geomae_finetune_nus_centerhead"}
+
+
+@pytest.mark.parametrize("task", ["finetune", "pretrain", "center"])
 def test_training_init_draws_the_jax_initializers_distributions(task):
     """``init_state``'s weights (``init_weights_reference``) against the
     JAX package's initializer, tensor by tensor, at the full widths of
-    ``geomae_finetune_nus()`` / ``geomae_pretrain_nus()`` (the pillar
-    grid and caps cut: no parameter's shape depends on them).  A tensor
+    ``geomae_finetune_nus()`` / ``geomae_pretrain_nus()`` /
+    ``geomae_finetune_nus_centerhead()`` (the pillar grid and caps cut:
+    no parameter's shape depends on them).  A tensor
     that JAX sets to a constant (biases, norms, BN statistics) equals it
     bitwise; a tensor of 4,096 entries or more has a std within 5 % of
     the JAX draw's, and its largest |w| at its family's bound (the
     uniform families' bound, 2 / 0.8796 std for LeCun's truncated
     normal), read from the JAX draw's own largest |w|, within 2 %."""
     def cut(C):
-        cfg = getattr(C, f"geomae_{task}_nus")()
+        cfg = getattr(C, PRESETS[task])()
         h = 32 * cfg.voxel.voxel_size[0]              # a 64 x 64 grid
         return C.replace(
             cfg, voxel=C.replace(cfg.voxel, point_cloud_range=(
@@ -432,10 +456,10 @@ def test_training_init_draws_the_jax_initializers_distributions(task):
                            max_visible=128), compute_dtype="float32")
 
     jc, tc = cut(jcfg), cut(tcfg)
-    jstate, _ = (JFT if task == "finetune" else JPT).init_state(
+    jstate, _ = (JPT if task == "pretrain" else JFT).init_state(
         jc, 1, jax.random.PRNGKey(0))
     want = from_flax(jstate.params, jstate.batch_stats)
-    state = (FT if task == "finetune" else PT).init_state(
+    state = (PT if task == "pretrain" else FT).init_state(
         tc, "cpu", torch.Generator().manual_seed(0))
     got = state.model.state_dict()
     assert got.keys() == want.keys()
@@ -459,8 +483,11 @@ def test_training_init_draws_the_jax_initializers_distributions(task):
         assert abs(top - 1) < 0.02, (k, top)
     # the detector: 12 SST layers x 4, 16 SECOND convs, 3 FPN ups, 3 head
     # convs, a VFE Linear; GeoMAE: 12 + 8 SST layers x 4, a VFE Linear, 4
-    # heads
-    assert n_big == (71 if task == "finetune" else 85)
+    # heads; the CenterHead detector: 12 SST layers x 4, 10 SECOND convs,
+    # 2 FPN levels, the shared conv, the first conv of 6 tasks x 6 branches
+    # (their final convs, 576-1,152 entries, are drawn too, and below the
+    # size read here), a VFE Linear
+    assert n_big == {"finetune": 71, "pretrain": 85, "center": 98}[task]
 
 
 def test_predict_fn_and_collect_env():
@@ -470,8 +497,12 @@ def test_predict_fn_and_collect_env():
     det = FT.make_predict_fn(cfg)(state, batch)
     assert det.boxes.shape[0] == 2 and det.boxes.shape[-1] == 9
     assert state.model.training
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FT.make_predict_fn(cfg, wnms=True)
+    wn = FT.make_predict_fn(cfg, wnms=True)(state, batch)
+    assert wn.boxes.shape == (2, cfg.head.max_num, 9)
+    assert wn.scores.shape == wn.labels.shape == wn.valid.shape \
+        == (2, cfg.head.max_num)
+    assert wn.valid.any() and bool((wn.scores[wn.valid] > 0).all())
+    assert bool((wn.scores[~wn.valid] == -1).all())
     env = collect_env()
     assert env["torch"] == torch.__version__ and "devices" in env
 
