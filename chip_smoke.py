@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port's detection serving path, fine-tune train
 step, GeoMAE pretrain train step, trainer entry point, data-parallel
-training, training from datasets on disk, the CenterHead and the eval
-entry point on one CUDA GPU.
+training, training from datasets on disk, the CenterHead, the eval entry
+point, data preparation, VoxelNet and the point ops on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -100,7 +100,28 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      checkpoint over 8 frames with and without ``--wnms`` (finite
      metrics, one results-JSON entry a token, ms a frame); the served
      CenterHead frames scored with ``eval.nuscenes_eval.evaluate``, and
-     the ground truth scored as its own prediction at mAP 1.0.
+     the ground truth scored as its own prediction at mAP 1.0;
+  L. data preparation and the last modules, in phase J's directory:
+     ``python -m geomae_tpu_torch.create_data waymo_infos`` (a
+     subprocess) on a raw KITTI-format Waymo tree of 12 train and 4 val
+     frames of 150,000 points, then ``--preset waymo`` pretrain 3 steps
+     from its infos through the CLI and the eval CLI (``--dataset
+     waymo``) on them with phase J's anchor checkpoint; ``create_data
+     gt_database`` on phase J's nuScenes frames, then 2 bf16 fine-tune
+     steps at batch 4 on ``NuScenesDetDataset`` samples with GT paste
+     from it (objects pasted and host ms a sample); ``VoxelNet`` at the
+     width of ``geomae_finetune_nus()`` with the ``pillar`` and the
+     ``simple`` (32 slots) encoder: an f32 frame on the card against the
+     CPU (1e-3), the pillar model's f32 gradients (phase E's rule), 10
+     bf16 frames served after 3 warm-ups (finite boxes, K1 / K2 launches
+     a frame, median and quartiles, one profiled frame), and
+     ``HardVFE`` (64, 128) on ``hard_voxelize``'s [4, 20480, 32, 5]
+     buffer; FPS 16,384 -> 1,024 points, ``knn(16)``, ``three_nn``,
+     ``ball_query(0, 0.4, 32)``, ``three_interpolate`` of 128 channels,
+     ``k_medoids`` of [4, 512, 512] into 16 and the focal mask on [4,
+     20480] pillars with 40 boxes, each on the card against the CPU
+     (indices held exactly where the candidates lie more than
+     ``POINT_TOL`` apart).
 
 ``auto`` resolves to the ``band`` route at full width.  Phases B, D and F
 run first on the ``qkv`` route (K6 and K7, asked for by name), then a
@@ -108,7 +129,8 @@ second, shorter time on the ``band`` route, so that the two routes' frame
 and step times come from one run and the same batches.  Any failed check
 exits non-zero.  The line before the last is a JSON
 summary of the kernels: ``launches`` sums the served frames and train steps of
-B, D, F (both routes), H, I's one-rank NCCL steps, J and K; ``ms``, ``plain_ms``, ``library_ms`` and
+B, D, F (both routes), H, I's one-rank NCCL steps, J, K and L; ``ms``,
+``plain_ms``, ``library_ms`` and
 ``bound_ms`` are the times of one call of each distinct call the paths
 make of the kernel in its dtype, summed (``segment_broadcast``: f32 mean
 + bf16 max forward at both shapes + f32 sum backward; the SST kernels at
@@ -2322,6 +2344,561 @@ def compare_center_nms(og, oc, cfg, failures: list) -> None:
                         "and the CPU")
 
 
+# phase L: data preparation, then training from its files; VoxelNet at
+# full width; the point ops.  The raw Waymo tree has phase J's Waymo size
+# (150,000-point frames, 3 sweeps): 12 train frames (segment 0) and 4 val
+# (segment 1).  GT paste tops every sample up to L_PASTE_CARS cars, as
+# phase J's frames hold cars only (12 a frame).
+L_TRAIN_FRAMES, L_VAL_FRAMES = 12, 4
+L_WAYMO_STEPS, L_PASTE_STEPS, L_PASTE_CARS = 3, 2, 20
+L_FRAMES, L_WARMUP = 10, 3          # VoxelNet's timed and warm-up frames
+# GPU against CPU for the point ops: squared distances (m^2) as the two
+# devices round |c|^2 + |x|^2 - 2 c.x; an index is held exactly where the
+# margin between candidates exceeds it
+POINT_TOL = 1e-4
+PN_B, PN_N, PN_S, PN_C = 4, 16_384, 1_024, 128
+
+
+def run_module(what: str, argv: list, failures: list) -> float:
+    """``python -m argv`` in a subprocess from the checkout: its seconds,
+    and a failure where it exits non-zero."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *argv], cwd=here,
+                         env=dict(os.environ, PYTHONPATH=here),
+                         capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t
+    tail = res.stdout.strip().splitlines()[-3:]
+    print(f"  {what}: exit {res.returncode} in {secs:.1f} s; {tail}")
+    if res.returncode:
+        print(res.stdout[-2000:] + res.stderr[-3000:])
+        failures.append(f"{what} exited {res.returncode}")
+    return secs
+
+
+def write_raw_waymo(root: str, n_points: int, pc_range) -> None:
+    """A raw KITTI-format Waymo tree, the layout the devkit half of
+    ``data/waymo_converter.py`` writes: ``training/velodyne`` frames of
+    ``synthetic_scene`` clouds (x y z intensity elongation timestamp),
+    ``label_all`` lines of their boxes (``waymo_label_to_kitti_line``),
+    ``calib`` (``format_calib``), a moving ego ``pose`` a frame, and
+    ``ImageSets`` train / val lists."""
+    import os
+
+    from geomae_tpu_torch.data import waymo_converter as wc
+    from geomae_tpu_torch.data.synthetic import synthetic_scene
+
+    rng = np.random.default_rng(SEED + 60)
+    sd = os.path.join(root, "training")
+    for sub in ("velodyne", "calib", "pose", "label_all"):
+        os.makedirs(os.path.join(sd, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+    ext = np.eye(4)                   # the front camera, 1.5 m ahead, 2 up
+    ext[:3, 3] = [1.5, 0.0, 2.0]
+    T = wc.velo_to_front_cam(ext)
+    P = np.hstack([np.diag([2000.0, 2000.0, 1.0]), np.zeros((3, 1))])
+    calib = wc.format_calib([P] * 5, [T] * 5)
+    names = ("Car", "Pedestrian", "Cyclist")
+    splits = {"train": [f"0000{f:03d}" for f in range(L_TRAIN_FRAMES)],
+              "val": [f"1000{f:03d}" for f in range(L_VAL_FRAMES)]}
+    for split, ids in splits.items():
+        with open(os.path.join(root, "ImageSets", f"{split}.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+        for i, fid in enumerate(ids):
+            pts, boxes, labels = synthetic_scene(rng, pc_range, n_points)
+            raw = np.concatenate([pts[:, :4], rng.uniform(0, 1, (n_points, 1)),
+                                  np.full((n_points, 1), 1e5 * i)], 1)
+            raw.astype(np.float32).tofile(
+                os.path.join(sd, "velodyne", f"{fid}.bin"))
+            pose = np.eye(4)
+            a = 0.02 * i
+            pose[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+            pose[:3, 3] = [0.5 * i, 0.1 * i, 0.0]
+            np.savetxt(os.path.join(sd, "pose", f"{fid}.txt"), pose)
+            with open(os.path.join(sd, "calib", f"{fid}.txt"), "w") as f:
+                f.write(calib)
+            lines = [wc.waymo_label_to_kitti_line(names[int(lab) % 3],
+                                                  b[:7], T)
+                     for b, lab in zip(boxes, labels)]
+            with open(os.path.join(sd, "label_all", f"{fid}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+
+
+def phase_l_data(cfg, wcfg, failures: list, work: str) -> dict:
+    """Convert a raw Waymo tree and train and score from its infos; build
+    the GT database of phase J's nuScenes frames and fine-tune with GT
+    paste: returns the launches of the runs."""
+    import os
+    import pickle
+
+    from geomae_tpu_torch import test as eval_cli
+    from geomae_tpu_torch.config import apply_overrides, replace
+    from geomae_tpu_torch.data.dbsampler import DataBaseSampler
+    from geomae_tpu_torch.data.nuscenes import NUS_CLASSES, NuScenesDetDataset
+    from geomae_tpu_torch.profile_serving import host_ms
+    from geomae_tpu_torch.train import finetune
+
+    cfg, wcfg = (apply_overrides(c, [BAND_OPTION]) for c in (cfg, wcfg))
+    bz = cfg.data.batch_size
+    total: dict = {}
+    raw = os.path.join(work, "waymo_raw")
+    t = time.perf_counter()
+    write_raw_waymo(raw, WAYMO_POINTS, wcfg.voxel.point_cloud_range)
+    print(f"  wrote a raw KITTI-format Waymo tree ({L_TRAIN_FRAMES} + "
+          f"{L_VAL_FRAMES} frames of {WAYMO_POINTS} points) in "
+          f"{time.perf_counter() - t:.1f} s")
+    before = len(failures)
+    run_module("create_data waymo_infos", [
+        "geomae_tpu_torch.create_data", "waymo_infos", "--root-path", raw,
+        "--max-sweeps", str(WAYMO_SWEEPS)], failures)
+    if len(failures) > before:
+        raise Failed(f"phase L: {failures}")
+    infos = {}
+    for split in ("train", "val", "trainval"):
+        with open(os.path.join(raw, f"waymo_infos_{split}.pkl"), "rb") as f:
+            infos[split] = pickle.load(f)
+    counts = [int(n) for i in infos["train"]
+              for n in i["annos"]["num_points_in_gt"]]
+    sweeps = [len(i["sweeps"]) for i in infos["train"]]
+    print(f"  infos: {[len(v) for v in infos.values()]} (train, val, "
+          f"trainval); sweeps a train frame {sweeps}; {len(counts)} boxes, "
+          f"points in a box min {min(counts)} median "
+          f"{float(np.median(counts))}")
+    if ([len(v) for v in infos.values()]
+            != [L_TRAIN_FRAMES, L_VAL_FRAMES, L_TRAIN_FRAMES + L_VAL_FRAMES]
+            or max(sweeps) != WAYMO_SWEEPS or not np.median(counts) > 0):
+        failures.append("the converted Waymo infos")
+    common = ["--device", DEVICE, "--batch-size", str(bz), "--seed",
+              str(SEED), "--log-interval", "1", "--cfg-options",
+              BAND_OPTION]
+    tr = cli_run("Waymo pretrain from the converted infos", [
+        "pretrain", "--preset", "waymo", "--work-dir",
+        os.path.join(work, "lpre"), "--total-steps", str(L_WAYMO_STEPS),
+        "--data-root", raw, "--ann-file", "waymo_infos_train.pkl",
+        *common], on_route(per_pretrain_step(wcfg), cfg), L_WAYMO_STEPS,
+        total, failures)
+    n, ms = sample_ms(tr.loader.dataset)
+    print(f"    WaymoSSLDataset: {n} valid points, host ms per sample {ms}")
+    argv = ["--work-dir", os.path.join(work, "ft"), "--dataset", "waymo",
+            "--data-root", raw, "--ann-file", "waymo_infos_val.pkl",
+            "--device", DEVICE, "--cfg-options", BAND_OPTION,
+            "data.load_dim=6"]
+    fns = reset_counts()
+    metrics, ms = host_ms(lambda: eval_cli.main(argv))
+    launches = check_launches(fns, on_route(PER_FRAME, cfg),
+                              -(-L_VAL_FRAMES // 4), "eval batches",
+                              failures)
+    for k, v in launches.items():
+        total[k] += v
+    print(f"  eval CLI on the converted val infos (--dataset waymo): "
+          f"{ms:.0f} ms for {L_VAL_FRAMES} frames; {metrics}")
+    if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+        failures.append(f"eval CLI on the converted Waymo infos: {metrics}")
+
+    # the GT database of phase J's nuScenes frames, then GT paste
+    nus, db = os.path.join(work, "nus"), os.path.join(work, "gtdb")
+    before = len(failures)
+    run_module("create_data gt_database", [
+        "geomae_tpu_torch.create_data", "gt_database", "--root-path", nus,
+        "--ann-file", "infos.pkl", "--out-dir", db], failures)
+    if len(failures) > before:
+        raise Failed(f"phase L: {failures}")
+    with open(os.path.join(db, "nuscenes_dbinfos_train.pkl"), "rb") as f:
+        dbinfos = pickle.load(f)
+    objs = {k: len(v) for k, v in dbinfos.items() if v}
+    print(f"  GT database: {objs} objects, "
+          f"{len(os.listdir(os.path.join(db, 'gt_database')))} files")
+    if not objs.get("car"):
+        failures.append("the GT database holds no car")
+    data = replace(cfg.data, data_root=nus, ann_file="infos.pkl")
+    sampler = DataBaseSampler(db, os.path.join(db, "nuscenes_dbinfos_train"
+                                               ".pkl"), NUS_CLASSES,
+                              sample_groups=dict(car=L_PASTE_CARS))
+    ds = NuScenesDetDataset(data, cfg.voxel, cfg.caps, cfg.max_gt_boxes,
+                            db_sampler=sampler)
+    plain = NuScenesDetDataset(data, cfg.voxel, cfg.caps, cfg.max_gt_boxes)
+    samples, times, pasted = [], [], []
+    for i in range(bz * L_PASTE_STEPS):
+        t = time.perf_counter()
+        samples.append(ds.__getitem__(i, seed=SEED + i))
+        times.append(round((time.perf_counter() - t) * 1e3, 1))
+        pasted.append(int(samples[-1]["gt_mask"].sum()) - int(
+            plain.__getitem__(i, seed=SEED + i)["gt_mask"].sum()))
+    print(f"  GT paste: objects pasted per sample (boxes with paste less "
+          f"without) {pasted}; host ms per sample with paste {times}")
+    if not sum(pasted) > 0:
+        failures.append("GT paste pasted nothing")
+    state = finetune.init_state(cfg, DEVICE,
+                                torch.Generator().manual_seed(SEED))
+    step = finetune.make_train_step(cfg)
+    fns = reset_counts()
+    for s in range(L_PASTE_STEPS):
+        batch = {k: torch.from_numpy(np.stack(
+            [x[k] for x in samples[s * bz:(s + 1) * bz]])).to(DEVICE)
+            for k in ("points", "point_valid", "gt_boxes", "gt_labels",
+                      "gt_mask")}
+        (_, lo), ms = host_ms(lambda: step(state, batch))
+        print(f"    fine-tune step {s} with GT paste: {ms:.1f} ms, losses "
+              + ", ".join(f"{k} {float(v):.4f}" for k, v in lo.items()))
+        if not all(np.isfinite(float(v)) for v in lo.values()):
+            failures.append(f"GT-paste step {s}: a loss is not finite")
+    launches = check_launches(fns, on_route(PER_STEP, cfg), L_PASTE_STEPS,
+                              "GT-paste fine-tune steps", failures)
+    for k, v in launches.items():
+        total[k] += v
+    return total
+
+
+def voxelnet(cfg, encoder: str, device):
+    """A full-width ``VoxelNet`` on ``device`` from seeded weights (drawn
+    on the CPU: the same on every device), in eval mode."""
+    from geomae_tpu_torch.models.detector import VoxelNet, init_weights
+
+    model = VoxelNet(cfg, encoder, device="meta").to_empty(device=device)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    return model.eval()
+
+
+def phase_l_voxelnet(cfg, failures: list, work: str) -> dict:
+    """``VoxelNet`` with either encoder: an f32 frame and (pillar) an f32
+    backward on the card against the CPU, bf16 frames served and timed,
+    and ``HardVFE`` at the full-width buffer; returns the served frames'
+    launches."""
+    import os
+
+    from geomae_tpu_torch.apis import replace, to_batch
+    from geomae_tpu_torch.models.anchor_head import predict
+    from geomae_tpu_torch.models.anchors import grid_anchors, head_featmap_size
+    from geomae_tpu_torch.models.detector import extract_scene, init_weights
+    from geomae_tpu_torch.models.pillar_encoders import HardVFE
+    from geomae_tpu_torch.ops.voxelize import hard_voxelize
+    from geomae_tpu_torch.profile_serving import host_ms
+    from geomae_tpu_torch.synthetic import clustered_frame
+    from geomae_tpu_torch.train.finetune import (make_train_step,
+                                                 synthetic_batch)
+
+    total: dict = {}
+    cfg32 = replace(cfg, compute_dtype="float32")
+    frames = [clustered_frame(np.random.default_rng(SEED + 70 + f),
+                              cfg.voxel, cfg.caps.max_points)
+              for f in range(L_WARMUP + L_FRAMES)]
+    anchors = torch.from_numpy(grid_anchors(
+        cfg.head, head_featmap_size(cfg))).to(DEVICE)
+    for encoder in ("pillar", "simple"):
+        what = f"VoxelNet ({encoder})"
+        # 1. one f32 frame, GPU against CPU
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            t = time.perf_counter()
+            model = voxelnet(cfg32, encoder, dev)
+            with torch.no_grad():
+                outs[dev] = model(extract_scene(
+                    cfg32, *to_batch(cfg32, frames[0], dev)))
+            print(f"  {what} f32 frame on {dev}: "
+                  f"{time.perf_counter() - t:.1f} s")
+        for name in ("cls", "reg", "dir"):
+            b = getattr(outs["cpu"], name)
+            compare(f"{what} f32 head {name} {tuple(b.shape)}, std "
+                    f"{float(b.std()):.3e}", getattr(outs[DEVICE], name).cpu(),
+                    b, *PARITY_TOL, failures)
+        # 2. (pillar) one f32 backward of the fine-tune loss
+        if encoder == "pillar":
+            batch = synthetic_batch(cfg32, 1, seed=SEED + 50, device="cpu")
+            loss_fn = make_train_step(cfg32).loss_fn
+            got = {}
+            for dev in (DEVICE, "cpu"):
+                model = voxelnet(cfg32, encoder, dev).train()
+                lo = loss_fn(model, {k: v.to(dev) for k, v in batch.items()})
+                lo["loss"].backward()
+                got[dev] = ({k: float(v.detach()) for k, v in lo.items()},
+                            {k: p.grad.cpu() for k, p in
+                             model.named_parameters()})
+            (lg, gg), (lc, gc) = got[DEVICE], got["cpu"]
+            rel = {k: float((gg[k] - gc[k]).norm()
+                            / gc[k].norm().clamp_min(1e-30)) for k in gc}
+            worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+            print(f"  {what} f32 backward: losses GPU {lg} CPU {lc}; "
+                  f"gradients' worst relative norm errors {worst} (bound "
+                  f"{STEP_TOL['grad']:g}, {len(rel)} parameters)")
+            failures += [f"{what} gradient {k}: {e:.2e}"
+                         for k, e in rel.items() if not e <= STEP_TOL["grad"]]
+            failures += [f"{what} loss {k}" for k in lc if abs(
+                lg[k] - lc[k]) > STEP_TOL["loss"] * max(abs(lc[k]), 1e-12)]
+        # 3. bf16 frames served and timed
+        model = voxelnet(cfg, encoder, DEVICE)
+
+        @torch.no_grad()
+        def serve(pts):
+            scene = extract_scene(cfg, *to_batch(cfg, pts, DEVICE))
+            det = predict(model(scene), anchors, cfg.head)
+            m = det.valid[0].cpu().numpy()
+            return {k: getattr(det, k)[0].cpu().numpy()[m]
+                    for k in ("boxes", "scores", "labels")}
+        for pts in frames[:L_WARMUP]:
+            serve(pts)
+        fns = reset_counts()
+        ms_all = []
+        for f, pts in enumerate(frames[L_WARMUP:]):
+            res, ms = host_ms(lambda: serve(pts))
+            ms_all.append(ms)
+            k = len(res["scores"])
+            if not (k > 0 and res["boxes"].shape == (k, 9)
+                    and np.isfinite(res["boxes"]).all()):
+                failures.append(f"{what} frame {f}: {k} boxes")
+        per = dict({k: 0 for k in PER_FRAME})
+        if encoder == "pillar":
+            per.update(segment_reduce=1, segment_broadcast=2)
+        launches = check_launches(fns, per, L_FRAMES, f"{what} frames",
+                                  failures)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        q = np.percentile(ms_all, [25, 50, 75])
+        print(f"  {what} bf16 served frames: median {q[1]:.2f} ms "
+              f"(quartiles {q[0]:.2f}, {q[2]:.2f}) over {L_FRAMES} after "
+              f"{L_WARMUP} warm-ups; {len(res['scores'])} boxes in the "
+              f"last")
+        profiled(f"{what} served frame", lambda: serve(frames[0]),
+                 os.path.join(work, f"voxelnet_{encoder}_trace.json"),
+                 failures)
+        del model
+    # 4. HardVFE at the full-width buffer, on hard_voxelize of batch 4
+    pts, valid = (torch.cat(a) for a in zip(*[to_batch(cfg32, f, "cpu")
+                                              for f in frames[:4]]))
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        t = time.perf_counter()
+        scene = extract_scene(cfg32, pts.to(dev), valid.to(dev))
+        vox, npts = hard_voxelize(scene, 32)
+        enc = HardVFE(cfg.vfe, cfg.voxel, device="meta").to_empty(device=dev)
+        init_weights(enc, torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            got[dev] = (vox.cpu(), npts.cpu(), enc(vox, npts,
+                                                   scene.table.coords).cpu())
+        print(f"  HardVFE on {dev}: voxels {tuple(vox.shape)}, "
+              f"{time.perf_counter() - t:.1f} s")
+    equal = [torch.equal(a, b)
+             for a, b in zip(got[DEVICE][:2], got["cpu"][:2])]
+    print(f"  hard_voxelize GPU against CPU: voxels, counts bitwise equal "
+          f"{equal}; slots filled {int(got['cpu'][1].sum())} of "
+          f"{got['cpu'][1].numel() * 32}")
+    if not all(equal):
+        failures.append("hard_voxelize differs between the card and the CPU")
+    compare("HardVFE (64, 128) f32, batch statistics", got[DEVICE][2],
+            got["cpu"][2], *PARITY_TOL, failures)
+    return total
+
+
+def phase_l_point_ops(cfg, failures: list) -> None:
+    """The PointNet++ ops, k-medoids and the focal mask on the card
+    against the CPU at the sizes their users run."""
+    from geomae_tpu_torch.apis import to_batch
+    from geomae_tpu_torch.models import mae
+    from geomae_tpu_torch.models.detector import extract_scene
+    from geomae_tpu_torch.ops import k_medoids as km
+    from geomae_tpu_torch.ops import pointnet_ops as pn
+    from geomae_tpu_torch.profile_serving import host_ms
+    from geomae_tpu_torch.synthetic import clustered_frame
+
+    rng = np.random.default_rng(SEED + 80)
+    # an indoor scene's extent (8 x 8 x 3 m), PointNet++'s own setting
+    xyz = torch.from_numpy(rng.uniform([0, 0, 0], [8, 8, 3],
+                                       (PN_B, PN_N, 3)).astype(np.float32))
+    xyz64 = xyz.double()
+
+    def d2(a, b):            # squared distances on the host in f64
+        return torch.cdist(a, b) ** 2
+
+    def timed(fn, dev):       # (fn(), its ms on the card, None on the CPU)
+        return host_ms(fn) if dev != "cpu" else (fn(), None)
+
+    # furthest point sampling: each card choice at most POINT_TOL short
+    # of the best in f64 along its own sequence
+    fps = {}
+    for dev in (DEVICE, "cpu"):
+        out, ms = timed(lambda: pn.furthest_point_sample(xyz.to(dev), PN_S),
+                        dev)
+        fps[dev] = out.cpu().long()
+        if ms is not None:
+            print(f"  FPS {PN_N} -> {PN_S} points, batch {PN_B}, on the "
+                  f"card: {ms:.2f} ms")
+    temp = torch.full((PN_B, PN_N), 1e10, dtype=torch.float64)
+    short, near = 0.0, 0
+    for i in range(1, PN_S):
+        last = fps[DEVICE][:, i - 1]
+        p = xyz64[torch.arange(PN_B), last][:, None]
+        temp = torch.minimum(temp, ((xyz64 - p) ** 2).sum(-1))
+        best = temp.max(1).values
+        chosen = temp.gather(1, fps[DEVICE][:, i:i + 1])[:, 0]
+        short = max(short, float((best - chosen).max()))
+        near += int(((best - chosen) > 0).sum())
+    agree = int((fps[DEVICE] == fps["cpu"]).all(1).sum())
+    print(f"  FPS: {agree} of {PN_B} sequences equal on both devices; the "
+          f"card's choices short of the f64 best by at most {short:.2e} "
+          f"m^2 (bound {POINT_TOL:g}), {near} not the f64 argmax")
+    if short > POINT_TOL:
+        failures.append("FPS chose a point short of the furthest")
+    ctr = xyz[torch.arange(PN_B)[:, None], fps["cpu"]]        # [B, S, 3]
+    ctr64 = ctr.double()
+
+    # kNN(16) of the centres and three_nn of every point among them
+    exact = d2(ctr64, xyz64)
+    for what, args, ex in (("knn(16)", (16, xyz, ctr), exact),
+                           ("three_nn", (3, ctr, xyz), d2(xyz64, ctr64))):
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            (d, idx), ms = timed(lambda: pn.knn(
+                args[0], args[1].to(dev), args[2].to(dev)), dev)
+            res[dev] = (d.cpu(), idx.cpu())
+            if ms is not None:
+                print(f"  {what} on the card: {ms:.2f} ms")
+        # squared: a root near 0 turns the product's rounding into mm
+        compare(f"{what} squared distances", res[DEVICE][0] ** 2,
+                res["cpu"][0] ** 2, POINT_TOL, 0.0, failures)
+        got = ex.gather(2, res[DEVICE][1])
+        want = ex.gather(2, res["cpu"][1])
+        differ = (res[DEVICE][1] != res["cpu"][1]).any(-1)
+        print(f"  {what}: rows whose indices differ {int(differ.sum())} of "
+              f"{differ.numel()}; their f64 squared distances apart by at "
+              f"most {float((got - want).abs().max()):.2e}")
+        if float((got - want).abs().max()) > POINT_TOL:
+            failures.append(f"{what} chose other neighbours")
+
+    # ball_query(0, 0.4, 32): indices equal but where a point lies within
+    # POINT_TOL of the radius
+    r2 = 0.4 ** 2
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        out, ms = timed(lambda: pn.ball_query(0.0, 0.4, 32, xyz.to(dev),
+                                              ctr.to(dev)), dev)
+        res[dev] = out.cpu()
+        if ms is not None:
+            print(f"  ball_query(0, 0.4, 32) on the card: {ms:.2f} ms")
+    differ = (res[DEVICE] != res["cpu"]).any(-1)
+    edge = ((exact - r2).abs() < POINT_TOL).any(-1)
+    print(f"  ball_query: rows that differ {int(differ.sum())} of "
+          f"{differ.numel()}, rows with a point within {POINT_TOL:g} m^2 "
+          f"of the radius {int(edge.sum())}; points a ball, median "
+          f"{float((res['cpu'] != res['cpu'][..., :1]).sum(-1).median()) + 1}")
+    if bool((differ & ~edge).any()):
+        failures.append("ball_query differs away from the radius")
+
+    # three_interpolate of 128 channels back to every point, on the CPU's
+    # neighbours and weights
+    dist, idx = pn.three_nn(xyz, ctr)
+    w = 1.0 / (dist + 1e-8)
+    w = w / w.sum(-1, keepdim=True)
+    feats = torch.from_numpy(rng.normal(size=(PN_B, PN_C, PN_S))
+                             .astype(np.float32))
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        out, ms = timed(lambda: pn.three_interpolate(
+            feats.to(dev), idx.to(dev), w.to(dev)), dev)
+        res[dev] = out.cpu()
+        if ms is not None:
+            print(f"  three_interpolate [{PN_B}, {PN_C}, {PN_S}] -> "
+                  f"{tuple(out.shape)} on the card: {ms:.2f} ms")
+    compare("three_interpolate", res[DEVICE], res["cpu"], 1e-5, 1e-5,
+            failures)
+
+    # k-medoids of [4, 512, 512] distances into 16 clusters
+    pts = torch.from_numpy(rng.normal(size=(PN_B, 512, 3)))
+    dist = (pts[:, :, None] - pts[:, None]).norm(dim=-1)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        out, ms = timed(lambda: km.k_medoids(dist.float().to(dev), 16), dev)
+        res[dev] = out.cpu().long()
+        if ms is not None:
+            print(f"  k_medoids [{PN_B}, 512, 512] -> 16 on the card: "
+                  f"{ms:.2f} ms")
+    cost = {dev: dist.gather(2, m[:, None, :].expand(PN_B, 512, 16))
+            .amin(2).sum(1) for dev, m in res.items()}
+    differ = (res[DEVICE] != res["cpu"]).any(1)
+    gap = float(((cost[DEVICE] - cost["cpu"]).abs() / cost["cpu"]).max())
+    print(f"  k_medoids: batches whose medoids differ {int(differ.sum())} "
+          f"of {PN_B}; total distance apart by {gap:.2e} relative")
+    if gap > 1e-5:
+        failures.append("k_medoids found other clusters")
+
+    # the focal mask on a full-width table, 40 boxes a sample
+    frames = [clustered_frame(np.random.default_rng(SEED + 90 + f),
+                              cfg.voxel, cfg.caps.max_points)
+              for f in range(PN_B)]
+    p, v = (torch.cat(a) for a in zip(*[to_batch(cfg, f, "cpu")
+                                        for f in frames]))
+    r = cfg.voxel.point_cloud_range
+    boxes = np.zeros((PN_B, 40, 9), np.float32)
+    boxes[..., :2] = rng.uniform(r[0] + 5, r[3] - 5, (PN_B, 40, 2))
+    boxes[..., 3:6] = rng.uniform([1.5, 1.5, 1], [6, 3, 3], (PN_B, 40, 3))
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (PN_B, 40))
+    boxes = torch.from_numpy(boxes)
+    gmask = torch.ones((PN_B, 40), dtype=torch.bool)
+    u = torch.rand((PN_B, cfg.caps.max_voxels),
+                   generator=torch.Generator().manual_seed(SEED))
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        table = extract_scene(cfg, p.to(dev), v.to(dev)).table
+        fg = mae.focal_foreground(table, boxes.to(dev), gmask.to(dev),
+                                  cfg.voxel)
+        keep, ms = timed(lambda: mae.sample_focal_mask(
+            torch.Generator(device=dev).manual_seed(SEED), table,
+            boxes.to(dev), gmask.to(dev), cfg.voxel, 0.7), dev)
+        res[dev] = (table, fg.cpu(), keep.cpu(), mae.focal_keep(
+            fg, table.valid, u.to(dev), 0.7).cpu())
+        if ms is not None:
+            print(f"  sample_focal_mask [{PN_B}, {cfg.caps.max_voxels}], 40 "
+                  f"boxes, on the card: {ms:.2f} ms")
+    def n_kept(fg, valid):     # floor(n_fg x 0.3) and the background
+        return (torch.floor(fg.sum(1).float() * (1.0 - 0.7)).long()
+                + (valid & ~fg).sum(1))
+
+    table, fg, keep, on_u = res["cpu"]
+    fgd = res[DEVICE][1]
+    # a pillar whose test differs must lie within 1e-4 m of a box's edge
+    c = table.coords.double()
+    pts3 = torch.stack([c[..., 1] * cfg.voxel.voxel_size[0] + r[0],
+                        c[..., 0] * cfg.voxel.voxel_size[1] + r[1]], -1)
+    b = boxes.double()
+    loc = pts3[:, :, None] - b[:, None, :, :2]
+    cs, sn = torch.cos(-b[..., 6])[:, None], torch.sin(-b[..., 6])[:, None]
+    lx = loc[..., 0] * cs - loc[..., 1] * sn
+    ly = loc[..., 0] * sn + loc[..., 1] * cs
+    margin = torch.minimum((lx.abs() - b[:, None, :, 3] / 2).abs(),
+                           (ly.abs() - b[:, None, :, 4] / 2).abs()).amin(-1)
+    differ = fg != fgd
+    kd = res[DEVICE][3] != on_u
+    n_keep = keep.sum(1)
+    want = n_kept(fg, table.valid)
+    print(f"  focal mask: foreground pillars {fg.sum(1).tolist()} of "
+          f"{table.valid.sum(1).tolist()}; tests that differ "
+          f"{int(differ.sum())} (at edges {int((differ & (margin < 1e-4)).sum())}"
+          f"); keep masks on shared uniforms differ {int(kd.sum())}; kept "
+          f"{n_keep.tolist()}")
+    if bool((differ & (margin >= 1e-4)).any()) or (
+            not bool(differ.any()) and bool(kd.any())):
+        failures.append("the focal mask differs between the card and the CPU")
+    if not torch.equal(n_keep, want) or not torch.equal(
+            res[DEVICE][2].sum(1), n_kept(fgd, res[DEVICE][0].valid.cpu())):
+        failures.append("the focal mask kept the wrong number of pillars")
+
+
+def phase_l(cfg, wcfg, failures: list, work: str) -> dict:
+    """Data preparation, ``VoxelNet`` and the point ops (``phase_l_*``):
+    returns the launches of the runs."""
+    print(f"phase L: create_data waymo_infos on a raw Waymo tree, then "
+          f"the Waymo pretrain ({L_WAYMO_STEPS} steps) and the eval CLI "
+          f"from its infos; create_data gt_database on phase J's frames, "
+          f"then {L_PASTE_STEPS} fine-tune steps with GT paste; VoxelNet "
+          f"with the pillar and the simple encoder at full width; the "
+          f"point ops, k-medoids and the focal mask")
+    total = phase_l_data(cfg, wcfg, failures, work)
+    for k, v in phase_l_voxelnet(cfg, failures, work).items():
+        total[k] += v
+    phase_l_point_ops(cfg, failures)
+    return total
+
+
 def profiled(what: str, fn, trace: str, failures: list) -> None:
     """One call of ``fn`` under ``torch.profiler``: its wall ms, the
     device's busy ms (union of kernel, copy and memset intervals), the
@@ -2408,6 +2985,8 @@ def main() -> None:
         passed("phase J", failures, clock)
         runs.append(phase_k(cfg, failures, work))
         passed("phase K", failures, clock)
+        runs.append(phase_l(cfg, wcfg, failures, work))
+        passed("phase L", failures, clock)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []

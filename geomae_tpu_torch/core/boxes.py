@@ -1,7 +1,7 @@
 """LiDAR box utilities of the detection path.
 
-Port of the parts of ``geomae_tpu/core/boxes.py`` that serving and the
-anchor head's target assignment need.
+Port of ``geomae_tpu/core/boxes.py``: what serving and the anchor head's
+target assignment need, gravity centres and the point-in-box test.
 Boxes are ``[..., 7+]`` tensors ``(x, y, z_bottom, w, l, h, yaw, ...)`` in
 the LiDAR frame.
 """
@@ -16,6 +16,13 @@ def limit_period(val: torch.Tensor, offset: float = 0.5,
                  period: float = math.pi) -> torch.Tensor:
     """Map to ``[-offset * period, (1 - offset) * period)``."""
     return val - torch.floor(val / period + offset) * period
+
+
+def gravity_center(boxes: torch.Tensor) -> torch.Tensor:
+    """[..., 3] centres with z at the box's middle (boxes store the bottom
+    z)."""
+    return torch.cat([boxes[..., :2], boxes[..., 2:3] + boxes[..., 5:6] * 0.5],
+                     -1)
 
 
 def bev(boxes: torch.Tensor) -> torch.Tensor:
@@ -57,3 +64,20 @@ def corners_bev(boxes: torch.Tensor) -> torch.Tensor:
     cx = x[..., None] + lx * cs[..., None] - ly * sn[..., None]
     cy = y[..., None] + lx * sn[..., None] + ly * cs[..., None]
     return torch.stack([cx, cy], -1)
+
+
+def points_in_boxes(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """Bool [..., P, N]: point inside rotated box, z within [z, z + h]
+    (the roiaware_pool3d ``points_in_boxes_gpu`` op of mmdet3d): points
+    [..., P, >=3] turned into each box's frame of boxes [..., N, >=7]
+    and held to the half-dimensions."""
+    local = points[..., :, None, :3] - boxes[..., None, :, :3]
+    yaw = boxes[..., None, :, 6]
+    cs, sn = torch.cos(-yaw), torch.sin(-yaw)
+    lx = local[..., 0] * cs - local[..., 1] * sn
+    ly = local[..., 0] * sn + local[..., 1] * cs
+    lz = local[..., 2]
+    half = boxes[..., None, :, :]
+    return ((torch.abs(lx) <= half[..., 3] / 2)
+            & (torch.abs(ly) <= half[..., 4] / 2)
+            & (lz >= 0) & (lz <= half[..., 5]))

@@ -1,9 +1,10 @@
 """Aligned 3D anchors (numpy).
 
-The same function as ``geomae_tpu/models/anchors.py:grid_anchors``, kept
-here because importing ``geomae_tpu.models`` imports JAX.  Anchor centres
-sit at cell centres of the feature map, one (size x rotation) pair per
-anchor type per cell, with zero velocities appended.
+The same functions as ``geomae_tpu/models/anchors.py`` (``grid_anchors``,
+``num_anchors_per_cell``), kept here because importing
+``geomae_tpu.models`` imports JAX.  Anchor centres sit at cell centres
+of the feature map, one (size x rotation) pair per anchor type per cell,
+with zero velocities appended.
 """
 from __future__ import annotations
 
@@ -34,6 +35,10 @@ def grid_anchors(cfg: AnchorHeadConfig, featmap_size) -> np.ndarray:
                 np.zeros_like(xx), np.zeros_like(xx)], axis=-1))
         rows.append(np.stack(per_cell, axis=2))      # [ny, nx, R, 9]
     return np.stack(rows, axis=2).reshape(-1, 9).astype(np.float32)
+
+
+def num_anchors_per_cell(cfg: AnchorHeadConfig) -> int:
+    return len(cfg.anchor_sizes) * len(cfg.rotations)
 
 
 def head_featmap_size(cfg: FinetuneConfig):

@@ -1,9 +1,11 @@
-"""DynamicVoxelNet, the SST detection model.
+"""DynamicVoxelNet, the SST detection model, and VoxelNet.
 
 Port of ``geomae_tpu/models/detector.py`` (``DynamicVoxelNet``,
-``extract_scene``): voxelize -> DynamicScatterVFE -> window layouts ->
-SST blocks -> recover_bev -> SECOND stages -> SECONDFPN -> Anchor3DHead,
-or the CenterHead with ``cfg.head_type == "center"``.
+``VoxelNet``, ``extract_scene``): voxelize -> DynamicScatterVFE -> window
+layouts -> SST blocks -> recover_bev -> SECOND stages -> SECONDFPN ->
+Anchor3DHead, or the CenterHead with ``cfg.head_type == "center"``.
+``VoxelNet``, the PointPillars detector, takes the pillar encoder or the
+hard-voxelized mean in place of the VFE and the SST.
 
 The module tree carries the reference checkpoint's names
 (``voxel_encoder``, ``backbone.encoder_blocks``, ``backbone.conv_blocks``,
@@ -21,12 +23,13 @@ from typing import Dict, List
 import torch
 import torch.nn as nn
 
-from ..config import FinetuneConfig
+from ..config import FinetuneConfig, replace
 
-from ..ops.voxelize import Scene, build_scene_batch
+from ..ops.voxelize import Scene, build_scene_batch, hard_voxelize
 from ..ops.windows import make_layouts
 from .anchor_head import Anchor3DHead, HeadOutputs
 from .center_head import CenterHead
+from .pillar_encoders import PillarFeatureNet, hard_simple_vfe
 from .second import SECONDFPN, SECONDStages, recover_bev
 from .sst import SSTStack, prepare_shift_data
 from .vfe import DynamicScatterVFE
@@ -68,6 +71,67 @@ class DynamicVoxelNet(nn.Module):
         shift_data = prepare_shift_data(layouts, table.valid, cfg.sst)
         x = self.backbone.encoder_blocks(feats, shift_data)
         bev = recover_bev(x, table.coords, table.valid, ny, nx)
+        fpn = self.neck(self.backbone.conv_blocks(bev))
+        return self.bbox_head(fpn)
+
+
+class _SECONDBackbone(nn.Module):
+    """The SECOND stages under the name the SST detectors give them."""
+
+    def __init__(self, cfg: FinetuneConfig, in_channels: int, device=None):
+        super().__init__()
+        self.conv_blocks = SECONDStages(
+            replace(cfg.second, in_channels=in_channels), device)
+
+
+class VoxelNet(nn.Module):
+    """The hard-voxelization single-stage detector (mmdet3d's
+    ``detectors/voxelnet.py:13-48``): voxel encoder -> PointPillarsScatter
+    BEV -> SECOND -> FPN -> head.
+
+    ``encoder="pillar"`` runs ``PillarFeatureNet`` on the sorted scene
+    (``cfg.vfe``, ``voxel_encoder.pfn_layers``); ``encoder="simple"`` the
+    ``HardSimpleVFE`` mean of the first 4 features over ``hard_voxelize``
+    buffers of ``max_points_per_voxel`` slots (no parameters).  SECOND
+    takes the encoder's width, 4 channels for ``simple``, where the JAX
+    module infers it.  The SECOND stages are ``backbone.conv_blocks``, as
+    in ``DynamicVoxelNet``, so ``weights.from_flax`` maps a JAX
+    ``VoxelNet``'s ``second`` tree alike."""
+
+    def __init__(self, cfg: FinetuneConfig, encoder: str = "pillar",
+                 max_points_per_voxel: int = 32, device=None):
+        super().__init__()
+        if cfg.head_type not in ("anchor", "center"):
+            raise ValueError(f"head_type {cfg.head_type!r}: anchor or center")
+        if encoder not in ("pillar", "simple"):
+            raise ValueError(f"encoder {encoder!r}: pillar or simple")
+        self.cfg, self.encoder = cfg, encoder
+        self.max_points_per_voxel = max_points_per_voxel
+        if encoder == "pillar":
+            self.voxel_encoder = PillarFeatureNet(cfg.vfe, cfg.voxel, device)
+            width = cfg.vfe.feat_channels[-1]
+        else:
+            width = 4
+        self.backbone = _SECONDBackbone(cfg, width, device)
+        self.neck = SECONDFPN(cfg.fpn, device)
+        self.bbox_head = CenterHead(cfg.center_head, device) \
+            if cfg.head_type == "center" else Anchor3DHead(cfg.head, device)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.compute_dtype)
+
+    def forward(self, scene: Scene) -> HeadOutputs | List[Dict]:
+        cfg = self.cfg
+        table = scene.table
+        ny, nx = cfg.voxel.grid_size
+        if self.encoder == "simple":
+            voxels, npts = hard_voxelize(scene, self.max_points_per_voxel)
+            feats = hard_simple_vfe(voxels, npts)
+        else:
+            feats = self.voxel_encoder(scene, self.dtype)
+        bev = recover_bev(feats.to(self.dtype), table.coords, table.valid,
+                          ny, nx)
         fpn = self.neck(self.backbone.conv_blocks(bev))
         return self.bbox_head(fpn)
 

@@ -3,8 +3,9 @@ masked multi-term loss.
 
 Port of ``geomae_tpu/models/mae.py`` (``GeoMAETargets``,
 ``compute_targets``, ``compute_targets_batch``, ``sample_mask``,
-``compact_visible``, ``GeoMAE``, ``pretrain_loss``), batched over a
-leading axis instead of the JAX ``vmap``.
+``sample_focal_mask``, ``compact_visible``, ``GeoMAE``,
+``pretrain_loss``), batched over a leading axis instead of the JAX
+``vmap``.
 
 Targets.  Points arrive in canonical (pillar, slot_sort) order
 (``ops/voxelize.py``).  K3 (``ops/targets.slot_outer_segment_sum``) sums
@@ -43,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import PretrainConfig, VoxelConfig
+from ..core.boxes import points_in_boxes
 from ..ops.eig3 import normal_and_curvature6
 from ..ops.scatter import gather_injective, gather_rows_batched
 from ..ops.targets import expand_rows, slot_outer_segment_sum
@@ -253,6 +255,49 @@ def sample_mask(generator: torch.Generator, valid: torch.Tensor,
     thr = torch.sort(r, 1).values.gather(1, len_keep.clamp(max=V - 1)[:, None])
     keep = (r < thr) & valid
     return torch.where((len_keep >= V)[:, None], valid, keep)
+
+
+def focal_foreground(table: VoxelTable, gt_boxes: torch.Tensor,
+                     gt_mask: torch.Tensor, voxel: VoxelConfig) -> torch.Tensor:
+    """[B, V] bool: the valid pillar rows whose point (coords x voxel
+    size + range start, z = 1) lies in one of the ``gt_mask``-ed boxes
+    [B, G, >=7] moved to z 0 and made 2 m high, the reference's trick for
+    a BEV test."""
+    r = voxel.point_cloud_range
+    vx, vy = voxel.voxel_size[0], voxel.voxel_size[1]
+    coords = table.coords.float()
+    centers = torch.stack([coords[..., 1] * vx + r[0],
+                           coords[..., 0] * vy + r[1],
+                           torch.ones_like(coords[..., 0])], -1)
+    boxes = gt_boxes.clone()
+    boxes[..., 2], boxes[..., 5] = 0.0, 2.0
+    inside = points_in_boxes(centers, boxes) & gt_mask[:, None, :]
+    return inside.any(-1) & table.valid
+
+
+def focal_keep(fg: torch.Tensor, valid: torch.Tensor, u: torch.Tensor,
+               mask_ratio: float) -> torch.Tensor:
+    """Keep mask [B, V] from the foreground ``fg`` and uniforms ``u`` [B,
+    V]: per sample the ``floor(n_fg * (1 - mask_ratio))`` foreground rows
+    of the smallest draws, and every valid background row."""
+    len_keep = torch.floor(fg.sum(1).float() * (1.0 - mask_ratio)).long()
+    r = torch.where(fg, u, float("inf"))
+    rank = torch.argsort(torch.argsort(r, dim=1, stable=True), dim=1,
+                         stable=True)
+    return ((rank < len_keep[:, None]) & fg) | (valid & ~fg)
+
+
+@torch.no_grad()
+def sample_focal_mask(generator: torch.Generator, table: VoxelTable,
+                      gt_boxes: torch.Tensor, gt_mask: torch.Tensor,
+                      voxel: VoxelConfig, mask_ratio: float) -> torch.Tensor:
+    """Foreground-focused keep mask [B, V] (``get_focal_mask_index`` of
+    the reference): the pillars of ``focal_foreground`` are masked at
+    ``mask_ratio`` by uniform draws from ``generator`` (on the table's
+    device), the background is always kept."""
+    fg = focal_foreground(table, gt_boxes, gt_mask, voxel)
+    u = torch.rand(fg.shape, generator=generator, device=fg.device)
+    return focal_keep(fg, table.valid, u, mask_ratio)
 
 
 def compact_visible(keep: torch.Tensor, vis_cap: int):

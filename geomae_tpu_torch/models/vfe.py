@@ -6,6 +6,7 @@ Port of ``geomae_tpu/models/vfe.py`` (``DynamicVFELayer``,
   point features [x y z intensity dt]
     + offset from the pillar's point mean      (K2 segment_broadcast mean)
     + offset from the pillar centre                            -> 11 ch
+    (+ the point's distance from the origin, ``with_distance``)
   -> Linear(11, 64, no bias) + BN + ReLU
   -> concat the pillar max back to each point  (K2 segment_broadcast max)
   -> Linear(128, 128, no bias) + BN + ReLU
@@ -54,26 +55,39 @@ class DynamicVFELayer(nn.Module):
         return torch.relu(self.norm(self.linear(x), mask))
 
 
+def decorated_width(cfg: VFEConfig) -> int:
+    """The first layer's input width: the point features and the
+    decorations that ``cfg`` asks for."""
+    return (cfg.in_channels + 3 * (cfg.with_cluster_center
+                                   + cfg.with_voxel_center)
+            + cfg.with_distance)
+
+
+def point_layers(cfg: VFEConfig, in_ch: int, device=None) -> nn.ModuleList:
+    """One ``DynamicVFELayer`` per ``cfg.feat_channels``; every layer but
+    the first sees its input concat its max."""
+    chans = list(cfg.feat_channels)
+    return nn.ModuleList(
+        DynamicVFELayer(in_ch if i == 0 else 2 * chans[i - 1], ch,
+                        cfg.bn_eps, device)
+        for i, ch in enumerate(chans))
+
+
 class DynamicScatterVFE(nn.Module):
+    # the layers' name in the reference checkpoint
+    LAYERS = "vfe_layers"
+
     def __init__(self, cfg: VFEConfig, voxel: VoxelConfig, device=None):
         super().__init__()
-        if cfg.with_distance:
-            raise NotImplementedError("with_distance is not ported")
         self.cfg, self.voxel = cfg, voxel
-        in_ch = cfg.in_channels + 3 * (cfg.with_cluster_center
-                                       + cfg.with_voxel_center)
-        chans = list(cfg.feat_channels)
-        layers = []
-        for i, ch in enumerate(chans):
-            # every layer but the first sees its input concat its max
-            layers.append(DynamicVFELayer(in_ch if i == 0 else 2 * chans[i - 1],
-                                          ch, cfg.bn_eps, device))
-        self.vfe_layers = nn.ModuleList(layers)
+        setattr(self, self.LAYERS,
+                point_layers(cfg, decorated_width(cfg), device))
 
     @torch.no_grad()
     def decorations(self, scene: Scene) -> torch.Tensor:
-        """[B, P, 11] f32 point features with the cluster and pillar-centre
-        offsets, 0 on invalid points."""
+        """[B, P, ``decorated_width(cfg)``] f32 point features with the
+        cluster and pillar-centre offsets (and the distance,
+        ``with_distance``), 0 on invalid points."""
         points, valid = scene.points, scene.valid
         p2v = scene.table.point2voxel
         v_cap = scene.table.valid.shape[-1]
@@ -98,6 +112,8 @@ class DynamicScatterVFE(nn.Module):
                 points[..., 1] - (py * vy + (vy / 2 + r[1])),
                 points[..., 2] - (vz / 2 + r[2]),
             ], -1))
+        if self.cfg.with_distance:
+            feats.append(torch.sqrt((xyz * xyz).sum(-1, keepdim=True)))
         x = torch.cat(feats, -1)
         return torch.where(valid[..., None], x, 0.0)
 
@@ -108,8 +124,9 @@ class DynamicScatterVFE(nn.Module):
         v_cap = table.valid.shape[-1]
         pv = scene.valid[..., None]
         x = self.decorations(scene).to(dtype)
-        last = len(self.vfe_layers) - 1
-        for i, layer in enumerate(self.vfe_layers):
+        layers = getattr(self, self.LAYERS)
+        last = len(layers) - 1
+        for i, layer in enumerate(layers):
             x = layer(x, scene.valid)
             if i != last:
                 mb = segment_broadcast(x, p2v, v_cap, "max")

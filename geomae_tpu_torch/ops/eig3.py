@@ -1,10 +1,10 @@
 """Closed-form eigendecomposition of batched symmetric 3x3 matrices.
 
 Port of ``geomae_tpu/ops/eig3.py`` (``pack_sym``, ``eigvals_sym6``,
-``smallest_eigvec_sym6``, ``normal_and_curvature6``) with the same
-arithmetic in the same order.  For a symmetric PSD covariance the surface
-normal is the eigenvector of the smallest eigenvalue and the curvature is
-the descending spectrum, normalised.  Matrices are packed as [..., 6]
+``smallest_eigvec_sym6``, ``normal_and_curvature6`` and their [..., 3, 3]
+forms) with the same arithmetic in the same order.  For a symmetric PSD
+covariance the surface normal is the eigenvector of the smallest
+eigenvalue and the curvature is the descending spectrum, normalised.  Matrices are packed as [..., 6]
 (00, 11, 22, 01, 02, 12).
 
 The normal's sign is that of the cross product of the row pair of
@@ -100,3 +100,26 @@ def normal_and_curvature6(cov6: torch.Tensor, eps: float = 1e-9):
     normal = smallest_eigvec_sym6(cov6, evals[..., 2])
     curv = evals + eps
     return normal, curv / curv.sum(-1, keepdim=True)
+
+
+# [..., 3, 3] forms, for tests and callers off the hot path
+
+
+def eigvals3x3_sym(A: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues of symmetric [..., 3, 3], descending [..., 3]."""
+    return eigvals_sym6(pack_sym(A.float()))
+
+
+def smallest_eigvec3x3_sym(A: torch.Tensor,
+                           eval_min: torch.Tensor) -> torch.Tensor:
+    """Unit eigenvector of the smallest eigenvalue of symmetric [..., 3,
+    3]."""
+    return smallest_eigvec_sym6(pack_sym(A.float()), eval_min)
+
+
+def normal_and_curvature(cov: torch.Tensor, eps: float = 1e-9):
+    """(normal [..., 3], curvature [..., 3]) of symmetric PSD [..., 3, 3]
+    covariances: the unit vector of the smallest eigenvalue and the
+    descending spectrum + eps, normalised to sum 1 (the reference's
+    ``cal_regular_voxel_nor_and_curv``)."""
+    return normal_and_curvature6(pack_sym(cov), eps)

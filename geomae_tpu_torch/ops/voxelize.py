@@ -1,7 +1,8 @@
 """Fixed-capacity dynamic voxelization by one sort.
 
 Port of ``geomae_tpu/ops/voxelize.py`` (``low_voxel_coords``,
-``sub_voxel_slots``, ``build_scene``, ``scene_from_arrays``).  Points are
+``sub_voxel_slots``, ``build_scene``, ``scene_from_arrays``,
+``hard_voxelize``, ``lookup_rows``, ``neighbor_rows``).  Points are
 sorted ONCE by ``pillar_key * num_slots_low + slot_sort``, so every later
 segment op sees ascending pillar ids; pillar rows are the ascending
 unique pillar keys, ranked densely, and a point of a pillar past the row
@@ -146,3 +147,69 @@ def scene_from_arrays(batch) -> Scene:
     return Scene(points=batch["points"], valid=batch["point_valid"],
                  table=table, slot_low=batch["slot_low"],
                  slot_med=batch["slot_med"], slot_sort=batch["slot_sort"])
+
+
+def hard_voxelize(scene: Scene, max_points: int):
+    """Dense per-voxel point buffers from a sorted scene (the CUDA
+    ``hard_voxelize`` of mmdet3d, ``ops/voxel/src/voxelization.h``).
+
+    Points are pillar-sorted, so a point's rank in its voxel is its
+    position minus its segment's start (a running max of the starts).
+    Invalid and sentinel points and the points past ``max_points`` in a
+    voxel fill no slot.  Returns (voxels [B, V, max_points, D], zero where
+    no point was written; num_points int32 [B, V], capped at
+    ``max_points``)."""
+    B, P, D = scene.points.shape
+    v_cap = scene.table.valid.shape[-1]
+    p2v = scene.table.point2voxel.long()
+    pos = torch.arange(P, device=p2v.device).expand(B, P)
+    first = torch.ones_like(scene.valid)
+    first[:, 1:] = p2v[:, 1:] != p2v[:, :-1]
+    seg_start = torch.cummax(torch.where(first, pos, 0), 1).values
+    rank = pos - seg_start
+    ok = scene.valid & (p2v < v_cap) & (rank < max_points)
+    # slot v_cap * max_points is a trash row for every point that fills none
+    slot = torch.where(ok, p2v * max_points + rank, v_cap * max_points)
+    voxels = scene.points.new_zeros((B, v_cap * max_points + 1, D))
+    voxels.scatter_(1, slot[..., None].expand(B, P, D), scene.points)
+    voxels = voxels[:, :-1].reshape(B, v_cap, max_points, D)
+    counts = torch.zeros((B, v_cap + 1), dtype=torch.int32,
+                         device=p2v.device)
+    counts.scatter_add_(1, torch.where(ok, p2v, v_cap), ok.to(torch.int32))
+    return voxels, counts[:, :v_cap].clamp_max(max_points)
+
+
+def lookup_rows(coords: torch.Tensor, valid: torch.Tensor, ny: int, nx: int,
+                query_keys: torch.Tensor,
+                query_ok: torch.Tensor) -> torch.Tensor:
+    """Pillar rows of linear (y, x) keys by binary search, batched.
+
+    coords int32 [B, V, 2] and valid [B, V] of a key-sorted table (the
+    invalid rows a suffix, keyed INT32_MAX); query_keys and query_ok [B,
+    ...].  Returns int32 rows shaped like ``query_keys``; a miss or a
+    query that is not ok gives ``V``."""
+    B, v_cap = valid.shape
+    key = torch.where(valid, coords[..., 0] * nx + coords[..., 1],
+                      INT32_MAX).to(torch.int32).contiguous()
+    q = query_keys.reshape(B, -1).to(torch.int32).contiguous()
+    pos = torch.searchsorted(key, q, side="left").clamp_max(v_cap - 1)
+    hit = (torch.gather(key, 1, pos) == q) & query_ok.reshape(B, -1)
+    return torch.where(hit, pos, v_cap).to(torch.int32).reshape(
+        query_keys.shape)
+
+
+def neighbor_rows(coords: torch.Tensor, valid: torch.Tensor, ny: int,
+                  nx: int, v_cap: int) -> torch.Tensor:
+    """The 3x3 neighbourhood's pillar rows, int32 [B, V, 9], ``v_cap``
+    where a neighbour is missing; taps in row-major (dy, dx) order over
+    {-1, 0, 1}^2, a [1, 3, 3] submanifold conv's."""
+    y, x = coords[..., 0], coords[..., 1]
+    keys, oks = [], []
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            yy, xx = y + dy, x + dx
+            keys.append(yy.clamp(0, ny - 1) * nx + xx.clamp(0, nx - 1))
+            oks.append(valid & (yy >= 0) & (yy < ny) & (xx >= 0)
+                       & (xx < nx))
+    return lookup_rows(coords, valid, ny, nx, torch.stack(keys, -1),
+                       torch.stack(oks, -1))

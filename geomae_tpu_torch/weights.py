@@ -2,8 +2,9 @@
 
 The mapping of ``geomae_tpu/train/torch_import.py`` run backwards, so a
 checkpoint of the JAX package loads into :class:`~geomae_tpu_torch.models.
-detector.DynamicVoxelNet` (fine-tune) or :class:`~geomae_tpu_torch.models.
-mae.GeoMAE` (pretrain) with ``load_state_dict(strict=True)``:
+detector.DynamicVoxelNet` (fine-tune), :class:`~geomae_tpu_torch.models.
+detector.VoxelNet` or :class:`~geomae_tpu_torch.models.mae.GeoMAE`
+(pretrain) with ``load_state_dict(strict=True)``:
 
 * Dense ``kernel`` [in, out] -> Linear ``weight`` = kernel.T
 * q/k/v projections -> ``in_proj_weight`` / ``in_proj_bias`` (rows q, k, v)
@@ -11,6 +12,10 @@ mae.GeoMAE` (pretrain) with ``load_state_dict(strict=True)``:
 * ConvTranspose ``kernel`` -> ConvTranspose2d ``weight`` [in, out, kh, kw],
   spatially flipped back (torch's transposed conv correlates with the
   flipped kernel relative to ``lax.conv_transpose``)
+* the VFE's ``voxel_encoder/vfe_{i}/{linear,norm}`` ->
+  ``voxel_encoder.vfe_layers.{i}.{linear,norm}``; ``VoxelNet``'s
+  ``PillarFeatureNet`` and a ``HardVFE``'s ``{pfn,vfe}_{i}_{linear,norm}``
+  -> ``voxel_encoder.{pfn,vfe}_layers.{i}.{linear,norm}``
 * BN scale / bias / mean / var -> weight / bias / running_mean /
   running_var (+ ``num_batches_tracked`` = 0); LayerNorm scale -> weight;
 * the CenterHead's ``bbox_head/shared_{conv,bn}`` ->
@@ -88,12 +93,15 @@ def _key(path: Tuple[str, ...], v: np.ndarray, sd: Dict) -> None:
     # the MaskedBatchNorm2d wrapper adds a parameter-free scope
     p = tuple(s for s in path if not s.startswith("MaskedBatchNorm"))
     if p[0] == "voxel_encoder":
-        i = int(p[1].split("_")[1])
-        base = f"voxel_encoder.vfe_layers.{i}"
-        if p[2] == "linear":
+        # DynamicScatterVFE: vfe_{i}/{linear,norm}/leaf; PillarFeatureNet
+        # and HardVFE: {pfn,vfe}_{i}_{linear,norm}/leaf
+        m = re.fullmatch(r"(pfn|vfe)_(\d+)(?:_(linear|norm))?", p[1])
+        part, rest = (m.group(3), p[2:]) if m.group(3) else (p[2], p[3:])
+        base = f"voxel_encoder.{m.group(1)}_layers.{int(m.group(2))}"
+        if part == "linear":
             sd[f"{base}.linear.weight"] = v.T
         else:
-            sd[f"{base}.norm.{_BN[p[3]]}"] = v
+            sd[f"{base}.norm.{_BN[rest[0]]}"] = v
     elif p[0] == "encoder" and p[1:3] == ("blocks", "block"):
         j = int(p[3].split("_")[1])
         for i in range(v.shape[0]):
@@ -153,8 +161,8 @@ def _key(path: Tuple[str, ...], v: np.ndarray, sd: Dict) -> None:
 
 def from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """Flax ``params`` and ``batch_stats`` trees of a fine-tune
-    ``DynamicVoxelNet`` or a pretrain ``GeoMAE`` (arrays of any kind numpy
-    can read) -> the port's ``state_dict``."""
+    ``DynamicVoxelNet``, a ``VoxelNet`` or a pretrain ``GeoMAE`` (arrays of
+    any kind numpy can read) -> the port's ``state_dict``."""
     sd: Dict = {}
     for tree in (params, batch_stats):
         for path, v in _flatten(tree):

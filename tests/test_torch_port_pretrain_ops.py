@@ -419,7 +419,8 @@ def test_geomae_state_dict_is_the_reference_layout(tiny):
 
 def test_port_imports_nothing_of_the_jax_package():
     """``geomae_tpu_torch``, every module in it (the trainer, checkpoint,
-    loader, logging, CLI and data-parallel modules among them), and
+    loader, logging, CLI and data-parallel modules, the data preparation,
+    the misc tools and the VoxelNet and point-op modules among them), and
     ``chip_smoke`` load no module named ``geomae_tpu`` or
     ``geomae_tpu.*``, and no JAX, flax, optax or orbax."""
     code = (
@@ -432,7 +433,11 @@ def test_port_imports_nothing_of_the_jax_package():
         "n = sum(m.startswith('geomae_tpu_torch.') for m in sys.modules)\n"
         "new = ['train.trainer', 'train.checkpoint', 'train.state', "
         "'train.__main__', 'data.loader', 'data.synthetic', "
-        "'utils.logging', 'parallel.mesh', 'parallel.distributed']\n"
+        "'utils.logging', 'parallel.mesh', 'parallel.distributed', "
+        "'create_data', 'misc_tools', 'data.converters', "
+        "'data.kitti_converter', 'data.waymo_converter', "
+        "'models.pillar_encoders', 'ops.pointnet_ops', 'ops.k_medoids', "
+        "'core.box_modes', 'core.visualize']\n"
         "bad += [m for m in new if 'geomae_tpu_torch.' + m not in "
         "sys.modules]\n"
         "sys.exit(str(bad) if bad or n < 45 else 0)\n")
