@@ -25,7 +25,12 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      run around K8's kernels (``qkv_project``, ``qkv_project_backward``;
      two launches bitwise equal) at all three shapes; and one
      SST block on the ``band`` route (K8) against the ``qkv`` route (K6)
-     with the same weights;
+     with the same weights; then K8 (forward, backward, prologue) at
+     every width it takes (d_model 128 and 256 in heads of 16, 32 and
+     64) and K5 (forward, backward) at every (C, F) it takes, on the
+     pretrain encoder's tokens, and K1 and K2 as the wide VFE (64, 256)
+     calls them, each with its time, bound and library call (a
+     ``widths`` JSON line before the kernels line);
   B. serves 3 synthetic frames through ``inference_detector`` at the full
      width of ``geomae_finetune_nus()`` in bfloat16, checks the detections
      and that each kernel launched the expected number of times per frame;
@@ -50,6 +55,14 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      the CPU (plain versions) from the same seeded weights, batch and
      mask: the targets, then the losses, gradients, updates and batch
      statistics;
+  M. the wide model (``WIDE_OPTIONS``: the VFE at (64, 256), the SST at
+     d_model 256 in 8 heads of 32, FFN 512): 3 bf16 pretrain steps at
+     batch 4 of ``geomae_pretrain_nus()`` (finite losses, 20 launches a
+     step of K8, its backward and prologue, K5 and its backward, the
+     median, peak memory, one profiled step's device busy and idle
+     share), 2 frames of ``geomae_finetune_nus()`` served, and phase E
+     on that model at small caps (one f32 fine-tune step on the card
+     against the CPU);
   H. drives the trainer entry point (``python -m geomae_tpu_torch.train``,
      its ``main(argv)`` in process): first the documented ``--tiny`` run
      (pretrain 2 steps, fine-tune 2 from its checkpoint; at that width
@@ -129,7 +142,7 @@ second, shorter time on the ``band`` route, so that the two routes' frame
 and step times come from one run and the same batches.  Any failed check
 exits non-zero.  The line before the last is a JSON
 summary of the kernels: ``launches`` sums the served frames and train steps of
-B, D, F (both routes), H, I's one-rank NCCL steps, J, K and L; ``ms``,
+B, D, F (both routes), M, H, I's one-rank NCCL steps, J, K and L; ``ms``,
 ``plain_ms``, ``library_ms`` and
 ``bound_ms`` are the times of one call of each distinct call the paths
 make of the kernel in its dtype, summed (``segment_broadcast``: f32 mean
@@ -190,6 +203,18 @@ PER_STEP = {"segment_reduce": 1, "segment_broadcast": 2 + 1,
             "expand_rows": 0, "band_attention_fused": 0,
             "band_attention_fused_backward": 0, "band_attention_delta": 0,
             "qkv_project": 2 * 12, "qkv_project_backward": 12}
+
+
+# the wide model of phase M: the VFE widened to 256 channels for an SST of
+# d_model 256 in its 8 heads (of 32), FFN 512
+WIDE_OPTIONS = ["vfe.feat_channels=64,256", "sst.d_model=256",
+                "sst.dim_feedforward=512"]
+M_STEPS = 3           # phase M's wide pretrain steps
+M_FRAMES = 2          # and its wide served frames
+# phase M's f32 wide step against the CPU, at caps small enough for the
+# CPU's half to take seconds
+M_SMALL_CAPS = ["caps.max_points=32768", "caps.max_voxels=4096",
+                "caps.max_visible=2048"]
 
 
 def per_pretrain_step(cfg) -> dict:
@@ -301,6 +326,7 @@ TOL = {
 K8 = [("band_attention_fused", ""), ("band_attention_fused_backward", ""),
       ("band_attention_delta", "")]
 PROJECTIONS = [("qkv_project", ""), ("qkv_project_backward", "")]
+K5 = [("post_attention_block", ""), ("post_attention_block_backward", "")]
 # kernels without atomics, whose two launches must agree bit for bit
 DETERMINISTIC = {"band_attention_fused", "band_attention_fused_backward",
                  "band_attention_delta", "post_attention_block",
@@ -360,7 +386,7 @@ KERNELS = {
                           "geomae_tpu/ops/pallas_segreduce.py:553"),
     "band_attention_qkv": ("geomae_tpu_torch/csrc/window_attention.cu",
                            "geomae_tpu/ops/pallas_attention_qkv.py:928"),
-    "post_attention_block": ("geomae_tpu_torch/csrc/post_attention.cu",
+    "post_attention_block": ("geomae_tpu_torch/csrc/post_attention.cuh",
                              "geomae_tpu/ops/pallas_ffn.py:338"),
     "segment_gather": ("geomae_tpu_torch/csrc/segment.cu",
                        "geomae_tpu/ops/pallas_segreduce.py:710"),
@@ -368,7 +394,7 @@ KERNELS = {
         "geomae_tpu_torch/csrc/window_attention.cu",
         "geomae_tpu/ops/pallas_attention_qkv.py:724"),
     "post_attention_block_backward": (
-        "geomae_tpu_torch/csrc/post_attention.cu",
+        "geomae_tpu_torch/csrc/post_attention.cuh",
         "geomae_tpu/ops/pallas_ffn.py:287"),
     "slot_outer_segment_sum": ("geomae_tpu_torch/csrc/targets.cu",
                                "geomae_tpu/ops/pallas_segreduce.py:345"),
@@ -1451,6 +1477,131 @@ def phase_g(cfg, failures: list) -> None:
     failures += [f"own-target loss {k}: {e:.2e}" for k, e in rel.items()
                  if k not in ("loss_curv_around", "loss")
                  and not e <= PRETRAIN_STEP_TOL["loss"]]
+
+
+def sst_width(cfg, C: int, heads: int, Fd: int):
+    """``cfg`` with its SST at d_model C in ``heads`` heads, FFN Fd."""
+    from geomae_tpu_torch.config import apply_overrides
+
+    return apply_overrides(cfg, [f"sst.d_model={C}", f"sst.nhead={heads}",
+                                 f"sst.dim_feedforward={Fd}"])
+
+
+def phase_widths(pcfg, failures: list) -> list:
+    """Phase A's K8 rows at every width K8 takes (C of 128 and 256 in heads
+    of 16, 32 and 64) and its K5 rows at every (C, F) K5 takes, on the
+    pretrain encoder's visible tokens at batch 4 (positions of C
+    channels); then K1 and K2 as the wide VFE (64, 256) calls them.
+    Returns one summary a row: the bf16 call's time, bound and library
+    call, the largest error of both dtypes."""
+    from geomae_tpu_torch.config import apply_overrides
+    from geomae_tpu_torch.ops import attention, ffn
+
+    dev = torch.device(DEVICE)
+    rows = []
+
+    def run(cfg, what, inputs, keys, width):
+        res = {}
+        phase_a(cfg, what, inputs, keys, res, failures)
+        for name, ((err, ms, plain_ms, tb, to, lib),) in res.items():
+            rows.append(dict(name=name, width=width, ms=ms,
+                             plain_ms=plain_ms, bound_ms=max(tb, to),
+                             bound_by="bytes" if tb >= to else "operations",
+                             library_ms=lib, max_abs_err=err))
+
+    for C in attention.KERNEL_CHANNELS:
+        cfg = apply_overrides(pcfg, [f"sst.d_model={C}"])
+        inputs = pretrain_inputs(cfg, dev)
+        for D in attention.KERNEL_HEAD_DIMS:
+            run(sst_width(cfg, C, C // D, 2 * C), f"K8 at C {C} in heads of "
+                f"{D}", inputs, K8, f"C {C}, D {D}")
+        for Fd in (2 * C, 4 * C):
+            run(sst_width(cfg, C, 8, Fd), f"K5 at (C, F) ({C}, {Fd})",
+                inputs, K5, f"C {C}, F {Fd}")
+        del inputs
+    wide = apply_overrides(pcfg, WIDE_OPTIONS)
+    run(wide, "K1 and K2 in the wide VFE (64, 256)", pretrain_inputs(wide, dev),
+        [("segment_reduce", "max"), ("segment_broadcast", "max")],
+        "VFE (64, 256)")
+    print("  widths (bf16 ms / bound ms / library ms):")
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"    {r['name']} at {r['width']}: {r['ms']:.4f} / "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) / {lib}; plain "
+              f"{r['plain_ms']:.4f}")
+    return rows
+
+
+def phase_m(pcfg, cfg, failures: list) -> dict:
+    """The wide model (``WIDE_OPTIONS``: the VFE at (64, 256), the SST at
+    d_model 256 in 8 heads of 32, FFN 512) on K8 and K5: bf16 pretrain
+    steps at batch 4 with their launches, median, peak memory and one
+    profiled step; frames of the fine-tune model served; one f32
+    fine-tune step at small caps on the card against the CPU (phase E's
+    rules).  Returns the launches of the steps and frames."""
+    from geomae_tpu_torch.apis import inference_detector, init_model
+    from geomae_tpu_torch.config import apply_overrides
+    from geomae_tpu_torch.profile_serving import host_ms
+    from geomae_tpu_torch.synthetic import clustered_frame
+    from geomae_tpu_torch.train.pretrain import (init_state, make_train_step,
+                                                 synthetic_batch)
+
+    wp, wf = (apply_overrides(c, WIDE_OPTIONS) for c in (pcfg, cfg))
+    bz = wp.data.batch_size
+    print(f"phase M: the wide model ({' '.join(WIDE_OPTIONS)}): {M_STEPS} "
+          f"bf16 pretrain steps at batch {bz}, {M_FRAMES} served frames, an "
+          f"f32 fine-tune step at small caps against the CPU")
+    state = init_state(wp, DEVICE, torch.Generator().manual_seed(SEED))
+    step = make_train_step(wp)
+    batches = [synthetic_batch(wp, bz, seed=SEED + 90 + i, device=DEVICE)
+               for i in range(M_STEPS)]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    fns = reset_counts()
+    times = []
+    for i, batch in enumerate(batches):
+        (_, l), ms = host_ms(lambda: step(state, batch, gen))
+        times.append(ms)
+        print(f"  step {i}: {ms:.1f} ms, loss {float(l['loss']):.4f}")
+        if not all(np.isfinite(float(v)) for v in l.values()):
+            failures.append(f"wide pretrain step {i}: a loss is not finite")
+    launches = check_launches(fns, on_route(per_pretrain_step(wp), wp),
+                              M_STEPS, "wide pretrain steps", failures)
+    print(f"  K8 / K8 backward / K5 / K5 backward a step: "
+          f"{launches['band_attention_fused'] // M_STEPS} / "
+          f"{launches['band_attention_fused_backward'] // M_STEPS} / "
+          f"{launches['post_attention_block'] // M_STEPS} / "
+          f"{launches['post_attention_block_backward'] // M_STEPS}; step "
+          f"median {float(np.median(times[1:])):.1f} ms after the first "
+          f"({times[0]:.1f} ms); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    work = tempfile.mkdtemp(prefix="geomae_smoke_wide_")
+    try:
+        profiled("wide pretrain step",
+                 lambda: step(state, batches[-1], gen),
+                 f"{work}/wide_pretrain_trace.json", failures)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del state, batches
+
+    det = init_model(cfg=wf, device=DEVICE,
+                     generator=torch.Generator().manual_seed(SEED))
+    frames = [clustered_frame(np.random.default_rng(SEED + 91 + f),
+                              wf.voxel, wf.caps.max_points)
+              for f in range(M_FRAMES)]
+    fns = reset_counts()
+    for f, raw in enumerate(frames):
+        res, ms = host_ms(lambda: inference_detector(det, raw))
+        n = len(res["scores"])
+        print(f"  wide frame {f}: {len(raw)} points -> {n} detections in "
+              f"{ms:.1f} ms")
+        if not (n and np.isfinite(res["boxes"]).all()):
+            failures.append(f"wide frame {f} malformed ({n} boxes)")
+    served = check_launches(fns, on_route(PER_FRAME, wf), M_FRAMES,
+                            "wide frames", failures)
+    del det
+    phase_e(apply_overrides(wf, M_SMALL_CAPS), failures)
+    return {k: launches[k] + served[k] for k in launches}
 
 
 def phase_routes(cfg, inputs, failures: list) -> None:
@@ -2965,12 +3116,16 @@ def main() -> None:
     phase_a(pcfg, "pretrain step", pretrain_inputs(pcfg, dev), PRETRAIN,
             results, failures)
     passed("phase A (pretrain step shapes)", failures, clock)
+    widths = phase_widths(pcfg, failures)
+    passed("phase A (K8 and K5 at every width)", failures, clock)
     runs.append(phase_f(apply_overrides(pcfg, [QKV_OPTION]), failures))
     runs.append(phase_f(apply_overrides(pcfg, [BAND_OPTION]), failures,
                         BAND_REPEAT))
     passed("phase F", failures, clock)
     phase_g(pcfg, failures)
     passed("phase G", failures, clock)
+    runs.append(phase_m(pcfg, cfg, failures))
+    passed("phase M", failures, clock)
     runs.append(phase_h(pcfg, cfg, failures))
     passed("phase H", failures, clock)
     runs.append(phase_i(pcfg, failures))
@@ -3003,6 +3158,7 @@ def main() -> None:
             bound_ms=sum(max(r[3], r[4]) for r in rows),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=sum(libs) if libs else None))
+    print(json.dumps({"widths": widths}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

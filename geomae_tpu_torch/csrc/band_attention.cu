@@ -10,6 +10,16 @@
 // return exactly 0.  The q/k/v projections happen outside (three Linears
 // in models/sst.py), as on the JAX route.
 //
+// Widths: every kernel is a template over the head width D (16, 32 or
+// 64) and the row width C (128 or 256), so the head count H = C / D, the
+// row stride and every index are constants; the entry points pick the
+// instantiation.  Each kernel stages a fixed number of channels a block,
+// whole heads of them, and the grid spans the head groups: the f32
+// kernels 128 channels (128 / D heads), the bf16 forward 64 (64 / D
+// heads, at least one), the bf16 backward 32 (32 / D heads, at least
+// one: 64 at D = 64).  At the shipped width (8 heads of 16) each
+// instantiation is the kernel it was before the widths.
+//
 // Bound: with no projection inside, a call moves 4 rows of C values per
 // token and computes 4 * C operations per same-window pair forward (10 * C
 // backward); at 144-token windows that is far more arithmetic than bytes,
@@ -26,22 +36,24 @@
 // tile's windows is read.
 //
 // bfloat16 forward, on the tensor cores (band_attention_fwd_tc_kernel):
-// 64-token tiles of 4 warps x 16 rows, 4 heads a block, 64-key chunks;
-// S = Q K^T and O += P V on mma.sync m16n8k16, P built and masked on the
-// accumulators and rounded into the value product's A fragments.  128
-// registers (88 bytes spilled), 46,592 bytes of shared memory: four blocks
-// an SM.  About a fifth of its bound (PERF.md): the products take about
-// 0.15 of its time and the exps 0.11, the rest is the per-element masking
-// and online softmax, staging and the key range (probe_forwards); 8 heads
-// a block (255 registers) and three blocks an SM are slower.  The dtype
-// points below hold but one: P is rounded against the running max of the
-// chunks seen so far, then O rescales in f32 (band_attention_tiles_plain
-// is this order in plain PyTorch).
+// 64-token tiles of 4 warps x 16 rows, 64 channels a block (4 heads of
+// 16), 64-key chunks; S = Q K^T and O += P V on mma.sync m16n8k16, P built
+// and masked on the accumulators and rounded into the value product's A
+// fragments.  At D = 16: 128 registers (88 bytes spilled), 46,592 bytes
+// of shared memory: four blocks an SM.  About a fifth of its bound
+// (PERF.md): the products take about 0.15 of its time and the exps 0.11,
+// the rest is the per-element masking and online softmax, staging and the
+// key range (probe_forwards); 8 heads a block (255 registers) and three
+// blocks an SM are slower.  The dtype points below hold but one: P is
+// rounded against the running max of the chunks seen so far, then O
+// rescales in f32 (band_attention_tiles_plain is this order in plain
+// PyTorch).
 //
 // float32 forward, on the CUDA cores (band_attention_kernel): a block takes
-// 32 queries and walks the keys one at a time, chunks of 32 staged in f32;
-// one thread owns one (query, head) pair, a warp is one head of 32
-// queries, so each key row read from shared memory is a broadcast.
+// 32 queries of one 128-channel head group and walks the keys one at a
+// time, chunks of 32 staged in f32; one thread owns one (query, head)
+// pair, a warp is one head of 32 queries, so each key row read from
+// shared memory is a broadcast.
 //
 // Dtype points of _fwd_body: the score accumulates in f32 from the compute
 // dtype's q and k and the 1/sqrt(D) scale multiplies the f32 score; the
@@ -76,20 +88,28 @@
 namespace geomae {
 namespace {
 
-constexpr int C = 128;       // channels
-constexpr int D = 16;        // head width
-constexpr int H = C / D;     // heads
-constexpr int TQ = 32;       // queries per block
-constexpr int KC = 32;       // keys per chunk
-constexpr int kThreads = TQ * H;
-constexpr float kScale = 0.25f;   // 1/sqrt(D)
-static_assert(kScale * kScale * D == 1.0f, "kScale is 1/sqrt(D)");
-static_assert(kThreads == 256, "one thread per (query, head)");
+constexpr int TQ = 32;       // queries per block (f32 kernels)
+constexpr int KC = 32;       // keys per chunk (f32 kernels)
+constexpr int kF32Channels = 128;   // channels an f32 block stages
 static_assert(KC == TQ, "chunk rows map onto the tile's lanes");
 
-constexpr int kFwdSmemBytes = 2 * KC * C * sizeof(float) + 2 * KC * sizeof(int);
-constexpr int kBwdSmemBytes = 4 * KC * C * sizeof(float) +
-                              (2 * KC + 2 * KC * H) * sizeof(int);
+// 1/sqrt(D), a power of two or not: the f32 value nearest it
+template <int D>
+struct Head {
+  static_assert(D == 16 || D == 32 || D == 64, "head widths 16, 32, 64");
+  static constexpr float kScale = D == 16 ? 0.25f
+                                  : D == 64 ? 0.125f
+                                            : 0.17677669529663687f;
+  // the f32 kernels: heads a block and threads (one per (query, head))
+  static constexpr int kGH = kF32Channels / D;
+  static constexpr int kThreads = TQ * kGH;
+  static constexpr int kFwdSmemBytes =
+      2 * KC * kF32Channels * sizeof(float) + 2 * KC * sizeof(int);
+  static constexpr int kBwdSmemBytes = 4 * KC * kF32Channels * sizeof(float) +
+                                       (2 * KC + 2 * KC * kGH) * sizeof(int);
+};
+static_assert(Head<16>::kScale * Head<16>::kScale * 16 == 1.0f, "1/sqrt(D)");
+static_assert(Head<16>::kThreads == 256, "the shipped block: 8 heads x 32");
 
 // four consecutive values (16-byte aligned in f32, 8-byte in bf16) as f32
 template <typename T>
@@ -107,20 +127,22 @@ __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// Stage rows [r0, r0 + n) of src ([V][C]) into dst ([KC][C], f32); rows
-// past n read 0.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int r0, int n,
-                                      float* __restrict__ dst) {
-  for (int e = 4 * threadIdx.x; e < KC * C; e += 4 * kThreads) {
+// Stage rows [r0, r0 + n) of the head group's 128 channels of src (row
+// stride C, src at the group's first channel) into dst ([KC][128], f32);
+// rows past n read 0.
+template <typename T, int kThreads, int C>
+__device__ __forceinline__ void stage(const T* __restrict__ src, int r0,
+                                      int n, float* __restrict__ dst) {
+  constexpr int W = kF32Channels;
+  for (int e = 4 * threadIdx.x; e < KC * W; e += 4 * kThreads) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (e / C < n) v = load4<T>(src + (size_t)r0 * C + e);
+    if (e / W < n) v = load4<T>(src + (size_t)(r0 + e / W) * C + e % W);
     *reinterpret_cast<float4*>(dst + e) = v;
   }
 }
 
 // One token's head slice (D values) from global memory, as f32.
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void load_head(const T* __restrict__ p,
                                           float (&r)[D]) {
 #pragma unroll
@@ -133,6 +155,7 @@ __device__ __forceinline__ void load_head(const T* __restrict__ p,
   }
 }
 
+template <int D>
 __device__ __forceinline__ float dot_head(const float (&a)[D],
                                           const float* __restrict__ b) {
   const float4* b4 = reinterpret_cast<const float4*>(b);
@@ -149,6 +172,7 @@ __device__ __forceinline__ float dot_head(const float (&a)[D],
 }
 
 // acc[d] += w * b[d]
+template <int D>
 __device__ __forceinline__ void axpy_head(float w, const float* __restrict__ b,
                                           float (&acc)[D]) {
   const float4* b4 = reinterpret_cast<const float4*>(b);
@@ -227,29 +251,34 @@ __device__ __forceinline__ void key_range_warp(const int* __restrict__ wb,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Block (query tile, head group of 128 channels, sample).
+template <int D, int C>
+__global__ void __launch_bounds__(Head<D>::kThreads)
 band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const int* __restrict__ win,
                       const uint8_t* __restrict__ key_valid,
                       float* __restrict__ out, float* __restrict__ lse,
                       int V) {
+  using Hd = Head<D>;
+  constexpr int H = C / D;
+  constexpr int W = kF32Channels;
   extern __shared__ float smem[];
-  float* s_k = smem;              // [KC][C] k rows
-  float* s_v = s_k + KC * C;      // [KC][C] v rows
-  int* s_win = reinterpret_cast<int*>(s_v + KC * C);   // [KC]
+  float* s_k = smem;              // [KC][W] k rows of the head group
+  float* s_v = s_k + KC * W;      // [KC][W] v rows
+  int* s_win = reinterpret_cast<int*>(s_v + KC * W);   // [KC]
   int* s_kv = s_win + KC;                               // [KC]
   __shared__ int s_range[2];
 
-  const int b = blockIdx.y;
+  const int b = blockIdx.z, h0 = blockIdx.y * Hd::kGH;
   const int q0 = blockIdx.x * TQ;
   const int nq = min(TQ, V - q0);
   const size_t row0 = (size_t)b * V;
   const int* wb = win + row0;
   const uint8_t* kvb = key_valid + row0;
-  const float* kb = k + row0 * C;
-  const float* vb = v + row0 * C;
+  const float* kb = k + row0 * C + h0 * D;
+  const float* vb = v + row0 * C + h0 * D;
 
-  const int h = threadIdx.x / TQ;   // warp-uniform
+  const int h = threadIdx.x / TQ;   // the group's head, warp-uniform
   const int i = threadIdx.x % TQ;
   const int qi = q0 + i;
   const int my_win = (i < nq) ? wb[qi] : kInt32Max;
@@ -261,7 +290,8 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float qr[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) qr[d] = 0.f;
-  if (my_win != kInt32Max) load_head<float>(q + (row0 + qi) * C + h * D, qr);
+  if (my_win != kInt32Max)
+    load_head<float, D>(q + (row0 + qi) * C + (h0 + h) * D, qr);
 
   float m = -INFINITY, l = 0.f, acc[D];
 #pragma unroll
@@ -270,8 +300,8 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = ks; k0 < ke; k0 += KC) {
     const int nk = min(KC, ke - k0);
     __syncthreads();   // the previous chunk is consumed
-    stage<float>(kb, k0, nk, s_k);
-    stage<float>(vb, k0, nk, s_v);
+    stage<float, Hd::kThreads, C>(kb, k0, nk, s_k);
+    stage<float, Hd::kThreads, C>(vb, k0, nk, s_v);
     if (threadIdx.x < KC) {
       const int r = threadIdx.x;
       s_win[r] = r < nk ? wb[k0 + r] : kInt32Max;
@@ -281,14 +311,14 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (my_win == kInt32Max) continue;
     for (int j = 0; j < nk; ++j) {
       if (s_win[j] != my_win || !s_kv[j]) continue;
-      const float s = dot_head(qr, &s_k[j * C + h * D]) * kScale;
+      const float s = dot_head<D>(qr, &s_k[j * W + h * D]) * Hd::kScale;
       const float mn = fmaxf(m, s);
       const float corr = expf(m - mn);
       const float p = expf(s - mn);
       l = l * corr + p;
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] *= corr;
-      axpy_head(p, &s_v[j * C + h * D], acc);
+      axpy_head<D>(p, &s_v[j * W + h * D], acc);
       m = mn;
     }
   }
@@ -296,23 +326,27 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (i < nq) {
     const bool seen = my_win != kInt32Max && l > 0.f;
     const float inv = seen ? 1.f / l : 0.f;
-    float* o = out + (row0 + qi) * C + h * D;
+    float* o = out + (row0 + qi) * C + (h0 + h) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) o[d] = acc[d] * inv;
-    if (lse) lse[(row0 + qi) * H + h] = seen ? m + logf(l) : 0.f;
+    if (lse) lse[(row0 + qi) * H + h0 + h] = seen ? m + logf(l) : 0.f;
   }
 }
 
+template <int D, int C>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int* win, const uint8_t* key_valid, void* out,
                        float* lse, int B, int V, cudaStream_t stream) {
-  cudaError_t e = allow_smem(band_attention_kernel, kFwdSmemBytes);
+  using Hd = Head<D>;
+  static_assert(C % kF32Channels == 0, "whole head groups");
+  cudaError_t e = allow_smem(band_attention_kernel<D, C>, Hd::kFwdSmemBytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((V + TQ - 1) / TQ, B);
-  band_attention_kernel<<<grid, kThreads, kFwdSmemBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), win, key_valid, static_cast<float*>(out),
-      lse, V);
+  const dim3 grid((V + TQ - 1) / TQ, C / kF32Channels, B);
+  band_attention_kernel<D, C>
+      <<<grid, Hd::kThreads, Hd::kFwdSmemBytes, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), win, key_valid,
+          static_cast<float*>(out), lse, V);
   return cudaGetLastError();
 }
 
@@ -338,64 +372,72 @@ struct BwdArgs {
 // backward reads D of real rows only.
 constexpr int kDeltaThreads = 256;
 
-template <typename T>
+template <typename T, int D, int C>
 __global__ void __launch_bounds__(kDeltaThreads)
 band_attention_delta_kernel(const T* __restrict__ dout,
                             const T* __restrict__ out,
                             const int* __restrict__ win,
                             float* __restrict__ delta, int n) {
+  constexpr int H = C / D;
   const int i = blockIdx.x * kDeltaThreads + threadIdx.x;
   if (i >= n) return;
   float d = 0.f;
   if (win[i / H] != kInt32Max) {
     float g[D], o[D];
-    load_head<T>(dout + (size_t)i * D, g);
-    load_head<T>(out + (size_t)i * D, o);
+    load_head<T, D>(dout + (size_t)i * D, g);
+    load_head<T, D>(out + (size_t)i * D, o);
 #pragma unroll
     for (int e = 0; e < D; ++e) d = fmaf(g[e], o[e], d);
   }
   delta[i] = d;
 }
 
-template <typename T>
+template <typename T, int D, int C>
 cudaError_t launch_delta(const void* dout, const void* out, const int* win,
                          float* delta, int n, cudaStream_t stream) {
-  band_attention_delta_kernel<T>
+  band_attention_delta_kernel<T, D, C>
       <<<(n + kDeltaThreads - 1) / kDeltaThreads, kDeltaThreads, 0, stream>>>(
           static_cast<const T*>(dout), static_cast<const T*>(out), win, delta,
           n);
   return cudaGetLastError();
 }
 
-// f32: the CUDA cores, one thread per (token, head) of a 32-token tile.
-__global__ void __launch_bounds__(kThreads)
+// f32: the CUDA cores, one thread per (token, head) of a 32-token tile of
+// one 128-channel head group.
+template <int D, int C>
+__global__ void __launch_bounds__(Head<D>::kThreads)
 band_attention_bwd_f32_kernel(BwdArgs p) {
   using T = float;
+  using Hd = Head<D>;
+  constexpr int W = kF32Channels;
+  constexpr int GH = Hd::kGH;
+  constexpr int H = C / D;
   extern __shared__ float smem[];
-  float* s_q = smem;               // [KC][C] q rows of the chunk
-  float* s_k = s_q + KC * C;       // [KC][C] k rows
-  float* s_v = s_k + KC * C;       // [KC][C] v rows
-  float* s_do = s_v + KC * C;      // [KC][C] dO rows
-  int* s_win = reinterpret_cast<int*>(s_do + KC * C);   // [KC]
+  float* s_q = smem;               // [KC][W] q rows of the chunk
+  float* s_k = s_q + KC * W;       // [KC][W] k rows
+  float* s_v = s_k + KC * W;       // [KC][W] v rows
+  float* s_do = s_v + KC * W;      // [KC][W] dO rows
+  int* s_win = reinterpret_cast<int*>(s_do + KC * W);   // [KC]
   int* s_kv = s_win + KC;                                // [KC]
-  float* s_lse = reinterpret_cast<float*>(s_kv + KC);   // [KC][H]
-  float* s_dd = s_lse + KC * H;                          // [KC][H] D
+  float* s_lse = reinterpret_cast<float*>(s_kv + KC);   // [KC][GH]
+  float* s_dd = s_lse + KC * GH;                         // [KC][GH] D
   __shared__ int s_range[2];
 
-  const int b = blockIdx.y;
+  const int b = blockIdx.z, h0 = blockIdx.y * GH;
   const int q0 = blockIdx.x * TQ;
   const int nq = min(TQ, p.V - q0);
   const size_t row0 = (size_t)b * p.V;
   const int* wb = p.win + row0;
   const uint8_t* kvb = p.key_valid + row0;
-  const T* qb = static_cast<const T*>(p.q) + row0 * C;
-  const T* kb = static_cast<const T*>(p.k) + row0 * C;
-  const T* vb = static_cast<const T*>(p.v) + row0 * C;
-  const T* gb = static_cast<const T*>(p.dout) + row0 * C;
-  const float* lb = p.lse + row0 * H;
-  const float* db = p.delta + row0 * H;
+  const size_t base = row0 * C + h0 * D;
+  const T* qb = static_cast<const T*>(p.q) + base;
+  const T* kb = static_cast<const T*>(p.k) + base;
+  const T* vb = static_cast<const T*>(p.v) + base;
+  const T* gb = static_cast<const T*>(p.dout) + base;
+  const float* lb = p.lse + row0 * H + h0;
+  const float* db = p.delta + row0 * H + h0;
 
-  const int h = threadIdx.x / TQ;  // warp-uniform
+  const int h = threadIdx.x / TQ;  // the group's head, warp-uniform
   const int i = threadIdx.x % TQ;
   const int qi = q0 + i;
   const int my_win = (i < nq) ? wb[qi] : kInt32Max;
@@ -415,10 +457,10 @@ band_attention_bwd_f32_kernel(BwdArgs p) {
   float lse_i = 0.f, d_i = 0.f;
   if (my_win != kInt32Max) {
     const size_t c0 = (size_t)qi * C + h * D;
-    load_head<T>(qb + c0, qr);
-    load_head<T>(kb + c0, kr);
-    load_head<T>(vb + c0, vr);
-    load_head<T>(gb + c0, g);
+    load_head<T, D>(qb + c0, qr);
+    load_head<T, D>(kb + c0, kr);
+    load_head<T, D>(vb + c0, vr);
+    load_head<T, D>(gb + c0, g);
     lse_i = lb[(size_t)qi * H + h];
     d_i = db[(size_t)qi * H + h];
   }
@@ -426,15 +468,15 @@ band_attention_bwd_f32_kernel(BwdArgs p) {
   for (int k0 = ks; k0 < ke; k0 += KC) {
     const int nk = min(KC, ke - k0);
     __syncthreads();               // the previous chunk is consumed
-    stage<T>(qb, k0, nk, s_q);
-    stage<T>(kb, k0, nk, s_k);
-    stage<T>(vb, k0, nk, s_v);
-    stage<T>(gb, k0, nk, s_do);
+    stage<T, Hd::kThreads, C>(qb, k0, nk, s_q);
+    stage<T, Hd::kThreads, C>(kb, k0, nk, s_k);
+    stage<T, Hd::kThreads, C>(vb, k0, nk, s_v);
+    stage<T, Hd::kThreads, C>(gb, k0, nk, s_do);
     {  // thread (row r, head hh): D and lse of the chunk's rows; window ids
       const int r = threadIdx.x % KC, hh = threadIdx.x / KC;
       const bool in = r < nk;
-      s_dd[r * H + hh] = in ? db[(size_t)(k0 + r) * H + hh] : 0.f;
-      s_lse[r * H + hh] = in ? lb[(size_t)(k0 + r) * H + hh] : 0.f;
+      s_dd[r * GH + hh] = in ? db[(size_t)(k0 + r) * H + hh] : 0.f;
+      s_lse[r * GH + hh] = in ? lb[(size_t)(k0 + r) * H + hh] : 0.f;
       if (hh == 0) {
         s_win[r] = in ? wb[k0 + r] : kInt32Max;
         s_kv[r] = in ? (int)kvb[k0 + r] : 0;
@@ -444,46 +486,49 @@ band_attention_bwd_f32_kernel(BwdArgs p) {
     if (my_win == kInt32Max) continue;
     for (int j = 0; j < nk; ++j) {
       if (s_win[j] != my_win) continue;
-      const float* kj = &s_k[j * C + h * D];
-      const float* vj = &s_v[j * C + h * D];
+      const float* kj = &s_k[j * W + h * D];
+      const float* vj = &s_v[j * W + h * D];
       if (s_kv[j]) {             // token i as query, j as key
-        const float sc = dot_head(qr, kj) * kScale;
-        const float dp = dot_head(g, vj);
+        const float sc = dot_head<D>(qr, kj) * Hd::kScale;
+        const float dp = dot_head<D>(g, vj);
         const float pr = expf(sc - lse_i);
-        axpy_head(pr * (dp - d_i), kj, dq);
+        axpy_head<D>(pr * (dp - d_i), kj, dq);
       }
       if (my_kv) {               // token i as key, j as query
-        const float* qj = &s_q[j * C + h * D];
-        const float* gj = &s_do[j * C + h * D];
-        const float sc = dot_head(kr, qj) * kScale;
-        const float dp = dot_head(vr, gj);
-        const float pr = expf(sc - s_lse[j * H + h]);
-        axpy_head(pr, gj, dv);
-        axpy_head(pr * (dp - s_dd[j * H + h]), qj, dk);
+        const float* qj = &s_q[j * W + h * D];
+        const float* gj = &s_do[j * W + h * D];
+        const float sc = dot_head<D>(kr, qj) * Hd::kScale;
+        const float dp = dot_head<D>(vr, gj);
+        const float pr = expf(sc - s_lse[j * GH + h]);
+        axpy_head<D>(pr, gj, dv);
+        axpy_head<D>(pr * (dp - s_dd[j * GH + h]), qj, dk);
       }
     }
   }
 
   if (i < nq) {                    // padding rows and padding tiles write 0
-    const size_t c0 = (row0 + qi) * C + h * D;
+    const size_t c0 = base + (size_t)qi * C + h * D;
     T* oq = static_cast<T*>(p.dq) + c0;
     T* ok = static_cast<T*>(p.dk) + c0;
     T* ov = static_cast<T*>(p.dv) + c0;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      oq[d] = dq[d] * kScale;
-      ok[d] = dk[d] * kScale;
+      oq[d] = dq[d] * Hd::kScale;
+      ok[d] = dk[d] * Hd::kScale;
       ov[d] = dv[d];
     }
   }
 }
 
+template <int D, int C>
 cudaError_t launch_bwd_f32(const BwdArgs& args, int B, cudaStream_t stream) {
-  cudaError_t e = allow_smem(band_attention_bwd_f32_kernel, kBwdSmemBytes);
+  using Hd = Head<D>;
+  cudaError_t e =
+      allow_smem(band_attention_bwd_f32_kernel<D, C>, Hd::kBwdSmemBytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((args.V + TQ - 1) / TQ, B);
-  band_attention_bwd_f32_kernel<<<grid, kThreads, kBwdSmemBytes, stream>>>(
-      args);
+  const dim3 grid((args.V + TQ - 1) / TQ, C / kF32Channels, B);
+  band_attention_bwd_f32_kernel<D, C>
+      <<<grid, Hd::kThreads, Hd::kBwdSmemBytes, stream>>>(args);
   return cudaGetLastError();
 }
 
@@ -491,39 +536,46 @@ cudaError_t launch_bwd_f32(const BwdArgs& args, int B, cudaStream_t stream) {
 // heads; each warp owns 16 of the tile's rows, as queries and as keys, and
 // holds their dq, dk and dv for the kHG heads in mma accumulators over the
 // tile's whole key range, streamed in chunks of kChunk rows.  Per head and
-// 16 chunk rows a warp runs fourteen m16n8k16 products: S = Q K^T and dP =
-// dO V^T (then dq += dS K) with the tile as queries, S^T = K Q^T and dP^T
-// = V dO^T (then dv += P^T dO, dk += dS^T Q) with the tile as keys.  P and
-// dS are built on the f32 accumulators, masked per element by the row's
-// and the column's window ids and the key's validity, and rounded to bf16
-// into the next product's A fragments (the C layout of m16n8k16 is its A
-// layout), so neither goes through shared memory.
+// 16 chunk rows a warp runs 8 (D / 16) + 6 (D / 8) m16n8k16 products
+// (fourteen at D = 16): S = Q K^T and dP = dO V^T (then dq += dS K) with
+// the tile as queries, S^T = K Q^T and dP^T = V dO^T (then dv += P^T dO,
+// dk += dS^T Q) with the tile as keys.  P and dS are built on the f32
+// accumulators, masked per element by the row's and the column's window
+// ids and the key's validity, and rounded to bf16 into the next product's
+// A fragments (the C layout of m16n8k16 is its A layout), so neither goes
+// through shared memory.
 constexpr int kTile = 64;              // tokens a block: queries and keys
 constexpr int kChunk = 64;             // keys (and queries) a chunk
-constexpr int kHG = 2;                 // heads a block
-constexpr int kCW = kHG * D;           // channels a block stages
-constexpr int kRS = kCW + kPad;        // bf16 row stride of the staged rows
-constexpr int kPieces = kCW / 8;       // 16-byte pieces a staged row
 constexpr int kTcWarps = kTile / 16;
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kNoKey = -kInt32Max - 1; // a column that is no valid key
 constexpr int kNoQuery = kNoKey + 1;   // a column past the key range
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kScaleLog2e = kScale * kLog2e;
 constexpr float kLn2 = 0.6931471805599453f;
-static_assert(H % kHG == 0 && kCW % 8 == 0, "whole heads, 16-byte rows");
 static_assert(kTile == kChunk && kChunk % 16 == 0, "one row loader");
 
-// The staged rows of q, k, v and dO (in that order) of the tile and of two
-// chunks; per chunk row, (window id, window id or kNoKey without a valid
-// key), and per head (lse * log2 e, D).
-struct TcSmem {
-  __nv_bfloat16 tile[4][kTile * kRS];
-  __nv_bfloat16 chunk[2][4][kChunk * kRS];
-  int2 win[2][kChunk];
-  float2 stat[2][kHG][kChunk];
+template <int D>
+struct BwdTc {
+  static constexpr int kHG = D < 32 ? 32 / D : 1;   // heads a block
+  static constexpr int kCW = kHG * D;       // channels a block stages
+  static constexpr int kRS = kCW + kPad;    // bf16 row stride of the rows
+  static constexpr int kPieces = kCW / 8;   // 16-byte pieces a staged row
+  // D = 64 holds twice the accumulators and fragments: two blocks an SM
+  static constexpr int kMinBlocks = D == 64 ? 2 : 3;
+  static_assert(kCW % 8 == 0, "16-byte rows");
+
+  // The staged rows of q, k, v and dO (in that order) of the tile and of
+  // two chunks; per chunk row, (window id, window id or kNoKey without a
+  // valid key), and per head (lse * log2 e, D).
+  struct Smem {
+    __nv_bfloat16 tile[4][kTile * kRS];
+    __nv_bfloat16 chunk[2][4][kChunk * kRS];
+    int2 win[2][kChunk];
+    float2 stat[2][kHG][kChunk];
+  };
 };
-constexpr int kTcSmemBytes = sizeof(TcSmem);
+static_assert(BwdTc<16>::kHG == 2 && BwdTc<16>::kCW == 32,
+              "the shipped block: 2 heads of 16");
 
 // 2^x on the special-function unit; a result below 2^-126 flushes to 0
 // (such a p adds nothing that survives the bf16 rounding of a product)
@@ -536,25 +588,35 @@ __device__ __forceinline__ float ex2(float x) {
 // cp.async rows [r0, r0 + n) of the block's heads of q, k, v and dO into
 // dst [4][kTile][kRS]; rows past n are zero-filled (finite: a masked
 // product of 0 with them stays 0).
+template <int D, int C>
 __device__ __forceinline__ void stage_rows(const BwdArgs& p, size_t base,
                                            int r0, int n,
                                            __nv_bfloat16* dst) {
-  for (int e = threadIdx.x; e < 4 * kTile * kPieces; e += kTcThreads) {
-    const int a = e / (kTile * kPieces);
-    const int r = (e / kPieces) % kTile;
-    const int c = (e % kPieces) * 8;
+  using K = BwdTc<D>;
+  for (int e = threadIdx.x; e < 4 * kTile * K::kPieces; e += kTcThreads) {
+    const int a = e / (kTile * K::kPieces);
+    const int r = (e / K::kPieces) % kTile;
+    const int c = (e % K::kPieces) * 8;
     const void* src = a == 0 ? p.q : a == 1 ? p.k : a == 2 ? p.v : p.dout;
-    cp_async_16(dst + (a * kTile + r) * kRS + c,
+    cp_async_16(dst + (a * kTile + r) * K::kRS + c,
                 static_cast<const __nv_bfloat16*>(src) + base +
                     (size_t)(r0 + (r < n ? r : 0)) * C + c,
                 r < n);
   }
 }
 
-__global__ void __launch_bounds__(kTcThreads, 3)
+template <int D, int C>
+__global__ void __launch_bounds__(kTcThreads, BwdTc<D>::kMinBlocks)
 band_attention_bwd_tc_kernel(BwdArgs p) {
+  using K = BwdTc<D>;
+  constexpr int H = C / D;
+  constexpr int kHG = K::kHG, kRS = K::kRS, kPieces = K::kPieces;
+  constexpr int KS = D / 16;       // k-steps of 16 over a head's channels
+  constexpr int NT = D / 8;        // n-tiles of 8 over a head's channels
+  constexpr float kScale = Head<D>::kScale;
+  constexpr float kScaleLog2e = kScale * kLog2e;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TcSmem& sm = *reinterpret_cast<TcSmem*>(smem_raw);
+  typename K::Smem& sm = *reinterpret_cast<typename K::Smem*>(smem_raw);
   __shared__ int s_range[2];
 
   const int V = p.V;
@@ -596,8 +658,8 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
   __syncthreads();
   const int ks = s_range[0], ke = s_range[1];
   if (ks < ke) {                   // else a tile of padding: zeros out
-    stage_rows(p, base, t0, nt, sm.tile[0]);
-    stage_rows(p, base, ks, min(kChunk, ke - ks), sm.chunk[0][0]);
+    stage_rows<D, C>(p, base, t0, nt, sm.tile[0]);
+    stage_rows<D, C>(p, base, ks, min(kChunk, ke - ks), sm.chunk[0][0]);
   }
   cp_async_commit();
   if (threadIdx.x < kChunk) {
@@ -625,7 +687,7 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
     }
   }
 
-  float dq[kHG][2][4] = {}, dk[kHG][2][4] = {}, dv[kHG][2][4] = {};
+  float dq[kHG][NT][4] = {}, dk[kHG][NT][4] = {}, dv[kHG][NT][4] = {};
 
   int buf = 0;
   for (int k0 = ks; k0 < ke; k0 += kChunk, buf ^= 1) {
@@ -633,7 +695,8 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
     __syncthreads();               // chunk k0 landed; the other buffer is free
     const int k1 = k0 + kChunk;
     if (k1 < ke) {                 // prefetch the next chunk
-      stage_rows(p, base, k1, min(kChunk, ke - k1), sm.chunk[buf ^ 1][0]);
+      stage_rows<D, C>(p, base, k1, min(kChunk, ke - k1),
+                       sm.chunk[buf ^ 1][0]);
       cp_async_commit();
       if (threadIdx.x < kChunk) load_cols(k1);
     }
@@ -643,13 +706,18 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
     const __nv_bfloat16* cg = sm.chunk[buf][3];
 #pragma unroll
     for (int hh = 0; hh < kHG; ++hh) {
-      // A fragments of the warp's 16 tile rows of head h0 + hh
-      const int ar = (16 * warp + lane % 16) * kRS + hh * D + (lane / 16) * 8;
-      uint32_t aq[4], ak[4], av[4], ag[4];
-      ldmatrix_x4(aq, sm.tile[0] + ar);
-      ldmatrix_x4(ak, sm.tile[1] + ar);
-      ldmatrix_x4(av, sm.tile[2] + ar);
-      ldmatrix_x4(ag, sm.tile[3] + ar);
+      // A fragments of the warp's 16 tile rows of head h0 + hh, one per 16
+      // channels
+      uint32_t aq[KS][4], ak[KS][4], av[KS][4], ag[KS][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int ar = (16 * warp + lane % 16) * kRS + hh * D + 16 * kk +
+                       (lane / 16) * 8;
+        ldmatrix_x4(aq[kk], sm.tile[0] + ar);
+        ldmatrix_x4(ak[kk], sm.tile[1] + ar);
+        ldmatrix_x4(av[kk], sm.tile[2] + ar);
+        ldmatrix_x4(ag[kk], sm.tile[3] + ar);
+      }
 #pragma unroll 1
       for (int s = 0; s < kChunk / 16; ++s) {
         // B fragments of chunk rows 16 s .. 16 s + 15: as stored (n over
@@ -670,14 +738,17 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
         }
 
         // the tile as queries, the chunk rows as keys
-        uint32_t bk[4], bv[4], bkt[4];
-        ldmatrix_x4(bk, ck + bn);
-        ldmatrix_x4(bv, cv + bn);
         float sc[2][4] = {}, dp[2][4] = {};
-        mma_bf16_16816(sc[0], aq, &bk[0]);
-        mma_bf16_16816(sc[1], aq, &bk[2]);
-        mma_bf16_16816(dp[0], ag, &bv[0]);
-        mma_bf16_16816(dp[1], ag, &bv[2]);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t bk[4], bv[4];
+          ldmatrix_x4(bk, ck + bn + 16 * kk);
+          ldmatrix_x4(bv, cv + bn + 16 * kk);
+          mma_bf16_16816(sc[0], aq[kk], &bk[0]);
+          mma_bf16_16816(sc[1], aq[kk], &bk[2]);
+          mma_bf16_16816(dp[0], ag[kk], &bv[0]);
+          mma_bf16_16816(dp[1], ag[kk], &bv[2]);
+        }
         uint32_t ads[4];
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -696,19 +767,26 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
             }
             ads[2 * j + rh] = pack_bf16(ds[0], ds[1]);
           }
-        ldmatrix_x4_trans(bkt, ck + bt);
-        mma_bf16_16816(dq[hh][0], ads, &bkt[0]);
-        mma_bf16_16816(dq[hh][1], ads, &bkt[2]);
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn) {
+          uint32_t bkt[4];
+          ldmatrix_x4_trans(bkt, ck + bt + 16 * dn);
+          mma_bf16_16816(dq[hh][2 * dn], ads, &bkt[0]);
+          mma_bf16_16816(dq[hh][2 * dn + 1], ads, &bkt[2]);
+        }
 
         // the tile as keys, the chunk rows as queries
-        uint32_t bq[4], bg[4], bgt[4], bqt[4];
-        ldmatrix_x4(bq, cq + bn);
-        ldmatrix_x4(bg, cg + bn);
         float st[2][4] = {}, dpt[2][4] = {};
-        mma_bf16_16816(st[0], ak, &bq[0]);
-        mma_bf16_16816(st[1], ak, &bq[2]);
-        mma_bf16_16816(dpt[0], av, &bg[0]);
-        mma_bf16_16816(dpt[1], av, &bg[2]);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t bq[4], bg[4];
+          ldmatrix_x4(bq, cq + bn + 16 * kk);
+          ldmatrix_x4(bg, cg + bn + 16 * kk);
+          mma_bf16_16816(st[0], ak[kk], &bq[0]);
+          mma_bf16_16816(st[1], ak[kk], &bq[2]);
+          mma_bf16_16816(dpt[0], av[kk], &bg[0]);
+          mma_bf16_16816(dpt[1], av[kk], &bg[2]);
+        }
         uint32_t ap[4], adst[4];
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -729,12 +807,16 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
             ap[2 * j + rh] = pack_bf16(pr[0], pr[1]);
             adst[2 * j + rh] = pack_bf16(ds[0], ds[1]);
           }
-        ldmatrix_x4_trans(bgt, cg + bt);
-        ldmatrix_x4_trans(bqt, cq + bt);
-        mma_bf16_16816(dv[hh][0], ap, &bgt[0]);
-        mma_bf16_16816(dv[hh][1], ap, &bgt[2]);
-        mma_bf16_16816(dk[hh][0], adst, &bqt[0]);
-        mma_bf16_16816(dk[hh][1], adst, &bqt[2]);
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn) {
+          uint32_t bgt[4], bqt[4];
+          ldmatrix_x4_trans(bgt, cg + bt + 16 * dn);
+          ldmatrix_x4_trans(bqt, cq + bt + 16 * dn);
+          mma_bf16_16816(dv[hh][2 * dn], ap, &bgt[0]);
+          mma_bf16_16816(dv[hh][2 * dn + 1], ap, &bgt[2]);
+          mma_bf16_16816(dk[hh][2 * dn], adst, &bqt[0]);
+          mma_bf16_16816(dk[hh][2 * dn + 1], adst, &bqt[2]);
+        }
       }
     }
     if (k1 < ke && threadIdx.x < kChunk) store_cols(buf ^ 1);
@@ -748,7 +830,7 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
 #pragma unroll
   for (int hh = 0; hh < kHG; ++hh)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int rh = 0; rh < 2; ++rh) {
         const int o = (16 * warp + g + 8 * rh) * kRS + hh * D + 8 * j + 2 * t;
@@ -773,44 +855,52 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
   }
 }
 
+template <int D, int C>
 cudaError_t launch_bwd_tc(const BwdArgs& args, int B, cudaStream_t stream) {
-  cudaError_t e = allow_smem(band_attention_bwd_tc_kernel, kTcSmemBytes);
+  using K = BwdTc<D>;
+  constexpr int kBytes = sizeof(typename K::Smem);
+  cudaError_t e = allow_smem(band_attention_bwd_tc_kernel<D, C>, kBytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((args.V + kTile - 1) / kTile, H / kHG, B);
-  band_attention_bwd_tc_kernel<<<grid, kTcThreads, kTcSmemBytes, stream>>>(
-      args);
+  const dim3 grid((args.V + kTile - 1) / kTile, C / K::kCW, B);
+  band_attention_bwd_tc_kernel<D, C>
+      <<<grid, kTcThreads, kBytes, stream>>>(args);
   return cudaGetLastError();
 }
 
 // bf16 forward on the tensor cores.  A block takes a tile of kTile query
-// rows and kFwdHeads heads; each warp owns 16 rows and keeps, per head,
-// their output accumulator (16 x 16 in f32), running max and sum in
-// registers over the tile's exact key range, streamed in chunks of kChunk
-// key rows
-// (the heads' k and v channels, double-buffered through cp.async).  Per
-// head and 16 keys a warp runs two m16n8k16 products for S = Q K^T and two
-// for O += P V.  S is masked per element by one integer compare of the
-// row's window id against the column's (kNoKey where the key is not valid
-// or lies past the range) and folded into an online softmax per chunk in
-// log2 units: the row's running max moves once a chunk, O and the sum
-// rescale in f32, and P = 2^(s scale log2 e - max) is rounded to bf16 into
-// the A fragments of the value product (the C layout of m16n8k16 is its A
-// layout); the sum adds the unrounded P.  A warp skips a chunk whose keys
-// pair none of its rows.  One warp finds the tile's key range
-// (key_range_warp).
-constexpr int kFwdHeads = 4;           // heads a block
-static_assert(kFwdHeads == 4, "the lse store writes a float4 of heads");
+// rows and kFwdHeads heads (64 channels); each warp owns 16 rows and
+// keeps, per head, their output accumulator (16 x D in f32), running max
+// and sum in registers over the tile's exact key range, streamed in
+// chunks of kChunk key rows (the heads' k and v channels, double-buffered
+// through cp.async).  Per head and 16 keys a warp runs 2 (D / 16)
+// m16n8k16 products for S = Q K^T and D / 8 for O += P V.  S is masked
+// per element by one integer compare of the row's window id against the
+// column's (kNoKey where the key is not valid or lies past the range) and
+// folded into an online softmax per chunk in log2 units: the row's
+// running max moves once a chunk, O and the sum rescale in f32, and P =
+// 2^(s scale log2 e - max) is rounded to bf16 into the A fragments of the
+// value product (the C layout of m16n8k16 is its A layout); the sum adds
+// the unrounded P.  A warp skips a chunk whose keys pair none of its
+// rows.  One warp finds the tile's key range (key_range_warp).
+constexpr int kFwdChannels = 64;       // channels a block stages
 constexpr int kFwdWarps = kTile / 16;
 constexpr int kFwdThreads = 32 * kFwdWarps;
 static_assert(kFwdThreads >= kChunk, "a thread per chunk row's window id");
 
-struct FwdTcSmem {
-  static constexpr int kRS = kFwdHeads * D + kPad;   // bf16 row stride
-  __nv_bfloat16 q[kTile * kRS];        // the tile's q rows, then its output
-  __nv_bfloat16 kv[2][2][kChunk * kRS];   // per buffer: k rows, v rows
-  int win[2][kChunk];                  // per buffer: the key's window id
-};                                     // or kNoKey
+template <int D>
+struct FwdTc {
+  static constexpr int kHeads = D < kFwdChannels ? kFwdChannels / D : 1;
+  static constexpr int kRS = kHeads * D + kPad;   // bf16 row stride
+  static constexpr int kPieces = kHeads * D / 8;  // 16-byte pieces a row
+  struct Smem {
+    __nv_bfloat16 q[kTile * kRS];      // the tile's q rows, then its output
+    __nv_bfloat16 kv[2][2][kChunk * kRS];   // per buffer: k rows, v rows
+    int win[2][kChunk];                // per buffer: the key's window id
+  };                                   // or kNoKey
+};
+static_assert(FwdTc<16>::kHeads == 4, "the shipped block: 4 heads of 16");
 
+template <int D, int C>
 __global__ void __launch_bounds__(kFwdThreads, 4)
 band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -819,13 +909,17 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const uint8_t* __restrict__ key_valid,
                              __nv_bfloat16* __restrict__ out,
                              float* __restrict__ lse, int V) {
-  constexpr int kRS = FwdTcSmem::kRS;
-  constexpr int kPieces = kFwdHeads * D / 8;  // 16-byte pieces a staged row
+  using K = FwdTc<D>;
+  constexpr int H = C / D;
+  constexpr int kHeads = K::kHeads, kRS = K::kRS, kPieces = K::kPieces;
+  constexpr int KS = D / 16;       // k-steps of 16 over a head's channels
+  constexpr int NT = D / 8;        // n-tiles of 8 over a head's channels
+  constexpr float kScaleLog2e = Head<D>::kScale * kLog2e;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  FwdTcSmem& sm = *reinterpret_cast<FwdTcSmem*>(smem_raw);
+  typename K::Smem& sm = *reinterpret_cast<typename K::Smem*>(smem_raw);
   __shared__ int s_range[2];
 
-  const int b = blockIdx.z, h0 = blockIdx.y * kFwdHeads;
+  const int b = blockIdx.z, h0 = blockIdx.y * kHeads;
   const int t0 = blockIdx.x * kTile;
   const int nt = min(kTile, V - t0);
   const size_t row0 = (size_t)b * V;
@@ -875,9 +969,9 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // per head: O (channels 8 n + 2 t + (0, 1) of rows g, g + 8), the
   // running max (log2 units) and the lane's part of the sum of P
-  float o[kFwdHeads][2][4] = {}, m[kFwdHeads][2], l[kFwdHeads][2] = {};
+  float o[kHeads][NT][4] = {}, m[kHeads][2], l[kHeads][2] = {};
 #pragma unroll
-  for (int hh = 0; hh < kFwdHeads; ++hh) m[hh][0] = m[hh][1] = -INFINITY;
+  for (int hh = 0; hh < kHeads; ++hh) m[hh][0] = m[hh][1] = -INFINITY;
 
   int buf = 0;
   for (int k0 = ks; k0 < ke; k0 += kChunk, buf ^= 1) {
@@ -905,20 +999,25 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const __nv_bfloat16* ck = sm.kv[buf][0];
       const __nv_bfloat16* cv = sm.kv[buf][1];
 #pragma unroll
-      for (int hh = 0; hh < kFwdHeads; ++hh) {
-        uint32_t aq[4];
-        ldmatrix_x4(aq, sm.q + (16 * warp + lane % 16) * kRS + hh * D +
-                            (lane / 16) * 8);
+      for (int hh = 0; hh < kHeads; ++hh) {
+        uint32_t aq[KS][4];
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          ldmatrix_x4(aq[kk], sm.q + (16 * warp + lane % 16) * kRS + hh * D +
+                                  16 * kk + (lane / 16) * 8);
         float s[kChunk / 8][4];
 #pragma unroll
         for (int jj = 0; jj < kChunk / 16; ++jj) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[2 * jj][e] = s[2 * jj + 1][e] = 0.f;
-          uint32_t bk[4];
-          ldmatrix_x4(bk, ck + (16 * jj + lane % 8 + (lane / 16) * 8) * kRS +
-                              hh * D + ((lane / 8) % 2) * 8);
-          mma_bf16_16816(s[2 * jj], aq, &bk[0]);
-          mma_bf16_16816(s[2 * jj + 1], aq, &bk[2]);
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            uint32_t bk[4];
+            ldmatrix_x4(bk, ck + (16 * jj + lane % 8 + (lane / 16) * 8) * kRS +
+                                hh * D + 16 * kk + ((lane / 8) % 2) * 8);
+            mma_bf16_16816(s[2 * jj], aq[kk], &bk[0]);
+            mma_bf16_16816(s[2 * jj + 1], aq[kk], &bk[2]);
+          }
         }
         // the masked scores and the rows' chunk max, in log2 units (the
         // scale is positive: the max of the scaled scores is the scaled
@@ -942,7 +1041,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
           m[hh][rh] = mn;
           l[hh][rh] *= corr;
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
+          for (int n = 0; n < NT; ++n) {
             o[hh][n][2 * rh] *= corr;
             o[hh][n][2 * rh + 1] *= corr;
           }
@@ -961,12 +1060,15 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
               l[hh][rh] += p0 + p1;
               ap[2 * h2 + rh] = pack_bf16(p0, p1);
             }
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, cv + (16 * jj + lane % 8 +
-                                      ((lane / 8) % 2) * 8) * kRS +
-                                    hh * D + (lane / 16) * 8);
-          mma_bf16_16816(o[hh][0], ap, &bv[0]);
-          mma_bf16_16816(o[hh][1], ap, &bv[2]);
+#pragma unroll
+          for (int dn = 0; dn < KS; ++dn) {
+            uint32_t bv[4];
+            ldmatrix_x4_trans(bv, cv + (16 * jj + lane % 8 +
+                                        ((lane / 8) % 2) * 8) * kRS +
+                                      hh * D + 16 * dn + (lane / 16) * 8);
+            mma_bf16_16816(o[hh][2 * dn], ap, &bv[0]);
+            mma_bf16_16816(o[hh][2 * dn + 1], ap, &bv[2]);
+          }
         }
       }
     }
@@ -979,7 +1081,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // rows past V are not written
   __syncwarp();
 #pragma unroll
-  for (int hh = 0; hh < kFwdHeads; ++hh)
+  for (int hh = 0; hh < kHeads; ++hh)
 #pragma unroll
     for (int rh = 0; rh < 2; ++rh) {
       float sum = l[hh][rh];
@@ -988,22 +1090,28 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       l[hh][rh] = sum;
       const float inv = sum > 0.f ? 1.f / sum : 0.f;
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int n = 0; n < NT; ++n)
         *reinterpret_cast<uint32_t*>(
             sm.q + (16 * warp + g + 8 * rh) * kRS + hh * D + 8 * n + 2 * t) =
             pack_bf16(o[hh][n][2 * rh] * inv, o[hh][n][2 * rh + 1] * inv);
     }
-  if (lse && t == 0) {             // the rows' 4 heads, one 16-byte store
+  if (lse && t == 0) {             // the rows' heads of the block
 #pragma unroll
     for (int rh = 0; rh < 2; ++rh) {
       const int r = 16 * warp + g + 8 * rh;
-      float st[kFwdHeads];
+      float st[kHeads];
 #pragma unroll
-      for (int hh = 0; hh < kFwdHeads; ++hh)
+      for (int hh = 0; hh < kHeads; ++hh)
         st[hh] = l[hh][rh] > 0.f ? m[hh][rh] * kLn2 + logf(l[hh][rh]) : 0.f;
-      if (r < nt)
-        *reinterpret_cast<float4*>(lse + (row0 + t0 + r) * H + h0) =
-            make_float4(st[0], st[1], st[2], st[3]);
+      if (r < nt) {
+        float* dst = lse + (row0 + t0 + r) * H + h0;
+        if constexpr (kHeads == 4) {   // one 16-byte store
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(st[0], st[1], st[2], st[3]);
+        } else {
+          for (int hh = 0; hh < kHeads; ++hh) dst[hh] = st[hh];
+        }
+      }
     }
   }
   __syncwarp();
@@ -1015,77 +1123,108 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <int D, int C>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
                           const int* win, const uint8_t* key_valid, void* out,
                           float* lse, int B, int V, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  constexpr int kBytes = sizeof(FwdTcSmem);
-  cudaError_t e = allow_smem(band_attention_fwd_tc_kernel, kBytes);
+  using K = FwdTc<D>;
+  constexpr int kBytes = sizeof(typename K::Smem);
+  cudaError_t e = allow_smem(band_attention_fwd_tc_kernel<D, C>, kBytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((V + kTile - 1) / kTile, H / kFwdHeads, B);
-  band_attention_fwd_tc_kernel<<<grid, kFwdThreads, kBytes, stream>>>(
+  const dim3 grid((V + kTile - 1) / kTile, C / (K::kHeads * D), B);
+  band_attention_fwd_tc_kernel<D, C><<<grid, kFwdThreads, kBytes, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), win, key_valid, static_cast<bf*>(out), lse,
       V);
   return cudaGetLastError();
 }
 
+// The kernels of one width (head width D, row width C), by dtype.
+template <int D, int C>
+struct Width {
+  static cudaError_t forward(int dtype, const void* q, const void* k,
+                             const void* v, const int* win,
+                             const uint8_t* key_valid, void* out, float* lse,
+                             int B, int V, cudaStream_t s) {
+    if (dtype == kFloat32)
+      return launch_f32<D, C>(q, k, v, win, key_valid, out, lse, B, V, s);
+    if (dtype == kBFloat16)
+      return launch_fwd_tc<D, C>(q, k, v, win, key_valid, out, lse, B, V, s);
+    return cudaErrorInvalidValue;
+  }
+  static cudaError_t delta(int dtype, const void* dout, const void* out,
+                           const int* win, float* d, int n, cudaStream_t s) {
+    if (dtype == kFloat32)
+      return launch_delta<float, D, C>(dout, out, win, d, n, s);
+    if (dtype == kBFloat16)
+      return launch_delta<__nv_bfloat16, D, C>(dout, out, win, d, n, s);
+    return cudaErrorInvalidValue;
+  }
+  static cudaError_t backward(int dtype, const BwdArgs& args, int B,
+                              cudaStream_t s) {
+    if (dtype == kFloat32) return launch_bwd_f32<D, C>(args, B, s);
+    if (dtype == kBFloat16) return launch_bwd_tc<D, C>(args, B, s);
+    return cudaErrorInvalidValue;
+  }
+};
+
 }  // namespace
 }  // namespace geomae
 
+// One call of Width<D, H D>::fn(args...) for the heads H of width D the
+// caller gives, else cudaErrorInvalidValue.
+#define GEOMAE_BY_WIDTH(H, D, fn, ...)                                     \
+  switch ((H) * 1000 + (D)) {                                              \
+    case 8016: return geomae::Width<16, 128>::fn(__VA_ARGS__);             \
+    case 4032: return geomae::Width<32, 128>::fn(__VA_ARGS__);             \
+    case 2064: return geomae::Width<64, 128>::fn(__VA_ARGS__);             \
+    case 16016: return geomae::Width<16, 256>::fn(__VA_ARGS__);            \
+    case 8032: return geomae::Width<32, 256>::fn(__VA_ARGS__);             \
+    case 4064: return geomae::Width<64, 256>::fn(__VA_ARGS__);             \
+    default: return cudaErrorInvalidValue;                                 \
+  }
+
 extern "C" {
 
-// q, k, v, out [B, V, 128] in dtype (8 heads of 16, heads flattened), each
-// 16-byte aligned.  win [B, V] int32 ascending per row (INT32_MAX padding
-// suffix); key_valid [B, V] bytes.  lse: null, or f32 [B, V, 8] for the
-// per-(row, head) log-sum-exp of the scaled scores (0 where a row sees no
-// key).
+// q, k, v, out [B, V, H * D] in dtype (H heads of D in {16, 32, 64},
+// heads flattened), each 16-byte aligned.  win [B, V] int32 ascending per
+// row (INT32_MAX padding suffix); key_valid [B, V] bytes.  lse: null, or
+// f32 [B, V, H] for the per-(row, head) log-sum-exp of the scaled scores
+// (0 where a row sees no key).
 int geomae_band_attention(int dtype, const void* q, const void* k,
                           const void* v, const int* win,
                           const uint8_t* key_valid, void* out, float* lse,
-                          int B, int V, void* stream) {
-  using namespace geomae;
+                          int B, int V, int H, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return launch_f32(q, k, v, win, key_valid, out, lse, B, V, s);
-  if (dtype == kBFloat16)
-    return launch_fwd_tc(q, k, v, win, key_valid, out, lse, B, V, s);
-  return cudaErrorInvalidValue;
+  GEOMAE_BY_WIDTH(H, D, forward, dtype, q, k, v, win, key_valid, out, lse, B,
+                  V, s)
 }
 
-// The backward's prologue: delta f32 [B, V, 8] = per (row, head) the sum
-// over the head's 16 channels of dout * out, both [B, V, 128] in dtype;
+// The backward's prologue: delta f32 [B, V, H] = per (row, head) the sum
+// over the head's D channels of dout * out, both [B, V, H * D] in dtype;
 // 0 on padding rows (win [B, V] == INT32_MAX).
 int geomae_band_attention_delta(int dtype, const void* dout, const void* out,
                                 const int* win, float* delta, int B, int V,
-                                void* stream) {
-  using namespace geomae;
+                                int H, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n = B * V * H;
-  if (dtype == kFloat32)
-    return launch_delta<float>(dout, out, win, delta, n, s);
-  if (dtype == kBFloat16)
-    return launch_delta<__nv_bfloat16>(dout, out, win, delta, n, s);
-  return cudaErrorInvalidValue;
+  GEOMAE_BY_WIDTH(H, D, delta, dtype, dout, out, win, delta, B * V * H, s)
 }
 
 // Backward of geomae_band_attention: the forward's inputs, its lse, the
-// prologue's delta and dout [B, V, 128]; writes dq, dk, dv [B, V, 128] in
-// dtype (0 on padding rows).  f32 on the CUDA cores, bf16 on the tensor
-// cores.
+// prologue's delta and dout [B, V, H * D]; writes dq, dk, dv [B, V, H *
+// D] in dtype (0 on padding rows).  f32 on the CUDA cores, bf16 on the
+// tensor cores.
 int geomae_band_attention_bwd(int dtype, const void* q, const void* k,
                               const void* v, const int* win,
                               const uint8_t* key_valid, const float* lse,
                               const float* delta, const void* dout, void* dq,
-                              void* dk, void* dv, int B, int V,
+                              void* dk, void* dv, int B, int V, int H, int D,
                               void* stream) {
-  using namespace geomae;
-  const BwdArgs args{q, k, v, dout, win, key_valid, lse, delta, dq, dk, dv,
-                     V};
+  const geomae::BwdArgs args{q,     k,  v,  dout, win, key_valid, lse,
+                             delta, dq, dk, dv,   V};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_bwd_f32(args, B, s);
-  if (dtype == kBFloat16) return launch_bwd_tc(args, B, s);
-  return cudaErrorInvalidValue;
+  GEOMAE_BY_WIDTH(H, D, backward, dtype, args, B, s)
 }
 
 }  // extern "C"

@@ -89,32 +89,37 @@ inline cudaError_t persistent_grid(K kernel, int threads, int smem,
 // partials in block order: deterministic, no float atomics.
 
 // P[k][n] += sum_{r < R} a[r][k] * d[r][n] for the shared f32 tiles a
-// [R][K] and d [R][N].  Thread: column n = tid % N, rows k = tid / N +
-// (NT / N) * j, so each thread always owns the same entries of P (no
-// other thread reads them) and reads a as a warp-wide broadcast.
+// [R][K] and d [R][N].  Thread: column n = n0 + tid % NW for each block
+// of NW = min(N, NT) columns from n0, rows k = tid / NW + (NT / NW) * j,
+// so each thread always owns the same entries of P (no other thread reads
+// them) and reads a as a warp-wide broadcast.
 template <int NT, int R, int K, int N>
 __device__ __forceinline__ void accum_outer(const float* __restrict__ a,
                                             const float* __restrict__ d,
                                             float* __restrict__ P) {
-  constexpr int RG = NT / N;
+  constexpr int NW = N < NT ? N : NT;
+  constexpr int RG = NT / NW;
   constexpr int J = 16;
-  static_assert(NT % N == 0 && K % (RG * J) == 0, "tile shape");
-  const int n = threadIdx.x % N;
-  float dc[R];
+  static_assert(NT % NW == 0 && N % NW == 0 && K % (RG * J) == 0,
+                "tile shape");
+  for (int n0 = 0; n0 < N; n0 += NW) {
+    const int n = n0 + threadIdx.x % NW;
+    float dc[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) dc[r] = d[r * N + n];
-  for (int kk = threadIdx.x / N; kk < K; kk += RG * J) {
-    float acc[J];
+    for (int r = 0; r < R; ++r) dc[r] = d[r * N + n];
+    for (int kk = threadIdx.x / NW; kk < K; kk += RG * J) {
+      float acc[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) acc[j] = P[(size_t)(kk + RG * j) * N + n];
+      for (int j = 0; j < J; ++j) acc[j] = P[(size_t)(kk + RG * j) * N + n];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
+      for (int r = 0; r < R; ++r) {
 #pragma unroll
-      for (int j = 0; j < J; ++j)
-        acc[j] = fmaf(a[r * K + kk + RG * j], dc[r], acc[j]);
+        for (int j = 0; j < J; ++j)
+          acc[j] = fmaf(a[r * K + kk + RG * j], dc[r], acc[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) P[(size_t)(kk + RG * j) * N + n] = acc[j];
     }
-#pragma unroll
-    for (int j = 0; j < J; ++j) P[(size_t)(kk + RG * j) * N + n] = acc[j];
   }
 }
 

@@ -36,12 +36,18 @@ from .vfe import DynamicScatterVFE
 
 
 class _Backbone(nn.Module):
-    """The reference backbone's two halves under their checkpoint names."""
+    """The reference backbone's two halves under their checkpoint names.
+    SECOND takes the width the SST hands it (the VFE's where there is no
+    SST block), as flax's ``nn.Conv`` infers it in the JAX package, not
+    ``cfg.second.in_channels``."""
 
     def __init__(self, cfg: FinetuneConfig, device=None):
         super().__init__()
         self.encoder_blocks = SSTStack(cfg.sst, cfg.num_blocks, device)
-        self.conv_blocks = SECONDStages(cfg.second, device)
+        width = (cfg.sst.d_model if cfg.num_blocks
+                 else cfg.vfe.feat_channels[-1])
+        self.conv_blocks = SECONDStages(
+            replace(cfg.second, in_channels=width), device)
 
 
 class DynamicVoxelNet(nn.Module):

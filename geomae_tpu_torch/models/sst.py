@@ -4,14 +4,14 @@ Port of ``geomae_tpu/models/sst.py`` (``prepare_shift_data``,
 ``WindowMHA``, ``EncoderLayer``, ``BasicShiftBlock``, ``SSTStack``).
 ``attention_route`` and ``ffn_route`` resolve ``cfg.attention_impl`` and
 ``cfg.ffn_impl`` from the config alone, so the CPU and the GPU run one
-model.  At the kernels' widths (C = 128 in 8 heads, FFN 256, GELU) an
-encoder layer is, by default, q/k/v projected by ``F.linear`` and then K8
-(``ops/attention.py``), then K5 (``ops/ffn.py``: out-projection,
-residual, LN1, GELU FFN, residual, LN2); ``attention_impl="qkv"`` runs K6
-(``ops/attention_qkv.py``: q/k/v projections inside the window
-attention) instead.  At other widths, as in the JAX package, the layer
-drops to the plain ``band_attention`` and the unfused chain in plain
-torch.  The parameter names are the same on every route, so one
+model.  At the kernels' widths (C of 128 or 256 in heads of 16, 32 or
+64, FFN 2 C or 4 C, GELU) an encoder layer is, by default, q/k/v
+projected by ``F.linear`` and then K8 (``ops/attention.py``), then K5
+(``ops/ffn.py``: out-projection, residual, LN1, GELU FFN, residual, LN2);
+``attention_impl="qkv"`` runs K6 (``ops/attention_qkv.py``: q/k/v
+projections inside the window attention) instead, at C = 128 in 8 heads
+only.  At other widths the layer takes the plain ``band_attention`` and
+the unfused chain in plain torch.  The parameter names are the same on every route, so one
 ``state_dict`` serves them all.  Tokens stay in window-sorted order
 between layers: the stack permutes row-order tokens in once, each
 layer applies one composed permutation from the previous layer's order,
@@ -34,10 +34,11 @@ import torch.nn.functional as F
 
 from ..config import SSTConfig
 
-from ..ops.attention import band_attention, band_attention_fused
+from ..ops.attention import (band_attention, band_attention_fused,
+                             kernel_takes)
 from ..ops.attention_qkv import band_attention_qkv
 from ..ops.attention_qkv import KERNEL_C, KERNEL_HEADS
-from ..ops.ffn import KERNEL_F, post_attention_block
+from ..ops.ffn import KERNEL_WIDTHS, post_attention_block
 from ..ops.windows import INT32_MAX, WindowLayout, positional_embedding
 from .norm import FastLayerNorm
 
@@ -92,23 +93,33 @@ def _check(field: str, value: str, names) -> None:
 def attention_route(impl: str, d_model: int, nhead: int) -> str:
     """``attention_impl`` resolved: "qkv" (K6, projections inside the
     kernel), "band" (Linears, then K8) or "einsum" (Linears, then the plain
-    band_attention).  The kernels take C = 128 in 8 heads; at any other
-    width every name resolves to "einsum", as geomae_tpu/models/sst.py
-    drops even an explicit kernel route.  Its other condition, V a
-    multiple of 128, is a fact of the TPU's tiling: the port's kernels take
-    any V.  "auto" is "band", the faster route on the H100 (PERF.md)."""
+    band_attention).  K8 takes C of 128 or 256 in heads of 16, 32 or 64
+    (``attention.kernel_takes``), K6 C = 128 in 8 heads: "qkv" resolves to
+    itself there and to "einsum" at any other width, and every other
+    kernel name to "band" wherever K8 takes the width, else "einsum".
+    geomae_tpu/models/sst.py keeps its kernel routes for any C a multiple
+    of 128 (and V of 128, a fact of the TPU's tiling: the port's kernels
+    take any V), so the port serves on the plain routes what JAX serves on
+    kernels at C >= 384, at D = 8 or 128, and on "qkv" at any width but
+    128 in 8 heads.  "auto" is "band", the faster route on the H100
+    (PERF.md)."""
     _check("attention_impl", impl, ATTENTION_IMPLS)
-    if (d_model, nhead) != (KERNEL_C, KERNEL_HEADS) or impl == "einsum":
+    if impl == "einsum":
         return "einsum"
-    return "qkv" if impl == "qkv" else "band"
+    if impl == "qkv":
+        return "qkv" if (d_model, nhead) == (KERNEL_C, KERNEL_HEADS) \
+            else "einsum"
+    return "band" if kernel_takes(d_model, nhead) else "einsum"
 
 
 def ffn_route(cfg: SSTConfig) -> str:
-    """``cfg.ffn_impl`` resolved: "fused" (K5) only for GELU at (C, F) =
-    (128, 256), the kernel's widths, else "xla" (the unfused chain)."""
+    """``cfg.ffn_impl`` resolved: "fused" (K5) for GELU at the kernel's
+    widths, (C, F) in ``ffn.KERNEL_WIDTHS`` (C of 128 or 256, F of 2 C or
+    4 C), else "xla" (the unfused chain).  JAX fuses GELU at any C a
+    multiple of 128 and any F."""
     _check("ffn_impl", cfg.ffn_impl, FFN_IMPLS)
     _check("activation", cfg.activation, ("gelu", "relu"))
-    fits = (cfg.d_model, cfg.dim_feedforward) == (KERNEL_C, KERNEL_F) \
+    fits = (cfg.d_model, cfg.dim_feedforward) in KERNEL_WIDTHS \
         and cfg.activation == "gelu"
     return "fused" if fits and cfg.ffn_impl != "xla" else "xla"
 

@@ -37,14 +37,16 @@ _SIGNATURES = {
     "geomae_band_attention_qkv_bwd": [_I] + [_P] * 19 + [_I] * 3 + [_P],
     "geomae_qkv_project": [_P] * 12 + [_I, _I, _P],
     "geomae_qkv_project_bwd": [_P] * 11 + [_I] * 4 + [_P],
-    "geomae_band_attention": [_I] + [_P] * 7 + [_I, _I, _P],
-    "geomae_band_attention_delta": [_I] + [_P] * 4 + [_I, _I, _P],
-    "geomae_band_attention_bwd": [_I] + [_P] * 11 + [_I, _I, _P],
-    "geomae_post_attention_block": [_I] + [_P] * 14 + [_I, _I, _F, _P],
+    # K8: (B, V, H, D); K5: (B, V, C, F)
+    "geomae_band_attention": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    "geomae_band_attention_delta": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    "geomae_band_attention_bwd": [_I] + [_P] * 11 + [_I] * 4 + [_P],
+    "geomae_post_attention_block": [_I] + [_P] * 14 + [_I] * 4 + [_F, _P],
     "geomae_post_attention_block_bwd": [_I] + [_P] * 21
-    + [_I, _I, _F, _I, _P],
-    "geomae_post_attention_block_bwd_bf16": [_P] * 23 + [_I, _I, _F, _I, _P],
-    "geomae_post_attention_wgrad_bf16": [_P] * 9 + [_I, _I, _P],
+    + [_I] * 4 + [_F, _I, _P],
+    "geomae_post_attention_block_bwd_bf16": [_P] * 23 + [_I] * 4
+    + [_F, _I, _P],
+    "geomae_post_attention_wgrad_bf16": [_P] * 9 + [_I] * 4 + [_P],
     "geomae_slot_outer_segment_sum": [_P] * 4 + [_I] * 4 + [_P],
     "geomae_expand_rows": [_P] * 3 + [_I] * 4 + [_P],
 }

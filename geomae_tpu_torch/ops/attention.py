@@ -21,11 +21,14 @@ dk scaled after the f32 sum.  Padding rows (``win_id == INT32_MAX``) and
 rows with no visible key return 0 and get zero gradients.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.  The kernels take C = 128 in 8 heads of 16 (the shipped SST
-width) in float32 or bfloat16; the plain versions take any H and D.
-The bf16 forward runs on the tensor cores over 64-token tiles with an
-online softmax per 64-key chunk (``band_attention_tiles_plain`` is its
-order in plain PyTorch), the f32 forward on the CUDA cores.  Under grad ``band_attention_fused`` is an ``autograd.Function``: the
+or raises.  The kernels take heads of D in ``KERNEL_HEAD_DIMS`` (16, 32,
+64) that make C = H D one of ``KERNEL_CHANNELS`` (128, 256), in float32
+or bfloat16; the plain versions take any H and D.  The bf16 forward runs
+on the tensor cores over 64-token tiles with an online softmax per
+64-key chunk (``band_attention_tiles_plain`` is its order in plain
+PyTorch), the f32 forward on the CUDA cores; every kernel stages whole
+heads of a fixed number of channels a block, so the order per head is
+the same at every width.  Under grad ``band_attention_fused`` is an ``autograd.Function``: the
 forward kernel also writes each (row, head)'s log-sum-exp of the scaled
 scores ([B, V, H] f32, where the TPU kernel keeps the running max m and
 the sum l apart; lse = m + log l).  The backward runs a prologue kernel
@@ -42,8 +45,8 @@ import torch
 from . import _cuda
 
 INT32_MAX = 2 ** 31 - 1
-KERNEL_HEADS = 8
-KERNEL_HEAD_DIM = 16
+KERNEL_CHANNELS = (128, 256)      # C = H D the kernels take
+KERNEL_HEAD_DIMS = (16, 32, 64)   # and D
 PLAIN_Q_CHUNK = 1024      # queries per score block of the plain versions
 KERNEL_TILE = 64          # tokens a tile (and rows a chunk) of the bf16
                           # kernels
@@ -262,17 +265,25 @@ def band_attention_backward_tiles_plain(q, k, v, win_id, key_valid, out,
     return (dq * scale).to(dt), (dk * scale).to(dt), dv.to(dt)
 
 
+def kernel_takes(channels: int, heads: int) -> bool:
+    """Whether the kernels take ``heads`` heads over ``channels``: D =
+    C / H in KERNEL_HEAD_DIMS and C in KERNEL_CHANNELS."""
+    return (heads > 0 and channels % heads == 0
+            and channels in KERNEL_CHANNELS
+            and channels // heads in KERNEL_HEAD_DIMS)
+
+
 def _check_rows(name, q, *more):
-    """q and ``more`` [B, V, 8, 16] of one float dtype, on one CUDA
-    device, contiguous and 16-byte aligned."""
+    """q and ``more`` [B, V, H, D] (``kernel_takes``) of one float dtype,
+    on one CUDA device, contiguous and 16-byte aligned."""
     _cuda.require(q.device.type == "cuda",
                   f"{name}: no kernel for device {q.device}")
-    _cuda.require(q.dim() == 4 and q.shape[2:] == (KERNEL_HEADS,
-                                                   KERNEL_HEAD_DIM)
+    _cuda.require(q.dim() == 4
+                  and kernel_takes(q.shape[2] * q.shape[3], q.shape[2])
                   and q.dtype in _cuda.DTYPE_CODE,
-                  f"{name}: the kernel takes [B, V, {KERNEL_HEADS}, "
-                  f"{KERNEL_HEAD_DIM}] float32 or bfloat16, got {q.dtype} "
-                  f"{tuple(q.shape)}")
+                  f"{name}: the kernel takes [B, V, H, D] with D in "
+                  f"{KERNEL_HEAD_DIMS} and H D in {KERNEL_CHANNELS}, float32 "
+                  f"or bfloat16, got {q.dtype} {tuple(q.shape)}")
     for t in more:
         _cuda.require(t.shape == q.shape and t.dtype == q.dtype,
                       f"{name}: q, k, v and the cotangents must share "
@@ -304,13 +315,14 @@ def _forward(q, k, v, win_id, key_valid, stats: bool):
         return band_attention(q, k, v, win_id, key_valid), None
     name = "band_attention_fused"
     B, V = _check(name, q, k, v, win_id, key_valid)
+    H, D = q.shape[2:]
     out = torch.empty_like(v)
-    lse = (torch.empty((B, V, KERNEL_HEADS), dtype=torch.float32,
-                       device=q.device) if stats else None)
+    lse = (torch.empty((B, V, H), dtype=torch.float32, device=q.device)
+           if stats else None)
     code = _cuda.library().geomae_band_attention(
         _cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         win_id.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, V, _cuda.stream(q))
+        None if lse is None else lse.data_ptr(), B, V, H, D, _cuda.stream(q))
     band_attention_fused.launches += 1
     band_attention_fused.stats += lse is not None
     _cuda.check(code, name)
@@ -325,15 +337,14 @@ def band_attention_delta(out, g, win_id):
         return band_attention_delta_plain(out, g, win_id)
     name = "band_attention_delta"
     _check_rows(name, out, g)
-    B, V = out.shape[:2]
+    B, V, H, D = out.shape
     _cuda.require(win_id.dtype == torch.int32 and win_id.shape == (B, V),
                   f"{name}: win_id must be int32 {(B, V)}")
     _cuda.require_cuda(name, out, win_id)
-    delta = torch.empty((B, V, KERNEL_HEADS), dtype=torch.float32,
-                        device=out.device)
+    delta = torch.empty((B, V, H), dtype=torch.float32, device=out.device)
     code = _cuda.library().geomae_band_attention_delta(
         _cuda.DTYPE_CODE[out.dtype], g.data_ptr(), out.data_ptr(),
-        win_id.data_ptr(), delta.data_ptr(), B, V, _cuda.stream(out))
+        win_id.data_ptr(), delta.data_ptr(), B, V, H, D, _cuda.stream(out))
     band_attention_delta.launches += 1
     _cuda.check(code, name)
     return delta
@@ -353,10 +364,10 @@ def band_attention_fused_backward(q, k, v, win_id, key_valid, out, lse, g):
                                              g)
     name = "band_attention_fused_backward"
     B, V = _check(name, q, k, v, win_id, key_valid, out, g)
+    H = q.shape[2]
     _cuda.require(lse is not None and lse.dtype == torch.float32
-                  and lse.shape == (B, V, KERNEL_HEADS),
-                  f"{name}: lse must be the forward's f32 "
-                  f"{(B, V, KERNEL_HEADS)}")
+                  and lse.shape == (B, V, H),
+                  f"{name}: lse must be the forward's f32 {(B, V, H)}")
     _cuda.require_cuda(name, q, lse)
     return _backward(q, k, v, win_id, key_valid, lse,
                      band_attention_delta(out, g, win_id), g)
@@ -365,13 +376,13 @@ def band_attention_fused_backward(q, k, v, win_id, key_valid, out, lse, g):
 def _backward(q, k, v, win_id, key_valid, lse, delta, g):
     """The backward kernel alone, from the prologue's ``delta``: (dq, dk,
     dv) on CUDA tensors that ``band_attention_fused_backward`` checked."""
-    B, V = q.shape[:2]
+    B, V, H, D = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     code = _cuda.library().geomae_band_attention_bwd(
         _cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         win_id.data_ptr(), key_valid.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, V, _cuda.stream(q))
+        dv.data_ptr(), B, V, H, D, _cuda.stream(q))
     band_attention_fused_backward.launches += 1
     _cuda.check(code, "band_attention_fused_backward")
     return dq, dk, dv

@@ -330,7 +330,7 @@ def _forward(x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid, nheads,
         code = lib.geomae_band_attention(
             dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             win_id.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
-            lse_ptr, B, V, _cuda.stream(x))
+            lse_ptr, B, V, nheads, KERNEL_C // nheads, _cuda.stream(x))
     else:
         code = lib.geomae_band_attention_qkv(
             dtype, x.data_ptr(), pos.data_ptr(), *[w.data_ptr() for w in ws],
@@ -371,13 +371,13 @@ def band_attention_qkv_backward(x, pos, wq, bq, wk, bk, wv, bv, win_id,
                             device=x.device)
         _cuda.check(lib.geomae_band_attention_delta(
             dtype, g.data_ptr(), out.data_ptr(), win_id.data_ptr(),
-            delta.data_ptr(), B, V, stream), name)
+            delta.data_ptr(), B, V, nheads, C // nheads, stream), name)
         dq, dk, dv = (torch.empty_like(x) for _ in range(3))
         code = lib.geomae_band_attention_bwd(
             dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             win_id.data_ptr(), key_valid.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, V, stream)
+            dv.data_ptr(), B, V, nheads, C // nheads, stream)
         band_attention_qkv_backward.launches += 1
         _cuda.check(code, name)
         return _project_backward(x, pos, ws[0::2], dq, dk, dv)

@@ -18,17 +18,17 @@ TPU kernel zeroes whole tiles past ``nv``, and the rows between ``nv`` and
 its tile's end are padding tokens that no consumer reads.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.  The kernels take C = 128, F = 256 (the shipped SST widths) in
-float32 or bfloat16.  Under grad the block is an ``autograd.Function``
-whose backward (``post_attention_block_backward``) returns dx, dattn and
-the ten parameter gradients in f32 with the dtype points of
-``pallas_ffn._bwd_body``; rows at or past ``nv`` give zero dx and dattn
-and add nothing to the parameter gradients.  In bfloat16 the forward
-runs on the tensor cores (the first four products of the backward's
-per-tile pass, sharing its code; its plain version is
+or raises.  The kernels take (C, F) in ``KERNEL_WIDTHS`` (C of 128 or
+256, F of 2 C or 4 C) in float32 or bfloat16.  Under grad the block is
+an ``autograd.Function`` whose backward (``post_attention_block_backward``)
+returns dx, dattn and the ten parameter gradients in f32 with the dtype
+points of ``pallas_ffn._bwd_body``; rows at or past ``nv`` give zero dx
+and dattn and add nothing to the parameter gradients.  In bfloat16 the
+forward runs on the tensor cores (the first three stages of the
+backward's per-tile pass, sharing its code; its plain version is
 ``post_attention_block_plain``), and the backward in two passes, whose
 plain twins are
-``post_attention_block_backward_tile_plain`` (per 64-token tile: dx,
+``post_attention_block_backward_tile_plain`` (per token tile: dx,
 dattn, the bf16 rows the weight gradients need, the vector gradients)
 and ``weight_grads_plain`` (the three weight gradients, split over token
 chunks); in float32 each on the CUDA cores in one kernel.
@@ -40,21 +40,29 @@ import torch.nn.functional as F
 
 from . import _cuda
 
-KERNEL_C = 128
-KERNEL_F = 256
-BWD_BLOCKS_PER_SM = 1     # the f32 backward kernel's 144 KB of shared memory
-# the bf16 backward: 64-token tiles in 193 KB of shared memory, one block
-# per SM; the weight gradients over chunks of 2,048 token rows
-BWD_TILE = 64
-BWD_TILE_BLOCKS_PER_SM = 1
+# (C, F) the kernels take; the first is the shipped SST width
+KERNEL_WIDTHS = ((128, 256), (128, 512), (256, 512), (256, 1024))
+KERNEL_C, KERNEL_F = KERNEL_WIDTHS[0]
+# the backward kernels run one block per SM, at most one a tile of the
+# smallest token tile any width takes (post_attention.cuh, Widths: the
+# tiles shrink as the rows widen; a block left without a tile writes zero
+# partials); the bf16 weight gradients over chunks of 2,048 token rows
+MIN_TILE = 16
+BWD_BLOCKS_PER_SM = 1
 WGRAD_CHUNK = 2048
-WEIGHT_FLOATS = KERNEL_C * KERNEL_C + 2 * KERNEL_C * KERNEL_F  # dWo, dW1, dW2
-# the f32 parameter gradients as the backward kernel lays them out
-GRAD_SHAPES = {"wo": (KERNEL_C, KERNEL_C), "w1": (KERNEL_C, KERNEL_F),
-               "w2": (KERNEL_F, KERNEL_C), "bo": (KERNEL_C,),
-               "s1": (KERNEL_C,), "t1": (KERNEL_C,), "b1": (KERNEL_F,),
-               "b2": (KERNEL_C,), "s2": (KERNEL_C,), "t2": (KERNEL_C,)}
 PARAMS = ("wo", "bo", "s1", "t1", "w1", "b1", "w2", "b2", "s2", "t2")
+
+
+def weight_floats(C: int, F: int) -> int:
+    """The f32 weight gradients dWo, dW1, dW2 in one buffer."""
+    return C * C + 2 * C * F
+
+
+def grad_shapes(C: int, F: int) -> dict:
+    """The f32 parameter gradients as the backward kernels lay them out."""
+    return {"wo": (C, C), "w1": (C, F), "w2": (F, C), "bo": (C,),
+            "s1": (C,), "t1": (C,), "b1": (F,), "b2": (C,), "s2": (C,),
+            "t2": (C,)}
 
 
 def dense(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -167,28 +175,34 @@ def post_attention_block_backward_plain(x, attn, wo, bo, s1, t1, w1, b1, w2,
     return (dx, dattn, dwo, dbo, ds1, dt1, dw1, db1, dw2, db2, ds2, dt2)
 
 
-def _check_block(name, x, attn, extra=()):
+def _check_block(name, x, attn, w1, extra=()):
+    """x, attn (and ``extra``) [B, V, C] on the card beside w1 [C, F], at a
+    width the kernels take; returns (C, F)."""
     _cuda.require(x.device.type == "cuda",
                   f"{name}: no kernel for device {x.device}")
-    _cuda.require(x.dim() == 3 and x.shape[2] == KERNEL_C
+    widths = (x.shape[-1], w1.shape[-1]) if w1.dim() == 2 else None
+    _cuda.require(x.dim() == 3 and widths in KERNEL_WIDTHS
                   and x.dtype in _cuda.DTYPE_CODE,
-                  f"{name}: the kernel takes [B, V, {KERNEL_C}] float32 or "
-                  f"bfloat16, got {x.dtype} {tuple(x.shape)}")
+                  f"{name}: the kernel takes [B, V, C] float32 or bfloat16 "
+                  f"with (C, F) in {KERNEL_WIDTHS}, got {x.dtype} "
+                  f"{tuple(x.shape)} and w1 {tuple(w1.shape)}")
     for t in (attn, *extra):
         _cuda.require(t.shape == x.shape and t.dtype == x.dtype,
                       f"{name}: {t.dtype} {tuple(t.shape)} beside x")
+    return widths
 
 
 def _kernel_params(name, x, nv, wo, bo, s1, t1, w1, b1, w2, b2, s2, t2):
     """The weights in the compute dtype, LayerNorm parameters in f32, nv
     int32 [B], all checked and contiguous."""
     B, V, C = x.shape
+    Fd = w1.shape[-1]
     mats = [w.to(x.dtype).contiguous() for w in (wo, bo, w1, b1, w2, b2)]
     lns = [q.to(torch.float32).contiguous() for q in (s1, t1, s2, t2)]
     if nv is None:
         nv = torch.full((B,), V, dtype=torch.int32, device=x.device)
     _cuda.require_cuda(name, x, nv, *mats, *lns)
-    shapes = [(C, C), (C,), (C, KERNEL_F), (KERNEL_F,), (KERNEL_F, C), (C,)]
+    shapes = [(C, C), (C,), (C, Fd), (Fd,), (Fd, C), (C,)]
     for w, shape in zip(mats, shapes):
         _cuda.require(w.shape == shape,
                       f"{name}: weight {tuple(w.shape)}, expected {shape}")
@@ -204,7 +218,7 @@ def _forward(x, attn, wo, bo, s1, t1, w1, b1, w2, b2, s2, t2, nv, eps):
         return post_attention_block_plain(x, attn, wo, bo, s1, t1, w1, b1,
                                           w2, b2, s2, t2, nv, eps)
     name = "post_attention_block"
-    _check_block(name, x, attn)
+    C, Fd = _check_block(name, x, attn, w1)
     mats, lns, nv = _kernel_params(name, x, nv, wo, bo, s1, t1, w1, b1, w2,
                                    b2, s2, t2)
     _cuda.require_cuda(name, x, attn)
@@ -216,8 +230,8 @@ def _forward(x, attn, wo, bo, s1, t1, w1, b1, w2, b2, s2, t2, nv, eps):
         _cuda.DTYPE_CODE[x.dtype], x.data_ptr(), attn.data_ptr(),
         wo.data_ptr(), bo.data_ptr(), s1.data_ptr(), t1.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        s2.data_ptr(), t2.data_ptr(), nv.data_ptr(), y.data_ptr(), B, V, eps,
-        _cuda.stream(x))
+        s2.data_ptr(), t2.data_ptr(), nv.data_ptr(), y.data_ptr(), B, V, C,
+        Fd, eps, _cuda.stream(x))
     post_attention_block.launches += 1
     _cuda.check(code, name)
     return y
@@ -231,14 +245,16 @@ def post_attention_block_backward(x, attn, wo, bo, s1, t1, w1, b1, w2, b2,
         return post_attention_block_backward_plain(
             x, attn, wo, bo, s1, t1, w1, b1, w2, b2, s2, t2, nv, dy, eps)
     name = "post_attention_block_backward"
-    _check_block(name, x, attn, (dy,))
+    C, Fd = _check_block(name, x, attn, w1, (dy,))
     mats, lns, nv = _kernel_params(name, x, nv, wo, bo, s1, t1, w1, b1, w2,
                                    b2, s2, t2)
     _cuda.require_cuda(name, x, attn, dy)
     wo, bo, w1, b1, w2, b2 = mats
     s1, t1, s2, t2 = lns
-    B, V, C = x.shape
-    n = sum(torch.Size(s).numel() for s in GRAD_SHAPES.values())
+    B, V, _ = x.shape
+    shapes = grad_shapes(C, Fd)
+    n = sum(torch.Size(s).numel() for s in shapes.values())
+    n_weights = weight_floats(C, Fd)
     grads = torch.empty(n, dtype=torch.float32, device=x.device)
     dx, dattn = torch.empty_like(x), torch.empty_like(x)
     empty = lambda *shape, dtype=torch.float32: torch.empty(
@@ -248,13 +264,13 @@ def post_attention_block_backward(x, attn, wo, bo, s1, t1, w1, b1, w2, b2,
         # the tensor cores' two passes: per tile (dx, dattn, the bf16
         # workspace rows and the vector gradients), then the weight
         # gradients split over token chunks
-        blocks = _cuda.persistent_blocks(x, BWD_TILE_BLOCKS_PER_SM,
-                                         B * -(-V // BWD_TILE))
-        widths = (C, KERNEL_F, KERNEL_F, C)
+        blocks = _cuda.persistent_blocks(x, BWD_BLOCKS_PER_SM,
+                                         B * -(-V // MIN_TILE))
+        widths = (C, Fd, Fd, C)
         xm, da1, h, dz2 = empty(B * V * sum(widths), dtype=x.dtype).split(
             [B * V * k for k in widths])      # [B * V, k] rows each
-        vpartial = empty(blocks, n - WEIGHT_FLOATS)
-        partial = empty(-(-B * V // WGRAD_CHUNK), WEIGHT_FLOATS)
+        vpartial = empty(blocks, n - n_weights)
+        partial = empty(-(-B * V // WGRAD_CHUNK), n_weights)
         code = lib.geomae_post_attention_block_bwd_bf16(
             x.data_ptr(), attn.data_ptr(), dy.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), s1.data_ptr(), t1.data_ptr(), w1.data_ptr(),
@@ -262,11 +278,11 @@ def post_attention_block_backward(x, attn, wo, bo, s1, t1, w1, b1, w2, b2,
             t2.data_ptr(), nv.data_ptr(), dx.data_ptr(), dattn.data_ptr(),
             xm.data_ptr(), da1.data_ptr(), h.data_ptr(), dz2.data_ptr(),
             vpartial.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), B, V, eps, blocks, _cuda.stream(x))
+            grads.data_ptr(), B, V, C, Fd, eps, blocks, _cuda.stream(x))
     else:
         woT, w1T, w2T = (w.t().contiguous() for w in (wo, w1, w2))
         blocks = _cuda.persistent_blocks(x, BWD_BLOCKS_PER_SM,
-                                         B * -(-V // 32))
+                                         B * -(-V // MIN_TILE))
         partial = torch.zeros((blocks, n), dtype=torch.float32,
                               device=x.device)
         code = lib.geomae_post_attention_block_bwd(
@@ -276,12 +292,12 @@ def post_attention_block_backward(x, attn, wo, bo, s1, t1, w1, b1, w2, b2,
             b2.data_ptr(), s2.data_ptr(), t2.data_ptr(), woT.data_ptr(),
             w1T.data_ptr(), w2T.data_ptr(), nv.data_ptr(), dx.data_ptr(),
             dattn.data_ptr(), partial.data_ptr(), grads.data_ptr(), B, V,
-            eps, blocks, _cuda.stream(x))
+            C, Fd, eps, blocks, _cuda.stream(x))
     post_attention_block_backward.launches += 1
     _cuda.check(code, name)
-    parts = dict(zip(GRAD_SHAPES, grads.split(
-        [torch.Size(s).numel() for s in GRAD_SHAPES.values()])))
-    return (dx, dattn, *[parts[k].view(GRAD_SHAPES[k]) for k in PARAMS])
+    parts = dict(zip(shapes, grads.split(
+        [torch.Size(s).numel() for s in shapes.values()])))
+    return (dx, dattn, *[parts[k].view(shapes[k]) for k in PARAMS])
 
 
 post_attention_block_backward.launches = 0
@@ -291,32 +307,34 @@ def weight_grads(attn, dx, xm, da1, h, dz2, nv):
     """The bf16 backward's weight-gradient pass alone (it runs inside
     ``post_attention_block_backward``): (dWo, dW1, dW2) in f32 from bf16
     token rows [B, V, k] or [B * V, k]; nv int32 [B] with ``attn`` [B, V,
-    128] fixing B and V."""
+    C] fixing B, V and C and ``da1`` F."""
     if attn.device.type == "cpu":
         return weight_grads_plain(attn, dx, xm, da1, h, dz2, nv)
     name = "weight_grads"
     B, V, C = attn.shape
+    Fd = da1.shape[-1]
     rows = (attn, dx, xm, da1, h, dz2)
     _cuda.require_cuda(name, *rows, nv)
-    for t, k in zip(rows, (C, C, C, KERNEL_F, KERNEL_F, C)):
-        _cuda.require(t.dtype == torch.bfloat16 and t.numel() == B * V * k
-                      and C == KERNEL_C,
+    _cuda.require((C, Fd) in KERNEL_WIDTHS,
+                  f"{name}: (C, F) = {(C, Fd)} not in {KERNEL_WIDTHS}")
+    for t, k in zip(rows, (C, C, C, Fd, Fd, C)):
+        _cuda.require(t.dtype == torch.bfloat16 and t.numel() == B * V * k,
                       f"{name}: bfloat16 rows [{B * V}, {k}], got {t.dtype} "
                       f"{tuple(t.shape)}")
     _cuda.require(nv.dtype == torch.int32 and nv.shape == (B,),
                   f"{name}: nv must be int32 {(B,)}")
-    grads = torch.empty(WEIGHT_FLOATS, dtype=torch.float32, device=attn.device)
-    partial = torch.empty((-(-B * V // WGRAD_CHUNK), WEIGHT_FLOATS),
+    n = weight_floats(C, Fd)
+    grads = torch.empty(n, dtype=torch.float32, device=attn.device)
+    partial = torch.empty((-(-B * V // WGRAD_CHUNK), n),
                           dtype=torch.float32, device=attn.device)
     code = _cuda.library().geomae_post_attention_wgrad_bf16(
         *[t.data_ptr() for t in rows], nv.data_ptr(), partial.data_ptr(),
-        grads.data_ptr(), B, V, _cuda.stream(attn))
+        grads.data_ptr(), B, V, C, Fd, _cuda.stream(attn))
     weight_grads.launches += 1
     _cuda.check(code, name)
-    return tuple(g.view(GRAD_SHAPES[k]) for k, g in zip(
-        ("wo", "w1", "w2"), grads.split([KERNEL_C * KERNEL_C,
-                                         KERNEL_C * KERNEL_F,
-                                         KERNEL_F * KERNEL_C])))
+    shapes = grad_shapes(C, Fd)
+    return tuple(g.view(shapes[k]) for k, g in zip(
+        ("wo", "w1", "w2"), grads.split([C * C, C * Fd, Fd * C])))
 
 
 weight_grads.launches = 0

@@ -3,8 +3,8 @@ out: what ``chip_smoke.py`` and the kernel probes (``probe_k4``,
 ``probe_k5_backward``, ``probe_k8_backward``) share.
 
 ``cuda_ms`` times a call with CUDA events.  ``build_variants`` compiles
-one ``csrc/`` source once per variant (a list of text edits), in
-parallel, and ``time_variants`` times a set of calls on each build, every
+one ``csrc/`` source (or the sources that include one header) once per
+variant (a list of text edits), in parallel, and ``time_variants`` times a set of calls on each build, every
 build twice, in turns.  A build with a part swapped out computes garbage;
 only its time means something.
 
@@ -56,13 +56,17 @@ def card() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def build_variants(source: str, variants: dict, out: Path) -> dict:
+def build_variants(source: str, variants: dict, out: Path,
+                   units: tuple = ()) -> dict:
     """{name: loaded library} of ``csrc/<source>`` (with ``segment.cu``,
     which holds the error strings, where it is another source) built
     under ``out/<name>`` once per variant, each a list of (old, new) text
-    edits; the builds run in parallel.  Raises when an edit no longer
-    applies or nvcc fails."""
+    edits; the builds run in parallel.  ``source`` may be a header; the
+    sources in ``units`` (default: ``source``) are the ones compiled, each
+    beside the variant's copy of every header.  Raises when an edit no
+    longer applies or nvcc fails."""
     src = (_cuda.CSRC / source).read_text()
+    units = units or (source,)
     procs = {}
     for name, edits in variants.items():
         text = src
@@ -73,14 +77,14 @@ def build_variants(source: str, variants: dict, out: Path) -> dict:
             text = text.replace(old, new)
         d = out / name.replace(" ", "_")
         d.mkdir(parents=True, exist_ok=True)
+        for f in (*_cuda.CSRC.glob("*.cuh"), *(_cuda.CSRC / u for u in units)):
+            (d / f.name).write_text(f.read_text())
         (d / source).write_text(text)
-        for header in _cuda.CSRC.glob("*.cuh"):
-            (d / header.name).write_text(header.read_text())
-        errors = [] if source == "segment.cu" else [
+        errors = [] if "segment.cu" in units else [
             str(_cuda.CSRC / "segment.cu")]
         cmd = [_cuda.nvcc(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-o", str(d / "lib.so"),
-               str(d / source), *errors]
+               "-shared", "--threads", "0", "-Xcompiler", "-fPIC", "-o",
+               str(d / "lib.so"), *[str(d / u) for u in units], *errors]
         procs[name] = (d / "lib.so", subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -94,7 +98,7 @@ def build_variants(source: str, variants: dict, out: Path) -> dict:
 
 def _load(path: Path) -> ctypes.CDLL:
     """The library at ``path`` with the signatures of the entry points it
-    holds (a build of one source holds those of that source only)."""
+    holds (a build of some sources holds those of these sources only)."""
     lib = ctypes.CDLL(str(path))
     for fn, args in _cuda._SIGNATURES.items():
         if hasattr(lib, fn):
@@ -119,3 +123,10 @@ def time_variants(libs: dict, calls: dict, turns: int = 2) -> None:
                 print(f"turn {turn} {name}: " + ", ".join(times))
     finally:
         _cuda._lib = saved
+
+
+# K5's sources: the header that holds its kernels, and the translation
+# units that build it (the entry points and one per width)
+K5_HEADER = "post_attention.cuh"
+K5_UNITS = ("post_attention.cu",
+            *sorted(p.name for p in _cuda.CSRC.glob("post_attention_c*.cu")))

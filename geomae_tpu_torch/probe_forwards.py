@@ -2,8 +2,9 @@
 
     python -m geomae_tpu_torch.probe_forwards
 
-Builds ``csrc/post_attention.cu`` and ``csrc/band_attention.cu`` (each
-with ``segment.cu``, which holds the error strings) several times into
+Builds K5's sources (``csrc/post_attention.cuh`` and the translation
+units that include it) and ``csrc/band_attention.cu`` (each with
+``segment.cu``, which holds the error strings) several times into
 ``build/probe_forwards/``: as they are and with one design choice
 changed or one part removed, then times ``post_attention_block`` and
 ``band_attention_fused`` (under its statistics, as a train step calls
@@ -41,14 +42,13 @@ K5_VARIANTS = {
          "      mma_bf16_16816(acc[2 * j + 1], af, &bf[2]);",
          "      acc[2 * j][0] += __uint_as_float(af[0] ^ bf[0]);\n"
          "      acc[2 * j + 1][0] += __uint_as_float(af[1] ^ bf[2]);")],
-    "no weight loads": [("      load_chunk(p, ahead % kChunks,",
-                         "      if (false) load_chunk(p, ahead % kChunks,")],
+    "no weight loads": [("      load_chunk<C, F>(p, ahead % kChunks,",
+                         "      if (false) load_chunk<C, F>(p, ahead % "
+                         "kChunks,")],
     "no row loops": [("constexpr int kWarpRows = kTT / kTileWarps;",
                       "constexpr int kWarpRows = 0;")],
-    # the forward's row loops (4 and 6 spaces in; the backward's are 8)
+    # the row loops, the forward's and the backward's alike
     "row loops unrolled 4": [
-        ("#pragma unroll 2\n    for (int i",
-         "#pragma unroll 4\n    for (int i"),
         ("#pragma unroll 2\n      for (int i",
          "#pragma unroll 4\n      for (int i")],
     "rsqrtf": [("  rs = 1.f / sqrtf(", "  rs = rsqrtf(")],
@@ -58,16 +58,15 @@ K8_VARIANTS = {
     "serial search": [
         ("  if (warp == 0) key_range_warp(wb, V, t0, nt, s_range);",
          "  if (threadIdx.x == 0) key_range(wb, V, t0, nt, s_range);")],
-    # all 8 heads: two blocks an SM, and the lse store takes two float4s
+    # all 8 heads of 16 (128 channels): two blocks an SM, and the lse
+    # store takes one float a head
     "8 heads a block": [
-        ("constexpr int kFwdHeads = 4;", "constexpr int kFwdHeads = 8;"),
-        ("static_assert(kFwdHeads == 4,", "static_assert(kFwdHeads == 8,"),
+        ("constexpr int kFwdChannels = 64;",
+         "constexpr int kFwdChannels = 128;"),
+        ("static_assert(FwdTc<16>::kHeads == 4,",
+         "static_assert(FwdTc<16>::kHeads == 8,"),
         ("__launch_bounds__(kFwdThreads, 4)",
-         "__launch_bounds__(kFwdThreads, 2)"),
-        ("            make_float4(st[0], st[1], st[2], st[3]);",
-         "            make_float4(st[0], st[1], st[2], st[3]),\n"
-         "        *reinterpret_cast<float4*>(lse + (row0 + t0 + r) * H + 4) ="
-         "\n            make_float4(st[4], st[5], st[6], st[7]);")],
+         "__launch_bounds__(kFwdThreads, 2)")],
     "3 blocks an SM": [("__launch_bounds__(kFwdThreads, 4)",
                         "__launch_bounds__(kFwdThreads, 3)")],
     "no exps": [("ex2(fmaf(sj[", "(fmaf(sj[")],
@@ -91,7 +90,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("probe_forwards: no CUDA GPU")
     print(probe.card())
-    k5 = probe.build_variants("post_attention.cu", K5_VARIANTS, OUT / "k5")
+    k5 = probe.build_variants(probe.K5_HEADER, K5_VARIANTS, OUT / "k5",
+                              probe.K5_UNITS)
     k8 = probe.build_variants("band_attention.cu", K8_VARIANTS, OUT / "k8")
     print("K5 forward, bf16")
     probe.time_variants(k5, {

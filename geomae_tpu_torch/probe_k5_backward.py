@@ -2,9 +2,10 @@
 
     python -m geomae_tpu_torch.probe_k5_backward
 
-Builds ``csrc/post_attention.cu`` (with ``segment.cu``, which holds the
-error strings) several times into ``build/probe_k5/``: as it is, and with
-one part of the per-tile pass removed (its row-wise epilogues, its
+Builds K5's sources (``csrc/post_attention.cuh`` and the translation
+units that include it, with ``segment.cu``, which holds the error
+strings) several times into ``build/probe_k5/``: as they are, and with
+one part of the per-tile pass removed (its row-wise loops, its
 tensor-core products, its weight loads), then times
 ``post_attention_block_backward`` in bf16 on each build at the fine-tune
 step's [4, 20480] and the pretrain encoder's [4, 8192] tokens with CUDA
@@ -12,9 +13,22 @@ events (``probe.cuda_ms``: 20 calls after 3 warm-up, enqueued behind a
 device spin, every build twice, in turns).  A build with a part removed
 computes garbage; only its time means something.
 
+    python -m geomae_tpu_torch.probe_k5_backward noise
+
+compares instead, at the ``cuda`` tests' bf16 cases (``NOISE_CASES``),
+the kernel's ten parameter gradients and the plain version's (both on
+the card) with the plain version computed with f64 values and sums at
+the same bf16 rounding points (``f64_sums``, on the CPU), each as a
+share of the tests' rule (1e-3 of max(its own largest, 0.1 x the
+largest)): how far two faithful computations of the function lie apart
+where the kernel reads above the rule (ROADMAP F5).
+
 Raises without a CUDA GPU: its numbers are the card's.
 """
 from __future__ import annotations
+
+import contextlib
+import sys
 
 import torch
 
@@ -24,16 +38,16 @@ from .ops import _cuda, ffn
 OUT = _cuda.BUILD_DIR.parent / "probe_k5"
 # the edits reach the tile pass's shared device functions (chunk_product,
 # product_pass) too, so the forward built alongside computes garbage as well
-EPILOGUE = ("      product_pass<kRing, kTileChunks>(p, pass, A, lda, more, "
-            "s_w, cnt, acc);")
+EPILOGUE = "static constexpr int kWarpRows = kTT / kTileWarps;"
 MMA = ("      mma_bf16_16816(acc[2 * j], af, &bf[0]);\n"
        "      mma_bf16_16816(acc[2 * j + 1], af, &bf[2]);")
-LOAD = "      load_chunk(p, ahead % kChunks,"
+LOAD = "      load_chunk<C, F>(p, ahead % kChunks,"
 # each product's operands still loaded, so the compiler keeps the loads
 NO_MMA = ("      acc[2 * j][0] += __uint_as_float(af[0] ^ bf[0]);\n"
           "      acc[2 * j + 1][0] += __uint_as_float(af[1] ^ bf[2]);")
-NO_EPILOGUE = EPILOGUE + "\n      if (true) continue;"
-NO_LOAD = "      if (false) load_chunk(p, ahead % kChunks,"
+# the row-wise loops run no row; the products are still staged
+NO_EPILOGUE = "static constexpr int kWarpRows = 0;"
+NO_LOAD = "      if (false) load_chunk<C, F>(p, ahead % kChunks,"
 VARIANTS = {
     "as built": [],
     "no epilogues": [(EPILOGUE, NO_EPILOGUE)],
@@ -55,11 +69,71 @@ def inputs(B: int, V: int):
     return [t.cuda() for t in (x, attn, *ws, nv, dy)]
 
 
+# ((C, F), B, V, nv) of tests/test_torch_port_cuda.py's bf16 backward
+# cases: the three that read above the rule at the wide FFNs (PR 15) and
+# two that pass
+NOISE_CASES = [((128, 512), 1, 777, (500,)), ((256, 1024), 1, 777, (500,)),
+               ((256, 1024), 2, 1000, (613, 1000)),
+               ((128, 256), 1, 777, (500,)), ((256, 512), 1, 777, (500,))]
+
+
+def test_case(C: int, F: int, B: int, V: int, nv) -> list:
+    """The bf16 arguments of ``tests/test_torch_port_cuda.ffn_case`` (seed
+    5) with ``nv``, on the CPU."""
+    g = torch.Generator().manual_seed(5)
+    r = lambda *s, scale=0.1: torch.randn(*s, generator=g) * scale
+    x, attn = (r(B, V, C, scale=1.0).bfloat16() for _ in range(2))
+    ws = [r(C, C), r(C), 1 + r(C), r(C), r(C, F), r(F), r(F, C), r(C),
+          1 + r(C), r(C)]
+    dy = r(B, V, C, scale=1.0).bfloat16()
+    return [x, attn, *ws, torch.tensor(nv, dtype=torch.int32), dy]
+
+
+@contextlib.contextmanager
+def f64_sums():
+    """The plain versions with their f32 values and sums widened to f64
+    (``Tensor.float`` returns f64 inside), at the same rounding points to
+    the compute dtype: the function computed closer to exact."""
+    widen = torch.Tensor.float
+    torch.Tensor.float = lambda self: self.to(torch.float64)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = widen
+
+
+def shares(got, ref) -> list:
+    """Each parameter gradient's largest error against ``ref`` as a share
+    of the bf16 rule of the ``cuda`` tests (``check_grads``)."""
+    top = max(float(r.abs().max()) for r in ref[2:])
+    return [round(float((g.cpu().double() - r.cpu().double()).abs().max())
+                  / (1e-3 * max(float(r.abs().max()), 0.1 * top)), 3)
+            for g, r in zip(got[2:], ref[2:])]
+
+
+def noise() -> None:
+    print("shares of the rule, (wo, bo, s1, t1, w1, b1, w2, b2, s2, t2):")
+    for (C, F), B, V, nv in NOISE_CASES:
+        args = test_case(C, F, B, V, nv)
+        with f64_sums():
+            exact = ffn.post_attention_block_backward_plain(*args)
+        on_card = [t.cuda() for t in args]
+        kernel = ffn.post_attention_block_backward(*on_card)
+        plain = ffn.post_attention_block_backward_plain(*on_card)
+        print(f"  (C, F) {(C, F)}, B {B}, V {V}, nv {nv}: kernel against "
+              f"the plain {shares(kernel, plain)}; against f64 sums: kernel "
+              f"{shares(kernel, exact)}, plain {shares(plain, exact)}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("probe_k5_backward: no CUDA GPU")
     print(probe.card())
-    libs = probe.build_variants("post_attention.cu", VARIANTS, OUT)
+    if sys.argv[1:] == ["noise"]:
+        noise()
+        return
+    libs = probe.build_variants(probe.K5_HEADER, VARIANTS, OUT,
+                                probe.K5_UNITS)
     bwd = ffn.post_attention_block_backward
     probe.time_variants(libs, {
         f"{B}x{V}": (lambda a=inputs(B, V): bwd(*a))

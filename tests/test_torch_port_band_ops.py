@@ -340,25 +340,30 @@ B, V, C = 2, 384, 128
 ROUTES = [(a, f) for a in ("qkv", "band", "einsum") for f in ("fused", "xla")]
 
 
-def sst_cfgs(attention_impl="einsum", ffn_impl="xla"):
-    kw = dict(d_model=C, nhead=8, dim_feedforward=256,
+SHIPPED = (C, 8, 256)     # (d_model, nhead, dim_feedforward)
+
+
+def sst_cfgs(attention_impl="einsum", ffn_impl="xla", width=SHIPPED):
+    d_model, nhead, dim_feedforward = width
+    kw = dict(d_model=d_model, nhead=nhead, dim_feedforward=dim_feedforward,
               attention_impl=attention_impl, ffn_impl=ffn_impl)
     return JaxSSTConfig(**kw), SSTConfig(**kw)
 
 
-@pytest.fixture(scope="module")
-def stack():
+def stack_case(width=SHIPPED, V=V, grads=True):
     """Tokens on a 40 x 40 corner of the grid (12 x 12 windows of up to
-    about 40 tokens), the JAX stack's output and parameter gradients on
-    its einsum / xla route, and the same weights in the port's names."""
+    about 40 tokens), the JAX stack's output (and with ``grads`` its
+    parameter gradients) on its einsum / xla route, and the same weights
+    in the port's names, at ``width``."""
     rng = np.random.default_rng(5)
-    jc, _ = sst_cfgs()
+    jc, _ = sst_cfgs(width=width)
+    Cw = width[0]
     cells = np.stack([rng.choice(1600, V, replace=False) for _ in range(B)])
     coords = np.stack([np.zeros_like(cells), cells // 40, cells % 40],
                       -1).astype(np.int32)
     valid = np.arange(V)[None] < np.array([[V - 37], [V - 90]])
-    x = rng.normal(0, 0.5, (B, V, C)).astype(np.float32)
-    w = (rng.normal(size=(B, V, C)) * valid[..., None]).astype(np.float32)
+    x = rng.normal(0, 0.5, (B, V, Cw)).astype(np.float32)
+    w = (rng.normal(size=(B, V, Cw)) * valid[..., None]).astype(np.float32)
     shift = jax_shift_data(
         jwin.make_layouts(jnp.asarray(coords), jnp.asarray(valid), jc,
                           JaxVoxelConfig()),
@@ -369,17 +374,25 @@ def stack():
     params = jax.tree_util.tree_map_with_path(
         lambda p, a: a if p[-1].key == "kernel" else
         a + rng.normal(0, 0.1, a.shape).astype(np.float32), params)
+    strip = lambda sd: {k[len("backbone.encoder_blocks."):]: v
+                        for k, v in sd.items()}
+    case = dict(coords=coords, valid=valid, x=x, w=w, params=params,
+                width=width, sd=strip(from_flax({"encoder": params}, {})))
+    if not grads:
+        return case
 
     def loss(p):
         out = net.apply({"params": p}, jnp.asarray(x), shift)
         return jnp.sum(out * w), out
 
     (_, out), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
-    strip = lambda sd: {k[len("backbone.encoder_blocks."):]: v
-                        for k, v in sd.items()}
-    return dict(coords=coords, valid=valid, x=x, w=w, out=np.asarray(out),
-                params=params, sd=strip(from_flax({"encoder": params}, {})),
+    return dict(case, out=np.asarray(out),
                 grads=strip(from_flax({"encoder": grads}, {})))
+
+
+@pytest.fixture(scope="module")
+def stack():
+    return stack_case()
 
 
 @pytest.mark.parametrize("attention_impl,ffn_impl", ROUTES)
@@ -411,15 +424,24 @@ def test_band_route_matches_the_jax_pallas_routes(stack):
     """The port's band / fused block against the JAX stack on its own
     band / fused route, the Pallas kernels in interpret mode: 1e-4 on
     valid rows."""
-    jc, tc = sst_cfgs("band", "fused")
+    check_band_route_against_pallas(stack)
+
+
+def check_band_route_against_pallas(stack):
+    """``stack_case``'s block on the port's band / fused route against the
+    JAX stack on its band / fused route in interpret mode, at 1e-4 on the
+    valid rows; the port's routes resolve to its kernels' (K8, K5)."""
+    jc, tc = sst_cfgs("band", "fused", stack["width"])
     shift = jax_shift_data(
         jwin.make_layouts(jnp.asarray(stack["coords"]),
                           jnp.asarray(stack["valid"]), jc, JaxVoxelConfig()),
         None, jnp.asarray(stack["valid"]), jc, JaxVoxelConfig())
     with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(JaxSST(jc, 1, jnp.float32).apply(
+        want = np.asarray(jax.jit(JaxSST(jc, 1, jnp.float32).apply)(
             {"params": stack["params"]}, jnp.asarray(stack["x"]), shift))
     model = SSTStack(tc, 1)
+    layer = model[0].encoder_list[0]
+    assert (layer.win_attn.route, layer.fused) == ("band", True)
     model.load_state_dict(stack["sd"], strict=True)
     tv = t(stack["valid"])
     tshift = prepare_shift_data(

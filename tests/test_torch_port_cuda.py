@@ -50,7 +50,11 @@ output and the statistics at K6's bound, the backward's dq, dk, dv at the
 per-row rule of the other backward cotangents (it has no parameter
 gradients), at four layouts: one sample, a batch, the encoder's, and
 windows of 1 to 300 tokens with one that has no valid key.  Its
-prologue (D = rowsum(dO * out)) sums 16 exact products in another order.
+prologue (D = rowsum(dO * out)) sums D exact products in another order.
+K8 and K5 run at every width of their kernels: K8 in ``HEADS`` (C of 128
+or 256 in heads of 16, 32 or 64), K5 in ``ffn.KERNEL_WIDTHS``; K8's bf16
+backward also under F3's key-bias rule: the column sums of its dk, an
+exact 0 (``probe_qkv.dbk_bound``).
 K4 also on spans with no key, a full span and an all-sentinel sample.
 """
 import numpy as np
@@ -64,6 +68,11 @@ from geomae_tpu_torch.ops import (attention, attention_qkv, ffn, segment,
 INT_MAX = 2 ** 31 - 1
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 DTYPES = [torch.float32, torch.bfloat16]
+# K8's widths, (heads, head width): C = 128 and 256 in heads of 16, 32, 64
+HEADS = [(C // D, D) for C in attention.KERNEL_CHANNELS
+         for D in attention.KERNEL_HEAD_DIMS]
+HEAD_IDS = [f"{h}x{d}" for h, d in HEADS]
+FFN_IDS = [f"{c}-{f}" for c, f in ffn.KERNEL_WIDTHS]
 
 pytestmark = pytest.mark.cuda
 
@@ -219,8 +228,9 @@ def test_band_attention_qkv(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_post_attention_block(dev, dtype):
-    B, V, C, F = 2, 1000, ffn.KERNEL_C, ffn.KERNEL_F
+@pytest.mark.parametrize("C,F", ffn.KERNEL_WIDTHS, ids=FFN_IDS)
+def test_post_attention_block(dev, dtype, C, F):
+    B, V = 2, 1000
     g = torch.Generator().manual_seed(1)
     r = lambda *s, scale=0.1: torch.randn(*s, generator=g) * scale
     x, attn = r(B, V, C, scale=1.0).to(dtype), r(B, V, C, scale=1.0).to(dtype)
@@ -315,8 +325,7 @@ def test_segment_gradients(dev, dtype, which, op, C):
           0 if exact else (1e-5 if dtype == torch.float32 else 2 ** -7))
 
 
-def ffn_case(dtype, dev, B=2, V=1000):
-    C, F = ffn.KERNEL_C, ffn.KERNEL_F
+def ffn_case(dtype, dev, B=2, V=1000, C=ffn.KERNEL_C, F=ffn.KERNEL_F):
     g = torch.Generator().manual_seed(5)
     r = lambda *s, scale=0.1: torch.randn(*s, generator=g) * scale
     x, attn = r(B, V, C, scale=1.0).to(dtype), r(B, V, C, scale=1.0).to(dtype)
@@ -328,8 +337,9 @@ def ffn_case(dtype, dev, B=2, V=1000):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_post_attention_block_backward(dev, dtype):
-    args = ffn_case(dtype, dev)
+@pytest.mark.parametrize("C,F", ffn.KERNEL_WIDTHS, ids=FFN_IDS)
+def test_post_attention_block_backward(dev, dtype, C, F):
+    args = ffn_case(dtype, dev, C=C, F=F)
     before = ffn.post_attention_block_backward.launches
     got = ffn.post_attention_block_backward(*args)
     assert ffn.post_attention_block_backward.launches == before + 1
@@ -341,12 +351,13 @@ def test_post_attention_block_backward(dev, dtype):
 @pytest.mark.parametrize("B,V,nv", [(1, 1000, (1000,)), (1, 777, (500,)),
                                     (4, 1000, (613, 0, 1000, 64)),
                                     (4, 8192, (8192, 2500, 8192, 7001))])
-def test_post_attention_block_bf16(dev, B, V, nv):
+@pytest.mark.parametrize("C,F", ffn.KERNEL_WIDTHS, ids=FFN_IDS)
+def test_post_attention_block_bf16(dev, B, V, nv, C, F):
     """The bf16 forward on the tensor cores against the plain version, per
-    row: nv < V, nv = 0 for a sample, V not a multiple of the 64-token
-    tile, B = 1 and 4; one launch a call; rows past nv exactly 0; two
-    launches bitwise equal (no atomics)."""
-    args = ffn_case(torch.bfloat16, dev, B=B, V=V)[:13]
+    row: nv < V, nv = 0 for a sample, V not a multiple of the token tile
+    (64, 32 or 16 by width), B = 1 and 4; one launch a call; rows past nv
+    exactly 0; two launches bitwise equal (no atomics)."""
+    args = ffn_case(torch.bfloat16, dev, B=B, V=V, C=C, F=F)[:13]
     args[12] = torch.tensor(nv, dtype=torch.int32, device=dev)
     before = ffn.post_attention_block.launches
     got = ffn.post_attention_block(*args)
@@ -359,12 +370,11 @@ def test_post_attention_block_bf16(dev, B, V, nv):
     assert torch.equal(got, ffn.post_attention_block(*args))
 
 
-def wgrad_rows(dev, B, V, nv, seed=7):
+def wgrad_rows(dev, B, V, nv, seed=7, C=ffn.KERNEL_C, F=ffn.KERNEL_F):
     """bf16 token rows of the weight-gradient pass, [B, V, k] each; the
     attn rows past ``nv`` hold NaN (the pass must skip them, not rely on
     zero cotangents)."""
     g = torch.Generator().manual_seed(seed)
-    C, F = ffn.KERNEL_C, ffn.KERNEL_F
     rows = [torch.randn(B, V, k, generator=g).to(torch.bfloat16)
             for k in (C, C, C, F, F, C)]
     nv = torch.tensor(nv, dtype=torch.int32)
@@ -375,12 +385,13 @@ def wgrad_rows(dev, B, V, nv, seed=7):
 
 @pytest.mark.parametrize("B,V,nv", [(4, 20480, (20480, 19000, 20480, 20480)),
                                     (4, 8192, (8192, 8192, 3001, 8192))])
-def test_weight_grads_alone(dev, B, V, nv):
+@pytest.mark.parametrize("C,F", ffn.KERNEL_WIDTHS, ids=FFN_IDS)
+def test_weight_grads_alone(dev, B, V, nv, C, F):
     """The bf16 backward's weight-gradient pass (split-K over token
     chunks, mma.sync) against f32 products of the real rows, at the
     decoder and encoder shapes: 1e-4 of each gradient's largest value (the
     same f32 sums in another order)."""
-    rows, nv_t = wgrad_rows(dev, B, V, nv)
+    rows, nv_t = wgrad_rows(dev, B, V, nv, C=C, F=F)
     keep = (torch.arange(V, device=dev)[None, :] < nv_t[:, None])[..., None]
     flat = lambda t: torch.where(keep, t.float(), 0.0).reshape(-1, t.shape[-1])
     attn, dx, xm, da1, h, dz2 = rows
@@ -396,11 +407,12 @@ def test_weight_grads_alone(dev, B, V, nv):
 @pytest.mark.parametrize("B,V,nv", [(1, 1000, (1000,)), (1, 777, (500,)),
                                     (4, 1000, (613, 0, 1000, 64)),
                                     (4, 8192, (8192, 2500, 8192, 7001))])
-def test_post_attention_block_backward_bf16(dev, B, V, nv):
+@pytest.mark.parametrize("C,F", ffn.KERNEL_WIDTHS, ids=FFN_IDS)
+def test_post_attention_block_backward_bf16(dev, B, V, nv, C, F):
     """The bf16 backward on the tensor cores against the plain backward:
-    nv < V, nv = 0 for a sample, V not a multiple of the 64-token tile, B
+    nv < V, nv = 0 for a sample, V not a multiple of the token tile, B
     = 1 and 4; rows past nv are 0 in dx and dattn."""
-    args = ffn_case(torch.bfloat16, dev, B=B, V=V)
+    args = ffn_case(torch.bfloat16, dev, B=B, V=V, C=C, F=F)
     args[12] = torch.tensor(nv, dtype=torch.int32, device=dev)
     got = ffn.post_attention_block_backward(*args)
     check_grads(got, ffn.post_attention_block_backward_plain(*args),
@@ -409,10 +421,11 @@ def test_post_attention_block_backward_bf16(dev, B, V, nv):
     assert (got[0][past] == 0).all() and (got[1][past] == 0).all()
 
 
-def test_post_attention_block_backward_is_deterministic(dev):
+@pytest.mark.parametrize("C,F", ffn.KERNEL_WIDTHS, ids=FFN_IDS)
+def test_post_attention_block_backward_is_deterministic(dev, C, F):
     """Two bf16 calls on the same inputs give bitwise equal dx, dattn and
     ten gradients (no atomics; partials summed in a fixed order)."""
-    args = ffn_case(torch.bfloat16, dev, B=4, V=4000)
+    args = ffn_case(torch.bfloat16, dev, B=4, V=4000, C=C, F=F)
     args[12] = torch.tensor([4000, 1234, 0, 3999], dtype=torch.int32,
                             device=dev)
     a = ffn.post_attention_block_backward(*args)
@@ -852,11 +865,12 @@ def test_target_wrappers_refuse_what_the_kernels_do_not_take(dev):
         targets.expand_rows(vals.bfloat16(), ids, 10)
 
 
-def band_case(dtype, dev, win, kv, seed=10):
-    """q, k, v and a cotangent [B, V, 8, 16] from a seed, on ``dev``."""
+def band_case(dtype, dev, win, kv, seed=10, heads=HEADS[0]):
+    """q, k, v and a cotangent [B, V, H, D] from a seed, on ``dev``; the
+    shipped 8 heads of 16 unless ``heads`` = (H, D) says otherwise."""
     B, V = win.shape
     g = torch.Generator().manual_seed(seed)
-    shape = (B, V, attention.KERNEL_HEADS, attention.KERNEL_HEAD_DIM)
+    shape = (B, V, *heads)
     q, k, v, d = (torch.randn(shape, generator=g).to(dtype).to(dev)
                   for _ in range(4))
     return q, k, v, win.to(dev), kv.to(dev), d
@@ -899,10 +913,12 @@ def band_layout(which, dev):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("which", ["one", "batch", "encoder", "sizes"])
-def test_band_attention_fused(dev, dtype, which):
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
+def test_band_attention_fused(dev, dtype, which, heads):
     """K8 forward: output and statistics against the plain versions; the
     output without statistics is the same; padding rows are 0."""
-    q, k, v, win, kv, _ = band_case(dtype, dev, *band_layout(which, dev))
+    q, k, v, win, kv, _ = band_case(dtype, dev, *band_layout(which, dev),
+                                    heads=heads)
     before = attention.band_attention_fused.launches
     out, lse = attention._forward(q, k, v, win, kv, stats=True)
     assert attention.band_attention_fused.launches == before + 1
@@ -916,13 +932,17 @@ def test_band_attention_fused(dev, dtype, which):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("which", ["one", "batch", "encoder", "sizes"])
-def test_band_attention_fused_backward(dev, dtype, which):
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
+def test_band_attention_fused_backward(dev, dtype, which, heads):
     """K8 backward from the forward kernel's statistics against the plain
     backward (which recomputes its softmax), per row; one prologue and
     one backward launch; zero on padding rows (and dq on the rows of a
     window without a valid key); two launches bitwise equal (no
-    atomics)."""
-    q, k, v, win, kv, d = band_case(dtype, dev, *band_layout(which, dev))
+    atomics).  In bf16 the column sums of dk, an exact 0 (sum_j ds_ij =
+    0 for every query i), within F3's key-bias bound
+    (``probe_qkv.dbk_bound`` of the f32 dk), as K7's dbk is held."""
+    q, k, v, win, kv, d = band_case(dtype, dev, *band_layout(which, dev),
+                                    heads=heads)
     out, lse = attention._forward(q, k, v, win, kv, stats=True)
     f, p = attention.band_attention_fused_backward, \
         attention.band_attention_delta
@@ -938,10 +958,18 @@ def test_band_attention_fused_backward(dev, dtype, which):
         assert (got[0][sized_windows()[2].to(dev)] == 0).all()
     again = f(q, k, v, win, kv, out, lse, d)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if dtype == torch.bfloat16:
+        f32 = [t.float() for t in (q, k, v)]
+        dk32 = attention.band_attention_backward_plain(
+            *f32, win, kv, out.float(), d.float())[1]
+        bound = probe_qkv.dbk_bound(dk32.flatten(2))
+        dbk = got[1].float().flatten(2).sum((0, 1))
+        assert (dbk.abs() <= bound).all(), float((dbk.abs() / bound).max())
 
 
 @pytest.mark.parametrize("V", [768, 700])
-def test_band_attention_fused_bf16_against_its_tiles(dev, V):
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
+def test_band_attention_fused_bf16_against_its_tiles(dev, V, heads):
     """The bf16 forward on the tensor cores against its plain twin
     (``band_attention_tiles_plain``: the kernel's tiles, chunks and online
     softmax), on windows of 1 to 300 tokens with one that has no valid
@@ -951,7 +979,8 @@ def test_band_attention_fused_bf16_against_its_tiles(dev, V):
     the keyless window's rows 0 with lse 0; two launches bitwise equal
     (no atomics)."""
     win, kv, keyless = sized_windows(V)
-    q, k, v, win, kv, _ = band_case(torch.bfloat16, dev, win, kv)
+    q, k, v, win, kv, _ = band_case(torch.bfloat16, dev, win, kv,
+                                    heads=heads)
     before = attention.band_attention_fused.launches
     out, lse = attention._forward(q, k, v, win, kv, stats=True)
     assert attention.band_attention_fused.launches == before + 1
@@ -965,11 +994,13 @@ def test_band_attention_fused_bf16_against_its_tiles(dev, V):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_band_attention_delta(dev, dtype):
-    """The backward's prologue against its plain twin: 16 products, exact
-    in f32, added in another order (at most 15 x 2^-24 x sum |terms|); 0
-    on padding rows."""
-    q, k, v, win, kv, d = band_case(dtype, dev, *band_layout("batch", dev))
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
+def test_band_attention_delta(dev, dtype, heads):
+    """The backward's prologue against its plain twin: D products, exact
+    in f32, added in another order (at most (D - 1) x 2^-24 x sum
+    |terms|); 0 on padding rows."""
+    q, k, v, win, kv, d = band_case(dtype, dev, *band_layout("batch", dev),
+                                    heads=heads)
     out = attention.band_attention_fused(q, k, v, win, kv)
     before = attention.band_attention_delta.launches
     got = attention.band_attention_delta(out, d, win)
@@ -977,7 +1008,7 @@ def test_band_attention_delta(dev, dtype):
     want = attention.band_attention_delta_plain(out, d, win)
     assert got.dtype == torch.float32 and got.shape == want.shape
     mag = attention.band_attention_delta_plain(out.abs(), d.abs(), win)
-    assert ((got - want).abs() <= 15 * 2.0 ** -24 * mag).all()
+    assert ((got - want).abs() <= (heads[1] - 1) * 2.0 ** -24 * mag).all()
     assert (got[win == INT_MAX] == 0).all()
 
 
@@ -1000,10 +1031,11 @@ def test_band_attention_fused_autograd_and_refusals(dev):
         before = counts()
         f(q, k, v, win, kv)
         assert [c - a for c, a in zip(counts(), before)] == [1, 0, 0]
-    bad = torch.randn(1, 64, 4, 8, device=dev)
     w64, kv64 = win[:, :64].contiguous(), kv[:, :64].contiguous()
-    with pytest.raises(ValueError):       # 4 heads of 8
-        f(bad, bad, bad, w64, kv64)
+    for heads in ((4, 8), (2, 128), (6, 64)):   # D 8, D 128, C 384
+        bad = torch.randn(1, 64, *heads, device=dev)
+        with pytest.raises(ValueError):
+            f(bad, bad, bad, w64, kv64)
     half = torch.randn(1, 64, 8, 16, device=dev).half()
     with pytest.raises(ValueError):       # float16
         f(half, half, half, w64, kv64)

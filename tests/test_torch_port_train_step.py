@@ -31,11 +31,10 @@ from test_torch_port_weights import randomized_state
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(scope="module")
-def step():
+def jax_and_port_step(cfg):
     """One compiled JAX step (losses, gradients, new batch statistics and
-    parameters) and the port's step from the same state and batch."""
-    cfg = tiny_finetune_config()
+    parameters) and the port's step from the same state and batch, at the
+    JAX config ``cfg`` (the port's modules read it too)."""
     params, stats = randomized_state(cfg)
     batch = JFT.dummy_batch(cfg, 2, seed=5)
     net = JaxNet(cfg)
@@ -81,7 +80,12 @@ def step():
         lr=state.tx.lr(0), model=model)
 
 
-def test_losses_match_jax(step):
+@pytest.fixture(scope="module")
+def step():
+    return jax_and_port_step(tiny_finetune_config())
+
+
+def check_losses(step):
     """Tolerance 1e-5 relative: f32 focal, smooth-L1 and direction sums
     over 22,400 anchors in another order."""
     for k, v in step.port_losses.items():
@@ -89,7 +93,7 @@ def test_losses_match_jax(step):
                                    err_msg=k)
 
 
-def test_every_gradient_matches_jax(step):
+def check_gradients(step):
     """Each parameter's gradient at 1e-4 relative norm error: f32 sums in
     other orders through the VFE, 4 SST layers and 11 convolutions, both
     directions (measured 2e-5 at most)."""
@@ -97,6 +101,14 @@ def test_every_gradient_matches_jax(step):
     for k, g in step.grads.items():
         err = float((step.port_grads[k] - g).norm() / g.norm())
         assert err <= 1e-4, (k, err)
+
+
+def test_losses_match_jax(step):
+    check_losses(step)
+
+
+def test_every_gradient_matches_jax(step):
+    check_gradients(step)
 
 
 def test_parameters_after_one_step_match_jax(step):

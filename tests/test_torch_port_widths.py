@@ -1,0 +1,293 @@
+"""The SST kernels' plain versions at every width the kernels take, and
+the wide detector, against the JAX package on the CPU.
+
+K8 (``ops/attention.py``) at (H, D) = (8, 32), (4, 32) and (2, 64): the
+plain forward, its statistics and the plain backward against
+``band_attention_pallas`` and its backward in interpret mode; K5
+(``ops/ffn.py``) at (C, F) = (256, 512) and (128, 512): the plain forward
+and backward against ``post_attention_block`` in interpret mode, V = 128.
+f32 at the shipped width's rules (K8: 2e-5 + 2e-4 relative, the
+statistics 1e-5; K5: 1e-5, its gradients 1e-5 of each one's largest
+value); bf16 at 2e-2 + 2e-2 relative, atol times each row's max(1,
+largest |ref|) (both round at the same points; f32 sums in another order
+may move a rounding to the other side).  One SST block at C = 256 in 8
+heads of 32 on the band / fused route against the JAX stack's Pallas
+routes in interpret mode; the route table at every width of the set and
+at C = 384, beside JAX's own decision; and F4: the tiny fine-tune step
+at width 256 (``vfe.feat_channels=16,256 sst.d_model=256 sst.nhead=8
+sst.dim_feedforward=512``), where SECOND takes the SST's width, against
+the JAX step from ``from_flax`` of the JAX init."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from geomae_tpu.config import SSTConfig as JaxSSTConfig
+from geomae_tpu.config import apply_overrides as jax_overrides
+from geomae_tpu.config import tiny_finetune_config
+from geomae_tpu.models import sst as jax_sst
+from geomae_tpu.ops.pallas_attention import _pallas_backward as jax_band_bwd
+from geomae_tpu.ops.pallas_attention import _pallas_forward as jax_band_fwd
+from geomae_tpu.ops.pallas_ffn import _backward as jax_ffn_bwd
+from geomae_tpu.ops.pallas_ffn import post_attention_block as jax_block
+from geomae_tpu_torch.config import SSTConfig
+from geomae_tpu_torch.models.detector import DynamicVoxelNet
+from geomae_tpu_torch.models.sst import SSTStack
+from geomae_tpu_torch.ops import attention, ffn
+from test_pallas_ffn import ORDER, make_case as ffn_case
+from test_torch_port_band_ops import (check_band_route_against_pallas,
+                                      make_case, stack_case)
+from test_torch_port_train_step import (check_gradients, check_losses,
+                                        jax_and_port_step)
+
+INT_MAX = np.iinfo(np.int32).max
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+K8_HEADS = [(8, 32), (4, 32), (2, 64)]
+K5_WIDTHS = [(256, 512), (128, 512)]
+WIDE = ["vfe.feat_channels=16,256", "sst.d_model=256", "sst.nhead=8",
+        "sst.dim_feedforward=512"]
+TILE = 64
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's CPU ops, as the tier-1 run puts
+    six test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def to_torch(a, dtype=torch.float32):
+    """A JAX or numpy array as a torch tensor of ``dtype`` (bf16 values
+    carried exactly through f32)."""
+    return torch.from_numpy(np.array(jnp.asarray(a).astype(jnp.float32))
+                            ).to(dtype)
+
+
+def assert_rows_close(got, want, dtype, atol=2e-5, rtol=2e-4):
+    """f32 at (atol, rtol); bf16 at 2e-2 + 2e-2 relative with atol times
+    each row's max(1, largest |want|) (the last axis a row)."""
+    g, w = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert np.isfinite(g).all()
+    if dtype == "f32":
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
+        return
+    bound = 2e-2 * np.maximum(np.abs(w).max(-1, keepdims=True), 1) \
+        + 2e-2 * np.abs(w)
+    assert (np.abs(g - w) <= bound).all(), float((np.abs(g - w) / bound).max())
+
+
+@functools.lru_cache(maxsize=None)
+def k8_case(H, D, dtype):
+    """One sample of 128 window-sorted tokens at (H, D) with a window
+    whose keys are all invalid, a cotangent zero on the padding rows, and
+    the interpret-mode kernel's forward (out, statistics) and backward
+    (dq, dk, dv) on them: (torch inputs, JAX outputs); each width's JAX
+    results once for the file."""
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, win, kv = make_case(np.random.default_rng(20 + D + H), B=1,
+                                 V=128, H=H, D=D)
+    kv[0, win[0] == win[0, 0]] = False          # a window without a key
+    real = (win != INT_MAX)[..., None, None]
+    g = (np.random.default_rng(2).normal(size=q.shape) * real).astype(
+        np.float32)
+    jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in (q, k, v, g))
+    jw, jkv = jnp.asarray(win), jnp.asarray(kv)
+    out, stats = jax.jit(jax_band_fwd, static_argnums=(5, 6, 7))(
+        jq, jk, jv, jw, jkv, TILE, 128, True)
+    grads = jax.jit(jax_band_bwd, static_argnums=(8, 9, 10))(
+        jq, jk, jv, jw, jkv, out, stats, jg, TILE, 128, True)
+    torch_in = (*(to_torch(a, tdt) for a in (jq, jk, jv)),
+                torch.from_numpy(win), torch.from_numpy(kv),
+                to_torch(jg, tdt))
+    return torch_in, (out, np.asarray(stats), grads)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,D", K8_HEADS)
+def test_k8_forward_and_statistics_at_width(H, D, dtype):
+    """The plain forward against ``_pallas_forward`` in interpret mode on
+    the real rows, padding rows 0; f32 statistics (m + log l where a row
+    sees a key) at 1e-5, 0 elsewhere."""
+    (tq, tk, tv, tw, tkv, _), (want, stats, _) = k8_case(H, D, dtype)
+    got = attention.band_attention(tq, tk, tv, tw, tkv)
+    assert got.dtype == DTYPES[dtype][1]
+    real = (tw != INT_MAX).numpy()
+    assert_rows_close(got.float().numpy()[real],
+                      np.asarray(want.astype(jnp.float32))[real], dtype)
+    assert (got.float().numpy()[~real] == 0).all()
+    if dtype == "f32":
+        m, l = stats[..., :H], stats[..., H:]
+        lse = attention.band_attention_lse_plain(tq, tk, tw, tkv).numpy()
+        seen = l > 0
+        assert seen.any() and (~seen & real[..., None]).any()
+        np.testing.assert_allclose(
+            lse[seen], (m + np.log(np.where(seen, l, 1)))[seen], rtol=0,
+            atol=1e-5)
+        assert (lse[~seen] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,D", K8_HEADS)
+def test_k8_backward_at_width(H, D, dtype):
+    """The plain backward against the interpret-mode ``_pallas_backward``
+    from the kernel's own forward, with a window whose keys are all
+    invalid; padding rows 0."""
+    (tq, tk, tv, tw, tkv, tg), (_, _, want) = k8_case(H, D, dtype)
+    out = attention.band_attention(tq, tk, tv, tw, tkv)
+    got = attention.band_attention_backward_plain(tq, tk, tv, tw, tkv, out,
+                                                  tg)
+    pad = (tw[0] == INT_MAX).numpy()
+    for a, w in zip(got, want):
+        assert a.dtype == DTYPES[dtype][1]
+        a = a.float().numpy()
+        assert_rows_close(a.reshape(*a.shape[:2], -1),
+                          np.asarray(w.astype(jnp.float32)).reshape(
+                              *a.shape[:2], -1), dtype)
+        assert pad.any() and (a[0, pad] == 0).all()
+
+
+def k5_args(C, F, dtype, seed):
+    """K5's inputs at (C, F) (``test_pallas_ffn.make_case``, V = 128, nv
+    short of V in the first sample) for both packages, and a cotangent
+    zero past nv."""
+    jdt, tdt = DTYPES[dtype]
+    x, attn, ws = ffn_case(np.random.default_rng(seed), B=2, V=128, C=C,
+                           F=F, dtype=jdt)
+    nv = np.array([70, 128], np.int32)
+    keep = np.arange(128)[None, :] < nv[:, None]
+    dy = jnp.asarray(np.random.default_rng(7).normal(size=(2, 128, C))
+                     * keep[..., None], jdt)
+    jargs = (x, attn, *[ws[k] for k in ORDER])
+    targs = (to_torch(x, tdt), to_torch(attn, tdt),
+             *[to_torch(ws[k][0]) for k in ORDER])
+    return jargs, targs, nv, keep, dy
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,F", K5_WIDTHS)
+def test_k5_forward_at_width(C, F, dtype):
+    """The plain forward against the interpret-mode kernel on the rows
+    before ``nv`` (the kernel computes the rest of ``nv``'s tile), f32 at
+    1e-5; rows past ``nv`` 0."""
+    jargs, targs, nv, keep, _ = k5_args(C, F, dtype, 40 + C + F)
+    want = np.asarray(jax_block(*jargs, jnp.asarray(nv), 1e-5, TILE, True
+                                ).astype(jnp.float32))
+    got = ffn.post_attention_block_plain(*targs, torch.from_numpy(nv))
+    assert got.dtype == DTYPES[dtype][1]
+    got = got.float().numpy()
+    assert_rows_close(got[keep], want[keep], dtype, atol=1e-5, rtol=1e-5)
+    assert (got[~keep] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,F", K5_WIDTHS)
+def test_k5_backward_at_width(C, F, dtype):
+    """The plain backward against the interpret-mode kernel's ``_backward``
+    for a cotangent zero past ``nv``: dx and dattn per row, each parameter
+    gradient, f32 at 1e-5 of its largest value; bf16 dx and dattn per row
+    at 2e-2 + 2e-2 relative, its f32 parameter gradients at 2e-2 of their
+    largest value (sums of bf16-rounded terms over 198 tokens)."""
+    jargs, targs, nv, keep, dy = k5_args(C, F, dtype, 50 + C + F)
+    want = jax.jit(jax_ffn_bwd, static_argnums=(14, 15, 16))(
+        *jargs, jnp.asarray(nv), dy, 1e-5, TILE, True)
+    got = ffn.post_attention_block_backward_plain(
+        *targs, torch.from_numpy(nv), to_torch(dy, DTYPES[dtype][1]))
+    for i, (a, w) in enumerate(zip(got, want)):
+        w = np.asarray(w.astype(jnp.float32)).reshape(a.shape)
+        a = a.float().numpy()
+        if i < 2:                      # dx, dattn: per row, 0 past nv
+            assert_rows_close(a[keep], w[keep], dtype, atol=1e-5, rtol=1e-5)
+            assert (a[~keep] == 0).all()
+            continue
+        tol = 1e-5 if dtype == "f32" else 2e-2
+        np.testing.assert_allclose(a, w, rtol=0, atol=tol * np.abs(w).max(),
+                                   err_msg=ORDER[i - 2])
+
+
+def test_sst_block_at_256_matches_the_jax_pallas_routes():
+    """One block at C = 256 in 8 heads of 32, FFN 512, V = 128, on the
+    port's band / fused route (K8, K5: their plain versions here) against
+    the JAX stack's band / fused route in interpret mode, 1e-4 on the
+    valid rows."""
+    check_band_route_against_pallas(stack_case((256, 8, 512), V=128,
+                                               grads=False))
+
+
+WIDTHS = [(C, C // D, F) for C in attention.KERNEL_CHANNELS
+          for D in attention.KERNEL_HEAD_DIMS for F in (2 * C, 4 * C)]
+
+
+def routes(sst):
+    """(attention route, ffn route) of an SST stack's first layer."""
+    layer = SSTStack(sst, 1)[0].encoder_list[0]
+    return layer.win_attn.route, "fused" if layer.fused else "xla"
+
+
+def jax_routes(jc, V=128):
+    """The JAX stack's decision for explicitly named routes: the kernel
+    routes where its gates hold (C a multiple of 128, V of 128)."""
+    C = jc.d_model
+    sel = jax_sst._select_attention(jc.attention_impl)
+    attn = "einsum" if sel is None or C % 128 or V % 128 else sel[0]
+    return attn, "fused" if jax_sst._use_fused_ffn(jc, V, C) else "xla"
+
+
+@pytest.mark.parametrize("width", WIDTHS + [(384, 6, 768)],
+                         ids=lambda w: "-".join(map(str, w)))
+def test_route_resolution_at_widths(width):
+    """At every width of the set (C of 128 or 256, D of 16, 32 or 64, F
+    of 2 C or 4 C) "band" / "fused" and "auto" resolve to the kernels, as
+    JAX resolves "band" / "fused"; "qkv" keeps K6 at 128 in 8 heads only
+    and is the plain route elsewhere, where JAX keeps its kernel.  At C =
+    384 the port takes the plain routes under every name, JAX its
+    kernels: a width the port serves on the plain routes."""
+    d_model, nhead, dim_ff = width
+    inside = (d_model, dim_ff) in ffn.KERNEL_WIDTHS
+    for impl in ("band", "qkv", "einsum", "auto"):
+        for ffn_impl in ("fused", "xla", "auto"):
+            kw = dict(d_model=d_model, nhead=nhead, dim_feedforward=dim_ff,
+                      attention_impl=impl, ffn_impl=ffn_impl)
+            want_attn = {"band": "band", "auto": "band", "einsum": "einsum",
+                         "qkv": "qkv" if (d_model, nhead) == (128, 8)
+                         else "einsum"}[impl]
+            want_ffn = "xla" if ffn_impl == "xla" else "fused"
+            if not inside:
+                want_attn, want_ffn = "einsum", "xla"
+            assert routes(SSTConfig(**kw)) == (want_attn, want_ffn), kw
+            if "auto" not in (impl, ffn_impl):   # JAX: by its backend
+                # JAX keeps the named kernel at every C a multiple of 128
+                assert jax_routes(JaxSSTConfig(**kw)) == (impl, ffn_impl)
+
+
+@pytest.fixture(scope="module")
+def wide_step():
+    return jax_and_port_step(jax_overrides(tiny_finetune_config(), WIDE))
+
+
+def test_wide_detector_loads_the_jax_init(wide_step):
+    """F4: at width 256 the port's detector takes ``from_flax`` of the JAX
+    init strictly (in ``jax_and_port_step``), SECOND's first convolution
+    reading the SST's 256 channels (flax infers them;
+    ``cfg.second.in_channels`` stays 32), on the kernels' routes."""
+    assert wide_step.cfg.second.in_channels == 32
+    model = DynamicVoxelNet(wide_step.cfg)
+    model.load_state_dict(wide_step.before, strict=True)
+    conv = model.backbone.conv_blocks[0][0]
+    assert conv.weight.shape[1] == 256
+    layer = model.backbone.encoder_blocks[0].encoder_list[0]
+    assert (layer.win_attn.route, layer.fused) == ("band", True)
+
+
+def test_wide_step_losses_match_jax(wide_step):
+    check_losses(wide_step)
+
+
+def test_wide_step_gradients_match_jax(wide_step):
+    check_gradients(wide_step)
