@@ -25,12 +25,13 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      run around K8's kernels (``qkv_project``, ``qkv_project_backward``;
      two launches bitwise equal) at all three shapes; and one
      SST block on the ``band`` route (K8) against the ``qkv`` route (K6)
-     with the same weights; then K8 (forward, backward, prologue) at
-     every width it takes (d_model 128 and 256 in heads of 16, 32 and
-     64) and K5 (forward, backward) at every (C, F) it takes, on the
-     pretrain encoder's tokens, and K1 and K2 as the wide VFE (64, 256)
-     calls them, each with its time, bound and library call (a
-     ``widths`` JSON line before the kernels line);
+     with the same weights, at the shipped width and the wide model's;
+     then K8 (forward, backward, prologue), K6 (with statistics), K7 and
+     the projections' two kernels at every width they take (d_model 128
+     and 256 in heads of 16, 32 and 64) and K5 (forward, backward) at
+     every (C, F) it takes, on the pretrain encoder's tokens, and K1 and
+     K2 as the wide VFE (64, 256) calls them, each with its time, bound
+     and library call (a ``widths`` JSON line before the kernels line);
   B. serves 3 synthetic frames through ``inference_detector`` at the full
      width of ``geomae_finetune_nus()`` in bfloat16, checks the detections
      and that each kernel launched the expected number of times per frame;
@@ -62,7 +63,9 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      median, peak memory, one profiled step's device busy and idle
      share), 2 frames of ``geomae_finetune_nus()`` served, and phase E
      on that model at small caps (one f32 fine-tune step on the card
-     against the CPU);
+     against the CPU); then the same on the ``qkv`` route (20 launches a
+     step of K6 and K7, 12 of K6 a frame), each route with no call of
+     the plain ``band_attention``;
   H. drives the trainer entry point (``python -m geomae_tpu_torch.train``,
      its ``main(argv)`` in process): first the documented ``--tiny`` run
      (pretrain 2 steps, fine-tune 2 from its checkpoint; at that width
@@ -164,6 +167,7 @@ time behind a device spin (the kernels line's) and at the host's pace
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -327,6 +331,8 @@ K8 = [("band_attention_fused", ""), ("band_attention_fused_backward", ""),
       ("band_attention_delta", "")]
 PROJECTIONS = [("qkv_project", ""), ("qkv_project_backward", "")]
 K5 = [("post_attention_block", ""), ("post_attention_block_backward", "")]
+QKV = [("band_attention_qkv", ""), ("band_attention_qkv_backward", "")] \
+    + PROJECTIONS
 # kernels without atomics, whose two launches must agree bit for bit
 DETERMINISTIC = {"band_attention_fused", "band_attention_fused_backward",
                  "band_attention_delta", "post_attention_block",
@@ -527,12 +533,33 @@ def compare(label: str, got: torch.Tensor, want: torch.Tensor, atol: float,
     return max_abs
 
 
+def dbk_rule(name: str, args):
+    """In bf16, the key bias's gradient (analytically 0) by its own
+    rule: (bound, whether it holds |dbk| of the kernel and the plain
+    version, else |their difference|).  K7's: F3's forward-error bound of
+    the sum of rounded f32 dk (``probe_qkv.dbk_bound``, from the plain
+    backward's f32 dk); the projections' backward sums the bf16 dk it is
+    given, the same terms in two orders: 2 n 2^-24 sum |dk| per channel,
+    n = B V rows."""
+    from geomae_tpu_torch import probe_qkv
+    from geomae_tpu_torch.ops import attention_qkv
+
+    if name == "band_attention_qkv_backward":
+        dk = attention_qkv.attention_grads_plain(*args[:12], args[13])[1]
+        return probe_qkv.dbk_bound(dk), True
+    dk = args[6]
+    n = dk.shape[0] * dk.shape[1]
+    return 2 * n * 2.0 ** -24 * dk.float().abs().sum((0, 1)), False
+
+
 def compare_grads(label: str, name: str, got, want, dtype, tol,
-                  failures: list) -> float:
+                  failures: list, args=None) -> float:
     """A backward kernel's outputs (BACKWARD_OUTPUTS): the cotangents at
     ``tol`` with atol scaled per row, each parameter gradient against
     GRAD_TOL of max(its own largest |want|, GRAD_FLOOR x the kernel's
-    largest).  Returns the largest absolute error."""
+    largest); in bf16 the key bias of K7 and of the projections' backward
+    by ``dbk_rule`` (the share printed is the rule's).  Returns the
+    largest absolute error."""
     tokens, params = BACKWARD_OUTPUTS[name]
     n = len(tokens)
     rows = lambda t: t.flatten(2)         # [B, V, H, D] -> [B, V, C]
@@ -548,14 +575,20 @@ def compare_grads(label: str, name: str, got, want, dtype, tol,
         own = float(b.abs().max())
         err = float((a.float() - b.float()).abs().max())
         share = err / (GRAD_TOL[dtype] * max(own, GRAD_FLOOR[dtype] * top))
+        if p == "bk" and dtype == torch.bfloat16 and args is not None:
+            bound, to_zero = dbk_rule(name, args)
+            gaps = (a.abs(), b.abs()) if to_zero else ((a - b).abs(),)
+            share = max(float((t / bound).max()) for t in gaps)
         errs.append(err)
         shares.append(f"d{p} {own:.2e}: {share:.3f}")
         if not (a.dtype == torch.float32 and a.shape == b.shape
                 and bool(torch.isfinite(a).all()) and share <= 1):
             failures.append(f"{label} d{p}")
+    rule = " (dbk: dbk_rule's)" if dtype == torch.bfloat16 and "bk" in \
+        params and args is not None else ""
     print(f"  {label} parameter gradients, largest |ref| and share of the "
           f"bound {GRAD_TOL[dtype]:g} x max(own, {GRAD_FLOOR[dtype]:g} x "
-          f"{top:.3e}): {'; '.join(shares)}")
+          f"{top:.3e}){rule}: {'; '.join(shares)}")
     return max(errs)
 
 
@@ -573,7 +606,8 @@ def check(label: str, name: str, got, want, dtype, tol, failures: list,
                            *tol, failures, scale=want[..., 3:] * mag[..., :3],
                            scale_name="count x sum |terms|"))
     if name in BACKWARD_OUTPUTS:
-        return compare_grads(label, name, got, want, dtype, tol, failures)
+        return compare_grads(label, name, got, want, dtype, tol, failures,
+                             args)
     if name == "band_attention_delta":
         from geomae_tpu_torch.ops.attention import band_attention_delta_plain
         out, g, win_id = args
@@ -1488,10 +1522,11 @@ def sst_width(cfg, C: int, heads: int, Fd: int):
 
 
 def phase_widths(pcfg, failures: list) -> list:
-    """Phase A's K8 rows at every width K8 takes (C of 128 and 256 in heads
-    of 16, 32 and 64) and its K5 rows at every (C, F) K5 takes, on the
-    pretrain encoder's visible tokens at batch 4 (positions of C
-    channels); then K1 and K2 as the wide VFE (64, 256) calls them.
+    """Phase A's K8, K6, K7 and projection rows at every width they take
+    (C of 128 and 256 in heads of 16, 32 and 64) and its K5 rows at every
+    (C, F) K5 takes, on the pretrain encoder's visible tokens at batch 4
+    (positions of C channels); then K1 and K2 as the wide VFE (64, 256)
+    calls them.
     Returns one summary a row: the bf16 call's time, bound and library
     call, the largest error of both dtypes."""
     from geomae_tpu_torch.config import apply_overrides
@@ -1513,8 +1548,9 @@ def phase_widths(pcfg, failures: list) -> list:
         cfg = apply_overrides(pcfg, [f"sst.d_model={C}"])
         inputs = pretrain_inputs(cfg, dev)
         for D in attention.KERNEL_HEAD_DIMS:
-            run(sst_width(cfg, C, C // D, 2 * C), f"K8 at C {C} in heads of "
-                f"{D}", inputs, K8, f"C {C}, D {D}")
+            run(sst_width(cfg, C, C // D, 2 * C), f"K8, K6, K7 and the "
+                f"projections at C {C} in heads of {D}", inputs, K8 + QKV,
+                f"C {C}, D {D}")
         for Fd in (2 * C, 4 * C):
             run(sst_width(cfg, C, 8, Fd), f"K5 at (C, F) ({C}, {Fd})",
                 inputs, K5, f"C {C}, F {Fd}")
@@ -1532,13 +1568,28 @@ def phase_widths(pcfg, failures: list) -> list:
     return rows
 
 
-def phase_m(pcfg, cfg, failures: list) -> dict:
+@contextlib.contextmanager
+def plain_attention_calls():
+    """Counts the SST's calls of the plain ``band_attention`` (the einsum
+    route's) inside the block: yields a list that grows by one a call."""
+    from geomae_tpu_torch.models import sst
+
+    plain, calls = sst.band_attention, []
+    sst.band_attention = lambda *a, **k: calls.append(1) or plain(*a, **k)
+    try:
+        yield calls
+    finally:
+        sst.band_attention = plain
+
+
+def phase_m(pcfg, cfg, failures: list, route: str = BAND_OPTION) -> dict:
     """The wide model (``WIDE_OPTIONS``: the VFE at (64, 256), the SST at
-    d_model 256 in 8 heads of 32, FFN 512) on K8 and K5: bf16 pretrain
-    steps at batch 4 with their launches, median, peak memory and one
-    profiled step; frames of the fine-tune model served; one f32
-    fine-tune step at small caps on the card against the CPU (phase E's
-    rules).  Returns the launches of the steps and frames."""
+    d_model 256 in 8 heads of 32, FFN 512) on the attention ``route``
+    (K8, or K6 and K7) and K5: bf16 pretrain steps at batch 4 with their
+    launches, median, peak memory and one profiled step; frames of the
+    fine-tune model served; one f32 fine-tune step at small caps on the
+    card against the CPU (phase E's rules); no call of the plain
+    ``band_attention``.  Returns the launches of the steps and frames."""
     from geomae_tpu_torch.apis import inference_detector, init_model
     from geomae_tpu_torch.config import apply_overrides
     from geomae_tpu_torch.profile_serving import host_ms
@@ -1546,60 +1597,70 @@ def phase_m(pcfg, cfg, failures: list) -> dict:
     from geomae_tpu_torch.train.pretrain import (init_state, make_train_step,
                                                  synthetic_batch)
 
-    wp, wf = (apply_overrides(c, WIDE_OPTIONS) for c in (pcfg, cfg))
+    wp, wf = (apply_overrides(c, WIDE_OPTIONS + [route]) for c in (pcfg, cfg))
     bz = wp.data.batch_size
-    print(f"phase M: the wide model ({' '.join(WIDE_OPTIONS)}): {M_STEPS} "
-          f"bf16 pretrain steps at batch {bz}, {M_FRAMES} served frames, an "
-          f"f32 fine-tune step at small caps against the CPU")
-    state = init_state(wp, DEVICE, torch.Generator().manual_seed(SEED))
-    step = make_train_step(wp)
-    batches = [synthetic_batch(wp, bz, seed=SEED + 90 + i, device=DEVICE)
-               for i in range(M_STEPS)]
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    torch.cuda.reset_peak_memory_stats()
-    fns = reset_counts()
-    times = []
-    for i, batch in enumerate(batches):
-        (_, l), ms = host_ms(lambda: step(state, batch, gen))
-        times.append(ms)
-        print(f"  step {i}: {ms:.1f} ms, loss {float(l['loss']):.4f}")
-        if not all(np.isfinite(float(v)) for v in l.values()):
-            failures.append(f"wide pretrain step {i}: a loss is not finite")
-    launches = check_launches(fns, on_route(per_pretrain_step(wp), wp),
-                              M_STEPS, "wide pretrain steps", failures)
-    print(f"  K8 / K8 backward / K5 / K5 backward a step: "
-          f"{launches['band_attention_fused'] // M_STEPS} / "
-          f"{launches['band_attention_fused_backward'] // M_STEPS} / "
-          f"{launches['post_attention_block'] // M_STEPS} / "
-          f"{launches['post_attention_block_backward'] // M_STEPS}; step "
-          f"median {float(np.median(times[1:])):.1f} ms after the first "
-          f"({times[0]:.1f} ms); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    work = tempfile.mkdtemp(prefix="geomae_smoke_wide_")
-    try:
-        profiled("wide pretrain step",
-                 lambda: step(state, batches[-1], gen),
-                 f"{work}/wide_pretrain_trace.json", failures)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    del state, batches
+    print(f"phase M: the wide model ({' '.join(WIDE_OPTIONS)}), {route}: "
+          f"{M_STEPS} bf16 pretrain steps at batch {bz}, {M_FRAMES} served "
+          f"frames, an f32 fine-tune step at small caps against the CPU")
+    with plain_attention_calls() as plain:
+        state = init_state(wp, DEVICE, torch.Generator().manual_seed(SEED))
+        step = make_train_step(wp)
+        batches = [synthetic_batch(wp, bz, seed=SEED + 90 + i,
+                                   device=DEVICE) for i in range(M_STEPS)]
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        fns = reset_counts()
+        times = []
+        for i, batch in enumerate(batches):
+            (_, l), ms = host_ms(lambda: step(state, batch, gen))
+            times.append(ms)
+            print(f"  step {i}: {ms:.1f} ms, loss {float(l['loss']):.4f}")
+            if not all(np.isfinite(float(v)) for v in l.values()):
+                failures.append(f"wide pretrain step {i}: a loss is not "
+                                "finite")
+        launches = check_launches(fns, on_route(per_pretrain_step(wp), wp),
+                                  M_STEPS, "wide pretrain steps", failures)
+        qkv = launches["band_attention_qkv"] > 0
+        attn = ("band_attention_qkv", "band_attention_qkv_backward") if qkv \
+            else ("band_attention_fused", "band_attention_fused_backward")
+        print(f"  {'K6 / K7' if qkv else 'K8 / K8 backward'} / K5 / K5 "
+              f"backward a step: {launches[attn[0]] // M_STEPS} / "
+              f"{launches[attn[1]] // M_STEPS} / "
+              f"{launches['post_attention_block'] // M_STEPS} / "
+              f"{launches['post_attention_block_backward'] // M_STEPS}; step "
+              f"median {float(np.median(times[1:])):.1f} ms after the first "
+              f"({times[0]:.1f} ms); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        work = tempfile.mkdtemp(prefix="geomae_smoke_wide_")
+        try:
+            profiled(f"wide pretrain step ({route})",
+                     lambda: step(state, batches[-1], gen),
+                     f"{work}/wide_pretrain_trace.json", failures)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        del state, batches
 
-    det = init_model(cfg=wf, device=DEVICE,
-                     generator=torch.Generator().manual_seed(SEED))
-    frames = [clustered_frame(np.random.default_rng(SEED + 91 + f),
-                              wf.voxel, wf.caps.max_points)
-              for f in range(M_FRAMES)]
-    fns = reset_counts()
-    for f, raw in enumerate(frames):
-        res, ms = host_ms(lambda: inference_detector(det, raw))
-        n = len(res["scores"])
-        print(f"  wide frame {f}: {len(raw)} points -> {n} detections in "
-              f"{ms:.1f} ms")
-        if not (n and np.isfinite(res["boxes"]).all()):
-            failures.append(f"wide frame {f} malformed ({n} boxes)")
-    served = check_launches(fns, on_route(PER_FRAME, wf), M_FRAMES,
-                            "wide frames", failures)
-    del det
+        det = init_model(cfg=wf, device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED))
+        frames = [clustered_frame(np.random.default_rng(SEED + 91 + f),
+                                  wf.voxel, wf.caps.max_points)
+                  for f in range(M_FRAMES)]
+        fns = reset_counts()
+        for f, raw in enumerate(frames):
+            res, ms = host_ms(lambda: inference_detector(det, raw))
+            n = len(res["scores"])
+            print(f"  wide frame {f}: {len(raw)} points -> {n} detections "
+                  f"in {ms:.1f} ms")
+            if not (n and np.isfinite(res["boxes"]).all()):
+                failures.append(f"wide frame {f} malformed ({n} boxes)")
+        served = check_launches(fns, on_route(PER_FRAME, wf), M_FRAMES,
+                                "wide frames", failures)
+        del det
+    print(f"  calls of the plain band_attention in the steps and frames: "
+          f"{len(plain)}")
+    if plain:
+        failures.append(f"the wide model on {route} called the plain "
+                        f"band_attention {len(plain)} times")
     phase_e(apply_overrides(wf, M_SMALL_CAPS), failures)
     return {k: launches[k] + served[k] for k in launches}
 
@@ -3106,6 +3167,9 @@ def main() -> None:
     phase_a(cfg, "fine-tune step", inputs, TRAIN, results, failures)
     phase_routes(cfg, inputs, failures)
     del inputs
+    wide = apply_overrides(cfg, WIDE_OPTIONS)
+    phase_routes(wide, kernel_inputs(wide, wide.data.batch_size, dev),
+                 failures)
     passed("phase A (fine-tune step shapes)", failures, clock)
     runs.append(phase_d(apply_overrides(cfg, [QKV_OPTION]), failures))
     runs.append(phase_d(apply_overrides(cfg, [BAND_OPTION]), failures,
@@ -3117,7 +3181,7 @@ def main() -> None:
             results, failures)
     passed("phase A (pretrain step shapes)", failures, clock)
     widths = phase_widths(pcfg, failures)
-    passed("phase A (K8 and K5 at every width)", failures, clock)
+    passed("phase A (K8, K6, K7 and K5 at every width)", failures, clock)
     runs.append(phase_f(apply_overrides(pcfg, [QKV_OPTION]), failures))
     runs.append(phase_f(apply_overrides(pcfg, [BAND_OPTION]), failures,
                         BAND_REPEAT))
@@ -3125,6 +3189,7 @@ def main() -> None:
     phase_g(pcfg, failures)
     passed("phase G", failures, clock)
     runs.append(phase_m(pcfg, cfg, failures))
+    runs.append(phase_m(pcfg, cfg, failures, QKV_OPTION))
     passed("phase M", failures, clock)
     runs.append(phase_h(pcfg, cfg, failures))
     passed("phase H", failures, clock)
@@ -3149,6 +3214,9 @@ def main() -> None:
         rows = results[name]
         t_bytes, t_ops = sum(r[3] for r in rows), sum(r[4] for r in rows)
         libs = [r[5] for r in rows if r[5] is not None]
+        # K6's and K7's entries also name the widths phase A ran them at
+        at = {"widths": [w["width"] for w in widths if w["name"] == name]} \
+            if name.startswith("band_attention_qkv") else {}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(r[name] for r in runs),
@@ -3157,7 +3225,7 @@ def main() -> None:
             plain_ms=sum(r[2] for r in rows),
             bound_ms=sum(max(r[3], r[4]) for r in rows),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=sum(libs) if libs else None))
+            library_ms=sum(libs) if libs else None, **at))
     print(json.dumps({"widths": widths}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,8 @@ model.  At the kernels' widths (C of 128 or 256 in heads of 16, 32 or
 projected by ``F.linear`` and then K8 (``ops/attention.py``), then K5
 (``ops/ffn.py``: out-projection, residual, LN1, GELU FFN, residual, LN2);
 ``attention_impl="qkv"`` runs K6 (``ops/attention_qkv.py``: q/k/v
-projections inside the window attention) instead, at C = 128 in 8 heads
-only.  At other widths the layer takes the plain ``band_attention`` and
+projections inside the window attention) instead, at the same widths.
+At other widths the layer takes the plain ``band_attention`` and
 the unfused chain in plain torch.  The parameter names are the same on every route, so one
 ``state_dict`` serves them all.  Tokens stay in window-sorted order
 between layers: the stack permutes row-order tokens in once, each
@@ -37,7 +37,6 @@ from ..config import SSTConfig
 from ..ops.attention import (band_attention, band_attention_fused,
                              kernel_takes)
 from ..ops.attention_qkv import band_attention_qkv
-from ..ops.attention_qkv import KERNEL_C, KERNEL_HEADS
 from ..ops.ffn import KERNEL_WIDTHS, post_attention_block
 from ..ops.windows import INT32_MAX, WindowLayout, positional_embedding
 from .norm import FastLayerNorm
@@ -93,23 +92,19 @@ def _check(field: str, value: str, names) -> None:
 def attention_route(impl: str, d_model: int, nhead: int) -> str:
     """``attention_impl`` resolved: "qkv" (K6, projections inside the
     kernel), "band" (Linears, then K8) or "einsum" (Linears, then the plain
-    band_attention).  K8 takes C of 128 or 256 in heads of 16, 32 or 64
-    (``attention.kernel_takes``), K6 C = 128 in 8 heads: "qkv" resolves to
-    itself there and to "einsum" at any other width, and every other
-    kernel name to "band" wherever K8 takes the width, else "einsum".
-    geomae_tpu/models/sst.py keeps its kernel routes for any C a multiple
-    of 128 (and V of 128, a fact of the TPU's tiling: the port's kernels
-    take any V), so the port serves on the plain routes what JAX serves on
-    kernels at C >= 384, at D = 8 or 128, and on "qkv" at any width but
-    128 in 8 heads.  "auto" is "band", the faster route on the H100
-    (PERF.md)."""
+    band_attention).  K8 and K6 take C of 128 or 256 in heads of 16, 32
+    or 64 (``attention.kernel_takes``): there "qkv" resolves to itself and
+    every other kernel name to "band"; at any other width every name
+    resolves to "einsum".  geomae_tpu/models/sst.py keeps its kernel
+    routes for any C a multiple of 128 (and V of 128, a fact of the TPU's
+    tiling: the port's kernels take any V), so the port serves on the
+    plain routes what JAX serves on kernels at C >= 384 and at D = 8 or
+    128.  "auto" is "band" (choosing between band and qkv by speed is
+    open: PERF.md)."""
     _check("attention_impl", impl, ATTENTION_IMPLS)
-    if impl == "einsum":
+    if impl == "einsum" or not kernel_takes(d_model, nhead):
         return "einsum"
-    if impl == "qkv":
-        return "qkv" if (d_model, nhead) == (KERNEL_C, KERNEL_HEADS) \
-            else "einsum"
-    return "band" if kernel_takes(d_model, nhead) else "einsum"
+    return "qkv" if impl == "qkv" else "band"
 
 
 def ffn_route(cfg: SSTConfig) -> str:

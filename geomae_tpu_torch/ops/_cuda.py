@@ -33,10 +33,11 @@ _SIGNATURES = {
     "geomae_segment_reduce": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "geomae_segment_broadcast": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "geomae_segment_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "geomae_band_attention_qkv": [_I] + [_P] * 12 + [_I, _I, _P],
-    "geomae_band_attention_qkv_bwd": [_I] + [_P] * 19 + [_I] * 3 + [_P],
-    "geomae_qkv_project": [_P] * 12 + [_I, _I, _P],
-    "geomae_qkv_project_bwd": [_P] * 11 + [_I] * 4 + [_P],
+    # K6 / K7: (B, V, C, H); the projections: (B, V, C)
+    "geomae_band_attention_qkv": [_I] + [_P] * 12 + [_I] * 4 + [_P],
+    "geomae_band_attention_qkv_bwd": [_I] + [_P] * 19 + [_I] * 5 + [_P],
+    "geomae_qkv_project": [_P] * 12 + [_I] * 3 + [_P],
+    "geomae_qkv_project_bwd": [_P] * 11 + [_I] * 5 + [_P],
     # K8: (B, V, H, D); K5: (B, V, C, F)
     "geomae_band_attention": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "geomae_band_attention_delta": [_I] + [_P] * 4 + [_I] * 4 + [_P],

@@ -17,19 +17,22 @@ projections accumulate in f32, cast to x's dtype, then add the bias in
 that dtype (``pallas_attention_qkv._proj``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels
-or raises.  The kernels take C = 128 in 8 heads of 16 (the shipped SST
-width) in float32 or bfloat16; windows may be of any size.  In bfloat16
-each token is projected once on the tensor cores (``qkv_project``) and
-K8's bf16 kernels (``csrc/band_attention.cu``, reached through their C
-entry points, so ``attention.band_attention_fused``'s counts stay the
-band route's) run the attention; the backward recomputes the
+or raises.  The kernels take the widths K8 takes (``attention.kernel_takes``:
+C of 128 or 256 in heads of 16, 32 or 64) in float32 or bfloat16; windows
+may be of any size.  The scale 1/sqrt(D) folds into q where D is a power
+of four (16, 64), as in the JAX package, and multiplies the f32 score
+elsewhere (32).  In bfloat16 each token is projected once on the tensor
+cores (``qkv_project``) and K8's bf16 kernels (``csrc/band_attention.cu``,
+reached through their C entry points, so
+``attention.band_attention_fused``'s counts stay the band route's) run
+the attention; the backward recomputes the
 projections, runs K8's D prologue and backward, then
 ``qkv_project_backward`` (dx and the parameter gradients).  K8 rounds its
 probabilities against the running max of each 64-key chunk.  In float32
 one CUDA-core kernel each way projects inside the attention.
 
 Under grad the attention is an ``autograd.Function``: the forward also
-writes each (row, head)'s log-sum-exp of the scores ([B, V, 8] f32), and
+writes each (row, head)'s log-sum-exp of the scores ([B, V, H] f32), and
 the backward (``band_attention_qkv_backward``) returns dx, which sums the
 query-side and key-side terms, and dWq, dbq, dWk, dbk, dWv, dbv in f32.
 ``pos`` gets no cotangent, as in the JAX package.  Without grad the
@@ -40,13 +43,21 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .attention import INT32_MAX, band_attention, plain_blocks, plain_lse
+from .attention import (INT32_MAX, KERNEL_CHANNELS, KERNEL_HEAD_DIMS,
+                        band_attention, kernel_takes, plain_blocks,
+                        plain_lse)
 from .ffn import dense
 
-KERNEL_C = 128
-KERNEL_HEADS = 8
-BWD_BLOCKS_PER_SM = 2     # the f32 backward kernel's 98 KB of shared memory
-WGRAD_BLOCKS_PER_SM = 2   # the bf16 weight-gradient kernel's 104 KB
+# The bf16 weight-gradient kernel stages 128 columns of its rows a block
+# (104 KB of shared memory at every C): two blocks an SM
+WGRAD_BLOCKS_PER_SM = 2
+WGRAD_TILE = 128          # its output tile, a side
+# The f32 backward kernel's blocks hold a tile of 4096 / C tokens (98 KB
+# of shared memory at every C), and 256 threads of up to 255 registers
+# fill an SM's register file: one block an SM.  Each block owns an f32
+# partial of the weight gradients, [3 C C + 3 C], so the grid is also held
+# to F32_PARTIAL_BYTES of them (85 blocks at C = 256, every SM at 128)
+F32_PARTIAL_BYTES = 64 << 20
 
 
 def _scale_pow2(head_dim: int) -> bool:
@@ -171,14 +182,19 @@ def attention_grads_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid,
 
 
 def _check_qkv(name, x, nheads, dtypes=tuple(_cuda.DTYPE_CODE)):
+    """x [B, V, C] on the card at a width the kernels take: C in
+    KERNEL_CHANNELS in ``nheads`` heads of D in KERNEL_HEAD_DIMS (the
+    projections alone take any such C; ``nheads`` None)."""
     _cuda.require(x.device.type == "cuda",
                   f"{name}: no kernel for device {x.device}")
     kinds = " or ".join(str(d)[6:] for d in dtypes)
-    _cuda.require(x.dim() == 3 and x.shape[2] == KERNEL_C
-                  and nheads == KERNEL_HEADS and x.dtype in dtypes,
-                  f"{name}: the kernel takes [B, V, {KERNEL_C}] {kinds} in "
-                  f"{KERNEL_HEADS} heads, got {x.dtype} {tuple(x.shape)} in "
-                  f"{nheads}")
+    C = x.shape[-1]
+    heads = nheads or C // KERNEL_HEAD_DIMS[0]
+    _cuda.require(x.dim() == 3 and kernel_takes(C, heads)
+                  and x.dtype in dtypes,
+                  f"{name}: the kernel takes [B, V, C] {kinds} with C in "
+                  f"{KERNEL_CHANNELS} in heads of D in {KERNEL_HEAD_DIMS}, "
+                  f"got {x.dtype} {tuple(x.shape)} in {nheads} heads")
 
 
 def _kernel_inputs(name, x, pos, ws, win_id=None, key_valid=None):
@@ -237,7 +253,7 @@ def _project(x, pos, ws, win_id):
     code = _cuda.library().geomae_qkv_project(
         x.data_ptr(), pos.data_ptr(), *[w.data_ptr() for w in ws],
         win_id.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), B, V,
-        _cuda.stream(x))
+        x.shape[2], _cuda.stream(x))
     qkv_project.launches += 1
     _cuda.check(code, "qkv_project")
     return q, k, v
@@ -245,13 +261,25 @@ def _project(x, pos, ws, win_id):
 
 def wgrad_chunk_rows(x) -> int:
     """Rows a chunk of the bf16 weight gradients: a multiple of 64 that
-    gives about one block (a chunk and one of the three products) for
-    each place on the device's SMs, so the grid fills the card once
-    (``probe_qkv``: fewer, longer chunks leave SMs idle, more add partial
-    sums to write and add)."""
+    gives about one block (a chunk, one of the three products and one of
+    its (C / 128)^2 output tiles) for each place on the device's SMs, so
+    the grid fills the card once and the chunks' f32 partials stay about
+    the card's size in blocks (``probe_qkv``: fewer, longer chunks leave
+    SMs idle, more add partial sums to write and add)."""
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunks = max(1, sms * WGRAD_BLOCKS_PER_SM // 3)
+    blocks = 3 * (x.shape[-1] // WGRAD_TILE) ** 2     # a chunk's
+    chunks = max(1, sms * WGRAD_BLOCKS_PER_SM // blocks)
     return 64 * max(1, -(-x.shape[0] * x.shape[1] // (64 * chunks)))
+
+
+def bwd_blocks(x) -> int:
+    """The f32 backward kernel's persistent grid on ``x`` [B, V, C]: one
+    block an SM, at most one a tile of 4096 / C tokens, and no more than
+    F32_PARTIAL_BYTES of partials hold."""
+    B, V, C = x.shape
+    tiles = B * -(-V // (4096 // C))
+    return max(1, min(_cuda.persistent_blocks(x, 1, tiles),
+                      F32_PARTIAL_BYTES // (4 * (3 * C * C + 3 * C))))
 
 
 def _project_backward(x, pos, weights, dq, dk, dv):
@@ -267,7 +295,7 @@ def _project_backward(x, pos, weights, dq, dk, dv):
     code = _cuda.library().geomae_qkv_project_bwd(
         x.data_ptr(), pos.data_ptr(), *[w.data_ptr() for w in weights],
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), grads.data_ptr(), B, V, chunk_rows, chunks,
+        partial.data_ptr(), grads.data_ptr(), B, V, C, chunk_rows, chunks,
         _cuda.stream(x))
     qkv_project_backward.launches += 1
     _cuda.check(code, "qkv_project_backward")
@@ -276,12 +304,12 @@ def _project_backward(x, pos, weights, dq, dk, dv):
 
 def qkv_project(x, pos, wq, bq, wk, bk, wv, bv, win_id):
     """The projections of K6's bf16 path: (q, k, v) [B, V, C] in x's
-    dtype, 0 on padding rows; on the card bf16 only, C = 128, on the
-    tensor cores (each token once)."""
+    dtype, 0 on padding rows; on the card bf16 only, C of 128 or 256, on
+    the tensor cores (each token once)."""
     if x.device.type == "cpu":
         return qkv_project_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id)
     name = "qkv_project"
-    _check_qkv(name, x, KERNEL_HEADS, (torch.bfloat16,))
+    _check_qkv(name, x, None, (torch.bfloat16,))
     pos, ws = _kernel_inputs(name, x, pos, (wq, bq, wk, bk, wv, bv), win_id)
     return _project(x, pos, ws, win_id)
 
@@ -292,13 +320,14 @@ qkv_project.launches = 0
 def qkv_project_backward(x, pos, wq, wk, wv, dq, dk, dv):
     """The projections' backward (``qkv_project_backward_plain``): dx in
     x's dtype, the six parameter gradients in f32; on the card bf16
-    only, C = 128: dx on the tensor cores a 64-row tile at a time, the
-    weight gradients split over chunks of rows (``wgrad_chunk_rows``)
-    whose f32 partials are summed in order (two calls agree bitwise)."""
+    only, C of 128 or 256: dx on the tensor cores a 64-row tile at a
+    time, the weight gradients split over chunks of rows
+    (``wgrad_chunk_rows``) whose f32 partials are summed in order (two
+    calls agree bitwise)."""
     if x.device.type == "cpu":
         return qkv_project_backward_plain(x, pos, wq, wk, wv, dq, dk, dv)
     name = "qkv_project_backward"
-    _check_qkv(name, x, KERNEL_HEADS, (torch.bfloat16,))
+    _check_qkv(name, x, None, (torch.bfloat16,))
     pos, ws = _kernel_inputs(name, x, pos, (wq, wk, wv))
     _cotangents(name, x, dq, dk, dv)
     return _project_backward(x, pos, ws, dq, dk, dv)
@@ -309,7 +338,7 @@ qkv_project_backward.launches = 0
 
 def _forward(x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid, nheads,
              stats: bool):
-    """(out, lse): lse [B, V, 8] f32 when ``stats`` on a CUDA tensor, else
+    """(out, lse): lse [B, V, H] f32 when ``stats`` on a CUDA tensor, else
     None (the plain backward recomputes its softmax).  bf16: the
     projections, then K8's forward; f32: the CUDA-core kernel."""
     if x.device.type == "cpu":
@@ -319,7 +348,7 @@ def _forward(x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid, nheads,
     _check_qkv(name, x, nheads)
     pos, ws = _kernel_inputs(name, x, pos, (wq, bq, wk, bk, wv, bv), win_id,
                              key_valid)
-    B, V, _ = x.shape
+    B, V, C = x.shape
     out = torch.empty_like(x)
     lse = (torch.empty((B, V, nheads), dtype=torch.float32, device=x.device)
            if stats else None)
@@ -330,12 +359,12 @@ def _forward(x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid, nheads,
         code = lib.geomae_band_attention(
             dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             win_id.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
-            lse_ptr, B, V, nheads, KERNEL_C // nheads, _cuda.stream(x))
+            lse_ptr, B, V, nheads, C // nheads, _cuda.stream(x))
     else:
         code = lib.geomae_band_attention_qkv(
             dtype, x.data_ptr(), pos.data_ptr(), *[w.data_ptr() for w in ws],
             win_id.data_ptr(), key_valid.data_ptr(), out.data_ptr(), lse_ptr,
-            B, V, _cuda.stream(x))
+            B, V, C, nheads, _cuda.stream(x))
     band_attention_qkv.launches += 1
     band_attention_qkv.stats += lse is not None
     _cuda.check(code, name)
@@ -382,7 +411,7 @@ def band_attention_qkv_backward(x, pos, wq, bq, wk, bk, wv, bv, win_id,
         _cuda.check(code, name)
         return _project_backward(x, pos, ws[0::2], dq, dk, dv)
     wT = [w.t().contiguous() for w in ws[0::2]]
-    blocks = _cuda.persistent_blocks(x, BWD_BLOCKS_PER_SM, B * -(-V // 32))
+    blocks = bwd_blocks(x)
     n = 3 * C * C + 3 * C
     partial = torch.zeros((blocks, n), dtype=torch.float32, device=x.device)
     grads = torch.empty(n, dtype=torch.float32, device=x.device)
@@ -392,7 +421,7 @@ def band_attention_qkv_backward(x, pos, wq, bq, wk, bk, wv, bv, win_id,
         *[w.data_ptr() for w in ws], *[w.data_ptr() for w in wT],
         win_id.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
         lse.data_ptr(), g.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-        grads.data_ptr(), B, V, blocks, stream)
+        grads.data_ptr(), B, V, C, nheads, blocks, stream)
     band_attention_qkv_backward.launches += 1
     _cuda.check(code, name)
     return (dx, *_grads(grads, C))

@@ -118,10 +118,12 @@ def _ln_backward(z, dy, scale, eps):
 
 def post_attention_block_backward_tile_plain(x, attn, wo, bo, s1, t1, w1,
                                              b1, w2, b2, s2, t2, nv, dy,
-                                             eps=1e-5):
+                                             eps=1e-5, absolute=False):
     """The bf16 backward's per-tile pass: (dx, dattn) in x's dtype, the
     workspace rows (xm, da1, h, dz2) in x's dtype, 0 at rows past ``nv``,
-    and the seven vector gradients (bo, s1, t1, b1, b2, s2, t2) in f32."""
+    and the seven vector gradients (bo, s1, t1, b1, b2, s2, t2) in f32;
+    with ``absolute``, each vector gradient's sum of its terms' absolute
+    values instead."""
     dt = x.dtype
     rt = lambda t: t.to(dt).float()       # a cast to the compute dtype
     W = lambda w: w.to(dt).float()
@@ -145,7 +147,8 @@ def post_attention_block_backward_tile_plain(x, attn, wo, bo, s1, t1, w1,
     dz1, xh1 = _ln_backward(z, dxm, s1, eps)
     dz1 = rt(dz1)
     dattn = rt(dz1 @ W(wo).t())
-    tsum = lambda t: t.reshape(-1, t.shape[-1]).sum(0)
+    tsum = lambda t: (t.abs() if absolute else t).reshape(
+        -1, t.shape[-1]).sum(0)
     vectors = (tsum(dz1), tsum(dxm * xh1), tsum(dxm), tsum(da1), tsum(dz2),
                tsum(dyf * xh2), tsum(dyf))
     rows = [torch.where(keep, t, 0.0).to(dt) for t in (dz1, dattn, xm, da1,
@@ -153,25 +156,33 @@ def post_attention_block_backward_tile_plain(x, attn, wo, bo, s1, t1, w1,
     return (*rows, *vectors)
 
 
-def weight_grads_plain(attn, dx, xm, da1, h, dz2, nv):
+def weight_grads_plain(attn, dx, xm, da1, h, dz2, nv, absolute=False):
     """The bf16 backward's weight-gradient pass: (dWo, dW1, dW2) = (attn^T
-    dz1, xm^T da1, h^T dz2) in f32 over the rows before ``nv``, dz1 = dx."""
+    dz1, xm^T da1, h^T dz2) in f32 over the rows before ``nv``, dz1 = dx;
+    with ``absolute``, |attn|^T |dz1| and so on (each sum's terms'
+    absolute values summed)."""
     keep = _row_mask(attn, nv)
-    flat = lambda t: torch.where(keep, t.float(), 0.0).reshape(
+    flat = lambda t: torch.where(keep, t.float().abs() if absolute
+                                 else t.float(), 0.0).reshape(
         -1, t.shape[-1])
     return tuple(flat(a).t() @ flat(d)
                  for a, d in ((attn, dx), (xm, da1), (h, dz2)))
 
 
 def post_attention_block_backward_plain(x, attn, wo, bo, s1, t1, w1, b1, w2,
-                                        b2, s2, t2, nv, dy, eps=1e-5):
+                                        b2, s2, t2, nv, dy, eps=1e-5,
+                                        absolute=False):
     """The backward kernel's function: (dx, dattn) in x's dtype and the ten
     parameter gradients (wo, bo, s1, t1, w1, b1, w2, b2, s2, t2) in f32;
-    the composition of the bf16 kernel's two passes."""
+    the composition of the bf16 kernel's two passes.  With ``absolute``
+    each parameter gradient is the sum of its terms' absolute values (what
+    a sum's forward-error bound scales with; ``probe_k5_backward``)."""
     dx, dattn, xm, da1, h, dz2, dbo, ds1, dt1, db1, db2, ds2, dt2 = \
         post_attention_block_backward_tile_plain(
-            x, attn, wo, bo, s1, t1, w1, b1, w2, b2, s2, t2, nv, dy, eps)
-    dwo, dw1, dw2 = weight_grads_plain(attn, dx, xm, da1, h, dz2, nv)
+            x, attn, wo, bo, s1, t1, w1, b1, w2, b2, s2, t2, nv, dy, eps,
+            absolute)
+    dwo, dw1, dw2 = weight_grads_plain(attn, dx, xm, da1, h, dz2, nv,
+                                       absolute)
     return (dx, dattn, dwo, dbo, ds1, dt1, dw1, db1, dw2, db2, ds2, dt2)
 
 

@@ -18,10 +18,29 @@ computes garbage; only its time means something.
 compares instead, at the ``cuda`` tests' bf16 cases (``NOISE_CASES``),
 the kernel's ten parameter gradients and the plain version's (both on
 the card) with the plain version computed with f64 values and sums at
-the same bf16 rounding points (``f64_sums``, on the CPU), each as a
-share of the tests' rule (1e-3 of max(its own largest, 0.1 x the
-largest)): how far two faithful computations of the function lie apart
-where the kernel reads above the rule (ROADMAP F5).
+the same bf16 rounding points (``f64_sums``), each as a share of the
+earlier rule of the tests (1e-3 of max(its own largest, 0.1 x the
+largest), which the plain version itself broke: F5) and of the rule that
+replaced it (``grad_bounds``), with a planted fault (one token's terms
+dropped, ``dropped_token``) under the new rule too.
+
+The rule (``grad_bounds``, F5, after F3's ``probe_qkv.dbk_bound``): each
+of the ten gradients is a sum over the B V token rows of terms that are
+products of values rounded to bf16 at the JAX dtype points (``dz1``,
+``xm``, ``da1``, ``h``, ``dz2``, ``dy`` and their f32 LayerNorm factors).
+Two faithful computations (the kernel, the plain version, the f64 one)
+round each such value from inputs that differ in their last f32 bits, so
+now and then a rounding lands on the other side, which moves that term
+by one bf16 ulp, at most 2^-7 of itself.  Such flips are rare, and the
+rule gives them F3's budget: each rounded term within 2^-8 (half an ulp)
+of the f64 one, over all terms.  A sum of n terms in f32, in any order,
+is off by at most (n - 1) 2^-24 sum |terms|.  So per element
+
+    |g - g_f64| <= (2^-8 + n 2^-24) sum_j |t_j|,
+
+sum_j |t_j| the terms' absolute values summed in f64
+(``post_attention_block_backward_plain(..., absolute=True)`` under
+``f64_sums``), n = B V.
 
 Raises without a CUDA GPU: its numbers are the card's.
 """
@@ -102,6 +121,47 @@ def f64_sums():
         torch.Tensor.float = widen
 
 
+U_BF16 = 2.0 ** -8     # a bf16 rounding's largest relative error
+U_F32 = 2.0 ** -24
+
+
+def f64_grads(args) -> list:
+    """The ten parameter gradients of the plain backward under
+    ``f64_sums`` (on the inputs' device)."""
+    with f64_sums():
+        return list(ffn.post_attention_block_backward_plain(*args)[2:])
+
+
+def grad_bounds(args) -> list:
+    """F5's rule for each of the ten parameter gradients (module
+    docstring): (2^-8 + n 2^-24) sum_j |t_j| per element, f64."""
+    B, V = args[0].shape[:2]
+    with f64_sums():
+        mags = ffn.post_attention_block_backward_plain(*args,
+                                                       absolute=True)[2:]
+    return [(U_BF16 + B * V * U_F32) * m for m in mags]
+
+
+def rule_shares(got, exact, bounds) -> list:
+    """Each parameter gradient's largest error against ``exact`` over
+    its bound, elementwise (1 is the limit)."""
+    return [round(float(((g.double() - e.double()).abs()
+                         / b.clamp_min(1e-300)).max()), 3)
+            for g, e, b in zip(got, exact, bounds)]
+
+
+def dropped_token(args) -> list:
+    """``args`` with the cotangent of one real token zeroed: the
+    backward then drops that token's terms from every parameter gradient
+    (its dz2, da1, dxm and dz1 are 0).  The token is the one with the
+    largest |dy| of the first sample's real rows."""
+    dy = args[13].clone()
+    n = int(args[12][0])
+    t = int(dy[0, :n].float().abs().amax(-1).argmax())
+    dy[0, t] = 0
+    return [*args[:13], dy]
+
+
 def shares(got, ref) -> list:
     """Each parameter gradient's largest error against ``ref`` as a share
     of the bf16 rule of the ``cuda`` tests (``check_grads``)."""
@@ -112,17 +172,21 @@ def shares(got, ref) -> list:
 
 
 def noise() -> None:
-    print("shares of the rule, (wo, bo, s1, t1, w1, b1, w2, b2, s2, t2):")
+    print("shares, (wo, bo, s1, t1, w1, b1, w2, b2, s2, t2):")
     for (C, F), B, V, nv in NOISE_CASES:
-        args = test_case(C, F, B, V, nv)
-        with f64_sums():
-            exact = ffn.post_attention_block_backward_plain(*args)
-        on_card = [t.cuda() for t in args]
+        on_card = [t.cuda() for t in test_case(C, F, B, V, nv)]
+        exact, bounds = f64_grads(on_card), grad_bounds(on_card)
         kernel = ffn.post_attention_block_backward(*on_card)
         plain = ffn.post_attention_block_backward_plain(*on_card)
-        print(f"  (C, F) {(C, F)}, B {B}, V {V}, nv {nv}: kernel against "
-              f"the plain {shares(kernel, plain)}; against f64 sums: kernel "
-              f"{shares(kernel, exact)}, plain {shares(plain, exact)}")
+        fault = ffn.post_attention_block_backward(*dropped_token(on_card))
+        print(f"  (C, F) {(C, F)}, B {B}, V {V}, nv {nv}: the earlier rule, "
+              f"kernel against the plain {shares(kernel, plain)}; against "
+              f"f64 sums: kernel {shares(kernel, [0, 0] + exact)}, plain "
+              f"{shares(plain, [0, 0] + exact)}")
+        print(f"    F5's rule against f64 sums: kernel "
+              f"{rule_shares(kernel[2:], exact, bounds)}, plain "
+              f"{rule_shares(plain[2:], exact, bounds)}, kernel with a "
+              f"token dropped {rule_shares(fault[2:], exact, bounds)}")
 
 
 def main() -> None:

@@ -1,8 +1,12 @@
 """K6's and K7's bf16 projections on one CUDA GPU: the weight-gradient
 chunk size, and where K7's parameter-gradient noise comes from.
 
-    python -m geomae_tpu_torch.probe_qkv            # chunk sizes
-    python -m geomae_tpu_torch.probe_qkv grads      # K7's gradient noise
+    python -m geomae_tpu_torch.probe_qkv [--width C,D]         # chunk sizes
+    python -m geomae_tpu_torch.probe_qkv grads [--width C,D]   # K7's noise
+
+``--width`` takes C channels in heads of D, any width of the kernels
+(``attention.kernel_takes``); the default is the shipped 128 in heads of
+16.
 
 Chunk sizes: times ``qkv_project`` and ``qkv_project_backward`` at [4,
 20480] and [4, 8192] (bf16 rows and weights, so the wrappers cast
@@ -36,7 +40,7 @@ Raises without a CUDA GPU: its numbers are the card's.
 """
 from __future__ import annotations
 
-import sys
+import argparse
 
 import numpy as np
 import torch
@@ -48,13 +52,12 @@ INT32_MAX = 2 ** 31 - 1
 GRAD_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv")
 
 
-def calls(B: int, V: int) -> dict:
-    """{label: call} of the two wrappers on seeded bf16 rows, a padding
-    suffix of a tenth of V."""
+def calls(B: int, V: int, C: int = 128) -> dict:
+    """{label: call} of the two wrappers on seeded bf16 rows of C
+    channels, a padding suffix of a tenth of V."""
     g = torch.Generator(device="cuda").manual_seed(0)
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=g, device="cuda")
                             * sc).to(torch.bfloat16)
-    C = attention_qkv.KERNEL_C
     x, pos = r(B, V, C), r(B, V, C)
     ws = [r(C, C, sc=C ** -0.5) if i % 2 == 0 else r(C, sc=0.1)
           for i in range(6)]
@@ -69,8 +72,8 @@ def calls(B: int, V: int) -> dict:
                                                        *ds)}
 
 
-def chunk_sizes() -> None:
-    todo = {**calls(4, 20480), **calls(4, 8192)}
+def chunk_sizes(C: int) -> None:
+    todo = {**calls(4, 20480, C), **calls(4, 8192, C)}
     sized = attention_qkv.wgrad_chunk_rows
     try:
         for turn in range(2):
@@ -85,12 +88,13 @@ def chunk_sizes() -> None:
         attention_qkv.wgrad_chunk_rows = sized
 
 
-def k7_case(B: int, V: int, seed: int = 0):
-    """bf16 K7's inputs on the card: (args, dout), args = (x, pos, wq, bq,
-    wk, bk, wv, bv, win_id, key_valid).  Windows of 1-144 tokens (a 12 x
-    12 window's most) with gaps in their ids over a padding suffix, a
-    fifth of the keys invalid; f32 pos and weights (the wrapper casts
-    them), bf16 x and cotangent, from a generator on the card."""
+def k7_case(B: int, V: int, seed: int = 0, C: int = 128):
+    """bf16 K7's inputs on the card at C channels: (args, dout), args =
+    (x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid).  Windows of
+    1-144 tokens (a 12 x 12 window's most) with gaps in their ids over a
+    padding suffix, a fifth of the keys invalid; f32 pos and weights (the
+    wrapper casts them), bf16 x and cotangent, from a generator on the
+    card."""
     rng = np.random.default_rng(B + V)
     win = np.full((B, V), INT32_MAX, np.int32)
     for b in range(B):
@@ -102,7 +106,6 @@ def k7_case(B: int, V: int, seed: int = 0):
     kv = (rng.random((B, V)) > 0.2) & (win != INT32_MAX)
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s, sc=1.0: torch.randn(*s, generator=g, device="cuda") * sc
-    C = attention_qkv.KERNEL_C
     ws = [r(C, C, sc=C ** -0.5) if i % 2 == 0 else r(C, sc=0.1)
           for i in range(6)]
     x, pos = r(B, V, C).to(torch.bfloat16), r(B, V, C)
@@ -189,7 +192,7 @@ IEEE_K16 = """      float part[3][kWarpCols / 8][4] = {};
 """
 
 
-def stages(args, dout, out, projections: dict) -> dict:
+def stages(args, dout, out, projections: dict, heads: int) -> dict:
     """{label: K7's output} through each mix of the stages: the
     projections (``projections``: {name: function}), K8's or the plain
     attention backward (K8's on its own forward's out and statistics,
@@ -197,7 +200,7 @@ def stages(args, dout, out, projections: dict) -> dict:
     version."""
     x, pos, wq, bq, wk, bk, wv, bv, win, kv = args
     B, V, C = x.shape
-    h = (B, V, attention_qkv.KERNEL_HEADS, C // attention_qkv.KERNEL_HEADS)
+    h = (B, V, heads, C // heads)
     res = {}
     for proj, f in projections.items():
         q, k, v = (t.view(h) for t in f(*args[:9]))
@@ -219,8 +222,7 @@ def stages(args, dout, out, projections: dict) -> dict:
     return res
 
 
-def grads() -> None:
-    heads = attention_qkv.KERNEL_HEADS
+def grads(C: int, heads: int) -> None:
     split = hasattr(attention_qkv, "qkv_project")
     projections = {}
     if split:
@@ -232,7 +234,7 @@ def grads() -> None:
                        "plain": attention_qkv.qkv_project_plain,
                        "f64": exact_project}
     for B, V in ((1, 777), (2, 1024), (4, 8192)):
-        args, dout = k7_case(B, V)
+        args, dout = k7_case(B, V, C=C)
         out, lse = attention_qkv._forward(*args, heads, stats=True)
         want = attention_qkv.band_attention_qkv_backward_plain(
             *args, heads, out, dout)
@@ -257,7 +259,8 @@ def grads() -> None:
                       f"{n} {int((a != b).sum())}"
                       for n, a, b in zip("qkv", f(*args[:9]), ref))
                   for name, f in projections.items()))
-        for label, got in stages(args, dout, out, projections).items():
+        for label, got in stages(args, dout, out, projections,
+                                 heads).items():
             print(f"[{B}, {V}] {label}: " + grad_shares(got, want)
                   + "; |dbk| over dbk_bound " + dbk_shares({"": got}, bound))
     timed = list(projections.items())[:2]     # the kernel, IEEE k16
@@ -268,12 +271,29 @@ def grads() -> None:
               + ", ".join(ms))
 
 
+def width(text: str) -> tuple:
+    """``--width C,D``: (C, heads), at a width the kernels take."""
+    C, D = (int(v) for v in text.split(","))
+    if not attention.kernel_takes(C, C // D) or C % D:
+        raise argparse.ArgumentTypeError(
+            f"--width {text}: C in {attention.KERNEL_CHANNELS}, D in "
+            f"{attention.KERNEL_HEAD_DIMS}")
+    return C, C // D
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("what", nargs="?", choices=("grads",))
+    ap.add_argument("--width", type=width, default=(128, 8),
+                    help="C,D: C channels in heads of D (default 128,16)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_qkv: no CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(probe.card())
-    grads() if sys.argv[1:] == ["grads"] else chunk_sizes()
+    C, heads = args.width
+    print(f"C {C} in {heads} heads of {C // heads}")
+    grads(C, heads) if args.what == "grads" else chunk_sizes(C)
 
 
 if __name__ == "__main__":

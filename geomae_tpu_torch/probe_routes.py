@@ -1,9 +1,11 @@
 """How far the two SST attention routes' bf16 encoder layers lie from the
 f32 layer, and how far a faulty attention would, on one CUDA GPU.
 
-    python -m geomae_tpu_torch.probe_routes [--csrc DIR]
+    python -m geomae_tpu_torch.probe_routes [--csrc DIR] [--width C,D]
 
-Builds one full-width encoder layer of ``geomae_finetune_nus()`` on the
+Builds one full-width encoder layer of ``geomae_finetune_nus()`` (or,
+with ``--width``, of its SST at C channels in heads of D, FFN 2 C: any
+width of the kernels) on the
 ``qkv`` route (K6) and on the ``band`` route (Linears, then K8) with the
 same seeded weights (``route_stacks``, which ``chip_smoke.py``'s route
 check builds from too), on the fine-tune step's layer-0 windows at batch
@@ -28,6 +30,7 @@ import torch
 
 from . import probe
 from .ops import _cuda
+from .probe_qkv import width
 
 SEEDS = (7, 8, 9, 10)
 TOL = (2e-2, 2e-2)
@@ -86,6 +89,14 @@ def last_key_dropped(layer: dict) -> dict:
             "key_valid_sorted": layer["key_valid_sorted"] & ~last}
 
 
+def at_width(cfg, C: int, heads: int):
+    """``cfg`` with its SST at C channels in ``heads`` heads, FFN 2 C."""
+    from .config import apply_overrides
+
+    return apply_overrides(cfg, [f"sst.d_model={C}", f"sst.nhead={heads}",
+                                 f"sst.dim_feedforward={2 * C}"])
+
+
 def layer_inputs(cfg, dev):
     """The fine-tune batch's shift data (batch 4, seed 0) on ``dev``."""
     from .models.detector import extract_scene
@@ -131,6 +142,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", type=Path, default=None,
                     help="build the kernels from this csrc/ directory")
+    ap.add_argument("--width", type=width, default=(128, 8),
+                    help="C,D: C channels in heads of D (default 128,16)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_routes: no CUDA GPU")
@@ -145,7 +158,9 @@ def main() -> None:
         _cuda.CSRC = saved
         _cuda._lib = probe._load(path)
         print(f"kernels from {args.csrc}")
-    cfg = geomae_finetune_nus()
+    cfg = at_width(geomae_finetune_nus(), *args.width)
+    print(f"SST at C {cfg.sst.d_model} in {cfg.sst.nhead} heads, FFN "
+          f"{cfg.sst.dim_feedforward}")
     dev = torch.device("cuda")
     layer = layer_inputs(cfg, dev)["layers"][0]
     for seed in SEEDS:

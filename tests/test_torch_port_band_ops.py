@@ -35,6 +35,30 @@ from geomae_tpu_torch.ops import attention, windows
 from geomae_tpu_torch.weights import from_flax
 
 INT_MAX = np.iinfo(np.int32).max
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def to_torch(a, dtype=torch.float32):
+    """A JAX or numpy array as a torch tensor of ``dtype`` (bf16 values
+    carried exactly through f32)."""
+    return torch.from_numpy(np.array(jnp.asarray(a).astype(jnp.float32))
+                            ).to(dtype)
+
+
+def assert_rows_close(got, want, dtype, atol=2e-5, rtol=2e-4):
+    """f32 at (atol, rtol); bf16 at 2e-2 + 2e-2 relative with atol times
+    each row's max(1, largest |want|) (the last axis a row)."""
+    g, w = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert np.isfinite(g).all()
+    if dtype == "f32":
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
+        return
+    bound = 2e-2 * np.maximum(np.abs(w).max(-1, keepdims=True), 1) \
+        + 2e-2 * np.abs(w)
+    assert (np.abs(g - w) <= bound).all(), float((np.abs(g - w) / bound).max())
+
+
 t = torch.from_numpy
 
 
@@ -350,6 +374,14 @@ def sst_cfgs(attention_impl="einsum", ffn_impl="xla", width=SHIPPED):
     return JaxSSTConfig(**kw), SSTConfig(**kw)
 
 
+def jax_shift(coords, valid, jc):
+    """The JAX stack's shift data of ``coords`` and ``valid`` (numpy) at
+    config ``jc``, compiled (eagerly the layouts take seconds a call)."""
+    return jax.jit(lambda c, v: jax_shift_data(
+        jwin.make_layouts(c, v, jc, JaxVoxelConfig()), None, v, jc,
+        JaxVoxelConfig()))(jnp.asarray(coords), jnp.asarray(valid))
+
+
 def stack_case(width=SHIPPED, V=V, grads=True):
     """Tokens on a 40 x 40 corner of the grid (12 x 12 windows of up to
     about 40 tokens), the JAX stack's output (and with ``grads`` its
@@ -364,12 +396,10 @@ def stack_case(width=SHIPPED, V=V, grads=True):
     valid = np.arange(V)[None] < np.array([[V - 37], [V - 90]])
     x = rng.normal(0, 0.5, (B, V, Cw)).astype(np.float32)
     w = (rng.normal(size=(B, V, Cw)) * valid[..., None]).astype(np.float32)
-    shift = jax_shift_data(
-        jwin.make_layouts(jnp.asarray(coords), jnp.asarray(valid), jc,
-                          JaxVoxelConfig()),
-        None, jnp.asarray(valid), jc, JaxVoxelConfig())
+    shift = jax_shift(coords, valid, jc)
     net = JaxSST(jc, 1, jnp.float32)
-    params = net.init(jax.random.PRNGKey(0), jnp.asarray(x), shift)["params"]
+    params = jax.jit(net.init)(jax.random.PRNGKey(0), jnp.asarray(x),
+                               shift)["params"]
     # biases and norm parameters away from their 0 / 1 init
     params = jax.tree_util.tree_map_with_path(
         lambda p, a: a if p[-1].key == "kernel" else
@@ -424,24 +454,22 @@ def test_band_route_matches_the_jax_pallas_routes(stack):
     """The port's band / fused block against the JAX stack on its own
     band / fused route, the Pallas kernels in interpret mode: 1e-4 on
     valid rows."""
-    check_band_route_against_pallas(stack)
+    check_route_against_pallas(stack)
 
 
-def check_band_route_against_pallas(stack):
-    """``stack_case``'s block on the port's band / fused route against the
-    JAX stack on its band / fused route in interpret mode, at 1e-4 on the
-    valid rows; the port's routes resolve to its kernels' (K8, K5)."""
-    jc, tc = sst_cfgs("band", "fused", stack["width"])
-    shift = jax_shift_data(
-        jwin.make_layouts(jnp.asarray(stack["coords"]),
-                          jnp.asarray(stack["valid"]), jc, JaxVoxelConfig()),
-        None, jnp.asarray(stack["valid"]), jc, JaxVoxelConfig())
+def check_route_against_pallas(stack, route="band"):
+    """``stack_case``'s block on the port's ``route`` (band or qkv) /
+    fused route against the JAX stack on the same routes in interpret
+    mode, at 1e-4 on the valid rows; the port's routes resolve to its
+    kernels' (K8 or K6, and K5)."""
+    jc, tc = sst_cfgs(route, "fused", stack["width"])
+    shift = jax_shift(stack["coords"], stack["valid"], jc)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jax.jit(JaxSST(jc, 1, jnp.float32).apply)(
             {"params": stack["params"]}, jnp.asarray(stack["x"]), shift))
     model = SSTStack(tc, 1)
     layer = model[0].encoder_list[0]
-    assert (layer.win_attn.route, layer.fused) == ("band", True)
+    assert (layer.win_attn.route, layer.fused) == (route, True)
     model.load_state_dict(stack["sd"], strict=True)
     tv = t(stack["valid"])
     tshift = prepare_shift_data(
@@ -504,10 +532,7 @@ def test_band_route_projections_map_onto_in_proj(stack):
     q, k, v, transposed, as it does for the qkv route's."""
     x = jax.ShapeDtypeStruct((B, 384, C), jnp.float32)
     jc, _ = sst_cfgs()
-    shift = jax_shift_data(
-        jwin.make_layouts(jnp.asarray(stack["coords"]),
-                          jnp.asarray(stack["valid"]), jc, JaxVoxelConfig()),
-        None, jnp.asarray(stack["valid"]), jc, JaxVoxelConfig())
+    shift = jax_shift(stack["coords"], stack["valid"], jc)
     trees = {}
     for impl in ("qkv", "band", "einsum"):
         net = JaxSST(sst_cfgs(impl, "fused")[0], 1, jnp.float32)

@@ -24,7 +24,12 @@ themselves would show at up to 2^-9).  The floor (1e-2 in f32, 1e-1 in
 bf16) is for the key bias: its gradient is analytically zero (softmax
 ignores a shift shared by all keys), so its own largest value is
 rounding noise, larger in bf16, where each token's dk is rounded before
-the sum.  K6's statistics (the
+the sum.  K5's ten bf16 parameter gradients are held instead by F5's
+rule (``check_k5_backward``): the kernel's and the plain version's each
+against the plain backward computed with f64 values and sums at the same
+bf16 rounding points, at (2^-8 + n 2^-24) sum |terms| per element
+(``probe_k5_backward.grad_bounds``), which a dropped token's terms
+break.  K6's statistics (the
 log-sum-exp per row and head) are held at K6's bound.
 
 The targets' kernels: K3's counts (0/1 payloads) and K4 (a copy) are
@@ -43,7 +48,10 @@ K6's and K7's bf16 projections (``qkv_project``, ``qkv_project_backward``,
 the tensor-core kernels that bf16 K6 and K7 run around K8's): q, k, v
 at K6's bound per row, 0 on padding rows; dx per row and the parameter
 gradients by the backward rule; one launch a call, two launches bitwise
-equal, at one sample, a batch and the encoder's [4, 8192].
+equal, at one sample, a batch and the encoder's [4, 8192].  K6, K7 and
+the projections also at every width K8 takes (``HEADS``; the projections
+at C 128 and 256), f32 and bf16, with K7's dbk under F3's rule; a width
+outside the set raises.
 
 K8 (window attention over projected q, k, v; ``ops/attention.py``): the
 output and the statistics at K6's bound, the backward's dq, dk, dv at the
@@ -61,7 +69,7 @@ import numpy as np
 import pytest
 import torch
 
-from geomae_tpu_torch import probe_qkv
+from geomae_tpu_torch import probe_k5_backward, probe_qkv
 from geomae_tpu_torch.ops import (attention, attention_qkv, ffn, segment,
                                   targets)
 
@@ -215,7 +223,7 @@ def test_band_attention_qkv(dev, dtype):
     rng = np.random.default_rng(2)
     win, kv = windows(rng)
     B, V = win.shape
-    C = attention_qkv.KERNEL_C
+    C = 128
     g = torch.Generator().manual_seed(0)
     x = torch.randn(B, V, C, generator=g).to(dtype)
     pos = torch.randn(B, V, C, generator=g)
@@ -270,6 +278,23 @@ def check_grads(got, want, dtype, n_token, judged_elsewhere=()):
         ref = max(float(b.float().abs().max()), WGRAD_FLOOR[dtype] * top)
         err = float((a - b.float()).abs().max())
         assert err <= WGRAD_TOL[dtype] * ref, (i, err, ref)
+
+
+def check_k5_backward(got, args, dtype):
+    """K5's backward kernel on ``args`` against its plain version: dx and
+    dattn per row at TOL; the ten parameter gradients in f32 by
+    ``check_grads``, in bf16 by F5's rule, the kernel's and the plain
+    version's each against the f64 computation."""
+    want = ffn.post_attention_block_backward_plain(*args)
+    if dtype == torch.float32:
+        check_grads(got, want, dtype, 2)
+        return
+    check_grads(got, want, dtype, 2, judged_elsewhere=range(2, 12))
+    exact = probe_k5_backward.f64_grads(args)
+    bounds = probe_k5_backward.grad_bounds(args)
+    for who, grads in (("kernel", got), ("plain", want)):
+        shares = probe_k5_backward.rule_shares(grads[2:], exact, bounds)
+        assert all(s <= 1 for s in shares), (who, shares)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -343,8 +368,7 @@ def test_post_attention_block_backward(dev, dtype, C, F):
     before = ffn.post_attention_block_backward.launches
     got = ffn.post_attention_block_backward(*args)
     assert ffn.post_attention_block_backward.launches == before + 1
-    want = ffn.post_attention_block_backward_plain(*args)
-    check_grads(got, want, dtype, 2)
+    check_k5_backward(got, args, dtype)
     assert (got[0][0, 613:] == 0).all() and (got[1][0, 613:] == 0).all()
 
 
@@ -415,10 +439,26 @@ def test_post_attention_block_backward_bf16(dev, B, V, nv, C, F):
     args = ffn_case(torch.bfloat16, dev, B=B, V=V, C=C, F=F)
     args[12] = torch.tensor(nv, dtype=torch.int32, device=dev)
     got = ffn.post_attention_block_backward(*args)
-    check_grads(got, ffn.post_attention_block_backward_plain(*args),
-                torch.bfloat16, 2)
+    check_k5_backward(got, args, torch.bfloat16)
     past = torch.arange(V, device=dev)[None, :] >= args[12][:, None]
     assert (got[0][past] == 0).all() and (got[1][past] == 0).all()
+
+
+@pytest.mark.parametrize("C,F", ffn.KERNEL_WIDTHS, ids=FFN_IDS)
+def test_post_attention_block_backward_bf16_fails_a_dropped_token(dev, C,
+                                                                  F):
+    """F5's rule catches a planted fault: the kernel's gradients with one
+    token's terms dropped (its cotangent zeroed,
+    ``probe_k5_backward.dropped_token``) break it in each of the ten, at
+    the one-sample case (V 777, nv 500)."""
+    args = [t.to(dev) for t in probe_k5_backward.test_case(C, F, 1, 777,
+                                                           (500,))]
+    exact = probe_k5_backward.f64_grads(args)
+    bounds = probe_k5_backward.grad_bounds(args)
+    fault = ffn.post_attention_block_backward(
+        *probe_k5_backward.dropped_token(args))
+    shares = probe_k5_backward.rule_shares(fault[2:], exact, bounds)
+    assert all(s > 1 for s in shares), shares
 
 
 @pytest.mark.parametrize("C,F", ffn.KERNEL_WIDTHS, ids=FFN_IDS)
@@ -433,11 +473,10 @@ def test_post_attention_block_backward_is_deterministic(dev, C, F):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def attention_case(dtype, dev):
+def attention_case(dtype, dev, C=128):
     rng = np.random.default_rng(2)
     win, kv = windows(rng)
     B, V = win.shape
-    C = attention_qkv.KERNEL_C
     g = torch.Generator().manual_seed(6)
     x = torch.randn(B, V, C, generator=g).to(dtype)
     pos = torch.randn(B, V, C, generator=g)
@@ -448,19 +487,35 @@ def attention_case(dtype, dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_band_attention_qkv_backward(dev, dtype):
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
+def test_band_attention_qkv_backward(dev, dtype, heads):
     """K7 from the forward kernel's statistics against the plain backward
-    (which recomputes its softmax), windows up to 150 tokens."""
-    args, dout = attention_case(dtype, dev)
-    out, lse = attention_qkv._forward(*args, 8, stats=True)
+    (which recomputes its softmax), windows up to 150 tokens, at every
+    width K8 takes: dx per row, the parameter gradients by
+    ``check_grads``, in bf16 the key bias's by F3's rule (both K7's and
+    the plain version's within ``probe_qkv.dbk_bound`` of 0); padding
+    rows of dx 0; one launch a call, two launches bitwise equal."""
+    H, D = heads
+    args, dout = attention_case(dtype, dev, C=H * D)
+    out, lse = attention_qkv._forward(*args, H, stats=True)
     before = attention_qkv.band_attention_qkv_backward.launches
-    got = attention_qkv.band_attention_qkv_backward(*args, 8, out, lse,
-                                                    dout)
+    got = attention_qkv.band_attention_qkv_backward(*args, H, out, lse, dout)
     assert attention_qkv.band_attention_qkv_backward.launches == before + 1
-    want = attention_qkv.band_attention_qkv_backward_plain(*args, 8, out,
+    want = attention_qkv.band_attention_qkv_backward_plain(*args, H, out,
                                                           dout)
-    check_grads(got, want, dtype, 1)
+    if dtype == torch.float32:
+        check_grads(got, want, dtype, 1)
+    else:
+        i_bk = probe_qkv.GRAD_NAMES.index("bk") + 1
+        check_grads(got, want, dtype, 1, judged_elsewhere=(i_bk,))
+        bound = probe_qkv.dbk_bound(
+            attention_qkv.attention_grads_plain(*args, H, out, dout)[1])
+        for dbk in (got[i_bk], want[i_bk]):
+            assert (dbk.abs() <= bound).all(), float((dbk.abs() / bound).max())
     assert (got[0][args[8] == INT_MAX] == 0).all()
+    again = attention_qkv.band_attention_qkv_backward(*args, H, out, lse,
+                                                      dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_band_attention_qkv_backward_one_sample(dev):
@@ -505,11 +560,10 @@ def test_band_attention_qkv_backward_one_sample(dev):
     assert (got[0][args[8] == INT_MAX] == 0).all()
 
 
-def projection_case(dev, B, V, seed=8):
+def projection_case(dev, B, V, seed=8, C=128):
     """bf16 x and a window layout with a padding suffix; f32 pos and
     weights (the wrappers cast them); three bf16 cotangents."""
     win, _ = windows(np.random.default_rng(seed), B=B, V=V)
-    C = attention_qkv.KERNEL_C
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(B, V, C, generator=g).to(torch.bfloat16)
     pos = torch.randn(B, V, C, generator=g)
@@ -521,11 +575,13 @@ def projection_case(dev, B, V, seed=8):
 
 
 @pytest.mark.parametrize("B,V", [(1, 777), (2, 1024), (4, 8192)])
-def test_qkv_project_bf16(dev, B, V):
+@pytest.mark.parametrize("C", attention.KERNEL_CHANNELS)
+def test_qkv_project_bf16(dev, C, B, V):
     """K6's projections on the tensor cores against the plain version at
-    the bf16 bound, per row; padding rows exactly 0; V not a multiple of
-    the 64-row tile; one launch a call, two launches bitwise equal."""
-    args, _ = projection_case(dev, B, V)
+    the bf16 bound, per row (at C 256 a block owns a 64-column slice of
+    the three products); padding rows exactly 0; V not a multiple of the
+    64-row tile; one launch a call, two launches bitwise equal."""
+    args, _ = projection_case(dev, B, V, C=C)
     before = attention_qkv.qkv_project.launches
     got = attention_qkv.qkv_project(*args)
     assert attention_qkv.qkv_project.launches == before + 1
@@ -538,13 +594,15 @@ def test_qkv_project_bf16(dev, B, V):
 
 
 @pytest.mark.parametrize("B,V", [(1, 777), (2, 1024), (4, 8192)])
-def test_qkv_project_backward_bf16(dev, B, V):
+@pytest.mark.parametrize("C", attention.KERNEL_CHANNELS)
+def test_qkv_project_backward_bf16(dev, C, B, V):
     """The projections' backward (dx on the tensor cores, the weight
     gradients split over SM-sized row chunks, ``wgrad_chunk_rows``)
     against the plain version: dx per row, the parameter gradients by the
     rule of the other backward kernels; one launch a call, two launches
-    bitwise equal."""
-    args, ds = projection_case(dev, B, V)
+    bitwise equal; at C 128 and 256 (four 128 x 128 output tiles a
+    product)."""
+    args, ds = projection_case(dev, B, V, C=C)
     x, pos, wq, _, wk, _, wv, _, _ = args
     before = attention_qkv.qkv_project_backward.launches
     got = attention_qkv.qkv_project_backward(x, pos, wq, wk, wv, *ds)
@@ -567,17 +625,50 @@ def test_qkv_projections_take_bf16_only(dev):
                                            *[d.float() for d in ds])
 
 
+@pytest.mark.parametrize("C,H", [(384, 6), (128, 16), (256, 2)])
+def test_qkv_wrappers_refuse_widths_outside_the_set(dev, C, H):
+    """C 384, or heads of 8 or 128: K6, K7 and (at C 384) the projections
+    raise on a CUDA tensor rather than run a plain version."""
+    x = torch.randn(1, 64, C, device=dev)
+    win = torch.zeros(1, 64, dtype=torch.int32, device=dev)
+    kv = torch.ones(1, 64, dtype=torch.bool, device=dev)
+    w, b = torch.randn(C, C, device=dev), torch.randn(C, device=dev)
+    qkv = (x, x, w, b, w, b, w, b, win, kv, H)
+    with pytest.raises(ValueError):
+        attention_qkv.band_attention_qkv(*qkv)
+    with pytest.raises(ValueError):
+        attention_qkv.band_attention_qkv_backward(
+            *qkv, x, torch.zeros(1, 64, H, device=dev), x)
+    if C not in attention.KERNEL_CHANNELS:
+        xb = x.bfloat16()
+        with pytest.raises(ValueError):
+            attention_qkv.qkv_project(xb, *qkv[1:9])
+        with pytest.raises(ValueError):
+            attention_qkv.qkv_project_backward(xb, x, w, w, w, xb, xb, xb)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_band_attention_qkv_statistics(dev, dtype):
-    """Under grad the forward kernel's output is the one without
-    statistics, and its log-sum-exp per row and head is the plain one (0
-    on padding rows and rows without a valid key)."""
-    args, _ = attention_case(dtype, dev)
-    out, lse = attention_qkv._forward(*args, 8, stats=True)
-    assert lse.shape == out.shape[:2] + (8,) and lse.dtype == torch.float32
-    check(out, attention_qkv._forward(*args, 8, stats=False)[0], 0, 0)
-    check(lse, attention_qkv.band_attention_qkv_lse_plain(*args, 8),
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
+def test_band_attention_qkv_statistics(dev, dtype, heads):
+    """K6 at every width K8 takes (the scale folded into q at D = 16 and
+    64, on the f32 score at 32), windows up to 150 tokens: under grad
+    the output is the one without statistics and the plain one, its
+    log-sum-exp per row and head the plain one (0 on padding rows and
+    rows without a valid key); padding rows exactly 0; one launch a
+    call, two launches bitwise equal."""
+    H, D = heads
+    args, _ = attention_case(dtype, dev, C=H * D)
+    before = attention_qkv.band_attention_qkv.launches
+    out, lse = attention_qkv._forward(*args, H, stats=True)
+    assert attention_qkv.band_attention_qkv.launches == before + 1
+    assert lse.shape == out.shape[:2] + (H,) and lse.dtype == torch.float32
+    check(out, attention_qkv._forward(*args, H, stats=False)[0], 0, 0)
+    check(out, attention_qkv.band_attention_qkv_plain(*args, H), *TOL[dtype])
+    check(lse, attention_qkv.band_attention_qkv_lse_plain(*args, H),
           *TOL[dtype])
+    assert (out[args[8] == INT_MAX] == 0).all()
+    again = attention_qkv._forward(*args, H, stats=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
 def test_autograd_launches_the_backward_kernels(dev):
@@ -810,8 +901,8 @@ def test_sst_kernels_at_the_encoder_shape(dev, dtype):
     block = (x, a, *fw, lay["extent"])
     check(ffn.post_attention_block(*block),
           ffn.post_attention_block_plain(*block), *TOL[dtype])
-    check_grads(ffn.post_attention_block_backward(*block, d),
-                ffn.post_attention_block_backward_plain(*block, d), dtype, 2)
+    check_k5_backward(ffn.post_attention_block_backward(*block, d),
+                      (*block, d), dtype)
 
 
 def expand_spans(n_cells, V=1500, C=13, B=3, seed=15):

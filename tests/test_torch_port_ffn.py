@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from geomae_tpu.ops.pallas_ffn import post_attention_block as jax_block
+from geomae_tpu_torch import probe_k5_backward
 from geomae_tpu_torch.ops.ffn import (
-    post_attention_block, post_attention_block_backward_plain,
+    KERNEL_WIDTHS, post_attention_block, post_attention_block_backward_plain,
     post_attention_block_backward_tile_plain, post_attention_block_plain,
     weight_grads_plain)
 from test_pallas_ffn import ORDER, make_case, ref_block
@@ -136,3 +137,26 @@ def test_backward_twins_compose_to_the_plain_backward(B, V, nv):
         want = [w + p for w, p in zip(want, part[2:])]
     for a, w in zip(got[2:], want):
         within(a, w)
+
+
+@pytest.mark.parametrize("C,F", KERNEL_WIDTHS,
+                         ids=[f"{c}-{f}" for c, f in KERNEL_WIDTHS])
+def test_gradient_rule_holds_the_plain_version_and_fails_a_dropped_token(
+        C, F):
+    """F5's rule for K5's ten bf16 parameter gradients
+    (``probe_k5_backward.grad_bounds``: (2^-8 + n 2^-24) sum |terms| per
+    element, against the plain backward with f64 values and sums at the
+    same bf16 rounding points), on the ``cuda`` tests' one-sample case
+    (seed 5, V 777, nv 500): the plain bf16 backward here holds to it,
+    and the same backward with one token's terms dropped (its cotangent
+    zeroed, ``dropped_token``) breaks it in every one of the ten."""
+    args = probe_k5_backward.test_case(C, F, 1, 777, (500,))
+    exact = probe_k5_backward.f64_grads(args)
+    bounds = probe_k5_backward.grad_bounds(args)
+    got = post_attention_block_backward_plain(*args)[2:]
+    fault = post_attention_block_backward_plain(
+        *probe_k5_backward.dropped_token(args))[2:]
+    ok = probe_k5_backward.rule_shares(got, exact, bounds)
+    broken = probe_k5_backward.rule_shares(fault, exact, bounds)
+    assert all(s <= 1 for s in ok), ok
+    assert all(s > 1 for s in broken), broken

@@ -31,11 +31,12 @@ from test_torch_port_weights import randomized_state
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def jax_and_port_step(cfg):
+def jax_and_port_step(cfg, state=None):
     """One compiled JAX step (losses, gradients, new batch statistics and
     parameters) and the port's step from the same state and batch, at the
-    JAX config ``cfg`` (the port's modules read it too)."""
-    params, stats = randomized_state(cfg)
+    JAX config ``cfg`` (the port's modules read it too).  ``state`` is the
+    flax (params, batch_stats), by default ``randomized_state``'s."""
+    params, stats = state or randomized_state(cfg)
     batch = JFT.dummy_batch(cfg, 2, seed=5)
     net = JaxNet(cfg)
     anchors = jnp.asarray(grid_anchors(cfg.head, JFT.head_featmap_size(cfg)))

@@ -16,7 +16,12 @@ routes in interpret mode; the route table at every width of the set and
 at C = 384, beside JAX's own decision; and F4: the tiny fine-tune step
 at width 256 (``vfe.feat_channels=16,256 sst.d_model=256 sst.nhead=8
 sst.dim_feedforward=512``), where SECOND takes the SST's width, against
-the JAX step from ``from_flax`` of the JAX init."""
+the JAX step, from flax variables on the shapes of the JAX init
+(``jax.eval_shape``, drawn with numpy as the VoxelNet tests draw them:
+compiling the init took a third of this file's time).  The JAX
+interpret-mode results are computed once for the file and shared by the
+tests that read them (``k8_case``, ``k5_case``), the JAX stack's layouts
+and init compiled (``test_torch_port_band_ops.jax_shift``)."""
 import functools
 
 import jax
@@ -38,14 +43,14 @@ from geomae_tpu_torch.models.detector import DynamicVoxelNet
 from geomae_tpu_torch.models.sst import SSTStack
 from geomae_tpu_torch.ops import attention, ffn
 from test_pallas_ffn import ORDER, make_case as ffn_case
-from test_torch_port_band_ops import (check_band_route_against_pallas,
-                                      make_case, stack_case)
-from test_torch_port_train_step import (check_gradients, check_losses,
-                                        jax_and_port_step)
+from test_torch_port_band_ops import (DTYPES, assert_rows_close,
+                                      check_route_against_pallas, make_case,
+                                      stack_case, to_torch)
+from test_torch_port_train_step import (JFT, JaxNet, check_gradients,
+                                        check_losses, jax_and_port_step)
+from test_torch_port_voxelnet import random_variables
 
 INT_MAX = np.iinfo(np.int32).max
-DTYPES = {"f32": (jnp.float32, torch.float32),
-          "bf16": (jnp.bfloat16, torch.bfloat16)}
 K8_HEADS = [(8, 32), (4, 32), (2, 64)]
 K5_WIDTHS = [(256, 512), (128, 512)]
 WIDE = ["vfe.feat_channels=16,256", "sst.d_model=256", "sst.nhead=8",
@@ -63,33 +68,13 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def to_torch(a, dtype=torch.float32):
-    """A JAX or numpy array as a torch tensor of ``dtype`` (bf16 values
-    carried exactly through f32)."""
-    return torch.from_numpy(np.array(jnp.asarray(a).astype(jnp.float32))
-                            ).to(dtype)
-
-
-def assert_rows_close(got, want, dtype, atol=2e-5, rtol=2e-4):
-    """f32 at (atol, rtol); bf16 at 2e-2 + 2e-2 relative with atol times
-    each row's max(1, largest |want|) (the last axis a row)."""
-    g, w = np.asarray(got, np.float32), np.asarray(want, np.float32)
-    assert np.isfinite(g).all()
-    if dtype == "f32":
-        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
-        return
-    bound = 2e-2 * np.maximum(np.abs(w).max(-1, keepdims=True), 1) \
-        + 2e-2 * np.abs(w)
-    assert (np.abs(g - w) <= bound).all(), float((np.abs(g - w) / bound).max())
-
-
 @functools.lru_cache(maxsize=None)
 def k8_case(H, D, dtype):
     """One sample of 128 window-sorted tokens at (H, D) with a window
     whose keys are all invalid, a cotangent zero on the padding rows, and
     the interpret-mode kernel's forward (out, statistics) and backward
     (dq, dk, dv) on them: (torch inputs, JAX outputs); each width's JAX
-    results once for the file."""
+    results once for the file, in one compiled call."""
     jdt, tdt = DTYPES[dtype]
     q, k, v, win, kv = make_case(np.random.default_rng(20 + D + H), B=1,
                                  V=128, H=H, D=D)
@@ -99,10 +84,13 @@ def k8_case(H, D, dtype):
         np.float32)
     jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in (q, k, v, g))
     jw, jkv = jnp.asarray(win), jnp.asarray(kv)
-    out, stats = jax.jit(jax_band_fwd, static_argnums=(5, 6, 7))(
-        jq, jk, jv, jw, jkv, TILE, 128, True)
-    grads = jax.jit(jax_band_bwd, static_argnums=(8, 9, 10))(
-        jq, jk, jv, jw, jkv, out, stats, jg, TILE, 128, True)
+
+    def forward_backward(*a):
+        out, stats = jax_band_fwd(*a[:5], TILE, 128, True)
+        return out, stats, jax_band_bwd(*a[:5], out, stats, a[5], TILE, 128,
+                                        True)
+
+    out, stats, grads = jax.jit(forward_backward)(jq, jk, jv, jw, jkv, jg)
     torch_in = (*(to_torch(a, tdt) for a in (jq, jk, jv)),
                 torch.from_numpy(win), torch.from_numpy(kv),
                 to_torch(jg, tdt))
@@ -153,21 +141,30 @@ def test_k8_backward_at_width(H, D, dtype):
         assert pad.any() and (a[0, pad] == 0).all()
 
 
-def k5_args(C, F, dtype, seed):
+@functools.lru_cache(maxsize=None)
+def k5_case(C, F, dtype):
     """K5's inputs at (C, F) (``test_pallas_ffn.make_case``, V = 128, nv
-    short of V in the first sample) for both packages, and a cotangent
-    zero past nv."""
+    short of V in the first sample) for the port, a cotangent zero past
+    nv, and the interpret-mode kernel's forward and ``_backward`` on them,
+    in one compiled call: (port inputs, nv, keep, dy, JAX forward, JAX
+    backward); each width's JAX results once for the file."""
     jdt, tdt = DTYPES[dtype]
-    x, attn, ws = ffn_case(np.random.default_rng(seed), B=2, V=128, C=C,
-                           F=F, dtype=jdt)
+    x, attn, ws = ffn_case(np.random.default_rng(40 + C + F), B=2, V=128,
+                           C=C, F=F, dtype=jdt)
     nv = np.array([70, 128], np.int32)
     keep = np.arange(128)[None, :] < nv[:, None]
     dy = jnp.asarray(np.random.default_rng(7).normal(size=(2, 128, C))
                      * keep[..., None], jdt)
-    jargs = (x, attn, *[ws[k] for k in ORDER])
+
+    def forward_backward(*a):
+        return (jax_block(*a[:13], 1e-5, TILE, True),
+                jax_ffn_bwd(*a, 1e-5, TILE, True))
+
+    y, grads = jax.jit(forward_backward)(x, attn, *[ws[k] for k in ORDER],
+                                         jnp.asarray(nv), dy)
     targs = (to_torch(x, tdt), to_torch(attn, tdt),
              *[to_torch(ws[k][0]) for k in ORDER])
-    return jargs, targs, nv, keep, dy
+    return targs, nv, keep, to_torch(dy, tdt), y, grads
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -176,9 +173,8 @@ def test_k5_forward_at_width(C, F, dtype):
     """The plain forward against the interpret-mode kernel on the rows
     before ``nv`` (the kernel computes the rest of ``nv``'s tile), f32 at
     1e-5; rows past ``nv`` 0."""
-    jargs, targs, nv, keep, _ = k5_args(C, F, dtype, 40 + C + F)
-    want = np.asarray(jax_block(*jargs, jnp.asarray(nv), 1e-5, TILE, True
-                                ).astype(jnp.float32))
+    targs, nv, keep, _, y, _ = k5_case(C, F, dtype)
+    want = np.asarray(y.astype(jnp.float32))
     got = ffn.post_attention_block_plain(*targs, torch.from_numpy(nv))
     assert got.dtype == DTYPES[dtype][1]
     got = got.float().numpy()
@@ -194,11 +190,9 @@ def test_k5_backward_at_width(C, F, dtype):
     gradient, f32 at 1e-5 of its largest value; bf16 dx and dattn per row
     at 2e-2 + 2e-2 relative, its f32 parameter gradients at 2e-2 of their
     largest value (sums of bf16-rounded terms over 198 tokens)."""
-    jargs, targs, nv, keep, dy = k5_args(C, F, dtype, 50 + C + F)
-    want = jax.jit(jax_ffn_bwd, static_argnums=(14, 15, 16))(
-        *jargs, jnp.asarray(nv), dy, 1e-5, TILE, True)
+    targs, nv, keep, dy, _, want = k5_case(C, F, dtype)
     got = ffn.post_attention_block_backward_plain(
-        *targs, torch.from_numpy(nv), to_torch(dy, DTYPES[dtype][1]))
+        *targs, torch.from_numpy(nv), dy)
     for i, (a, w) in enumerate(zip(got, want)):
         w = np.asarray(w.astype(jnp.float32)).reshape(a.shape)
         a = a.float().numpy()
@@ -216,8 +210,8 @@ def test_sst_block_at_256_matches_the_jax_pallas_routes():
     port's band / fused route (K8, K5: their plain versions here) against
     the JAX stack's band / fused route in interpret mode, 1e-4 on the
     valid rows."""
-    check_band_route_against_pallas(stack_case((256, 8, 512), V=128,
-                                               grads=False))
+    check_route_against_pallas(stack_case((256, 8, 512), V=128,
+                                          grads=False))
 
 
 WIDTHS = [(C, C // D, F) for C in attention.KERNEL_CHANNELS
@@ -243,11 +237,11 @@ def jax_routes(jc, V=128):
                          ids=lambda w: "-".join(map(str, w)))
 def test_route_resolution_at_widths(width):
     """At every width of the set (C of 128 or 256, D of 16, 32 or 64, F
-    of 2 C or 4 C) "band" / "fused" and "auto" resolve to the kernels, as
-    JAX resolves "band" / "fused"; "qkv" keeps K6 at 128 in 8 heads only
-    and is the plain route elsewhere, where JAX keeps its kernel.  At C =
-    384 the port takes the plain routes under every name, JAX its
-    kernels: a width the port serves on the plain routes."""
+    of 2 C or 4 C) "band", "qkv" / "fused" and "auto" resolve to the
+    kernels (K8, K6 / K5; "auto" to K8), as JAX resolves "band", "qkv" /
+    "fused".  At C = 384 the port takes the plain routes under every
+    name, JAX its kernels: a width the port serves on the plain
+    routes."""
     d_model, nhead, dim_ff = width
     inside = (d_model, dim_ff) in ffn.KERNEL_WIDTHS
     for impl in ("band", "qkv", "einsum", "auto"):
@@ -255,8 +249,7 @@ def test_route_resolution_at_widths(width):
             kw = dict(d_model=d_model, nhead=nhead, dim_feedforward=dim_ff,
                       attention_impl=impl, ffn_impl=ffn_impl)
             want_attn = {"band": "band", "auto": "band", "einsum": "einsum",
-                         "qkv": "qkv" if (d_model, nhead) == (128, 8)
-                         else "einsum"}[impl]
+                         "qkv": "qkv"}[impl]
             want_ffn = "xla" if ffn_impl == "xla" else "fused"
             if not inside:
                 want_attn, want_ffn = "einsum", "xla"
@@ -268,14 +261,19 @@ def test_route_resolution_at_widths(width):
 
 @pytest.fixture(scope="module")
 def wide_step():
-    return jax_and_port_step(jax_overrides(tiny_finetune_config(), WIDE))
+    cfg = jax_overrides(tiny_finetune_config(), WIDE)
+    batch = JFT.dummy_batch(cfg, 1)
+    scene = jax.jit(lambda p, v: JFT.extract_scene(cfg, p, v))(
+        batch["points"], batch["point_valid"])
+    var = random_variables(JaxNet(cfg), scene)
+    return jax_and_port_step(cfg, (var["params"], var["batch_stats"]))
 
 
 def test_wide_detector_loads_the_jax_init(wide_step):
-    """F4: at width 256 the port's detector takes ``from_flax`` of the JAX
-    init strictly (in ``jax_and_port_step``), SECOND's first convolution
-    reading the SST's 256 channels (flax infers them;
-    ``cfg.second.in_channels`` stays 32), on the kernels' routes."""
+    """F4: at width 256 the port's detector takes ``from_flax`` of flax
+    variables of the JAX init's tree strictly (in ``jax_and_port_step``),
+    SECOND's first convolution reading the SST's 256 channels (flax infers
+    them; ``cfg.second.in_channels`` stays 32), on the kernels' routes."""
     assert wide_step.cfg.second.in_channels == 32
     model = DynamicVoxelNet(wide_step.cfg)
     model.load_state_dict(wide_step.before, strict=True)
