@@ -28,7 +28,7 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      with the same weights, at the shipped width and the wide model's;
      then K8 (forward, backward, prologue), K6 (with statistics), K7 and
      the projections' two kernels at every width they take (d_model 128
-     and 256 in heads of 16, 32 and 64) and K5 (forward, backward) at
+     and 256 in heads of 8, 16, 32, 64 and 128) and K5 (forward, backward) at
      every (C, F) it takes, on the pretrain encoder's tokens, and K1 and
      K2 as the wide VFE (64, 256) calls them, each with its time, bound
      and library call (a ``widths`` JSON line before the kernels line);
@@ -66,6 +66,14 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      against the CPU); then the same on the ``qkv`` route (20 launches a
      step of K6 and K7, 12 of K6 a frame), each route with no call of
      the plain ``band_attention``;
+  N. the shipped d_model 128 in 16 heads of 8 and in one head of 128
+     (``sst.nhead``; K8, K6 and K7 at D = 8 and 128): on the ``band`` and
+     on the ``qkv`` route, 2 bf16 pretrain steps at batch 4 of
+     ``geomae_pretrain_nus()`` (seven finite losses, each kernel's
+     launches a step, every parameter moved) and one frame of
+     ``geomae_finetune_nus()`` served, with no call of the plain
+     ``band_attention``; at 16 heads phase G at phase M's small caps (one
+     f32 pretrain step on the card against the CPU);
   H. drives the trainer entry point (``python -m geomae_tpu_torch.train``,
      its ``main(argv)`` in process): first the documented ``--tiny`` run
      (pretrain 2 steps, fine-tune 2 from its checkpoint; at that width
@@ -145,7 +153,7 @@ second, shorter time on the ``band`` route, so that the two routes' frame
 and step times come from one run and the same batches.  Any failed check
 exits non-zero.  The line before the last is a JSON
 summary of the kernels: ``launches`` sums the served frames and train steps of
-B, D, F (both routes), M, H, I's one-rank NCCL steps, J, K and L; ``ms``,
+B, D, F (both routes), M, N, H, I's one-rank NCCL steps, J, K and L; ``ms``,
 ``plain_ms``, ``library_ms`` and
 ``bound_ms`` are the times of one call of each distinct call the paths
 make of the kernel in its dtype, summed (``segment_broadcast``: f32 mean
@@ -219,6 +227,9 @@ M_FRAMES = 2          # and its wide served frames
 # CPU's half to take seconds
 M_SMALL_CAPS = ["caps.max_points=32768", "caps.max_voxels=4096",
                 "caps.max_visible=2048"]
+# phase N: the shipped d_model 128 in heads of 8 and in one head of 128
+N_HEADS = (16, 1)
+N_STEPS = 2           # bf16 pretrain steps a route
 
 
 def per_pretrain_step(cfg) -> dict:
@@ -1523,7 +1534,7 @@ def sst_width(cfg, C: int, heads: int, Fd: int):
 
 def phase_widths(pcfg, failures: list) -> list:
     """Phase A's K8, K6, K7 and projection rows at every width they take
-    (C of 128 and 256 in heads of 16, 32 and 64) and its K5 rows at every
+    (C of 128 and 256 in heads of 8, 16, 32, 64 and 128) and its K5 rows at every
     (C, F) K5 takes, on the pretrain encoder's visible tokens at batch 4
     (positions of C channels); then K1 and K2 as the wide VFE (64, 256)
     calls them.
@@ -1566,6 +1577,90 @@ def phase_widths(pcfg, failures: list) -> list:
               f"{r['bound_ms']:.4f} ({r['bound_by']}) / {lib}; plain "
               f"{r['plain_ms']:.4f}")
     return rows
+
+
+def phase_n(pcfg, cfg, failures: list) -> dict:
+    """The shipped d_model 128 in 16 heads of 8 and in one head of 128
+    (``sst.nhead``), on the ``band`` route (K8) and on the ``qkv`` route
+    (K6 and K7), with K5: per head count and route, ``N_STEPS`` bf16
+    pretrain steps at batch 4 (seven finite loss terms, each kernel's
+    launches a step, every parameter moved) and one served frame of the
+    fine-tune model, with no call of the plain ``band_attention``; at 16
+    heads phase G (one f32 pretrain step on the card against the CPU) at
+    phase M's small caps.  Returns the launches of the steps and frames."""
+    from geomae_tpu_torch.apis import inference_detector, init_model
+    from geomae_tpu_torch.config import apply_overrides
+    from geomae_tpu_torch.profile_serving import host_ms
+    from geomae_tpu_torch.synthetic import clustered_frame
+    from geomae_tpu_torch.train.pretrain import (init_state, make_train_step,
+                                                 synthetic_batch)
+
+    total: dict = {}
+    for heads in N_HEADS:
+        D = pcfg.sst.d_model // heads
+        for route in (BAND_OPTION, QKV_OPTION):
+            opts = [f"sst.nhead={heads}", route]
+            wp, wf = (apply_overrides(c, opts) for c in (pcfg, cfg))
+            bz = wp.data.batch_size
+            what = f"{heads} head{'s' * (heads > 1)} of {D}, {route}"
+            print(f"phase N: d_model {wp.sst.d_model} in {what}: {N_STEPS} "
+                  f"bf16 pretrain steps at batch {bz}, one served frame")
+            with plain_attention_calls() as plain:
+                state = init_state(wp, DEVICE,
+                                   torch.Generator().manual_seed(SEED))
+                step = make_train_step(wp)
+                names = [k for k, _ in state.model.named_parameters()]
+                before = [p.detach().clone()
+                          for p in state.model.parameters()]
+                batches = [synthetic_batch(wp, bz, seed=SEED + 95 + i,
+                                           device=DEVICE)
+                           for i in range(N_STEPS)]
+                gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+                fns = reset_counts()
+                for i, batch in enumerate(batches):
+                    (_, l), ms = host_ms(lambda: step(state, batch, gen))
+                    losses = {k: float(v) for k, v in l.items()}
+                    print(f"  step {i}: {ms:.1f} ms, loss "
+                          f"{losses['loss']:.4f}")
+                    if not (len(losses) == 7 and all(
+                            np.isfinite(v) for v in losses.values())):
+                        failures.append(f"{what}: step {i}'s seven losses "
+                                        "are not all finite")
+                runs = check_launches(
+                    fns, on_route(per_pretrain_step(wp), wp), N_STEPS,
+                    f"pretrain steps ({what})", failures)
+                still = [k for k, a, p in zip(names, before,
+                                              state.model.parameters())
+                         if torch.equal(a, p.detach())]
+                print(f"  parameters changed: {len(names) - len(still)} of "
+                      f"{len(names)} tensors")
+                if still:
+                    failures.append(f"{what}: parameters did not change: "
+                                    f"{still[:5]}")
+                del state, batches, before
+                det = init_model(cfg=wf, device=DEVICE,
+                                 generator=torch.Generator().manual_seed(SEED))
+                raw = clustered_frame(np.random.default_rng(SEED + 97),
+                                      wf.voxel, wf.caps.max_points)
+                fns = reset_counts()
+                res, ms = host_ms(lambda: inference_detector(det, raw))
+                n = len(res["scores"])
+                print(f"  frame: {len(raw)} points -> {n} detections in "
+                      f"{ms:.1f} ms")
+                if not (n and np.isfinite(res["boxes"]).all()):
+                    failures.append(f"{what}: frame malformed ({n} boxes)")
+                served = check_launches(fns, on_route(PER_FRAME, wf), 1,
+                                        f"frame ({what})", failures)
+                del det
+            print(f"  calls of the plain band_attention: {len(plain)}")
+            if plain:
+                failures.append(f"{what} called the plain band_attention "
+                                f"{len(plain)} times")
+            for k in runs:
+                total[k] = total.get(k, 0) + runs[k] + served[k]
+    phase_g(apply_overrides(pcfg, M_SMALL_CAPS + [f"sst.nhead={N_HEADS[0]}"]),
+            failures)
+    return total
 
 
 @contextlib.contextmanager
@@ -3191,6 +3286,8 @@ def main() -> None:
     runs.append(phase_m(pcfg, cfg, failures))
     runs.append(phase_m(pcfg, cfg, failures, QKV_OPTION))
     passed("phase M", failures, clock)
+    runs.append(phase_n(pcfg, cfg, failures))
+    passed("phase N", failures, clock)
     runs.append(phase_h(pcfg, cfg, failures))
     passed("phase H", failures, clock)
     runs.append(phase_i(pcfg, failures))

@@ -10,15 +10,25 @@
 // return exactly 0.  The q/k/v projections happen outside (three Linears
 // in models/sst.py), as on the JAX route.
 //
-// Widths: every kernel is a template over the head width D (16, 32 or
-// 64) and the row width C (128 or 256), so the head count H = C / D, the
-// row stride and every index are constants; the entry points pick the
-// instantiation.  Each kernel stages a fixed number of channels a block,
-// whole heads of them, and the grid spans the head groups: the f32
+// Widths: every kernel is a template over the head width D (8, 16, 32,
+// 64 or 128) and the row width C (128 or 256), so the head count H = C /
+// D, the row stride and every index are constants; the entry points pick
+// the instantiation.  Each kernel stages a fixed number of channels a
+// block, whole heads of them, and the grid spans the head groups: the f32
 // kernels 128 channels (128 / D heads), the bf16 forward 64 (64 / D
-// heads, at least one), the bf16 backward 32 (32 / D heads, at least
-// one: 64 at D = 64).  At the shipped width (8 heads of 16) each
-// instantiation is the kernel it was before the widths.
+// heads, at least one; 32 at D = 8), the bf16 backward 32 (32 / D heads,
+// at least one: 64 at D = 64, 128 at D = 128).  At the shipped width (8
+// heads of 16) each instantiation is the kernel it was before the widths.
+// Where a width needs its own design: at D = 8 the bf16 kernels contract a
+// head over 8 channels with mma.sync m16n8k8 (no zero padding to 16) and
+// take its one n-tile of 8 in the value products; at D = 128 the f32 kernels
+// give a (query, head) 8 lanes of 16 channels (a thread would hold 256
+// floats of q and accumulator, 896 in the backward), the bf16 forward
+// runs two blocks an SM (a warp's 16 x 128 f32 output takes 64 registers
+// a lane), and the bf16 backward splits each head's output columns over
+// two blocks, each computing the scores and dP over all 128 channels
+// (the three 16 x 128 accumulators of a warp would take 192 registers a
+// lane).  D = 256 (C 256 in one head) and D of 4 or less are not taken.
 //
 // Bound: with no projection inside, a call moves 4 rows of C values per
 // token and computes 4 * C operations per same-window pair forward (10 * C
@@ -96,17 +106,34 @@ static_assert(KC == TQ, "chunk rows map onto the tile's lanes");
 // 1/sqrt(D), a power of two or not: the f32 value nearest it
 template <int D>
 struct Head {
-  static_assert(D == 16 || D == 32 || D == 64, "head widths 16, 32, 64");
-  static constexpr float kScale = D == 16 ? 0.25f
+  static_assert(D == 8 || D == 16 || D == 32 || D == 64 || D == 128,
+                "head widths 8, 16, 32, 64, 128");
+  static constexpr float kScale = D == 8    ? 0.35355339059327376f
+                                  : D == 16 ? 0.25f
+                                  : D == 32 ? 0.17677669529663687f
                                   : D == 64 ? 0.125f
-                                            : 0.17677669529663687f;
-  // the f32 kernels: heads a block and threads (one per (query, head))
+                                            : 0.08838834764831845f;
+  // the f32 kernels: heads a block, lanes a (query, head) (one up to D =
+  // 64; at D = 128 eight, each keeping 16 channels, their partial dot
+  // products summed by shuffles as in K6's f32 kernels), channels a lane
+  // and threads
   static constexpr int kGH = kF32Channels / D;
-  static constexpr int kThreads = TQ * kGH;
+  static constexpr int kLanes = D > 64 ? D / 16 : 1;
+  static constexpr int kLC = D / kLanes;
+  static constexpr int kThreads = TQ * kGH * kLanes;
   static constexpr int kFwdSmemBytes =
       2 * KC * kF32Channels * sizeof(float) + 2 * KC * sizeof(int);
   static constexpr int kBwdSmemBytes = 4 * KC * kF32Channels * sizeof(float) +
                                        (2 * KC + 2 * KC * kGH) * sizeof(int);
+  static_assert(kScale * kScale * D > 0.9999f && kScale * kScale * D < 1.0001f,
+                "kScale is 1/sqrt(D)");
+  static_assert(kThreads <= 512, "a block of whole lane groups");
+
+  // the calling thread's head in the group, query of the tile and lane of
+  // its (query, head): a warp is one head of 32 queries where kLanes is 1
+  __device__ static int head() { return threadIdx.x / (TQ * kLanes); }
+  __device__ static int query() { return threadIdx.x / kLanes % TQ; }
+  __device__ static int lane() { return threadIdx.x % kLanes; }
 };
 static_assert(Head<16>::kScale * Head<16>::kScale * 16 == 1.0f, "1/sqrt(D)");
 static_assert(Head<16>::kThreads == 256, "the shipped block: 8 heads x 32");
@@ -278,8 +305,10 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + row0 * C + h0 * D;
   const float* vb = v + row0 * C + h0 * D;
 
-  const int h = threadIdx.x / TQ;   // the group's head, warp-uniform
-  const int i = threadIdx.x % TQ;
+  constexpr int LC = Hd::kLC, S = Hd::kLanes;   // channels a lane, lanes
+  const int h = Hd::head();         // the group's head, warp-uniform
+  const int i = Hd::query();
+  const int c = h * D + Hd::lane() * LC;   // the lane's first channel
   const int qi = q0 + i;
   const int my_win = (i < nq) ? wb[qi] : kInt32Max;
 
@@ -287,15 +316,15 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
   const int ks = s_range[0], ke = s_range[1];
 
-  float qr[D];
+  float qr[LC];
 #pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = 0.f;
+  for (int d = 0; d < LC; ++d) qr[d] = 0.f;
   if (my_win != kInt32Max)
-    load_head<float, D>(q + (row0 + qi) * C + (h0 + h) * D, qr);
+    load_head<float, LC>(q + (row0 + qi) * C + h0 * D + c, qr);
 
-  float m = -INFINITY, l = 0.f, acc[D];
+  float m = -INFINITY, l = 0.f, acc[LC];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int d = 0; d < LC; ++d) acc[d] = 0.f;
 
   for (int k0 = ks; k0 < ke; k0 += KC) {
     const int nk = min(KC, ke - k0);
@@ -311,14 +340,15 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (my_win == kInt32Max) continue;
     for (int j = 0; j < nk; ++j) {
       if (s_win[j] != my_win || !s_kv[j]) continue;
-      const float s = dot_head<D>(qr, &s_k[j * W + h * D]) * Hd::kScale;
+      const float s =
+          lane_group_sum<S>(dot_head<LC>(qr, &s_k[j * W + c])) * Hd::kScale;
       const float mn = fmaxf(m, s);
       const float corr = expf(m - mn);
       const float p = expf(s - mn);
       l = l * corr + p;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
-      axpy_head<D>(p, &s_v[j * W + h * D], acc);
+      for (int d = 0; d < LC; ++d) acc[d] *= corr;
+      axpy_head<LC>(p, &s_v[j * W + c], acc);
       m = mn;
     }
   }
@@ -326,10 +356,11 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (i < nq) {
     const bool seen = my_win != kInt32Max && l > 0.f;
     const float inv = seen ? 1.f / l : 0.f;
-    float* o = out + (row0 + qi) * C + (h0 + h) * D;
+    float* o = out + (row0 + qi) * C + h0 * D + c;
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = acc[d] * inv;
-    if (lse) lse[(row0 + qi) * H + h0 + h] = seen ? m + logf(l) : 0.f;
+    for (int d = 0; d < LC; ++d) o[d] = acc[d] * inv;
+    if (lse && Hd::lane() == 0)
+      lse[(row0 + qi) * H + h0 + h] = seen ? m + logf(l) : 0.f;
   }
 }
 
@@ -382,12 +413,16 @@ band_attention_delta_kernel(const T* __restrict__ dout,
   const int i = blockIdx.x * kDeltaThreads + threadIdx.x;
   if (i >= n) return;
   float d = 0.f;
-  if (win[i / H] != kInt32Max) {
-    float g[D], o[D];
-    load_head<T, D>(dout + (size_t)i * D, g);
-    load_head<T, D>(out + (size_t)i * D, o);
+  if (win[i / H] != kInt32Max) {   // four channels at a time, in d order
 #pragma unroll
-    for (int e = 0; e < D; ++e) d = fmaf(g[e], o[e], d);
+    for (int e = 0; e < D; e += 4) {
+      const float4 g = load4<T>(dout + (size_t)i * D + e);
+      const float4 o = load4<T>(out + (size_t)i * D + e);
+      d = fmaf(g.x, o.x, d);
+      d = fmaf(g.y, o.y, d);
+      d = fmaf(g.z, o.z, d);
+      d = fmaf(g.w, o.w, d);
+    }
   }
   delta[i] = d;
 }
@@ -403,7 +438,7 @@ cudaError_t launch_delta(const void* dout, const void* out, const int* win,
 }
 
 // f32: the CUDA cores, one thread per (token, head) of a 32-token tile of
-// one 128-channel head group.
+// one 128-channel head group (kLanes threads at D = 128, 16 channels each).
 template <int D, int C>
 __global__ void __launch_bounds__(Head<D>::kThreads)
 band_attention_bwd_f32_kernel(BwdArgs p) {
@@ -437,8 +472,10 @@ band_attention_bwd_f32_kernel(BwdArgs p) {
   const float* lb = p.lse + row0 * H + h0;
   const float* db = p.delta + row0 * H + h0;
 
-  const int h = threadIdx.x / TQ;  // the group's head, warp-uniform
-  const int i = threadIdx.x % TQ;
+  constexpr int LC = Hd::kLC, S = Hd::kLanes;   // channels a lane, lanes
+  const int h = Hd::head();        // the group's head, warp-uniform
+  const int i = Hd::query();
+  const int c = h * D + Hd::lane() * LC;   // the lane's first channel
   const int qi = q0 + i;
   const int my_win = (i < nq) ? wb[qi] : kInt32Max;
   const bool my_kv = (i < nq) && kvb[qi];
@@ -448,19 +485,19 @@ band_attention_bwd_f32_kernel(BwdArgs p) {
   const int ks = s_range[0], ke = s_range[1];
 
   // the tile's own q, k, v, dO, D and lse, in registers
-  float qr[D], kr[D], vr[D], g[D], dq[D], dk[D], dv[D];
+  float qr[LC], kr[LC], vr[LC], g[LC], dq[LC], dk[LC], dv[LC];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < LC; ++d) {
     qr[d] = kr[d] = vr[d] = g[d] = 0.f;
     dq[d] = dk[d] = dv[d] = 0.f;
   }
   float lse_i = 0.f, d_i = 0.f;
   if (my_win != kInt32Max) {
-    const size_t c0 = (size_t)qi * C + h * D;
-    load_head<T, D>(qb + c0, qr);
-    load_head<T, D>(kb + c0, kr);
-    load_head<T, D>(vb + c0, vr);
-    load_head<T, D>(gb + c0, g);
+    const size_t c0 = (size_t)qi * C + c;
+    load_head<T, LC>(qb + c0, qr);
+    load_head<T, LC>(kb + c0, kr);
+    load_head<T, LC>(vb + c0, vr);
+    load_head<T, LC>(gb + c0, g);
     lse_i = lb[(size_t)qi * H + h];
     d_i = db[(size_t)qi * H + h];
   }
@@ -475,8 +512,10 @@ band_attention_bwd_f32_kernel(BwdArgs p) {
     {  // thread (row r, head hh): D and lse of the chunk's rows; window ids
       const int r = threadIdx.x % KC, hh = threadIdx.x / KC;
       const bool in = r < nk;
-      s_dd[r * GH + hh] = in ? db[(size_t)(k0 + r) * H + hh] : 0.f;
-      s_lse[r * GH + hh] = in ? lb[(size_t)(k0 + r) * H + hh] : 0.f;
+      if (Hd::kLanes == 1 || hh < GH) {
+        s_dd[r * GH + hh] = in ? db[(size_t)(k0 + r) * H + hh] : 0.f;
+        s_lse[r * GH + hh] = in ? lb[(size_t)(k0 + r) * H + hh] : 0.f;
+      }
       if (hh == 0) {
         s_win[r] = in ? wb[k0 + r] : kInt32Max;
         s_kv[r] = in ? (int)kvb[k0 + r] : 0;
@@ -486,33 +525,33 @@ band_attention_bwd_f32_kernel(BwdArgs p) {
     if (my_win == kInt32Max) continue;
     for (int j = 0; j < nk; ++j) {
       if (s_win[j] != my_win) continue;
-      const float* kj = &s_k[j * W + h * D];
-      const float* vj = &s_v[j * W + h * D];
+      const float* kj = &s_k[j * W + c];
+      const float* vj = &s_v[j * W + c];
       if (s_kv[j]) {             // token i as query, j as key
-        const float sc = dot_head<D>(qr, kj) * Hd::kScale;
-        const float dp = dot_head<D>(g, vj);
+        const float sc = lane_group_sum<S>(dot_head<LC>(qr, kj)) * Hd::kScale;
+        const float dp = lane_group_sum<S>(dot_head<LC>(g, vj));
         const float pr = expf(sc - lse_i);
-        axpy_head<D>(pr * (dp - d_i), kj, dq);
+        axpy_head<LC>(pr * (dp - d_i), kj, dq);
       }
       if (my_kv) {               // token i as key, j as query
-        const float* qj = &s_q[j * W + h * D];
-        const float* gj = &s_do[j * W + h * D];
-        const float sc = dot_head<D>(kr, qj) * Hd::kScale;
-        const float dp = dot_head<D>(vr, gj);
+        const float* qj = &s_q[j * W + c];
+        const float* gj = &s_do[j * W + c];
+        const float sc = lane_group_sum<S>(dot_head<LC>(kr, qj)) * Hd::kScale;
+        const float dp = lane_group_sum<S>(dot_head<LC>(vr, gj));
         const float pr = expf(sc - s_lse[j * GH + h]);
-        axpy_head<D>(pr, gj, dv);
-        axpy_head<D>(pr * (dp - s_dd[j * GH + h]), qj, dk);
+        axpy_head<LC>(pr, gj, dv);
+        axpy_head<LC>(pr * (dp - s_dd[j * GH + h]), qj, dk);
       }
     }
   }
 
   if (i < nq) {                    // padding rows and padding tiles write 0
-    const size_t c0 = base + (size_t)qi * C + h * D;
+    const size_t c0 = base + (size_t)qi * C + c;
     T* oq = static_cast<T*>(p.dq) + c0;
     T* ok = static_cast<T*>(p.dk) + c0;
     T* ov = static_cast<T*>(p.dv) + c0;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < LC; ++d) {
       oq[d] = dq[d] * Hd::kScale;
       ok[d] = dk[d] * Hd::kScale;
       ov[d] = dv[d];
@@ -543,7 +582,13 @@ cudaError_t launch_bwd_f32(const BwdArgs& args, int B, cudaStream_t stream) {
 // accumulators, masked per element by the row's and the column's window
 // ids and the key's validity, and rounded to bf16 into the next product's
 // A fragments (the C layout of m16n8k16 is its A layout), so neither goes
-// through shared memory.
+// through shared memory.  At D = 8 the four score products are m16n8k8
+// and the three output products one m16n8k16 each.  At D = 128 a block
+// keeps half of each output's columns (kSplit; the grid's y spans the
+// halves): it computes S, dP and their transposes over all 128 channels,
+// then accumulates its 64 columns of dq, dk and dv, and it reads its A
+// fragments from shared memory at each product (held, they would take 128
+// registers a lane); 206 KB of staged rows, one block an SM.
 constexpr int kTile = 64;              // tokens a block: queries and keys
 constexpr int kChunk = 64;             // keys (and queries) a chunk
 constexpr int kTcWarps = kTile / 16;
@@ -560,8 +605,11 @@ struct BwdTc {
   static constexpr int kCW = kHG * D;       // channels a block stages
   static constexpr int kRS = kCW + kPad;    // bf16 row stride of the rows
   static constexpr int kPieces = kCW / 8;   // 16-byte pieces a staged row
-  // D = 64 holds twice the accumulators and fragments: two blocks an SM
-  static constexpr int kMinBlocks = D == 64 ? 2 : 3;
+  static constexpr int kSplit = D == 128 ? 2 : 1;   // blocks a head's columns
+  static constexpr bool kHold = D <= 64;    // A fragments held in registers
+  // D = 64 holds twice the accumulators and fragments: two blocks an SM;
+  // D = 128 stages 206 KB: one
+  static constexpr int kMinBlocks = D == 128 ? 1 : D == 64 ? 2 : 3;
   static_assert(kCW % 8 == 0, "16-byte rows");
 
   // The staged rows of q, k, v and dO (in that order) of the tile and of
@@ -573,6 +621,7 @@ struct BwdTc {
     int2 win[2][kChunk];
     float2 stat[2][kHG][kChunk];
   };
+  static_assert(sizeof(Smem) <= 227 * 1024, "one block an SM");
 };
 static_assert(BwdTc<16>::kHG == 2 && BwdTc<16>::kCW == 32,
               "the shipped block: 2 heads of 16");
@@ -610,9 +659,13 @@ __global__ void __launch_bounds__(kTcThreads, BwdTc<D>::kMinBlocks)
 band_attention_bwd_tc_kernel(BwdArgs p) {
   using K = BwdTc<D>;
   constexpr int H = C / D;
-  constexpr int kHG = K::kHG, kRS = K::kRS, kPieces = K::kPieces;
+  constexpr int kHG = K::kHG, kRS = K::kRS, kSplit = K::kSplit;
   constexpr int KS = D / 16;       // k-steps of 16 over a head's channels
   constexpr int NT = D / 8;        // n-tiles of 8 over a head's channels
+  constexpr int KH = K::kHold && KS > 0 ? KS : 1;  // A fragments held
+  constexpr int KO = (KS + kSplit - 1) / kSplit;   // k-steps a block outputs
+  constexpr int NO = NT / kSplit;  // n-tiles a block outputs
+  constexpr int kOutPieces = K::kPieces / kSplit;  // 16-byte pieces of them
   constexpr float kScale = Head<D>::kScale;
   constexpr float kScaleLog2e = kScale * kLog2e;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -620,7 +673,9 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
   __shared__ int s_range[2];
 
   const int V = p.V;
-  const int b = blockIdx.z, h0 = blockIdx.y * kHG, t0 = blockIdx.x * kTile;
+  const int b = blockIdx.z, t0 = blockIdx.x * kTile;
+  const int h0 = blockIdx.y / kSplit * kHG;
+  const int oc = blockIdx.y % kSplit * (D / kSplit);   // first output column
   const int nt = min(kTile, V - t0);
   const size_t row0 = (size_t)b * V;
   const int* wb = p.win + row0;
@@ -687,7 +742,7 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
     }
   }
 
-  float dq[kHG][NT][4] = {}, dk[kHG][NT][4] = {}, dv[kHG][NT][4] = {};
+  float dq[kHG][NO][4] = {}, dk[kHG][NO][4] = {}, dv[kHG][NO][4] = {};
 
   int buf = 0;
   for (int k0 = ks; k0 < ke; k0 += kChunk, buf ^= 1) {
@@ -706,26 +761,37 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
     const __nv_bfloat16* cg = sm.chunk[buf][3];
 #pragma unroll
     for (int hh = 0; hh < kHG; ++hh) {
-      // A fragments of the warp's 16 tile rows of head h0 + hh, one per 16
-      // channels
-      uint32_t aq[KS][4], ak[KS][4], av[KS][4], ag[KS][4];
+      // A fragments of the warp's 16 tile rows of head h0 + hh (q, k, v,
+      // dO), one per 16 channels: held over the chunk where kHold, else
+      // read at each product; at D = 8 one per array, of 8 channels
+      const int ar = (16 * warp + lane % 16) * kRS + hh * D;
+      uint32_t af[4][KH][4], a8[4][2];
+      if constexpr (D == 8) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const int ar = (16 * warp + lane % 16) * kRS + hh * D + 16 * kk +
-                       (lane / 16) * 8;
-        ldmatrix_x4(aq[kk], sm.tile[0] + ar);
-        ldmatrix_x4(ak[kk], sm.tile[1] + ar);
-        ldmatrix_x4(av[kk], sm.tile[2] + ar);
-        ldmatrix_x4(ag[kk], sm.tile[3] + ar);
+        for (int a = 0; a < 4; ++a) ldmatrix_x2(a8[a], sm.tile[a] + ar);
+      } else if constexpr (K::kHold) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            ldmatrix_x4(af[a][kk],
+                        sm.tile[a] + ar + 16 * kk + (lane / 16) * 8);
       }
+      auto frag = [&](int a, int kk) -> const uint32_t(&)[4] {
+        if constexpr (!K::kHold)
+          ldmatrix_x4(af[a][0], sm.tile[a] + ar + 16 * kk + (lane / 16) * 8);
+        return af[a][K::kHold ? kk : 0];
+      };
 #pragma unroll 1
       for (int s = 0; s < kChunk / 16; ++s) {
         // B fragments of chunk rows 16 s .. 16 s + 15: as stored (n over
-        // rows, k over the head's channels) and transposed (k over rows)
+        // rows, k over the head's channels) and transposed (k over rows);
+        // at D = 8 both read rows 16 s + lane % 16
         const int bn = (16 * s + lane % 8 + (lane / 16) * 8) * kRS + hh * D +
                        ((lane / 8) % 2) * 8;
         const int bt = (16 * s + lane % 8 + ((lane / 8) % 2) * 8) * kRS +
                        hh * D + (lane / 16) * 8;
+        const int b8 = (16 * s + lane % 16) * kRS + hh * D;
         // the lane's accumulator columns 16 s + 8 j + 2 t + (0, 1): their
         // window ids and statistics
         int4 wc[2];
@@ -739,15 +805,27 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
 
         // the tile as queries, the chunk rows as keys
         float sc[2][4] = {}, dp[2][4] = {};
+        if constexpr (D == 8) {
+          uint32_t bk[2], bv[2];
+          ldmatrix_x2(bk, ck + b8);
+          ldmatrix_x2(bv, cv + b8);
+          mma_bf16_1688(sc[0], a8[0], bk[0]);
+          mma_bf16_1688(sc[1], a8[0], bk[1]);
+          mma_bf16_1688(dp[0], a8[3], bv[0]);
+          mma_bf16_1688(dp[1], a8[3], bv[1]);
+        } else {
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          uint32_t bk[4], bv[4];
-          ldmatrix_x4(bk, ck + bn + 16 * kk);
-          ldmatrix_x4(bv, cv + bn + 16 * kk);
-          mma_bf16_16816(sc[0], aq[kk], &bk[0]);
-          mma_bf16_16816(sc[1], aq[kk], &bk[2]);
-          mma_bf16_16816(dp[0], ag[kk], &bv[0]);
-          mma_bf16_16816(dp[1], ag[kk], &bv[2]);
+          for (int kk = 0; kk < KS; ++kk) {
+            uint32_t bk[4], bv[4];
+            ldmatrix_x4(bk, ck + bn + 16 * kk);
+            ldmatrix_x4(bv, cv + bn + 16 * kk);
+            const uint32_t(&aq)[4] = frag(0, kk);
+            mma_bf16_16816(sc[0], aq, &bk[0]);
+            mma_bf16_16816(sc[1], aq, &bk[2]);
+            const uint32_t(&ag)[4] = frag(3, kk);
+            mma_bf16_16816(dp[0], ag, &bv[0]);
+            mma_bf16_16816(dp[1], ag, &bv[2]);
+          }
         }
         uint32_t ads[4];
 #pragma unroll
@@ -767,25 +845,43 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
             }
             ads[2 * j + rh] = pack_bf16(ds[0], ds[1]);
           }
+        if constexpr (D == 8) {
+          uint32_t bkt[2];
+          ldmatrix_x2_trans(bkt, ck + b8);
+          mma_bf16_16816(dq[hh][0], ads, bkt);
+        } else {
 #pragma unroll
-        for (int dn = 0; dn < KS; ++dn) {
-          uint32_t bkt[4];
-          ldmatrix_x4_trans(bkt, ck + bt + 16 * dn);
-          mma_bf16_16816(dq[hh][2 * dn], ads, &bkt[0]);
-          mma_bf16_16816(dq[hh][2 * dn + 1], ads, &bkt[2]);
+          for (int dn = 0; dn < KO; ++dn) {
+            uint32_t bkt[4];
+            ldmatrix_x4_trans(bkt, ck + bt + oc + 16 * dn);
+            mma_bf16_16816(dq[hh][2 * dn], ads, &bkt[0]);
+            mma_bf16_16816(dq[hh][2 * dn + 1], ads, &bkt[2]);
+          }
         }
 
         // the tile as keys, the chunk rows as queries
         float st[2][4] = {}, dpt[2][4] = {};
+        if constexpr (D == 8) {
+          uint32_t bq[2], bg[2];
+          ldmatrix_x2(bq, cq + b8);
+          ldmatrix_x2(bg, cg + b8);
+          mma_bf16_1688(st[0], a8[1], bq[0]);
+          mma_bf16_1688(st[1], a8[1], bq[1]);
+          mma_bf16_1688(dpt[0], a8[2], bg[0]);
+          mma_bf16_1688(dpt[1], a8[2], bg[1]);
+        } else {
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          uint32_t bq[4], bg[4];
-          ldmatrix_x4(bq, cq + bn + 16 * kk);
-          ldmatrix_x4(bg, cg + bn + 16 * kk);
-          mma_bf16_16816(st[0], ak[kk], &bq[0]);
-          mma_bf16_16816(st[1], ak[kk], &bq[2]);
-          mma_bf16_16816(dpt[0], av[kk], &bg[0]);
-          mma_bf16_16816(dpt[1], av[kk], &bg[2]);
+          for (int kk = 0; kk < KS; ++kk) {
+            uint32_t bq[4], bg[4];
+            ldmatrix_x4(bq, cq + bn + 16 * kk);
+            ldmatrix_x4(bg, cg + bn + 16 * kk);
+            const uint32_t(&ak)[4] = frag(1, kk);
+            mma_bf16_16816(st[0], ak, &bq[0]);
+            mma_bf16_16816(st[1], ak, &bq[2]);
+            const uint32_t(&av)[4] = frag(2, kk);
+            mma_bf16_16816(dpt[0], av, &bg[0]);
+            mma_bf16_16816(dpt[1], av, &bg[2]);
+          }
         }
         uint32_t ap[4], adst[4];
 #pragma unroll
@@ -807,15 +903,23 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
             ap[2 * j + rh] = pack_bf16(pr[0], pr[1]);
             adst[2 * j + rh] = pack_bf16(ds[0], ds[1]);
           }
+        if constexpr (D == 8) {
+          uint32_t bgt[2], bqt[2];
+          ldmatrix_x2_trans(bgt, cg + b8);
+          ldmatrix_x2_trans(bqt, cq + b8);
+          mma_bf16_16816(dv[hh][0], ap, bgt);
+          mma_bf16_16816(dk[hh][0], adst, bqt);
+        } else {
 #pragma unroll
-        for (int dn = 0; dn < KS; ++dn) {
-          uint32_t bgt[4], bqt[4];
-          ldmatrix_x4_trans(bgt, cg + bt + 16 * dn);
-          ldmatrix_x4_trans(bqt, cq + bt + 16 * dn);
-          mma_bf16_16816(dv[hh][2 * dn], ap, &bgt[0]);
-          mma_bf16_16816(dv[hh][2 * dn + 1], ap, &bgt[2]);
-          mma_bf16_16816(dk[hh][2 * dn], adst, &bqt[0]);
-          mma_bf16_16816(dk[hh][2 * dn + 1], adst, &bqt[2]);
+          for (int dn = 0; dn < KO; ++dn) {
+            uint32_t bgt[4], bqt[4];
+            ldmatrix_x4_trans(bgt, cg + bt + oc + 16 * dn);
+            ldmatrix_x4_trans(bqt, cq + bt + oc + 16 * dn);
+            mma_bf16_16816(dv[hh][2 * dn], ap, &bgt[0]);
+            mma_bf16_16816(dv[hh][2 * dn + 1], ap, &bgt[2]);
+            mma_bf16_16816(dk[hh][2 * dn], adst, &bqt[0]);
+            mma_bf16_16816(dk[hh][2 * dn + 1], adst, &bqt[2]);
+          }
         }
       }
     }
@@ -830,10 +934,11 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
 #pragma unroll
   for (int hh = 0; hh < kHG; ++hh)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NO; ++j)
 #pragma unroll
       for (int rh = 0; rh < 2; ++rh) {
-        const int o = (16 * warp + g + 8 * rh) * kRS + hh * D + 8 * j + 2 * t;
+        const int o =
+            (16 * warp + g + 8 * rh) * kRS + hh * D + oc + 8 * j + 2 * t;
         const int e = 2 * rh;
         *reinterpret_cast<uint32_t*>(sm.tile[0] + o) = pack_bf16(
             dq[hh][j][e] * kScale, dq[hh][j][e + 1] * kScale);
@@ -843,10 +948,10 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
             pack_bf16(dv[hh][j][e], dv[hh][j][e + 1]);
       }
   __syncwarp();
-  for (int e = lane; e < 3 * 16 * kPieces; e += 32) {
-    const int a = e / (16 * kPieces);
-    const int r = 16 * warp + (e / kPieces) % 16;
-    const int c = (e % kPieces) * 8;
+  for (int e = lane; e < 3 * 16 * kOutPieces; e += 32) {
+    const int a = e / (16 * kOutPieces);
+    const int r = 16 * warp + (e / kOutPieces) % 16;
+    const int c = oc + (e % kOutPieces) * 8;
     if (r >= nt) continue;
     void* dst = a == 0 ? p.dq : a == 1 ? p.dk : p.dv;
     *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(dst) + base +
@@ -861,7 +966,7 @@ cudaError_t launch_bwd_tc(const BwdArgs& args, int B, cudaStream_t stream) {
   constexpr int kBytes = sizeof(typename K::Smem);
   cudaError_t e = allow_smem(band_attention_bwd_tc_kernel<D, C>, kBytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((args.V + kTile - 1) / kTile, C / K::kCW, B);
+  const dim3 grid((args.V + kTile - 1) / kTile, C / K::kCW * K::kSplit, B);
   band_attention_bwd_tc_kernel<D, C>
       <<<grid, kTcThreads, kBytes, stream>>>(args);
   return cudaGetLastError();
@@ -881,7 +986,16 @@ cudaError_t launch_bwd_tc(const BwdArgs& args, int B, cudaStream_t stream) {
 // 2^(s scale log2 e - max) is rounded to bf16 into the A fragments of the
 // value product (the C layout of m16n8k16 is its A layout); the sum adds
 // the unrounded P.  A warp skips a chunk whose keys pair none of its
-// rows.  One warp finds the tile's key range (key_range_warp).
+// rows.  One warp finds the tile's key range (key_range_warp).  At D = 8
+// S takes 2 m16n8k8 products per head and 16 keys and O += P V one
+// m16n8k16, and a block takes 4 heads (32 channels) at four blocks an
+// SM: it spills 120 bytes, yet ran 1.18x and 1.31x faster on the
+// encoder's tokens than 8 heads a block at three and two blocks (288
+// and 108 bytes) and 1.25x faster than 4 heads at two, which spill
+// nothing (probe_forwards --width 128,8; PERF.md).  At D = 128 (one head) a warp's
+// output is 16 x 128 f32, 64 registers a lane beside the scores and the
+// Q fragments, so the kernel asks for two blocks an SM (its 87 KB of
+// shared memory allow no more) instead of four.
 constexpr int kFwdChannels = 64;       // channels a block stages
 constexpr int kFwdWarps = kTile / 16;
 constexpr int kFwdThreads = 32 * kFwdWarps;
@@ -889,9 +1003,12 @@ static_assert(kFwdThreads >= kChunk, "a thread per chunk row's window id");
 
 template <int D>
 struct FwdTc {
-  static constexpr int kHeads = D < kFwdChannels ? kFwdChannels / D : 1;
+  static constexpr int kHeads = D == 8             ? 4
+                                : D < kFwdChannels ? kFwdChannels / D
+                                                   : 1;
   static constexpr int kRS = kHeads * D + kPad;   // bf16 row stride
   static constexpr int kPieces = kHeads * D / 8;  // 16-byte pieces a row
+  static constexpr int kMinBlocks = D == 128 ? 2 : 4;   // blocks an SM
   struct Smem {
     __nv_bfloat16 q[kTile * kRS];      // the tile's q rows, then its output
     __nv_bfloat16 kv[2][2][kChunk * kRS];   // per buffer: k rows, v rows
@@ -901,7 +1018,7 @@ struct FwdTc {
 static_assert(FwdTc<16>::kHeads == 4, "the shipped block: 4 heads of 16");
 
 template <int D, int C>
-__global__ void __launch_bounds__(kFwdThreads, 4)
+__global__ void __launch_bounds__(kFwdThreads, FwdTc<D>::kMinBlocks)
 band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
@@ -1000,16 +1117,28 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const __nv_bfloat16* cv = sm.kv[buf][1];
 #pragma unroll
       for (int hh = 0; hh < kHeads; ++hh) {
-        uint32_t aq[KS][4];
+        // rows 16 jj + lane % 16 of the chunk: the ldmatrix_x2 rows at D = 8
+        const int r8 = (lane % 16) * kRS + hh * D;
+        uint32_t aq[KS > 0 ? KS : 1][4], aq8[2];
+        if constexpr (D == 8) {
+          ldmatrix_x2(aq8, sm.q + 16 * warp * kRS + r8);
+        } else {
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          ldmatrix_x4(aq[kk], sm.q + (16 * warp + lane % 16) * kRS + hh * D +
-                                  16 * kk + (lane / 16) * 8);
+          for (int kk = 0; kk < KS; ++kk)
+            ldmatrix_x4(aq[kk], sm.q + (16 * warp + lane % 16) * kRS +
+                                    hh * D + 16 * kk + (lane / 16) * 8);
+        }
         float s[kChunk / 8][4];
 #pragma unroll
         for (int jj = 0; jj < kChunk / 16; ++jj) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[2 * jj][e] = s[2 * jj + 1][e] = 0.f;
+          if constexpr (D == 8) {
+            uint32_t bk[2];
+            ldmatrix_x2(bk, ck + 16 * jj * kRS + r8);
+            mma_bf16_1688(s[2 * jj], aq8, bk[0]);
+            mma_bf16_1688(s[2 * jj + 1], aq8, bk[1]);
+          }
 #pragma unroll
           for (int kk = 0; kk < KS; ++kk) {
             uint32_t bk[4];
@@ -1060,6 +1189,11 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
               l[hh][rh] += p0 + p1;
               ap[2 * h2 + rh] = pack_bf16(p0, p1);
             }
+          if constexpr (D == 8) {
+            uint32_t bv[2];
+            ldmatrix_x2_trans(bv, cv + 16 * jj * kRS + r8);
+            mma_bf16_16816(o[hh][0], ap, bv);
+          }
 #pragma unroll
           for (int dn = 0; dn < KS; ++dn) {
             uint32_t bv[4];
@@ -1182,16 +1316,20 @@ struct Width {
     case 16016: return geomae::Width<16, 256>::fn(__VA_ARGS__);            \
     case 8032: return geomae::Width<32, 256>::fn(__VA_ARGS__);             \
     case 4064: return geomae::Width<64, 256>::fn(__VA_ARGS__);             \
+    case 16008: return geomae::Width<8, 128>::fn(__VA_ARGS__);             \
+    case 1128: return geomae::Width<128, 128>::fn(__VA_ARGS__);            \
+    case 32008: return geomae::Width<8, 256>::fn(__VA_ARGS__);             \
+    case 2128: return geomae::Width<128, 256>::fn(__VA_ARGS__);            \
     default: return cudaErrorInvalidValue;                                 \
   }
 
 extern "C" {
 
-// q, k, v, out [B, V, H * D] in dtype (H heads of D in {16, 32, 64},
-// heads flattened), each 16-byte aligned.  win [B, V] int32 ascending per
-// row (INT32_MAX padding suffix); key_valid [B, V] bytes.  lse: null, or
-// f32 [B, V, H] for the per-(row, head) log-sum-exp of the scaled scores
-// (0 where a row sees no key).
+// q, k, v, out [B, V, H * D] in dtype (H heads of D in {8, 16, 32, 64,
+// 128}, H * D of 128 or 256, heads flattened), each 16-byte aligned.  win
+// [B, V] int32 ascending per row (INT32_MAX padding suffix); key_valid
+// [B, V] bytes.  lse: null, or f32 [B, V, H] for the per-(row, head)
+// log-sum-exp of the scaled scores (0 where a row sees no key).
 int geomae_band_attention(int dtype, const void* q, const void* k,
                           const void* v, const int* win,
                           const uint8_t* key_valid, void* out, float* lse,

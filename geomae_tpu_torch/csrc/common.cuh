@@ -44,6 +44,20 @@ __device__ __forceinline__ int lower_bound_i32(const int* a, int n, int v) {
   return lo;
 }
 
+// v summed over the S adjacent lanes of the calling thread's group (S a
+// power of two), the same value on each (the pairwise sums commute); the
+// lanes of a group take every branch together, so the mask names them
+template <int S>
+__device__ __forceinline__ float lane_group_sum(float v) {
+  static_assert(S > 0 && S < 32 && (S & (S - 1)) == 0, "a power of two");
+  if (S == 1) return v;
+  const int lane = threadIdx.x % 32;
+  const unsigned mask = ((1u << S) - 1u) << (lane & ~(S - 1));
+#pragma unroll
+  for (int o = 1; o < S; o <<= 1) v += __shfl_xor_sync(mask, v, o);
+  return v;
+}
+
 // Raise a kernel's dynamic shared-memory cap (above 48 KB a block gets
 // shared memory only by opting in); a host call of about a microsecond.
 template <typename K>

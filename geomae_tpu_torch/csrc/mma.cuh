@@ -1,15 +1,18 @@
 // Tensor-core helpers of the bf16 kernels: warp-level mma.sync
-// m16n8k16 (bf16 in, f32 accumulate), ldmatrix fragment loads from shared
-// memory, and 16-byte cp.async copies from device memory.
+// m16n8k16 and m16n8k8 (bf16 in, f32 accumulate), ldmatrix fragment loads
+// from shared memory, and 16-byte cp.async copies from device memory.
 //
 // Fragments of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A [16 x 16], row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g,
 //     2t+8..), a3 (g+8, 2t+8..);
 //   B [16 x 8] (k x n): b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
 //   C [16 x 8]: c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1).
+// Of m16n8k8 (a contraction over 8): A [16 x 8] a0 (g, 2t..2t+1), a1
+// (g+8, 2t..); B [8 x 8] b0 (k 2t..2t+1, n g); C as above.
 // ldmatrix_x4 loads four 8 x 8 bf16 matrices whose rows lanes 0-7, 8-15,
 // 16-23 and 24-31 address; register i holds row g, columns 2t..2t+1 of
-// matrix i (with .trans: of matrix i transposed).
+// matrix i (with .trans: of matrix i transposed).  ldmatrix_x2 loads the
+// first two, whose rows lanes 0-7 and 8-15 address.
 //
 // Shared-memory tiles are bf16 rows padded by 8 elements (16 bytes): with
 // a row stride of 72, 136 or 264 elements the 8 rows an ldmatrix phase
@@ -37,6 +40,34 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b, one m16n8k8 product with an f32 accumulator
+__device__ __forceinline__ void mma_bf16_1688(float (&d)[4],
+                                              const uint32_t (&a)[2],
+                                              uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p))
+      : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

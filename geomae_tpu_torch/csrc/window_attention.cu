@@ -15,15 +15,15 @@
 // compute dtype, f32 accumulation, the product rounded, then the bias
 // added in the compute dtype.
 //
-// Widths: C (channels) of 128 or 256 in heads of D = 16, 32 or 64, the
-// widths K8 takes.  Every kernel is a template over C (the f32 ones over
-// C and D), the entry points pick the instantiation; at the shipped width
-// (128 in 8 heads of 16) each is the kernel it was before the widths.
-// The scale 1/sqrt(D) is a power of two at D = 16 and 64 (D a power of
-// four), and JAX folds it into q there (_scale_pow2); at D = 32 it
-// multiplies the f32 score, and dq and dk after their f32 sums.  Both
-// give the same numbers where the fold is exact, so the kernels below
-// keep each JAX dtype point.
+// Widths: C (channels) of 128 or 256 in heads of D = 8, 16, 32, 64 or
+// 128, the widths K8 takes.  Every kernel is a template over C (the f32
+// ones over C and D), the entry points pick the instantiation; at the
+// shipped width (128 in 8 heads of 16) each is the kernel it was before
+// the widths.  The scale 1/sqrt(D) is a power of two at D = 16 and 64 (D
+// a power of four), and JAX folds it into q there (_scale_pow2); at D =
+// 8, 32 and 128 it multiplies the f32 score, and dq and dk after their
+// f32 sums.  Both give the same numbers where the fold is exact, so the
+// kernels below keep each JAX dtype point.
 //
 // bfloat16, on the tensor cores: the projections and the attention are
 // separate launches.  The TPU kernel projects each key inside the
@@ -56,7 +56,9 @@
 // inside the attention (tensor cores take no f32 operand without TF32
 // rounding).  Blocks of 256 threads: TQ = 4096 / C tokens a tile (32 at
 // C = 128, 16 at 256), so a tile's rows are 4,096 floats at every width
-// and shared memory does not grow with C.
+// and shared memory does not grow with C; at D = 8 a lane keeps a whole
+// head, so a block holds 256 (token, head) lanes of C / 8 heads and TQ
+// is 2048 / C.
 //
 // f32 forward (K6): per TQ-query tile the block projects the tile's
 // queries once and the keys of every window the tile touches (about 2-5x
@@ -68,8 +70,9 @@
 // outside the tile's windows is projected and no window size is too big:
 // keys stream through shared memory in chunks of TQ with an online
 // softmax, which holds any window exactly.  A (query, head) pair belongs
-// to S = D / 16 adjacent lanes, each keeping 16 channels of the q row and
-// of the accumulator in registers (16 wide, as one thread did at D = 16);
+// to S = D / 16 adjacent lanes (one at D = 8), each keeping 16 channels
+// (8 at D = 8) of the q row and of the accumulator in registers (16 wide,
+// as one thread did at D = 16);
 // a score is their partial dot products summed across the S lanes by
 // shuffles, so every lane of the group holds the same score.  Under grad
 // the forward also writes each (row, head)'s log-sum-exp of the scores,
@@ -88,8 +91,8 @@
 // weight products (x+pos)^T dq, (x+pos)^T dk, x^T dv with the bias sums
 // added to a per-block f32 partial (common.cuh), summed in a second pass.
 // The lanes of a (token, head) split its channels as in the forward: 16
-// of q, k, v, dO, dq, dk and dv each a lane (250-255 registers at every
-// width, one block an SM).
+// (8 at D = 8) of q, k, v, dO, dq, dk and dv each a lane (250-255
+// registers at the widths of D 16 to 64, one block an SM).
 #include <math.h>
 
 #include "common.cuh"
@@ -109,16 +112,21 @@ constexpr int kLaneCh = 16;      // channels of a head one lane keeps
 template <int C, int D>
 struct F32W {
   static constexpr int H = C / D;              // heads
-  static constexpr int S = D / kLaneCh;        // lanes a (token, head)
-  static constexpr int TQ = kThreads / (H * S);   // tokens a tile = 4096 / C
+  static constexpr int LC = D < kLaneCh ? D : kLaneCh;   // channels a lane
+  static constexpr int S = D / LC;             // lanes a (token, head)
+  // tokens a tile: 4096 / C, 2048 / C at D = 8
+  static constexpr int TQ = kThreads / (H * S);
   static constexpr int KC = TQ;                // keys a chunk
   static constexpr int RG = kThreads / C;      // row groups of the projections
   static constexpr int RPT = KC / RG;          // rows a thread projects
   // 1/sqrt(D); folded into q (exact: a power of two) where D is a power
   // of four, as JAX folds it, else on the f32 score and after the sums
   static constexpr bool kFold = D == 16 || D == 64;
-  static constexpr float kScale =
-      D == 16 ? 0.25f : D == 64 ? 0.125f : 0.17677669529663687f;
+  static constexpr float kScale = D == 8    ? 0.35355339059327376f
+                                  : D == 16 ? 0.25f
+                                  : D == 32 ? 0.17677669529663687f
+                                  : D == 64 ? 0.125f
+                                            : 0.08838834764831845f;
   static constexpr int kSmemBytes = 4 * KC * C * sizeof(float) +
                                     2 * KC * sizeof(int);
   static constexpr int kBwdSmemBytes = 6 * KC * C * sizeof(float) +
@@ -138,19 +146,7 @@ struct F32W {
   __device__ static int token() { return (threadIdx.x / S) % TQ; }
   __device__ static int slice() { return threadIdx.x % S; }
   // the first channel of the calling thread's slice in a row
-  __device__ static int chan() { return head() * D + slice() * kLaneCh; }
-
-  // v summed over the S lanes of the calling thread's group, the same
-  // value on each (the pairwise sums commute); the lanes of a group take
-  // every branch together (one token, one window), so the mask names them
-  __device__ static float group_sum(float v) {
-    if (S == 1) return v;
-    const int lane = threadIdx.x % 32;
-    const unsigned mask = ((1u << S) - 1u) << (lane & ~(S - 1));
-#pragma unroll
-    for (int o = 1; o < S; o <<= 1) v += __shfl_xor_sync(mask, v, o);
-    return v;
-  }
+  __device__ static int chan() { return head() * D + slice() * LC; }
 };
 
 // acc[j] += sum_k a[r][k] W[k][c] for the KC rows of `a` (shared,
@@ -277,22 +273,22 @@ band_attention_qkv_kernel(const float* __restrict__ x,
   __syncthreads();
   const int ks = s_range[0], ke = s_range[1];
 
-  float q[kLaneCh];
+  float q[K::LC];
   if (ks < ke) {
     stage_rows<C, D>(xb, pb, q0, nq, s_x, s_xp);
     __syncthreads();
     project<C, D>(s_xp, wq, bq, s_k);
     __syncthreads();
 #pragma unroll
-    for (int d = 0; d < kLaneCh; ++d) {
+    for (int d = 0; d < K::LC; ++d) {
       const float v = s_k[i * C + ch + d];
       q[d] = K::kFold ? v * K::kScale : v;
     }
   }
 
-  float m = -INFINITY, l = 0.f, acc[kLaneCh];
+  float m = -INFINITY, l = 0.f, acc[K::LC];
 #pragma unroll
-  for (int d = 0; d < kLaneCh; ++d) acc[d] = 0.f;
+  for (int d = 0; d < K::LC; ++d) acc[d] = 0.f;
 
   for (int k0 = ks; k0 < ke; k0 += KC) {
     const int nk = min(KC, ke - k0);
@@ -313,14 +309,14 @@ band_attention_qkv_kernel(const float* __restrict__ x,
       const float4* kr = reinterpret_cast<const float4*>(&s_k[j * C + ch]);
       float s = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < kLaneCh / 4; ++d4) {
+      for (int d4 = 0; d4 < K::LC / 4; ++d4) {
         const float4 kk = kr[d4];
         s = fmaf(q[4 * d4 + 0], kk.x, s);
         s = fmaf(q[4 * d4 + 1], kk.y, s);
         s = fmaf(q[4 * d4 + 2], kk.z, s);
         s = fmaf(q[4 * d4 + 3], kk.w, s);
       }
-      s = K::group_sum(s);
+      s = lane_group_sum<K::S>(s);
       if (!K::kFold) s *= K::kScale;
       const float mn = fmaxf(m, s);
       const float corr = expf(m - mn);
@@ -328,7 +324,7 @@ band_attention_qkv_kernel(const float* __restrict__ x,
       l = l * corr + p;
       const float4* vr = reinterpret_cast<const float4*>(&s_v[j * C + ch]);
 #pragma unroll
-      for (int d4 = 0; d4 < kLaneCh / 4; ++d4) {
+      for (int d4 = 0; d4 < K::LC / 4; ++d4) {
         const float4 vv = vr[d4];
         acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0] * corr);
         acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1] * corr);
@@ -344,7 +340,7 @@ band_attention_qkv_kernel(const float* __restrict__ x,
     const float inv = seen ? 1.f / l : 0.f;
     float* o = ob + (size_t)qi * C + ch;
 #pragma unroll
-    for (int d = 0; d < kLaneCh; ++d) o[d] = acc[d] * inv;
+    for (int d = 0; d < K::LC; ++d) o[d] = acc[d] * inv;
     if (lse && K::slice() == 0)
       lse[(row0 + qi) * H + h] = seen ? m + logf(l) : 0.f;
   }
@@ -452,11 +448,11 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
     project<C, D>(s_xp, wk, bk, s_k);
     project<C, D>(s_x, wv, bv, s_v);
     __syncthreads();
-    float q[kLaneCh], k[kLaneCh], v[kLaneCh], g[kLaneCh];
-    float dq[kLaneCh] = {}, dk[kLaneCh] = {}, dv[kLaneCh] = {};
+    float q[K::LC], k[K::LC], v[K::LC], g[K::LC];
+    float dq[K::LC] = {}, dk[K::LC] = {}, dv[K::LC] = {};
     float lse_i = 0.f, d_i = 0.f;
 #pragma unroll
-    for (int d = 0; d < kLaneCh; ++d) {
+    for (int d = 0; d < K::LC; ++d) {
       const int c = i * C + ch + d;
       q[d] = K::kFold ? s_q[c] * K::kScale : s_q[c];
       k[d] = s_k[c];
@@ -465,13 +461,13 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
     }
     if (my_win != kInt32Max) {
 #pragma unroll
-      for (int d = 0; d < kLaneCh; ++d) {
+      for (int d = 0; d < K::LC; ++d) {
         g[d] = dout[qi * C + ch + d];
         d_i = fmaf(g[d], out[qi * C + ch + d], d_i);
       }
       lse_i = p.lse[qi * H + h];
     }
-    d_i = K::group_sum(d_i);
+    d_i = lane_group_sum<K::S>(d_i);
 
     for (int k0 = ks; k0 < ke; k0 += KC) {
       const int nk = min(KC, ke - k0);
@@ -520,34 +516,34 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
         if (s_kv[j]) {             // token i as query, j as key
           float sc = 0.f, dp = 0.f;
 #pragma unroll
-          for (int d = 0; d < kLaneCh; ++d) {
+          for (int d = 0; d < K::LC; ++d) {
             sc = fmaf(q[d], kj[d], sc);
             dp = fmaf(g[d], vj[d], dp);
           }
-          sc = K::group_sum(sc);
-          dp = K::group_sum(dp);
+          sc = lane_group_sum<K::S>(sc);
+          dp = lane_group_sum<K::S>(dp);
           if (!K::kFold) sc *= K::kScale;
           const float pr = expf(sc - lse_i);
           const float ds = pr * (dp - d_i);
 #pragma unroll
-          for (int d = 0; d < kLaneCh; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
+          for (int d = 0; d < K::LC; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
         }
         if (my_kv) {               // token i as key, j as query
           const float* qj = &s_q[j * C + ch];
           const float* gj = &s_do[j * C + ch];
           float sc = 0.f, dp = 0.f;
 #pragma unroll
-          for (int d = 0; d < kLaneCh; ++d) {
+          for (int d = 0; d < K::LC; ++d) {
             sc = fmaf(qj[d], k[d], sc);
             dp = fmaf(gj[d], v[d], dp);
           }
-          sc = K::group_sum(sc);
-          dp = K::group_sum(dp);
+          sc = lane_group_sum<K::S>(sc);
+          dp = lane_group_sum<K::S>(dp);
           if (!K::kFold) sc *= K::kScale;
           const float pr = expf(sc - s_lse[j * H + h]);
           const float ds = pr * (dp - s_dd[j * H + h]);
 #pragma unroll
-          for (int d = 0; d < kLaneCh; ++d) {
+          for (int d = 0; d < K::LC; ++d) {
             dv[d] = fmaf(pr, gj[d], dv[d]);
             dk[d] = fmaf(ds, qj[d], dk[d]);
           }
@@ -558,7 +554,7 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
     // the tile's dq, dk, dv (compute dtype) and its x, x + pos rows
     __syncthreads();
 #pragma unroll
-    for (int d = 0; d < kLaneCh; ++d) {
+    for (int d = 0; d < K::LC; ++d) {
       const int c = i * C + ch + d;
       s_q[c] = dq[d] * K::kScale;
       s_k[c] = dk[d] * kDkScale;
@@ -1166,16 +1162,20 @@ struct Width {
     case 256016: return geomae::Width<256, 16>::fn(__VA_ARGS__);           \
     case 256008: return geomae::Width<256, 32>::fn(__VA_ARGS__);           \
     case 256004: return geomae::Width<256, 64>::fn(__VA_ARGS__);           \
+    case 128016: return geomae::Width<128, 8>::fn(__VA_ARGS__);            \
+    case 128001: return geomae::Width<128, 128>::fn(__VA_ARGS__);          \
+    case 256032: return geomae::Width<256, 8>::fn(__VA_ARGS__);            \
+    case 256002: return geomae::Width<256, 128>::fn(__VA_ARGS__);          \
     default: return cudaErrorInvalidValue;                                 \
   }
 
 extern "C" {
 
 // x, pos, out [B, V, C]; W [C, C] (in x out); b [C]; all dtype; C of 128
-// or 256 in H heads of 16, 32 or 64.  win [B, V] int32 ascending per row
-// (INT32_MAX padding suffix); key_valid [B, V] bytes.  lse: null, or f32
-// [B, V, H] for the per-(row, head) log-sum-exp of the scores (0 where a
-// row sees no key).
+// or 256 in H heads of 8, 16, 32, 64 or 128.  win [B, V] int32 ascending
+// per row (INT32_MAX padding suffix); key_valid [B, V] bytes.  lse: null,
+// or f32 [B, V, H] for the per-(row, head) log-sum-exp of the scores (0
+// where a row sees no key).
 int geomae_band_attention_qkv(int dtype, const void* x, const void* pos,
                               const void* wq, const void* bq, const void* wk,
                               const void* bk, const void* wv, const void* bv,

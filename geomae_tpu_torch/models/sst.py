@@ -4,8 +4,8 @@ Port of ``geomae_tpu/models/sst.py`` (``prepare_shift_data``,
 ``WindowMHA``, ``EncoderLayer``, ``BasicShiftBlock``, ``SSTStack``).
 ``attention_route`` and ``ffn_route`` resolve ``cfg.attention_impl`` and
 ``cfg.ffn_impl`` from the config alone, so the CPU and the GPU run one
-model.  At the kernels' widths (C of 128 or 256 in heads of 16, 32 or
-64, FFN 2 C or 4 C, GELU) an encoder layer is, by default, q/k/v
+model.  At the kernels' widths (C of 128 or 256 in heads of 8, 16, 32,
+64 or 128, FFN 2 C or 4 C, GELU) an encoder layer is, by default, q/k/v
 projected by ``F.linear`` and then K8 (``ops/attention.py``), then K5
 (``ops/ffn.py``: out-projection, residual, LN1, GELU FFN, residual, LN2);
 ``attention_impl="qkv"`` runs K6 (``ops/attention_qkv.py``: q/k/v
@@ -92,14 +92,15 @@ def _check(field: str, value: str, names) -> None:
 def attention_route(impl: str, d_model: int, nhead: int) -> str:
     """``attention_impl`` resolved: "qkv" (K6, projections inside the
     kernel), "band" (Linears, then K8) or "einsum" (Linears, then the plain
-    band_attention).  K8 and K6 take C of 128 or 256 in heads of 16, 32
-    or 64 (``attention.kernel_takes``): there "qkv" resolves to itself and
-    every other kernel name to "band"; at any other width every name
-    resolves to "einsum".  geomae_tpu/models/sst.py keeps its kernel
-    routes for any C a multiple of 128 (and V of 128, a fact of the TPU's
-    tiling: the port's kernels take any V), so the port serves on the
-    plain routes what JAX serves on kernels at C >= 384 and at D = 8 or
-    128.  "auto" is "band" (choosing between band and qkv by speed is
+    band_attention).  K8 and K6 take C of 128 or 256 in heads of 8, 16,
+    32, 64 or 128 (``attention.kernel_takes``): there "qkv" resolves to
+    itself and every other kernel name to "band"; at any other width every
+    name resolves to "einsum".  geomae_tpu/models/sst.py keeps its kernel
+    routes for any C a multiple of 128 and any head count (and V of 128, a
+    fact of the TPU's tiling: the port's kernels take any V), so the port
+    serves on the plain routes what JAX serves on kernels at C >= 384, at
+    C 256 in one head (D = 256) and at D of 4 or less (32 or more heads at
+    C 128).  "auto" is "band" (choosing between band and qkv by speed is
     open: PERF.md)."""
     _check("attention_impl", impl, ATTENTION_IMPLS)
     if impl == "einsum" or not kernel_takes(d_model, nhead):

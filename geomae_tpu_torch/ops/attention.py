@@ -21,10 +21,11 @@ dk scaled after the f32 sum.  Padding rows (``win_id == INT32_MAX``) and
 rows with no visible key return 0 and get zero gradients.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.  The kernels take heads of D in ``KERNEL_HEAD_DIMS`` (16, 32,
-64) that make C = H D one of ``KERNEL_CHANNELS`` (128, 256), in float32
-or bfloat16; the plain versions take any H and D.  The bf16 forward runs
-on the tensor cores over 64-token tiles with an online softmax per
+or raises.  The kernels take heads of D in ``KERNEL_HEAD_DIMS`` (8, 16,
+32, 64, 128) that make C = H D one of ``KERNEL_CHANNELS`` (128, 256), in
+float32 or bfloat16; the plain versions take any H and D (C 256 in one
+head of 256 and heads of 4 or less have no kernel).  The bf16 forward
+runs on the tensor cores over 64-token tiles with an online softmax per
 64-key chunk (``band_attention_tiles_plain`` is its order in plain
 PyTorch), the f32 forward on the CUDA cores; every kernel stages whole
 heads of a fixed number of channels a block, so the order per head is
@@ -46,7 +47,7 @@ from . import _cuda
 
 INT32_MAX = 2 ** 31 - 1
 KERNEL_CHANNELS = (128, 256)      # C = H D the kernels take
-KERNEL_HEAD_DIMS = (16, 32, 64)   # and D
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)   # and D
 PLAIN_Q_CHUNK = 1024      # queries per score block of the plain versions
 KERNEL_TILE = 64          # tokens a tile (and rows a chunk) of the bf16
                           # kernels

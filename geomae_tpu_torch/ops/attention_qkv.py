@@ -18,15 +18,15 @@ that dtype (``pallas_attention_qkv._proj``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels
 or raises.  The kernels take the widths K8 takes (``attention.kernel_takes``:
-C of 128 or 256 in heads of 16, 32 or 64) in float32 or bfloat16; windows
-may be of any size.  The scale 1/sqrt(D) folds into q where D is a power
-of four (16, 64), as in the JAX package, and multiplies the f32 score
-elsewhere (32).  In bfloat16 each token is projected once on the tensor
-cores (``qkv_project``) and K8's bf16 kernels (``csrc/band_attention.cu``,
-reached through their C entry points, so
+C of 128 or 256 in heads of 8, 16, 32, 64 or 128) in float32 or bfloat16;
+windows may be of any size.  The scale 1/sqrt(D) folds into q where D is
+a power of four (16, 64), as in the JAX package, and multiplies the f32
+score elsewhere (8, 32, 128).  In bfloat16 each token is projected once
+on the tensor cores (``qkv_project``) and K8's bf16 kernels
+(``csrc/band_attention.cu``, reached through their C entry points, so
 ``attention.band_attention_fused``'s counts stay the band route's) run
-the attention; the backward recomputes the
-projections, runs K8's D prologue and backward, then
+the attention; the backward recomputes the projections, runs K8's D
+prologue and backward, then
 ``qkv_project_backward`` (dx and the parameter gradients).  K8 rounds its
 probabilities against the running max of each 64-key chunk.  In float32
 one CUDA-core kernel each way projects inside the attention.
@@ -53,11 +53,14 @@ from .ffn import dense
 WGRAD_BLOCKS_PER_SM = 2
 WGRAD_TILE = 128          # its output tile, a side
 # The f32 backward kernel's blocks hold a tile of 4096 / C tokens (98 KB
-# of shared memory at every C), and 256 threads of up to 255 registers
-# fill an SM's register file: one block an SM.  Each block owns an f32
-# partial of the weight gradients, [3 C C + 3 C], so the grid is also held
-# to F32_PARTIAL_BYTES of them (85 blocks at C = 256, every SM at 128)
+# of shared memory at every C; 2048 / C at D = 8), and 256 threads of up
+# to 255 registers fill an SM's register file: one block an SM.  Each
+# block owns an f32 partial of the weight gradients, [3 C C + 3 C], so the
+# grid is also held to F32_PARTIAL_BYTES of them (85 blocks at C = 256,
+# every SM at 128)
 F32_PARTIAL_BYTES = 64 << 20
+F32_THREADS = 256         # a block of the f32 kernels
+F32_LANE_CHANNELS = 16    # channels of a head a lane keeps (all of D = 8)
 
 
 def _scale_pow2(head_dim: int) -> bool:
@@ -184,14 +187,14 @@ def attention_grads_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid,
 def _check_qkv(name, x, nheads, dtypes=tuple(_cuda.DTYPE_CODE)):
     """x [B, V, C] on the card at a width the kernels take: C in
     KERNEL_CHANNELS in ``nheads`` heads of D in KERNEL_HEAD_DIMS (the
-    projections alone take any such C; ``nheads`` None)."""
+    projections see no heads: ``nheads`` None, C in KERNEL_CHANNELS)."""
     _cuda.require(x.device.type == "cuda",
                   f"{name}: no kernel for device {x.device}")
     kinds = " or ".join(str(d)[6:] for d in dtypes)
     C = x.shape[-1]
-    heads = nheads or C // KERNEL_HEAD_DIMS[0]
-    _cuda.require(x.dim() == 3 and kernel_takes(C, heads)
-                  and x.dtype in dtypes,
+    takes = (C in KERNEL_CHANNELS if nheads is None
+             else kernel_takes(C, nheads))
+    _cuda.require(x.dim() == 3 and takes and x.dtype in dtypes,
                   f"{name}: the kernel takes [B, V, C] {kinds} with C in "
                   f"{KERNEL_CHANNELS} in heads of D in {KERNEL_HEAD_DIMS}, "
                   f"got {x.dtype} {tuple(x.shape)} in {nheads} heads")
@@ -272,12 +275,19 @@ def wgrad_chunk_rows(x) -> int:
     return 64 * max(1, -(-x.shape[0] * x.shape[1] // (64 * chunks)))
 
 
-def bwd_blocks(x) -> int:
-    """The f32 backward kernel's persistent grid on ``x`` [B, V, C]: one
-    block an SM, at most one a tile of 4096 / C tokens, and no more than
-    F32_PARTIAL_BYTES of partials hold."""
+def f32_tile(C: int, nheads: int) -> int:
+    """Tokens a tile of the f32 kernels at C in ``nheads`` heads: a block
+    of F32_THREADS lanes, min(D, 16) channels each (4096 / C tokens, 2048
+    / C at D = 8)."""
+    return F32_THREADS * min(C // nheads, F32_LANE_CHANNELS) // C
+
+
+def bwd_blocks(x, nheads: int) -> int:
+    """The f32 backward kernel's persistent grid on ``x`` [B, V, C] in
+    ``nheads`` heads: one block an SM, at most one a tile (``f32_tile``),
+    and no more than F32_PARTIAL_BYTES of partials hold."""
     B, V, C = x.shape
-    tiles = B * -(-V // (4096 // C))
+    tiles = B * -(-V // f32_tile(C, nheads))
     return max(1, min(_cuda.persistent_blocks(x, 1, tiles),
                       F32_PARTIAL_BYTES // (4 * (3 * C * C + 3 * C))))
 
@@ -411,7 +421,7 @@ def band_attention_qkv_backward(x, pos, wq, bq, wk, bk, wv, bv, win_id,
         _cuda.check(code, name)
         return _project_backward(x, pos, ws[0::2], dq, dk, dv)
     wT = [w.t().contiguous() for w in ws[0::2]]
-    blocks = bwd_blocks(x)
+    blocks = bwd_blocks(x, nheads)
     n = 3 * C * C + 3 * C
     partial = torch.zeros((blocks, n), dtype=torch.float32, device=x.device)
     grads = torch.empty(n, dtype=torch.float32, device=x.device)

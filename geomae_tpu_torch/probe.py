@@ -4,8 +4,9 @@ out: what ``chip_smoke.py`` and the kernel probes (``probe_k4``,
 
 ``cuda_ms`` times a call with CUDA events.  ``build_variants`` compiles
 one ``csrc/`` source (or the sources that include one header) once per
-variant (a list of text edits), in parallel, and ``time_variants`` times a set of calls on each build, every
-build twice, in turns.  A build with a part swapped out computes garbage;
+variant (a list of text edits), in parallel, ptxas's resource report
+beside each build (``resources`` reads a kernel's), and ``time_variants``
+times a set of calls on each build, every build twice, in turns.  A build with a part swapped out computes garbage;
 only its time means something.
 
 Needs a CUDA GPU and ``nvcc``: its numbers are the card's.
@@ -13,6 +14,7 @@ Needs a CUDA GPU and ``nvcc``: its numbers are the card's.
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 from pathlib import Path
 
@@ -83,7 +85,8 @@ def build_variants(source: str, variants: dict, out: Path,
         errors = [] if "segment.cu" in units else [
             str(_cuda.CSRC / "segment.cu")]
         cmd = [_cuda.nvcc(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
-               "-shared", "--threads", "0", "-Xcompiler", "-fPIC", "-o",
+               "-shared", "--threads", "0", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o",
                str(d / "lib.so"), *[str(d / u) for u in units], *errors]
         procs[name] = (d / "lib.so", subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -92,8 +95,21 @@ def build_variants(source: str, variants: dict, out: Path,
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        Path(f"{path}.log").write_text(log)
         libs[name] = _load(path)
     return libs
+
+
+def resources(lib: ctypes.CDLL, kernel: str) -> str:
+    """Registers and spill bytes ptxas reported for the first kernel of
+    the build behind ``lib`` whose mangled name holds ``kernel``."""
+    log = Path(f"{lib._name}.log").read_text()
+    i = log.find(kernel)
+    regs = re.search(r"Used (\d+) registers", log[i:])
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      log[i:])
+    return (f"{regs.group(1)} registers, {spill.group(1)} / "
+            f"{spill.group(2)} bytes spilled")
 
 
 def _load(path: Path) -> ctypes.CDLL:

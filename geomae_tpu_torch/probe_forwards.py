@@ -1,6 +1,6 @@
 """Where the time of K5's and K8's bf16 forwards goes, on one CUDA GPU.
 
-    python -m geomae_tpu_torch.probe_forwards
+    python -m geomae_tpu_torch.probe_forwards [--width C,D]
 
 Builds K5's sources (``csrc/post_attention.cuh`` and the translation
 units that include it) and ``csrc/band_attention.cu`` (each with
@@ -12,7 +12,11 @@ it) in bf16 on each build with CUDA events (``probe.cuda_ms``: 20 calls
 after 3 warm-up, enqueued behind a device spin, every build twice, in
 turns).  K5 at the fine-tune step's [4, 20480], the pretrain encoder's
 [4, 8192] and the served frame's [1, 20480] tokens; K8 on the fine-tune
-step's layer-1 windows and the pretrain encoder's.  A build with a part
+step's layer-1 windows and the pretrain encoder's, in the heads
+``--width`` names (C channels in heads of D, any width of the kernels;
+the default is the shipped 128 in heads of 16), with each K8 build's
+registers and spills at that width; at D 8 also 8 heads a block (at
+three and two blocks an SM) and 4 heads at three.  A build with a part
 removed computes garbage; only its time means something.
 
 Raises without a CUDA GPU: its numbers are the card's.
@@ -23,7 +27,7 @@ import torch
 
 from . import probe
 from .ops import _cuda, attention, ffn
-from .probe_k8_backward import FAKE_MMA, inputs, layouts
+from .probe_k8_backward import FAKE_MMA, inputs, layouts, width_arg
 
 OUT = _cuda.BUILD_DIR.parent / "probe_forwards"
 # K5: one block an SM with a three-buffer weight ring (128 KB of shared
@@ -35,6 +39,8 @@ K5_VARIANTS = {
     "one block, ring of 3": [
         ("constexpr int kFwdRing = 2;", "constexpr int kFwdRing = 3;"),
         ("static_assert(2 * kFwdSmemBytes", "static_assert(1 * kFwdSmemBytes"),
+        ("                  Widths<128, 256>::kFwdSmemBytes == 109568 &&\n",
+         ""),
         ("__launch_bounds__(kTileThreads, 2)",
          "__launch_bounds__(kTileThreads, 1)")],
     "no products": [
@@ -53,6 +59,20 @@ K5_VARIANTS = {
          "#pragma unroll 4\n      for (int i")],
     "rsqrtf": [("  rs = 1.f / sqrtf(", "  rs = rsqrtf(")],
 }
+MIN_BLOCKS = "static constexpr int kMinBlocks = D == 128 ? 2 : 4;"
+D8_HEADS = "static constexpr int kHeads = D == 8             ? 4"
+# K8's forward at D = 8: as built 4 heads a block (32 channels), four
+# blocks an SM
+D8_VARIANTS = {
+    "8 heads at D 8, 3 blocks": [
+        (D8_HEADS, D8_HEADS.replace("4", "8")),
+        (MIN_BLOCKS, MIN_BLOCKS.replace("? 2 :", "? 2 : D == 8 ? 3 :"))],
+    "8 heads at D 8, 2 blocks": [
+        (D8_HEADS, D8_HEADS.replace("4", "8")),
+        (MIN_BLOCKS, MIN_BLOCKS.replace("? 2 :", "? 2 : D == 8 ? 2 :"))],
+    "4 heads at D 8, 3 blocks": [
+        (MIN_BLOCKS, MIN_BLOCKS.replace("? 2 :", "? 2 : D == 8 ? 3 :"))],
+}
 K8_VARIANTS = {
     "as built": [],
     "serial search": [
@@ -65,10 +85,8 @@ K8_VARIANTS = {
          "constexpr int kFwdChannels = 128;"),
         ("static_assert(FwdTc<16>::kHeads == 4,",
          "static_assert(FwdTc<16>::kHeads == 8,"),
-        ("__launch_bounds__(kFwdThreads, 4)",
-         "__launch_bounds__(kFwdThreads, 2)")],
-    "3 blocks an SM": [("__launch_bounds__(kFwdThreads, 4)",
-                        "__launch_bounds__(kFwdThreads, 3)")],
+        (MIN_BLOCKS, "static constexpr int kMinBlocks = 2;")],
+    "3 blocks an SM": [(MIN_BLOCKS, "static constexpr int kMinBlocks = 3;")],
     "no exps": [("ex2(fmaf(sj[", "(fmaf(sj[")],
     "no products": [('#include "mma.cuh"', FAKE_MMA),
                     ("          mma_bf16_16816(", "          fake_mma(")],
@@ -87,21 +105,30 @@ def k5_inputs(B: int, V: int):
 
 
 def main() -> None:
+    heads = width_arg(__doc__.splitlines()[0])
     if not torch.cuda.is_available():
         raise SystemExit("probe_forwards: no CUDA GPU")
     print(probe.card())
+    print(f"K8 in {heads[0]} heads of {heads[1]}")
     k5 = probe.build_variants(probe.K5_HEADER, K5_VARIANTS, OUT / "k5",
                               probe.K5_UNITS)
-    k8 = probe.build_variants("band_attention.cu", K8_VARIANTS, OUT / "k8")
+    variants = dict(K8_VARIANTS, **(D8_VARIANTS if heads[1] == 8 else {}))
+    k8 = probe.build_variants("band_attention.cu", variants, OUT / "k8")
     print("K5 forward, bf16")
     probe.time_variants(k5, {
         f"{B}x{V}": (lambda a=k5_inputs(B, V): ffn.post_attention_block(*a))
         for B, V in ((4, 20480), (4, 8192), (1, 20480))})
+    C = heads[0] * heads[1]
+    for name, lib in k8.items():
+        print(f"{name}: band_attention_fwd_tc_kernel<{heads[1]}, {C}> "
+              + probe.resources(lib, f"band_attention_fwd_tc_kernelILi"
+                                f"{heads[1]}ELi{C}E"))
     print("K8 forward with statistics, bf16")
     probe.time_variants(k8, {
         f"{what} {tuple(a[0].shape[:2])}":
             (lambda a=a: attention._forward(*a[:5], stats=True))
-        for what, a in ((w, inputs(*lay)) for w, lay in layouts().items())})
+        for what, a in ((w, inputs(*lay, heads))
+                        for w, lay in layouts().items())})
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Where the time of K8's bf16 backward goes, on one CUDA GPU.
 
-    python -m geomae_tpu_torch.probe_k8_backward
+    python -m geomae_tpu_torch.probe_k8_backward [--width C,D]
 
 Builds ``csrc/band_attention.cu`` (with ``segment.cu``, which holds the
 error strings) several times into ``build/probe_k8/``: as it is, with its
@@ -11,12 +11,16 @@ exponentials replaced by their argument, and with ``exp2f`` in place of
 tensor-core kernel) on each build at the fine-tune step's [4, 20480] and
 the pretrain encoder's [4, 8192] window layouts with CUDA events (20
 calls after 3 warm-up, enqueued behind a device spin, every build twice,
-in turns).  A build with a part replaced computes garbage; only its time
-means something.
+in turns).  ``--width`` takes C channels in heads of D, any width of the
+kernels (``probe_qkv.width``); the default is the shipped 128 in heads of
+16.  A build with a part replaced computes garbage; only its time means
+something.
 
 Raises without a CUDA GPU: its numbers are the card's.
 """
 from __future__ import annotations
+
+import argparse
 
 import torch
 
@@ -75,26 +79,42 @@ def layouts() -> dict:
     return out
 
 
-def inputs(win, kv):
+def inputs(win, kv, heads: tuple = (8, 16)):
     """The backward's arguments on one layout: seeded bf16 q, k, v and
-    cotangent, the forward's output and statistics."""
+    cotangent in ``heads`` = (H, D) (the shipped 8 heads of 16 unless
+    said), the forward's output and statistics."""
     g = torch.Generator(device="cuda").manual_seed(5)
-    shape = (*win.shape, 8, 16)             # the shipped 8 heads of 16
+    shape = (*win.shape, *heads)
     q, k, v, d = (torch.randn(shape, generator=g, device="cuda").bfloat16()
                   for _ in range(4))
     out, lse = attention._forward(q, k, v, win, kv, stats=True)
     return q, k, v, win, kv, out, lse, d
 
 
+def width_arg(what: str) -> tuple:
+    """``--width C,D`` parsed for ``what``: (H, D), at a width the kernels
+    take."""
+    from .probe_qkv import width
+
+    ap = argparse.ArgumentParser(description=what)
+    ap.add_argument("--width", type=width, default=(128, 8),
+                    help="C,D: C channels in heads of D (default 128,16)")
+    C, heads = ap.parse_args().width
+    return heads, C // heads
+
+
 def main() -> None:
+    heads = width_arg(__doc__.splitlines()[0])
     if not torch.cuda.is_available():
         raise SystemExit("probe_k8_backward: no CUDA GPU")
     print(probe.card())
+    print(f"{heads[0]} heads of {heads[1]}")
     libs = probe.build_variants(SOURCE, VARIANTS, OUT)
     bwd = attention.band_attention_fused_backward
     probe.time_variants(libs, {
         f"{what} {tuple(a[0].shape[:2])}": (lambda a=a: bwd(*a))
-        for what, a in ((w, inputs(*lay)) for w, lay in layouts().items())})
+        for what, a in ((w, inputs(*lay, heads))
+                        for w, lay in layouts().items())})
 
 
 if __name__ == "__main__":

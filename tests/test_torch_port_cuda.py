@@ -51,7 +51,7 @@ gradients by the backward rule; one launch a call, two launches bitwise
 equal, at one sample, a batch and the encoder's [4, 8192].  K6, K7 and
 the projections also at every width K8 takes (``HEADS``; the projections
 at C 128 and 256), f32 and bf16, with K7's dbk under F3's rule; a width
-outside the set raises.
+outside the set (C 384, C 256 in one head of 256, heads of 4) raises.
 
 K8 (window attention over projected q, k, v; ``ops/attention.py``): the
 output and the statistics at K6's bound, the backward's dq, dk, dv at the
@@ -60,9 +60,9 @@ gradients), at four layouts: one sample, a batch, the encoder's, and
 windows of 1 to 300 tokens with one that has no valid key.  Its
 prologue (D = rowsum(dO * out)) sums D exact products in another order.
 K8 and K5 run at every width of their kernels: K8 in ``HEADS`` (C of 128
-or 256 in heads of 16, 32 or 64), K5 in ``ffn.KERNEL_WIDTHS``; K8's bf16
-backward also under F3's key-bias rule: the column sums of its dk, an
-exact 0 (``probe_qkv.dbk_bound``).
+or 256 in heads of 8, 16, 32, 64 or 128), K5 in ``ffn.KERNEL_WIDTHS``;
+K8's bf16 backward also under F3's key-bias rule: the column sums of its
+dk, an exact 0 (``probe_qkv.dbk_bound``).
 K4 also on spans with no key, a full span and an all-sentinel sample.
 """
 import numpy as np
@@ -76,9 +76,11 @@ from geomae_tpu_torch.ops import (attention, attention_qkv, ffn, segment,
 INT_MAX = 2 ** 31 - 1
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 DTYPES = [torch.float32, torch.bfloat16]
-# K8's widths, (heads, head width): C = 128 and 256 in heads of 16, 32, 64
+# K8's widths, (heads, head width): C = 128 and 256 in heads of 8, 16, 32,
+# 64 and 128; SHIPPED is the shipped width, 128 in 8 heads of 16
 HEADS = [(C // D, D) for C in attention.KERNEL_CHANNELS
          for D in attention.KERNEL_HEAD_DIMS]
+SHIPPED = (8, 16)
 HEAD_IDS = [f"{h}x{d}" for h, d in HEADS]
 FFN_IDS = [f"{c}-{f}" for c, f in ffn.KERNEL_WIDTHS]
 
@@ -625,10 +627,11 @@ def test_qkv_projections_take_bf16_only(dev):
                                            *[d.float() for d in ds])
 
 
-@pytest.mark.parametrize("C,H", [(384, 6), (128, 16), (256, 2)])
+@pytest.mark.parametrize("C,H", [(384, 6), (256, 1), (128, 32)])
 def test_qkv_wrappers_refuse_widths_outside_the_set(dev, C, H):
-    """C 384, or heads of 8 or 128: K6, K7 and (at C 384) the projections
-    raise on a CUDA tensor rather than run a plain version."""
+    """C 384, C 256 in one head of 256, or heads of 4: K6, K7 and (at C
+    384) the projections raise on a CUDA tensor rather than run a plain
+    version."""
     x = torch.randn(1, 64, C, device=dev)
     win = torch.zeros(1, 64, dtype=torch.int32, device=dev)
     kv = torch.ones(1, 64, dtype=torch.bool, device=dev)
@@ -956,7 +959,7 @@ def test_target_wrappers_refuse_what_the_kernels_do_not_take(dev):
         targets.expand_rows(vals.bfloat16(), ids, 10)
 
 
-def band_case(dtype, dev, win, kv, seed=10, heads=HEADS[0]):
+def band_case(dtype, dev, win, kv, seed=10, heads=SHIPPED):
     """q, k, v and a cotangent [B, V, H, D] from a seed, on ``dev``; the
     shipped 8 heads of 16 unless ``heads`` = (H, D) says otherwise."""
     B, V = win.shape
@@ -1123,7 +1126,8 @@ def test_band_attention_fused_autograd_and_refusals(dev):
         f(q, k, v, win, kv)
         assert [c - a for c, a in zip(counts(), before)] == [1, 0, 0]
     w64, kv64 = win[:, :64].contiguous(), kv[:, :64].contiguous()
-    for heads in ((4, 8), (2, 128), (6, 64)):   # D 8, D 128, C 384
+    # C 32, C 256 in one head of 256, heads of 4, C 384
+    for heads in ((4, 8), (1, 256), (32, 4), (6, 64)):
         bad = torch.randn(1, 64, *heads, device=dev)
         with pytest.raises(ValueError):
             f(bad, bad, bad, w64, kv64)

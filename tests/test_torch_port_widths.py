@@ -13,7 +13,8 @@ largest |ref|) (both round at the same points; f32 sums in another order
 may move a rounding to the other side).  One SST block at C = 256 in 8
 heads of 32 on the band / fused route against the JAX stack's Pallas
 routes in interpret mode; the route table at every width of the set and
-at C = 384, beside JAX's own decision; and F4: the tiny fine-tune step
+at three widths outside it (C 384, C 256 in one head, heads of 4),
+beside JAX's own decision; and F4: the tiny fine-tune step
 at width 256 (``vfe.feat_channels=16,256 sst.d_model=256 sst.nhead=8
 sst.dim_feedforward=512``), where SECOND takes the SST's width, against
 the JAX step, from flax variables on the shapes of the JAX init
@@ -233,26 +234,28 @@ def jax_routes(jc, V=128):
     return attn, "fused" if jax_sst._use_fused_ffn(jc, V, C) else "xla"
 
 
-@pytest.mark.parametrize("width", WIDTHS + [(384, 6, 768)],
+@pytest.mark.parametrize("width", WIDTHS + [(384, 6, 768), (256, 1, 512),
+                                  (128, 32, 256)],
                          ids=lambda w: "-".join(map(str, w)))
 def test_route_resolution_at_widths(width):
-    """At every width of the set (C of 128 or 256, D of 16, 32 or 64, F
-    of 2 C or 4 C) "band", "qkv" / "fused" and "auto" resolve to the
-    kernels (K8, K6 / K5; "auto" to K8), as JAX resolves "band", "qkv" /
-    "fused".  At C = 384 the port takes the plain routes under every
-    name, JAX its kernels: a width the port serves on the plain
-    routes."""
+    """At every width of the set (C of 128 or 256, D of 8, 16, 32, 64 or
+    128, F of 2 C or 4 C) "band", "qkv" / "fused" and "auto" resolve to
+    the kernels (K8, K6 / K5; "auto" to K8), as JAX resolves "band",
+    "qkv" / "fused".  At C = 384 the port takes the plain routes under
+    every name, JAX its kernels; at C 256 in one head of 256 and at 32
+    heads of 4 the port's attention takes the plain route under every
+    name (its FFN, of a width K5 takes, the kernel), JAX its kernels:
+    widths the port serves on the plain routes."""
     d_model, nhead, dim_ff = width
-    inside = (d_model, dim_ff) in ffn.KERNEL_WIDTHS
+    attn_in = attention.kernel_takes(d_model, nhead)
+    ffn_in = (d_model, dim_ff) in ffn.KERNEL_WIDTHS
     for impl in ("band", "qkv", "einsum", "auto"):
         for ffn_impl in ("fused", "xla", "auto"):
             kw = dict(d_model=d_model, nhead=nhead, dim_feedforward=dim_ff,
                       attention_impl=impl, ffn_impl=ffn_impl)
             want_attn = {"band": "band", "auto": "band", "einsum": "einsum",
-                         "qkv": "qkv"}[impl]
-            want_ffn = "xla" if ffn_impl == "xla" else "fused"
-            if not inside:
-                want_attn, want_ffn = "einsum", "xla"
+                         "qkv": "qkv"}[impl] if attn_in else "einsum"
+            want_ffn = "xla" if ffn_impl == "xla" or not ffn_in else "fused"
             assert routes(SSTConfig(**kw)) == (want_attn, want_ffn), kw
             if "auto" not in (impl, ffn_impl):   # JAX: by its backend
                 # JAX keeps the named kernel at every C a multiple of 128
