@@ -21,14 +21,15 @@
 // heads of 16) each instantiation is the kernel it was before the widths.
 // Where a width needs its own design: at D = 8 the bf16 kernels contract a
 // head over 8 channels with mma.sync m16n8k8 (no zero padding to 16) and
-// take its one n-tile of 8 in the value products; at D = 128 the f32 kernels
-// give a (query, head) 8 lanes of 16 channels (a thread would hold 256
-// floats of q and accumulator, 896 in the backward), the bf16 forward
-// runs two blocks an SM (a warp's 16 x 128 f32 output takes 64 registers
-// a lane), and the bf16 backward splits each head's output columns over
-// two blocks, each computing the scores and dP over all 128 channels
-// (the three 16 x 128 accumulators of a warp would take 192 registers a
-// lane).  D = 256 (C 256 in one head) and D of 4 or less are not taken.
+// take its one n-tile of 8 in the value products; the f32 kernels give a
+// (query, head) D / 16 lanes of 16 channels, one lane at D = 8 (at D =
+// 128 one thread would hold 256 floats of q and accumulator, 896 in the
+// backward); at D = 128 the bf16 forward runs two blocks an SM (a warp's
+// 16 x 128 f32 output takes 64 registers a lane), and the bf16 backward
+// splits each head's output columns over two blocks, each computing the
+// scores and dP over all 128 channels (the three 16 x 128 accumulators of
+// a warp would take 192 registers a lane).  D = 256 (C 256 in one head)
+// and D of 4 or less are not taken.
 //
 // Bound: with no projection inside, a call moves 4 rows of C values per
 // token and computes 4 * C operations per same-window pair forward (10 * C
@@ -61,9 +62,9 @@
 //
 // float32 forward, on the CUDA cores (band_attention_kernel): a block takes
 // 32 queries of one 128-channel head group and walks the keys one at a
-// time, chunks of 32 staged in f32; one thread owns one (query, head)
-// pair, a warp is one head of 32 queries, so each key row read from
-// shared memory is a broadcast.
+// time, chunks of 32 staged in f32; D / 16 adjacent lanes (one at D = 8)
+// own one (query, head) pair, 16 channels each, and a warp holds one
+// head, so each key row read from shared memory is a broadcast.
 //
 // Dtype points of _fwd_body: the score accumulates in f32 from the compute
 // dtype's q and k and the 1/sqrt(D) scale multiplies the f32 score; the
@@ -86,9 +87,10 @@
 // Dtype points of _dq_body / _dkv_body: ds and p cast to the compute dtype
 // before their products, dq and dk scaled by 1/sqrt(D) after the f32 sum.
 // A row whose window holds no valid key contributes and receives 0.
-// f32 runs on the CUDA cores (a thread per (token, head) of a 32-token
-// tile); bf16 on the tensor cores (mma.sync m16n8k16 over 64-token tiles
-// and 64-row chunks, see band_attention_bwd_tc_kernel), where each
+// f32 runs on the CUDA cores (D / 16 lanes per (token, head) of a
+// 32-token tile, one at D = 8); bf16 on the tensor cores (mma.sync
+// m16n8k16 over 64-token tiles and 64-row chunks, see
+// band_attention_bwd_tc_kernel), where each
 // product rounds at the points above and only the summation order moves.
 #include <math.h>
 
@@ -103,30 +105,21 @@ constexpr int KC = 32;       // keys per chunk (f32 kernels)
 constexpr int kF32Channels = 128;   // channels an f32 block stages
 static_assert(KC == TQ, "chunk rows map onto the tile's lanes");
 
-// 1/sqrt(D), a power of two or not: the f32 value nearest it
+// A head of D channels: its 1/sqrt(D), and the f32 kernels' layout
 template <int D>
 struct Head {
-  static_assert(D == 8 || D == 16 || D == 32 || D == 64 || D == 128,
-                "head widths 8, 16, 32, 64, 128");
-  static constexpr float kScale = D == 8    ? 0.35355339059327376f
-                                  : D == 16 ? 0.25f
-                                  : D == 32 ? 0.17677669529663687f
-                                  : D == 64 ? 0.125f
-                                            : 0.08838834764831845f;
-  // the f32 kernels: heads a block, lanes a (query, head) (one up to D =
-  // 64; at D = 128 eight, each keeping 16 channels, their partial dot
-  // products summed by shuffles as in K6's f32 kernels), channels a lane
-  // and threads
+  static constexpr float kScale = HeadScale<D>::kValue;
+  // the f32 kernels: heads a block, lanes a (query, head) (D / 16 of 16
+  // channels, one of 8 at D = 8; the lanes' partial dot products summed by
+  // shuffles, as in K6's f32 kernels), channels a lane and threads
   static constexpr int kGH = kF32Channels / D;
-  static constexpr int kLanes = D > 64 ? D / 16 : 1;
+  static constexpr int kLanes = D > 16 ? D / 16 : 1;
   static constexpr int kLC = D / kLanes;
   static constexpr int kThreads = TQ * kGH * kLanes;
   static constexpr int kFwdSmemBytes =
       2 * KC * kF32Channels * sizeof(float) + 2 * KC * sizeof(int);
   static constexpr int kBwdSmemBytes = 4 * KC * kF32Channels * sizeof(float) +
                                        (2 * KC + 2 * KC * kGH) * sizeof(int);
-  static_assert(kScale * kScale * D > 0.9999f && kScale * kScale * D < 1.0001f,
-                "kScale is 1/sqrt(D)");
   static_assert(kThreads <= 512, "a block of whole lane groups");
 
   // the calling thread's head in the group, query of the tile and lane of
@@ -437,8 +430,8 @@ cudaError_t launch_delta(const void* dout, const void* out, const int* win,
   return cudaGetLastError();
 }
 
-// f32: the CUDA cores, one thread per (token, head) of a 32-token tile of
-// one 128-channel head group (kLanes threads at D = 128, 16 channels each).
+// f32: the CUDA cores, kLanes threads per (token, head) of a 32-token tile
+// of one 128-channel head group, 16 channels each (one thread at D = 8).
 template <int D, int C>
 __global__ void __launch_bounds__(Head<D>::kThreads)
 band_attention_bwd_f32_kernel(BwdArgs p) {

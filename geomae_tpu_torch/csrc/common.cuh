@@ -44,6 +44,21 @@ __device__ __forceinline__ int lower_bound_i32(const int* a, int n, int v) {
   return lo;
 }
 
+// 1/sqrt(D) at the head widths the attention kernels take: the f32 value
+// nearest it, a power of two at D = 16 and 64
+template <int D>
+struct HeadScale {
+  static_assert(D == 8 || D == 16 || D == 32 || D == 64 || D == 128,
+                "head widths 8, 16, 32, 64, 128");
+  static constexpr float kValue = D == 8    ? 0.35355339059327376f
+                                  : D == 16 ? 0.25f
+                                  : D == 32 ? 0.17677669529663687f
+                                  : D == 64 ? 0.125f
+                                            : 0.08838834764831845f;
+  static_assert(kValue * kValue * D > 0.9999f && kValue * kValue * D < 1.0001f,
+                "kValue is 1/sqrt(D)");
+};
+
 // v summed over the S adjacent lanes of the calling thread's group (S a
 // power of two), the same value on each (the pairwise sums commute); the
 // lanes of a group take every branch together, so the mask names them

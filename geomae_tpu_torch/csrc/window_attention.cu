@@ -122,11 +122,7 @@ struct F32W {
   // 1/sqrt(D); folded into q (exact: a power of two) where D is a power
   // of four, as JAX folds it, else on the f32 score and after the sums
   static constexpr bool kFold = D == 16 || D == 64;
-  static constexpr float kScale = D == 8    ? 0.35355339059327376f
-                                  : D == 16 ? 0.25f
-                                  : D == 32 ? 0.17677669529663687f
-                                  : D == 64 ? 0.125f
-                                            : 0.08838834764831845f;
+  static constexpr float kScale = HeadScale<D>::kValue;
   static constexpr int kSmemBytes = 4 * KC * C * sizeof(float) +
                                     2 * KC * sizeof(int);
   static constexpr int kBwdSmemBytes = 6 * KC * C * sizeof(float) +
@@ -137,9 +133,6 @@ struct F32W {
   static_assert(H * S * TQ == kThreads && RG * C == kThreads &&
                     KC % RG == 0 && S <= 32 && (32 % S) == 0,
                 "one lane group per (token, head), whole rows a group");
-  static_assert(kScale * kScale * D > 0.9999f &&
-                    kScale * kScale * D < 1.0001f,
-                "kScale is 1/sqrt(D)");
 
   // the calling thread's head h, token i of the tile and channel slice sl
   __device__ static int head() { return threadIdx.x / (S * TQ); }

@@ -217,6 +217,10 @@ def test_sst_block_at_256_matches_the_jax_pallas_routes():
 
 WIDTHS = [(C, C // D, F) for C in attention.KERNEL_CHANNELS
           for D in attention.KERNEL_HEAD_DIMS for F in (2 * C, 4 * C)]
+# (C, heads) the attention kernels are written for, stated apart from the
+# gate under test: C 128 or 256 in heads of 8, 16, 32, 64 or 128 channels
+ATTENTION_KERNEL_WIDTHS = {(C, C // D) for C in (128, 256)
+                           for D in (8, 16, 32, 64, 128)}
 
 
 def routes(sst):
@@ -247,7 +251,7 @@ def test_route_resolution_at_widths(width):
     name (its FFN, of a width K5 takes, the kernel), JAX its kernels:
     widths the port serves on the plain routes."""
     d_model, nhead, dim_ff = width
-    attn_in = attention.kernel_takes(d_model, nhead)
+    attn_in = (d_model, nhead) in ATTENTION_KERNEL_WIDTHS
     ffn_in = (d_model, dim_ff) in ffn.KERNEL_WIDTHS
     for impl in ("band", "qkv", "einsum", "auto"):
         for ffn_impl in ("fused", "xla", "auto"):
