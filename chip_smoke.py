@@ -72,8 +72,13 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      ``geomae_pretrain_nus()`` (seven finite losses, each kernel's
      launches a step, every parameter moved) and one frame of
      ``geomae_finetune_nus()`` served, with no call of the plain
-     ``band_attention``; at 16 heads phase G at phase M's small caps (one
-     f32 pretrain step on the card against the CPU);
+     ``band_attention`` or of the unfused FFN chain; at 16 heads phase G
+     at phase M's small caps (one f32 pretrain step on the card against
+     the CPU);
+  O. the shipped d_model 128 with FFN 128 and 384 (``sst.dim_feedforward``;
+     K5 at F of 1 and 3 times C) on the ``band`` route: 2 bf16 pretrain
+     steps at batch 4 and one served frame as in N (K5 and its backward
+     once a layer a step), with no call of the unfused FFN chain;
   H. drives the trainer entry point (``python -m geomae_tpu_torch.train``,
      its ``main(argv)`` in process): first the documented ``--tiny`` run
      (pretrain 2 steps, fine-tune 2 from its checkpoint; at that width
@@ -153,7 +158,7 @@ second, shorter time on the ``band`` route, so that the two routes' frame
 and step times come from one run and the same batches.  Any failed check
 exits non-zero.  The line before the last is a JSON
 summary of the kernels: ``launches`` sums the served frames and train steps of
-B, D, F (both routes), M, N, H, I's one-rank NCCL steps, J, K and L; ``ms``,
+B, D, F (both routes), M, N, O, H, I's one-rank NCCL steps, J, K and L; ``ms``,
 ``plain_ms``, ``library_ms`` and
 ``bound_ms`` are the times of one call of each distinct call the paths
 make of the kernel in its dtype, summed (``segment_broadcast``: f32 mean
@@ -230,6 +235,8 @@ M_SMALL_CAPS = ["caps.max_points=32768", "caps.max_voxels=4096",
 # phase N: the shipped d_model 128 in heads of 8 and in one head of 128
 N_HEADS = (16, 1)
 N_STEPS = 2           # bf16 pretrain steps a route
+# phase O: the shipped d_model 128 with FFN widths of 1 and 3 times it
+O_FFN = (128, 384)
 
 
 def per_pretrain_step(cfg) -> dict:
@@ -1562,7 +1569,7 @@ def phase_widths(pcfg, failures: list) -> list:
             run(sst_width(cfg, C, C // D, 2 * C), f"K8, K6, K7 and the "
                 f"projections at C {C} in heads of {D}", inputs, K8 + QKV,
                 f"C {C}, D {D}")
-        for Fd in (2 * C, 4 * C):
+        for Fd in sorted(f for c, f in ffn.KERNEL_WIDTHS if c == C):
             run(sst_width(cfg, C, 8, Fd), f"K5 at (C, F) ({C}, {Fd})",
                 inputs, K5, f"C {C}, F {Fd}")
         del inputs
@@ -1579,21 +1586,83 @@ def phase_widths(pcfg, failures: list) -> list:
     return rows
 
 
-def phase_n(pcfg, cfg, failures: list) -> dict:
-    """The shipped d_model 128 in 16 heads of 8 and in one head of 128
-    (``sst.nhead``), on the ``band`` route (K8) and on the ``qkv`` route
-    (K6 and K7), with K5: per head count and route, ``N_STEPS`` bf16
-    pretrain steps at batch 4 (seven finite loss terms, each kernel's
-    launches a step, every parameter moved) and one served frame of the
-    fine-tune model, with no call of the plain ``band_attention``; at 16
-    heads phase G (one f32 pretrain step on the card against the CPU) at
-    phase M's small caps.  Returns the launches of the steps and frames."""
+def train_and_serve(wp, wf, what: str, failures: list) -> dict:
+    """``N_STEPS`` bf16 pretrain steps of ``wp`` at its batch size (seven
+    finite loss terms, each kernel's launches a step, every parameter
+    moved) and one served frame of ``wf``, with no call of the plain
+    ``band_attention`` and none of the unfused FFN chain: K5 launches once
+    a layer.  Returns the launches of the steps and the frame."""
     from geomae_tpu_torch.apis import inference_detector, init_model
-    from geomae_tpu_torch.config import apply_overrides
     from geomae_tpu_torch.profile_serving import host_ms
     from geomae_tpu_torch.synthetic import clustered_frame
     from geomae_tpu_torch.train.pretrain import (init_state, make_train_step,
                                                  synthetic_batch)
+
+    bz = wp.data.batch_size
+    with plain_attention_calls() as plain, unfused_ffn_calls() as unfused:
+        state = init_state(wp, DEVICE, torch.Generator().manual_seed(SEED))
+        step = make_train_step(wp)
+        names = [k for k, _ in state.model.named_parameters()]
+        before = [p.detach().clone() for p in state.model.parameters()]
+        batches = [synthetic_batch(wp, bz, seed=SEED + 95 + i, device=DEVICE)
+                   for i in range(N_STEPS)]
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        fns = reset_counts()
+        for i, batch in enumerate(batches):
+            (_, l), ms = host_ms(lambda: step(state, batch, gen))
+            losses = {k: float(v) for k, v in l.items()}
+            print(f"  step {i}: {ms:.1f} ms, loss {losses['loss']:.4f}")
+            if not (len(losses) == 7 and all(
+                    np.isfinite(v) for v in losses.values())):
+                failures.append(f"{what}: step {i}'s seven losses are not "
+                                "all finite")
+        runs = check_launches(fns, on_route(per_pretrain_step(wp), wp),
+                              N_STEPS, f"pretrain steps ({what})", failures)
+        still = [k for k, a, p in zip(names, before, state.model.parameters())
+                 if torch.equal(a, p.detach())]
+        print(f"  parameters changed: {len(names) - len(still)} of "
+              f"{len(names)} tensors")
+        if still:
+            failures.append(f"{what}: parameters did not change: "
+                            f"{still[:5]}")
+        del state, batches, before
+        det = init_model(cfg=wf, device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED))
+        raw = clustered_frame(np.random.default_rng(SEED + 97), wf.voxel,
+                              wf.caps.max_points)
+        fns = reset_counts()
+        res, ms = host_ms(lambda: inference_detector(det, raw))
+        n = len(res["scores"])
+        print(f"  frame: {len(raw)} points -> {n} detections in {ms:.1f} ms")
+        if not (n and np.isfinite(res["boxes"]).all()):
+            failures.append(f"{what}: frame malformed ({n} boxes)")
+        served = check_launches(fns, on_route(PER_FRAME, wf), 1,
+                                f"frame ({what})", failures)
+        del det
+    print(f"  calls of the plain band_attention: {len(plain)}; of the "
+          f"unfused FFN chain: {len(unfused)}")
+    if plain:
+        failures.append(f"{what} called the plain band_attention "
+                        f"{len(plain)} times")
+    if unfused:
+        failures.append(f"{what} ran the unfused FFN chain {len(unfused)} "
+                        "times")
+    return {k: runs[k] + served[k] for k in runs}
+
+
+def add_launches(total: dict, runs: dict) -> None:
+    for k in runs:
+        total[k] = total.get(k, 0) + runs[k]
+
+
+def phase_n(pcfg, cfg, failures: list) -> dict:
+    """The shipped d_model 128 in 16 heads of 8 and in one head of 128
+    (``sst.nhead``), on the ``band`` route (K8) and on the ``qkv`` route
+    (K6 and K7), with K5: per head count and route, ``train_and_serve``;
+    at 16 heads phase G (one f32 pretrain step on the card against the
+    CPU) at phase M's small caps.  Returns the launches of the steps and
+    frames."""
+    from geomae_tpu_torch.config import apply_overrides
 
     total: dict = {}
     for heads in N_HEADS:
@@ -1601,66 +1670,54 @@ def phase_n(pcfg, cfg, failures: list) -> dict:
         for route in (BAND_OPTION, QKV_OPTION):
             opts = [f"sst.nhead={heads}", route]
             wp, wf = (apply_overrides(c, opts) for c in (pcfg, cfg))
-            bz = wp.data.batch_size
             what = f"{heads} head{'s' * (heads > 1)} of {D}, {route}"
             print(f"phase N: d_model {wp.sst.d_model} in {what}: {N_STEPS} "
-                  f"bf16 pretrain steps at batch {bz}, one served frame")
-            with plain_attention_calls() as plain:
-                state = init_state(wp, DEVICE,
-                                   torch.Generator().manual_seed(SEED))
-                step = make_train_step(wp)
-                names = [k for k, _ in state.model.named_parameters()]
-                before = [p.detach().clone()
-                          for p in state.model.parameters()]
-                batches = [synthetic_batch(wp, bz, seed=SEED + 95 + i,
-                                           device=DEVICE)
-                           for i in range(N_STEPS)]
-                gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-                fns = reset_counts()
-                for i, batch in enumerate(batches):
-                    (_, l), ms = host_ms(lambda: step(state, batch, gen))
-                    losses = {k: float(v) for k, v in l.items()}
-                    print(f"  step {i}: {ms:.1f} ms, loss "
-                          f"{losses['loss']:.4f}")
-                    if not (len(losses) == 7 and all(
-                            np.isfinite(v) for v in losses.values())):
-                        failures.append(f"{what}: step {i}'s seven losses "
-                                        "are not all finite")
-                runs = check_launches(
-                    fns, on_route(per_pretrain_step(wp), wp), N_STEPS,
-                    f"pretrain steps ({what})", failures)
-                still = [k for k, a, p in zip(names, before,
-                                              state.model.parameters())
-                         if torch.equal(a, p.detach())]
-                print(f"  parameters changed: {len(names) - len(still)} of "
-                      f"{len(names)} tensors")
-                if still:
-                    failures.append(f"{what}: parameters did not change: "
-                                    f"{still[:5]}")
-                del state, batches, before
-                det = init_model(cfg=wf, device=DEVICE,
-                                 generator=torch.Generator().manual_seed(SEED))
-                raw = clustered_frame(np.random.default_rng(SEED + 97),
-                                      wf.voxel, wf.caps.max_points)
-                fns = reset_counts()
-                res, ms = host_ms(lambda: inference_detector(det, raw))
-                n = len(res["scores"])
-                print(f"  frame: {len(raw)} points -> {n} detections in "
-                      f"{ms:.1f} ms")
-                if not (n and np.isfinite(res["boxes"]).all()):
-                    failures.append(f"{what}: frame malformed ({n} boxes)")
-                served = check_launches(fns, on_route(PER_FRAME, wf), 1,
-                                        f"frame ({what})", failures)
-                del det
-            print(f"  calls of the plain band_attention: {len(plain)}")
-            if plain:
-                failures.append(f"{what} called the plain band_attention "
-                                f"{len(plain)} times")
-            for k in runs:
-                total[k] = total.get(k, 0) + runs[k] + served[k]
+                  f"bf16 pretrain steps at batch {wp.data.batch_size}, one "
+                  "served frame")
+            add_launches(total, train_and_serve(wp, wf, what, failures))
     phase_g(apply_overrides(pcfg, M_SMALL_CAPS + [f"sst.nhead={N_HEADS[0]}"]),
             failures)
     return total
+
+
+def phase_o(pcfg, cfg, failures: list) -> dict:
+    """The shipped d_model 128 with FFN widths of 1 and 3 times it
+    (``sst.dim_feedforward``, ``O_FFN``: K5 at (128, 128) and (128,
+    384)) on the ``band`` route: ``train_and_serve``, in which K5 and its
+    backward launch once a layer a step and no layer runs the unfused
+    chain.  Returns the launches of the steps and frames."""
+    from geomae_tpu_torch.config import apply_overrides
+
+    total: dict = {}
+    for Fd in O_FFN:
+        opts = [f"sst.dim_feedforward={Fd}", BAND_OPTION]
+        wp, wf = (apply_overrides(c, opts) for c in (pcfg, cfg))
+        what = f"FFN {Fd}, {BAND_OPTION}"
+        print(f"phase O: d_model {wp.sst.d_model}, {what}: {N_STEPS} bf16 "
+              f"pretrain steps at batch {wp.data.batch_size}, one served "
+              "frame")
+        add_launches(total, train_and_serve(wp, wf, what, failures))
+    return total
+
+
+@contextlib.contextmanager
+def unfused_ffn_calls():
+    """Counts the SST encoder layers that run the unfused FFN chain inside
+    the block (its first LayerNorm, ``norm1``, runs there and nowhere
+    else): yields a list that grows by one a layer call."""
+    from geomae_tpu_torch.models import sst
+
+    init, calls = sst.EncoderLayer.__init__, []
+
+    def counted(self, *a, **k):
+        init(self, *a, **k)
+        self.norm1.register_forward_hook(lambda *_: calls.append(1))
+
+    sst.EncoderLayer.__init__ = counted
+    try:
+        yield calls
+    finally:
+        sst.EncoderLayer.__init__ = init
 
 
 @contextlib.contextmanager
@@ -3288,6 +3345,8 @@ def main() -> None:
     passed("phase M", failures, clock)
     runs.append(phase_n(pcfg, cfg, failures))
     passed("phase N", failures, clock)
+    runs.append(phase_o(pcfg, cfg, failures))
+    passed("phase O", failures, clock)
     runs.append(phase_h(pcfg, cfg, failures))
     passed("phase H", failures, clock)
     runs.append(phase_i(pcfg, failures))
@@ -3311,9 +3370,11 @@ def main() -> None:
         rows = results[name]
         t_bytes, t_ops = sum(r[3] for r in rows), sum(r[4] for r in rows)
         libs = [r[5] for r in rows if r[5] is not None]
-        # K6's and K7's entries also name the widths phase A ran them at
+        # K6's, K7's and K5's entries also name the widths phase A ran
+        # them at
         at = {"widths": [w["width"] for w in widths if w["name"] == name]} \
-            if name.startswith("band_attention_qkv") else {}
+            if name.startswith(("band_attention_qkv", "post_attention")) \
+            else {}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(r[name] for r in runs),

@@ -117,16 +117,23 @@ inline cudaError_t persistent_grid(K kernel, int threads, int smem,
 // products to it in tile order, and sum_partials adds the blocks'
 // partials in block order: deterministic, no float atomics.
 
+// The output columns that NT threads own at once when each thread owns a
+// column: all N where N < NT, NT where NT divides N, else NT / 2 (N of 384
+// over 256 threads), so a warp always owns consecutive columns.
+__host__ __device__ constexpr int pass_columns(int N, int NT) {
+  return N < NT ? N : N % NT == 0 ? NT : NT / 2;
+}
+
 // P[k][n] += sum_{r < R} a[r][k] * d[r][n] for the shared f32 tiles a
 // [R][K] and d [R][N].  Thread: column n = n0 + tid % NW for each block
-// of NW = min(N, NT) columns from n0, rows k = tid / NW + (NT / NW) * j,
-// so each thread always owns the same entries of P (no other thread reads
-// them) and reads a as a warp-wide broadcast.
+// of NW = pass_columns(N, NT) columns from n0, rows k = tid / NW + (NT /
+// NW) * j, so each thread always owns the same entries of P (no other
+// thread reads them) and reads a as a warp-wide broadcast.
 template <int NT, int R, int K, int N>
 __device__ __forceinline__ void accum_outer(const float* __restrict__ a,
                                             const float* __restrict__ d,
                                             float* __restrict__ P) {
-  constexpr int NW = N < NT ? N : NT;
+  constexpr int NW = pass_columns(N, NT);
   constexpr int RG = NT / NW;
   constexpr int J = 16;
   static_assert(NT % NW == 0 && N % NW == 0 && K % (RG * J) == 0,

@@ -9,9 +9,13 @@ namespace {
 
 const geomae::K5Kernels* k5_kernels(int C, int F) {
   using namespace geomae;
+  if (C == 128 && F == 128) return &k5_kernels_c128_f128();
   if (C == 128 && F == 256) return &k5_kernels_c128_f256();
+  if (C == 128 && F == 384) return &k5_kernels_c128_f384();
   if (C == 128 && F == 512) return &k5_kernels_c128_f512();
+  if (C == 256 && F == 256) return &k5_kernels_c256_f256();
   if (C == 256 && F == 512) return &k5_kernels_c256_f512();
+  if (C == 256 && F == 768) return &k5_kernels_c256_f768();
   if (C == 256 && F == 1024) return &k5_kernels_c256_f1024();
   return nullptr;
 }

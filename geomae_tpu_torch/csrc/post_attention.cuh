@@ -14,11 +14,13 @@
 //
 // Widths: every kernel is a template over (C, F), the model width and the
 // FFN width; Widths<C, F> derives the tiles, chunk streams and buffers
-// from them.  The port builds (C, F) in {(128, 256), (128, 512), (256,
-// 512), (256, 1024)}, one translation unit each (post_attention_c*_f*.cu,
-// compiled in parallel); post_attention.cu picks one by the widths it is
-// given.  The token tile shrinks as the rows widen, so that a block's rows
-// fit its shared memory.
+// from them (C a multiple of 128, F a multiple of 128 and at least C).
+// The port builds C of 128 and 256 with F of 1, 2, 3 or 4 times C, one
+// translation unit each (post_attention_c*_f*.cu, compiled in parallel);
+// post_attention.cu picks one by the widths it is given.  The token tile
+// shrinks as the rows widen, so that a block's rows fit its shared
+// memory, and the bf16 forward runs two blocks an SM where two fit, else
+// one (at F = 3 C).
 //
 // Forward.  Bound at (128, 256): 2*(C*C + 2*C*F) = 147,456 operations a
 // token against 768 bytes moved in bf16 (x and attn read, y written; the
@@ -35,8 +37,9 @@
 // A persistent grid walks token tiles; each block streams the weights
 // through a two-buffer cp.async ring and keeps the tile's rows in shared
 // memory (attn then xm, x then o2, o then a1 and h over it; 109,568 bytes
-// at (128, 256)); 123 registers there: two blocks an SM, so one block's
-// row-wise work overlaps the other's products.  At (128, 256) it stands
+// at (128, 256)); 102 registers there: two blocks an SM (at every width
+// but F = 3 C, whose rows leave room for one), so one block's row-wise
+// work overlaps the other's products.  At (128, 256) it stands
 // at about a tenth of its bound (PERF.md): the products take a few per
 // cent of its time, the row-wise loops (bias, residual, two LayerNorms
 // with their warp reductions, exact GELU) about 0.44 and the weight ring's
@@ -49,7 +52,8 @@
 // residuals, the [TT, F] hidden) in shared memory, so one read of x and
 // attn and one write of y reach device memory, as on the TPU; the weights
 // stream through the read-only cache, each thread owning one output column
-// of a 256-column block for its token rows held in registers.  Bound: the
+// of a 256-column block (of a 128-column one where 256 does not divide
+// the width, F = 384) for its token rows held in registers.  Bound: the
 // CUDA cores' f32 rate, 0.20 ms at [4, 20480] and (128, 256).
 //
 // Backward: the kernels recompute the forward from x and attn (as the TPU
@@ -118,9 +122,13 @@ struct K5Kernels {
 };
 
 // one per width, each in its translation unit
+const K5Kernels& k5_kernels_c128_f128();
 const K5Kernels& k5_kernels_c128_f256();
+const K5Kernels& k5_kernels_c128_f384();
 const K5Kernels& k5_kernels_c128_f512();
+const K5Kernels& k5_kernels_c256_f256();
 const K5Kernels& k5_kernels_c256_f512();
+const K5Kernels& k5_kernels_c256_f768();
 const K5Kernels& k5_kernels_c256_f1024();
 
 namespace {
@@ -128,6 +136,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSmem = 227 * 1024;   // dynamic shared memory a block
+constexpr int kSmemPerSM = 228 * 1024;  // an SM's, and what a block adds
+constexpr int kSmemPerBlock = 1024;     // to its own for the runtime
 
 // bf16 tile pass: every product is a pass of kNP output columns, its
 // weight streamed in chunks of kKc k-rows
@@ -173,8 +183,10 @@ __host__ __device__ constexpr int tile_bytes(int C, int F, int tt) {
 template <int C_, int F_>
 struct Widths {
   static constexpr int C = C_, F = F_;
-  static_assert(C % kNP == 0 && F % 256 == 0 && F >= 2 * C,
-                "C a multiple of 128, F of 256 and at least 2 C");
+  // F >= C: the forward stages o in the F-wide rows of a1 and h, and the
+  // weight-gradient grid is sized by dW1's tiles, the most of the three
+  static_assert(C % kNP == 0 && F % kNP == 0 && F >= C,
+                "C and F multiples of 128, F at least C");
 
   // --- float32, CUDA cores: the token tile and its shared memory
   static constexpr int TT = f32_bwd_bytes(C, F, 32) <= kMaxSmem ? 32 : 16;
@@ -217,13 +229,19 @@ struct Widths {
   static constexpr int kFG = F / kNP;    // of an F row (and passes of F)
   static_assert(kTT >= 16 && kWN >= 16, "16-row, 16-column warp tiles");
   static_assert(kTileSmemBytes <= kMaxSmem, "one tile-pass block an SM");
-  static_assert(2 * kFwdSmemBytes <= kMaxSmem, "two forward blocks an SM");
+  // forward blocks an SM by their shared memory: 2 where two fit, else 1
+  static constexpr int kFwdBlocks =
+      kSmemPerSM / (kFwdSmemBytes + kSmemPerBlock) >= 2 ? 2 : 1;
+  static_assert(kFwdSmemBytes <= kMaxSmem, "one forward block an SM");
   // the last reduction's [kTileWarps][kVecFloats] f32 from s_a1 on
   static_assert(kTileWarps * kVecFloats * 4 <=
                     (2 * kTT * kSF + kRing * kChunkElems) * 2,
                 "the vector gradients' reduction fits the consumed rows");
-  // the f32 backward's [kWarps][6][C] reduction over its s_a1 and s_h
-  static_assert(kWarps * 6 * C <= 2 * TT * F, "f32 reduction fits");
+  // the f32 backward's [kWarps][6][C] reduction over its s_a1 and s_h,
+  // then db1's [row groups][F]
+  static_assert(kWarps * 6 * C + kThreads / pass_columns(F, kThreads) * F <=
+                    2 * TT * F,
+                "f32 reduction fits");
 
   // each stage's first chunk in a tile's stream, and the stream's length:
   // the forward's (stages kO-kO2) and the backward's
@@ -242,13 +260,17 @@ static_assert(Widths<128, 256>::kTT == 64 &&
                   Widths<128, 256>::kTileChunks == 20 &&
                   Widths<128, 256>::TT == 32,
               "the shipped width's tiles");
+static_assert(Widths<128, 256>::kFwdBlocks == 2 &&
+                  Widths<128, 384>::kFwdBlocks == 1,
+              "two forward blocks an SM where two fit");
 
 // acc[j] = sum_k a[row(j)][k] W[k][col(pass)] for the tile's rows; a is
 // shared [TT][K], W is [K][N].  Thread: column pass * NW + tid % NW of
-// the pass's NW = min(N, kThreads) columns, rows tid / NW + RG * j.
+// the pass's NW = pass_columns(N, kThreads) columns (N below 256, 256,
+// or 128 at N = 384), rows tid / NW + RG * j.
 template <typename T, int K, int N, int TT>
 struct Proj {
-  static constexpr int NW = N < kThreads ? N : kThreads;
+  static constexpr int NW = pass_columns(N, kThreads);
   static constexpr int kPasses = N / NW;
   static constexpr int RG = kThreads / NW;
   static constexpr int RPT = TT / RG;
@@ -511,8 +533,8 @@ post_attention_bwd_kernel(BwdArgs p) {
   // per lane: the [C] gradients of its channels over its rows, all tiles
   float ds2[CL] = {}, dt2[CL] = {}, db2[CL] = {};
   float ds1[CL] = {}, dt1[CL] = {}, dbo[CL] = {};
-  using PF = Proj<T, C, F, TT>;  // the da1 columns: thread t owns t + 256 j
-  static_assert(PF::NW == kThreads, "every thread owns da1 columns");
+  // the da1 columns: thread t owns PF::col(j), over its row group's rows
+  using PF = Proj<T, C, F, TT>;
   float db1[PF::kPasses] = {};
 
   const int tiles_per_row = (p.V + TT - 1) / TT;
@@ -668,9 +690,22 @@ post_attention_bwd_kernel(BwdArgs p) {
     P[(q < 3 ? Wd::kOffW2 + F * C + q * C : Wd::kOffB1 + F + (q - 3) * C) +
       i % C] = sum;
   }
+  if constexpr (PF::RG == 1) {   // a thread a column
 #pragma unroll
-  for (int q = 0; q < PF::kPasses; ++q)
-    P[Wd::kOffB1 + PF::col(q)] = db1[q];
+    for (int q = 0; q < PF::kPasses; ++q)
+      P[Wd::kOffB1 + PF::col(q)] = db1[q];
+  } else {   // F below 256 or 384: the row groups' db1, in group order
+    float* rb = red + kWarps * 6 * C;   // [RG][F]
+#pragma unroll
+    for (int q = 0; q < PF::kPasses; ++q)
+      rb[threadIdx.x / PF::NW * F + PF::col(q)] = db1[q];
+    __syncthreads();
+    for (int i = threadIdx.x; i < F; i += kThreads) {
+      float sum = 0.f;
+      for (int g = 0; g < PF::RG; ++g) sum += rb[g * F + i];
+      P[Wd::kOffB1 + i] = sum;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -1077,9 +1112,10 @@ __device__ __forceinline__ void load_vector_params(const Args& p,
 // epilogues.  Its shared memory (attn then xm, x then o2, o then a1 and h
 // over it, a two-buffer weight ring, the vector parameters; 109,568 bytes
 // at (128, 256)) lets two blocks share an SM, so one block's row-wise
-// work overlaps the other's products.
+// work overlaps the other's products; at F = 3 C one block fits
+// (kFwdBlocks), and its registers are not held to two blocks' share.
 template <int C, int F>
-__global__ void __launch_bounds__(kTileThreads, 2)
+__global__ void __launch_bounds__(kTileThreads, Widths<C, F>::kFwdBlocks)
 post_attention_fwd_tc_kernel(FwdArgs p) {
   using Wd = Widths<C, F>;
   constexpr int kTT = Wd::kTT, kSC = Wd::kSC, kSF = Wd::kSF;

@@ -5,8 +5,9 @@ Port of ``geomae_tpu/models/sst.py`` (``prepare_shift_data``,
 ``attention_route`` and ``ffn_route`` resolve ``cfg.attention_impl`` and
 ``cfg.ffn_impl`` from the config alone, so the CPU and the GPU run one
 model.  At the kernels' widths (C of 128 or 256 in heads of 8, 16, 32,
-64 or 128, FFN 2 C or 4 C, GELU) an encoder layer is, by default, q/k/v
-projected by ``F.linear`` and then K8 (``ops/attention.py``), then K5
+64 or 128, FFN of 1, 2, 3 or 4 times C, GELU) an encoder layer is, by
+default, q/k/v projected by ``F.linear`` and then K8
+(``ops/attention.py``), then K5
 (``ops/ffn.py``: out-projection, residual, LN1, GELU FFN, residual, LN2);
 ``attention_impl="qkv"`` runs K6 (``ops/attention_qkv.py``: q/k/v
 projections inside the window attention) instead, at the same widths.
@@ -110,9 +111,11 @@ def attention_route(impl: str, d_model: int, nhead: int) -> str:
 
 def ffn_route(cfg: SSTConfig) -> str:
     """``cfg.ffn_impl`` resolved: "fused" (K5) for GELU at the kernel's
-    widths, (C, F) in ``ffn.KERNEL_WIDTHS`` (C of 128 or 256, F of 2 C or
-    4 C), else "xla" (the unfused chain).  JAX fuses GELU at any C a
-    multiple of 128 and any F."""
+    widths, (C, F) in ``ffn.KERNEL_WIDTHS`` (C of 128 or 256, F of 1, 2,
+    3 or 4 times C), else "xla" (the unfused chain).  JAX fuses GELU at
+    any C a multiple of 128 and any F; the port serves on the unfused
+    chain what JAX fuses at F not a multiple of 128, below C or above
+    4 C, and at C of 384 or more."""
     _check("ffn_impl", cfg.ffn_impl, FFN_IMPLS)
     _check("activation", cfg.activation, ("gelu", "relu"))
     fits = (cfg.d_model, cfg.dim_feedforward) in KERNEL_WIDTHS \

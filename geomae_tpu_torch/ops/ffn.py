@@ -19,8 +19,9 @@ its tile's end are padding tokens that no consumer reads.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  The kernels take (C, F) in ``KERNEL_WIDTHS`` (C of 128 or
-256, F of 2 C or 4 C) in float32 or bfloat16.  Under grad the block is
-an ``autograd.Function`` whose backward (``post_attention_block_backward``)
+256, F of 1, 2, 3 or 4 times C) in float32 or bfloat16.  Under grad the
+block is an ``autograd.Function`` whose backward
+(``post_attention_block_backward``)
 returns dx, dattn and the ten parameter gradients in f32 with the dtype
 points of ``pallas_ffn._bwd_body``; rows at or past ``nv`` give zero dx
 and dattn and add nothing to the parameter gradients.  In bfloat16 the
@@ -40,8 +41,10 @@ import torch.nn.functional as F
 
 from . import _cuda
 
-# (C, F) the kernels take; the first is the shipped SST width
-KERNEL_WIDTHS = ((128, 256), (128, 512), (256, 512), (256, 1024))
+# (C, F) the kernels take, F of 1, 2, 3 or 4 times C; the first is the
+# shipped SST width, the rest by C, then F
+KERNEL_WIDTHS = ((128, 256), (128, 128), (128, 384), (128, 512), (256, 256),
+                 (256, 512), (256, 768), (256, 1024))
 KERNEL_C, KERNEL_F = KERNEL_WIDTHS[0]
 # the backward kernels run one block per SM, at most one a tile of the
 # smallest token tile any width takes (post_attention.cuh, Widths: the

@@ -38,11 +38,12 @@ K5_VARIANTS = {
     "as built": [],
     "one block, ring of 3": [
         ("constexpr int kFwdRing = 2;", "constexpr int kFwdRing = 3;"),
-        ("static_assert(2 * kFwdSmemBytes", "static_assert(1 * kFwdSmemBytes"),
+        ("kSmemPerSM / (kFwdSmemBytes + kSmemPerBlock) >= 2 ? 2 : 1;",
+         "1;"),
         ("                  Widths<128, 256>::kFwdSmemBytes == 109568 &&\n",
          ""),
-        ("__launch_bounds__(kTileThreads, 2)",
-         "__launch_bounds__(kTileThreads, 1)")],
+        ("Widths<128, 256>::kFwdBlocks == 2",
+         "Widths<128, 256>::kFwdBlocks == 1")],
     "no products": [
         ("      mma_bf16_16816(acc[2 * j], af, &bf[0]);\n"
          "      mma_bf16_16816(acc[2 * j + 1], af, &bf[2]);",

@@ -475,6 +475,23 @@ def test_post_attention_block_backward_is_deterministic(dev, C, F):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("C,F", [(128, 1024), (128, 320), (256, 2048),
+                                 (256, 128), (384, 768)])
+def test_k5_wrappers_refuse_widths_outside_the_set(dev, C, F):
+    """F of 8 C, F not a multiple of 128, (256, 2048), F below C and C
+    384: K5's forward, backward and weight-gradient wrappers raise on a
+    CUDA tensor rather than run a plain version."""
+    args = ffn_case(torch.bfloat16, dev, B=1, V=64, C=C, F=F)
+    with pytest.raises(ValueError):
+        ffn.post_attention_block(*args[:13])
+    with pytest.raises(ValueError):
+        ffn.post_attention_block_backward(*args)
+    x, nv = args[0], args[12]
+    h = torch.zeros(1, 64, F, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        ffn.weight_grads(x, x, x, h, h, x, nv)
+
+
 def attention_case(dtype, dev, C=128):
     rng = np.random.default_rng(2)
     win, kv = windows(rng)

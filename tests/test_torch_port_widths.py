@@ -13,16 +13,18 @@ largest |ref|) (both round at the same points; f32 sums in another order
 may move a rounding to the other side).  One SST block at C = 256 in 8
 heads of 32 on the band / fused route against the JAX stack's Pallas
 routes in interpret mode; the route table at every width of the set and
-at three widths outside it (C 384, C 256 in one head, heads of 4),
-beside JAX's own decision; and F4: the tiny fine-tune step
+at six widths outside it (C 384, C 256 in one head, heads of 4, F of 8
+C, of 320 and of 2,048 at C 256), beside JAX's own decision; and F4: the tiny fine-tune step
 at width 256 (``vfe.feat_channels=16,256 sst.d_model=256 sst.nhead=8
 sst.dim_feedforward=512``), where SECOND takes the SST's width, against
 the JAX step, from flax variables on the shapes of the JAX init
 (``jax.eval_shape``, drawn with numpy as the VoxelNet tests draw them:
 compiling the init took a third of this file's time).  The JAX
 interpret-mode results are computed once for the file and shared by the
-tests that read them (``k8_case``, ``k5_case``), the JAX stack's layouts
-and init compiled (``test_torch_port_band_ops.jax_shift``)."""
+tests that read them (``k8_case``; K5's in
+``test_torch_port_ffn_widths.k5_case``, whose checks this file shares),
+the JAX stack's layouts and init compiled
+(``test_torch_port_band_ops.jax_shift``)."""
 import functools
 
 import jax
@@ -37,16 +39,14 @@ from geomae_tpu.config import tiny_finetune_config
 from geomae_tpu.models import sst as jax_sst
 from geomae_tpu.ops.pallas_attention import _pallas_backward as jax_band_bwd
 from geomae_tpu.ops.pallas_attention import _pallas_forward as jax_band_fwd
-from geomae_tpu.ops.pallas_ffn import _backward as jax_ffn_bwd
-from geomae_tpu.ops.pallas_ffn import post_attention_block as jax_block
 from geomae_tpu_torch.config import SSTConfig
 from geomae_tpu_torch.models.detector import DynamicVoxelNet
 from geomae_tpu_torch.models.sst import SSTStack
-from geomae_tpu_torch.ops import attention, ffn
-from test_pallas_ffn import ORDER, make_case as ffn_case
+from geomae_tpu_torch.ops import attention
 from test_torch_port_band_ops import (DTYPES, assert_rows_close,
                                       check_route_against_pallas, make_case,
                                       stack_case, to_torch)
+from test_torch_port_ffn_widths import check_k5_backward, check_k5_forward
 from test_torch_port_train_step import (JFT, JaxNet, check_gradients,
                                         check_losses, jax_and_port_step)
 from test_torch_port_voxelnet import random_variables
@@ -142,68 +142,18 @@ def test_k8_backward_at_width(H, D, dtype):
         assert pad.any() and (a[0, pad] == 0).all()
 
 
-@functools.lru_cache(maxsize=None)
-def k5_case(C, F, dtype):
-    """K5's inputs at (C, F) (``test_pallas_ffn.make_case``, V = 128, nv
-    short of V in the first sample) for the port, a cotangent zero past
-    nv, and the interpret-mode kernel's forward and ``_backward`` on them,
-    in one compiled call: (port inputs, nv, keep, dy, JAX forward, JAX
-    backward); each width's JAX results once for the file."""
-    jdt, tdt = DTYPES[dtype]
-    x, attn, ws = ffn_case(np.random.default_rng(40 + C + F), B=2, V=128,
-                           C=C, F=F, dtype=jdt)
-    nv = np.array([70, 128], np.int32)
-    keep = np.arange(128)[None, :] < nv[:, None]
-    dy = jnp.asarray(np.random.default_rng(7).normal(size=(2, 128, C))
-                     * keep[..., None], jdt)
-
-    def forward_backward(*a):
-        return (jax_block(*a[:13], 1e-5, TILE, True),
-                jax_ffn_bwd(*a, 1e-5, TILE, True))
-
-    y, grads = jax.jit(forward_backward)(x, attn, *[ws[k] for k in ORDER],
-                                         jnp.asarray(nv), dy)
-    targs = (to_torch(x, tdt), to_torch(attn, tdt),
-             *[to_torch(ws[k][0]) for k in ORDER])
-    return targs, nv, keep, to_torch(dy, tdt), y, grads
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("C,F", K5_WIDTHS)
 def test_k5_forward_at_width(C, F, dtype):
-    """The plain forward against the interpret-mode kernel on the rows
-    before ``nv`` (the kernel computes the rest of ``nv``'s tile), f32 at
-    1e-5; rows past ``nv`` 0."""
-    targs, nv, keep, _, y, _ = k5_case(C, F, dtype)
-    want = np.asarray(y.astype(jnp.float32))
-    got = ffn.post_attention_block_plain(*targs, torch.from_numpy(nv))
-    assert got.dtype == DTYPES[dtype][1]
-    got = got.float().numpy()
-    assert_rows_close(got[keep], want[keep], dtype, atol=1e-5, rtol=1e-5)
-    assert (got[~keep] == 0).all()
+    """``check_k5_forward`` at F of 2 C and 4 C."""
+    check_k5_forward(C, F, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("C,F", K5_WIDTHS)
 def test_k5_backward_at_width(C, F, dtype):
-    """The plain backward against the interpret-mode kernel's ``_backward``
-    for a cotangent zero past ``nv``: dx and dattn per row, each parameter
-    gradient, f32 at 1e-5 of its largest value; bf16 dx and dattn per row
-    at 2e-2 + 2e-2 relative, its f32 parameter gradients at 2e-2 of their
-    largest value (sums of bf16-rounded terms over 198 tokens)."""
-    targs, nv, keep, dy, _, want = k5_case(C, F, dtype)
-    got = ffn.post_attention_block_backward_plain(
-        *targs, torch.from_numpy(nv), dy)
-    for i, (a, w) in enumerate(zip(got, want)):
-        w = np.asarray(w.astype(jnp.float32)).reshape(a.shape)
-        a = a.float().numpy()
-        if i < 2:                      # dx, dattn: per row, 0 past nv
-            assert_rows_close(a[keep], w[keep], dtype, atol=1e-5, rtol=1e-5)
-            assert (a[~keep] == 0).all()
-            continue
-        tol = 1e-5 if dtype == "f32" else 2e-2
-        np.testing.assert_allclose(a, w, rtol=0, atol=tol * np.abs(w).max(),
-                                   err_msg=ORDER[i - 2])
+    """``check_k5_backward`` at F of 2 C and 4 C."""
+    check_k5_backward(C, F, dtype)
 
 
 def test_sst_block_at_256_matches_the_jax_pallas_routes():
@@ -216,11 +166,18 @@ def test_sst_block_at_256_matches_the_jax_pallas_routes():
 
 
 WIDTHS = [(C, C // D, F) for C in attention.KERNEL_CHANNELS
-          for D in attention.KERNEL_HEAD_DIMS for F in (2 * C, 4 * C)]
-# (C, heads) the attention kernels are written for, stated apart from the
-# gate under test: C 128 or 256 in heads of 8, 16, 32, 64 or 128 channels
+          for D in attention.KERNEL_HEAD_DIMS
+          for F in (C, 2 * C, 3 * C, 4 * C)]
+# (C, heads) the attention kernels are written for and (C, F) K5 is,
+# stated apart from the gates under test: C 128 or 256 in heads of 8, 16,
+# 32, 64 or 128 channels, F of 1, 2, 3 or 4 times C
 ATTENTION_KERNEL_WIDTHS = {(C, C // D) for C in (128, 256)
                            for D in (8, 16, 32, 64, 128)}
+FFN_KERNEL_WIDTHS = {(C, k * C) for C in (128, 256) for k in (1, 2, 3, 4)}
+# widths outside the sets: C 384; C 256 in one head of 256; heads of 4;
+# F of 8 C; F not a multiple of 128; F of 2,048 at C 256
+OUTSIDE = [(384, 6, 768), (256, 1, 512), (128, 32, 256), (128, 8, 1024),
+           (128, 8, 320), (256, 8, 2048)]
 
 
 def routes(sst):
@@ -238,21 +195,22 @@ def jax_routes(jc, V=128):
     return attn, "fused" if jax_sst._use_fused_ffn(jc, V, C) else "xla"
 
 
-@pytest.mark.parametrize("width", WIDTHS + [(384, 6, 768), (256, 1, 512),
-                                  (128, 32, 256)],
+@pytest.mark.parametrize("width", WIDTHS + OUTSIDE,
                          ids=lambda w: "-".join(map(str, w)))
 def test_route_resolution_at_widths(width):
     """At every width of the set (C of 128 or 256, D of 8, 16, 32, 64 or
-    128, F of 2 C or 4 C) "band", "qkv" / "fused" and "auto" resolve to
-    the kernels (K8, K6 / K5; "auto" to K8), as JAX resolves "band",
-    "qkv" / "fused".  At C = 384 the port takes the plain routes under
-    every name, JAX its kernels; at C 256 in one head of 256 and at 32
-    heads of 4 the port's attention takes the plain route under every
-    name (its FFN, of a width K5 takes, the kernel), JAX its kernels:
-    widths the port serves on the plain routes."""
+    128, F of 1, 2, 3 or 4 times C) "band", "qkv" / "fused" and "auto"
+    resolve to the kernels (K8, K6 / K5; "auto" to K8), as JAX resolves
+    "band", "qkv" / "fused".  At C = 384 the port takes the plain routes
+    under every name, JAX its kernels; at C 256 in one head of 256 and at
+    32 heads of 4 the port's attention takes the plain route under every
+    name (its FFN, of a width K5 takes, the kernel), JAX its kernels; at F
+    of 8 C, of 320 and of 2,048 at C 256 the port's FFN takes the unfused
+    chain under every name (its attention, of a width K8 takes, the
+    kernel), JAX its kernel: widths the port serves on the plain routes."""
     d_model, nhead, dim_ff = width
     attn_in = (d_model, nhead) in ATTENTION_KERNEL_WIDTHS
-    ffn_in = (d_model, dim_ff) in ffn.KERNEL_WIDTHS
+    ffn_in = (d_model, dim_ff) in FFN_KERNEL_WIDTHS
     for impl in ("band", "qkv", "einsum", "auto"):
         for ffn_impl in ("fused", "xla", "auto"):
             kw = dict(d_model=d_model, nhead=nhead, dim_feedforward=dim_ff,
