@@ -26,10 +26,9 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      two launches bitwise equal) at all three shapes; and one
      SST block on the ``band`` route (K8) against the ``qkv`` route (K6)
      with the same weights, at the shipped width and the wide model's;
-     then K8 (forward, backward, prologue) at every width it takes
-     (d_model 128, 256, 384 and 512 in heads of 8, 16, 32, 64 and 128),
-     K6 (with statistics), K7 and the projections' two kernels at every
-     width they take (d_model 128 and 256 in those heads) and K5
+     then K8 (forward, backward, prologue), K6 (with statistics), K7 and
+     the projections' two kernels at every width they take (d_model 128,
+     256, 384 and 512 in heads of 8, 16, 32, 64 and 128) and K5
      (forward, backward) at every (C, F) it takes, on the pretrain
      encoder's tokens, and K1 and K2 as the wide VFE (64, 256) calls
      them, each with its time, bound, library call and each dtype's
@@ -82,13 +81,15 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      steps at batch 4 and one served frame as in N (K5 and its backward
      once a layer a step), with no call of the unfused FFN chain;
   P. d_model 384 in 12 heads of 32, FFN 768, and 512 in 8 heads of 64,
-     FFN 1024 (``P_OPTIONS``, the VFE widened to each; K8 and K5 at C 384
-     and 512) on the ``band`` route: 2 bf16 pretrain steps at batch 4 and
-     one served frame each as in N (20 launches a step of K8, its
-     prologue and backward, K5 and its backward; 12 of K8 and K5 a
-     frame; no plain ``band_attention``, no unfused FFN chain), then the
-     512 model's step as ``profile_pretrain`` times it: median and
-     quartiles, peak memory, device busy ms, idle share and the K8 and K5
+     FFN 1024 (``P_OPTIONS``, the VFE widened to each; K8, K6, K7 and K5
+     at C 384 and 512) on the ``band`` and on the ``qkv`` route: 2 bf16
+     pretrain steps at batch 4 and one served frame each as in N (20
+     launches a step of K8, its prologue and backward, or of K6, K7 and
+     the projections' backward, 40 of the projections, and of K5 and its
+     backward; 12 of K8 or K6 and of K5 a frame; no plain
+     ``band_attention``, no unfused FFN chain), then the 512 model's step
+     on each route as ``profile_pretrain`` times it: median and
+     quartiles, peak memory, device busy ms, idle share and the SST
      kernels' ms a step;
   H. drives the trainer entry point (``python -m geomae_tpu_torch.train``,
      its ``main(argv)`` in process): first the documented ``--tiny`` run
@@ -186,7 +187,8 @@ the prologue (``band_attention_delta``) is a row of its own, so the two
 add up to the wrapper.  The nuScenes shapes' calls make the line's times;
 phase J's Waymo-shape rows are printed beside them.  Phase A prints each kernel's and library call's
 time behind a device spin (the kernels line's) and at the host's pace
-(``probe.cuda_ms``).  The last line is
+(``probe.cuda_ms``; a kernel's only below ``HOST_PACED_MS``).  The last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -256,10 +258,20 @@ P_OPTIONS = {
     512: ["vfe.feat_channels=64,512", "sst.d_model=512", "sst.nhead=8",
           "sst.dim_feedforward=1024"]}
 P_TIMED = 512
-# the profiled step's K8 and K5 kernels (profile_pretrain.PRETRAIN_KERNELS)
-P_KERNELS = ("band_attention_fwd_tc_kernel", "band_attention_delta_kernel",
-             "band_attention_bwd_tc_kernel", "post_attention_fwd_tc_kernel",
-             "post_attention_bwd_tile_kernel", "wgrad_kernel")
+# the profiled step's SST kernels on each route
+# (profile_pretrain.PRETRAIN_KERNELS) and their launches a layer: K8 and
+# K5 on band; on qkv also the projections (twice: K6 and K7's recompute),
+# their dx and weight-gradient kernels
+K5_PROFILED = {"post_attention_fwd_tc_kernel": 1,
+               "post_attention_bwd_tile_kernel": 1, "wgrad_kernel": 1}
+K8_PROFILED = {"band_attention_fwd_tc_kernel": 1,
+               "band_attention_delta_kernel": 1,
+               "band_attention_bwd_tc_kernel": 1}
+P_KERNELS = {
+    BAND_OPTION: {**K8_PROFILED, **K5_PROFILED},
+    QKV_OPTION: {"qkv_project_kernel": 2, **K8_PROFILED,
+                 "qkv_project_dx_kernel": 1, "qkv_wgrad_kernel": 1,
+                 **K5_PROFILED}}
 
 
 def per_pretrain_step(cfg) -> dict:
@@ -455,14 +467,14 @@ KERNELS = {
                        "geomae_tpu/ops/pallas_segreduce.py:220"),
     "segment_broadcast": ("geomae_tpu_torch/csrc/segment.cu",
                           "geomae_tpu/ops/pallas_segreduce.py:553"),
-    "band_attention_qkv": ("geomae_tpu_torch/csrc/window_attention.cu",
+    "band_attention_qkv": ("geomae_tpu_torch/csrc/window_attention.cuh",
                            "geomae_tpu/ops/pallas_attention_qkv.py:928"),
     "post_attention_block": ("geomae_tpu_torch/csrc/post_attention.cuh",
                              "geomae_tpu/ops/pallas_ffn.py:338"),
     "segment_gather": ("geomae_tpu_torch/csrc/segment.cu",
                        "geomae_tpu/ops/pallas_segreduce.py:710"),
     "band_attention_qkv_backward": (
-        "geomae_tpu_torch/csrc/window_attention.cu",
+        "geomae_tpu_torch/csrc/window_attention.cuh",
         "geomae_tpu/ops/pallas_attention_qkv.py:724"),
     "post_attention_block_backward": (
         "geomae_tpu_torch/csrc/post_attention.cuh",
@@ -481,9 +493,9 @@ KERNELS = {
                              "geomae_tpu/ops/pallas_attention.py:431"),
     # the projections inside K6's and K7's pallas_calls, which the bf16
     # port runs as kernels of their own around K8's
-    "qkv_project": ("geomae_tpu_torch/csrc/window_attention.cu",
+    "qkv_project": ("geomae_tpu_torch/csrc/window_attention.cuh",
                     "geomae_tpu/ops/pallas_attention_qkv.py:291"),
-    "qkv_project_backward": ("geomae_tpu_torch/csrc/window_attention.cu",
+    "qkv_project_backward": ("geomae_tpu_torch/csrc/window_attention.cuh",
                              "geomae_tpu/ops/pallas_attention_qkv.py:789"),
 }
 # The least time of a call: each input row the data uses read once and
@@ -491,6 +503,7 @@ KERNELS = {
 # operations a multiply-add) over the dense peak of its dtype, whichever
 # is larger.  One H100 SXM by NVIDIA's data sheet, at 700 W.
 HBM_BYTES_PER_S = 3.35e12
+HOST_PACED_MS = 1.0     # phase A times shorter calls at the host's pace too
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PARITY_TOL = (1e-3, 1e-3)      # f32 GPU against CPU, whole model
 # the band route against the qkv route, same weights: the two compute one
@@ -1195,10 +1208,13 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
                 if not same:
                     failures.append(f"{label}: two launches differ")
             ms = cuda_ms(lambda: kern(*args))
-            host = cuda_ms(lambda: kern(*args), spin=False)
+            # a call of HOST_PACED_MS or more outlasts its enqueue: not
+            # timed at the host's pace
+            host = f"{cuda_ms(lambda: kern(*args), spin=False):.4f} ms" \
+                if ms < HOST_PACED_MS else "not timed"
             plain_ms = cuda_ms(lambda: plain(*args), iters=3 if train else 5,
                                warmup=1)
-            print(f"    kernel {ms:.4f} ms (host-paced {host:.4f} ms), plain "
+            print(f"    kernel {ms:.4f} ms (host-paced {host}), plain "
                   f"{plain_ms:.4f} ms")
             if PATH_DTYPE.get(key) != dt or (not train
                                              and name in NOT_SERVED):
@@ -1640,16 +1656,15 @@ def sst_width(cfg, C: int, heads: int, Fd: int):
 
 
 def phase_widths(pcfg, failures: list) -> list:
-    """Phase A's K8 rows at every width K8 takes (C of 128, 256, 384 and
-    512 in heads of 8, 16, 32, 64 and 128), its K6, K7 and projection rows
-    at every width they take (C of 128 and 256 in those heads) and its K5
-    rows at every (C, F) K5 takes, on the pretrain encoder's visible
+    """Phase A's K8, K6, K7 and projection rows at every width they take
+    (C of 128, 256, 384 and 512 in heads of 8, 16, 32, 64 and 128) and
+    its K5 rows at every (C, F) K5 takes, on the pretrain encoder's visible
     tokens at batch 4 (positions of C channels); then K1 and K2 as the
     wide VFE (64, 256) calls them.  Returns one summary a row: the bf16
     call's time, bound and library call, the largest error of each dtype
     and of both."""
     from geomae_tpu_torch.config import apply_overrides
-    from geomae_tpu_torch.ops import attention, attention_qkv, ffn
+    from geomae_tpu_torch.ops import attention, ffn
 
     dev = torch.device(DEVICE)
     rows = []
@@ -1670,12 +1685,10 @@ def phase_widths(pcfg, failures: list) -> list:
     for C in attention.KERNEL_CHANNELS:
         cfg = apply_overrides(pcfg, [f"sst.d_model={C}"])
         inputs = pretrain_inputs(cfg, dev)
-        qkv = C in attention_qkv.KERNEL_CHANNELS
         for D in attention.KERNEL_HEAD_DIMS:
             run(sst_width(cfg, C, C // D, 2 * C),
-                f"K8{', K6, K7 and the projections' if qkv else ''} at C "
-                f"{C} in heads of {D}", inputs, K8 + (QKV if qkv else []),
-                f"C {C}, D {D}")
+                f"K8, K6, K7 and the projections at C {C} in heads of {D}",
+                inputs, K8 + QKV, f"C {C}, D {D}")
         for Fd in sorted(f for c, f in ffn.KERNEL_WIDTHS if c == C):
             run(sst_width(cfg, C, 8, Fd), f"K5 at (C, F) ({C}, {Fd})",
                 inputs, K5, f"C {C}, F {Fd}")
@@ -1811,15 +1824,17 @@ def phase_o(pcfg, cfg, failures: list) -> dict:
 
 
 def phase_p(pcfg, cfg, failures: list) -> dict:
-    """The SST at d_model 384 and 512 (``P_OPTIONS``: K8 and K5 at C 384
-    and 512) on the ``band`` route: ``train_and_serve`` at each (K8, its
-    prologue and backward, K5 and its backward once a layer a step, K8
-    and K5 once a layer a frame, no plain ``band_attention`` and no
-    unfused FFN chain); then the 512 model's step timed as
-    ``profile_pretrain`` times it (median and quartiles of 8 steps, peak
-    memory, one profiled step's device busy ms, idle share and its K8 and
-    K5 kernels' ms, 20 launches each).  Returns the launches of the steps
-    and frames."""
+    """The SST at d_model 384 and 512 (``P_OPTIONS``) on the ``band``
+    route (K8 and K5 at C 384 and 512) and on the ``qkv`` route (K6, K7
+    and their projections, K5): ``train_and_serve`` at each (on band K8,
+    its prologue and backward, on qkv K6, K7, the projections (twice) and
+    their backward, and K5 and its backward, once a layer a step, the
+    attention and K5 once a layer a frame, no plain ``band_attention``
+    and no unfused FFN chain); then the 512 model's step on each route
+    timed as ``profile_pretrain`` times it (median and quartiles of 8
+    steps, peak memory, one profiled step's device busy ms, idle share and
+    its SST kernels' ms, ``P_KERNELS``' launches a layer each).  Returns
+    the launches of the steps and frames."""
     from pathlib import Path
 
     from geomae_tpu_torch import profile_pretrain
@@ -1827,36 +1842,42 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
 
     total: dict = {}
     for C, opts in P_OPTIONS.items():
-        wp, wf = (apply_overrides(c, opts + [BAND_OPTION])
-                  for c in (pcfg, cfg))
-        sst = wp.sst
-        what = (f"d_model {C} in {sst.nhead} heads of {C // sst.nhead}, FFN "
-                f"{sst.dim_feedforward}, {BAND_OPTION}")
-        print(f"phase P: {what}: {N_STEPS} bf16 pretrain steps at batch "
-              f"{wp.data.batch_size}, one served frame")
-        add_launches(total, train_and_serve(wp, wf, what, failures))
+        for route in (BAND_OPTION, QKV_OPTION):
+            wp, wf = (apply_overrides(c, opts + [route])
+                      for c in (pcfg, cfg))
+            sst = wp.sst
+            what = (f"d_model {C} in {sst.nhead} heads of {C // sst.nhead}, "
+                    f"FFN {sst.dim_feedforward}, {route}")
+            print(f"phase P: {what}: {N_STEPS} bf16 pretrain steps at batch "
+                  f"{wp.data.batch_size}, one served frame")
+            add_launches(total, train_and_serve(wp, wf, what, failures))
         if C != P_TIMED:
             continue
-        print(f"phase P: the d_model {C} pretrain step timed "
-              "(profile_pretrain)")
-        work = tempfile.mkdtemp(prefix="geomae_smoke_p_")
-        try:
-            res = profile_pretrain.profile(wp, Path(work) / "trace.json")
-        finally:
-            shutil.rmtree(work, ignore_errors=True)
-        q1, q3 = res["quartiles"]
-        ks = {k: res["kernels"][k] for k in P_KERNELS}
-        print(f"  d_model {C}: step median {res['median']:.2f} ms "
-              f"(quartiles {q1:.2f}, {q3:.2f}); peak {res['peak_mib']:.0f} "
-              f"MiB; profiled step busy {res['busy_ms']:.2f} ms, idle share "
-              f"{res['idle_share']:.3f} against the median; K8 and K5 ms a "
-              "step (launches): " + ", ".join(
-                  f"{k} {ms:.4f} ({n})" for k, (ms, n) in ks.items()))
-        layers = per_pretrain_step(wp)["post_attention_block"]
-        wrong = [k for k, (_, n) in ks.items() if n != layers]
-        if wrong or not res["busy_ms"]:
-            failures.append(f"the profiled d_model {C} step: {wrong} not "
-                            f"{layers} launches, or no device time")
+        for route in (BAND_OPTION, QKV_OPTION):
+            wp = apply_overrides(pcfg, opts + [route])
+            print(f"phase P: the d_model {C} pretrain step timed "
+                  f"(profile_pretrain), {route}")
+            work = tempfile.mkdtemp(prefix="geomae_smoke_p_")
+            try:
+                res = profile_pretrain.profile(wp, Path(work) / "trace.json")
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+            q1, q3 = res["quartiles"]
+            ks = {k: res["kernels"][k] for k in P_KERNELS[route]}
+            print(f"  d_model {C}, {route}: step median {res['median']:.2f} "
+                  f"ms (quartiles {q1:.2f}, {q3:.2f}); peak "
+                  f"{res['peak_mib']:.0f} MiB; profiled step busy "
+                  f"{res['busy_ms']:.2f} ms, idle share "
+                  f"{res['idle_share']:.3f} against the median; SST kernels "
+                  "ms a step (launches): " + ", ".join(
+                      f"{k} {ms:.4f} ({n})" for k, (ms, n) in ks.items()))
+            layers = per_pretrain_step(wp)["post_attention_block"]
+            wrong = [k for k, (_, n) in ks.items()
+                     if n != P_KERNELS[route][k] * layers]
+            if wrong or not res["busy_ms"]:
+                failures.append(f"the profiled d_model {C} step, {route}: "
+                                f"{wrong} not {P_KERNELS[route]} x {layers} "
+                                "launches, or no device time")
     return total
 
 
@@ -3532,11 +3553,11 @@ def main() -> None:
         rows = results[name]
         t_bytes, t_ops = sum(r[3] for r in rows), sum(r[4] for r in rows)
         libs = [r[5] for r in rows if r[5] is not None]
-        # K6's, K7's and K5's entries also name the widths phase A ran
-        # them at
+        # K6's, K7's, their projections' and K5's entries also name the
+        # widths phase A ran them at
         at = {"widths": [w["width"] for w in widths if w["name"] == name]} \
-            if name.startswith(("band_attention_qkv", "post_attention")) \
-            else {}
+            if name.startswith(("band_attention_qkv", "qkv_project",
+                                "post_attention")) else {}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(r[name] for r in runs),

@@ -35,7 +35,6 @@ import torch.nn.functional as F
 
 from ..config import SSTConfig
 
-from ..ops import attention_qkv
 from ..ops.attention import (band_attention, band_attention_fused,
                              kernel_takes)
 from ..ops.attention_qkv import band_attention_qkv
@@ -94,25 +93,21 @@ def _check(field: str, value: str, names) -> None:
 def attention_route(impl: str, d_model: int, nhead: int) -> str:
     """``attention_impl`` resolved: "qkv" (K6, projections inside the
     kernel), "band" (Linears, then K8) or "einsum" (Linears, then the plain
-    band_attention).  K8 takes C of 128, 256, 384 or 512 in heads of 8,
-    16, 32, 64 or 128 (``attention.kernel_takes``): there every kernel
-    name but "qkv" resolves to "band"; K6 takes C of 128 or 256 in those
-    heads (``attention_qkv.kernel_takes``): there "qkv" resolves to itself,
-    and at C 384 or 512 to "einsum".  At any other width every name
-    resolves to "einsum".  geomae_tpu/models/sst.py keeps its kernel routes
+    band_attention).  K8, K6 and K7 take C of 128, 256, 384 or 512 in
+    heads of 8, 16, 32, 64 or 128 (``attention.kernel_takes``): there
+    "qkv" resolves to itself and every other kernel name to "band".  At
+    any other width every name resolves to "einsum".
+    geomae_tpu/models/sst.py keeps its kernel routes
     for any C a multiple of 128 and any head count (and V of 128, a fact
     of the TPU's tiling: the port's kernels take any V), so the port
     serves on the plain routes what JAX serves on kernels at C >= 640, at
-    C 384 or 512 on "qkv", at head widths not a power of two (48, 96), at
-    D 256 and at D of 4 or less (32 or more heads at C 128).  "auto" is
-    "band" (choosing between band and qkv by speed is open: PERF.md)."""
+    head widths not a power of two (48, 96), at D 256 and at D of 4 or
+    less (32 or more heads at C 128).  "auto" is "band" (choosing between
+    band and qkv by speed is open: PERF.md)."""
     _check("attention_impl", impl, ATTENTION_IMPLS)
     if impl == "einsum" or not kernel_takes(d_model, nhead):
         return "einsum"
-    if impl == "qkv":
-        return "qkv" if attention_qkv.kernel_takes(d_model, nhead) \
-            else "einsum"
-    return "band"
+    return "qkv" if impl == "qkv" else "band"
 
 
 def ffn_route(cfg: SSTConfig) -> str:

@@ -4,7 +4,9 @@ bf16 projections they run on the tensor cores, and their plain versions.
 
 Replaces ``geomae_tpu/ops/pallas_attention_qkv.py:band_attention_qkv``
 (forward, and its backward ``_pallas_backward_merged`` /
-``_pallas_backward_split``); the kernels are ``csrc/window_attention.cu``.
+``_pallas_backward_split``); the kernels are ``csrc/window_attention.cuh``
+(a translation unit a C, ``window_attention_c*.cu``; the entry points
+in ``window_attention.cu``).
 Computes, over window-sorted tokens,
 
     q = (x + pos) Wq + bq,   k = (x + pos) Wk + bk,   v = x Wv + bv
@@ -17,12 +19,12 @@ projections accumulate in f32, cast to x's dtype, then add the bias in
 that dtype (``pallas_attention_qkv._proj``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels
-or raises.  The kernels take C in their own ``KERNEL_CHANNELS`` (128 or
-256) in heads of 8, 16, 32, 64 or 128 (``kernel_takes``), in float32 or
-bfloat16; K8 takes C of 384 and 512 too, these kernels not yet (the bf16
-projections keep three weight slices of C rows resident, and the f32
-kernels tile by 4096 / C tokens);
-windows may be of any size.  The scale 1/sqrt(D) folds into q where D is
+or raises.  The kernels take every width K8 takes: C in
+``KERNEL_CHANNELS`` (128, 256, 384 or 512) in heads of 8, 16, 32, 64 or
+128 (``kernel_takes``), in float32 or bfloat16 (the bf16 projections own
+128-, 64- or 32-column slices of the three products, the f32 kernels
+blocks of 256 threads, C / 2 at C 384 and 512); windows may be of any
+size.  The scale 1/sqrt(D) folds into q where D is
 a power of four (16, 64), as in the JAX package, and multiplies the f32
 score elsewhere (8, 32, 128).  In bfloat16 each token is projected once
 on the tensor cores (``qkv_project``) and K8's bf16 kernels
@@ -45,34 +47,37 @@ from __future__ import annotations
 
 import torch
 
-from . import _cuda, attention
-from .attention import (INT32_MAX, KERNEL_HEAD_DIMS, band_attention,
-                        plain_blocks, plain_lse)
+from . import _cuda
+from .attention import (INT32_MAX, KERNEL_CHANNELS, KERNEL_HEAD_DIMS,
+                        band_attention, kernel_takes, plain_blocks,
+                        plain_lse)
 from .ffn import dense
 
-KERNEL_CHANNELS = (128, 256)      # C the kernels take (K8's set is wider)
-
-
-def kernel_takes(channels: int, heads: int) -> bool:
-    """Whether K6, K7 and the projections take ``heads`` heads over
-    ``channels``: C in KERNEL_CHANNELS and a head width K8 takes."""
-    return channels in KERNEL_CHANNELS and attention.kernel_takes(channels,
-                                                                  heads)
-
+# K6, K7 and the projections take K8's widths: C in KERNEL_CHANNELS (the
+# projections see no heads) in heads of KERNEL_HEAD_DIMS (kernel_takes)
 
 # The bf16 weight-gradient kernel stages 128 columns of its rows a block
 # (104 KB of shared memory at every C): two blocks an SM
 WGRAD_BLOCKS_PER_SM = 2
 WGRAD_TILE = 128          # its output tile, a side
-# The f32 backward kernel's blocks hold a tile of 4096 / C tokens (98 KB
-# of shared memory at every C; 2048 / C at D = 8), and 256 threads of up
-# to 255 registers fill an SM's register file: one block an SM.  Each
-# block owns an f32 partial of the weight gradients, [3 C C + 3 C], so the
-# grid is also held to F32_PARTIAL_BYTES of them (85 blocks at C = 256,
-# every SM at 128)
+# The f32 backward kernel's blocks hold a tile of f32_tile tokens (98 KB
+# of shared memory, 74 KB at C 384), and their threads of up to 255
+# registers leave no room for a second block: one block an SM.
+# Each block owns an f32 partial of the weight gradients, [3 C C + 3 C],
+# so the grid is also held to F32_PARTIAL_BYTES of them up to C 256 (85
+# blocks at C = 256, every SM at 128).  At C 384 and 512 a partial is 1.8
+# and 3.1 MB, and 64 MiB would leave 37 and 20 blocks for 132 SMs:
+# F32_PARTIAL_BYTES_WIDE admits a block an SM there (233 and 416 MB on an
+# H100, the scratch of one call)
 F32_PARTIAL_BYTES = 64 << 20
-F32_THREADS = 256         # a block of the f32 kernels
+F32_PARTIAL_BYTES_WIDE = 512 << 20
 F32_LANE_CHANNELS = 16    # channels of a head a lane keeps (all of D = 8)
+
+
+def f32_threads(C: int) -> int:
+    """Threads a block of the f32 kernels at C channels: 256 up to C 256,
+    C / 2 at 384 and 512 (``F32W::kThreads``)."""
+    return 256 if C <= 256 else C // 2
 
 
 def _scale_pow2(head_dim: int) -> bool:
@@ -289,19 +294,21 @@ def wgrad_chunk_rows(x) -> int:
 
 def f32_tile(C: int, nheads: int) -> int:
     """Tokens a tile of the f32 kernels at C in ``nheads`` heads: a block
-    of F32_THREADS lanes, min(D, 16) channels each (4096 / C tokens, 2048
-    / C at D = 8)."""
-    return F32_THREADS * min(C // nheads, F32_LANE_CHANNELS) // C
+    of ``f32_threads`` lanes, min(D, 16) channels each: 4096 / C tokens
+    up to C 256, 8 at C 384 and 512, half that at D = 8."""
+    return f32_threads(C) * min(C // nheads, F32_LANE_CHANNELS) // C
 
 
 def bwd_blocks(x, nheads: int) -> int:
     """The f32 backward kernel's persistent grid on ``x`` [B, V, C] in
     ``nheads`` heads: one block an SM, at most one a tile (``f32_tile``),
-    and no more than F32_PARTIAL_BYTES of partials hold."""
+    and no more than F32_PARTIAL_BYTES (F32_PARTIAL_BYTES_WIDE above C
+    256) of partials hold."""
     B, V, C = x.shape
     tiles = B * -(-V // f32_tile(C, nheads))
+    cap = F32_PARTIAL_BYTES if C <= 256 else F32_PARTIAL_BYTES_WIDE
     return max(1, min(_cuda.persistent_blocks(x, 1, tiles),
-                      F32_PARTIAL_BYTES // (4 * (3 * C * C + 3 * C))))
+                      cap // (4 * (3 * C * C + 3 * C))))
 
 
 def _project_backward(x, pos, weights, dq, dk, dv):
@@ -326,8 +333,8 @@ def _project_backward(x, pos, weights, dq, dk, dv):
 
 def qkv_project(x, pos, wq, bq, wk, bk, wv, bv, win_id):
     """The projections of K6's bf16 path: (q, k, v) [B, V, C] in x's
-    dtype, 0 on padding rows; on the card bf16 only, C of 128 or 256, on
-    the tensor cores (each token once)."""
+    dtype, 0 on padding rows; on the card bf16 only, C in
+    KERNEL_CHANNELS, on the tensor cores (each token once)."""
     if x.device.type == "cpu":
         return qkv_project_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id)
     name = "qkv_project"
@@ -342,8 +349,8 @@ qkv_project.launches = 0
 def qkv_project_backward(x, pos, wq, wk, wv, dq, dk, dv):
     """The projections' backward (``qkv_project_backward_plain``): dx in
     x's dtype, the six parameter gradients in f32; on the card bf16
-    only, C of 128 or 256: dx on the tensor cores a 64-row tile at a
-    time, the weight gradients split over chunks of rows
+    only, C in KERNEL_CHANNELS: dx on the tensor cores a tile of rows at
+    a time, the weight gradients split over chunks of rows
     (``wgrad_chunk_rows``) whose f32 partials are summed in order (two
     calls agree bitwise)."""
     if x.device.type == "cpu":

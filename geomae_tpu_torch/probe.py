@@ -141,11 +141,16 @@ def time_variants(libs: dict, calls: dict, turns: int = 2) -> None:
         _cuda._lib = saved
 
 
-# K5's and K8's sources: the header that holds the kernels, and the
-# translation units that build it (the entry points and one per width)
+# K5's, K6 / K7's and K8's sources: the header that holds the kernels,
+# and the translation units that build it (the entry points and one per
+# width)
 K5_HEADER = "post_attention.cuh"
 K5_UNITS = ("post_attention.cu",
             *sorted(p.name for p in _cuda.CSRC.glob("post_attention_c*.cu")))
+QKV_HEADER = "window_attention.cuh"
+QKV_UNITS = ("window_attention.cu",
+             *sorted(p.name for p in
+                     _cuda.CSRC.glob("window_attention_c*.cu")))
 K8_HEADER = "band_attention.cuh"
 K8_UNITS = ("band_attention.cu",
             *sorted(p.name for p in _cuda.CSRC.glob("band_attention_c*.cu")))

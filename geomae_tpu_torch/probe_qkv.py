@@ -3,6 +3,8 @@ chunk size, and where K7's parameter-gradient noise comes from.
 
     python -m geomae_tpu_torch.probe_qkv [--width C,D]         # chunk sizes
     python -m geomae_tpu_torch.probe_qkv grads [--width C,D]   # K7's noise
+    python -m geomae_tpu_torch.probe_qkv parent --parent DIR   # the old widths
+    python -m geomae_tpu_torch.probe_qkv rule                  # K7's bf16 rule
 
 ``--width`` takes C channels in heads of D, any width of the kernels
 (``attention_qkv.kernel_takes``); the default is the shipped 128 in heads of
@@ -36,16 +38,40 @@ k16 build's times at [4, 8192], twice in turns.  The first two lines alone
 also run against a package without ``qkv_project`` (one whose bf16 K7
 is one kernel).
 
+The old widths against another checkout of the package (``parent``,
+``--parent DIR``: a checkout whose kernels are built, ``DIR/build/
+geomae_tpu_torch/libgeomae_kernels_*.so``): the SASS of K6 / K7's
+kernels at C 128 and 256 in both libraries (``cuobjdump -sass``, names
+demangled, the anonymous namespace and addresses dropped), then K6, K7
+and the projections, bf16 and f32, on ``k7_case(4, 8192)`` at C 128 in 8
+heads and C 256 in 8, with the two libraries in turns in one process
+(``probe.time_variants``, four turns).
+
+K7's bf16 rule at every width (``rule``): at [2, 1024] and [4, 8192]
+(``k7_case``, seeds 0-2) for every C and head width the kernels take,
+K7's six
+parameter gradients against the plain backward's, and each of them
+against the plain backward computed with f64 values and sums at the same
+bf16 rounding points (``f64_grads``), as shares of ``check_grads``' bound
+(``grad_shares``); then K7 on a cotangent with 1 or 16 rows from the
+real row of the largest |dO| zeroed (``dropped_rows``) against the plain
+backward: the faults a rule must fail; last, per C the largest share
+of each reading but the key bias's (the smallest of the faults').
+
 Raises without a CUDA GPU: its numbers are the card's.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import re
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from . import probe
+from . import probe, probe_k5_backward
 from .ops import _cuda, attention, attention_qkv
 
 INT32_MAX = 2 ** 31 - 1
@@ -124,6 +150,85 @@ def grad_shares(got, want) -> str:
                      for n, a, b in zip(GRAD_NAMES, got[1:], want[1:]))
 
 
+@contextlib.contextmanager
+def f64_sums():
+    """``probe_k5_backward.f64_sums`` with f64 as the default dtype too,
+    so the plain K7's zero-initialised sums widen with its values."""
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        with probe_k5_backward.f64_sums():
+            yield
+    finally:
+        torch.set_default_dtype(default)
+
+
+def f64_grads(args, heads: int, out, dout) -> tuple:
+    """The plain K7 (dx and the six parameter gradients) under
+    ``f64_sums``: the function at its bf16 rounding points, computed
+    closer to exact."""
+    with f64_sums():
+        return attention_qkv.band_attention_qkv_backward_plain(
+            *args, heads, out, dout)
+
+
+def dropped_rows(dout: torch.Tensor, win_id: torch.Tensor,
+                 rows: int) -> torch.Tensor:
+    """``dout`` with ``rows`` rows zeroed from the real row (``win_id``
+    not INT32_MAX) with the largest |dO| on: a planted fault."""
+    flat = dout.reshape(-1, dout.shape[-1])
+    mag = flat.float().abs().amax(-1)
+    mag[win_id.reshape(-1) == INT32_MAX] = -1
+    r = min(int(mag.argmax()), flat.shape[0] - rows)
+    d = flat.clone()
+    d[r:r + rows] = 0
+    return d.view_as(dout)
+
+
+def shares(got, want) -> list:
+    """``grad_shares`` as numbers, the key bias's left out (it is held to
+    0 by F3's rule)."""
+    top = max(float(b.abs().max()) for b in want[1:])
+    return [float((a - b).abs().max())
+            / (1e-3 * max(float(b.abs().max()), 0.1 * top))
+            for n, a, b in zip(GRAD_NAMES, got[1:], want[1:]) if n != "bk"]
+
+
+def rule(seeds=(0, 1, 2)) -> None:
+    worst: dict = {}
+    for C in attention_qkv.KERNEL_CHANNELS:
+        for D in attention.KERNEL_HEAD_DIMS:
+            for (B, V), seed in ((bv, s) for bv in ((2, 1024), (4, 8192))
+                                 for s in seeds):
+                heads = C // D
+                args, dout = k7_case(B, V, seed=seed, C=C)
+                out, lse = attention_qkv._forward(*args, heads, stats=True)
+                k7 = lambda d: attention_qkv.band_attention_qkv_backward(
+                    *args, heads, out, lse, d)
+                got = k7(dout)
+                want = attention_qkv.band_attention_qkv_backward_plain(
+                    *args, heads, out, dout)
+                exact = f64_grads(args, heads, out, dout)
+                at = f"[{B}, {V}] seed {seed} C {C}, D {D}"
+                read = {"K7 against the plain backward": (got, want),
+                        "K7 against f64": (got, exact),
+                        "plain against f64": (want, exact)}
+                for rows in (1, 16):
+                    read[f"K7 with {rows} rows of dO dropped against the "
+                         "plain backward"] = (k7(dropped_rows(
+                             dout, args[8], rows)), want)
+                for what, (a, b) in read.items():
+                    print(f"{at} {what}: " + grad_shares(a, b))
+                    top = max(shares(a, b))
+                    key = (C, what)
+                    worst[key] = (min if "dropped" in what else max)(
+                        worst.get(key, top), top)
+    print("largest share of the five gradients but dbk (smallest for the "
+          "dropped rows), by C:")
+    for (C, what), v in worst.items():
+        print(f"  C {C} {what}: {v:.3f}")
+
+
 def dbk_bound(dk: torch.Tensor) -> torch.Tensor:
     """Per channel c, the forward-error bound on a key-bias gradient whose
     exact value is 0, summed as sum_j rt(dk_jc) (each f32 dk_jc rounded to
@@ -175,14 +280,14 @@ def ieee_project(lib):
 
 # the projection's k loop with each k16 step's products summed on the
 # tensor cores from 0, then added to the running sums in IEEE f32
-MMA_STEP = """      mma_w<false>(acc[0], axp, sm.w[0], kk);
-      mma_w<false>(acc[1], axp, sm.w[1], kk);
-      mma_w<false>(acc[2], ax, sm.w[2], kk);
+MMA_STEP = """      mma_w<C, false>(acc[0], axp, sm.w[0], kk);
+      mma_w<C, false>(acc[1], axp, sm.w[1], kk);
+      mma_w<C, false>(acc[2], ax, sm.w[2], kk);
 """
 IEEE_K16 = """      float part[3][kWarpCols / 8][4] = {};
-      mma_w<false>(part[0], axp, sm.w[0], kk);
-      mma_w<false>(part[1], axp, sm.w[1], kk);
-      mma_w<false>(part[2], ax, sm.w[2], kk);
+      mma_w<C, false>(part[0], axp, sm.w[0], kk);
+      mma_w<C, false>(part[1], axp, sm.w[1], kk);
+      mma_w<C, false>(part[2], ax, sm.w[2], kk);
 #pragma unroll
       for (int o = 0; o < 3; ++o)
 #pragma unroll
@@ -227,8 +332,9 @@ def grads(C: int, heads: int) -> None:
     projections = {}
     if split:
         lib = probe.build_variants(
-            "window_attention.cu", {"IEEE k16": [(MMA_STEP, IEEE_K16)]},
-            _cuda.BUILD_DIR.parent / "probe_qkv")["IEEE k16"]
+            probe.QKV_HEADER, {"IEEE k16": [(MMA_STEP, IEEE_K16)]},
+            _cuda.BUILD_DIR.parent / "probe_qkv",
+            probe.QKV_UNITS)["IEEE k16"]
         projections = {"kernel": attention_qkv.qkv_project,
                        "IEEE k16": ieee_project(lib),
                        "plain": attention_qkv.qkv_project_plain,
@@ -271,6 +377,68 @@ def grads(C: int, heads: int) -> None:
               + ", ".join(ms))
 
 
+# K6 / K7's kernels at the widths before d_model 384 and 512 (template
+# arguments <128...> or <256...>)
+OLD_WIDTH = re.compile(r"qkv\w*<(?:128|256)(?:, \d+)?>$")
+
+
+def sass(lib: Path) -> dict:
+    """{demangled name: its SASS lines, addresses dropped} of the K6 / K7
+    kernels at C 128 and 256 in the library at ``lib``."""
+    tool = str(Path(_cuda.nvcc()).parent / "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name and "/*" in line:
+            funcs[name].append(re.sub(r"/\*[0-9a-fx ]*\*/", "", line).strip())
+    names = list(funcs)
+    dem = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    keep = {}
+    for n, d in zip(names, dem):
+        head = d.replace("(anonymous namespace)::", "").split("(")[0]
+        if OLD_WIDTH.search(head):
+            keep[head] = funcs[n]
+    return keep
+
+
+def against_parent(parent: Path) -> None:
+    libs = {"parent": sorted((parent / "build" / "geomae_tpu_torch").glob(
+                "libgeomae_kernels_*.so"))[-1],
+            "change": _cuda.library_path()}
+    _cuda.library()
+    print({k: str(v) for k, v in libs.items()})
+    a, b = (sass(libs[k]) for k in ("parent", "change"))
+    same = [k for k in a if a[k] == b.get(k)]
+    print(f"SASS of K6 / K7's kernels at C 128 and 256: {len(a)} in the "
+          f"parent, {len(b)} in the change, {len(same)} the same")
+    for k in sorted(set(a) | set(b)):
+        if k not in same:
+            print(f"  DIFFERS ({len(a.get(k, []))} / {len(b.get(k, []))} "
+                  f"instructions) {k}")
+    todo = {}
+    for C in (128, 256):
+        args, dout = k7_case(4, 8192, C=C)
+        for dt in (torch.bfloat16, torch.float32):
+            a_, d_ = (args[0].to(dt), *args[1:]), dout.to(dt)
+            out, lse = attention_qkv._forward(*a_, 8, stats=True)
+            tag = f"C {C} {str(dt)[6:]}"
+            todo[f"K6 {tag}"] = (lambda a_=a_: attention_qkv._forward(
+                *a_, 8, stats=True))
+            todo[f"K7 {tag}"] = (
+                lambda a_=a_, o=out, l_=lse, d=d_:
+                attention_qkv.band_attention_qkv_backward(*a_, 8, o, l_, d))
+        todo.update({f"{k} C {C}": f for k, f in calls(4, 8192, C).items()})
+    probe.time_variants({k: probe._load(v) for k, v in libs.items()}, todo,
+                        turns=4)
+
+
 def width(text: str) -> tuple:
     """``--width C,D``: (C, heads), at a width the kernels take."""
     C, D = (int(v) for v in text.split(","))
@@ -283,7 +451,9 @@ def width(text: str) -> tuple:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", nargs="?", choices=("grads",))
+    ap.add_argument("what", nargs="?", choices=("grads", "parent", "rule"))
+    ap.add_argument("--parent", type=Path,
+                    help="parent: the checkout whose kernels to compare")
     ap.add_argument("--width", type=width, default=(128, 8),
                     help="C,D: C channels in heads of D (default 128,16)")
     args = ap.parse_args()
@@ -291,6 +461,10 @@ def main() -> None:
         raise SystemExit("probe_qkv: no CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(probe.card())
+    if args.what == "parent":
+        return against_parent(args.parent)
+    if args.what == "rule":
+        return rule()
     C, heads = args.width
     print(f"C {C} in {heads} heads of {C // heads}")
     grads(C, heads) if args.what == "grads" else chunk_sizes(C)

@@ -49,10 +49,12 @@ the tensor-core kernels that bf16 K6 and K7 run around K8's): q, k, v
 at K6's bound per row, 0 on padding rows; dx per row and the parameter
 gradients by the backward rule; one launch a call, two launches bitwise
 equal, at one sample, a batch and the encoder's [4, 8192].  K6, K7 and
-the projections also at every width they take (``QKV_HEADS``: C 128 and
-256 in heads of 8 to 128), f32 and bf16, with K7's dbk under F3's rule;
-a width outside the set (C 384 and 512, C 256 in one head of 256, heads
-of 4) raises.
+the projections also at every width they take (``QKV_HEADS``: C 128,
+256, 384 and 512 in heads of 8 to 128), f32 and bf16, with K7's dbk
+under F3's rule and its bf16 parameter gradients at ``K7_WGRAD_TOL`` of
+C (3e-3 at C 384 and 512), a dropped row failing it; a width outside
+the set (C 640, C 384 in 8 heads of 48, C 256 in one head of 256, C 512
+in two of 256, heads of 4) raises.
 
 K8 (window attention over projected q, k, v; ``ops/attention.py``): the
 output and the statistics at K6's bound, the backward's dq, dk, dv at the
@@ -81,8 +83,8 @@ INT_MAX = 2 ** 31 - 1
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 DTYPES = [torch.float32, torch.bfloat16]
 # K8's widths, (heads, head width): C = 128, 256, 384 and 512 in heads of
-# 8, 16, 32, 64 and 128; K6's and K7's (QKV_HEADS), C = 128 and 256 in
-# those heads; SHIPPED is the shipped width, 128 in 8 heads of 16
+# 8, 16, 32, 64 and 128; K6's and K7's (QKV_HEADS) the same; SHIPPED is
+# the shipped width, 128 in 8 heads of 16
 HEADS = [(C // D, D) for C in attention.KERNEL_CHANNELS
          for D in attention.KERNEL_HEAD_DIMS]
 QKV_HEADS = [(C // D, D) for C in attention_qkv.KERNEL_CHANNELS
@@ -263,14 +265,25 @@ def test_post_attention_block(dev, dtype, C, F):
 
 WGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 WGRAD_FLOOR = {torch.float32: 1e-2, torch.bfloat16: 1e-1}
+# bf16 K7's parameter gradients against the plain backward: WGRAD_TOL's
+# at C 128 and 256.  At C 384 and 512 more of a token's bf16 roundings
+# (of q, k, v, then of ds, p, dq, dk, dv) flip between two faithful
+# computations: over ``probe_qkv rule``'s cases there (every head width,
+# [2, 1024] and [4, 8192], three seeds) K7 read up to 1.39e-3 of
+# max(own, 0.1 x largest) from the plain backward computed in f64 at
+# the same rounding points, the plain backward itself up to 1.43e-3, so
+# the two may lie up to their sum apart, 2.8e-3; a dropped real row
+# reads 13e-3 or more at every C.
+K7_WGRAD_TOL = {128: 1e-3, 256: 1e-3, 384: 3e-3, 512: 3e-3}
 
 
-def check_grads(got, want, dtype, n_token, judged_elsewhere=()):
+def check_grads(got, want, dtype, n_token, judged_elsewhere=(), tol=None):
     """The first ``n_token`` outputs per token at TOL, atol scaled by each
     row's max(1, largest |want|); each parameter gradient after them
-    against WGRAD_TOL of max(its own largest |want|, WGRAD_FLOOR x the
-    largest of them).  Outputs whose indices are in ``judged_elsewhere``
-    count towards that largest but are left to the caller's own rule."""
+    against ``tol`` (default WGRAD_TOL) of max(its own largest |want|,
+    WGRAD_FLOOR x the largest of them).  Outputs whose indices are in
+    ``judged_elsewhere`` count towards that largest but are left to the
+    caller's own rule."""
     for a, b in zip(got, want):
         assert a.shape == b.shape and torch.isfinite(a.float()).all()
     atol, rtol = TOL[dtype]
@@ -287,7 +300,7 @@ def check_grads(got, want, dtype, n_token, judged_elsewhere=()):
             continue
         ref = max(float(b.float().abs().max()), WGRAD_FLOOR[dtype] * top)
         err = float((a - b.float()).abs().max())
-        assert err <= WGRAD_TOL[dtype] * ref, (i, err, ref)
+        assert err <= (tol or WGRAD_TOL[dtype]) * ref, (i, err, ref)
 
 
 def check_k5_backward(got, args, dtype):
@@ -520,9 +533,12 @@ def test_band_attention_qkv_backward(dev, dtype, heads):
     """K7 from the forward kernel's statistics against the plain backward
     (which recomputes its softmax), windows up to 150 tokens, at every
     width K7 takes: dx per row, the parameter gradients by
-    ``check_grads``, in bf16 the key bias's by F3's rule (both K7's and
-    the plain version's within ``probe_qkv.dbk_bound`` of 0); padding
-    rows of dx 0; one launch a call, two launches bitwise equal."""
+    ``check_grads`` (in bf16 at K7_WGRAD_TOL of C), in bf16 the key
+    bias's by F3's rule (both K7's and the plain version's within
+    ``probe_qkv.dbk_bound`` of 0); padding rows of dx 0; one launch a
+    call, two launches bitwise equal; K7 on a cotangent with one real
+    row dropped (``probe_qkv.dropped_rows``) fails the parameter
+    gradients' rule."""
     H, D = heads
     args, dout = attention_case(dtype, dev, C=H * D)
     out, lse = attention_qkv._forward(*args, H, stats=True)
@@ -531,15 +547,20 @@ def test_band_attention_qkv_backward(dev, dtype, heads):
     assert attention_qkv.band_attention_qkv_backward.launches == before + 1
     want = attention_qkv.band_attention_qkv_backward_plain(*args, H, out,
                                                           dout)
-    if dtype == torch.float32:
-        check_grads(got, want, dtype, 1)
-    else:
-        i_bk = probe_qkv.GRAD_NAMES.index("bk") + 1
-        check_grads(got, want, dtype, 1, judged_elsewhere=(i_bk,))
+    i_bk = probe_qkv.GRAD_NAMES.index("bk") + 1
+    tol = K7_WGRAD_TOL[H * D] if dtype == torch.bfloat16 else None
+    elsewhere = (i_bk,) if dtype == torch.bfloat16 else ()
+    check_grads(got, want, dtype, 1, judged_elsewhere=elsewhere, tol=tol)
+    if dtype == torch.bfloat16:
         bound = probe_qkv.dbk_bound(
             attention_qkv.attention_grads_plain(*args, H, out, dout)[1])
         for dbk in (got[i_bk], want[i_bk]):
             assert (dbk.abs() <= bound).all(), float((dbk.abs() / bound).max())
+    dropped = attention_qkv.band_attention_qkv_backward(
+        *args, H, out, lse, probe_qkv.dropped_rows(dout, args[8], 1))
+    with pytest.raises(AssertionError):
+        check_grads(dropped[1:], want[1:], dtype, 0,
+                    judged_elsewhere=tuple(i - 1 for i in elsewhere), tol=tol)
     assert (got[0][args[8] == INT_MAX] == 0).all()
     again = attention_qkv.band_attention_qkv_backward(*args, H, out, lse,
                                                       dout)
@@ -606,9 +627,10 @@ def projection_case(dev, B, V, seed=8, C=128):
 @pytest.mark.parametrize("C", attention_qkv.KERNEL_CHANNELS)
 def test_qkv_project_bf16(dev, C, B, V):
     """K6's projections on the tensor cores against the plain version at
-    the bf16 bound, per row (at C 256 a block owns a 64-column slice of
-    the three products); padding rows exactly 0; V not a multiple of the
-    64-row tile; one launch a call, two launches bitwise equal."""
+    the bf16 bound, per row (a block owns a 128-, 64- or 32-column slice
+    of the three products at C 128, 256 or 384 and 512, 32-row tiles at
+    C 512); padding rows exactly 0; V not a multiple of the tile; one
+    launch a call, two launches bitwise equal."""
     args, _ = projection_case(dev, B, V, C=C)
     before = attention_qkv.qkv_project.launches
     got = attention_qkv.qkv_project(*args)
@@ -628,8 +650,8 @@ def test_qkv_project_backward_bf16(dev, C, B, V):
     gradients split over SM-sized row chunks, ``wgrad_chunk_rows``)
     against the plain version: dx per row, the parameter gradients by the
     rule of the other backward kernels; one launch a call, two launches
-    bitwise equal; at C 128 and 256 (four 128 x 128 output tiles a
-    product)."""
+    bitwise equal; at C 128, 256, 384 and 512 (1, 4, 9 and 16 output
+    tiles of 128 x 128 a product)."""
     args, ds = projection_case(dev, B, V, C=C)
     x, pos, wq, _, wk, _, wv, _, _ = args
     before = attention_qkv.qkv_project_backward.launches
@@ -653,12 +675,13 @@ def test_qkv_projections_take_bf16_only(dev):
                                            *[d.float() for d in ds])
 
 
-@pytest.mark.parametrize("C,H", [(384, 6), (256, 1), (128, 32), (384, 12),
-                                 (512, 8)])
+@pytest.mark.parametrize("C,H", [(640, 10), (384, 8), (256, 1), (128, 32),
+                                 (512, 2)])
 def test_qkv_wrappers_refuse_widths_outside_the_set(dev, C, H):
-    """C 384 or 512 (in heads K8 takes), C 256 in one head of 256, or
-    heads of 4: K6, K7 and (at C 384 and 512) the projections raise on a
-    CUDA tensor rather than run a plain version."""
+    """C 640 (in heads of 64), C 384 in 8 heads of 48, C 256 in one head
+    of 256, heads of 4 or C 512 in two heads of 256: K6, K7 and (at C
+    640) the projections raise on a CUDA tensor rather than run a plain
+    version."""
     x = torch.randn(1, 64, C, device=dev)
     win = torch.zeros(1, 64, dtype=torch.int32, device=dev)
     kv = torch.ones(1, 64, dtype=torch.bool, device=dev)

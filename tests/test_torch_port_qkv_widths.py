@@ -14,11 +14,14 @@ max(1, largest |ref|) (both round at the same points; f32 sums in another
 order may move a rounding to the other side).  The parameter gradients,
 sums over the tokens, at 2e-5 (f32) or 2e-2 (bf16) of max(their own
 largest value, 1e-2 of the largest of the six): the key bias's gradient
-is analytically 0, its own value rounding noise, and in bf16 each
-package's is held to 0 by F3's rule instead (``probe_qkv.dbk_bound``:
-(2^-8 + n 2^-24) sum |dk| per channel, from the port's f32 dk).  Each
-width's JAX results are computed once for the file (``jax_case``) and
-shared by the forward and backward tests.  Then one SST block at 256 in 8 heads of 32
+is analytically 0, its own value rounding noise, so each package's is
+held to 0 instead, in f32 at that same rule and in bf16 by F3's rule
+(``probe_qkv.dbk_bound``: (2^-8 + n 2^-24) sum |dk| per channel, from
+the port's f32 dk).  Each width's JAX results are computed once for the
+file (``jax_case``) and shared by the forward and backward tests, and
+``check_k6_forward`` / ``check_k7_backward`` by
+``test_torch_port_qkv_channel_widths.py``.  Then one SST block at 256 in
+8 heads of 32
 on the port's ``qkv`` / ``fused`` route (K6 and K5: their plain versions
 here) against the JAX stack on its ``qkv`` / ``fused`` route in interpret
 mode, from ``from_flax`` of its weights."""
@@ -103,9 +106,7 @@ def jax_case(C, H, dtype):
                                       for a in grads])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("C,H", WIDTHS, ids=lambda w: str(w))
-def test_k6_forward_and_statistics_at_width(C, H, dtype):
+def check_k6_forward(C, H, dtype):
     """The plain forward against ``_pallas_forward`` in interpret mode on
     the real rows, padding rows 0; f32 statistics (m + log l where a row
     sees a key) at 1e-5, 0 elsewhere."""
@@ -127,15 +128,18 @@ def test_k6_forward_and_statistics_at_width(C, H, dtype):
         assert (lse[~seen] == 0).all()
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("C,H", WIDTHS, ids=lambda w: str(w))
-def test_k7_backward_at_width(C, H, dtype):
+def check_k7_backward(C, H, dtype):
     """The plain backward (from the plain forward's output) against the
     interpret-mode ``_pallas_backward_merged`` (from the kernel's): dx per
     row, 0 on padding rows; each parameter gradient at 2e-5 (f32) or 2e-2
     (bf16) of max(its own largest value, 1e-2 of the largest of the
-    six), but the bf16 key bias's, both packages' within F3's bound of
-    0."""
+    six), but the key bias's.  That one is analytically 0, and each
+    package's is rounding noise, so both are held to 0 rather than to
+    each other: in f32 within that same 2e-5 of max(...), in bf16 within
+    F3's bound.  (f32 at (512, 8): the port's dbk lies 6.4e-6 from its
+    f64 computation, 1e-14, and JAX's 6.6e-6, their difference 9.7e-6,
+    past the 8.5e-6 each meets.)  A dbk taken from the query bias's
+    gradient fails either limit."""
     args, g, (_, _, want) = jax_case(C, H, dtype)
     out = attention_qkv.band_attention_qkv_plain(*args, H)
     got = attention_qkv.band_attention_qkv_backward_plain(*args, H, out, g)
@@ -150,13 +154,30 @@ def test_k7_backward_at_width(C, H, dtype):
         *args, H, out, g)[1]).numpy()
     for name, a, w in zip(probe_qkv.GRAD_NAMES, got[1:], want[1:]):
         assert a.dtype == torch.float32
-        if name == "bk" and dtype == "bf16":
-            for dbk in (a.numpy(), w):        # F3's rule: 0 within the bound
-                assert (np.abs(dbk) <= bound).all(), np.abs(dbk / bound).max()
+        atol = tol * max(np.abs(w).max(), 1e-2 * top)
+        if name == "bk":                  # 0 within F3's bound or atol
+            limit = bound if dtype == "bf16" else atol
+            for dbk in (a.numpy(), w):
+                assert (np.abs(dbk) <= limit).all(), np.abs(dbk / limit).max()
+            dbq = got[1 + probe_qkv.GRAD_NAMES.index("bq")].numpy()
+            assert not (np.abs(dbq) <= limit).all()
             continue
-        np.testing.assert_allclose(
-            a.numpy(), w.reshape(a.shape), rtol=0,
-            atol=tol * max(np.abs(w).max(), 1e-2 * top), err_msg=name)
+        np.testing.assert_allclose(a.numpy(), w.reshape(a.shape), rtol=0,
+                                   atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,H", WIDTHS, ids=lambda w: str(w))
+def test_k6_forward_and_statistics_at_width(C, H, dtype):
+    """``check_k6_forward`` at (256, 8), (128, 2) and (256, 4)."""
+    check_k6_forward(C, H, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,H", WIDTHS, ids=lambda w: str(w))
+def test_k7_backward_at_width(C, H, dtype):
+    """``check_k7_backward`` at (256, 8), (128, 2) and (256, 4)."""
+    check_k7_backward(C, H, dtype)
 
 
 def test_sst_block_at_256_matches_the_jax_qkv_route():

@@ -168,14 +168,14 @@ def test_sst_block_at_256_matches_the_jax_pallas_routes():
 
 
 # (C, heads) K8 is written for, (C, heads) K6 / K7 are and (C, F) K5 is,
-# stated apart from the gates under test: K8 C 128, 256, 384 or 512 in
-# heads of 8, 16, 32, 64 or 128 channels; K6 / K7 C 128 or 256 in those
-# heads; K5 F of 1, 2, 3 or 4 times C at C 128, 256 or 384, of 1 or 2
-# times C at C 512
+# stated apart from the gates under test: K8 and K6 / K7 C 128, 256, 384
+# or 512 in heads of 8, 16, 32, 64 or 128 channels; K5 F of 1, 2, 3 or 4
+# times C at C 128, 256 or 384, of 1 or 2 times C at C 512
 HEAD_DIMS = (8, 16, 32, 64, 128)
 ATTENTION_KERNEL_WIDTHS = {(C, C // D) for C in (128, 256, 384, 512)
                            for D in HEAD_DIMS}
-QKV_KERNEL_WIDTHS = {(C, C // D) for C in (128, 256) for D in HEAD_DIMS}
+QKV_KERNEL_WIDTHS = {(C, C // D) for C in (128, 256, 384, 512)
+                     for D in HEAD_DIMS}
 FFN_KERNEL_WIDTHS = {(C, k * C) for C in (128, 256, 384)
                      for k in (1, 2, 3, 4)} | {(512, 512), (512, 1024)}
 WIDTHS = [(C, C // D, F) for C in (128, 256, 384, 512) for D in HEAD_DIMS
@@ -210,9 +210,9 @@ def test_route_resolution_at_widths(width):
     """At every width of the sets (C of 128, 256, 384 or 512 in heads of
     D of 8, 16, 32, 64 or 128, F of 1, 2, 3 or 4 times C, at C 512 of 1
     or 2 times) "band", "fused" and "auto" resolve to the kernels (K8, K5;
-    "auto" to K8), and "qkv" to K6 at C 128 and 256, to the plain route
-    at C 384 and 512, where JAX keeps its qkv kernel; JAX resolves "band",
-    "qkv" / "fused" to its kernels throughout.  At C 256 in one head of
+    "auto" to K8), and "qkv" to K6 at every C of the set, 384 and 512
+    included; JAX resolves "band", "qkv" / "fused" to its kernels
+    throughout.  At C 256 in one head of
     256, at 32 heads of 4, at C 384 in 8 heads of 48 or 4 of 96 and at C
     512 in 2 heads of 256 the port's attention takes the plain route
     under every name (its FFN, of a width K5 takes, the kernel), JAX its
