@@ -23,6 +23,8 @@ const geomae::K5Kernels* k5_kernels(int C, int F) {
   if (C == 384 && F == 1536) return &k5_kernels_c384_f1536();
   if (C == 512 && F == 512) return &k5_kernels_c512_f512();
   if (C == 512 && F == 1024) return &k5_kernels_c512_f1024();
+  if (C == 512 && F == 1536) return &k5_kernels_c512_f1536();
+  if (C == 512 && F == 2048) return &k5_kernels_c512_f2048();
   return nullptr;
 }
 

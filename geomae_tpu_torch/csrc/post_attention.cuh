@@ -15,18 +15,18 @@
 // Widths: every kernel is a template over (C, F), the model width and the
 // FFN width; Widths<C, F> derives the tiles, chunk streams and buffers
 // from them (C a multiple of 128, F a multiple of 128 and at least C).
-// The port builds C of 128, 256 and 384 with F of 1, 2, 3 or 4 times C
-// and C 512 with F of 1 or 2 times C, one translation unit each
-// (post_attention_c*_f*.cu, compiled in parallel); post_attention.cu
-// picks one by the widths it is given.  The token tile shrinks as the
-// rows widen, so that a block's rows fit its shared memory (the bf16 tile
-// pass 64, 32 or 16 tokens, the f32 kernels 32, 16 or 8), and the bf16
-// forward runs two blocks an SM where two fit, else one.  Where a tile's
-// rows are too short to hold a block's last reduction (the f32 backward
-// at C >= 384, the bf16 tile pass at C 512) it goes to the start of the
-// block's shared memory, all of it consumed by then.  (512, 1536) and
-// wider do not fit the bf16 tile pass at 16 tokens: they need the hidden
-// streamed, not built here.
+// The port builds C of 128, 256, 384 and 512 with F of 1, 2, 3 or 4 times
+// C, one translation unit each (post_attention_c*_f*.cu, compiled in
+// parallel); post_attention.cu picks one by the widths it is given.  The
+// token tile shrinks as the rows widen, so that a block's rows fit its
+// shared memory (the bf16 tile pass 64, 32 or 16 tokens, the f32 kernels
+// 32, 16 or 8), and the bf16 forward runs two blocks an SM where two fit,
+// else one.  Where a tile's rows are too short to hold a block's last
+// reduction (the f32 backward at C >= 384, the bf16 tile pass at C 512)
+// it goes to the start of the block's shared memory, all of it consumed
+// by then.  At (512, 1536) and (512, 2048) a 16-token tile's two F-wide
+// rows do not fit the tile pass (Widths::kOneHiddenRow): it keeps one,
+// parks a1 in the da1 workspace and sums db1 in shared memory.
 //
 // Forward.  Bound at (128, 256): 2*(C*C + 2*C*F) = 147,456 operations a
 // token against 768 bytes moved in bf16 (x and attn read, y written; the
@@ -83,7 +83,15 @@
 // product, so storing it is exact), then the weight gradients split over
 // 2,048-token chunks (wgrad_kernel).  At (128, 256) the tile pass takes
 // 180 registers and 197,120 bytes of dynamic shared memory, one block per
-// SM; the weight pass 80 registers and 36,864 bytes.  Bound: the card
+// SM; the weight pass 80 registers and 36,864 bytes.  Where a 16-token
+// tile's rows of a1 and h do not fit ((512, 1536), (512, 2048)), the pass
+// keeps h's row alone: stage kA1 writes the biased a1 to the da1
+// workspace (the tile's own rows, each by the thread that reads it back),
+// kDH stages dh over h, reads a1 back and writes da1 over dh and over the
+// workspace, and kDXM reads da1 from that row; b1's gradient, whose F / 32
+// floats a lane would spill, sums the staged da1 rows by column in shared
+// memory instead of in registers (189,824 + 6,144 and 208,256 + 8,192
+// bytes).  Bound: the card
 // could do the 6 products in 0.04 ms at [4, 20480] (operations); the tile
 // pass stands far above that (PERF.md): it issues mma.sync, not wgmma,
 // from one block of 8 warps per SM, and its row-wise CUDA-core work
@@ -146,6 +154,8 @@ const K5Kernels& k5_kernels_c384_f1152();
 const K5Kernels& k5_kernels_c384_f1536();
 const K5Kernels& k5_kernels_c512_f512();
 const K5Kernels& k5_kernels_c512_f1024();
+const K5Kernels& k5_kernels_c512_f1536();
+const K5Kernels& k5_kernels_c512_f2048();
 
 namespace {
 
@@ -186,14 +196,17 @@ __host__ __device__ constexpr int stage_start(int C, int F, int s) {
 }
 
 // shared memory of the f32 backward's and of the bf16 tile pass's blocks
-// at tt tokens a tile
+// at tt tokens a tile; the tile pass with two F-wide rows a token (a1 and
+// h) or with one (h, and db1's f32 sums beside the vector parameters)
 __host__ __device__ constexpr int f32_bwd_bytes(int C, int F, int tt) {
   return (5 * tt * C + 2 * tt * F) * 4;
 }
-__host__ __device__ constexpr int tile_bytes(int C, int F, int tt) {
-  return (4 * tt * (C + kPad) + 2 * tt * (F + kPad) + kRing * kChunkElems) *
+__host__ __device__ constexpr int tile_bytes(int C, int F, int tt,
+                                             int hidden_rows = 2) {
+  return (4 * tt * (C + kPad) + hidden_rows * tt * (F + kPad) +
+          kRing * kChunkElems) *
              2 +
-         (6 * C + F) * 4 + 2 * tt * 4;
+         (6 * C + F) * 4 + 2 * tt * 4 + (hidden_rows == 1 ? F * 4 : 0);
 }
 
 template <int C_, int F_>
@@ -231,11 +244,17 @@ struct Widths {
   // --- bfloat16, tensor cores: the tile pass
   static constexpr int kSC = C + kPad;   // shared row strides
   static constexpr int kSF = F + kPad;
+  // one F-wide row a token where two do not fit at 16 tokens ((512,
+  // 1536), (512, 2048)): a1 waits in the da1 workspace, db1 sums in shared
+  // memory (the tile pass, below)
+  static constexpr bool kOneHiddenRow = tile_bytes(C, F, 16) > kMaxSmem;
+  static constexpr int kHiddenRows = kOneHiddenRow ? 1 : 2;
   // tokens a tile: 64 where the backward's rows fit, else 32, else 16
-  static constexpr int kTT = tile_bytes(C, F, 64) <= kMaxSmem   ? 64
-                             : tile_bytes(C, F, 32) <= kMaxSmem ? 32
-                                                                : 16;
-  static constexpr int kTileSmemBytes = tile_bytes(C, F, kTT);
+  static constexpr int kTT =
+      tile_bytes(C, F, 64, kHiddenRows) <= kMaxSmem   ? 64
+      : tile_bytes(C, F, 32, kHiddenRows) <= kMaxSmem ? 32
+                                                      : 16;
+  static constexpr int kTileSmemBytes = tile_bytes(C, F, kTT, kHiddenRows);
   static constexpr int kFwdSmemBytes =
       (2 * kTT * kSC + kTT * kSF + kFwdRing * kChunkElems) * 2 +
       kVecFloats * 4;
@@ -255,11 +274,16 @@ struct Widths {
   // the last reduction's [kTileWarps][kVecFloats] f32: from s_a1 on where
   // the consumed rows from there hold it (kVecRedInRows), else from the
   // start of the block's shared memory (C 512: every row and the ring are
-  // consumed by then)
+  // consumed by then; with one hidden row they hold it short of db1's sums)
   static constexpr bool kVecRedInRows =
-      kTileWarps * kVecFloats * 4 <= (2 * kTT * kSF + kRing * kChunkElems) * 2;
+      kTileWarps * kVecFloats * 4 <=
+      (kHiddenRows * kTT * kSF + kRing * kChunkElems) * 2;
   static_assert(kTileWarps * kVecFloats * 4 <= kTileSmemBytes,
                 "the vector gradients' reduction fits the block's rows");
+  static_assert(!kOneHiddenRow ||
+                    kTileWarps * kVecFloats * 4 <=
+                        (4 * kTT * kSC + kTT * kSF + kRing * kChunkElems) * 2,
+                "the reduction leaves db1's sums as they are");
   // the f32 backward's [kWarps][6][C] reduction, then db1's [row
   // groups][F]: over its s_a1 and s_h where they hold it (kF32RedInRows),
   // else from the start of its shared memory (a tile of 8 or 16 tokens
@@ -303,6 +327,16 @@ static_assert(Widths<384, 384>::kTT == 32 && Widths<384, 384>::TT == 16 &&
                   !Widths<384, 384>::kF32RedInRows &&
                   !Widths<512, 512>::kVecRedInRows,
               "the tiles and reduction homes of C 384 and 512");
+// one hidden row at F 3 C and 4 C of C 512 alone
+static_assert(!Widths<512, 1024>::kOneHiddenRow &&
+                  !Widths<384, 1536>::kOneHiddenRow &&
+                  Widths<512, 1536>::kOneHiddenRow &&
+                  Widths<512, 2048>::kOneHiddenRow &&
+                  Widths<512, 1536>::kTileSmemBytes == 195968 &&
+                  Widths<512, 2048>::kTileSmemBytes == 216448 &&
+                  Widths<512, 2048>::kTT == 16 && Widths<512, 2048>::TT == 8 &&
+                  Widths<512, 2048>::kF32RedInRows,
+              "the tiles of (512, 1536) and (512, 2048)");
 
 // acc[j] = sum_k a[row(j)][k] W[k][col(pass)] for the tile's rows; a is
 // shared [TT][K], W is [K][N].  Thread: column pass * NW + tid % NW of
@@ -1288,11 +1322,18 @@ post_attention_bwd_tile_kernel(TileArgs p) {
   __nv_bfloat16* s_dz2 = s_z + kTT * kSC;     // x, then dz2 (stage kO2)
   __nv_bfloat16* s_dy = s_dz2 + kTT * kSC;    // dy
   __nv_bfloat16* s_a1 = s_dy + kTT * kSC;     // a1, then da1
-  __nv_bfloat16* s_h = s_a1 + kTT * kSF;      // h = gelu(a1)
+  __nv_bfloat16* s_h = s_a1 + (Wd::kHiddenRows - 1) * kTT * kSF;  // h
   __nv_bfloat16* s_w = s_h + kTT * kSF;       // the weight chunk ring
   float* s_par = reinterpret_cast<float*>(s_w + kRing * kChunkElems);
   float* s_stat = s_par + Wd::kVecFloats;     // LN1 (mu, rs) per row
-  // s_b0: attn, then xm (over attn, stage kO), then dz1 (stage kDXM)
+  // s_b0: attn, then xm (over attn, stage kO), then dz1 (stage kDXM).
+  // With one hidden row s_a1 is s_h: h, then dh, then da1 over it; a1
+  // waits in p.da1, and s_db1 holds the block's db1 sums, column c by
+  // thread c % kTileThreads
+  float* s_db1 = s_stat + 2 * kTT;
+  if constexpr (Wd::kOneHiddenRow) {
+    for (int i = threadIdx.x; i < F; i += kTileThreads) s_db1[i] = 0.f;
+  }
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int c = 4 * lane;        // the lane's columns of each 128
@@ -1397,7 +1438,11 @@ post_attention_bwd_tile_kernel(TileArgs p) {
         float a1[4], h[4];
         ld4(s_a1 + r * kSF + n0 + c, a1);
         bias_gelu(a1, par, r < nr, h);
-        st4(s_a1 + r * kSF + n0 + c, a1);
+        if constexpr (Wd::kOneHiddenRow) {   // a1 waits for kDH in p.da1
+          if (r < rows) st4(p.da1 + (row0 + r) * F + n0 + c, a1);
+        } else {
+          st4(s_a1 + r * kSF + n0 + c, a1);
+        }
         st4(s_h + r * kSF + n0 + c, h);
         if (r < rows) st4(p.h + (row0 + r) * F + n0 + c, h);
       }
@@ -1460,16 +1505,31 @@ post_attention_bwd_tile_kernel(TileArgs p) {
         const int r = Wd::kWarpRows * warp + i;
         float dh[4], a1[4];
         ld4(s_h + r * kSF + n0 + c, dh);
-        ld4(s_a1 + r * kSF + n0 + c, a1);
+        if constexpr (Wd::kOneHiddenRow) {   // kA1's store, this thread's
+          a1[0] = a1[1] = a1[2] = a1[3] = 0.f;
+          if (r < nr) ld4(p.da1 + (row0 + r) * F + n0 + c, a1);
+        } else {
+          ld4(s_a1 + r * kSF + n0 + c, a1);
+        }
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           a1[u] = r < nr ? rbf(dh[u] * dgelu(a1[u])) : 0.f;
+          if constexpr (!Wd::kOneHiddenRow) {
 #pragma unroll
-          for (int j = 0; j < FG; ++j)   // a static index: registers
-            if (j == nb) vb1[j][u] += a1[u];
+            for (int j = 0; j < FG; ++j)   // a static index: registers
+              if (j == nb) vb1[j][u] += a1[u];
+          }
         }
         st4(s_a1 + r * kSF + n0 + c, a1);
         if (r < rows) st4(p.da1 + (row0 + r) * F + n0 + c, a1);
+      }
+    }
+    if constexpr (Wd::kOneHiddenRow) {   // db1 += the tile's da1 columns
+      __syncthreads();
+      for (int i = threadIdx.x; i < F; i += kTileThreads) {
+        float sum = 0.f;
+        for (int r = 0; r < kTT; ++r) sum += to_f(s_a1[r * kSF + i]);
+        s_db1[i] += sum;
       }
     }
     // kDXM: dxm = dz2 + da1 W1^T; LN1 backward
@@ -1553,12 +1613,21 @@ post_attention_bwd_tile_kernel(TileArgs p) {
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int u = 0; u < 4; ++u) red[off[v] + kNP * g + c + u] = vs[v][g][u];
+  if constexpr (!Wd::kOneHiddenRow) {
 #pragma unroll
-  for (int j = 0; j < FG; ++j)
+    for (int j = 0; j < FG; ++j)
 #pragma unroll
-    for (int u = 0; u < 4; ++u) red[Wd::kVb1 + kNP * j + c + u] = vb1[j][u];
+      for (int u = 0; u < 4; ++u) red[Wd::kVb1 + kNP * j + c + u] = vb1[j][u];
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < Wd::kVecFloats; i += kTileThreads) {
+    if constexpr (Wd::kOneHiddenRow) {   // db1: the block's sums as they are
+      if (i >= Wd::kVb1 && i < Wd::kVb1 + F) {
+        p.vpartial[(size_t)blockIdx.x * Wd::kVecFloats + i] =
+            s_db1[i - Wd::kVb1];
+        continue;
+      }
+    }
     float sum = 0.f;
     for (int w = 0; w < kTileWarps; ++w)
       sum += s_red[w * Wd::kVecFloats + i];

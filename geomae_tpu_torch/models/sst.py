@@ -112,12 +112,11 @@ def attention_route(impl: str, d_model: int, nhead: int) -> str:
 
 def ffn_route(cfg: SSTConfig) -> str:
     """``cfg.ffn_impl`` resolved: "fused" (K5) for GELU at the kernel's
-    widths, (C, F) in ``ffn.KERNEL_WIDTHS`` (C of 128, 256 or 384, F of
-    1, 2, 3 or 4 times C; C 512, F of 1 or 2 times C), else "xla" (the
-    unfused chain).  JAX fuses GELU at any C a multiple of 128 and any F;
-    the port serves on the unfused chain what JAX fuses at F not a
-    multiple of 128, below C or above 4 C, at (512, 1536), (512, 2048)
-    and at C of 640 or more."""
+    widths, (C, F) in ``ffn.KERNEL_WIDTHS`` (C of 128, 256, 384 or 512, F
+    of 1, 2, 3 or 4 times C), else "xla" (the unfused chain).  JAX fuses
+    GELU at any C a multiple of 128 and any F; the port serves on the
+    unfused chain what JAX fuses at F not a multiple of 128, below C or
+    above 4 C, and at C of 640 or more."""
     _check("ffn_impl", cfg.ffn_impl, FFN_IMPLS)
     _check("activation", cfg.activation, ("gelu", "relu"))
     fits = (cfg.d_model, cfg.dim_feedforward) in KERNEL_WIDTHS \

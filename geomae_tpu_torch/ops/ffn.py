@@ -19,10 +19,9 @@ TPU kernel zeroes whole tiles past ``nv``, and the rows between ``nv`` and
 its tile's end are padding tokens that no consumer reads.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.  The kernels take (C, F) in ``KERNEL_WIDTHS`` (C of 128, 256
-or 384 with F of 1, 2, 3 or 4 times C; C 512 with F of 1 or 2 times C)
-in float32 or bfloat16.  Under grad the
-block is an ``autograd.Function`` whose backward
+or raises.  The kernels take (C, F) in ``KERNEL_WIDTHS`` (C of 128, 256,
+384 or 512 with F of 1, 2, 3 or 4 times C) in float32 or bfloat16.
+Under grad the block is an ``autograd.Function`` whose backward
 (``post_attention_block_backward``)
 returns dx, dattn and the ten parameter gradients in f32 with the dtype
 points of ``pallas_ffn._bwd_body``; rows at or past ``nv`` give zero dx
@@ -43,19 +42,21 @@ import torch.nn.functional as F
 
 from . import _cuda
 
-# (C, F) the kernels take, F of 1, 2, 3 or 4 times C (at C 512 1 or 2
-# times: the bf16 tile pass's rows of 16 tokens at F 1,536 take 239,232
-# bytes of shared memory, past a block's 232,448); the first is the
-# shipped SST width, the rest by C, then F
+# (C, F) the kernels take, F of 1, 2, 3 or 4 times C (at (512, 1536) and
+# (512, 2048) the bf16 tile pass keeps one F-wide row a token of 16, not
+# two: a1 waits in the da1 workspace, post_attention.cuh); the first is
+# the shipped SST width, the rest by C, then F
 KERNEL_WIDTHS = ((128, 256), (128, 128), (128, 384), (128, 512), (256, 256),
                  (256, 512), (256, 768), (256, 1024), (384, 384), (384, 768),
-                 (384, 1152), (384, 1536), (512, 512), (512, 1024))
+                 (384, 1152), (384, 1536), (512, 512), (512, 1024),
+                 (512, 1536), (512, 2048))
 KERNEL_C, KERNEL_F = KERNEL_WIDTHS[0]
 # the backward kernels run one block per SM, at most one a tile of the
 # smallest token tile any width takes (post_attention.cuh, Widths: the
 # tiles shrink as the rows widen, to 8 tokens in f32 at (384, 1152),
-# (384, 1536) and (512, 1024); a block left without a tile writes zero
-# partials); the bf16 weight gradients over chunks of 2,048 token rows
+# (384, 1536) and (512, 1024-2048); a block left without a tile writes
+# zero partials); the bf16 weight gradients over chunks of 2,048 token
+# rows
 MIN_TILE = 8
 BWD_BLOCKS_PER_SM = 1
 WGRAD_CHUNK = 2048

@@ -7,7 +7,8 @@ one ``csrc/`` source (or the sources that include one header) once per
 variant (a list of text edits), in parallel, ptxas's resource report
 beside each build (``resources`` reads a kernel's), and ``time_variants``
 times a set of calls on each build, every build twice, in turns.  A build with a part swapped out computes garbage;
-only its time means something.
+only its time means something.  ``compare_sass`` holds kernels of this
+package's build to a parent checkout's (``parent_and_change``).
 
 Needs a CUDA GPU and ``nvcc``: its numbers are the card's.
 """
@@ -123,6 +124,59 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.geomae_error_string.argtypes = [ctypes.c_int]
     lib.geomae_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def parent_and_change(parent: Path) -> dict:
+    """{"parent": the kernels' library of the checkout at ``parent``,
+    built there (``build/geomae_tpu_torch/libgeomae_kernels_*.so``),
+    "change": this package's, built now if it is not yet}."""
+    libs = {"parent": sorted((parent / "build" / "geomae_tpu_torch").glob(
+                "libgeomae_kernels_*.so"))[-1],
+            "change": _cuda.library_path()}
+    _cuda.library()
+    print({k: str(v) for k, v in libs.items()})
+    return libs
+
+
+def sass(lib: Path, keep: re.Pattern) -> dict:
+    """{demangled name: its SASS lines, addresses dropped} of the kernels
+    in the library at ``lib`` whose demangled name (the anonymous
+    namespace and the arguments dropped) ``keep`` finds."""
+    tool = str(Path(_cuda.nvcc()).parent / "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name and "/*" in line:
+            funcs[name].append(re.sub(r"/\*[0-9a-fx ]*\*/", "", line).strip())
+    names = list(funcs)
+    dem = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    kept = {}
+    for n, d in zip(names, dem):
+        head = d.replace("(anonymous namespace)::", "").split("(")[0]
+        if keep.search(head):
+            kept[head] = funcs[n]
+    return kept
+
+
+def compare_sass(libs: dict, keep: re.Pattern, what: str) -> None:
+    """Print how many of the kernels ``keep`` finds (``sass``) compile to
+    the same SASS in ``libs["parent"]`` and ``libs["change"]``, and name
+    those that differ."""
+    a, b = (sass(libs[k], keep) for k in ("parent", "change"))
+    same = [k for k in a if a[k] == b.get(k)]
+    print(f"SASS of {what}: {len(a)} in the parent, {len(b)} in the change, "
+          f"{len(same)} the same")
+    for k in sorted(set(a) | set(b)):
+        if k not in same:
+            print(f"  DIFFERS ({len(a.get(k, []))} / {len(b.get(k, []))} "
+                  f"instructions) {k}")
 
 
 def time_variants(libs: dict, calls: dict, turns: int = 2) -> None:

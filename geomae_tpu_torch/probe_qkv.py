@@ -65,7 +65,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import re
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -382,46 +381,9 @@ def grads(C: int, heads: int) -> None:
 OLD_WIDTH = re.compile(r"qkv\w*<(?:128|256)(?:, \d+)?>$")
 
 
-def sass(lib: Path) -> dict:
-    """{demangled name: its SASS lines, addresses dropped} of the K6 / K7
-    kernels at C 128 and 256 in the library at ``lib``."""
-    tool = str(Path(_cuda.nvcc()).parent / "cuobjdump")
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                         text=True, check=True).stdout
-    funcs, name = {}, None
-    for line in out.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            funcs[name] = []
-        elif name and "/*" in line:
-            funcs[name].append(re.sub(r"/\*[0-9a-fx ]*\*/", "", line).strip())
-    names = list(funcs)
-    dem = subprocess.run(["c++filt"], input="\n".join(names),
-                         capture_output=True, text=True,
-                         check=True).stdout.splitlines()
-    keep = {}
-    for n, d in zip(names, dem):
-        head = d.replace("(anonymous namespace)::", "").split("(")[0]
-        if OLD_WIDTH.search(head):
-            keep[head] = funcs[n]
-    return keep
-
-
 def against_parent(parent: Path) -> None:
-    libs = {"parent": sorted((parent / "build" / "geomae_tpu_torch").glob(
-                "libgeomae_kernels_*.so"))[-1],
-            "change": _cuda.library_path()}
-    _cuda.library()
-    print({k: str(v) for k, v in libs.items()})
-    a, b = (sass(libs[k]) for k in ("parent", "change"))
-    same = [k for k in a if a[k] == b.get(k)]
-    print(f"SASS of K6 / K7's kernels at C 128 and 256: {len(a)} in the "
-          f"parent, {len(b)} in the change, {len(same)} the same")
-    for k in sorted(set(a) | set(b)):
-        if k not in same:
-            print(f"  DIFFERS ({len(a.get(k, []))} / {len(b.get(k, []))} "
-                  f"instructions) {k}")
+    libs = probe.parent_and_change(parent)
+    probe.compare_sass(libs, OLD_WIDTH, "K6 / K7's kernels at C 128 and 256")
     todo = {}
     for C in (128, 256):
         args, dout = k7_case(4, 8192, C=C)

@@ -29,7 +29,9 @@ rule (``check_k5_backward``): the kernel's and the plain version's each
 against the plain backward computed with f64 values and sums at the same
 bf16 rounding points, at (2^-8 + n 2^-24) sum |terms| per element
 (``probe_k5_backward.grad_bounds``), which a dropped token's terms
-break.  K6's statistics (the
+break; and by their precision: at most a quarter of a gradient's
+elements end in 16 zero bits, as all of a gradient rounded to bf16 do
+(``probe_k5_backward.low_bits_shares``).  K6's statistics (the
 log-sum-exp per row and head) are held at K6's bound.
 
 The targets' kernels: K3's counts (0/1 payloads) and K4 (a copy) are
@@ -64,9 +66,9 @@ windows of 1 to 300 tokens with one that has no valid key.  Its
 prologue (D = rowsum(dO * out)) sums D exact products in another order.
 K8 and K5 run at every width of their kernels: K8 in ``HEADS`` (C of 128,
 256, 384 or 512 in heads of 8, 16, 32, 64 or 128), K5 in
-``ffn.KERNEL_WIDTHS`` (F of 1 to 4 times C at C 128, 256 and 384, of 1 or
-2 times C at C 512), and refuse widths outside them (K5 at (512, 1536)
-and (512, 2048), K8 at heads of 48, 96 and 256);
+``ffn.KERNEL_WIDTHS`` (F of 1 to 4 times C at C 128, 256, 384 and 512),
+and refuse widths outside them (K5 at (512, 2560) and (640, 1280), K8 at
+heads of 48, 96 and 256);
 K8's bf16 backward also under F3's key-bias rule: the column sums of its
 dk, an exact 0 (``probe_qkv.dbk_bound``).
 K4 also on spans with no key, a full span and an all-sentinel sample.
@@ -318,6 +320,8 @@ def check_k5_backward(got, args, dtype):
     for who, grads in (("kernel", got), ("plain", want)):
         shares = probe_k5_backward.rule_shares(grads[2:], exact, bounds)
         assert all(s <= 1 for s in shares), (who, shares)
+        low = probe_k5_backward.low_bits_shares(grads[2:])
+        assert max(low) <= probe_k5_backward.LOW_BITS_SHARE, (who, low)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -497,12 +501,11 @@ def test_post_attention_block_backward_is_deterministic(dev, C, F):
 
 
 @pytest.mark.parametrize("C,F", [(128, 1024), (128, 320), (256, 2048),
-                                 (256, 128), (512, 1536), (512, 2048)])
+                                 (256, 128), (512, 2560), (640, 1280)])
 def test_k5_wrappers_refuse_widths_outside_the_set(dev, C, F):
-    """F of 8 C, F not a multiple of 128, (256, 2048), F below C, and F
-    of 3 and 4 times C at C 512 (the bf16 tile pass's rows do not fit):
-    K5's forward, backward and weight-gradient wrappers raise on a CUDA
-    tensor rather than run a plain version."""
+    """F of 8 C, F not a multiple of 128, (256, 2048), F below C, F of 5
+    C at C 512, and C 640: K5's forward, backward and weight-gradient
+    wrappers raise on a CUDA tensor rather than run a plain version."""
     args = ffn_case(torch.bfloat16, dev, B=1, V=64, C=C, F=F)
     with pytest.raises(ValueError):
         ffn.post_attention_block(*args[:13])

@@ -203,6 +203,36 @@ def test_phase_a_gradient_rules_hold_the_plain_version_and_fail_a_dropped_tile(
         assert bool(failures) == failed, failures
 
 
+@pytest.mark.parametrize("C,F", [(384, 768), (512, 2048)])
+def test_phase_a_precision_rule_fails_gradients_rounded_to_bf16(C, F):
+    """Rule (3) of ``chip_smoke.K5_GRAD_TOL``'s comment
+    (``probe_k5_backward.low_bits_shares``): the plain bf16 backward's ten
+    f32 parameter gradients end in LOW_BITS zero bits in at most
+    LOW_BITS_SHARE of their elements, at 511, 500 and 3,548 tokens, the
+    same gradients rounded to bf16 in all of them; ``compare_grads`` fails
+    the rounded ones by that rule (and passes the plain version, its
+    planted faults each breaking a rule, the rounding among them)."""
+    import chip_smoke
+
+    k5 = probe_k5_backward
+    for B, V, nv in ((1, 777, (500,)), (2, 2048, (2048, 1500))):
+        grads = post_attention_block_backward_plain(
+            *k5.test_case(C, F, B, V, nv))[2:]
+        assert max(k5.low_bits_shares(grads)) <= k5.LOW_BITS_SHARE
+    args = k5.test_case(C, F, 2, 300, (300, 211))
+    want = post_attention_block_backward_plain(*args)
+    rounded = [g.bfloat16().float() for g in want[2:]]
+    assert max(k5.low_bits_shares(want[2:])) <= k5.LOW_BITS_SHARE
+    assert min(k5.low_bits_shares(rounded)) == 1.0
+    for got, failed in ((want[2:], []), (rounded, [
+            "K5 kernel: gradients short of f32 precision"])):
+        failures = []
+        chip_smoke.compare_grads(
+            "K5", "post_attention_block_backward", (*want[:2], *got), want,
+            torch.bfloat16, (2e-2, 2e-2), failures, args)
+        assert [f for f in failures if "precision" in f] == failed, failures
+
+
 def test_dropped_token_zeroes_an_aligned_tile_of_real_rows():
     """``dropped_token(args, rows)`` zeroes the cotangent of the aligned
     ``rows``-token tile around the first sample's largest |dy|, cut at its
