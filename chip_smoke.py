@@ -28,13 +28,16 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      with the same weights, at the shipped width and the wide model's;
      then K8 (forward, backward, prologue), K6 (with statistics), K7 and
      the projections' two kernels at every width they take (d_model 128,
-     256, 384 and 512 in heads of 8, 16, 32, 64 and 128) and K5
+     256, 384 and 512 in heads of 8, 16, 32, 64 and 128, and 384 in heads
+     of 48 and 96) and K5
      (forward, backward) at every (C, F) it takes, on the pretrain
      encoder's tokens, and K1 and K2 as the wide VFE (64, 256) calls
      them, each with its time, bound, library call and each dtype's
      largest error (a ``widths`` JSON line before the kernels line); K5's
      bf16 parameter gradients by three rules (``K5_GRAD_TOL``'s comment)
-     with planted faults that must each break one;
+     with planted faults that must each break one, and K7's and its
+     projections' bf16 parameter gradients also by their precision, with
+     the gradients rounded to bf16 planted (``k7_precision``);
   B. serves 3 synthetic frames through ``inference_detector`` at the full
      width of ``geomae_finetune_nus()`` in bfloat16, checks the detections
      and that each kernel launched the expected number of times per frame;
@@ -89,9 +92,12 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      launches a step of K8, its prologue and backward, or of K6, K7 and
      the projections' backward, 40 of the projections, and of K5 and its
      backward; 12 of K8 or K6 and of K5 a frame; no plain
-     ``band_attention``, no unfused FFN chain), and the same on ``band``
-     at 512 with FFN 2048 (``P_FFN4``: K5 at (512, 2048)); then the 512
-     model's step on each route and the FFN 2048 model's as
+     ``band_attention``, no unfused FFN chain), the same on ``band`` at
+     512 with FFN 2048 (``P_FFN4``: K5 at (512, 2048)), and d_model 384
+     in the shipped 8 heads (of 48) on both routes and in 4 (of 96) on
+     ``band``, FFN 768 (``P_ODD``: K8, K6 and K7 at head widths that are
+     not a power of two); then the 512 model's step on each route, the
+     FFN 2048 model's and the 8-head 384 model's on ``band`` as
      ``profile_pretrain`` times it: median and quartiles, peak memory,
      device busy ms, idle share and the SST kernels' ms a step;
   H. drives the trainer entry point (``python -m geomae_tpu_torch.train``,
@@ -264,6 +270,11 @@ P_TIMED = 512
 # and the 512 model with FFN 2048, 4 C (K5 at (512, 2048), its tile pass
 # with one hidden row), on band alone, also timed
 P_FFN4 = P_OPTIONS[512][:-1] + ["sst.dim_feedforward=2048"]
+# and the 384 model in the shipped 8 heads (of 48) and in 4 (of 96), head
+# widths that are not a power of two: 8 heads on band (timed) and on qkv,
+# 4 heads on band
+P_ODD = {heads: P_OPTIONS[384][:2] + [f"sst.nhead={heads}"]
+         + P_OPTIONS[384][3:] for heads in (8, 4)}
 # the profiled step's SST kernels on each route
 # (profile_pretrain.PRETRAIN_KERNELS) and their launches a layer: K8 and
 # K5 on band; on qkv also the projections (twice: K6 and K7's recompute),
@@ -712,15 +723,51 @@ def k5_alongside(label: str, args, got, want, tol: float,
             failures.append(f"{label}: the gradients {what} pass")
 
 
+def k7_precision(label: str, params, got, want, tol: float,
+                 failures: list) -> None:
+    """bf16 K7's and its projections' parameter gradients (``got``: the
+    kernel's, ``want``: the plain version's, named ``params``) by their
+    precision, beside the kernel-against-plain rule ``compare_grads``
+    applied at ``tol``: at most ``probe_k5_backward.LOW_BITS_SHARE`` of a
+    gradient's elements ending in ``LOW_BITS`` zero bits, K5's third rule.
+    The key bias's gradient is left out (its own rule, ``dbk_rule``: it
+    is the rounding noise of an analytically zero sum).  At C 384 and 512
+    the kernel-against-plain rule of the ``cuda`` tests (3e-3 there)
+    would pass a bf16 rounding of the f32 gradients, which moves an
+    element by up to 2^-8 of its binade's floor; so the kernel's
+    gradients rounded to bf16 (stored in f32) are planted, and must break
+    one of the two rules."""
+    from geomae_tpu_torch import probe_k5_backward as k5
+
+    keep = [i for i, p in enumerate(params) if p != "bk"]
+    pick = lambda gs: [gs[i] for i in keep]
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+    for who, grads in (("kernel", got), ("plain", want)):
+        low = k5.low_bits_shares(pick(grads))
+        print(f"  {label} {who}: elements ending in {k5.LOW_BITS} zero bits "
+              f"(d{', d'.join(params[i] for i in keep)}) {fmt(low)}")
+        if max(low) > k5.LOW_BITS_SHARE:
+            failures.append(f"{label} {who}: gradients short of f32 "
+                            "precision")
+    rounded = pick([g.bfloat16().float() for g in got])
+    above = grad_shares(rounded, pick(want), tol, GRAD_FLOOR[torch.bfloat16])
+    low = [x / k5.LOW_BITS_SHARE for x in k5.low_bits_shares(rounded)]
+    print(f"  {label} rounded to bf16: share of the bound above "
+          f"{fmt(above)}; of the low-bits limit {fmt(low)}")
+    if max(above + low) <= 1:
+        failures.append(f"{label}: the gradients rounded to bf16 pass")
+
+
 def compare_grads(label: str, name: str, got, want, dtype, tol,
                   failures: list, args=None) -> float:
     """A backward kernel's outputs (BACKWARD_OUTPUTS): the cotangents at
     ``tol`` with atol scaled per row, each parameter gradient against
     GRAD_TOL of max(its own largest |want|, GRAD_FLOOR x the largest); in
     bf16 the key bias of K7 and of the projections' backward by
-    ``dbk_rule``, and K5's ten parameter gradients at K5_GRAD_TOL of its
-    C and by F5's rule alongside (``k5_alongside``).  Returns the largest
-    absolute error."""
+    ``dbk_rule``, their other parameter gradients also by their precision
+    (``k7_precision``), and K5's ten parameter gradients at K5_GRAD_TOL
+    of its C and by F5's rule alongside (``k5_alongside``).  Returns the
+    largest absolute error."""
     tokens, params = BACKWARD_OUTPUTS[name]
     n = len(tokens)
     rows = lambda t: t.flatten(2)         # [B, V, H, D] -> [B, V, C]
@@ -754,6 +801,8 @@ def compare_grads(label: str, name: str, got, want, dtype, tol,
           f"{top:.3e}){rule}: {'; '.join(shares)}")
     if k5:
         k5_alongside(label, args, got[n:], want[n:], grad_tol, failures)
+    elif dtype == torch.bfloat16 and args is not None:
+        k7_precision(label, params, got[n:], want[n:], grad_tol, failures)
     return max(errs)
 
 
@@ -1694,7 +1743,8 @@ def sst_width(cfg, C: int, heads: int, Fd: int):
 
 def phase_widths(pcfg, failures: list) -> list:
     """Phase A's K8, K6, K7 and projection rows at every width they take
-    (C of 128, 256, 384 and 512 in heads of 8, 16, 32, 64 and 128) and
+    (C of 128, 256, 384 and 512 in heads of 8, 16, 32, 64 and 128, C 384
+    in heads of 48 and 96) and
     its K5 rows at every (C, F) K5 takes, on the pretrain encoder's visible
     tokens at batch 4 (positions of C channels); then K1 and K2 as the
     wide VFE (64, 256) calls them.  Returns one summary a row: the bf16
@@ -1722,7 +1772,7 @@ def phase_widths(pcfg, failures: list) -> list:
     for C in attention.KERNEL_CHANNELS:
         cfg = apply_overrides(pcfg, [f"sst.d_model={C}"])
         inputs = pretrain_inputs(cfg, dev)
-        for D in attention.KERNEL_HEAD_DIMS:
+        for D in (d for c, d in attention.kernel_widths() if c == C):
             run(sst_width(cfg, C, C // D, 2 * C),
                 f"K8, K6, K7 and the projections at C {C} in heads of {D}",
                 inputs, K8 + QKV, f"C {C}, D {D}")
@@ -1895,22 +1945,27 @@ def p_step_timed(wp, route: str, what: str, failures: list) -> None:
 def phase_p(pcfg, cfg, failures: list) -> dict:
     """The SST at d_model 384 and 512 (``P_OPTIONS``) on the ``band``
     route (K8 and K5 at C 384 and 512) and on the ``qkv`` route (K6, K7
-    and their projections, K5), and the 512 model with FFN 2048
-    (``P_FFN4``) on ``band``: ``train_and_serve`` at each (on band K8,
-    its prologue and backward, on qkv K6, K7, the projections (twice) and
-    their backward, and K5 and its backward, once a layer a step, the
-    attention and K5 once a layer a frame, no plain ``band_attention``
-    and no unfused FFN chain); then the 512 model's step on each route
-    and the FFN 2048 model's on band timed (``p_step_timed``).  Returns
-    the launches of the steps and frames."""
+    and their projections, K5), the 512 model with FFN 2048 (``P_FFN4``)
+    on ``band``, and the 384 model in 8 heads of 48 (``P_ODD``) on both
+    routes and in 4 of 96 on ``band``: ``train_and_serve`` at each (on
+    band K8, its prologue and backward, on qkv K6, K7, the projections
+    (twice) and their backward, and K5 and its backward, once a layer a
+    step, the attention and K5 once a layer a frame, no plain
+    ``band_attention`` and no unfused FFN chain); then the 512 model's
+    step on each route, the FFN 2048 model's and the 8-head 384 model's
+    on band timed (``p_step_timed``).  Returns the launches of the steps
+    and frames."""
     from geomae_tpu_torch.config import apply_overrides
 
     total: dict = {}
-    runs = [(C, opts, route) for C, opts in P_OPTIONS.items()
+    runs = [(C, opts, route, C == P_TIMED) for C, opts in P_OPTIONS.items()
             for route in (BAND_OPTION, QKV_OPTION)]
-    runs.append((P_TIMED, P_FFN4, BAND_OPTION))
+    runs.append((P_TIMED, P_FFN4, BAND_OPTION, True))
+    runs += [(384, P_ODD[8], BAND_OPTION, True),
+             (384, P_ODD[8], QKV_OPTION, False),
+             (384, P_ODD[4], BAND_OPTION, False)]
     timed = []
-    for C, opts, route in runs:
+    for C, opts, route, timed_too in runs:
         wp, wf = (apply_overrides(c, opts + [route]) for c in (pcfg, cfg))
         sst = wp.sst
         what = (f"d_model {C} in {sst.nhead} heads of {C // sst.nhead}, "
@@ -1918,7 +1973,7 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
         print(f"phase P: {what}: {N_STEPS} bf16 pretrain steps at batch "
               f"{wp.data.batch_size}, one served frame")
         add_launches(total, train_and_serve(wp, wf, what, failures))
-        if C == P_TIMED:
+        if timed_too:
             timed.append((wp, route, what))
     for wp, route, what in timed:
         p_step_timed(wp, route, what, failures)

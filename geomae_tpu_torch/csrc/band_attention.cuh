@@ -11,31 +11,36 @@
 // in models/sst.py), as on the JAX route.
 //
 // Widths: every kernel is a template over the head width D (8, 16, 32,
-// 64 or 128) and the row width C (128, 256, 384 or 512), so the head
-// count H = C / D, the row stride and every index are constants; each C
-// is a translation unit of its own (band_attention_c*.cu, compiled in
-// parallel), and the entry points (band_attention.cu) pick the unit by C
-// = H D and the instantiation by D.  Each kernel stages a fixed number of
-// channels a block, whole heads of them, and the grid spans the head
-// groups: the f32 kernels 128 channels (128 / D heads), the bf16 forward
-// 64 (64 / D heads, at least one; 32 at D = 8), the bf16 backward 32 (32
-// / D heads, at least one: 64 at D = 64, 128 at D = 128).  C enters only
-// as the row stride, the head count and the grid's head groups (C / 128
-// = 3 or 4 f32 groups at C 384 or 512, 6 or 8 bf16 forward groups, 12 or
-// 16 bf16 backward groups at D <= 32), so a wider row is more blocks of
-// the same kernel.  At the shipped width (8 heads of 16) each
-// instantiation is the kernel it was before the widths.
+// 64 or 128, and 48 or 96 at C 384, the one C that splits into them) and
+// the row width C (128, 256, 384 or 512), so the head count H = C / D,
+// the row stride and every index are constants; each C is a translation
+// unit of its own (band_attention_c*.cu, compiled in parallel), and the
+// entry points (band_attention.cu) pick the unit by C = H D and the
+// instantiation by D.  Each kernel stages a fixed number of channels a
+// block, whole heads of them, and the grid spans the head groups: the f32
+// kernels 128 channels (128 / D heads; 96 at D = 48 and 96), the bf16
+// forward 64 (64 / D heads, at least one; 32 at D = 8), the bf16 backward
+// 32 (32 / D heads, at least one: 48, 64, 96 or 128 at D of 48 and more).
+// C enters only as the row stride, the head count and the grid's head
+// groups (C / 128 = 3 or 4 f32 groups at C 384 or 512, 6 or 8 bf16
+// forward groups, 12 or 16 bf16 backward groups at D <= 32), so a wider
+// row is more blocks of the same kernel.  At the shipped width (8 heads
+// of 16) each instantiation is the kernel it was before the widths.
 // Where a width needs its own design: at D = 8 the bf16 kernels contract a
 // head over 8 channels with mma.sync m16n8k8 (no zero padding to 16) and
 // take its one n-tile of 8 in the value products; the f32 kernels give a
 // (query, head) D / 16 lanes of 16 channels, one lane at D = 8 (at D =
 // 128 one thread would hold 256 floats of q and accumulator, 896 in the
-// backward); at D = 128 the bf16 forward runs two blocks an SM (a warp's
-// 16 x 128 f32 output takes 64 registers a lane), and the bf16 backward
-// splits each head's output columns over two blocks, each computing the
-// scores and dP over all 128 channels (the three 16 x 128 accumulators of
-// a warp would take 192 registers a lane).  D = 256 (C 256 in one head)
-// and D of 4 or less are not taken.
+// backward), and at D = 48 and 96 (3 and 6 lanes of 16 are no power of
+// two for the shuffle sums, and 128 channels no whole heads) 4 and 8
+// lanes of 12 channels over a group of 96; at D = 128 the bf16 forward
+// runs two blocks an SM (a warp's 16 x 128 f32 output takes 64 registers
+// a lane), and at D = 96 and 128 the bf16 backward splits each head's
+// output columns over two blocks, each computing the scores and dP over
+// all D channels (the three 16 x D accumulators of a warp would take 144
+// or 192 registers a lane).  D = 256 (C 256 in one head), D of 4 or less
+// and the other widths that are not a power of two (24, 12, 192 at C
+// 384) are not taken.
 //
 // Bound: with no projection inside, a call moves 4 rows of C values per
 // token and computes 4 * C operations per same-window pair forward (10 * C
@@ -136,25 +141,30 @@ namespace {
 
 constexpr int TQ = 32;       // queries per block (f32 kernels)
 constexpr int KC = 32;       // keys per chunk (f32 kernels)
-constexpr int kF32Channels = 128;   // channels an f32 block stages
 static_assert(KC == TQ, "chunk rows map onto the tile's lanes");
 
 // A head of D channels: its 1/sqrt(D), and the f32 kernels' layout
 template <int D>
 struct Head {
   static constexpr float kScale = HeadScale<D>::kValue;
-  // the f32 kernels: heads a block, lanes a (query, head) (D / 16 of 16
-  // channels, one of 8 at D = 8; the lanes' partial dot products summed by
-  // shuffles, as in K6's f32 kernels), channels a lane and threads
-  static constexpr int kGH = kF32Channels / D;
-  static constexpr int kLanes = D > 16 ? D / 16 : 1;
-  static constexpr int kLC = D / kLanes;
+  // the f32 kernels: channels a block stages (whole heads: 128, or 96 at
+  // D = 48 and 96, which do not divide 128), heads a block, lanes a
+  // (query, head) (D / 16 of 16 channels, one of 8 at D = 8, D / 12 of 12
+  // at D = 48 and 96; the lanes' partial dot products summed by shuffles,
+  // as in K6's f32 kernels), channels a lane and threads
+  static constexpr int kW = D % 3 == 0 ? 96 : 128;
+  static constexpr int kGH = kW / D;
+  static constexpr int kLC = f32_lane_channels(D);
+  static constexpr int kLanes = D / kLC;
   static constexpr int kThreads = TQ * kGH * kLanes;
   static constexpr int kFwdSmemBytes =
-      2 * KC * kF32Channels * sizeof(float) + 2 * KC * sizeof(int);
-  static constexpr int kBwdSmemBytes = 4 * KC * kF32Channels * sizeof(float) +
+      2 * KC * kW * sizeof(float) + 2 * KC * sizeof(int);
+  static constexpr int kBwdSmemBytes = 4 * KC * kW * sizeof(float) +
                                        (2 * KC + 2 * KC * kGH) * sizeof(int);
-  static_assert(kThreads <= 512, "a block of whole lane groups");
+  static_assert(kGH * D == kW && kLanes * kLC == D && kLC % 4 == 0,
+                "whole heads of whole float4 lanes");
+  static_assert(kThreads <= 512 && kThreads >= KC * kGH,
+                "a block of whole lane groups");
 
   // the calling thread's head in the group, query of the tile and lane of
   // its (query, head): a warp is one head of 32 queries where kLanes is 1
@@ -164,6 +174,8 @@ struct Head {
 };
 static_assert(Head<16>::kScale * Head<16>::kScale * 16 == 1.0f, "1/sqrt(D)");
 static_assert(Head<16>::kThreads == 256, "the shipped block: 8 heads x 32");
+static_assert(Head<48>::kThreads == 256 && Head<96>::kThreads == 256,
+              "2 heads of 4 lanes, 1 head of 8 lanes, x 32");
 
 // four consecutive values (16-byte aligned in f32, 8-byte in bf16) as f32
 template <typename T>
@@ -181,13 +193,12 @@ __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// Stage rows [r0, r0 + n) of the head group's 128 channels of src (row
-// stride C, src at the group's first channel) into dst ([KC][128], f32);
+// Stage rows [r0, r0 + n) of the head group's W channels of src (row
+// stride C, src at the group's first channel) into dst ([KC][W], f32);
 // rows past n read 0.
-template <typename T, int kThreads, int C>
+template <typename T, int kThreads, int C, int W>
 __device__ __forceinline__ void stage(const T* __restrict__ src, int r0,
                                       int n, float* __restrict__ dst) {
-  constexpr int W = kF32Channels;
   for (int e = 4 * threadIdx.x; e < KC * W; e += 4 * kThreads) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (e / W < n) v = load4<T>(src + (size_t)(r0 + e / W) * C + e % W);
@@ -315,7 +326,7 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       int V) {
   using Hd = Head<D>;
   constexpr int H = C / D;
-  constexpr int W = kF32Channels;
+  constexpr int W = Hd::kW;
   extern __shared__ float smem[];
   float* s_k = smem;              // [KC][W] k rows of the head group
   float* s_v = s_k + KC * W;      // [KC][W] v rows
@@ -356,8 +367,8 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = ks; k0 < ke; k0 += KC) {
     const int nk = min(KC, ke - k0);
     __syncthreads();   // the previous chunk is consumed
-    stage<float, Hd::kThreads, C>(kb, k0, nk, s_k);
-    stage<float, Hd::kThreads, C>(vb, k0, nk, s_v);
+    stage<float, Hd::kThreads, C, W>(kb, k0, nk, s_k);
+    stage<float, Hd::kThreads, C, W>(vb, k0, nk, s_v);
     if (threadIdx.x < KC) {
       const int r = threadIdx.x;
       s_win[r] = r < nk ? wb[k0 + r] : kInt32Max;
@@ -396,10 +407,10 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int* win, const uint8_t* key_valid, void* out,
                        float* lse, int B, int V, cudaStream_t stream) {
   using Hd = Head<D>;
-  static_assert(C % kF32Channels == 0, "whole head groups");
+  static_assert(C % Hd::kW == 0, "whole head groups");
   cudaError_t e = allow_smem(band_attention_kernel<D, C>, Hd::kFwdSmemBytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((V + TQ - 1) / TQ, C / kF32Channels, B);
+  const dim3 grid((V + TQ - 1) / TQ, C / Hd::kW, B);
   band_attention_kernel<D, C>
       <<<grid, Hd::kThreads, Hd::kFwdSmemBytes, stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
@@ -471,7 +482,7 @@ __global__ void __launch_bounds__(Head<D>::kThreads)
 band_attention_bwd_f32_kernel(BwdArgs p) {
   using T = float;
   using Hd = Head<D>;
-  constexpr int W = kF32Channels;
+  constexpr int W = Hd::kW;
   constexpr int GH = Hd::kGH;
   constexpr int H = C / D;
   extern __shared__ float smem[];
@@ -532,10 +543,10 @@ band_attention_bwd_f32_kernel(BwdArgs p) {
   for (int k0 = ks; k0 < ke; k0 += KC) {
     const int nk = min(KC, ke - k0);
     __syncthreads();               // the previous chunk is consumed
-    stage<T, Hd::kThreads, C>(qb, k0, nk, s_q);
-    stage<T, Hd::kThreads, C>(kb, k0, nk, s_k);
-    stage<T, Hd::kThreads, C>(vb, k0, nk, s_v);
-    stage<T, Hd::kThreads, C>(gb, k0, nk, s_do);
+    stage<T, Hd::kThreads, C, W>(qb, k0, nk, s_q);
+    stage<T, Hd::kThreads, C, W>(kb, k0, nk, s_k);
+    stage<T, Hd::kThreads, C, W>(vb, k0, nk, s_v);
+    stage<T, Hd::kThreads, C, W>(gb, k0, nk, s_do);
     {  // thread (row r, head hh): D and lse of the chunk's rows; window ids
       const int r = threadIdx.x % KC, hh = threadIdx.x / KC;
       const bool in = r < nk;
@@ -592,7 +603,7 @@ cudaError_t launch_bwd_f32(const BwdArgs& args, int B, cudaStream_t stream) {
   cudaError_t e =
       allow_smem(band_attention_bwd_f32_kernel<D, C>, Hd::kBwdSmemBytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((args.V + TQ - 1) / TQ, C / kF32Channels, B);
+  const dim3 grid((args.V + TQ - 1) / TQ, C / Hd::kW, B);
   band_attention_bwd_f32_kernel<D, C>
       <<<grid, Hd::kThreads, Hd::kBwdSmemBytes, stream>>>(args);
   return cudaGetLastError();
@@ -615,7 +626,10 @@ cudaError_t launch_bwd_f32(const BwdArgs& args, int B, cudaStream_t stream) {
 // halves): it computes S, dP and their transposes over all 128 channels,
 // then accumulates its 64 columns of dq, dk and dv, and it reads its A
 // fragments from shared memory at each product (held, they would take 128
-// registers a lane); 206 KB of staged rows, one block an SM.
+// registers a lane); 206 KB of staged rows, one block an SM.  D = 96 does
+// the same with 48 columns a block (3 k-steps of 16 of the output
+// products, 6 n-tiles) and 158 KB.  D = 48 takes one head a block, holds
+// its fragments and stages 88 KB: two blocks an SM.
 constexpr int kTile = 64;              // tokens a block: queries and keys
 constexpr int kChunk = 64;             // keys (and queries) a chunk
 constexpr int kTcWarps = kTile / 16;
@@ -632,11 +646,12 @@ struct BwdTc {
   static constexpr int kCW = kHG * D;       // channels a block stages
   static constexpr int kRS = kCW + kPad;    // bf16 row stride of the rows
   static constexpr int kPieces = kCW / 8;   // 16-byte pieces a staged row
-  static constexpr int kSplit = D == 128 ? 2 : 1;   // blocks a head's columns
+  static constexpr int kSplit = D >= 96 ? 2 : 1;   // blocks a head's columns
   static constexpr bool kHold = D <= 64;    // A fragments held in registers
-  // D = 64 holds twice the accumulators and fragments: two blocks an SM;
-  // D = 128 stages 206 KB: one
-  static constexpr int kMinBlocks = D == 128 ? 1 : D == 64 ? 2 : 3;
+  // D = 48 and 64 hold 1.5 and 2 times D = 32's accumulators and
+  // fragments and stage 88 and 110 KB: two blocks an SM; D = 96 and 128
+  // stage 158 and 206 KB: one
+  static constexpr int kMinBlocks = D >= 96 ? 1 : D >= 48 ? 2 : 3;
   static_assert(kCW % 8 == 0, "16-byte rows");
 
   // The staged rows of q, k, v and dO (in that order) of the tile and of
@@ -649,9 +664,15 @@ struct BwdTc {
     float2 stat[2][kHG][kChunk];
   };
   static_assert(sizeof(Smem) <= 227 * 1024, "one block an SM");
+  static_assert(kMinBlocks * (sizeof(Smem) + 1024) <= 228 * 1024,
+                "kMinBlocks blocks in an SM's 228 KB (1 KB reserved a block)");
 };
 static_assert(BwdTc<16>::kHG == 2 && BwdTc<16>::kCW == 32,
               "the shipped block: 2 heads of 16");
+static_assert(BwdTc<48>::kCW == 48 && BwdTc<96>::kCW == 96 &&
+                  (BwdTc<96>::kPieces / BwdTc<96>::kSplit) % 2 == 0,
+              "D = 48 one head a block; D = 96 one head, 48 output columns "
+              "a block, whole k-steps of 16");
 
 // 2^x on the special-function unit; a result below 2^-126 flushes to 0
 // (such a p adds nothing that survives the bf16 rounding of a product)
@@ -990,6 +1011,7 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
 template <int D, int C>
 cudaError_t launch_bwd_tc(const BwdArgs& args, int B, cudaStream_t stream) {
   using K = BwdTc<D>;
+  static_assert(C % K::kCW == 0, "whole head groups");
   constexpr int kBytes = sizeof(typename K::Smem);
   cudaError_t e = allow_smem(band_attention_bwd_tc_kernel<D, C>, kBytes);
   if (e != cudaSuccess) return e;
@@ -1022,7 +1044,11 @@ cudaError_t launch_bwd_tc(const BwdArgs& args, int B, cudaStream_t stream) {
 // nothing (probe_forwards --width 128,8; PERF.md).  At D = 128 (one head) a warp's
 // output is 16 x 128 f32, 64 registers a lane beside the scores and the
 // Q fragments, so the kernel asks for two blocks an SM (its 87 KB of
-// shared memory allow no more) instead of four.
+// shared memory allow no more) instead of four.  At D = 48 and 96 a block
+// takes one head: 3 or 6 k-steps of 16 and 6 or 12 n-tiles of 8, rows of
+// 56 or 104 bf16 (16-byte pieces, the 8 rows of an ldmatrix phase on 32
+// distinct banks); D = 96 keeps 48 output registers a lane and 67 KB of
+// shared memory, three blocks an SM.
 constexpr int kFwdChannels = 64;       // channels a block stages
 constexpr int kFwdWarps = kTile / 16;
 constexpr int kFwdThreads = 32 * kFwdWarps;
@@ -1030,12 +1056,16 @@ static_assert(kFwdThreads >= kChunk, "a thread per chunk row's window id");
 
 template <int D>
 struct FwdTc {
+  // heads a block: 64 / D, 4 at D = 8, one of 48, 64, 96 or 128 channels
+  // at D >= 48 (64 / 48 truncates to one)
   static constexpr int kHeads = D == 8             ? 4
                                 : D < kFwdChannels ? kFwdChannels / D
                                                    : 1;
   static constexpr int kRS = kHeads * D + kPad;   // bf16 row stride
   static constexpr int kPieces = kHeads * D / 8;  // 16-byte pieces a row
-  static constexpr int kMinBlocks = D == 128 ? 2 : 4;   // blocks an SM
+  // blocks an SM: D = 96 and 128 keep 48 and 64 f32 output registers a
+  // lane, and D = 96's 67 KB of shared memory allow three
+  static constexpr int kMinBlocks = D == 128 ? 2 : D == 96 ? 3 : 4;
   struct Smem {
     __nv_bfloat16 q[kTile * kRS];      // the tile's q rows, then its output
     __nv_bfloat16 kv[2][2][kChunk * kRS];   // per buffer: k rows, v rows
@@ -1290,6 +1320,7 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
                           float* lse, int B, int V, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   using K = FwdTc<D>;
+  static_assert(C % (K::kHeads * D) == 0, "whole head groups");
   constexpr int kBytes = sizeof(typename K::Smem);
   cudaError_t e = allow_smem(band_attention_fwd_tc_kernel<D, C>, kBytes);
   if (e != cudaSuccess) return e;
@@ -1340,9 +1371,14 @@ struct Width {
   }
 };
 
-// The kernels of row width C at head width D, null for a D not taken.
+// The kernels of row width C at head width D, null for a D not taken
+// (heads of 48 and 96 only where C splits into them: at C 384)
 template <int C>
 const K8Kernels* k8_kernels_at(int D) {
+  if constexpr (C % 3 == 0) {
+    if (D == 48) return &Width<48, C>::kernels();
+    if (D == 96) return &Width<96, C>::kernels();
+  }
   switch (D) {
     case 8: return &Width<8, C>::kernels();
     case 16: return &Width<16, C>::kernels();

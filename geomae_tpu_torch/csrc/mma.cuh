@@ -16,7 +16,9 @@
 //
 // Shared-memory tiles are bf16 rows padded by 8 elements (16 bytes): with
 // a row stride of 72, 136 or 264 elements the 8 rows an ldmatrix phase
-// reads start 4 banks apart and hit 32 distinct banks.
+// reads start 4 banks apart and hit 32 distinct banks; at 40, 56 or 104
+// (heads of 32, 48 and 96) they start 20, 28 or 20 banks apart, also 8
+// distinct groups of four.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -16,16 +16,17 @@
 // added in the compute dtype.
 //
 // Widths: C (channels) of 128, 256, 384 or 512 in heads of D = 8, 16,
-// 32, 64 or 128, the widths K8 takes.  Every kernel is a template over C
-// (the f32 ones over C and D); each C is a translation unit of its own
+// 32, 64 or 128, and C 384 in heads of 48 or 96, the widths K8 takes.
+// Every kernel is a template over C (the f32 ones over C and D); each C
+// is a translation unit of its own
 // (window_attention_c*.cu, compiled in parallel), and the entry points
 // (window_attention.cu) pick the unit by C and the instantiation by D.
 // At the shipped width (128 in 8 heads of 16) each is the kernel it was
 // before the widths.  The scale 1/sqrt(D) is a power of two at D = 16
 // and 64 (D a power of four), and JAX folds it into q there
-// (_scale_pow2); at D = 8, 32 and 128 it multiplies the f32 score, and dq
-// and dk after their f32 sums.  Both give the same numbers where the fold
-// is exact, so the kernels below keep each JAX dtype point.
+// (_scale_pow2); at D = 8, 32, 48, 96 and 128 it multiplies the f32
+// score, and dq and dk after their f32 sums.  Both give the same numbers
+// where the fold is exact, so the kernels below keep each JAX dtype point.
 //
 // bfloat16, on the tensor cores: the projections and the attention are
 // separate launches.  The TPU kernel projects each key inside the
@@ -35,7 +36,8 @@
 // run the attention on the projected rows.  Their dtype points are K6's:
 // K8 multiplies the f32 score by 1/sqrt(D), which at D = 16 and 64 equals
 // K6's score of q folded by that power of two, and at D = 32 is K6's own
-// point; ds and p are rounded before their products, dq, dk and dv once,
+// point (and D = 48's and 96's); ds and p are rounded before their
+// products, dq, dk and dv once,
 // dq and dk scaled after the f32 sum.  So qkv_project never folds the
 // scale.  The one difference: K8's forward rounds P against the running
 // max of each 64-key chunk, the CUDA-core K6 against its running max at
@@ -62,7 +64,8 @@
 // lanes a token, 48 at D 8, and 512 threads of up to 255 registers
 // overrun the register file); TQ tokens a tile, one lane group a (token,
 // head): TQ = 4096 / C up to C 256, 8 at C 384 and 512 (at D = 8, where a
-// lane keeps a whole head, half of that).  The projections give each
+// lane keeps a whole head, half of that; 6 at C 384 in heads of 48 or 96,
+// 32 lanes a token of 12 channels each).  The projections give each
 // thread CPT columns and RPT rows of a chunk: one column up to C 256 (256
 // / C row groups), two at C 384 and 512.
 //
@@ -77,9 +80,10 @@
 // outside the tile's windows is projected and no window size is too big:
 // keys stream through shared memory in chunks of TQ with an online
 // softmax, which holds any window exactly.  A (query, head) pair belongs
-// to S = D / 16 adjacent lanes (one at D = 8), each keeping 16 channels
-// (8 at D = 8) of the q row and of the accumulator in registers (16 wide,
-// as one thread did at D = 16);
+// to S = D / 16 adjacent lanes (one at D = 8, D / 12 at D = 48 and 96:
+// a power of two), each keeping 16 channels (8 at D = 8, 12 at D = 48 and
+// 96) of the q row and of the accumulator in registers (16 wide, as one
+// thread did at D = 16);
 // a score is their partial dot products summed across the S lanes by
 // shuffles, so every lane of the group holds the same score.  Under grad
 // the forward also writes each (row, head)'s log-sum-exp of the scores,
@@ -98,8 +102,8 @@
 // weight products (x+pos)^T dq, (x+pos)^T dk, x^T dv with the bias sums
 // added to a per-block f32 partial (common.cuh), summed in a second pass.
 // The lanes of a (token, head) split its channels as in the forward: 16
-// (8 at D = 8) of q, k, v, dO, dq, dk and dv each a lane (250-255
-// registers at the widths of D 16 to 64, one block an SM).
+// (8 at D = 8, 12 at D = 48 and 96) of q, k, v, dO, dq, dk and dv each a
+// lane (250-255 registers at the widths of D 16 to 64, one block an SM).
 #pragma once
 
 #include <math.h>
@@ -179,18 +183,19 @@ namespace {
 // float32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kLaneCh = 16;      // channels of a head one lane keeps
-
 // The f32 kernels' shapes at C channels in heads of D.
 template <int C, int D>
 struct F32W {
   // a block: 256 threads up to C 256, C / 2 at 384 and 512
   static constexpr int kThreads = C <= 256 ? 256 : C / 2;
   static constexpr int H = C / D;              // heads
-  static constexpr int LC = D < kLaneCh ? D : kLaneCh;   // channels a lane
-  static constexpr int S = D / LC;             // lanes a (token, head)
+  // channels a lane (16, all 8 at D = 8, 12 at D = 48 and 96) and lanes
+  // a (token, head), a power of two (common.cuh)
+  static constexpr int LC = f32_lane_channels(D);
+  static constexpr int S = D / LC;
   // tokens a tile: 4096 / C up to C 256, 8 at C 384 and 512; half that
-  // at D = 8
+  // at D = 8; 6 at D = 48 and 96 (32 lanes a token, as at D = 8 up to C
+  // 256)
   static constexpr int TQ = kThreads / (H * S);
   static constexpr int KC = TQ;                // keys a chunk
   // the projections: thread t owns columns t % CW + CW u (u < CPT) and
@@ -211,7 +216,8 @@ struct F32W {
   // (ops/attention_qkv.py splits them in this order)
   static constexpr int kGradFloats = 3 * C * C + 3 * C;
   static_assert(H * S * TQ == kThreads && RG * CW == kThreads &&
-                    C % CW == 0 && KC % RG == 0 && S <= 32 && (32 % S) == 0,
+                    C % CW == 0 && KC % RG == 0 && S <= 32 && (32 % S) == 0 &&
+                    S * LC == D && LC % 4 == 0,
                 "one lane group per (token, head), whole rows a group");
 
   // the calling thread's head h, token i of the tile and channel slice sl
@@ -1220,6 +1226,12 @@ cudaError_t launch_project_bwd(const DxArgs& d, const QwArgs& w, int chunks,
 // The tables a translation unit of one C hands the entry points
 template <int C>
 const QkvF32Kernels* qkv_f32_at(int D) {
+  if constexpr (C % 3 == 0) {   // heads of 48 and 96: at C 384 alone
+    static const QkvF32Kernels k48{launch<C, 48>, launch_bwd<C, 48>};
+    static const QkvF32Kernels k96{launch<C, 96>, launch_bwd<C, 96>};
+    if (D == 48) return &k48;
+    if (D == 96) return &k96;
+  }
   static const QkvF32Kernels k8{launch<C, 8>, launch_bwd<C, 8>};
   static const QkvF32Kernels k16{launch<C, 16>, launch_bwd<C, 16>};
   static const QkvF32Kernels k32{launch<C, 32>, launch_bwd<C, 32>};

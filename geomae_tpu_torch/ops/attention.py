@@ -23,9 +23,11 @@ rows with no visible key return 0 and get zero gradients.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  The kernels take heads of D in ``KERNEL_HEAD_DIMS`` (8, 16,
-32, 64, 128) that make C = H D one of ``KERNEL_CHANNELS`` (128, 256,
-384, 512), in float32 or bfloat16; the plain versions take any H and D (C 256 in one
-head of 256 and heads of 4 or less have no kernel).  The bf16 forward
+32, 48, 64, 96, 128) that make C = H D one of ``KERNEL_CHANNELS`` (128,
+256, 384, 512; D 48 and 96 only at C 384, 8 and 4 heads), in float32 or
+bfloat16; the plain versions take any H and D (C 256 in one head of 256,
+heads of 4 or less and C 384 in 16 heads of 24, 32 of 12 or 2 of 192
+have no kernel).  The bf16 forward
 runs on the tensor cores over 64-token tiles with an online softmax per
 64-key chunk (``band_attention_tiles_plain`` is its order in plain
 PyTorch), the f32 forward on the CUDA cores; every kernel stages whole
@@ -48,7 +50,7 @@ from . import _cuda
 
 INT32_MAX = 2 ** 31 - 1
 KERNEL_CHANNELS = (128, 256, 384, 512)   # C = H D the kernels take
-KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)   # and D
+KERNEL_HEAD_DIMS = (8, 16, 32, 48, 64, 96, 128)   # and D (48, 96: C 384)
 PLAIN_Q_CHUNK = 1024      # queries per score block of the plain versions
 KERNEL_TILE = 64          # tokens a tile (and rows a chunk) of the bf16
                           # kernels
@@ -269,10 +271,19 @@ def band_attention_backward_tiles_plain(q, k, v, win_id, key_valid, out,
 
 def kernel_takes(channels: int, heads: int) -> bool:
     """Whether the kernels take ``heads`` heads over ``channels``: D =
-    C / H in KERNEL_HEAD_DIMS and C in KERNEL_CHANNELS."""
+    C / H in KERNEL_HEAD_DIMS and C in KERNEL_CHANNELS (of which only C
+    384 splits into heads of 48 or 96)."""
     return (heads > 0 and channels % heads == 0
             and channels in KERNEL_CHANNELS
             and channels // heads in KERNEL_HEAD_DIMS)
+
+
+def kernel_widths() -> list:
+    """(C, D) of every width the kernels take, by C, then D: C in
+    KERNEL_CHANNELS in heads of each D in KERNEL_HEAD_DIMS that divides
+    it (C 128 // 48 heads would be D 64 again)."""
+    return [(C, D) for C in KERNEL_CHANNELS for D in KERNEL_HEAD_DIMS
+            if C % D == 0 and kernel_takes(C, C // D)]
 
 
 def _check_rows(name, q, *more):
@@ -284,8 +295,9 @@ def _check_rows(name, q, *more):
                   and kernel_takes(q.shape[2] * q.shape[3], q.shape[2])
                   and q.dtype in _cuda.DTYPE_CODE,
                   f"{name}: the kernel takes [B, V, H, D] with D in "
-                  f"{KERNEL_HEAD_DIMS} and H D in {KERNEL_CHANNELS}, float32 "
-                  f"or bfloat16, got {q.dtype} {tuple(q.shape)}")
+                  f"{KERNEL_HEAD_DIMS} and H D in {KERNEL_CHANNELS} (D 48 "
+                  f"and 96 at H D = 384 alone), float32 or bfloat16, got "
+                  f"{q.dtype} {tuple(q.shape)}")
     for t in more:
         _cuda.require(t.shape == q.shape and t.dtype == q.dtype,
                       f"{name}: q, k, v and the cotangents must share "

@@ -165,18 +165,19 @@ def sass(lib: Path, keep: re.Pattern) -> dict:
     return kept
 
 
-def compare_sass(libs: dict, keep: re.Pattern, what: str) -> None:
+def compare_sass(libs: dict, keep: re.Pattern, what: str) -> list:
     """Print how many of the kernels ``keep`` finds (``sass``) compile to
     the same SASS in ``libs["parent"]`` and ``libs["change"]``, and name
-    those that differ."""
+    those that differ; returns their names."""
     a, b = (sass(libs[k], keep) for k in ("parent", "change"))
     same = [k for k in a if a[k] == b.get(k)]
     print(f"SASS of {what}: {len(a)} in the parent, {len(b)} in the change, "
           f"{len(same)} the same")
-    for k in sorted(set(a) | set(b)):
-        if k not in same:
-            print(f"  DIFFERS ({len(a.get(k, []))} / {len(b.get(k, []))} "
-                  f"instructions) {k}")
+    differ = sorted((set(a) | set(b)) - set(same))
+    for k in differ:
+        print(f"  DIFFERS ({len(a.get(k, []))} / {len(b.get(k, []))} "
+              f"instructions) {k}")
+    return differ
 
 
 def time_variants(libs: dict, calls: dict, turns: int = 2) -> None:

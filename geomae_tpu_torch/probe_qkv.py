@@ -5,6 +5,7 @@ chunk size, and where K7's parameter-gradient noise comes from.
     python -m geomae_tpu_torch.probe_qkv grads [--width C,D]   # K7's noise
     python -m geomae_tpu_torch.probe_qkv parent --parent DIR   # the old widths
     python -m geomae_tpu_torch.probe_qkv rule                  # K7's bf16 rule
+    python -m geomae_tpu_torch.probe_qkv resources             # registers
 
 ``--width`` takes C channels in heads of D, any width of the kernels
 (``attention_qkv.kernel_takes``); the default is the shipped 128 in heads of
@@ -40,9 +41,11 @@ is one kernel).
 
 The old widths against another checkout of the package (``parent``,
 ``--parent DIR``: a checkout whose kernels are built, ``DIR/build/
-geomae_tpu_torch/libgeomae_kernels_*.so``): the SASS of K6 / K7's
-kernels at C 128 and 256 in both libraries (``cuobjdump -sass``, names
-demangled, the anonymous namespace and addresses dropped), then K6, K7
+geomae_tpu_torch/libgeomae_kernels_*.so``): the SASS of K6 / K7's and
+K8's kernels at every width but heads of 48 and 96 (``OLD_WIDTH``) in
+both libraries (``cuobjdump -sass``, names demangled, the anonymous
+namespace and addresses dropped), K8's forward and backward, f32 and
+bf16, at the width of any K8 kernel whose SASS differs, then K6, K7
 and the projections, bf16 and f32, on ``k7_case(4, 8192)`` at C 128 in 8
 heads and C 256 in 8, with the two libraries in turns in one process
 (``probe.time_variants``, four turns).
@@ -57,6 +60,11 @@ bf16 rounding points (``f64_grads``), as shares of ``check_grads``' bound
 real row of the largest |dO| zeroed (``dropped_rows``) against the plain
 backward: the faults a rule must fail; last, per C the largest share
 of each reading but the key bias's (the smallest of the faults').
+
+``resources``: ptxas's registers and spill bytes (``probe.resources``,
+from the package's build log) of K8's five kernels (f32 forward and
+backward, the D prologue in bf16, the bf16 forward and backward) and of
+f32 K6 and K7 at every width the kernels take.
 
 Raises without a CUDA GPU: its numbers are the card's.
 """
@@ -195,33 +203,32 @@ def shares(got, want) -> list:
 
 def rule(seeds=(0, 1, 2)) -> None:
     worst: dict = {}
-    for C in attention_qkv.KERNEL_CHANNELS:
-        for D in attention.KERNEL_HEAD_DIMS:
-            for (B, V), seed in ((bv, s) for bv in ((2, 1024), (4, 8192))
-                                 for s in seeds):
-                heads = C // D
-                args, dout = k7_case(B, V, seed=seed, C=C)
-                out, lse = attention_qkv._forward(*args, heads, stats=True)
-                k7 = lambda d: attention_qkv.band_attention_qkv_backward(
-                    *args, heads, out, lse, d)
-                got = k7(dout)
-                want = attention_qkv.band_attention_qkv_backward_plain(
-                    *args, heads, out, dout)
-                exact = f64_grads(args, heads, out, dout)
-                at = f"[{B}, {V}] seed {seed} C {C}, D {D}"
-                read = {"K7 against the plain backward": (got, want),
-                        "K7 against f64": (got, exact),
-                        "plain against f64": (want, exact)}
-                for rows in (1, 16):
-                    read[f"K7 with {rows} rows of dO dropped against the "
-                         "plain backward"] = (k7(dropped_rows(
-                             dout, args[8], rows)), want)
-                for what, (a, b) in read.items():
-                    print(f"{at} {what}: " + grad_shares(a, b))
-                    top = max(shares(a, b))
-                    key = (C, what)
-                    worst[key] = (min if "dropped" in what else max)(
-                        worst.get(key, top), top)
+    for C, D in attention.kernel_widths():
+        for (B, V), seed in ((bv, s) for bv in ((2, 1024), (4, 8192))
+                             for s in seeds):
+            heads = C // D
+            args, dout = k7_case(B, V, seed=seed, C=C)
+            out, lse = attention_qkv._forward(*args, heads, stats=True)
+            k7 = lambda d: attention_qkv.band_attention_qkv_backward(
+                *args, heads, out, lse, d)
+            got = k7(dout)
+            want = attention_qkv.band_attention_qkv_backward_plain(
+                *args, heads, out, dout)
+            exact = f64_grads(args, heads, out, dout)
+            at = f"[{B}, {V}] seed {seed} C {C}, D {D}"
+            read = {"K7 against the plain backward": (got, want),
+                    "K7 against f64": (got, exact),
+                    "plain against f64": (want, exact)}
+            for rows in (1, 16):
+                read[f"K7 with {rows} rows of dO dropped against the "
+                     "plain backward"] = (k7(dropped_rows(
+                         dout, args[8], rows)), want)
+            for what, (a, b) in read.items():
+                print(f"{at} {what}: " + grad_shares(a, b))
+                top = max(shares(a, b))
+                key = (C, what)
+                worst[key] = (min if "dropped" in what else max)(
+                    worst.get(key, top), top)
     print("largest share of the five gradients but dbk (smallest for the "
           "dropped rows), by C:")
     for (C, what), v in worst.items():
@@ -376,15 +383,63 @@ def grads(C: int, heads: int) -> None:
               + ", ".join(ms))
 
 
-# K6 / K7's kernels at the widths before d_model 384 and 512 (template
-# arguments <128...> or <256...>)
-OLD_WIDTH = re.compile(r"qkv\w*<(?:128|256)(?:, \d+)?>$")
+# K6 / K7's and K8's kernels at every width but heads of 48 and 96 (the
+# qkv kernels' template arguments <C> or <C, D>, K8's <D, C> or <T, D, C>)
+OLD_WIDTH = re.compile(r"(?:qkv\w*<\d+(?:, (?!48>|96>)\d+)?>"
+                       r"|band_attention_(?!qkv)\w*<(?:[\w:]+, )?"
+                       r"(?!48,|96,)\d+, \d+>)$")
+# the mangled names of K8's kernels at (D, C) (the prologue's in bf16) and
+# of f32 K6 / K7's at (C, D)
+K8_KERNELS = {"f32": "band_attention_kernelILi{D}ELi{C}E",
+              "f32 backward": "band_attention_bwd_f32_kernelILi{D}ELi{C}E",
+              "prologue": "band_attention_delta_kernelI13__nv_bfloat16Li{D}"
+                          "ELi{C}E",
+              "bf16": "band_attention_fwd_tc_kernelILi{D}ELi{C}E",
+              "bf16 backward": "band_attention_bwd_tc_kernelILi{D}ELi{C}E"}
+QKV_F32_KERNELS = {"K6 f32": "band_attention_qkv_kernelILi{C}ELi{D}E",
+                   "K7 f32": "band_attention_qkv_bwd_kernelILi{C}ELi{D}E"}
+
+
+def resources() -> None:
+    lib = _cuda.library()
+    for C, D in attention.kernel_widths():
+        print(f"C {C}, D {D}: " + "; ".join(
+            f"{name} {probe.resources(lib, head.format(C=C, D=D))}"
+            for name, head in {**K8_KERNELS, **QKV_F32_KERNELS}.items()))
+
+
+def k8_calls(C: int, D: int) -> dict:
+    """K8's forward and backward (the prologue and the kernel) at C in
+    heads of D, f32 and bf16, on ``k7_case(4, 8192)``'s windows: {label:
+    call}."""
+    args, _ = k7_case(4, 8192, C=C)
+    win, kv = args[8:]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    calls = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, d = (torch.randn(4, 8192, C // D, D, generator=g,
+                                  device="cuda").to(dt) for _ in range(4))
+        out, lse = attention._forward(q, k, v, win, kv, stats=True)
+        tag = f"K8 C {C}, D {D} {str(dt)[6:]}"
+        calls[tag] = (lambda q=q, k=k, v=v: attention._forward(
+            q, k, v, win, kv, stats=True))
+        calls[f"{tag} backward"] = (
+            lambda q=q, k=k, v=v, o=out, l_=lse, d=d:
+            attention.band_attention_fused_backward(q, k, v, win, kv, o, l_,
+                                                    d))
+    return calls
 
 
 def against_parent(parent: Path) -> None:
     libs = probe.parent_and_change(parent)
-    probe.compare_sass(libs, OLD_WIDTH, "K6 / K7's kernels at C 128 and 256")
+    differ = probe.compare_sass(
+        libs, OLD_WIDTH, "K6 / K7's and K8's kernels at the parent's widths")
     todo = {}
+    for name in differ:   # a K8 kernel whose SASS moved: its width timed
+        m = re.search(r"band_attention_(?!qkv)\w*<(?:[\w:]+, )?(\d+), (\d+)>",
+                      name)
+        if m:
+            todo.update(k8_calls(int(m[2]), int(m[1])))
     for C in (128, 256):
         args, dout = k7_case(4, 8192, C=C)
         for dt in (torch.bfloat16, torch.float32):
@@ -413,7 +468,8 @@ def width(text: str) -> tuple:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", nargs="?", choices=("grads", "parent", "rule"))
+    ap.add_argument("what", nargs="?",
+                    choices=("grads", "parent", "rule", "resources"))
     ap.add_argument("--parent", type=Path,
                     help="parent: the checkout whose kernels to compare")
     ap.add_argument("--width", type=width, default=(128, 8),
@@ -427,6 +483,8 @@ def main() -> None:
         return against_parent(args.parent)
     if args.what == "rule":
         return rule()
+    if args.what == "resources":
+        return resources()
     C, heads = args.width
     print(f"C {C} in {heads} heads of {C // heads}")
     grads(C, heads) if args.what == "grads" else chunk_sizes(C)

@@ -52,11 +52,14 @@ at K6's bound per row, 0 on padding rows; dx per row and the parameter
 gradients by the backward rule; one launch a call, two launches bitwise
 equal, at one sample, a batch and the encoder's [4, 8192].  K6, K7 and
 the projections also at every width they take (``QKV_HEADS``: C 128,
-256, 384 and 512 in heads of 8 to 128), f32 and bf16, with K7's dbk
-under F3's rule and its bf16 parameter gradients at ``K7_WGRAD_TOL`` of
-C (3e-3 at C 384 and 512), a dropped row failing it; a width outside
-the set (C 640, C 384 in 8 heads of 48, C 256 in one head of 256, C 512
-in two of 256, heads of 4) raises.
+256, 384 and 512 in heads of 8 to 128, C 384 in heads of 48 and 96), f32
+and bf16, with K7's dbk under F3's rule and its bf16 parameter gradients
+at ``K7_WGRAD_TOL`` of C (3e-3 at C 384 and 512), a dropped row failing
+it, and by their precision (``probe_k5_backward.low_bits_shares``, as
+K5's: at most a quarter of a gradient's elements ending in 16 zero
+bits), which the kernel's gradients rounded to bf16 fail; a width
+outside the set (C 640, C 384 in 16 heads of 24, C 256 in one head of
+256, C 512 in two of 256, heads of 4) raises.
 
 K8 (window attention over projected q, k, v; ``ops/attention.py``): the
 output and the statistics at K6's bound, the backward's dq, dk, dv at the
@@ -65,10 +68,12 @@ gradients), at four layouts: one sample, a batch, the encoder's, and
 windows of 1 to 300 tokens with one that has no valid key.  Its
 prologue (D = rowsum(dO * out)) sums D exact products in another order.
 K8 and K5 run at every width of their kernels: K8 in ``HEADS`` (C of 128,
-256, 384 or 512 in heads of 8, 16, 32, 64 or 128), K5 in
-``ffn.KERNEL_WIDTHS`` (F of 1 to 4 times C at C 128, 256, 384 and 512),
-and refuse widths outside them (K5 at (512, 2560) and (640, 1280), K8 at
-heads of 48, 96 and 256);
+256, 384 or 512 in heads of 8, 16, 32, 64 or 128, C 384 in heads of 48
+or 96), K5 in ``ffn.KERNEL_WIDTHS`` (F of 1 to 4 times C at C 128, 256,
+384 and 512), and refuse widths outside them (K5 at (512, 2560) and
+(640, 1280), K8 at heads of 24, 12, 192 and 256).  At heads of 48 and 96
+K8's and K6's outputs fail their rule against the plain versions with
+the scale a power of two (1/8), a planted fault;
 K8's bf16 backward also under F3's key-bias rule: the column sums of its
 dk, an exact 0 (``probe_qkv.dbk_bound``).
 K4 also on spans with no key, a full span and an all-sentinel sample.
@@ -85,12 +90,15 @@ INT_MAX = 2 ** 31 - 1
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 DTYPES = [torch.float32, torch.bfloat16]
 # K8's widths, (heads, head width): C = 128, 256, 384 and 512 in heads of
-# 8, 16, 32, 64 and 128; K6's and K7's (QKV_HEADS) the same; SHIPPED is
-# the shipped width, 128 in 8 heads of 16
-HEADS = [(C // D, D) for C in attention.KERNEL_CHANNELS
-         for D in attention.KERNEL_HEAD_DIMS]
-QKV_HEADS = [(C // D, D) for C in attention_qkv.KERNEL_CHANNELS
-             for D in attention.KERNEL_HEAD_DIMS]
+# 8, 16, 32, 64 and 128, and C 384 in heads of 48 and 96
+# (``attention.kernel_widths``); K6's and K7's (QKV_HEADS) the same;
+# SHIPPED is the shipped width, 128 in 8 heads of 16
+HEADS = [(C // D, D) for C, D in attention.kernel_widths()]
+QKV_HEADS = [(C // D, D) for C, D in attention.kernel_widths()
+             if attention_qkv.kernel_takes(C, C // D)]
+# the widths whose head width is no power of two: C 384 in 8 heads of 48
+# and in 4 of 96
+ODD_HEADS = [(8, 48), (4, 96)]
 SHIPPED = (8, 16)
 HEAD_IDS = [f"{h}x{d}" for h, d in HEADS]
 QKV_HEAD_IDS = [f"{h}x{d}" for h, d in QKV_HEADS]
@@ -541,7 +549,12 @@ def test_band_attention_qkv_backward(dev, dtype, heads):
     ``probe_qkv.dbk_bound`` of 0); padding rows of dx 0; one launch a
     call, two launches bitwise equal; K7 on a cotangent with one real
     row dropped (``probe_qkv.dropped_rows``) fails the parameter
-    gradients' rule."""
+    gradients' rule.  In bf16 the parameter gradients but the key bias's
+    (rounding noise of an analytically zero sum, F3's) also carry more
+    than bf16's precision, the kernel's and the plain version's: at most
+    ``probe_k5_backward.LOW_BITS_SHARE`` of a gradient's elements end in
+    16 zero bits; the kernel's gradients rounded to bf16 (stored in f32),
+    a planted fault, fail that rule."""
     H, D = heads
     args, dout = attention_case(dtype, dev, C=H * D)
     out, lse = attention_qkv._forward(*args, H, stats=True)
@@ -559,6 +572,13 @@ def test_band_attention_qkv_backward(dev, dtype, heads):
             attention_qkv.attention_grads_plain(*args, H, out, dout)[1])
         for dbk in (got[i_bk], want[i_bk]):
             assert (dbk.abs() <= bound).all(), float((dbk.abs() / bound).max())
+        low = lambda gs: probe_k5_backward.low_bits_shares(
+            [g for i, g in enumerate(gs, 1) if i != i_bk])
+        for who, gs in (("kernel", got), ("plain", want)):
+            assert max(low(gs[1:])) <= probe_k5_backward.LOW_BITS_SHARE, \
+                (who, low(gs[1:]))
+        rounded = [g.bfloat16().float() for g in got[1:]]
+        assert max(low(rounded)) > probe_k5_backward.LOW_BITS_SHARE
     dropped = attention_qkv.band_attention_qkv_backward(
         *args, H, out, lse, probe_qkv.dropped_rows(dout, args[8], 1))
     with pytest.raises(AssertionError):
@@ -678,10 +698,10 @@ def test_qkv_projections_take_bf16_only(dev):
                                            *[d.float() for d in ds])
 
 
-@pytest.mark.parametrize("C,H", [(640, 10), (384, 8), (256, 1), (128, 32),
+@pytest.mark.parametrize("C,H", [(640, 10), (384, 16), (256, 1), (128, 32),
                                  (512, 2)])
 def test_qkv_wrappers_refuse_widths_outside_the_set(dev, C, H):
-    """C 640 (in heads of 64), C 384 in 8 heads of 48, C 256 in one head
+    """C 640 (in heads of 64), C 384 in 16 heads of 24, C 256 in one head
     of 256, heads of 4 or C 512 in two heads of 256: K6, K7 and (at C
     640) the projections raise on a CUDA tensor rather than run a plain
     version."""
@@ -1159,6 +1179,45 @@ def test_band_attention_delta(dev, dtype, heads):
     assert (got[win == INT_MAX] == 0).all()
 
 
+def pow2_scale(D: int) -> float:
+    """The power of two nearest 1/sqrt(D) in log2: 1/8 at D = 48 and 96,
+    where the true scale is none."""
+    return 2.0 ** round(float(np.log2(D ** -0.5)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("heads", ODD_HEADS, ids=[f"{h}x{d}" for h, d in
+                                                  ODD_HEADS])
+def test_odd_head_widths_fail_a_power_of_two_scale(dev, dtype, heads):
+    """A planted fault at the head widths that are not a power of two:
+    K8's and K6's outputs, which meet their rule against the plain
+    versions (``test_band_attention_fused``, ``test_band_attention_qkv_
+    statistics``), fail it against the plain versions run with the scale
+    a power of two (``pow2_scale``: 1/8 for 1/sqrt(48) = 0.144 and
+    1/sqrt(96) = 0.102), so a kernel that took such a guess for 1/sqrt(D)
+    would not pass."""
+    H, D = heads
+    q, k, v, win, kv, _ = band_case(dtype, dev, *band_layout("batch", dev),
+                                    heads=heads)
+    got = attention.band_attention_fused(q, k, v, win, kv)
+    check(got, attention.band_attention(q, k, v, win, kv), *TOL[dtype])
+    with pytest.raises(AssertionError):
+        check(got, attention.band_attention(q, k, v, win, kv,
+                                            scale=pow2_scale(D)),
+              *TOL[dtype])
+    args, _ = attention_case(dtype, dev, C=H * D)
+    got = attention_qkv.band_attention_qkv(*args, H)
+    check(got, attention_qkv.band_attention_qkv_plain(*args, H), *TOL[dtype])
+    x, pos, wq, bq, wk, bk, wv, bv, w_id, k_valid = args
+    shape = (*x.shape[:2], H, D)
+    pq, pk, pv = (t.reshape(shape) for t in attention_qkv.qkv_project_plain(
+        x, pos, wq, bq, wk, bk, wv, bv, w_id))
+    wrong = attention.band_attention(pq, pk, pv, w_id, k_valid,
+                                     scale=pow2_scale(D)).flatten(2)
+    with pytest.raises(AssertionError):
+        check(got, wrong, *TOL[dtype])
+
+
 def test_band_attention_fused_autograd_and_refusals(dev):
     """Under grad: one forward launch with statistics, one backward
     launch, gradients in the inputs' dtype; without grad no statistics.
@@ -1179,10 +1238,10 @@ def test_band_attention_fused_autograd_and_refusals(dev):
         f(q, k, v, win, kv)
         assert [c - a for c, a in zip(counts(), before)] == [1, 0, 0]
     w64, kv64 = win[:, :64].contiguous(), kv[:, :64].contiguous()
-    # C 32, C 256 in one head of 256, heads of 4, C 384 in heads of 48
-    # and of 96, C 512 in heads of 256, C 640
-    for heads in ((4, 8), (1, 256), (32, 4), (8, 48), (4, 96), (2, 256),
-                  (10, 64)):
+    # C 32, C 256 in one head of 256, heads of 4, C 384 in heads of 24, 12
+    # and 192, C 512 in heads of 256, C 640
+    for heads in ((4, 8), (1, 256), (32, 4), (16, 24), (32, 12), (2, 192),
+                  (2, 256), (10, 64)):
         bad = torch.randn(1, 64, *heads, device=dev)
         with pytest.raises(ValueError):
             f(bad, bad, bad, w64, kv64)
