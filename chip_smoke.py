@@ -28,8 +28,8 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      with the same weights, at the shipped width and the wide model's;
      then K8 (forward, backward, prologue), K6 (with statistics), K7 and
      the projections' two kernels at every width they take (d_model 128,
-     256, 384 and 512 in heads of 8, 16, 32, 64 and 128, and 384 in heads
-     of 48 and 96) and K5
+     256, 384 and 512 in heads of 8, 16, 32, 64 and 128, 384 in heads of
+     48, 96 and 192, and 256 and 512 in heads of 256) and K5
      (forward, backward) at every (C, F) it takes, on the pretrain
      encoder's tokens, and K1 and K2 as the wide VFE (64, 256) calls
      them, each with its time, bound, library call and each dtype's
@@ -96,10 +96,14 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      512 with FFN 2048 (``P_FFN4``: K5 at (512, 2048)), and d_model 384
      in the shipped 8 heads (of 48) on both routes and in 4 (of 96) on
      ``band``, FFN 768 (``P_ODD``: K8, K6 and K7 at head widths that are
-     not a power of two); then the 512 model's step on each route, the
-     FFN 2048 model's and the 8-head 384 model's on ``band`` as
-     ``profile_pretrain`` times it: median and quartiles, peak memory,
-     device busy ms, idle share and the SST kernels' ms a step;
+     not a power of two), and the wide heads (``P_WIDE_HEADS``: K8, K6
+     and K7 at D 256 and 192): d_model 256 in one head, FFN 512, on both
+     routes, 512 in two, FFN 1024, on both, 384 in two, FFN 768, on
+     ``band``; then the 512 model's step on each route, the FFN 2048
+     model's, the 8-head 384 model's and the two-head 512 model's on
+     ``band`` as ``profile_pretrain`` times it: median and quartiles,
+     peak memory, device busy ms, idle share and the SST kernels' ms a
+     step;
   H. drives the trainer entry point (``python -m geomae_tpu_torch.train``,
      its ``main(argv)`` in process): first the documented ``--tiny`` run
      (pretrain 2 steps, fine-tune 2 from its checkpoint; at that width
@@ -275,6 +279,14 @@ P_FFN4 = P_OPTIONS[512][:-1] + ["sst.dim_feedforward=2048"]
 # 4 heads on band
 P_ODD = {heads: P_OPTIONS[384][:2] + [f"sst.nhead={heads}"]
          + P_OPTIONS[384][3:] for heads in (8, 4)}
+# and the wide heads, (d_model, heads): 256 in one head of 256, FFN 512
+# (the VFE at (64, 256)), 512 in two of 256, FFN 1024, and 384 in two of
+# 192, FFN 768: 256 on band and qkv, 512 on band (timed) and qkv, 384 on
+# band
+P_WIDE_HEADS = {(256, 1): WIDE_OPTIONS[:2] + ["sst.nhead=1"]
+                + WIDE_OPTIONS[2:],
+                **{(C, 2): P_OPTIONS[C][:2] + ["sst.nhead=2"]
+                   + P_OPTIONS[C][3:] for C in (512, 384)}}
 # the profiled step's SST kernels on each route
 # (profile_pretrain.PRETRAIN_KERNELS) and their launches a layer: K8 and
 # K5 on band; on qkv also the projections (twice: K6 and K7's recompute),
@@ -1744,7 +1756,7 @@ def sst_width(cfg, C: int, heads: int, Fd: int):
 def phase_widths(pcfg, failures: list) -> list:
     """Phase A's K8, K6, K7 and projection rows at every width they take
     (C of 128, 256, 384 and 512 in heads of 8, 16, 32, 64 and 128, C 384
-    in heads of 48 and 96) and
+    in heads of 48, 96 and 192, C 256 and 512 in heads of 256) and
     its K5 rows at every (C, F) K5 takes, on the pretrain encoder's visible
     tokens at batch 4 (positions of C channels); then K1 and K2 as the
     wide VFE (64, 256) calls them.  Returns one summary a row: the bf16
@@ -1946,15 +1958,17 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
     """The SST at d_model 384 and 512 (``P_OPTIONS``) on the ``band``
     route (K8 and K5 at C 384 and 512) and on the ``qkv`` route (K6, K7
     and their projections, K5), the 512 model with FFN 2048 (``P_FFN4``)
-    on ``band``, and the 384 model in 8 heads of 48 (``P_ODD``) on both
-    routes and in 4 of 96 on ``band``: ``train_and_serve`` at each (on
+    on ``band``, the 384 model in 8 heads of 48 (``P_ODD``) on both
+    routes and in 4 of 96 on ``band``, and the wide heads
+    (``P_WIDE_HEADS``): 256 in one head of 256 and 512 in two on both
+    routes, 384 in two of 192 on ``band``: ``train_and_serve`` at each (on
     band K8, its prologue and backward, on qkv K6, K7, the projections
     (twice) and their backward, and K5 and its backward, once a layer a
     step, the attention and K5 once a layer a frame, no plain
     ``band_attention`` and no unfused FFN chain); then the 512 model's
-    step on each route, the FFN 2048 model's and the 8-head 384 model's
-    on band timed (``p_step_timed``).  Returns the launches of the steps
-    and frames."""
+    step on each route, the FFN 2048 model's, the 8-head 384 model's and
+    the two-head 512 model's on band timed (``p_step_timed``).  Returns
+    the launches of the steps and frames."""
     from geomae_tpu_torch.config import apply_overrides
 
     total: dict = {}
@@ -1964,6 +1978,11 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
     runs += [(384, P_ODD[8], BAND_OPTION, True),
              (384, P_ODD[8], QKV_OPTION, False),
              (384, P_ODD[4], BAND_OPTION, False)]
+    runs += [(C, P_WIDE_HEADS[C, heads], route, timed_too)
+             for C, heads, route, timed_too in (
+                 (256, 1, BAND_OPTION, False), (256, 1, QKV_OPTION, False),
+                 (512, 2, BAND_OPTION, True), (512, 2, QKV_OPTION, False),
+                 (384, 2, BAND_OPTION, False))]
     timed = []
     for C, opts, route, timed_too in runs:
         wp, wf = (apply_overrides(c, opts + [route]) for c in (pcfg, cfg))

@@ -11,18 +11,19 @@
 // in models/sst.py), as on the JAX route.
 //
 // Widths: every kernel is a template over the head width D (8, 16, 32,
-// 64 or 128, and 48 or 96 at C 384, the one C that splits into them) and
-// the row width C (128, 256, 384 or 512), so the head count H = C / D,
-// the row stride and every index are constants; each C is a translation
-// unit of its own (band_attention_c*.cu, compiled in parallel), and the
-// entry points (band_attention.cu) pick the unit by C = H D and the
-// instantiation by D.  Each kernel stages a fixed number of channels a
-// block, whole heads of them, and the grid spans the head groups: the f32
-// kernels 128 channels (128 / D heads; 96 at D = 48 and 96), the bf16
-// forward 64 (64 / D heads, at least one; 32 at D = 8), the bf16 backward
-// 32 (32 / D heads, at least one: 48, 64, 96 or 128 at D of 48 and more).
-// C enters only as the row stride, the head count and the grid's head
-// groups (C / 128 = 3 or 4 f32 groups at C 384 or 512, 6 or 8 bf16
+// 64 or 128; 48, 96 and 192 at C 384, the one C that splits into them;
+// 256 at C 256 and 512) and the row width C (128, 256, 384 or 512), so
+// the head count H = C / D, the row stride and every index are
+// constants; each C is a translation unit of its own
+// (band_attention_c*.cu, compiled in parallel), and the entry points
+// (band_attention.cu) pick the unit by C = H D and the instantiation by
+// D.  Each kernel stages a fixed number of channels a block, whole heads
+// of them, and the grid spans the head groups: the f32 kernels 128
+// channels (128 / D heads; 96 at D = 48 and 96; one head above 128), the
+// bf16 forward 64 (64 / D heads, at least one; 32 at D = 8), the bf16
+// backward 32 (32 / D heads, at least one: 48 to 256 at D of 48 and
+// more).  C enters only as the row stride, the head count and the grid's
+// head groups (C / 128 = 3 or 4 f32 groups at C 384 or 512, 6 or 8 bf16
 // forward groups, 12 or 16 bf16 backward groups at D <= 32), so a wider
 // row is more blocks of the same kernel.  At the shipped width (8 heads
 // of 16) each instantiation is the kernel it was before the widths.
@@ -31,16 +32,20 @@
 // take its one n-tile of 8 in the value products; the f32 kernels give a
 // (query, head) D / 16 lanes of 16 channels, one lane at D = 8 (at D =
 // 128 one thread would hold 256 floats of q and accumulator, 896 in the
-// backward), and at D = 48 and 96 (3 and 6 lanes of 16 are no power of
-// two for the shuffle sums, and 128 channels no whole heads) 4 and 8
-// lanes of 12 channels over a group of 96; at D = 128 the bf16 forward
-// runs two blocks an SM (a warp's 16 x 128 f32 output takes 64 registers
-// a lane), and at D = 96 and 128 the bf16 backward splits each head's
-// output columns over two blocks, each computing the scores and dP over
-// all D channels (the three 16 x D accumulators of a warp would take 144
-// or 192 registers a lane).  D = 256 (C 256 in one head), D of 4 or less
-// and the other widths that are not a power of two (24, 12, 192 at C
-// 384) are not taken.
+// backward), and at D = 48, 96 and 192 (3, 6 and 12 lanes of 16 are no
+// power of two for the shuffle sums, and 128 channels no whole heads) 4,
+// 8 and 16 lanes of 12 channels; above D = 128 a block takes one head
+// and 16 queries (16 lanes a query, 256 threads); at D = 128 the bf16
+// forward runs two blocks an SM (a warp's 16 x 128 f32 output takes 64
+// registers a lane), above it one, reading Q's fragments one k-step at a
+// time; at D = 96 and 128 the bf16 backward splits each head's output
+// columns over two blocks, at D = 192 and 256 over three and four blocks
+// of 64 columns with 16-row chunks (two 64-row chunks beside a
+// 256-channel tile would stage 405 KB), each block computing the
+// scores and dP over all D channels (the three 16 x D accumulators of a
+// warp would take 144 to 384 registers a lane).  D of 4 or less, D 384
+// and 512 (C 384 or 512 in one head) and the other widths that are not a
+// power of two (24 and 12 at C 384) are not taken.
 //
 // Bound: with no projection inside, a call moves 4 rows of C values per
 // token and computes 4 * C operations per same-window pair forward (10 * C
@@ -72,10 +77,11 @@
 // PyTorch).
 //
 // float32 forward, on the CUDA cores (band_attention_kernel): a block takes
-// 32 queries of one 128-channel head group and walks the keys one at a
-// time, chunks of 32 staged in f32; D / 16 adjacent lanes (one at D = 8)
-// own one (query, head) pair, 16 channels each, and a warp holds one
-// head, so each key row read from shared memory is a broadcast.
+// 32 queries of one 128-channel head group (16 of one head above D =
+// 128) and walks the keys one at a time, chunks of as many keys staged in
+// f32; D / 16 adjacent lanes (one at D = 8) own one (query, head) pair, 16
+// channels each, and a warp holds one head, so each key row read from
+// shared memory is a broadcast.
 //
 // Dtype points of _fwd_body: the score accumulates in f32 from the compute
 // dtype's q and k and the 1/sqrt(D) scale multiplies the f32 score; the
@@ -99,9 +105,10 @@
 // before their products, dq and dk scaled by 1/sqrt(D) after the f32 sum.
 // A row whose window holds no valid key contributes and receives 0.
 // f32 runs on the CUDA cores (D / 16 lanes per (token, head) of a
-// 32-token tile, one at D = 8); bf16 on the tensor cores (mma.sync
-// m16n8k16 over 64-token tiles and 64-row chunks, see
-// band_attention_bwd_tc_kernel), where each
+// 32-token tile, one at D = 8, 16-token tiles above D = 128); bf16 on the
+// tensor cores (mma.sync m16n8k16 over 64-token tiles and 64-row chunks,
+// 16-row chunks above D = 128, see band_attention_bwd_tc_kernel), where
+// each
 // product rounds at the points above and only the summation order moves.
 #pragma once
 
@@ -139,43 +146,47 @@ const K8Kernels* k8_kernels_c512(int D);
 
 namespace {
 
-constexpr int TQ = 32;       // queries per block (f32 kernels)
-constexpr int KC = 32;       // keys per chunk (f32 kernels)
-static_assert(KC == TQ, "chunk rows map onto the tile's lanes");
-
 // A head of D channels: its 1/sqrt(D), and the f32 kernels' layout
 template <int D>
 struct Head {
   static constexpr float kScale = HeadScale<D>::kValue;
   // the f32 kernels: channels a block stages (whole heads: 128, or 96 at
-  // D = 48 and 96, which do not divide 128), heads a block, lanes a
-  // (query, head) (D / 16 of 16 channels, one of 8 at D = 8, D / 12 of 12
-  // at D = 48 and 96; the lanes' partial dot products summed by shuffles,
-  // as in K6's f32 kernels), channels a lane and threads
-  static constexpr int kW = D % 3 == 0 ? 96 : 128;
+  // D = 48 and 96, which do not divide 128, one head above 128), heads a
+  // block, lanes a (query, head) (D / 16 of 16 channels, one of 8 at D =
+  // 8, D / 12 of 12 at D = 48, 96 and 192; the lanes' partial dot
+  // products summed by shuffles, as in K6's f32 kernels), channels a
+  // lane, queries a block (and keys a chunk: the chunk's rows map onto
+  // the tile's lanes) and threads.  At D = 192 and 256 a (query, head)
+  // takes 16 lanes, so a block takes 16 queries: 256 threads, as at D =
+  // 128 (512 would leave a thread 128 registers, and the backward keeps
+  // 7 x 16 floats of a head in registers)
+  static constexpr int kW = D > 128 ? D : D % 3 == 0 ? 96 : 128;
   static constexpr int kGH = kW / D;
   static constexpr int kLC = f32_lane_channels(D);
   static constexpr int kLanes = D / kLC;
-  static constexpr int kThreads = TQ * kGH * kLanes;
+  static constexpr int kTQ = D > 128 ? 16 : 32;
+  static constexpr int kThreads = kTQ * kGH * kLanes;
   static constexpr int kFwdSmemBytes =
-      2 * KC * kW * sizeof(float) + 2 * KC * sizeof(int);
-  static constexpr int kBwdSmemBytes = 4 * KC * kW * sizeof(float) +
-                                       (2 * KC + 2 * KC * kGH) * sizeof(int);
+      2 * kTQ * kW * sizeof(float) + 2 * kTQ * sizeof(int);
+  static constexpr int kBwdSmemBytes =
+      4 * kTQ * kW * sizeof(float) + (2 * kTQ + 2 * kTQ * kGH) * sizeof(int);
   static_assert(kGH * D == kW && kLanes * kLC == D && kLC % 4 == 0,
                 "whole heads of whole float4 lanes");
-  static_assert(kThreads <= 512 && kThreads >= KC * kGH,
+  static_assert(kThreads <= 512 && kThreads >= kTQ * kGH,
                 "a block of whole lane groups");
 
   // the calling thread's head in the group, query of the tile and lane of
   // its (query, head): a warp is one head of 32 queries where kLanes is 1
-  __device__ static int head() { return threadIdx.x / (TQ * kLanes); }
-  __device__ static int query() { return threadIdx.x / kLanes % TQ; }
+  __device__ static int head() { return threadIdx.x / (kTQ * kLanes); }
+  __device__ static int query() { return threadIdx.x / kLanes % kTQ; }
   __device__ static int lane() { return threadIdx.x % kLanes; }
 };
 static_assert(Head<16>::kScale * Head<16>::kScale * 16 == 1.0f, "1/sqrt(D)");
 static_assert(Head<16>::kThreads == 256, "the shipped block: 8 heads x 32");
 static_assert(Head<48>::kThreads == 256 && Head<96>::kThreads == 256,
               "2 heads of 4 lanes, 1 head of 8 lanes, x 32");
+static_assert(Head<192>::kThreads == 256 && Head<256>::kThreads == 256,
+              "1 head of 16 lanes x 16");
 
 // four consecutive values (16-byte aligned in f32, 8-byte in bf16) as f32
 template <typename T>
@@ -196,7 +207,7 @@ __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
 // Stage rows [r0, r0 + n) of the head group's W channels of src (row
 // stride C, src at the group's first channel) into dst ([KC][W], f32);
 // rows past n read 0.
-template <typename T, int kThreads, int C, int W>
+template <typename T, int kThreads, int C, int W, int KC>
 __device__ __forceinline__ void stage(const T* __restrict__ src, int r0,
                                       int n, float* __restrict__ dst) {
   for (int e = 4 * threadIdx.x; e < KC * W; e += 4 * kThreads) {
@@ -327,6 +338,7 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   using Hd = Head<D>;
   constexpr int H = C / D;
   constexpr int W = Hd::kW;
+  constexpr int TQ = Hd::kTQ, KC = Hd::kTQ;
   extern __shared__ float smem[];
   float* s_k = smem;              // [KC][W] k rows of the head group
   float* s_v = s_k + KC * W;      // [KC][W] v rows
@@ -367,8 +379,8 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = ks; k0 < ke; k0 += KC) {
     const int nk = min(KC, ke - k0);
     __syncthreads();   // the previous chunk is consumed
-    stage<float, Hd::kThreads, C, W>(kb, k0, nk, s_k);
-    stage<float, Hd::kThreads, C, W>(vb, k0, nk, s_v);
+    stage<float, Hd::kThreads, C, W, KC>(kb, k0, nk, s_k);
+    stage<float, Hd::kThreads, C, W, KC>(vb, k0, nk, s_v);
     if (threadIdx.x < KC) {
       const int r = threadIdx.x;
       s_win[r] = r < nk ? wb[k0 + r] : kInt32Max;
@@ -410,7 +422,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   static_assert(C % Hd::kW == 0, "whole head groups");
   cudaError_t e = allow_smem(band_attention_kernel<D, C>, Hd::kFwdSmemBytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((V + TQ - 1) / TQ, C / Hd::kW, B);
+  const dim3 grid((V + Hd::kTQ - 1) / Hd::kTQ, C / Hd::kW, B);
   band_attention_kernel<D, C>
       <<<grid, Hd::kThreads, Hd::kFwdSmemBytes, stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
@@ -485,6 +497,7 @@ band_attention_bwd_f32_kernel(BwdArgs p) {
   constexpr int W = Hd::kW;
   constexpr int GH = Hd::kGH;
   constexpr int H = C / D;
+  constexpr int TQ = Hd::kTQ, KC = Hd::kTQ;
   extern __shared__ float smem[];
   float* s_q = smem;               // [KC][W] q rows of the chunk
   float* s_k = s_q + KC * W;       // [KC][W] k rows
@@ -543,10 +556,10 @@ band_attention_bwd_f32_kernel(BwdArgs p) {
   for (int k0 = ks; k0 < ke; k0 += KC) {
     const int nk = min(KC, ke - k0);
     __syncthreads();               // the previous chunk is consumed
-    stage<T, Hd::kThreads, C, W>(qb, k0, nk, s_q);
-    stage<T, Hd::kThreads, C, W>(kb, k0, nk, s_k);
-    stage<T, Hd::kThreads, C, W>(vb, k0, nk, s_v);
-    stage<T, Hd::kThreads, C, W>(gb, k0, nk, s_do);
+    stage<T, Hd::kThreads, C, W, KC>(qb, k0, nk, s_q);
+    stage<T, Hd::kThreads, C, W, KC>(kb, k0, nk, s_k);
+    stage<T, Hd::kThreads, C, W, KC>(vb, k0, nk, s_v);
+    stage<T, Hd::kThreads, C, W, KC>(gb, k0, nk, s_do);
     {  // thread (row r, head hh): D and lse of the chunk's rows; window ids
       const int r = threadIdx.x % KC, hh = threadIdx.x / KC;
       const bool in = r < nk;
@@ -603,7 +616,7 @@ cudaError_t launch_bwd_f32(const BwdArgs& args, int B, cudaStream_t stream) {
   cudaError_t e =
       allow_smem(band_attention_bwd_f32_kernel<D, C>, Hd::kBwdSmemBytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((args.V + TQ - 1) / TQ, C / Hd::kW, B);
+  const dim3 grid((args.V + Hd::kTQ - 1) / Hd::kTQ, C / Hd::kW, B);
   band_attention_bwd_f32_kernel<D, C>
       <<<grid, Hd::kThreads, Hd::kBwdSmemBytes, stream>>>(args);
   return cudaGetLastError();
@@ -629,7 +642,12 @@ cudaError_t launch_bwd_f32(const BwdArgs& args, int B, cudaStream_t stream) {
 // registers a lane); 206 KB of staged rows, one block an SM.  D = 96 does
 // the same with 48 columns a block (3 k-steps of 16 of the output
 // products, 6 n-tiles) and 158 KB.  D = 48 takes one head a block, holds
-// its fragments and stages 88 KB: two blocks an SM.
+// its fragments and stages 88 KB: two blocks an SM.  D = 192 and 256 keep
+// 64 columns a block (kSplit 3 and 4: 4 k-steps, 8 n-tiles, 96
+// accumulator floats a lane) and stream 16-row chunks (kRows), 151 and
+// 199 KB: one block an SM of four warps.  (32-token tiles and 32-row
+// chunks, the same bytes in two warps, took twice as long on the H100:
+// probe_k8_backward --tiles.)
 constexpr int kTile = 64;              // tokens a block: queries and keys
 constexpr int kChunk = 64;             // keys (and queries) a chunk
 constexpr int kTcWarps = kTile / 16;
@@ -646,22 +664,29 @@ struct BwdTc {
   static constexpr int kCW = kHG * D;       // channels a block stages
   static constexpr int kRS = kCW + kPad;    // bf16 row stride of the rows
   static constexpr int kPieces = kCW / 8;   // 16-byte pieces a staged row
-  static constexpr int kSplit = D >= 96 ? 2 : 1;   // blocks a head's columns
+  // blocks a head's output columns: 64 columns a block above D = 128
+  // (3 at D = 192, 4 at 256), two halves at D = 96 and 128
+  static constexpr int kSplit = D > 128 ? D / 64 : D >= 96 ? 2 : 1;
   static constexpr bool kHold = D <= 64;    // A fragments held in registers
+  // rows a chunk: 64, 16 above D = 128, where two chunks of 64 rows
+  // beside the tile would stage 405 KB (D = 256)
+  static constexpr int kRows = D > 128 ? 16 : kChunk;
   // D = 48 and 64 hold 1.5 and 2 times D = 32's accumulators and
-  // fragments and stage 88 and 110 KB: two blocks an SM; D = 96 and 128
-  // stage 158 and 206 KB: one
+  // fragments and stage 88 and 110 KB: two blocks an SM; D = 96, 128, 192
+  // and 256 stage 158, 206, 151 and 199 KB: one
   static constexpr int kMinBlocks = D >= 96 ? 1 : D >= 48 ? 2 : 3;
   static_assert(kCW % 8 == 0, "16-byte rows");
+  static_assert(kRows % 16 == 0 && kRows <= kChunk,
+                "whole s-steps; a thread per chunk row's statistics");
 
   // The staged rows of q, k, v and dO (in that order) of the tile and of
   // two chunks; per chunk row, (window id, window id or kNoKey without a
   // valid key), and per head (lse * log2 e, D).
   struct Smem {
     __nv_bfloat16 tile[4][kTile * kRS];
-    __nv_bfloat16 chunk[2][4][kChunk * kRS];
-    int2 win[2][kChunk];
-    float2 stat[2][kHG][kChunk];
+    __nv_bfloat16 chunk[2][4][kRows * kRS];
+    int2 win[2][kRows];
+    float2 stat[2][kHG][kRows];
   };
   static_assert(sizeof(Smem) <= 227 * 1024, "one block an SM");
   static_assert(kMinBlocks * (sizeof(Smem) + 1024) <= 228 * 1024,
@@ -673,6 +698,9 @@ static_assert(BwdTc<48>::kCW == 48 && BwdTc<96>::kCW == 96 &&
                   (BwdTc<96>::kPieces / BwdTc<96>::kSplit) % 2 == 0,
               "D = 48 one head a block; D = 96 one head, 48 output columns "
               "a block, whole k-steps of 16");
+static_assert(BwdTc<192>::kPieces / BwdTc<192>::kSplit == 8 &&
+                  BwdTc<256>::kPieces / BwdTc<256>::kSplit == 8,
+              "D = 192 and 256: 64 output columns a block");
 
 // 2^x on the special-function unit; a result below 2^-126 flushes to 0
 // (such a p adds nothing that survives the bf16 rounding of a product)
@@ -683,19 +711,19 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // cp.async rows [r0, r0 + n) of the block's heads of q, k, v and dO into
-// dst [4][kTile][kRS]; rows past n are zero-filled (finite: a masked
+// dst [4][R][kRS]; rows past n are zero-filled (finite: a masked
 // product of 0 with them stays 0).
-template <int D, int C>
+template <int D, int C, int R>
 __device__ __forceinline__ void stage_rows(const BwdArgs& p, size_t base,
                                            int r0, int n,
                                            __nv_bfloat16* dst) {
   using K = BwdTc<D>;
-  for (int e = threadIdx.x; e < 4 * kTile * K::kPieces; e += kTcThreads) {
-    const int a = e / (kTile * K::kPieces);
-    const int r = (e / K::kPieces) % kTile;
+  for (int e = threadIdx.x; e < 4 * R * K::kPieces; e += kTcThreads) {
+    const int a = e / (R * K::kPieces);
+    const int r = (e / K::kPieces) % R;
     const int c = (e % K::kPieces) * 8;
     const void* src = a == 0 ? p.q : a == 1 ? p.k : a == 2 ? p.v : p.dout;
-    cp_async_16(dst + (a * kTile + r) * K::kRS + c,
+    cp_async_16(dst + (a * R + r) * K::kRS + c,
                 static_cast<const __nv_bfloat16*>(src) + base +
                     (size_t)(r0 + (r < n ? r : 0)) * C + c,
                 r < n);
@@ -708,6 +736,7 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
   using K = BwdTc<D>;
   constexpr int H = C / D;
   constexpr int kHG = K::kHG, kRS = K::kRS, kSplit = K::kSplit;
+  constexpr int kChunk = K::kRows;
   constexpr int KS = D / 16;       // k-steps of 16 over a head's channels
   constexpr int NT = D / 8;        // n-tiles of 8 over a head's channels
   constexpr int KH = K::kHold && KS > 0 ? KS : 1;  // A fragments held
@@ -761,8 +790,9 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
   __syncthreads();
   const int ks = s_range[0], ke = s_range[1];
   if (ks < ke) {                   // else a tile of padding: zeros out
-    stage_rows<D, C>(p, base, t0, nt, sm.tile[0]);
-    stage_rows<D, C>(p, base, ks, min(kChunk, ke - ks), sm.chunk[0][0]);
+    stage_rows<D, C, kTile>(p, base, t0, nt, sm.tile[0]);
+    stage_rows<D, C, kChunk>(p, base, ks, min(kChunk, ke - ks),
+                             sm.chunk[0][0]);
   }
   cp_async_commit();
   if (threadIdx.x < kChunk) {
@@ -798,8 +828,8 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
     __syncthreads();               // chunk k0 landed; the other buffer is free
     const int k1 = k0 + kChunk;
     if (k1 < ke) {                 // prefetch the next chunk
-      stage_rows<D, C>(p, base, k1, min(kChunk, ke - k1),
-                       sm.chunk[buf ^ 1][0]);
+      stage_rows<D, C, kChunk>(p, base, k1, min(kChunk, ke - k1),
+                               sm.chunk[buf ^ 1][0]);
       cp_async_commit();
       if (threadIdx.x < kChunk) load_cols(k1);
     }
@@ -1048,7 +1078,13 @@ cudaError_t launch_bwd_tc(const BwdArgs& args, int B, cudaStream_t stream) {
 // takes one head: 3 or 6 k-steps of 16 and 6 or 12 n-tiles of 8, rows of
 // 56 or 104 bf16 (16-byte pieces, the 8 rows of an ldmatrix phase on 32
 // distinct banks); D = 96 keeps 48 output registers a lane and 67 KB of
-// shared memory, three blocks an SM.
+// shared memory, three blocks an SM.  At D = 192 and 256 a warp's output
+// takes 96 and 128 registers a lane and the rows of 200 and 264 bf16 126
+// and 166 KB: one block an SM, with the k-step loop of S outside the
+// keys' so that one k-step of Q's A fragments is live at a time
+// (kHoldQ; held, the 16 k-steps of D = 256 would take 64 registers); the
+// 64-key chunks, and so the points where P is rounded, stay those of
+// every other width.
 constexpr int kFwdChannels = 64;       // channels a block stages
 constexpr int kFwdWarps = kTile / 16;
 constexpr int kFwdThreads = 32 * kFwdWarps;
@@ -1064,8 +1100,17 @@ struct FwdTc {
   static constexpr int kRS = kHeads * D + kPad;   // bf16 row stride
   static constexpr int kPieces = kHeads * D / 8;  // 16-byte pieces a row
   // blocks an SM: D = 96 and 128 keep 48 and 64 f32 output registers a
-  // lane, and D = 96's 67 KB of shared memory allow three
-  static constexpr int kMinBlocks = D == 128 ? 2 : D == 96 ? 3 : 4;
+  // lane, and D = 96's 67 KB of shared memory allow three; D = 192 and
+  // 256 keep 96 and 128 and stage 126 and 166 KB: one
+  static constexpr int kMinBlocks = D > 128    ? 1
+                                    : D == 128 ? 2
+                                    : D == 96  ? 3
+                                               : 4;
+  // Q's A fragments: held over a head's score products (KS of them) up to
+  // D = 128; above, one k-step's at a time with the k-step loop outside
+  // the keys' (the same sums in the same order), 64 registers fewer at
+  // D = 256
+  static constexpr bool kHoldQ = D <= 128;
   struct Smem {
     __nv_bfloat16 q[kTile * kRS];      // the tile's q rows, then its output
     __nv_bfloat16 kv[2][2][kChunk * kRS];   // per buffer: k rows, v rows
@@ -1176,33 +1221,56 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int hh = 0; hh < kHeads; ++hh) {
         // rows 16 jj + lane % 16 of the chunk: the ldmatrix_x2 rows at D = 8
         const int r8 = (lane % 16) * kRS + hh * D;
-        uint32_t aq[KS > 0 ? KS : 1][4], aq8[2];
-        if constexpr (D == 8) {
-          ldmatrix_x2(aq8, sm.q + 16 * warp * kRS + r8);
-        } else {
-#pragma unroll
-          for (int kk = 0; kk < KS; ++kk)
-            ldmatrix_x4(aq[kk], sm.q + (16 * warp + lane % 16) * kRS +
-                                    hh * D + 16 * kk + (lane / 16) * 8);
-        }
         float s[kChunk / 8][4];
+        if constexpr (!K::kHoldQ) {   // k-steps outside, keys inside
 #pragma unroll
-        for (int jj = 0; jj < kChunk / 16; ++jj) {
+          for (int j = 0; j < kChunk / 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[2 * jj][e] = s[2 * jj + 1][e] = 0.f;
-          if constexpr (D == 8) {
-            uint32_t bk[2];
-            ldmatrix_x2(bk, ck + 16 * jj * kRS + r8);
-            mma_bf16_1688(s[2 * jj], aq8, bk[0]);
-            mma_bf16_1688(s[2 * jj + 1], aq8, bk[1]);
-          }
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
           for (int kk = 0; kk < KS; ++kk) {
-            uint32_t bk[4];
-            ldmatrix_x4(bk, ck + (16 * jj + lane % 8 + (lane / 16) * 8) * kRS +
-                                hh * D + 16 * kk + ((lane / 8) % 2) * 8);
-            mma_bf16_16816(s[2 * jj], aq[kk], &bk[0]);
-            mma_bf16_16816(s[2 * jj + 1], aq[kk], &bk[2]);
+            uint32_t a[4];
+            ldmatrix_x4(a, sm.q + (16 * warp + lane % 16) * kRS + hh * D +
+                               16 * kk + (lane / 16) * 8);
+#pragma unroll
+            for (int jj = 0; jj < kChunk / 16; ++jj) {
+              uint32_t bk[4];
+              ldmatrix_x4(bk, ck + (16 * jj + lane % 8 + (lane / 16) * 8) *
+                                       kRS +
+                                  hh * D + 16 * kk + ((lane / 8) % 2) * 8);
+              mma_bf16_16816(s[2 * jj], a, &bk[0]);
+              mma_bf16_16816(s[2 * jj + 1], a, &bk[2]);
+            }
+          }
+        } else {
+          uint32_t aq[KS > 0 ? KS : 1][4], aq8[2];
+          if constexpr (D == 8) {
+            ldmatrix_x2(aq8, sm.q + 16 * warp * kRS + r8);
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk)
+              ldmatrix_x4(aq[kk], sm.q + (16 * warp + lane % 16) * kRS +
+                                      hh * D + 16 * kk + (lane / 16) * 8);
+          }
+#pragma unroll
+          for (int jj = 0; jj < kChunk / 16; ++jj) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[2 * jj][e] = s[2 * jj + 1][e] = 0.f;
+            if constexpr (D == 8) {
+              uint32_t bk[2];
+              ldmatrix_x2(bk, ck + 16 * jj * kRS + r8);
+              mma_bf16_1688(s[2 * jj], aq8, bk[0]);
+              mma_bf16_1688(s[2 * jj + 1], aq8, bk[1]);
+            }
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) {
+              uint32_t bk[4];
+              ldmatrix_x4(bk, ck + (16 * jj + lane % 8 + (lane / 16) * 8) *
+                                       kRS +
+                                  hh * D + 16 * kk + ((lane / 8) % 2) * 8);
+              mma_bf16_16816(s[2 * jj], aq[kk], &bk[0]);
+              mma_bf16_16816(s[2 * jj + 1], aq[kk], &bk[2]);
+            }
           }
         }
         // the masked scores and the rows' chunk max, in log2 units (the
@@ -1372,12 +1440,17 @@ struct Width {
 };
 
 // The kernels of row width C at head width D, null for a D not taken
-// (heads of 48 and 96 only where C splits into them: at C 384)
+// (heads of 48, 96 and 192 only where C splits into them: at C 384;
+// heads of 256 at C 256 and 512)
 template <int C>
 const K8Kernels* k8_kernels_at(int D) {
   if constexpr (C % 3 == 0) {
     if (D == 48) return &Width<48, C>::kernels();
     if (D == 96) return &Width<96, C>::kernels();
+    if (D == 192) return &Width<192, C>::kernels();
+  }
+  if constexpr (C % 256 == 0) {
+    if (D == 256) return &Width<256, C>::kernels();
   }
   switch (D) {
     case 8: return &Width<8, C>::kernels();

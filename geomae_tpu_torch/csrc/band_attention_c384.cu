@@ -1,5 +1,5 @@
-// K8's kernels at C = 384 (heads of 8, 16, 32, 48, 64, 96 and 128
-// channels; 48 and 96 at this C alone), one translation unit, so that the
+// K8's kernels at C = 384 (heads of 8, 16, 32, 48, 64, 96, 128 and 192
+// channels; 48, 96 and 192 at this C alone), one translation unit, so that the
 // row widths compile in parallel; the kernels are in band_attention.cuh,
 // the entry points in band_attention.cu.
 #include "band_attention.cuh"

@@ -1,4 +1,4 @@
-// K8's kernels at C = 512 (heads of 8, 16, 32, 64 and 128 channels), one
+// K8's kernels at C = 512 (heads of 8, 16, 32, 64, 128 and 256 channels), one
 // translation unit, so that the row widths compile in parallel; the
 // kernels are in band_attention.cuh, the entry points in
 // band_attention.cu.

@@ -46,27 +46,29 @@ __device__ __forceinline__ int lower_bound_i32(const int* a, int n, int v) {
 
 // 1/sqrt(D) at the head widths the attention kernels take: the f32 value
 // nearest it (JAX's 1.0 / head_dim ** 0.5 cast to f32), a power of two at
-// D = 16 and 64
+// D = 16, 64 and 256
 template <int D>
 struct HeadScale {
   static_assert(D == 8 || D == 16 || D == 32 || D == 48 || D == 64 ||
-                    D == 96 || D == 128,
-                "head widths 8, 16, 32, 48, 64, 96, 128");
-  static constexpr float kValue = D == 8    ? 0.35355339059327376f
-                                  : D == 16 ? 0.25f
-                                  : D == 32 ? 0.17677669529663687f
-                                  : D == 48 ? 0.14433756729740643f
-                                  : D == 64 ? 0.125f
-                                  : D == 96 ? 0.10206207261596575f
-                                            : 0.08838834764831845f;
+                    D == 96 || D == 128 || D == 192 || D == 256,
+                "head widths 8, 16, 32, 48, 64, 96, 128, 192, 256");
+  static constexpr float kValue = D == 8     ? 0.35355339059327376f
+                                  : D == 16  ? 0.25f
+                                  : D == 32  ? 0.17677669529663687f
+                                  : D == 48  ? 0.14433756729740643f
+                                  : D == 64  ? 0.125f
+                                  : D == 96  ? 0.10206207261596575f
+                                  : D == 128 ? 0.08838834764831845f
+                                  : D == 192 ? 0.07216878364870323f
+                                             : 0.0625f;
   static_assert(kValue * kValue * D > 0.9999f && kValue * kValue * D < 1.0001f,
                 "kValue is 1/sqrt(D)");
 };
 
 // The f32 attention kernels' lanes of a (query, head): the D channels
 // split over a power of two of lanes (lane_group_sum) of whole float4s,
-// 16 channels a lane (all 8 at D = 8), 12 at D = 48 and 96 (4 and 8
-// lanes: 16 would give 3 and 6)
+// 16 channels a lane (all 8 at D = 8), 12 at D = 48, 96 and 192 (4, 8 and
+// 16 lanes: 16 would give 3, 6 and 12)
 __host__ __device__ constexpr int f32_lane_channels(int D) {
   return D % 3 == 0 ? 12 : D < 16 ? D : 16;
 }

@@ -23,11 +23,12 @@ rows with no visible key return 0 and get zero gradients.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  The kernels take heads of D in ``KERNEL_HEAD_DIMS`` (8, 16,
-32, 48, 64, 96, 128) that make C = H D one of ``KERNEL_CHANNELS`` (128,
-256, 384, 512; D 48 and 96 only at C 384, 8 and 4 heads), in float32 or
-bfloat16; the plain versions take any H and D (C 256 in one head of 256,
-heads of 4 or less and C 384 in 16 heads of 24, 32 of 12 or 2 of 192
-have no kernel).  The bf16 forward
+32, 48, 64, 96, 128, 192, 256) that make C = H D one of
+``KERNEL_CHANNELS`` (128, 256, 384, 512; D 48, 96 and 192 only at C 384,
+in 8, 4 and 2 heads; D 256 at C 256 and 512, in 1 and 2), in float32 or
+bfloat16; the plain versions take any H and D (heads of 4 or less, C
+384 in 16 heads of 24 or 32 of 12, and heads of 384 or 512 have no
+kernel).  The bf16 forward
 runs on the tensor cores over 64-token tiles with an online softmax per
 64-key chunk (``band_attention_tiles_plain`` is its order in plain
 PyTorch), the f32 forward on the CUDA cores; every kernel stages whole
@@ -39,7 +40,8 @@ the sum l apart; lse = m + log l).  The backward runs a prologue kernel
 that computes D once for every real row (``band_attention_delta``), then
 one kernel that returns dq, dk and dv, each key's dk and dv rounded once (the
 TPU rounds per query tile): bf16 on the tensor cores over 64-token tiles
-(``band_attention_backward_tiles_plain`` is its decomposition in plain
+and 64-row chunks, 16-row chunks at D 192 and 256 (``backward_chunk``;
+``band_attention_backward_tiles_plain`` is its decomposition in plain
 PyTorch), f32 on the CUDA cores.
 """
 from __future__ import annotations
@@ -50,10 +52,12 @@ from . import _cuda
 
 INT32_MAX = 2 ** 31 - 1
 KERNEL_CHANNELS = (128, 256, 384, 512)   # C = H D the kernels take
-KERNEL_HEAD_DIMS = (8, 16, 32, 48, 64, 96, 128)   # and D (48, 96: C 384)
+# and D: 48, 96 and 192 at C 384 alone, 256 at C 256 and 512
+KERNEL_HEAD_DIMS = (8, 16, 32, 48, 64, 96, 128, 192, 256)
 PLAIN_Q_CHUNK = 1024      # queries per score block of the plain versions
 KERNEL_TILE = 64          # tokens a tile (and rows a chunk) of the bf16
                           # kernels
+WIDE_CHUNK = 16           # rows a chunk of the bf16 backward above D 128
 NO_KEY = -2 ** 31         # a window id no window has: a row without a key
 
 
@@ -220,14 +224,22 @@ def band_attention_backward_plain(q, k, v, win_id, key_valid, out, g):
     return (dq * scale).to(dt), (dk * scale).to(dt), dv.to(dt)
 
 
+def backward_chunk(head_dim: int) -> int:
+    """Rows a chunk of the bf16 backward kernel at heads of ``head_dim``:
+    64, 16 above 128 (``BwdTc::kRows``: two chunks of 64 rows of a
+    256-channel head beside its 64-token tile would stage 405 KB)."""
+    return KERNEL_TILE if head_dim <= 128 else WIDE_CHUNK
+
+
 def band_attention_backward_tiles_plain(q, k, v, win_id, key_valid, out,
                                         lse, g, tile: int = KERNEL_TILE,
-                                        chunk: int = KERNEL_TILE):
+                                        chunk: int | None = None):
     """The bf16 backward kernel's decomposition in plain PyTorch: the same
     function as ``band_attention_backward_plain``, from the forward's
     ``lse`` [B, V, H] and D from ``band_attention_delta_plain``.  Each
     ``tile`` of tokens takes the exact key range of its real tokens'
-    windows and walks it in ``chunk`` rows, once with the tile as queries
+    windows and walks it in ``chunk`` rows (by default the kernel's,
+    ``backward_chunk``), once with the tile as queries
     (dq) and once as keys (dk, dv, gathered: complete when the range
     ends); a pair counts where the two window ids match and the key is
     valid, padding rows never match.  Dtype points as the plain backward's.
@@ -235,6 +247,7 @@ def band_attention_backward_tiles_plain(q, k, v, win_id, key_valid, out,
     dt = q.dtype
     rt = lambda t: t.to(dt).float()
     B, V, H, D = q.shape
+    chunk = chunk or backward_chunk(D)
     scale = D ** -0.5
     qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
     dd = band_attention_delta_plain(out, g, win_id)
@@ -272,7 +285,8 @@ def band_attention_backward_tiles_plain(q, k, v, win_id, key_valid, out,
 def kernel_takes(channels: int, heads: int) -> bool:
     """Whether the kernels take ``heads`` heads over ``channels``: D =
     C / H in KERNEL_HEAD_DIMS and C in KERNEL_CHANNELS (of which only C
-    384 splits into heads of 48 or 96)."""
+    384 splits into heads of 48, 96 or 192, and only 256 and 512 into
+    heads of 256)."""
     return (heads > 0 and channels % heads == 0
             and channels in KERNEL_CHANNELS
             and channels // heads in KERNEL_HEAD_DIMS)
@@ -295,9 +309,9 @@ def _check_rows(name, q, *more):
                   and kernel_takes(q.shape[2] * q.shape[3], q.shape[2])
                   and q.dtype in _cuda.DTYPE_CODE,
                   f"{name}: the kernel takes [B, V, H, D] with D in "
-                  f"{KERNEL_HEAD_DIMS} and H D in {KERNEL_CHANNELS} (D 48 "
-                  f"and 96 at H D = 384 alone), float32 or bfloat16, got "
-                  f"{q.dtype} {tuple(q.shape)}")
+                  f"{KERNEL_HEAD_DIMS} and H D in {KERNEL_CHANNELS} (D 48, "
+                  f"96 and 192 at H D = 384 alone), float32 or bfloat16, "
+                  f"got {q.dtype} {tuple(q.shape)}")
     for t in more:
         _cuda.require(t.shape == q.shape and t.dtype == q.dtype,
                       f"{name}: q, k, v and the cotangents must share "

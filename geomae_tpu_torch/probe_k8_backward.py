@@ -1,6 +1,7 @@
 """Where the time of K8's bf16 backward goes, on one CUDA GPU.
 
     python -m geomae_tpu_torch.probe_k8_backward [--width C,D]
+    python -m geomae_tpu_torch.probe_k8_backward --tiles
 
 Builds ``csrc/band_attention.cuh`` and its units (with ``segment.cu``,
 which holds the error strings) several times into ``build/probe_k8/``: as
@@ -15,6 +16,13 @@ in turns).  ``--width`` takes C channels in heads of D, any width of the
 kernels (``probe_qkv.width``); the default is the shipped 128 in heads of
 16.  A build with a part replaced computes garbage; only its time means
 something.
+
+``--tiles`` builds the header as it is and with the tiling above D = 128
+that the kernel had first (``TILE_VARIANTS``: 32-token tiles and 32-row
+chunks, two warps a block, where the kernel takes 64-token tiles and
+16-row chunks in four warps) and times the backward on both, in turns,
+at C 256 in one head of 256, C 512 in two, C 384 in two of 192, and C
+256 in two of 128, whose kernel the edits leave as it is.
 
 Raises without a CUDA GPU: its numbers are the card's.
 """
@@ -44,6 +52,25 @@ VARIANTS = {
     "no exp": [("? ex2(fmaf(", "? (fmaf(")],
     "exp2f": [("? ex2(fmaf(", "? exp2f(fmaf(")],
 }
+# The backward above D = 128 with 32-token tiles as well as 32-row chunks,
+# 2 x 32 threads a block (at D <= 128 kRows is 64, and every edit gives
+# back the same constants)
+TILE_VARIANTS = {
+    "as built": [],
+    "32-token tiles": [
+        ("kRows = D > 128 ? 16 : kChunk;", "kRows = D > 128 ? 32 : kChunk;"),
+        ("tile[4][kTile * kRS];", "tile[4][kRows * kRS];"),
+        ("e += kTcThreads) {", "e += 2 * K::kRows) {"),
+        ("__launch_bounds__(kTcThreads, BwdTc<D>::kMinBlocks)",
+         "__launch_bounds__(2 * BwdTc<D>::kRows, BwdTc<D>::kMinBlocks)"),
+        ("constexpr int kChunk = K::kRows;",
+         "constexpr int kChunk = K::kRows, kTile = K::kRows;"),
+        ("grid((args.V + kTile - 1) / kTile,",
+         "grid((args.V + K::kRows - 1) / K::kRows,"),
+        ("<<<grid, kTcThreads, kBytes, stream>>>",
+         "<<<grid, 2 * K::kRows, kBytes, stream>>>")]}
+# (heads, head width) of --tiles
+TILE_WIDTHS = ((1, 256), (2, 256), (2, 192), (2, 128))
 
 
 def layouts() -> dict:
@@ -90,30 +117,43 @@ def inputs(win, kv, heads: tuple = (8, 16)):
     return q, k, v, win, kv, out, lse, d
 
 
-def width_arg(what: str) -> tuple:
-    """``--width C,D`` parsed for ``what``: (H, D), at a width the kernels
-    take."""
+def width_parser(what: str) -> argparse.ArgumentParser:
+    """A parser for ``what`` that takes ``--width C,D`` (a width the kernels
+    take) as (C, heads)."""
     from .probe_qkv import width
 
     ap = argparse.ArgumentParser(description=what)
     ap.add_argument("--width", type=width, default=(128, 8),
                     help="C,D: C channels in heads of D (default 128,16)")
-    C, heads = ap.parse_args().width
+    return ap
+
+
+def width_arg(what: str) -> tuple:
+    """``--width C,D`` parsed for ``what``: (H, D), at a width the kernels
+    take."""
+    C, heads = width_parser(what).parse_args().width
     return heads, C // heads
 
 
 def main() -> None:
-    heads = width_arg(__doc__.splitlines()[0])
+    ap = width_parser(__doc__.splitlines()[0])
+    ap.add_argument("--tiles", action="store_true",
+                    help="the tiling above D 128, at TILE_WIDTHS")
+    args = ap.parse_args()
+    heads, tiles = (args.width[1], args.width[0] // args.width[1]), args.tiles
     if not torch.cuda.is_available():
         raise SystemExit("probe_k8_backward: no CUDA GPU")
     print(probe.card())
-    print(f"{heads[0]} heads of {heads[1]}")
-    libs = probe.build_variants(probe.K8_HEADER, VARIANTS, OUT,
+    widths = TILE_WIDTHS if tiles else (heads,)
+    print(", ".join(f"{h} heads of {d}" for h, d in widths))
+    libs = probe.build_variants(probe.K8_HEADER,
+                                TILE_VARIANTS if tiles else VARIANTS, OUT,
                                 probe.K8_UNITS)
     bwd = attention.band_attention_fused_backward
     probe.time_variants(libs, {
-        f"{what} {tuple(a[0].shape[:2])}": (lambda a=a: bwd(*a))
-        for what, a in ((w, inputs(*lay, heads))
+        f"{what} {tuple(a[0].shape[:2])} {h} x {d}": (lambda a=a: bwd(*a))
+        for h, d in widths
+        for what, a in ((w, inputs(*lay, (h, d)))
                         for w, lay in layouts().items())})
 
 

@@ -42,7 +42,7 @@ is one kernel).
 The old widths against another checkout of the package (``parent``,
 ``--parent DIR``: a checkout whose kernels are built, ``DIR/build/
 geomae_tpu_torch/libgeomae_kernels_*.so``): the SASS of K6 / K7's and
-K8's kernels at every width but heads of 48 and 96 (``OLD_WIDTH``) in
+K8's kernels at every width but heads of 192 and 256 (``OLD_WIDTH``) in
 both libraries (``cuobjdump -sass``, names demangled, the anonymous
 namespace and addresses dropped), K8's forward and backward, f32 and
 bf16, at the width of any K8 kernel whose SASS differs, then K6, K7
@@ -235,15 +235,18 @@ def rule(seeds=(0, 1, 2)) -> None:
         print(f"  C {C} {what}: {v:.3f}")
 
 
-def dbk_bound(dk: torch.Tensor) -> torch.Tensor:
+def dbk_bound(dk: torch.Tensor,
+              dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Per channel c, the forward-error bound on a key-bias gradient whose
     exact value is 0, summed as sum_j rt(dk_jc) (each f32 dk_jc rounded to
-    bf16, then summed in f32 over the n = B x V rows): (2^-8 + n 2^-24) x
-    sum_j |dk_jc|, dk the f32 cotangent of the keys [B, V, C] (derived in
+    ``dtype``, then summed in f32 over the n = B x V rows): (u + n 2^-24)
+    x sum_j |dk_jc|, u the unit roundoff of ``dtype`` (2^-8 in bf16,
+    2^-24 in f32), dk the f32 cotangent of the keys [B, V, C] (derived in
     ``tests/test_torch_port_cuda.py::
     test_band_attention_qkv_backward_one_sample``)."""
     n = dk.shape[0] * dk.shape[1]
-    return (2.0 ** -8 + n * 2.0 ** -24) * dk.float().abs().sum((0, 1))
+    u = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+    return (u + n * 2.0 ** -24) * dk.float().abs().sum((0, 1))
 
 
 def dbk_shares(grads: dict, bound: torch.Tensor) -> str:
@@ -383,11 +386,11 @@ def grads(C: int, heads: int) -> None:
               + ", ".join(ms))
 
 
-# K6 / K7's and K8's kernels at every width but heads of 48 and 96 (the
+# K6 / K7's and K8's kernels at every width but heads of 192 and 256 (the
 # qkv kernels' template arguments <C> or <C, D>, K8's <D, C> or <T, D, C>)
-OLD_WIDTH = re.compile(r"(?:qkv\w*<\d+(?:, (?!48>|96>)\d+)?>"
+OLD_WIDTH = re.compile(r"(?:qkv\w*<\d+(?:, (?!192>|256>)\d+)?>"
                        r"|band_attention_(?!qkv)\w*<(?:[\w:]+, )?"
-                       r"(?!48,|96,)\d+, \d+>)$")
+                       r"(?!192,|256,)\d+, \d+>)$")
 # the mangled names of K8's kernels at (D, C) (the prologue's in bf16) and
 # of f32 K6 / K7's at (C, D)
 K8_KERNELS = {"f32": "band_attention_kernelILi{D}ELi{C}E",

@@ -24,7 +24,7 @@ Tolerances: f32 2e-5 + 2e-4 relative, the statistics 1e-5; bf16 2e-2 +
 packages round at the same points; sums in another order may move a
 rounding to the other side); K7's parameter gradients at 2e-5 (f32) or
 2e-2 (bf16) of max(their own largest value, 1e-2 of the largest of the
-six), the key bias's by F3's bound in bf16 (``check_k7_backward``); the
+six), the key bias's by F3's bound (``check_k7_backward``); the
 tile twins against the plain versions in f32 at 1e-5 of the largest
 value (the same terms summed in another order), the bf16 forward twin at
 the bf16 rule (p rounded against another max); the prologue at (D - 1)
@@ -187,10 +187,11 @@ def test_k6_forward_and_statistics_at_384(C, H, dtype):
 @pytest.mark.parametrize("C,H,dtype", QKV_CASES, ids=case_ids(QKV_CASES))
 def test_k7_backward_at_384(C, H, dtype):
     """``check_k7_backward`` at 8 heads of 48 (f32) and 4 of 96 (bf16).
-    In f32 at 4 heads of 96 (not run here) the key bias's gradient,
-    analytically 0, read 1.11 of that check's f32 rule in JAX's own
-    interpret-mode backward (9.6e-6 against 8.6e-6) and 0.965 in the
-    port's: the rule sits at the noise there (ROADMAP.md, section 3)."""
+    In f32 at 4 heads of 96 (``test_torch_port_wide_heads.py``) the key
+    bias's gradient, analytically 0, read 1.11 of that check's former
+    f32 rule (2e-5 of the floor) in JAX's own interpret-mode backward and
+    0.965 in the port's; it reads 0.011 of F3's f32 bound, its rule
+    now."""
     check_k7_backward(C, H, dtype)
 
 

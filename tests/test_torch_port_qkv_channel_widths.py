@@ -11,7 +11,8 @@ where it folds into q (D a power of four), f32 and bf16, V = 256, tile
 2e-4 relative, the statistics 1e-5; bf16 2e-2 + 2e-2 relative with atol
 times each row's max(1, largest |ref|); the parameter gradients at 2e-5
 (f32) or 2e-2 (bf16) of max(their own largest value, 1e-2 of the largest
-of the six), the bf16 key bias's by F3's rule (``probe_qkv.dbk_bound``).
+of the six), the key bias's by F3's rule at the dtype's unit roundoff
+(``probe_qkv.dbk_bound``).
 Then one SST block at C 384 in 12 heads of 32, FFN 768, on the port's
 ``qkv`` / ``fused`` route (K6 and K5: their plain versions here) from
 ``from_flax`` of the JAX stack's weights, against the JAX stack on its

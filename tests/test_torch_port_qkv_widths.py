@@ -15,16 +15,17 @@ order may move a rounding to the other side).  The parameter gradients,
 sums over the tokens, at 2e-5 (f32) or 2e-2 (bf16) of max(their own
 largest value, 1e-2 of the largest of the six): the key bias's gradient
 is analytically 0, its own value rounding noise, so each package's is
-held to 0 instead, in f32 at that same rule and in bf16 by F3's rule
-(``probe_qkv.dbk_bound``: (2^-8 + n 2^-24) sum |dk| per channel, from
-the port's f32 dk).  Each width's JAX results are computed once for the
-file (``jax_case``) and shared by the forward and backward tests, and
-``check_k6_forward`` / ``check_k7_backward`` by
-``test_torch_port_qkv_channel_widths.py``.  Then one SST block at 256 in
-8 heads of 32
-on the port's ``qkv`` / ``fused`` route (K6 and K5: their plain versions
-here) against the JAX stack on its ``qkv`` / ``fused`` route in interpret
-mode, from ``from_flax`` of its weights."""
+held to 0 instead, by F3's rule at the dtype's unit roundoff u
+(``probe_qkv.dbk_bound``: (u + n 2^-24) sum |dk| per channel, from the
+port's f32 dk; u = 2^-8 in bf16, 2^-24 in f32), which the query bias's
+gradient and the key bias's with one row's dk left out break.  Each
+width's JAX results are computed once for the file (``jax_case``) and
+shared by the forward and backward tests, and ``check_k6_forward`` /
+``check_k7_backward`` by ``test_torch_port_qkv_channel_widths.py``.
+Then one SST block at 256 in 8 heads of 32 on the port's ``qkv`` /
+``fused`` route (K6 and K5: their plain versions here) against the JAX
+stack on its ``qkv`` / ``fused`` route in interpret mode, from
+``from_flax`` of its weights."""
 import functools
 
 import jax
@@ -135,11 +136,16 @@ def check_k7_backward(C, H, dtype):
     (bf16) of max(its own largest value, 1e-2 of the largest of the
     six), but the key bias's.  That one is analytically 0, and each
     package's is rounding noise, so both are held to 0 rather than to
-    each other: in f32 within that same 2e-5 of max(...), in bf16 within
-    F3's bound.  (f32 at (512, 8): the port's dbk lies 6.4e-6 from its
-    f64 computation, 1e-14, and JAX's 6.6e-6, their difference 9.7e-6,
-    past the 8.5e-6 each meets.)  A dbk taken from the query bias's
-    gradient fails either limit."""
+    each other, by F3's forward-error bound of the sum each computes at
+    the dtype's unit roundoff (``probe_qkv.dbk_bound``): in f32 (2^-24 +
+    n 2^-24) sum_j |dk_jc|.  The f32 rule it replaces, 2e-5 of max(...),
+    sat at the noise: JAX's dbk read 1.11 of it at (384, 4), 1.46-2.09
+    at heads of 192 and 256.  Both packages' read 0.007-0.012 of the f32
+    bound at (128, 2), (256, 4), (256, 8), (384, 4), (384, 8), (384, 12)
+    and (512, 8), and 0.012-0.021 at (256, 1), (384, 2) and (512, 2).
+    Two planted faults break it by 2e3 or more: a dbk taken from the
+    query bias's gradient, and the port's dbk with the dk of one real row
+    (the largest) left out."""
     args, g, (_, _, want) = jax_case(C, H, dtype)
     out = attention_qkv.band_attention_qkv_plain(*args, H)
     got = attention_qkv.band_attention_qkv_backward_plain(*args, H, out, g)
@@ -150,17 +156,19 @@ def check_k7_backward(C, H, dtype):
     assert (dx.float().numpy()[~real] == 0).all()
     tol = 2e-5 if dtype == "f32" else 2e-2
     top = max(np.abs(w).max() for w in want[1:])
-    bound = probe_qkv.dbk_bound(attention_qkv.attention_grads_plain(
-        *args, H, out, g)[1]).numpy()
+    dk = attention_qkv.attention_grads_plain(*args, H, out, g)[1]
+    bound = probe_qkv.dbk_bound(dk, DTYPES[dtype][1]).numpy()
     for name, a, w in zip(probe_qkv.GRAD_NAMES, got[1:], want[1:]):
         assert a.dtype == torch.float32
         atol = tol * max(np.abs(w).max(), 1e-2 * top)
-        if name == "bk":                  # 0 within F3's bound or atol
-            limit = bound if dtype == "bf16" else atol
+        if name == "bk":                  # 0 within F3's bound
             for dbk in (a.numpy(), w):
-                assert (np.abs(dbk) <= limit).all(), np.abs(dbk / limit).max()
+                assert (np.abs(dbk) <= bound).all(), np.abs(dbk / bound).max()
             dbq = got[1 + probe_qkv.GRAD_NAMES.index("bq")].numpy()
-            assert not (np.abs(dbq) <= limit).all()
+            row = int(dk[0].abs().sum(-1).argmax())
+            assert real[0, row]
+            for fault in (dbq, a.numpy() - dk[0, row].numpy()):
+                assert not (np.abs(fault) <= bound).all()
             continue
         np.testing.assert_allclose(a.numpy(), w.reshape(a.shape), rtol=0,
                                    atol=atol, err_msg=name)
