@@ -29,7 +29,7 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      then K8 (forward, backward, prologue), K6 (with statistics), K7 and
      the projections' two kernels at every width they take (d_model 128,
      256, 384 and 512 in heads of 8, 16, 32, 64 and 128, 384 in heads of
-     48, 96 and 192, and 256 and 512 in heads of 256) and K5
+     12, 24, 48, 96 and 192, and 256 and 512 in heads of 256) and K5
      (forward, backward) at every (C, F) it takes, on the pretrain
      encoder's tokens, and K1 and K2 as the wide VFE (64, 256) calls
      them, each with its time, bound, library call and each dtype's
@@ -94,13 +94,14 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      backward; 12 of K8 or K6 and of K5 a frame; no plain
      ``band_attention``, no unfused FFN chain), the same on ``band`` at
      512 with FFN 2048 (``P_FFN4``: K5 at (512, 2048)), and d_model 384
-     in the shipped 8 heads (of 48) on both routes and in 4 (of 96) on
-     ``band``, FFN 768 (``P_ODD``: K8, K6 and K7 at head widths that are
-     not a power of two), and the wide heads (``P_WIDE_HEADS``: K8, K6
-     and K7 at D 256 and 192): d_model 256 in one head, FFN 512, on both
-     routes, 512 in two, FFN 1024, on both, 384 in two, FFN 768, on
-     ``band``; then the 512 model's step on each route, the FFN 2048
-     model's, the 8-head 384 model's and the two-head 512 model's on
+     in the shipped 8 heads (of 48) on both routes, in 4 (of 96) on
+     ``band`` and in 16 (of 24) and 32 (of 12) on both, FFN 768
+     (``P_ODD``: K8, K6 and K7 at head widths that are not a power of
+     two), and the wide heads (``P_WIDE_HEADS``: K8, K6 and K7 at D 256
+     and 192): d_model 256 in one head, FFN 512, on both routes, 512 in
+     two, FFN 1024, on both, 384 in two, FFN 768, on ``band``; then the
+     512 model's step on each route, the FFN 2048 model's, the 8-head
+     and the 16-head 384 model's and the two-head 512 model's on
      ``band`` as ``profile_pretrain`` times it: median and quartiles,
      peak memory, device busy ms, idle share and the SST kernels' ms a
      step;
@@ -274,11 +275,12 @@ P_TIMED = 512
 # and the 512 model with FFN 2048, 4 C (K5 at (512, 2048), its tile pass
 # with one hidden row), on band alone, also timed
 P_FFN4 = P_OPTIONS[512][:-1] + ["sst.dim_feedforward=2048"]
-# and the 384 model in the shipped 8 heads (of 48) and in 4 (of 96), head
-# widths that are not a power of two: 8 heads on band (timed) and on qkv,
-# 4 heads on band
+# and the 384 model in the shipped 8 heads (of 48), in 4 (of 96), in 16
+# (of 24) and in 32 (of 12), head widths that are not a power of two: 8
+# and 16 heads on band (timed) and on qkv, 4 heads on band, 32 heads on
+# band and on qkv
 P_ODD = {heads: P_OPTIONS[384][:2] + [f"sst.nhead={heads}"]
-         + P_OPTIONS[384][3:] for heads in (8, 4)}
+         + P_OPTIONS[384][3:] for heads in (8, 4, 16, 32)}
 # and the wide heads, (d_model, heads): 256 in one head of 256, FFN 512
 # (the VFE at (64, 256)), 512 in two of 256, FFN 1024, and 384 in two of
 # 192, FFN 768: 256 on band and qkv, 512 on band (timed) and qkv, 384 on
@@ -994,7 +996,13 @@ def library_call(name: str, op: str, args):
         real = win_id != 2 ** 31 - 1
         mask = ((win_id[:, :, None] == win_id[:, None, :])
                 & key_valid[:, None, :] & real[:, :, None])[:, None]
-        heads = lambda t: t.transpose(1, 2)       # [B, H, V, D]
+        # [B, H, V, D]; the fused backends take heads of a multiple of 8
+        # channels, so a head of 12 gets 4 zero channels (set up outside
+        # the timed call), which change neither the scores under the
+        # head's own scale nor its first 12 output columns
+        D = q.shape[-1]
+        pad = -D % 8
+        heads = lambda t: (F.pad(t, (0, pad)) if pad else t).transpose(1, 2)
         backward = name.endswith("backward")
         qh, kh, vh = (heads(t).detach().requires_grad_(backward)
                       for t in (q, k, v))
@@ -1004,8 +1012,8 @@ def library_call(name: str, op: str, args):
         def sdpa():
             with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
                               SDPBackend.FLASH_ATTENTION]):
-                return F.scaled_dot_product_attention(qh, kh, vh,
-                                                      attn_mask=mask)
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, scale=D ** -0.5)
 
         if not backward:
             return sdpa
@@ -1756,7 +1764,7 @@ def sst_width(cfg, C: int, heads: int, Fd: int):
 def phase_widths(pcfg, failures: list) -> list:
     """Phase A's K8, K6, K7 and projection rows at every width they take
     (C of 128, 256, 384 and 512 in heads of 8, 16, 32, 64 and 128, C 384
-    in heads of 48, 96 and 192, C 256 and 512 in heads of 256) and
+    in heads of 12, 24, 48, 96 and 192, C 256 and 512 in heads of 256) and
     its K5 rows at every (C, F) K5 takes, on the pretrain encoder's visible
     tokens at batch 4 (positions of C channels); then K1 and K2 as the
     wide VFE (64, 256) calls them.  Returns one summary a row: the bf16
@@ -1959,15 +1967,17 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
     route (K8 and K5 at C 384 and 512) and on the ``qkv`` route (K6, K7
     and their projections, K5), the 512 model with FFN 2048 (``P_FFN4``)
     on ``band``, the 384 model in 8 heads of 48 (``P_ODD``) on both
-    routes and in 4 of 96 on ``band``, and the wide heads
+    routes, in 4 of 96 on ``band`` and in 16 of 24 and 32 of 12 on both
+    routes, and the wide heads
     (``P_WIDE_HEADS``): 256 in one head of 256 and 512 in two on both
     routes, 384 in two of 192 on ``band``: ``train_and_serve`` at each (on
     band K8, its prologue and backward, on qkv K6, K7, the projections
     (twice) and their backward, and K5 and its backward, once a layer a
     step, the attention and K5 once a layer a frame, no plain
     ``band_attention`` and no unfused FFN chain); then the 512 model's
-    step on each route, the FFN 2048 model's, the 8-head 384 model's and
-    the two-head 512 model's on band timed (``p_step_timed``).  Returns
+    step on each route, the FFN 2048 model's, the 8-head and the
+    16-head 384 model's and the two-head 512 model's on band timed
+    (``p_step_timed``).  Returns
     the launches of the steps and frames."""
     from geomae_tpu_torch.config import apply_overrides
 
@@ -1977,7 +1987,11 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
     runs.append((P_TIMED, P_FFN4, BAND_OPTION, True))
     runs += [(384, P_ODD[8], BAND_OPTION, True),
              (384, P_ODD[8], QKV_OPTION, False),
-             (384, P_ODD[4], BAND_OPTION, False)]
+             (384, P_ODD[4], BAND_OPTION, False),
+             (384, P_ODD[16], BAND_OPTION, True),
+             (384, P_ODD[16], QKV_OPTION, False),
+             (384, P_ODD[32], BAND_OPTION, False),
+             (384, P_ODD[32], QKV_OPTION, False)]
     runs += [(C, P_WIDE_HEADS[C, heads], route, timed_too)
              for C, heads, route, timed_too in (
                  (256, 1, BAND_OPTION, False), (256, 1, QKV_OPTION, False),

@@ -11,31 +11,40 @@
 // in models/sst.py), as on the JAX route.
 //
 // Widths: every kernel is a template over the head width D (8, 16, 32,
-// 64 or 128; 48, 96 and 192 at C 384, the one C that splits into them;
-// 256 at C 256 and 512) and the row width C (128, 256, 384 or 512), so
-// the head count H = C / D, the row stride and every index are
+// 64 or 128; 12, 24, 48, 96 and 192 at C 384, the one C that splits
+// into them; 256 at C 256 and 512) and the row width C (128, 256, 384 or
+// 512), so the head count H = C / D, the row stride and every index are
 // constants; each C is a translation unit of its own
 // (band_attention_c*.cu, compiled in parallel), and the entry points
 // (band_attention.cu) pick the unit by C = H D and the instantiation by
 // D.  Each kernel stages a fixed number of channels a block, whole heads
 // of them, and the grid spans the head groups: the f32 kernels 128
-// channels (128 / D heads; 96 at D = 48 and 96; one head above 128), the
-// bf16 forward 64 (64 / D heads, at least one; 32 at D = 8), the bf16
-// backward 32 (32 / D heads, at least one: 48 to 256 at D of 48 and
-// more).  C enters only as the row stride, the head count and the grid's
-// head groups (C / 128 = 3 or 4 f32 groups at C 384 or 512, 6 or 8 bf16
-// forward groups, 12 or 16 bf16 backward groups at D <= 32), so a wider
-// row is more blocks of the same kernel.  At the shipped width (8 heads
+// channels (128 / D heads; 96 at D = 12, 24, 48 and 96; one head above
+// 128), the bf16 forward 64 (64 / D heads, at least one; 32 at D = 8, 48
+// at D = 12 and 24), the bf16 backward 32 (32 / D heads, at least one: 24
+// at D = 12 and 24, 48 to 256 at D of 48 and more).  C enters only as
+// the row stride, the head count and the grid's head groups (C / 128 = 3
+// or 4 f32 groups at C 384 or 512, 6 or 8 bf16 forward groups, 12 or 16
+// bf16 backward groups at D <= 32), so a wider row is more blocks of the
+// same kernel.  At the shipped width (8 heads
 // of 16) each instantiation is the kernel it was before the widths.
 // Where a width needs its own design: at D = 8 the bf16 kernels contract a
 // head over 8 channels with mma.sync m16n8k8 (no zero padding to 16) and
-// take its one n-tile of 8 in the value products; the f32 kernels give a
+// take its one n-tile of 8 in the value products, and at D = 24 over one
+// m16n8k16 step and that m16n8k8 tail (3 n-tiles of 8); at D = 12, whose
+// bf16 heads start 24 bytes apart (no 16-byte copy or ldmatrix row can
+// start there), they copy each head 8 bytes at a time into a 16-channel
+// slot of shared memory whose last 4 channels are zero-filled and run D =
+// 16's products over the slots: the zeros add exact zeros to S, dP and
+// the outputs' unwritten columns 12-15, and the scale stays 1/sqrt(12)
+// (a k-step never spans two heads); the f32 kernels give a
 // (query, head) D / 16 lanes of 16 channels, one lane at D = 8 (at D =
 // 128 one thread would hold 256 floats of q and accumulator, 896 in the
 // backward), and at D = 48, 96 and 192 (3, 6 and 12 lanes of 16 are no
 // power of two for the shuffle sums, and 128 channels no whole heads) 4,
-// 8 and 16 lanes of 12 channels; above D = 128 a block takes one head
-// and 16 queries (16 lanes a query, 256 threads); at D = 128 the bf16
+// 8 and 16 lanes of 12 channels (one and 2 at D = 12 and 24); above D =
+// 128 a block takes one head and 16 queries (16 lanes a query, 256
+// threads); at D = 128 the bf16
 // forward runs two blocks an SM (a warp's 16 x 128 f32 output takes 64
 // registers a lane), above it one, reading Q's fragments one k-step at a
 // time; at D = 96 and 128 the bf16 backward splits each head's output
@@ -43,9 +52,8 @@
 // of 64 columns with 16-row chunks (two 64-row chunks beside a
 // 256-channel tile would stage 405 KB), each block computing the
 // scores and dP over all D channels (the three 16 x D accumulators of a
-// warp would take 144 to 384 registers a lane).  D of 4 or less, D 384
-// and 512 (C 384 or 512 in one head) and the other widths that are not a
-// power of two (24 and 12 at C 384) are not taken.
+// warp would take 144 to 384 registers a lane).  D of 6 or less and D 384
+// and 512 (C 384 or 512 in one head) are not taken.
 //
 // Bound: with no projection inside, a call moves 4 rows of C values per
 // token and computes 4 * C operations per same-window pair forward (10 * C
@@ -151,10 +159,11 @@ template <int D>
 struct Head {
   static constexpr float kScale = HeadScale<D>::kValue;
   // the f32 kernels: channels a block stages (whole heads: 128, or 96 at
-  // D = 48 and 96, which do not divide 128, one head above 128), heads a
-  // block, lanes a (query, head) (D / 16 of 16 channels, one of 8 at D =
-  // 8, D / 12 of 12 at D = 48, 96 and 192; the lanes' partial dot
-  // products summed by shuffles, as in K6's f32 kernels), channels a
+  // D = 12, 24, 48 and 96, which do not divide 128, one head above 128),
+  // heads a block, lanes a (query, head) (D / 16 of 16 channels, one of 8
+  // at D = 8, D / 12 of 12 at D = 12, 24, 48, 96 and 192; the lanes'
+  // partial dot products summed by shuffles, as in K6's f32 kernels),
+  // channels a
   // lane, queries a block (and keys a chunk: the chunk's rows map onto
   // the tile's lanes) and threads.  At D = 192 and 256 a (query, head)
   // takes 16 lanes, so a block takes 16 queries: 256 threads, as at D =
@@ -187,6 +196,8 @@ static_assert(Head<48>::kThreads == 256 && Head<96>::kThreads == 256,
               "2 heads of 4 lanes, 1 head of 8 lanes, x 32");
 static_assert(Head<192>::kThreads == 256 && Head<256>::kThreads == 256,
               "1 head of 16 lanes x 16");
+static_assert(Head<24>::kThreads == 256 && Head<12>::kThreads == 256,
+              "4 heads of 2 lanes, 8 heads of 1 lane, x 32");
 
 // four consecutive values (16-byte aligned in f32, 8-byte in bf16) as f32
 template <typename T>
@@ -634,7 +645,10 @@ cudaError_t launch_bwd_f32(const BwdArgs& args, int B, cudaStream_t stream) {
 // ids and the key's validity, and rounded to bf16 into the next product's
 // A fragments (the C layout of m16n8k16 is its A layout), so neither goes
 // through shared memory.  At D = 8 the four score products are m16n8k8
-// and the three output products one m16n8k16 each.  At D = 128 a block
+// and the three output products one m16n8k16 each; at D = 24 (one head a
+// block, rows of 40 bf16) each adds that m16n8k8 step and that n-tile to
+// D = 16's, and at D = 12 a block is D = 16's two heads over slots of 16
+// channels (BwdTc::kSlot).  At D = 128 a block
 // keeps half of each output's columns (kSplit; the grid's y spans the
 // halves): it computes S, dP and their transposes over all 128 channels,
 // then accumulates its 64 columns of dq, dk and dv, and it reads its A
@@ -662,7 +676,16 @@ template <int D>
 struct BwdTc {
   static constexpr int kHG = D < 32 ? 32 / D : 1;   // heads a block
   static constexpr int kCW = kHG * D;       // channels a block stages
-  static constexpr int kRS = kCW + kPad;    // bf16 row stride of the rows
+  // D = 12: each head staged into a 16-channel slot, its last 4 channels
+  // 0, and D 16's products run over the slots (kDS channels a head in
+  // shared memory, kSW a staged row)
+  static constexpr bool kSlot = D == 12;
+  static constexpr int kDS = kSlot ? 16 : D;
+  static constexpr int kSW = kHG * kDS;
+  // bf16 row stride of the rows: an odd count of 16-byte pieces, so the 8
+  // rows of an ldmatrix phase hit distinct banks (D = 24's 3 pieces take
+  // two of padding)
+  static constexpr int kRS = kSW + (kSW / 8 % 2 ? 2 * kPad : kPad);
   static constexpr int kPieces = kCW / 8;   // 16-byte pieces a staged row
   // blocks a head's output columns: 64 columns a block above D = 128
   // (3 at D = 192, 4 at 256), two halves at D = 96 and 128
@@ -675,7 +698,7 @@ struct BwdTc {
   // fragments and stage 88 and 110 KB: two blocks an SM; D = 96, 128, 192
   // and 256 stage 158, 206, 151 and 199 KB: one
   static constexpr int kMinBlocks = D >= 96 ? 1 : D >= 48 ? 2 : 3;
-  static_assert(kCW % 8 == 0, "16-byte rows");
+  static_assert(kCW % 8 == 0 && kRS / 8 % 2 == 1, "16-byte rows");
   static_assert(kRows % 16 == 0 && kRows <= kChunk,
                 "whole s-steps; a thread per chunk row's statistics");
 
@@ -701,6 +724,9 @@ static_assert(BwdTc<48>::kCW == 48 && BwdTc<96>::kCW == 96 &&
 static_assert(BwdTc<192>::kPieces / BwdTc<192>::kSplit == 8 &&
                   BwdTc<256>::kPieces / BwdTc<256>::kSplit == 8,
               "D = 192 and 256: 64 output columns a block");
+static_assert(BwdTc<24>::kHG == 1 && BwdTc<24>::kRS == 40 &&
+                  BwdTc<12>::kHG == 2 && BwdTc<12>::kRS == 40,
+              "D = 24 one head a block; D = 12 two heads in slots of 16");
 
 // 2^x on the special-function unit; a result below 2^-126 flushes to 0
 // (such a p adds nothing that survives the bf16 rounding of a product)
@@ -712,21 +738,38 @@ __device__ __forceinline__ float ex2(float x) {
 
 // cp.async rows [r0, r0 + n) of the block's heads of q, k, v and dO into
 // dst [4][R][kRS]; rows past n are zero-filled (finite: a masked
-// product of 0 with them stays 0).
+// product of 0 with them stays 0).  At D = 12 a head's 24 bytes start 8
+// bytes past a 16-byte boundary: 8-byte copies into its 16-channel slot,
+// whose last 8 bytes are zero-filled.
 template <int D, int C, int R>
 __device__ __forceinline__ void stage_rows(const BwdArgs& p, size_t base,
                                            int r0, int n,
                                            __nv_bfloat16* dst) {
   using K = BwdTc<D>;
-  for (int e = threadIdx.x; e < 4 * R * K::kPieces; e += kTcThreads) {
-    const int a = e / (R * K::kPieces);
-    const int r = (e / K::kPieces) % R;
-    const int c = (e % K::kPieces) * 8;
-    const void* src = a == 0 ? p.q : a == 1 ? p.k : a == 2 ? p.v : p.dout;
-    cp_async_16(dst + (a * R + r) * K::kRS + c,
-                static_cast<const __nv_bfloat16*>(src) + base +
-                    (size_t)(r0 + (r < n ? r : 0)) * C + c,
-                r < n);
+  if constexpr (K::kSlot) {
+    constexpr int kQ = K::kSW / 4;   // 8-byte pieces a staged row
+    for (int e = threadIdx.x; e < 4 * R * kQ; e += kTcThreads) {
+      const int a = e / (R * kQ);
+      const int r = (e / kQ) % R;
+      const int pc = e % kQ;         // slot pc / 4, its piece pc % 4
+      const int c = (pc / 4) * D + (pc % 4 % 3) * 4;
+      const void* src = a == 0 ? p.q : a == 1 ? p.k : a == 2 ? p.v : p.dout;
+      cp_async_8(dst + (a * R + r) * K::kRS + 4 * pc,
+                 static_cast<const __nv_bfloat16*>(src) + base +
+                     (size_t)(r0 + (r < n ? r : 0)) * C + c,
+                 r < n && pc % 4 < 3);
+    }
+  } else {
+    for (int e = threadIdx.x; e < 4 * R * K::kPieces; e += kTcThreads) {
+      const int a = e / (R * K::kPieces);
+      const int r = (e / K::kPieces) % R;
+      const int c = (e % K::kPieces) * 8;
+      const void* src = a == 0 ? p.q : a == 1 ? p.k : a == 2 ? p.v : p.dout;
+      cp_async_16(dst + (a * R + r) * K::kRS + c,
+                  static_cast<const __nv_bfloat16*>(src) + base +
+                      (size_t)(r0 + (r < n ? r : 0)) * C + c,
+                  r < n);
+    }
   }
 }
 
@@ -737,8 +780,12 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
   constexpr int H = C / D;
   constexpr int kHG = K::kHG, kRS = K::kRS, kSplit = K::kSplit;
   constexpr int kChunk = K::kRows;
-  constexpr int KS = D / 16;       // k-steps of 16 over a head's channels
-  constexpr int NT = D / 8;        // n-tiles of 8 over a head's channels
+  constexpr int DS = K::kDS;       // a head's channels in shared memory
+  constexpr int KS = DS / 16;      // k-steps of 16 over a head's channels
+  constexpr int KT = DS % 16 / 8;  // and one of 8 (m16n8k8) at D = 8, 24
+  constexpr int NT = DS / 8;       // n-tiles of 8 over a head's channels
+  static_assert(16 * KS + 8 * KT == DS && (KT == 0 || kSplit == 1),
+                "the k-steps cover the head; a tail step in unsplit heads");
   constexpr int KH = K::kHold && KS > 0 ? KS : 1;  // A fragments held
   constexpr int KO = (KS + kSplit - 1) / kSplit;   // k-steps a block outputs
   constexpr int NO = NT / kSplit;  // n-tiles a block outputs
@@ -841,19 +888,22 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
     for (int hh = 0; hh < kHG; ++hh) {
       // A fragments of the warp's 16 tile rows of head h0 + hh (q, k, v,
       // dO), one per 16 channels: held over the chunk where kHold, else
-      // read at each product; at D = 8 one per array, of 8 channels
-      const int ar = (16 * warp + lane % 16) * kRS + hh * D;
+      // read at each product; at D = 8 and 24 one more per array, of the
+      // last 8 channels
+      const int ar = (16 * warp + lane % 16) * kRS + hh * DS;
       uint32_t af[4][KH][4], a8[4][2];
-      if constexpr (D == 8) {
-#pragma unroll
-        for (int a = 0; a < 4; ++a) ldmatrix_x2(a8[a], sm.tile[a] + ar);
-      } else if constexpr (K::kHold) {
+      if constexpr (K::kHold) {
 #pragma unroll
         for (int a = 0; a < 4; ++a)
 #pragma unroll
           for (int kk = 0; kk < KS; ++kk)
             ldmatrix_x4(af[a][kk],
                         sm.tile[a] + ar + 16 * kk + (lane / 16) * 8);
+      }
+      if constexpr (KT) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          ldmatrix_x2(a8[a], sm.tile[a] + ar + 16 * KS);
       }
       auto frag = [&](int a, int kk) -> const uint32_t(&)[4] {
         if constexpr (!K::kHold)
@@ -864,12 +914,13 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
       for (int s = 0; s < kChunk / 16; ++s) {
         // B fragments of chunk rows 16 s .. 16 s + 15: as stored (n over
         // rows, k over the head's channels) and transposed (k over rows);
-        // at D = 8 both read rows 16 s + lane % 16
-        const int bn = (16 * s + lane % 8 + (lane / 16) * 8) * kRS + hh * D +
-                       ((lane / 8) % 2) * 8;
+        // those of the last 8 channels at D = 8 and 24 both read rows 16 s
+        // + lane % 16
+        const int bn = (16 * s + lane % 8 + (lane / 16) * 8) * kRS +
+                       hh * DS + ((lane / 8) % 2) * 8;
         const int bt = (16 * s + lane % 8 + ((lane / 8) % 2) * 8) * kRS +
-                       hh * D + (lane / 16) * 8;
-        const int b8 = (16 * s + lane % 16) * kRS + hh * D;
+                       hh * DS + (lane / 16) * 8;
+        const int b8 = (16 * s + lane % 16) * kRS + hh * DS + 16 * KS;
         // the lane's accumulator columns 16 s + 8 j + 2 t + (0, 1): their
         // window ids and statistics
         int4 wc[2];
@@ -883,7 +934,19 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
 
         // the tile as queries, the chunk rows as keys
         float sc[2][4] = {}, dp[2][4] = {};
-        if constexpr (D == 8) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t bk[4], bv[4];
+          ldmatrix_x4(bk, ck + bn + 16 * kk);
+          ldmatrix_x4(bv, cv + bn + 16 * kk);
+          const uint32_t(&aq)[4] = frag(0, kk);
+          mma_bf16_16816(sc[0], aq, &bk[0]);
+          mma_bf16_16816(sc[1], aq, &bk[2]);
+          const uint32_t(&ag)[4] = frag(3, kk);
+          mma_bf16_16816(dp[0], ag, &bv[0]);
+          mma_bf16_16816(dp[1], ag, &bv[2]);
+        }
+        if constexpr (KT) {
           uint32_t bk[2], bv[2];
           ldmatrix_x2(bk, ck + b8);
           ldmatrix_x2(bv, cv + b8);
@@ -891,19 +954,6 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
           mma_bf16_1688(sc[1], a8[0], bk[1]);
           mma_bf16_1688(dp[0], a8[3], bv[0]);
           mma_bf16_1688(dp[1], a8[3], bv[1]);
-        } else {
-#pragma unroll
-          for (int kk = 0; kk < KS; ++kk) {
-            uint32_t bk[4], bv[4];
-            ldmatrix_x4(bk, ck + bn + 16 * kk);
-            ldmatrix_x4(bv, cv + bn + 16 * kk);
-            const uint32_t(&aq)[4] = frag(0, kk);
-            mma_bf16_16816(sc[0], aq, &bk[0]);
-            mma_bf16_16816(sc[1], aq, &bk[2]);
-            const uint32_t(&ag)[4] = frag(3, kk);
-            mma_bf16_16816(dp[0], ag, &bv[0]);
-            mma_bf16_16816(dp[1], ag, &bv[2]);
-          }
         }
         uint32_t ads[4];
 #pragma unroll
@@ -923,23 +973,34 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
             }
             ads[2 * j + rh] = pack_bf16(ds[0], ds[1]);
           }
-        if constexpr (D == 8) {
+#pragma unroll
+        for (int dn = 0; dn < KO; ++dn) {
+          uint32_t bkt[4];
+          ldmatrix_x4_trans(bkt, ck + bt + oc + 16 * dn);
+          mma_bf16_16816(dq[hh][2 * dn], ads, &bkt[0]);
+          mma_bf16_16816(dq[hh][2 * dn + 1], ads, &bkt[2]);
+        }
+        if constexpr (KT) {
           uint32_t bkt[2];
           ldmatrix_x2_trans(bkt, ck + b8);
-          mma_bf16_16816(dq[hh][0], ads, bkt);
-        } else {
-#pragma unroll
-          for (int dn = 0; dn < KO; ++dn) {
-            uint32_t bkt[4];
-            ldmatrix_x4_trans(bkt, ck + bt + oc + 16 * dn);
-            mma_bf16_16816(dq[hh][2 * dn], ads, &bkt[0]);
-            mma_bf16_16816(dq[hh][2 * dn + 1], ads, &bkt[2]);
-          }
+          mma_bf16_16816(dq[hh][2 * KS], ads, bkt);
         }
 
         // the tile as keys, the chunk rows as queries
         float st[2][4] = {}, dpt[2][4] = {};
-        if constexpr (D == 8) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t bq[4], bg[4];
+          ldmatrix_x4(bq, cq + bn + 16 * kk);
+          ldmatrix_x4(bg, cg + bn + 16 * kk);
+          const uint32_t(&ak)[4] = frag(1, kk);
+          mma_bf16_16816(st[0], ak, &bq[0]);
+          mma_bf16_16816(st[1], ak, &bq[2]);
+          const uint32_t(&av)[4] = frag(2, kk);
+          mma_bf16_16816(dpt[0], av, &bg[0]);
+          mma_bf16_16816(dpt[1], av, &bg[2]);
+        }
+        if constexpr (KT) {
           uint32_t bq[2], bg[2];
           ldmatrix_x2(bq, cq + b8);
           ldmatrix_x2(bg, cg + b8);
@@ -947,19 +1008,6 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
           mma_bf16_1688(st[1], a8[1], bq[1]);
           mma_bf16_1688(dpt[0], a8[2], bg[0]);
           mma_bf16_1688(dpt[1], a8[2], bg[1]);
-        } else {
-#pragma unroll
-          for (int kk = 0; kk < KS; ++kk) {
-            uint32_t bq[4], bg[4];
-            ldmatrix_x4(bq, cq + bn + 16 * kk);
-            ldmatrix_x4(bg, cg + bn + 16 * kk);
-            const uint32_t(&ak)[4] = frag(1, kk);
-            mma_bf16_16816(st[0], ak, &bq[0]);
-            mma_bf16_16816(st[1], ak, &bq[2]);
-            const uint32_t(&av)[4] = frag(2, kk);
-            mma_bf16_16816(dpt[0], av, &bg[0]);
-            mma_bf16_16816(dpt[1], av, &bg[2]);
-          }
         }
         uint32_t ap[4], adst[4];
 #pragma unroll
@@ -981,23 +1029,22 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
             ap[2 * j + rh] = pack_bf16(pr[0], pr[1]);
             adst[2 * j + rh] = pack_bf16(ds[0], ds[1]);
           }
-        if constexpr (D == 8) {
+#pragma unroll
+        for (int dn = 0; dn < KO; ++dn) {
+          uint32_t bgt[4], bqt[4];
+          ldmatrix_x4_trans(bgt, cg + bt + oc + 16 * dn);
+          ldmatrix_x4_trans(bqt, cq + bt + oc + 16 * dn);
+          mma_bf16_16816(dv[hh][2 * dn], ap, &bgt[0]);
+          mma_bf16_16816(dv[hh][2 * dn + 1], ap, &bgt[2]);
+          mma_bf16_16816(dk[hh][2 * dn], adst, &bqt[0]);
+          mma_bf16_16816(dk[hh][2 * dn + 1], adst, &bqt[2]);
+        }
+        if constexpr (KT) {
           uint32_t bgt[2], bqt[2];
           ldmatrix_x2_trans(bgt, cg + b8);
           ldmatrix_x2_trans(bqt, cq + b8);
-          mma_bf16_16816(dv[hh][0], ap, bgt);
-          mma_bf16_16816(dk[hh][0], adst, bqt);
-        } else {
-#pragma unroll
-          for (int dn = 0; dn < KO; ++dn) {
-            uint32_t bgt[4], bqt[4];
-            ldmatrix_x4_trans(bgt, cg + bt + oc + 16 * dn);
-            ldmatrix_x4_trans(bqt, cq + bt + oc + 16 * dn);
-            mma_bf16_16816(dv[hh][2 * dn], ap, &bgt[0]);
-            mma_bf16_16816(dv[hh][2 * dn + 1], ap, &bgt[2]);
-            mma_bf16_16816(dk[hh][2 * dn], adst, &bqt[0]);
-            mma_bf16_16816(dk[hh][2 * dn + 1], adst, &bqt[2]);
-          }
+          mma_bf16_16816(dv[hh][2 * KS], ap, bgt);
+          mma_bf16_16816(dk[hh][2 * KS], adst, bqt);
         }
       }
     }
@@ -1016,7 +1063,7 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
 #pragma unroll
       for (int rh = 0; rh < 2; ++rh) {
         const int o =
-            (16 * warp + g + 8 * rh) * kRS + hh * D + oc + 8 * j + 2 * t;
+            (16 * warp + g + 8 * rh) * kRS + hh * DS + oc + 8 * j + 2 * t;
         const int e = 2 * rh;
         *reinterpret_cast<uint32_t*>(sm.tile[0] + o) = pack_bf16(
             dq[hh][j][e] * kScale, dq[hh][j][e + 1] * kScale);
@@ -1026,15 +1073,30 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
             pack_bf16(dv[hh][j][e], dv[hh][j][e + 1]);
       }
   __syncwarp();
-  for (int e = lane; e < 3 * 16 * kOutPieces; e += 32) {
-    const int a = e / (16 * kOutPieces);
-    const int r = 16 * warp + (e / kOutPieces) % 16;
-    const int c = oc + (e % kOutPieces) * 8;
-    if (r >= nt) continue;
-    void* dst = a == 0 ? p.dq : a == 1 ? p.dk : p.dv;
-    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(dst) + base +
-                              (size_t)(t0 + r) * C + c) =
-        *reinterpret_cast<const uint4*>(sm.tile[a] + r * kRS + c);
+  if constexpr (K::kSlot) {        // 8 bytes a lane: 3 pieces a head
+    constexpr int kQ = 3 * kHG;
+    for (int e = lane; e < 3 * 16 * kQ; e += 32) {
+      const int a = e / (16 * kQ);
+      const int r = 16 * warp + (e / kQ) % 16;
+      const int pc = e % kQ;       // head pc / 3, its piece pc % 3
+      if (r >= nt) continue;
+      void* dst = a == 0 ? p.dq : a == 1 ? p.dk : p.dv;
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(dst) + base +
+                                (size_t)(t0 + r) * C + 4 * pc) =
+          *reinterpret_cast<const uint2*>(sm.tile[a] + r * kRS +
+                                          (pc / 3) * DS + (pc % 3) * 4);
+    }
+  } else {
+    for (int e = lane; e < 3 * 16 * kOutPieces; e += 32) {
+      const int a = e / (16 * kOutPieces);
+      const int r = 16 * warp + (e / kOutPieces) % 16;
+      const int c = oc + (e % kOutPieces) * 8;
+      if (r >= nt) continue;
+      void* dst = a == 0 ? p.dq : a == 1 ? p.dk : p.dv;
+      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(dst) + base +
+                                (size_t)(t0 + r) * C + c) =
+          *reinterpret_cast<const uint4*>(sm.tile[a] + r * kRS + c);
+    }
   }
 }
 
@@ -1071,9 +1133,12 @@ cudaError_t launch_bwd_tc(const BwdArgs& args, int B, cudaStream_t stream) {
 // SM: it spills 120 bytes, yet ran 1.18x and 1.31x faster on the
 // encoder's tokens than 8 heads a block at three and two blocks (288
 // and 108 bytes) and 1.25x faster than 4 heads at two, which spill
-// nothing (probe_forwards --width 128,8; PERF.md).  At D = 128 (one head) a warp's
-// output is 16 x 128 f32, 64 registers a lane beside the scores and the
-// Q fragments, so the kernel asks for two blocks an SM (its 87 KB of
+// nothing (probe_forwards --width 128,8; PERF.md).  At D = 24 a block
+// takes 2 heads (48 channels, rows of 56 bf16), and S and O add D = 8's
+// m16n8k8 step and n-tile to D = 16's; at D = 12 it takes 4 heads in
+// slots of 16 channels (FwdTc::kSlot), D = 16's block.  At D = 128 (one
+// head) a warp's output is 16 x 128 f32, 64 registers a lane beside the
+// scores and the Q fragments, so the kernel asks for two blocks an SM (its 87 KB of
 // shared memory allow no more) instead of four.  At D = 48 and 96 a block
 // takes one head: 3 or 6 k-steps of 16 and 6 or 12 n-tiles of 8, rows of
 // 56 or 104 bf16 (16-byte pieces, the 8 rows of an ldmatrix phase on 32
@@ -1093,11 +1158,17 @@ static_assert(kFwdThreads >= kChunk, "a thread per chunk row's window id");
 template <int D>
 struct FwdTc {
   // heads a block: 64 / D, 4 at D = 8, one of 48, 64, 96 or 128 channels
-  // at D >= 48 (64 / 48 truncates to one)
-  static constexpr int kHeads = D == 8             ? 4
+  // at D >= 48 (64 / 48 truncates to one), 2 at D = 24 (48 channels); 4
+  // at D = 12, where 64 / 12 = 5 heads (60 channels) would make no whole
+  // head groups of C 384: each head in a 16-channel slot of shared memory
+  // whose last 4 channels are 0 (kSlot), so a block is D 16's four slots
+  // and registers, and D 16's products run over them
+  static constexpr bool kSlot = D == 12;
+  static constexpr int kDS = kSlot ? 16 : D;      // a head's shared channels
+  static constexpr int kHeads = D == 8 || kSlot    ? 4
                                 : D < kFwdChannels ? kFwdChannels / D
                                                    : 1;
-  static constexpr int kRS = kHeads * D + kPad;   // bf16 row stride
+  static constexpr int kRS = kHeads * kDS + kPad; // bf16 row stride
   static constexpr int kPieces = kHeads * D / 8;  // 16-byte pieces a row
   // blocks an SM: D = 96 and 128 keep 48 and 64 f32 output registers a
   // lane, and D = 96's 67 KB of shared memory allow three; D = 192 and
@@ -1118,6 +1189,8 @@ struct FwdTc {
   };                                   // or kNoKey
 };
 static_assert(FwdTc<16>::kHeads == 4, "the shipped block: 4 heads of 16");
+static_assert(FwdTc<24>::kHeads * 24 == 48 && FwdTc<12>::kRS == FwdTc<16>::kRS,
+              "D = 24: 2 heads a block; D = 12: D 16's block of 4 slots");
 
 template <int D, int C>
 __global__ void __launch_bounds__(kFwdThreads, FwdTc<D>::kMinBlocks)
@@ -1131,8 +1204,13 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   using K = FwdTc<D>;
   constexpr int H = C / D;
   constexpr int kHeads = K::kHeads, kRS = K::kRS, kPieces = K::kPieces;
-  constexpr int KS = D / 16;       // k-steps of 16 over a head's channels
-  constexpr int NT = D / 8;        // n-tiles of 8 over a head's channels
+  constexpr int DS = K::kDS;       // a head's channels in shared memory
+  constexpr int KS = DS / 16;      // k-steps of 16 over a head's channels
+  constexpr int KT = DS % 16 / 8;  // and one of 8 (m16n8k8) at D = 8, 24
+  constexpr int NT = DS / 8;       // n-tiles of 8 over a head's channels
+  static_assert(16 * KS + 8 * KT == DS && (KT == 0 || K::kHoldQ),
+                "the k-steps cover the head");
+  // the head's own 1/sqrt(D), at D = 12 too (not its slot's 1/4)
   constexpr float kScaleLog2e = Head<D>::kScale * kLog2e;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   typename K::Smem& sm = *reinterpret_cast<typename K::Smem*>(smem_raw);
@@ -1153,14 +1231,26 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // rows [r0, r0 + n) of the block's heads of src into dst [kChunk][kRS];
   // rows past n are zero-filled (finite: a masked product with them
-  // stays 0)
+  // stays 0); at D = 12, whose heads start 24 bytes apart, 8-byte copies
+  // into each head's slot, the slot's last 8 bytes zero-filled
   auto copy_rows = [&](const __nv_bfloat16* src, int r0, int n,
                        __nv_bfloat16* dst) {
-    for (int e = threadIdx.x; e < kChunk * kPieces; e += kFwdThreads) {
-      const int r = e / kPieces, c = (e % kPieces) * 8;
-      cp_async_16(dst + r * kRS + c,
-                  src + (row0 + r0 + (r < n ? r : 0)) * C + h0 * D + c,
-                  r < n);
+    if constexpr (K::kSlot) {
+      constexpr int kQ = kHeads * DS / 4;   // 8-byte pieces a row
+      for (int e = threadIdx.x; e < kChunk * kQ; e += kFwdThreads) {
+        const int r = e / kQ, pc = e % kQ;  // slot pc / 4, piece pc % 4
+        cp_async_8(dst + r * kRS + 4 * pc,
+                   src + (row0 + r0 + (r < n ? r : 0)) * C + h0 * D +
+                       (pc / 4) * D + (pc % 4 % 3) * 4,
+                   r < n && pc % 4 < 3);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kChunk * kPieces; e += kFwdThreads) {
+        const int r = e / kPieces, c = (e % kPieces) * 8;
+        cp_async_16(dst + r * kRS + c,
+                    src + (row0 + r0 + (r < n ? r : 0)) * C + h0 * D + c,
+                    r < n);
+      }
     }
   };
   // key row k0 + threadIdx.x's window id, kNoKey without a valid key
@@ -1219,8 +1309,9 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const __nv_bfloat16* cv = sm.kv[buf][1];
 #pragma unroll
       for (int hh = 0; hh < kHeads; ++hh) {
-        // rows 16 jj + lane % 16 of the chunk: the ldmatrix_x2 rows at D = 8
-        const int r8 = (lane % 16) * kRS + hh * D;
+        // rows 16 jj + lane % 16 of the chunk, the last 8 channels at D =
+        // 8 and 24: the ldmatrix_x2 rows
+        const int r8 = (lane % 16) * kRS + hh * DS + 16 * KS;
         float s[kChunk / 8][4];
         if constexpr (!K::kHoldQ) {   // k-steps outside, keys inside
 #pragma unroll
@@ -1230,46 +1321,43 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
           for (int kk = 0; kk < KS; ++kk) {
             uint32_t a[4];
-            ldmatrix_x4(a, sm.q + (16 * warp + lane % 16) * kRS + hh * D +
+            ldmatrix_x4(a, sm.q + (16 * warp + lane % 16) * kRS + hh * DS +
                                16 * kk + (lane / 16) * 8);
 #pragma unroll
             for (int jj = 0; jj < kChunk / 16; ++jj) {
               uint32_t bk[4];
               ldmatrix_x4(bk, ck + (16 * jj + lane % 8 + (lane / 16) * 8) *
                                        kRS +
-                                  hh * D + 16 * kk + ((lane / 8) % 2) * 8);
+                                  hh * DS + 16 * kk + ((lane / 8) % 2) * 8);
               mma_bf16_16816(s[2 * jj], a, &bk[0]);
               mma_bf16_16816(s[2 * jj + 1], a, &bk[2]);
             }
           }
         } else {
           uint32_t aq[KS > 0 ? KS : 1][4], aq8[2];
-          if constexpr (D == 8) {
-            ldmatrix_x2(aq8, sm.q + 16 * warp * kRS + r8);
-          } else {
 #pragma unroll
-            for (int kk = 0; kk < KS; ++kk)
-              ldmatrix_x4(aq[kk], sm.q + (16 * warp + lane % 16) * kRS +
-                                      hh * D + 16 * kk + (lane / 16) * 8);
-          }
+          for (int kk = 0; kk < KS; ++kk)
+            ldmatrix_x4(aq[kk], sm.q + (16 * warp + lane % 16) * kRS +
+                                    hh * DS + 16 * kk + (lane / 16) * 8);
+          if constexpr (KT) ldmatrix_x2(aq8, sm.q + 16 * warp * kRS + r8);
 #pragma unroll
           for (int jj = 0; jj < kChunk / 16; ++jj) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) s[2 * jj][e] = s[2 * jj + 1][e] = 0.f;
-            if constexpr (D == 8) {
-              uint32_t bk[2];
-              ldmatrix_x2(bk, ck + 16 * jj * kRS + r8);
-              mma_bf16_1688(s[2 * jj], aq8, bk[0]);
-              mma_bf16_1688(s[2 * jj + 1], aq8, bk[1]);
-            }
 #pragma unroll
             for (int kk = 0; kk < KS; ++kk) {
               uint32_t bk[4];
               ldmatrix_x4(bk, ck + (16 * jj + lane % 8 + (lane / 16) * 8) *
                                        kRS +
-                                  hh * D + 16 * kk + ((lane / 8) % 2) * 8);
+                                  hh * DS + 16 * kk + ((lane / 8) % 2) * 8);
               mma_bf16_16816(s[2 * jj], aq[kk], &bk[0]);
               mma_bf16_16816(s[2 * jj + 1], aq[kk], &bk[2]);
+            }
+            if constexpr (KT) {
+              uint32_t bk[2];
+              ldmatrix_x2(bk, ck + 16 * jj * kRS + r8);
+              mma_bf16_1688(s[2 * jj], aq8, bk[0]);
+              mma_bf16_1688(s[2 * jj + 1], aq8, bk[1]);
             }
           }
         }
@@ -1314,19 +1402,19 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
               l[hh][rh] += p0 + p1;
               ap[2 * h2 + rh] = pack_bf16(p0, p1);
             }
-          if constexpr (D == 8) {
-            uint32_t bv[2];
-            ldmatrix_x2_trans(bv, cv + 16 * jj * kRS + r8);
-            mma_bf16_16816(o[hh][0], ap, bv);
-          }
 #pragma unroll
           for (int dn = 0; dn < KS; ++dn) {
             uint32_t bv[4];
             ldmatrix_x4_trans(bv, cv + (16 * jj + lane % 8 +
                                         ((lane / 8) % 2) * 8) * kRS +
-                                      hh * D + 16 * dn + (lane / 16) * 8);
+                                      hh * DS + 16 * dn + (lane / 16) * 8);
             mma_bf16_16816(o[hh][2 * dn], ap, &bv[0]);
             mma_bf16_16816(o[hh][2 * dn + 1], ap, &bv[2]);
+          }
+          if constexpr (KT) {
+            uint32_t bv[2];
+            ldmatrix_x2_trans(bv, cv + 16 * jj * kRS + r8);
+            mma_bf16_16816(o[hh][2 * KS], ap, bv);
           }
         }
       }
@@ -1351,7 +1439,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int n = 0; n < NT; ++n)
         *reinterpret_cast<uint32_t*>(
-            sm.q + (16 * warp + g + 8 * rh) * kRS + hh * D + 8 * n + 2 * t) =
+            sm.q + (16 * warp + g + 8 * rh) * kRS + hh * DS + 8 * n + 2 * t) =
             pack_bf16(o[hh][n][2 * rh] * inv, o[hh][n][2 * rh + 1] * inv);
     }
   if (lse && t == 0) {             // the rows' heads of the block
@@ -1374,11 +1462,22 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncwarp();
-  for (int e = lane; e < 16 * kPieces; e += 32) {
-    const int r = 16 * warp + e / kPieces, c = (e % kPieces) * 8;
-    if (r >= nt) continue;
-    *reinterpret_cast<uint4*>(out + (row0 + t0 + r) * C + h0 * D + c) =
-        *reinterpret_cast<const uint4*>(sm.q + r * kRS + c);
+  if constexpr (K::kSlot) {        // 8 bytes a lane: 3 pieces a head
+    constexpr int kQ = 3 * kHeads;
+    for (int e = lane; e < 16 * kQ; e += 32) {
+      const int r = 16 * warp + e / kQ, pc = e % kQ;
+      if (r >= nt) continue;
+      *reinterpret_cast<uint2*>(out + (row0 + t0 + r) * C + h0 * D + 4 * pc) =
+          *reinterpret_cast<const uint2*>(sm.q + r * kRS + (pc / 3) * DS +
+                                          (pc % 3) * 4);
+    }
+  } else {
+    for (int e = lane; e < 16 * kPieces; e += 32) {
+      const int r = 16 * warp + e / kPieces, c = (e % kPieces) * 8;
+      if (r >= nt) continue;
+      *reinterpret_cast<uint4*>(out + (row0 + t0 + r) * C + h0 * D + c) =
+          *reinterpret_cast<const uint4*>(sm.q + r * kRS + c);
+    }
   }
 }
 
@@ -1440,11 +1539,13 @@ struct Width {
 };
 
 // The kernels of row width C at head width D, null for a D not taken
-// (heads of 48, 96 and 192 only where C splits into them: at C 384;
-// heads of 256 at C 256 and 512)
+// (heads of 12, 24, 48, 96 and 192 only where C splits into them: at C
+// 384; heads of 256 at C 256 and 512)
 template <int C>
 const K8Kernels* k8_kernels_at(int D) {
   if constexpr (C % 3 == 0) {
+    if (D == 12) return &Width<12, C>::kernels();
+    if (D == 24) return &Width<24, C>::kernels();
     if (D == 48) return &Width<48, C>::kernels();
     if (D == 96) return &Width<96, C>::kernels();
     if (D == 192) return &Width<192, C>::kernels();

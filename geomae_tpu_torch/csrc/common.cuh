@@ -49,11 +49,14 @@ __device__ __forceinline__ int lower_bound_i32(const int* a, int n, int v) {
 // D = 16, 64 and 256
 template <int D>
 struct HeadScale {
-  static_assert(D == 8 || D == 16 || D == 32 || D == 48 || D == 64 ||
-                    D == 96 || D == 128 || D == 192 || D == 256,
-                "head widths 8, 16, 32, 48, 64, 96, 128, 192, 256");
+  static_assert(D == 8 || D == 12 || D == 16 || D == 24 || D == 32 ||
+                    D == 48 || D == 64 || D == 96 || D == 128 || D == 192 ||
+                    D == 256,
+                "head widths 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256");
   static constexpr float kValue = D == 8     ? 0.35355339059327376f
+                                  : D == 12  ? 0.28867513459481287f
                                   : D == 16  ? 0.25f
+                                  : D == 24  ? 0.2041241452319315f
                                   : D == 32  ? 0.17677669529663687f
                                   : D == 48  ? 0.14433756729740643f
                                   : D == 64  ? 0.125f
@@ -67,8 +70,9 @@ struct HeadScale {
 
 // The f32 attention kernels' lanes of a (query, head): the D channels
 // split over a power of two of lanes (lane_group_sum) of whole float4s,
-// 16 channels a lane (all 8 at D = 8), 12 at D = 48, 96 and 192 (4, 8 and
-// 16 lanes: 16 would give 3, 6 and 12)
+// 16 channels a lane (all 8 at D = 8), 12 at D = 12, 24, 48, 96 and 192
+// (1, 2, 4, 8 and 16 lanes: 16 would give no whole lane at D = 12 and 24,
+// and 3, 6 and 12 lanes at the others)
 __host__ __device__ constexpr int f32_lane_channels(int D) {
   return D % 3 == 0 ? 12 : D < 16 ? D : 16;
 }

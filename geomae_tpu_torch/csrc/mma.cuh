@@ -1,6 +1,7 @@
 // Tensor-core helpers of the bf16 kernels: warp-level mma.sync
 // m16n8k16 and m16n8k8 (bf16 in, f32 accumulate), ldmatrix fragment loads
-// from shared memory, and 16-byte cp.async copies from device memory.
+// from shared memory, and 16- and 8-byte cp.async copies from device
+// memory.
 //
 // Fragments of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A [16 x 16], row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g,
@@ -97,6 +98,18 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes from device memory to shared memory, through L1 (.cg copies
+// 16 bytes only), both addresses 8-byte aligned: the heads of 12 bf16
+// channels, which start 24 bytes apart; with valid false nothing is read
+// and the 8 bytes are zero-filled
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src,
+                                           bool valid = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
                : "memory");
 }
 

@@ -16,8 +16,8 @@
 // added in the compute dtype.
 //
 // Widths: C (channels) of 128, 256, 384 or 512 in heads of D = 8, 16,
-// 32, 64 or 128, C 384 in heads of 48, 96 or 192 and C 256 and 512 in
-// heads of 256, the widths K8 takes.
+// 32, 64 or 128, C 384 in heads of 12, 24, 48, 96 or 192 and C 256 and
+// 512 in heads of 256, the widths K8 takes.
 // Every kernel is a template over C (the f32 ones over C and D); each C
 // is a translation unit of its own
 // (window_attention_c*.cu, compiled in parallel), and the entry points
@@ -25,8 +25,8 @@
 // At the shipped width (128 in 8 heads of 16) each is the kernel it was
 // before the widths.  The scale 1/sqrt(D) is a power of two at D = 16,
 // 64 and 256 (D a power of four), and JAX folds it into q there
-// (_scale_pow2); at D = 8, 32, 48, 96, 128 and 192 it multiplies the f32
-// score, and dq and dk after their f32 sums.  Both give the same numbers
+// (_scale_pow2); at D = 8, 12, 24, 32, 48, 96, 128 and 192 it multiplies
+// the f32 score, and dq and dk after their f32 sums.  Both give the same numbers
 // where the fold is exact, so the kernels below keep each JAX dtype point.
 //
 // bfloat16, on the tensor cores: the projections and the attention are
@@ -37,7 +37,8 @@
 // run the attention on the projected rows.  Their dtype points are K6's:
 // K8 multiplies the f32 score by 1/sqrt(D), which at D = 16 and 64 equals
 // K6's score of q folded by that power of two (and at D = 256), and at
-// D = 32 is K6's own point (and D = 48's, 96's and 192's); ds and p are
+// D = 32 is K6's own point (and D = 12's, 24's, 48's, 96's and 192's);
+// ds and p are
 // rounded before their
 // products, dq, dk and dv once,
 // dq and dk scaled after the f32 sum.  So qkv_project never folds the
@@ -66,8 +67,8 @@
 // lanes a token, 48 at D 8, and 512 threads of up to 255 registers
 // overrun the register file); TQ tokens a tile, one lane group a (token,
 // head): TQ = 4096 / C up to C 256, 8 at C 384 and 512 (at D = 8, where a
-// lane keeps a whole head, half of that; 6 at C 384 in heads of 48, 96 or
-// 192, 32 lanes a token of 12 channels each).  The projections give each
+// lane keeps a whole head, half of that; 6 at C 384 in heads of 12, 24,
+// 48, 96 or 192, 32 lanes a token of 12 channels each).  The projections give each
 // thread CPT columns and RPT rows of a chunk: one column up to C 256 (256
 // / C row groups), two at C 384 and 512.
 //
@@ -82,9 +83,9 @@
 // outside the tile's windows is projected and no window size is too big:
 // keys stream through shared memory in chunks of TQ with an online
 // softmax, which holds any window exactly.  A (query, head) pair belongs
-// to S = D / 16 adjacent lanes (one at D = 8, D / 12 at D = 48, 96 and
-// 192: a power of two, 16 at most), each keeping 16 channels (8 at D = 8,
-// 12 at D = 48, 96 and 192) of the q row and of the accumulator in
+// to S = D / 16 adjacent lanes (one at D = 8, D / 12 at D = 12, 24, 48,
+// 96 and 192: a power of two, 16 at most), each keeping 16 channels (8 at
+// D = 8, 12 at D = 12 to 192) of the q row and of the accumulator in
 // registers (16 wide, as one thread did at D = 16);
 // a score is their partial dot products summed across the S lanes by
 // shuffles, so every lane of the group holds the same score.  Under grad
@@ -104,7 +105,7 @@
 // weight products (x+pos)^T dq, (x+pos)^T dk, x^T dv with the bias sums
 // added to a per-block f32 partial (common.cuh), summed in a second pass.
 // The lanes of a (token, head) split its channels as in the forward: 16
-// (8 at D = 8, 12 at D = 48, 96 and 192) of q, k, v, dO, dq, dk and dv
+// (8 at D = 8, 12 at D = 12, 24, 48, 96 and 192) of q, k, v, dO, dq, dk and dv
 // each a lane (250-255 registers at the widths of D 16 to 64, one block an
 // SM).
 #pragma once
@@ -192,13 +193,13 @@ struct F32W {
   // a block: 256 threads up to C 256, C / 2 at 384 and 512
   static constexpr int kThreads = C <= 256 ? 256 : C / 2;
   static constexpr int H = C / D;              // heads
-  // channels a lane (16, all 8 at D = 8, 12 at D = 48, 96 and 192) and
+  // channels a lane (16, all 8 at D = 8, 12 at D = 12 to 192) and
   // lanes a (token, head), a power of two (common.cuh)
   static constexpr int LC = f32_lane_channels(D);
   static constexpr int S = D / LC;
   // tokens a tile: 4096 / C up to C 256, 8 at C 384 and 512; half that
-  // at D = 8; 6 at D = 48, 96 and 192 (32 lanes a token, as at D = 8 up
-  // to C 256)
+  // at D = 8; 6 at D = 12, 24, 48, 96 and 192 (32 lanes a token, as at D
+  // = 8 up to C 256)
   static constexpr int TQ = kThreads / (H * S);
   static constexpr int KC = TQ;                // keys a chunk
   // the projections: thread t owns columns t % CW + CW u (u < CPT) and
@@ -1229,10 +1230,14 @@ cudaError_t launch_project_bwd(const DxArgs& d, const QwArgs& w, int chunks,
 // The tables a translation unit of one C hands the entry points
 template <int C>
 const QkvF32Kernels* qkv_f32_at(int D) {
-  if constexpr (C % 3 == 0) {   // heads of 48, 96 and 192: at C 384 alone
+  if constexpr (C % 3 == 0) {   // heads of 12 to 192: at C 384 alone
+    static const QkvF32Kernels k12{launch<C, 12>, launch_bwd<C, 12>};
+    static const QkvF32Kernels k24{launch<C, 24>, launch_bwd<C, 24>};
     static const QkvF32Kernels k48{launch<C, 48>, launch_bwd<C, 48>};
     static const QkvF32Kernels k96{launch<C, 96>, launch_bwd<C, 96>};
     static const QkvF32Kernels k192{launch<C, 192>, launch_bwd<C, 192>};
+    if (D == 12) return &k12;
+    if (D == 24) return &k24;
     if (D == 48) return &k48;
     if (D == 96) return &k96;
     if (D == 192) return &k192;

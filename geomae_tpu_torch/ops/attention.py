@@ -22,13 +22,13 @@ dk scaled after the f32 sum.  Padding rows (``win_id == INT32_MAX``) and
 rows with no visible key return 0 and get zero gradients.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.  The kernels take heads of D in ``KERNEL_HEAD_DIMS`` (8, 16,
-32, 48, 64, 96, 128, 192, 256) that make C = H D one of
-``KERNEL_CHANNELS`` (128, 256, 384, 512; D 48, 96 and 192 only at C 384,
-in 8, 4 and 2 heads; D 256 at C 256 and 512, in 1 and 2), in float32 or
-bfloat16; the plain versions take any H and D (heads of 4 or less, C
-384 in 16 heads of 24 or 32 of 12, and heads of 384 or 512 have no
-kernel).  The bf16 forward
+or raises.  The kernels take heads of D in ``KERNEL_HEAD_DIMS`` (8, 12,
+16, 24, 32, 48, 64, 96, 128, 192, 256) that make C = H D one of
+``KERNEL_CHANNELS`` (128, 256, 384, 512; D 12, 24, 48, 96 and 192 only
+at C 384, in 32, 16, 8, 4 and 2 heads; D 256 at C 256 and 512, in 1 and
+2), in float32 or bfloat16; the plain versions take any H and D (heads
+of 6 or less, such as C 384 in 64 heads of 6, and heads of 384 or 512
+have no kernel).  The bf16 forward
 runs on the tensor cores over 64-token tiles with an online softmax per
 64-key chunk (``band_attention_tiles_plain`` is its order in plain
 PyTorch), the f32 forward on the CUDA cores; every kernel stages whole
@@ -52,8 +52,8 @@ from . import _cuda
 
 INT32_MAX = 2 ** 31 - 1
 KERNEL_CHANNELS = (128, 256, 384, 512)   # C = H D the kernels take
-# and D: 48, 96 and 192 at C 384 alone, 256 at C 256 and 512
-KERNEL_HEAD_DIMS = (8, 16, 32, 48, 64, 96, 128, 192, 256)
+# and D: 12, 24, 48, 96 and 192 at C 384 alone, 256 at C 256 and 512
+KERNEL_HEAD_DIMS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
 PLAIN_Q_CHUNK = 1024      # queries per score block of the plain versions
 KERNEL_TILE = 64          # tokens a tile (and rows a chunk) of the bf16
                           # kernels
@@ -285,8 +285,8 @@ def band_attention_backward_tiles_plain(q, k, v, win_id, key_valid, out,
 def kernel_takes(channels: int, heads: int) -> bool:
     """Whether the kernels take ``heads`` heads over ``channels``: D =
     C / H in KERNEL_HEAD_DIMS and C in KERNEL_CHANNELS (of which only C
-    384 splits into heads of 48, 96 or 192, and only 256 and 512 into
-    heads of 256)."""
+    384 splits into heads of 12, 24, 48, 96 or 192, and only 256 and 512
+    into heads of 256)."""
     return (heads > 0 and channels % heads == 0
             and channels in KERNEL_CHANNELS
             and channels // heads in KERNEL_HEAD_DIMS)
@@ -309,8 +309,9 @@ def _check_rows(name, q, *more):
                   and kernel_takes(q.shape[2] * q.shape[3], q.shape[2])
                   and q.dtype in _cuda.DTYPE_CODE,
                   f"{name}: the kernel takes [B, V, H, D] with D in "
-                  f"{KERNEL_HEAD_DIMS} and H D in {KERNEL_CHANNELS} (D 48, "
-                  f"96 and 192 at H D = 384 alone), float32 or bfloat16, "
+                  f"{KERNEL_HEAD_DIMS} and H D in {KERNEL_CHANNELS} (D 12, "
+                  f"24, 48, 96 and 192 at H D = 384 alone), float32 or "
+                  f"bfloat16, "
                   f"got {q.dtype} {tuple(q.shape)}")
     for t in more:
         _cuda.require(t.shape == q.shape and t.dtype == q.dtype,

@@ -42,7 +42,7 @@ is one kernel).
 The old widths against another checkout of the package (``parent``,
 ``--parent DIR``: a checkout whose kernels are built, ``DIR/build/
 geomae_tpu_torch/libgeomae_kernels_*.so``): the SASS of K6 / K7's and
-K8's kernels at every width but heads of 192 and 256 (``OLD_WIDTH``) in
+K8's kernels at every width but heads of 12 and 24 (``OLD_WIDTH``) in
 both libraries (``cuobjdump -sass``, names demangled, the anonymous
 namespace and addresses dropped), K8's forward and backward, f32 and
 bf16, at the width of any K8 kernel whose SASS differs, then K6, K7
@@ -386,11 +386,11 @@ def grads(C: int, heads: int) -> None:
               + ", ".join(ms))
 
 
-# K6 / K7's and K8's kernels at every width but heads of 192 and 256 (the
+# K6 / K7's and K8's kernels at every width but heads of 12 and 24 (the
 # qkv kernels' template arguments <C> or <C, D>, K8's <D, C> or <T, D, C>)
-OLD_WIDTH = re.compile(r"(?:qkv\w*<\d+(?:, (?!192>|256>)\d+)?>"
+OLD_WIDTH = re.compile(r"(?:qkv\w*<\d+(?:, (?!12>|24>)\d+)?>"
                        r"|band_attention_(?!qkv)\w*<(?:[\w:]+, )?"
-                       r"(?!192,|256,)\d+, \d+>)$")
+                       r"(?!12,|24,)\d+, \d+>)$")
 # the mangled names of K8's kernels at (D, C) (the prologue's in bf16) and
 # of f32 K6 / K7's at (C, D)
 K8_KERNELS = {"f32": "band_attention_kernelILi{D}ELi{C}E",
