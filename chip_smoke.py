@@ -29,7 +29,8 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      then K8 (forward, backward, prologue), K6 (with statistics), K7 and
      the projections' two kernels at every width they take (d_model 128,
      256, 384 and 512 in heads of 8, 16, 32, 64 and 128, 384 in heads of
-     12, 24, 48, 96 and 192, and 256 and 512 in heads of 256) and K5
+     12, 24, 48, 96 and 192, 256 and 512 in heads of 256, and 384 and
+     512 in one head) and K5
      (forward, backward) at every (C, F) it takes, on the pretrain
      encoder's tokens, and K1 and K2 as the wide VFE (64, 256) calls
      them, each with its time, bound, library call and each dtype's
@@ -97,11 +98,12 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      in the shipped 8 heads (of 48) on both routes, in 4 (of 96) on
      ``band`` and in 16 (of 24) and 32 (of 12) on both, FFN 768
      (``P_ODD``: K8, K6 and K7 at head widths that are not a power of
-     two), and the wide heads (``P_WIDE_HEADS``: K8, K6 and K7 at D 256
-     and 192): d_model 256 in one head, FFN 512, on both routes, 512 in
-     two, FFN 1024, on both, 384 in two, FFN 768, on ``band``; then the
-     512 model's step on each route, the FFN 2048 model's, the 8-head
-     and the 16-head 384 model's and the two-head 512 model's on
+     two), and the wide heads (``P_WIDE_HEADS``: K8, K6 and K7 at D 256,
+     192, 384 and 512): d_model 256 in one head, FFN 512, on both routes,
+     512 in two, FFN 1024, on both, 384 in two, FFN 768, on ``band``, 384
+     in one, FFN 768, and 512 in one, FFN 1024, on both; then the 512
+     model's step on each route, the FFN 2048 model's, the 8-head and
+     the 16-head 384 model's and the two-head and one-head 512 model's on
      ``band`` as ``profile_pretrain`` times it: median and quartiles,
      peak memory, device busy ms, idle share and the SST kernels' ms a
      step;
@@ -282,13 +284,14 @@ P_FFN4 = P_OPTIONS[512][:-1] + ["sst.dim_feedforward=2048"]
 P_ODD = {heads: P_OPTIONS[384][:2] + [f"sst.nhead={heads}"]
          + P_OPTIONS[384][3:] for heads in (8, 4, 16, 32)}
 # and the wide heads, (d_model, heads): 256 in one head of 256, FFN 512
-# (the VFE at (64, 256)), 512 in two of 256, FFN 1024, and 384 in two of
-# 192, FFN 768: 256 on band and qkv, 512 on band (timed) and qkv, 384 on
-# band
+# (the VFE at (64, 256)), 512 in two of 256, FFN 1024, 384 in two of
+# 192, FFN 768, and 384 and 512 in one head, FFN 768 and 1024: 256 on
+# band and qkv, 512 in two on band (timed) and qkv, 384 in two on band,
+# 384 and 512 in one on band (512 timed) and qkv
 P_WIDE_HEADS = {(256, 1): WIDE_OPTIONS[:2] + ["sst.nhead=1"]
                 + WIDE_OPTIONS[2:],
-                **{(C, 2): P_OPTIONS[C][:2] + ["sst.nhead=2"]
-                   + P_OPTIONS[C][3:] for C in (512, 384)}}
+                **{(C, h): P_OPTIONS[C][:2] + [f"sst.nhead={h}"]
+                   + P_OPTIONS[C][3:] for C in (512, 384) for h in (2, 1)}}
 # the profiled step's SST kernels on each route
 # (profile_pretrain.PRETRAIN_KERNELS) and their launches a layer: K8 and
 # K5 on band; on qkv also the projections (twice: K6 and K7's recompute),
@@ -303,6 +306,17 @@ P_KERNELS = {
     QKV_OPTION: {"qkv_project_kernel": 2, **K8_PROFILED,
                  "qkv_project_dx_kernel": 1, "qkv_wgrad_kernel": 1,
                  **K5_PROFILED}}
+
+
+def p_kernels(wp, route: str) -> dict:
+    """``P_KERNELS[route]`` at ``wp``'s head width: above 256 K8's bf16
+    backward is ``band_attention_bwd_wide_kernel`` (its two passes in one
+    launch)."""
+    ks = dict(P_KERNELS[route])
+    if wp.sst.d_model // wp.sst.nhead > 256:
+        ks["band_attention_bwd_wide_kernel"] = ks.pop(
+            "band_attention_bwd_tc_kernel")
+    return ks
 
 
 def per_pretrain_step(cfg) -> dict:
@@ -1934,7 +1948,7 @@ def p_step_timed(wp, route: str, what: str, failures: list) -> None:
     """``wp``'s pretrain step on ``route`` timed as ``profile_pretrain``
     times it: median and quartiles of 8 steps, peak memory, one profiled
     step's device busy ms, idle share and its SST kernels' ms, each of
-    ``P_KERNELS[route]`` launched its count a layer."""
+    ``p_kernels(wp, route)`` launched its count a layer."""
     from pathlib import Path
 
     from geomae_tpu_torch import profile_pretrain
@@ -1946,7 +1960,8 @@ def p_step_timed(wp, route: str, what: str, failures: list) -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     q1, q3 = res["quartiles"]
-    ks = {k: res["kernels"][k] for k in P_KERNELS[route]}
+    want = p_kernels(wp, route)
+    ks = {k: res["kernels"][k] for k in want}
     print(f"  {what}: step median {res['median']:.2f} ms (quartiles "
           f"{q1:.2f}, {q3:.2f}); peak {res['peak_mib']:.0f} MiB; profiled "
           f"step busy {res['busy_ms']:.2f} ms, idle share "
@@ -1955,10 +1970,10 @@ def p_step_timed(wp, route: str, what: str, failures: list) -> None:
               f"{k} {ms:.4f} ({n})" for k, (ms, n) in ks.items()))
     layers = per_pretrain_step(wp)["post_attention_block"]
     wrong = [k for k, (_, n) in ks.items()
-             if n != P_KERNELS[route][k] * layers]
+             if n != want[k] * layers]
     if wrong or not res["busy_ms"]:
         failures.append(f"the profiled {what} step: {wrong} not "
-                        f"{P_KERNELS[route]} x {layers} launches, or no "
+                        f"{want} x {layers} launches, or no "
                         "device time")
 
 
@@ -1970,14 +1985,15 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
     routes, in 4 of 96 on ``band`` and in 16 of 24 and 32 of 12 on both
     routes, and the wide heads
     (``P_WIDE_HEADS``): 256 in one head of 256 and 512 in two on both
-    routes, 384 in two of 192 on ``band``: ``train_and_serve`` at each (on
+    routes, 384 in two of 192 on ``band``, 384 and 512 in one head on both
+    routes: ``train_and_serve`` at each (on
     band K8, its prologue and backward, on qkv K6, K7, the projections
     (twice) and their backward, and K5 and its backward, once a layer a
     step, the attention and K5 once a layer a frame, no plain
     ``band_attention`` and no unfused FFN chain); then the 512 model's
     step on each route, the FFN 2048 model's, the 8-head and the
-    16-head 384 model's and the two-head 512 model's on band timed
-    (``p_step_timed``).  Returns
+    16-head 384 model's and the two-head and one-head 512 model's on band
+    timed (``p_step_timed``).  Returns
     the launches of the steps and frames."""
     from geomae_tpu_torch.config import apply_overrides
 
@@ -1996,7 +2012,9 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
              for C, heads, route, timed_too in (
                  (256, 1, BAND_OPTION, False), (256, 1, QKV_OPTION, False),
                  (512, 2, BAND_OPTION, True), (512, 2, QKV_OPTION, False),
-                 (384, 2, BAND_OPTION, False))]
+                 (384, 2, BAND_OPTION, False),
+                 (384, 1, BAND_OPTION, False), (384, 1, QKV_OPTION, False),
+                 (512, 1, BAND_OPTION, True), (512, 1, QKV_OPTION, False))]
     timed = []
     for C, opts, route, timed_too in runs:
         wp, wf = (apply_overrides(c, opts + [route]) for c in (pcfg, cfg))

@@ -12,7 +12,8 @@
 //
 // Widths: every kernel is a template over the head width D (8, 16, 32,
 // 64 or 128; 12, 24, 48, 96 and 192 at C 384, the one C that splits
-// into them; 256 at C 256 and 512) and the row width C (128, 256, 384 or
+// into them; 256 at C 256 and 512; 384 and 512 at C 384 and 512, one
+// head) and the row width C (128, 256, 384 or
 // 512), so the head count H = C / D, the row stride and every index are
 // constants; each C is a translation unit of its own
 // (band_attention_c*.cu, compiled in parallel), and the entry points
@@ -44,7 +45,8 @@
 // power of two for the shuffle sums, and 128 channels no whole heads) 4,
 // 8 and 16 lanes of 12 channels (one and 2 at D = 12 and 24); above D =
 // 128 a block takes one head and 16 queries (16 lanes a query, 256
-// threads); at D = 128 the bf16
+// threads), at D = 384 and 512 8 queries of a whole warp of 12 and 16
+// channels a lane; at D = 128 the bf16
 // forward runs two blocks an SM (a warp's 16 x 128 f32 output takes 64
 // registers a lane), above it one, reading Q's fragments one k-step at a
 // time; at D = 96 and 128 the bf16 backward splits each head's output
@@ -52,8 +54,12 @@
 // of 64 columns with 16-row chunks (two 64-row chunks beside a
 // 256-channel tile would stage 405 KB), each block computing the
 // scores and dP over all D channels (the three 16 x D accumulators of a
-// warp would take 144 to 384 registers a lane).  D of 6 or less and D 384
-// and 512 (C 384 or 512 in one head) are not taken.
+// warp would take 144 to 384 registers a lane); at D = 384 and 512 the
+// bf16 forward splits the output columns over two blocks too, and the
+// backward runs JAX's two passes, the tile as queries and as keys, in one
+// launch (band_attention_bwd_wide_kernel): the four arrays of a tile
+// beside two chunks of four would stage 301 and 399 KB.  D of 6 or less
+// is not taken.
 //
 // Bound: with no projection inside, a call moves 4 rows of C values per
 // token and computes 4 * C operations per same-window pair forward (10 * C
@@ -86,10 +92,10 @@
 //
 // float32 forward, on the CUDA cores (band_attention_kernel): a block takes
 // 32 queries of one 128-channel head group (16 of one head above D =
-// 128) and walks the keys one at a time, chunks of as many keys staged in
-// f32; D / 16 adjacent lanes (one at D = 8) own one (query, head) pair, 16
-// channels each, and a warp holds one head, so each key row read from
-// shared memory is a broadcast.
+// 128, 8 above 256) and walks the keys one at a time, chunks of as many
+// keys staged in f32; D / 16 adjacent lanes (one at D = 8) own one
+// (query, head) pair, 16 channels each, and a warp holds one head, so
+// each key row read from shared memory is a broadcast.
 //
 // Dtype points of _fwd_body: the score accumulates in f32 from the compute
 // dtype's q and k and the 1/sqrt(D) scale multiplies the f32 score; the
@@ -113,14 +119,17 @@
 // before their products, dq and dk scaled by 1/sqrt(D) after the f32 sum.
 // A row whose window holds no valid key contributes and receives 0.
 // f32 runs on the CUDA cores (D / 16 lanes per (token, head) of a
-// 32-token tile, one at D = 8, 16-token tiles above D = 128); bf16 on the
-// tensor cores (mma.sync m16n8k16 over 64-token tiles and 64-row chunks,
-// 16-row chunks above D = 128, see band_attention_bwd_tc_kernel), where
-// each
-// product rounds at the points above and only the summation order moves.
+// 32-token tile, one at D = 8, 16-token tiles above D = 128, 8-token tiles
+// above 256); bf16 on the tensor cores (mma.sync m16n8k16 over 64-token
+// tiles and 64-row chunks, 16-row chunks above D = 128, see
+// band_attention_bwd_tc_kernel, and band_attention_bwd_wide_kernel above
+// D = 256), where each product rounds at the points above and only the
+// summation order moves.
 #pragma once
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -168,12 +177,14 @@ struct Head {
   // the tile's lanes) and threads.  At D = 192 and 256 a (query, head)
   // takes 16 lanes, so a block takes 16 queries: 256 threads, as at D =
   // 128 (512 would leave a thread 128 registers, and the backward keeps
-  // 7 x 16 floats of a head in registers)
+  // 7 x 16 floats of a head in registers); at D = 384 and 512 a whole
+  // warp of 12 and 16 channels a lane, and a block 8 queries, 256
+  // threads again
   static constexpr int kW = D > 128 ? D : D % 3 == 0 ? 96 : 128;
   static constexpr int kGH = kW / D;
   static constexpr int kLC = f32_lane_channels(D);
   static constexpr int kLanes = D / kLC;
-  static constexpr int kTQ = D > 128 ? 16 : 32;
+  static constexpr int kTQ = D > 256 ? 8 : D > 128 ? 16 : 32;
   static constexpr int kThreads = kTQ * kGH * kLanes;
   static constexpr int kFwdSmemBytes =
       2 * kTQ * kW * sizeof(float) + 2 * kTQ * sizeof(int);
@@ -198,6 +209,8 @@ static_assert(Head<192>::kThreads == 256 && Head<256>::kThreads == 256,
               "1 head of 16 lanes x 16");
 static_assert(Head<24>::kThreads == 256 && Head<12>::kThreads == 256,
               "4 heads of 2 lanes, 8 heads of 1 lane, x 32");
+static_assert(Head<384>::kThreads == 256 && Head<512>::kThreads == 256,
+              "1 head of 32 lanes x 8");
 
 // four consecutive values (16-byte aligned in f32, 8-byte in bf16) as f32
 template <typename T>
@@ -1113,6 +1126,265 @@ cudaError_t launch_bwd_tc(const BwdArgs& args, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// bf16 backward at D = 384 and 512 (C 384 or 512 in one head).  The
+// kernel above would stage the tile's four arrays beside two chunks of
+// four, 301 and 399 KB, past an SM's 227.  This one runs JAX's two
+// passes (_dq_kernel, _dkv_kernel) in one launch: of a head's blocks
+// over a tile, kSplit take the tile as queries (stage its q and dO rows;
+// chunks of k and v; dq += dS K) and kSplit as keys (stage its k and v
+// rows; chunks of q and dO; dv += P^T dO, dk += dS^T Q), each pass
+// staging two arrays (151 and 200 KB with two buffers of 16-row chunks).
+// Both passes run the same two products over all D channels, S and dP
+// (S^T and dP^T as keys), then build P and dS on the accumulators as the
+// kernel above does, and each block keeps kOW = 128 output columns (64
+// registers a lane an output), so a pass's kSplit blocks (3 and 4)
+// recompute S and dP each.  The grid's y spans (head, pass, columns).
+// Per key dk and dv are still a gather over the key's own tile, and each
+// output is rounded once, so the dtype points and the order of each sum
+// over chunks stay the kernel above's (band_attention_backward_tiles_plain
+// at 64-token tiles and 16-row chunks).
+template <int D>
+struct BwdWide {
+  static constexpr int kRS = D + kPad;      // bf16 row stride, odd pieces
+  static constexpr int kPieces = D / 8;     // 16-byte pieces a row
+  static constexpr int kOW = 128;           // output columns a block
+  static constexpr int kSplit = D / kOW;    // blocks of a pass a head
+  static constexpr int kRows = 16;          // rows a chunk
+  struct Smem {
+    __nv_bfloat16 tile[2][kTile * kRS];     // the tile's two arrays
+    __nv_bfloat16 chunk[2][2][kRows * kRS]; // per buffer, the chunk's two
+    int win[2][kRows];     // per buffer, a chunk row's window id as key
+                           // (queries pass: kNoKey without a valid key)
+                           // or as query (keys pass)
+    float2 stat[2][kRows]; // (lse log2 e, D) of a chunk row (keys pass)
+  };
+  static_assert(D % kOW == 0 && kRS / 8 % 2 == 1 &&
+                    sizeof(Smem) <= 227 * 1024,
+                "whole column blocks; 16-byte rows; one block an SM");
+};
+
+template <int D, int C>
+__global__ void __launch_bounds__(kTcThreads, 1)
+band_attention_bwd_wide_kernel(BwdArgs p) {
+  using K = BwdWide<D>;
+  using bf = __nv_bfloat16;
+  constexpr int H = C / D;
+  constexpr int kRS = K::kRS, kRows = K::kRows, kPieces = K::kPieces;
+  constexpr int KS = D / 16;       // k-steps of 16 over the head
+  constexpr int KO = K::kOW / 16;  // and over the block's output columns
+  constexpr int kOutPieces = K::kOW / 8;
+  constexpr float kScale = Head<D>::kScale;
+  constexpr float kScaleLog2e = kScale * kLog2e;
+  static_assert(kRows == 16 && kTcThreads >= kRows, "one s-step a chunk");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  typename K::Smem& sm = *reinterpret_cast<typename K::Smem*>(smem_raw);
+  __shared__ int s_range[2];
+
+  const int V = p.V;
+  const int b = blockIdx.z, t0 = blockIdx.x * kTile;
+  const int h = blockIdx.y / (2 * K::kSplit);
+  const int part = blockIdx.y % (2 * K::kSplit);
+  const bool keys = part >= K::kSplit;      // the pass, block-uniform
+  const int oc = part % K::kSplit * K::kOW; // first output column
+  const int nt = min(kTile, V - t0);
+  const size_t row0 = (size_t)b * V;
+  const int* wb = p.win + row0;
+  const uint8_t* kvb = p.key_valid + row0;
+  const float* lb = p.lse + row0 * H + h;
+  const float* db = p.delta + row0 * H + h;
+  const size_t base = row0 * C + h * D;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  // the tile's arrays and the chunks': as queries q, dO and k, v; as keys
+  // k, v and q, dO
+  const bf* tsrc[2] = {static_cast<const bf*>(keys ? p.k : p.q),
+                       static_cast<const bf*>(keys ? p.v : p.dout)};
+  const bf* csrc[2] = {static_cast<const bf*>(keys ? p.q : p.k),
+                       static_cast<const bf*>(keys ? p.dout : p.v)};
+
+  // cp.async rows [r0, r0 + n) of the two arrays src into dst [2][R][kRS],
+  // rows past n zero-filled
+  auto stage = [&](const bf* const (&src)[2], int r0, int n, int R,
+                   bf* dst) {
+    for (int e = threadIdx.x; e < 2 * R * kPieces; e += kTcThreads) {
+      const int a = e / (R * kPieces);
+      const int r = (e / kPieces) % R;
+      const int c = (e % kPieces) * 8;
+      cp_async_16(dst + (a * R + r) * kRS + c,
+                  src[a] + base + (size_t)(r0 + (r < n ? r : 0)) * C + c,
+                  r < n);
+    }
+  };
+  // chunk row k0 + threadIdx.x's window id and statistics
+  int cw = 0;
+  float2 cs = make_float2(0.f, 0.f);
+  auto load_cols = [&](int k0) {
+    const int r = k0 + threadIdx.x;
+    cw = keys ? kNoQuery : kNoKey;
+    cs = make_float2(0.f, 0.f);
+    if (r < s_range[1]) {
+      const int id = wb[r];
+      cw = keys || kvb[r] ? id : kNoKey;
+      if (keys)
+        cs = make_float2(lb[(size_t)r * H] * kLog2e, db[(size_t)r * H]);
+    }
+  };
+  auto store_cols = [&](int buf) {
+    sm.win[buf][threadIdx.x] = cw;
+    sm.stat[buf][threadIdx.x] = cs;
+  };
+
+  if (warp == 0) key_range_warp(wb, V, t0, nt, s_range);
+  __syncthreads();
+  const int ks = s_range[0], ke = s_range[1];
+  if (ks < ke) {                   // else a tile of padding: zeros out
+    stage(tsrc, t0, nt, kTile, sm.tile[0]);
+    stage(csrc, ks, min(kRows, ke - ks), kRows, sm.chunk[0][0]);
+  }
+  cp_async_commit();
+  if (threadIdx.x < kRows) {
+    load_cols(ks);
+    store_cols(0);
+  }
+
+  // the lane's tile rows g and g + 8 of the warp's 16: the window id they
+  // match a column by (as queries: INT32_MAX on padding and past V; as
+  // keys: kNoKey without a valid key) and, as queries, lse * log2 e and D
+  int rwin[2];
+  float lse_r[2] = {0.f, 0.f}, d_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int r = 16 * warp + g + 8 * rh;
+    const int id = r < nt ? wb[t0 + r] : kInt32Max;
+    const bool real = id != kInt32Max;
+    rwin[rh] = !keys ? id : real && kvb[t0 + r] ? id : kNoKey;
+    if (!keys && real) {
+      lse_r[rh] = lb[(size_t)(t0 + r) * H] * kLog2e;
+      d_r[rh] = db[(size_t)(t0 + r) * H];
+    }
+  }
+
+  // the block's columns of dq (as queries) or dk (as keys), and dv
+  float o0[2 * KO][4] = {}, o1[2 * KO][4] = {};
+  const int ar = (16 * warp + lane % 16) * kRS + (lane / 16) * 8;
+  const int bn = (lane % 8 + (lane / 16) * 8) * kRS + ((lane / 8) % 2) * 8;
+  const int bt = (lane % 8 + ((lane / 8) % 2) * 8) * kRS + (lane / 16) * 8;
+
+  int buf = 0;
+  for (int k0 = ks; k0 < ke; k0 += kRows, buf ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();               // chunk k0 landed; the other buffer is free
+    const int k1 = k0 + kRows;
+    if (k1 < ke) {                 // prefetch the next chunk
+      stage(csrc, k1, min(kRows, ke - k1), kRows, sm.chunk[buf ^ 1][0]);
+      cp_async_commit();
+      if (threadIdx.x < kRows) load_cols(k1);
+    }
+    const bf* c0 = sm.chunk[buf][0];
+    const bf* c1 = sm.chunk[buf][1];
+    // the lane's accumulator columns 8 j + 2 t + (0, 1): window ids and,
+    // as keys, the statistics
+    int2 wc[2];
+    float4 cst[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wc[j] = *reinterpret_cast<const int2*>(&sm.win[buf][8 * j + 2 * t]);
+      cst[j] = *reinterpret_cast<const float4*>(&sm.stat[buf][8 * j + 2 * t]);
+    }
+    // S = A0 B0^T and dP = A1 B1^T over all D channels (as keys S^T, dP^T)
+    float s0[2][4] = {}, s1[2][4] = {};
+#pragma unroll 4
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a0[4], a1[4], b0[4], b1[4];
+      ldmatrix_x4(a0, sm.tile[0] + ar + 16 * kk);
+      ldmatrix_x4(a1, sm.tile[1] + ar + 16 * kk);
+      ldmatrix_x4(b0, c0 + bn + 16 * kk);
+      ldmatrix_x4(b1, c1 + bn + 16 * kk);
+      mma_bf16_16816(s0[0], a0, &b0[0]);
+      mma_bf16_16816(s0[1], a0, &b0[2]);
+      mma_bf16_16816(s1[0], a1, &b1[0]);
+      mma_bf16_16816(s1[1], a1, &b1[2]);
+    }
+    // P and dS, masked per element, rounded into the A fragments
+    uint32_t ap[4], ads[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        float pr[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = e ? wc[j].y : wc[j].x;
+          const float lse = keys ? (e ? cst[j].z : cst[j].x) : lse_r[rh];
+          const float dd = keys ? (e ? cst[j].w : cst[j].y) : d_r[rh];
+          pr[e] = rwin[rh] == col
+                      ? ex2(fmaf(s0[j][2 * rh + e], kScaleLog2e, -lse))
+                      : 0.f;
+          ds[e] = pr[e] * (s1[j][2 * rh + e] - dd);
+        }
+        ap[2 * j + rh] = pack_bf16(pr[0], pr[1]);
+        ads[2 * j + rh] = pack_bf16(ds[0], ds[1]);
+      }
+    // dq += dS K (as keys dk += dS^T Q), and as keys dv += P^T dO
+#pragma unroll
+    for (int dn = 0; dn < KO; ++dn) {
+      uint32_t bt0[4];
+      ldmatrix_x4_trans(bt0, c0 + bt + oc + 16 * dn);
+      mma_bf16_16816(o0[2 * dn], ads, &bt0[0]);
+      mma_bf16_16816(o0[2 * dn + 1], ads, &bt0[2]);
+    }
+    if (keys) {
+#pragma unroll
+      for (int dn = 0; dn < KO; ++dn) {
+        uint32_t bt1[4];
+        ldmatrix_x4_trans(bt1, c1 + bt + oc + 16 * dn);
+        mma_bf16_16816(o1[2 * dn], ap, &bt1[0]);
+        mma_bf16_16816(o1[2 * dn + 1], ap, &bt1[2]);
+      }
+    }
+    if (k1 < ke && threadIdx.x < kRows) store_cols(buf ^ 1);
+  }
+
+  // dq and dk scaled after the f32 sum, each output rounded once, staged
+  // over the warp's own tile rows, then written 16 bytes a lane; rows
+  // past V are not written, padding rows write 0
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 2 * KO; ++j)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int o = (16 * warp + g + 8 * rh) * kRS + oc + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(sm.tile[0] + o) = pack_bf16(
+          o0[j][2 * rh] * kScale, o0[j][2 * rh + 1] * kScale);
+      *reinterpret_cast<uint32_t*>(sm.tile[1] + o) =
+          pack_bf16(o1[j][2 * rh], o1[j][2 * rh + 1]);
+    }
+  __syncwarp();
+  const int outs = keys ? 2 : 1;
+  for (int e = lane; e < outs * 16 * kOutPieces; e += 32) {
+    const int a = e / (16 * kOutPieces);
+    const int r = 16 * warp + (e / kOutPieces) % 16;
+    const int c = oc + (e % kOutPieces) * 8;
+    if (r >= nt) continue;
+    void* dst = !keys ? p.dq : a == 0 ? p.dk : p.dv;
+    *reinterpret_cast<uint4*>(static_cast<bf*>(dst) + base +
+                              (size_t)(t0 + r) * C + c) =
+        *reinterpret_cast<const uint4*>(sm.tile[a] + r * kRS + c);
+  }
+}
+
+template <int D, int C>
+cudaError_t launch_bwd_wide(const BwdArgs& args, int B, cudaStream_t stream) {
+  using K = BwdWide<D>;
+  constexpr int kBytes = sizeof(typename K::Smem);
+  cudaError_t e = allow_smem(band_attention_bwd_wide_kernel<D, C>, kBytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((args.V + kTile - 1) / kTile, C / D * 2 * K::kSplit, B);
+  band_attention_bwd_wide_kernel<D, C>
+      <<<grid, kTcThreads, kBytes, stream>>>(args);
+  return cudaGetLastError();
+}
+
 // bf16 forward on the tensor cores.  A block takes a tile of kTile query
 // rows and kFwdHeads heads (64 channels); each warp owns 16 rows and
 // keeps, per head, their output accumulator (16 x D in f32), running max
@@ -1149,7 +1421,16 @@ cudaError_t launch_bwd_tc(const BwdArgs& args, int B, cudaStream_t stream) {
 // keys' so that one k-step of Q's A fragments is live at a time
 // (kHoldQ; held, the 16 k-steps of D = 256 would take 64 registers); the
 // 64-key chunks, and so the points where P is rounded, stay those of
-// every other width.
+// every other width.  At D = 384 and 512 (C 384 or 512 in one head) a
+// warp's output would take 192 and 256 registers a lane and the tile
+// beside two buffers of k and v 251 and 333 KB, past an SM's 227: the
+// head's output columns split over kSplit = 2 blocks (the grid's y
+// spans them), each of which computes S over all D channels (the same
+// scores and P in the same order, so the same statistics; the first
+// writes lse), keeps the 96 and 128 output registers of D = 192 and 256
+// and stages v's columns of its half alone; D = 384 keeps two buffers
+// (202 KB), D = 512 one (167 KB: each chunk lands before its products
+// start).  The 64-key chunks stay.
 constexpr int kFwdChannels = 64;       // channels a block stages
 constexpr int kFwdWarps = kTile / 16;
 constexpr int kFwdThreads = 32 * kFwdWarps;
@@ -1182,15 +1463,43 @@ struct FwdTc {
   // the keys' (the same sums in the same order), 64 registers fewer at
   // D = 256
   static constexpr bool kHoldQ = D <= 128;
-  struct Smem {
+  // blocks a head's output columns span (two at D = 384 and 512), the
+  // columns a block outputs and the row stride of its v rows (its columns
+  // alone where split), and the buffers of k and v rows: two, one at D =
+  // 512, where two would stage 267 KB
+  static constexpr int kSplit = D > 256 ? 2 : 1;
+  static constexpr int kOW = D / kSplit;
+  static constexpr int kVRS = kSplit == 1 ? kRS : kOW + kPad;
+  static constexpr int kBufs = D > 384 ? 1 : 2;
+  struct Rows {
     __nv_bfloat16 q[kTile * kRS];      // the tile's q rows, then its output
     __nv_bfloat16 kv[2][2][kChunk * kRS];   // per buffer: k rows, v rows
     int win[2][kChunk];                // per buffer: the key's window id
   };                                   // or kNoKey
+  struct SplitRows {                   // the same, v of the block's columns
+    __nv_bfloat16 q[kTile * kRS];
+    __nv_bfloat16 k[kBufs][kChunk * kRS];
+    __nv_bfloat16 v[kBufs][kChunk * kVRS];
+    int win[2][kChunk];
+  };
+  using Smem = std::conditional_t<kSplit == 1, Rows, SplitRows>;
+  // buffer b's k and v rows
+  __device__ static __nv_bfloat16* k_rows(Smem& sm, int b) {
+    if constexpr (kSplit == 1) return sm.kv[b][0]; else return sm.k[b];
+  }
+  __device__ static __nv_bfloat16* v_rows(Smem& sm, int b) {
+    if constexpr (kSplit == 1) return sm.kv[b][1]; else return sm.v[b];
+  }
+  static_assert(kSplit == 1 || (kOW % 16 == 0 && kVRS / 8 % 2 == 1),
+                "whole k-steps a block; v rows of odd 16-byte pieces");
+  static_assert(sizeof(Smem) <= 227 * 1024, "one block an SM");
 };
 static_assert(FwdTc<16>::kHeads == 4, "the shipped block: 4 heads of 16");
 static_assert(FwdTc<24>::kHeads * 24 == 48 && FwdTc<12>::kRS == FwdTc<16>::kRS,
               "D = 24: 2 heads a block; D = 12: D 16's block of 4 slots");
+static_assert(FwdTc<384>::kOW == 192 && FwdTc<512>::kOW == 256 &&
+                  FwdTc<384>::kBufs == 2 && FwdTc<512>::kBufs == 1,
+              "D = 384 and 512: D 192's and 256's output a block");
 
 template <int D, int C>
 __global__ void __launch_bounds__(kFwdThreads, FwdTc<D>::kMinBlocks)
@@ -1208,15 +1517,21 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = DS / 16;      // k-steps of 16 over a head's channels
   constexpr int KT = DS % 16 / 8;  // and one of 8 (m16n8k8) at D = 8, 24
   constexpr int NT = DS / 8;       // n-tiles of 8 over a head's channels
-  static_assert(16 * KS + 8 * KT == DS && (KT == 0 || K::kHoldQ),
-                "the k-steps cover the head");
+  constexpr int KO = KS / K::kSplit;   // and of the block's output columns
+  constexpr int NO = NT / K::kSplit;
+  constexpr int kVRS = K::kVRS;
+  constexpr int kOutPieces = kPieces / K::kSplit;
+  static_assert(16 * KS + 8 * KT == DS && (KT == 0 || K::kHoldQ) &&
+                    (K::kSplit == 1 || (KT == 0 && kHeads == 1)),
+                "the k-steps cover the head; split heads alone");
   // the head's own 1/sqrt(D), at D = 12 too (not its slot's 1/4)
   constexpr float kScaleLog2e = Head<D>::kScale * kLog2e;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   typename K::Smem& sm = *reinterpret_cast<typename K::Smem*>(smem_raw);
   __shared__ int s_range[2];
 
-  const int b = blockIdx.z, h0 = blockIdx.y * kHeads;
+  const int b = blockIdx.z, h0 = blockIdx.y / K::kSplit * kHeads;
+  const int oc = blockIdx.y % K::kSplit * K::kOW;   // first output column
   const int t0 = blockIdx.x * kTile;
   const int nt = min(kTile, V - t0);
   const size_t row0 = (size_t)b * V;
@@ -1253,6 +1568,19 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   };
+  // the v rows: where the head is split, the block's columns alone
+  auto copy_v = [&](int r0, int n, __nv_bfloat16* dst) {
+    if constexpr (K::kSplit == 1) {
+      copy_rows(v, r0, n, dst);
+    } else {
+      for (int e = threadIdx.x; e < kChunk * kOutPieces; e += kFwdThreads) {
+        const int r = e / kOutPieces, c = (e % kOutPieces) * 8;
+        cp_async_16(dst + r * kVRS + c,
+                    v + (row0 + r0 + (r < n ? r : 0)) * C + h0 * D + oc + c,
+                    r < n);
+      }
+    }
+  };
   // key row k0 + threadIdx.x's window id, kNoKey without a valid key
   auto key_win = [&](int k0) {
     const int r = k0 + threadIdx.x;
@@ -1261,8 +1589,8 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   int cw = kNoKey;
   if (ks < ke) {                   // else a tile of padding: zeros out
     copy_rows(q, t0, nt, sm.q);
-    copy_rows(k, ks, min(kChunk, ke - ks), sm.kv[0][0]);
-    copy_rows(v, ks, min(kChunk, ke - ks), sm.kv[0][1]);
+    copy_rows(k, ks, min(kChunk, ke - ks), K::k_rows(sm, 0));
+    copy_v(ks, min(kChunk, ke - ks), K::v_rows(sm, 0));
     if (threadIdx.x < kChunk) sm.win[0][threadIdx.x] = key_win(ks);
   }
   cp_async_commit();
@@ -1278,7 +1606,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // per head: O (channels 8 n + 2 t + (0, 1) of rows g, g + 8), the
   // running max (log2 units) and the lane's part of the sum of P
-  float o[kHeads][NT][4] = {}, m[kHeads][2], l[kHeads][2] = {};
+  float o[kHeads][NO][4] = {}, m[kHeads][2], l[kHeads][2] = {};
 #pragma unroll
   for (int hh = 0; hh < kHeads; ++hh) m[hh][0] = m[hh][1] = -INFINITY;
 
@@ -1288,9 +1616,11 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();               // chunk k0 landed; the other buffer is free
     const int k1 = k0 + kChunk;
     if (k1 < ke) {                 // prefetch the next chunk
-      copy_rows(k, k1, min(kChunk, ke - k1), sm.kv[buf ^ 1][0]);
-      copy_rows(v, k1, min(kChunk, ke - k1), sm.kv[buf ^ 1][1]);
-      cp_async_commit();
+      if constexpr (K::kBufs == 2) {
+        copy_rows(k, k1, min(kChunk, ke - k1), K::k_rows(sm, buf ^ 1));
+        copy_v(k1, min(kChunk, ke - k1), K::v_rows(sm, buf ^ 1));
+        cp_async_commit();
+      }
       if (threadIdx.x < kChunk) cw = key_win(k1);
     }
     // bit 4 j + 2 rh + e: row g + 8 rh sees column 8 j + 2 t + e
@@ -1305,8 +1635,8 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 << (4 * j + 2 * rh);
     }
     if (__any_sync(0xffffffffu, seen != 0)) {
-      const __nv_bfloat16* ck = sm.kv[buf][0];
-      const __nv_bfloat16* cv = sm.kv[buf][1];
+      const __nv_bfloat16* ck = K::k_rows(sm, K::kBufs == 2 ? buf : 0);
+      const __nv_bfloat16* cv = K::v_rows(sm, K::kBufs == 2 ? buf : 0);
 #pragma unroll
       for (int hh = 0; hh < kHeads; ++hh) {
         // rows 16 jj + lane % 16 of the chunk, the last 8 channels at D =
@@ -1383,7 +1713,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
           m[hh][rh] = mn;
           l[hh][rh] *= corr;
 #pragma unroll
-          for (int n = 0; n < NT; ++n) {
+          for (int n = 0; n < NO; ++n) {
             o[hh][n][2 * rh] *= corr;
             o[hh][n][2 * rh + 1] *= corr;
           }
@@ -1403,10 +1733,10 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
               ap[2 * h2 + rh] = pack_bf16(p0, p1);
             }
 #pragma unroll
-          for (int dn = 0; dn < KS; ++dn) {
+          for (int dn = 0; dn < KO; ++dn) {
             uint32_t bv[4];
             ldmatrix_x4_trans(bv, cv + (16 * jj + lane % 8 +
-                                        ((lane / 8) % 2) * 8) * kRS +
+                                        ((lane / 8) % 2) * 8) * kVRS +
                                       hh * DS + 16 * dn + (lane / 16) * 8);
             mma_bf16_16816(o[hh][2 * dn], ap, &bv[0]);
             mma_bf16_16816(o[hh][2 * dn + 1], ap, &bv[2]);
@@ -1420,6 +1750,14 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     if (k1 < ke && threadIdx.x < kChunk) sm.win[buf ^ 1][threadIdx.x] = cw;
+    if constexpr (K::kBufs == 1) {
+      if (k1 < ke) {               // the one buffer is consumed: refill it
+        __syncthreads();
+        copy_rows(k, k1, min(kChunk, ke - k1), K::k_rows(sm, 0));
+        copy_v(k1, min(kChunk, ke - k1), K::v_rows(sm, 0));
+        cp_async_commit();
+      }
+    }
   }
 
   // O / l rounded once, staged over the warp's own q rows (no other warp
@@ -1437,12 +1775,12 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       l[hh][rh] = sum;
       const float inv = sum > 0.f ? 1.f / sum : 0.f;
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NO; ++n)
         *reinterpret_cast<uint32_t*>(
             sm.q + (16 * warp + g + 8 * rh) * kRS + hh * DS + 8 * n + 2 * t) =
             pack_bf16(o[hh][n][2 * rh] * inv, o[hh][n][2 * rh + 1] * inv);
     }
-  if (lse && t == 0) {             // the rows' heads of the block
+  if (lse && t == 0 && oc == 0) {  // the rows' heads of the block
 #pragma unroll
     for (int rh = 0; rh < 2; ++rh) {
       const int r = 16 * warp + g + 8 * rh;
@@ -1471,11 +1809,12 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
           *reinterpret_cast<const uint2*>(sm.q + r * kRS + (pc / 3) * DS +
                                           (pc % 3) * 4);
     }
-  } else {
-    for (int e = lane; e < 16 * kPieces; e += 32) {
-      const int r = 16 * warp + e / kPieces, c = (e % kPieces) * 8;
+  } else {                         // the block's columns, from oc
+    for (int e = lane; e < 16 * kOutPieces; e += 32) {
+      const int r = 16 * warp + e / kOutPieces, c = (e % kOutPieces) * 8;
       if (r >= nt) continue;
-      *reinterpret_cast<uint4*>(out + (row0 + t0 + r) * C + h0 * D + c) =
+      *reinterpret_cast<uint4*>(out + (row0 + t0 + r) * C + h0 * D + oc +
+                                c) =
           *reinterpret_cast<const uint4*>(sm.q + r * kRS + c);
     }
   }
@@ -1491,7 +1830,8 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
   constexpr int kBytes = sizeof(typename K::Smem);
   cudaError_t e = allow_smem(band_attention_fwd_tc_kernel<D, C>, kBytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((V + kTile - 1) / kTile, C / (K::kHeads * D), B);
+  const dim3 grid((V + kTile - 1) / kTile, C / (K::kHeads * D) * K::kSplit,
+                  B);
   band_attention_fwd_tc_kernel<D, C><<<grid, kFwdThreads, kBytes, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), win, key_valid, static_cast<bf*>(out), lse,
@@ -1529,8 +1869,9 @@ struct Width {
     const BwdArgs args{q,     k,  v,  dout, win, key_valid, lse,
                        delta, dq, dk, dv,   V};
     if (dtype == kFloat32) return launch_bwd_f32<D, C>(args, B, s);
-    if (dtype == kBFloat16) return launch_bwd_tc<D, C>(args, B, s);
-    return cudaErrorInvalidValue;
+    if (dtype != kBFloat16) return cudaErrorInvalidValue;
+    if constexpr (D > 256) return launch_bwd_wide<D, C>(args, B, s);
+    else return launch_bwd_tc<D, C>(args, B, s);
   }
   static const K8Kernels& kernels() {
     static const K8Kernels k{forward, delta, backward};
@@ -1540,9 +1881,13 @@ struct Width {
 
 // The kernels of row width C at head width D, null for a D not taken
 // (heads of 12, 24, 48, 96 and 192 only where C splits into them: at C
-// 384; heads of 256 at C 256 and 512)
+// 384; heads of 256 at C 256 and 512; one head of 384 or 512 at C 384 or
+// 512)
 template <int C>
 const K8Kernels* k8_kernels_at(int D) {
+  if constexpr (C > 256) {
+    if (D == C) return &Width<C, C>::kernels();
+  }
   if constexpr (C % 3 == 0) {
     if (D == 12) return &Width<12, C>::kernels();
     if (D == 24) return &Width<24, C>::kernels();

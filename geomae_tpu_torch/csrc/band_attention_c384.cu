@@ -1,7 +1,8 @@
-// K8's kernels at C = 384 (heads of 8, 12, 16, 24, 32, 48, 64, 96, 128 and
-// 192 channels; 12, 24, 48, 96 and 192 at this C alone), one translation
-// unit, so that the row widths compile in parallel; the kernels are in
-// band_attention.cuh, the entry points in band_attention.cu.
+// K8's kernels at C = 384 (heads of 8, 12, 16, 24, 32, 48, 64, 96, 128, 192
+// and 384 channels; 12, 24, 48, 96, 192 and 384 at this C alone), one
+// translation unit, so that the row widths compile in parallel; the
+// kernels are in band_attention.cuh, the entry points in
+// band_attention.cu.
 #include "band_attention.cuh"
 
 namespace geomae {

@@ -51,8 +51,9 @@ template <int D>
 struct HeadScale {
   static_assert(D == 8 || D == 12 || D == 16 || D == 24 || D == 32 ||
                     D == 48 || D == 64 || D == 96 || D == 128 || D == 192 ||
-                    D == 256,
-                "head widths 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256");
+                    D == 256 || D == 384 || D == 512,
+                "head widths 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, "
+                "384, 512");
   static constexpr float kValue = D == 8     ? 0.35355339059327376f
                                   : D == 12  ? 0.28867513459481287f
                                   : D == 16  ? 0.25f
@@ -63,29 +64,36 @@ struct HeadScale {
                                   : D == 96  ? 0.10206207261596575f
                                   : D == 128 ? 0.08838834764831845f
                                   : D == 192 ? 0.07216878364870323f
-                                             : 0.0625f;
+                                  : D == 256 ? 0.0625f
+                                  : D == 384 ? 0.051031036307982884f
+                                             : 0.044194173824159216f;
   static_assert(kValue * kValue * D > 0.9999f && kValue * kValue * D < 1.0001f,
                 "kValue is 1/sqrt(D)");
 };
 
 // The f32 attention kernels' lanes of a (query, head): the D channels
 // split over a power of two of lanes (lane_group_sum) of whole float4s,
-// 16 channels a lane (all 8 at D = 8), 12 at D = 12, 24, 48, 96 and 192
-// (1, 2, 4, 8 and 16 lanes: 16 would give no whole lane at D = 12 and 24,
-// and 3, 6 and 12 lanes at the others)
+// 16 channels a lane (all 8 at D = 8), 12 at D = 12, 24, 48, 96, 192 and
+// 384 (1, 2, 4, 8, 16 and 32 lanes: 16 would give no whole lane at D = 12
+// and 24, and 3, 6, 12 and 24 lanes at the others); D = 384 and 512 take
+// a whole warp
 __host__ __device__ constexpr int f32_lane_channels(int D) {
   return D % 3 == 0 ? 12 : D < 16 ? D : 16;
 }
 
 // v summed over the S adjacent lanes of the calling thread's group (S a
-// power of two), the same value on each (the pairwise sums commute); the
-// lanes of a group take every branch together, so the mask names them
+// power of two, 32 the whole warp), the same value on each (the pairwise
+// sums commute); the lanes of a group take every branch together, so the
+// mask names them
 template <int S>
 __device__ __forceinline__ float lane_group_sum(float v) {
-  static_assert(S > 0 && S < 32 && (S & (S - 1)) == 0, "a power of two");
+  static_assert(S > 0 && S <= 32 && (S & (S - 1)) == 0, "a power of two");
   if (S == 1) return v;
   const int lane = threadIdx.x % 32;
-  const unsigned mask = ((1u << S) - 1u) << (lane & ~(S - 1));
+  // S % 32 is S wherever the shift is taken; it keeps a shift by 32
+  // (undefined) out of the S == 32 instantiation
+  const unsigned mask =
+      S == 32 ? 0xffffffffu : ((1u << (S % 32)) - 1u) << (lane & ~(S - 1));
 #pragma unroll
   for (int o = 1; o < S; o <<= 1) v += __shfl_xor_sync(mask, v, o);
   return v;

@@ -16,8 +16,8 @@
 // added in the compute dtype.
 //
 // Widths: C (channels) of 128, 256, 384 or 512 in heads of D = 8, 16,
-// 32, 64 or 128, C 384 in heads of 12, 24, 48, 96 or 192 and C 256 and
-// 512 in heads of 256, the widths K8 takes.
+// 32, 64 or 128, C 384 in heads of 12, 24, 48, 96 or 192, C 256 and 512
+// in heads of 256 and C 384 and 512 in one head, the widths K8 takes.
 // Every kernel is a template over C (the f32 ones over C and D); each C
 // is a translation unit of its own
 // (window_attention_c*.cu, compiled in parallel), and the entry points
@@ -25,9 +25,10 @@
 // At the shipped width (128 in 8 heads of 16) each is the kernel it was
 // before the widths.  The scale 1/sqrt(D) is a power of two at D = 16,
 // 64 and 256 (D a power of four), and JAX folds it into q there
-// (_scale_pow2); at D = 8, 12, 24, 32, 48, 96, 128 and 192 it multiplies
-// the f32 score, and dq and dk after their f32 sums.  Both give the same numbers
-// where the fold is exact, so the kernels below keep each JAX dtype point.
+// (_scale_pow2); at D = 8, 12, 24, 32, 48, 96, 128, 192, 384 and 512 it
+// multiplies the f32 score, and dq and dk after their f32 sums.  Both give
+// the same numbers where the fold is exact, so the kernels below keep each
+// JAX dtype point.
 //
 // bfloat16, on the tensor cores: the projections and the attention are
 // separate launches.  The TPU kernel projects each key inside the
@@ -68,7 +69,8 @@
 // overrun the register file); TQ tokens a tile, one lane group a (token,
 // head): TQ = 4096 / C up to C 256, 8 at C 384 and 512 (at D = 8, where a
 // lane keeps a whole head, half of that; 6 at C 384 in heads of 12, 24,
-// 48, 96 or 192, 32 lanes a token of 12 channels each).  The projections give each
+// 48, 96, 192 or 384, 32 lanes a token of 12 channels each; 8 at C 512 in
+// one head, 32 lanes of 16).  The projections give each
 // thread CPT columns and RPT rows of a chunk: one column up to C 256 (256
 // / C row groups), two at C 384 and 512.
 //
@@ -84,8 +86,9 @@
 // keys stream through shared memory in chunks of TQ with an online
 // softmax, which holds any window exactly.  A (query, head) pair belongs
 // to S = D / 16 adjacent lanes (one at D = 8, D / 12 at D = 12, 24, 48,
-// 96 and 192: a power of two, 16 at most), each keeping 16 channels (8 at
-// D = 8, 12 at D = 12 to 192) of the q row and of the accumulator in
+// 96, 192 and 384: a power of two, a whole warp at D = 384 and 512), each
+// keeping 16 channels (8 at D = 8, 12 at D = 12 to 384) of the q row and
+// of the accumulator in
 // registers (16 wide, as one thread did at D = 16);
 // a score is their partial dot products summed across the S lanes by
 // shuffles, so every lane of the group holds the same score.  Under grad
@@ -105,7 +108,7 @@
 // weight products (x+pos)^T dq, (x+pos)^T dk, x^T dv with the bias sums
 // added to a per-block f32 partial (common.cuh), summed in a second pass.
 // The lanes of a (token, head) split its channels as in the forward: 16
-// (8 at D = 8, 12 at D = 12, 24, 48, 96 and 192) of q, k, v, dO, dq, dk and dv
+// (8 at D = 8, 12 at D = 12 to 384) of q, k, v, dO, dq, dk and dv
 // each a lane (250-255 registers at the widths of D 16 to 64, one block an
 // SM).
 #pragma once
@@ -193,13 +196,13 @@ struct F32W {
   // a block: 256 threads up to C 256, C / 2 at 384 and 512
   static constexpr int kThreads = C <= 256 ? 256 : C / 2;
   static constexpr int H = C / D;              // heads
-  // channels a lane (16, all 8 at D = 8, 12 at D = 12 to 192) and
+  // channels a lane (16, all 8 at D = 8, 12 at D = 12 to 384) and
   // lanes a (token, head), a power of two (common.cuh)
   static constexpr int LC = f32_lane_channels(D);
   static constexpr int S = D / LC;
   // tokens a tile: 4096 / C up to C 256, 8 at C 384 and 512; half that
-  // at D = 8; 6 at D = 12, 24, 48, 96 and 192 (32 lanes a token, as at D
-  // = 8 up to C 256)
+  // at D = 8; 6 at D = 12, 24, 48, 96, 192 and 384 (32 lanes a token, as
+  // at D = 8 up to C 256), 8 at D = 512 (32 lanes)
   static constexpr int TQ = kThreads / (H * S);
   static constexpr int KC = TQ;                // keys a chunk
   // the projections: thread t owns columns t % CW + CW u (u < CPT) and
@@ -1245,6 +1248,10 @@ const QkvF32Kernels* qkv_f32_at(int D) {
   if constexpr (C % 256 == 0) {   // heads of 256: at C 256 and 512
     static const QkvF32Kernels k256{launch<C, 256>, launch_bwd<C, 256>};
     if (D == 256) return &k256;
+  }
+  if constexpr (C > 256) {        // one head of 384 or 512
+    static const QkvF32Kernels k1{launch<C, C>, launch_bwd<C, C>};
+    if (D == C) return &k1;
   }
   static const QkvF32Kernels k8{launch<C, 8>, launch_bwd<C, 8>};
   static const QkvF32Kernels k16{launch<C, 16>, launch_bwd<C, 16>};

@@ -23,26 +23,28 @@ rows with no visible key return 0 and get zero gradients.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  The kernels take heads of D in ``KERNEL_HEAD_DIMS`` (8, 12,
-16, 24, 32, 48, 64, 96, 128, 192, 256) that make C = H D one of
-``KERNEL_CHANNELS`` (128, 256, 384, 512; D 12, 24, 48, 96 and 192 only
-at C 384, in 32, 16, 8, 4 and 2 heads; D 256 at C 256 and 512, in 1 and
-2), in float32 or bfloat16; the plain versions take any H and D (heads
-of 6 or less, such as C 384 in 64 heads of 6, and heads of 384 or 512
-have no kernel).  The bf16 forward
-runs on the tensor cores over 64-token tiles with an online softmax per
-64-key chunk (``band_attention_tiles_plain`` is its order in plain
-PyTorch), the f32 forward on the CUDA cores; every kernel stages whole
-heads of a fixed number of channels a block, so the order per head is
-the same at every width.  Under grad ``band_attention_fused`` is an ``autograd.Function``: the
+16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512) that make C = H D one
+of ``KERNEL_CHANNELS`` (128, 256, 384, 512; D 12, 24, 48, 96 and 192
+only at C 384, in 32, 16, 8, 4 and 2 heads; D 256 at C 256 and 512, in
+1 and 2; D 384 and 512 at C 384 and 512, in one head), in float32 or
+bfloat16; the plain versions take any H and D (heads of 6 or less, such
+as C 384 in 64 heads of 6, have no kernel).  The bf16 forward runs on
+the tensor cores over 64-token tiles with an online softmax per 64-key
+chunk (``band_attention_tiles_plain`` is its order in plain PyTorch; at
+D 384 and 512 two blocks share a head's output columns, each with the
+same scores), the f32 forward on the CUDA cores; every kernel stages
+whole heads of a fixed number of channels a block, so the order per head
+is the same at every width.  Under grad ``band_attention_fused`` is an ``autograd.Function``: the
 forward kernel also writes each (row, head)'s log-sum-exp of the scaled
 scores ([B, V, H] f32, where the TPU kernel keeps the running max m and
 the sum l apart; lse = m + log l).  The backward runs a prologue kernel
 that computes D once for every real row (``band_attention_delta``), then
 one kernel that returns dq, dk and dv, each key's dk and dv rounded once (the
 TPU rounds per query tile): bf16 on the tensor cores over 64-token tiles
-and 64-row chunks, 16-row chunks at D 192 and 256 (``backward_chunk``;
-``band_attention_backward_tiles_plain`` is its decomposition in plain
-PyTorch), f32 on the CUDA cores.
+and 64-row chunks, 16-row chunks above D 128 (``backward_chunk``; at D
+384 and 512 the tile as queries and the tile as keys are blocks of their
+own, JAX's two passes in one launch; ``band_attention_backward_tiles_
+plain`` is its decomposition in plain PyTorch), f32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -52,8 +54,9 @@ from . import _cuda
 
 INT32_MAX = 2 ** 31 - 1
 KERNEL_CHANNELS = (128, 256, 384, 512)   # C = H D the kernels take
-# and D: 12, 24, 48, 96 and 192 at C 384 alone, 256 at C 256 and 512
-KERNEL_HEAD_DIMS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+# and D: 12, 24, 48, 96 and 192 at C 384 alone, 256 at C 256 and 512, 384
+# and 512 in one head
+KERNEL_HEAD_DIMS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512)
 PLAIN_Q_CHUNK = 1024      # queries per score block of the plain versions
 KERNEL_TILE = 64          # tokens a tile (and rows a chunk) of the bf16
                           # kernels
@@ -227,7 +230,9 @@ def band_attention_backward_plain(q, k, v, win_id, key_valid, out, g):
 def backward_chunk(head_dim: int) -> int:
     """Rows a chunk of the bf16 backward kernel at heads of ``head_dim``:
     64, 16 above 128 (``BwdTc::kRows``: two chunks of 64 rows of a
-    256-channel head beside its 64-token tile would stage 405 KB)."""
+    256-channel head beside its 64-token tile would stage 405 KB; and
+    ``BwdWide::kRows`` at 384 and 512, whose passes each stage two
+    arrays of the tile and of two chunks)."""
     return KERNEL_TILE if head_dim <= 128 else WIDE_CHUNK
 
 
@@ -285,8 +290,9 @@ def band_attention_backward_tiles_plain(q, k, v, win_id, key_valid, out,
 def kernel_takes(channels: int, heads: int) -> bool:
     """Whether the kernels take ``heads`` heads over ``channels``: D =
     C / H in KERNEL_HEAD_DIMS and C in KERNEL_CHANNELS (of which only C
-    384 splits into heads of 12, 24, 48, 96 or 192, and only 256 and 512
-    into heads of 256)."""
+    384 splits into heads of 12, 24, 48, 96 or 192, only 256 and 512
+    into heads of 256, and heads of 384 and 512 are C 384 and 512 in one
+    head)."""
     return (heads > 0 and channels % heads == 0
             and channels in KERNEL_CHANNELS
             and channels // heads in KERNEL_HEAD_DIMS)
@@ -310,8 +316,8 @@ def _check_rows(name, q, *more):
                   and q.dtype in _cuda.DTYPE_CODE,
                   f"{name}: the kernel takes [B, V, H, D] with D in "
                   f"{KERNEL_HEAD_DIMS} and H D in {KERNEL_CHANNELS} (D 12, "
-                  f"24, 48, 96 and 192 at H D = 384 alone), float32 or "
-                  f"bfloat16, "
+                  f"24, 48, 96 and 192 at H D = 384 alone, D 384 and 512 "
+                  f"in one head), float32 or bfloat16, "
                   f"got {q.dtype} {tuple(q.shape)}")
     for t in more:
         _cuda.require(t.shape == q.shape and t.dtype == q.dtype,

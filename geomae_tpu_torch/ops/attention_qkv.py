@@ -21,13 +21,14 @@ that dtype (``pallas_attention_qkv._proj``).
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels
 or raises.  The kernels take every width K8 takes: C in
 ``KERNEL_CHANNELS`` (128, 256, 384 or 512) in heads of 8, 16, 32, 64 or
-128, C 384 in heads of 12, 24, 48, 96 or 192 and C 256 and 512 in heads
-of 256 (``kernel_takes``), in float32 or bfloat16 (the bf16 projections own 128-, 64- or 32-column slices of the
+128, C 384 in heads of 12, 24, 48, 96 or 192, C 256 and 512 in heads of
+256 and C 384 and 512 in one head (``kernel_takes``), in float32 or
+bfloat16 (the bf16 projections own 128-, 64- or 32-column slices of the
 three products, the f32 kernels blocks of 256 threads, C / 2 at C 384
 and 512); windows may be of any size.  The scale 1/sqrt(D) folds into q
 where D is a power of four (16, 64, 256), as in the JAX package, and
-multiplies the f32 score elsewhere (8, 12, 24, 32, 48, 96, 128, 192).  In
-bfloat16
+multiplies the f32 score elsewhere (8, 12, 24, 32, 48, 96, 128, 192,
+384, 512).  In bfloat16
 each token is projected once on the tensor cores (``qkv_project``) and
 K8's bf16 kernels (``csrc/band_attention.cuh``, reached through their C
 entry points, so
@@ -57,7 +58,8 @@ from .ffn import dense
 
 # K6, K7 and the projections take K8's widths: C in KERNEL_CHANNELS (the
 # projections see no heads) in heads of KERNEL_HEAD_DIMS, 12, 24, 48, 96
-# and 192 at C 384 alone, 256 at C 256 and 512 (kernel_takes)
+# and 192 at C 384 alone, 256 at C 256 and 512, 384 and 512 in one head
+# (kernel_takes)
 
 # The bf16 weight-gradient kernel stages 128 columns of its rows a block
 # (104 KB of shared memory at every C): two blocks an SM
@@ -206,9 +208,9 @@ def attention_grads_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid,
 def _check_qkv(name, x, nheads, dtypes=tuple(_cuda.DTYPE_CODE)):
     """x [B, V, C] on the card at a width the kernels take: C in
     KERNEL_CHANNELS in ``nheads`` heads of D in KERNEL_HEAD_DIMS, 12, 24,
-    48, 96 and 192 at C 384 alone, 256 at C 256 and 512
-    (``kernel_takes``; the projections see no heads: ``nheads`` None, C in
-    KERNEL_CHANNELS)."""
+    48, 96 and 192 at C 384 alone, 256 at C 256 and 512, 384 and 512 in
+    one head (``kernel_takes``; the projections see no heads: ``nheads``
+    None, C in KERNEL_CHANNELS)."""
     _cuda.require(x.device.type == "cuda",
                   f"{name}: no kernel for device {x.device}")
     kinds = " or ".join(str(d)[6:] for d in dtypes)
@@ -218,8 +220,9 @@ def _check_qkv(name, x, nheads, dtypes=tuple(_cuda.DTYPE_CODE)):
     _cuda.require(x.dim() == 3 and takes and x.dtype in dtypes,
                   f"{name}: the kernel takes [B, V, C] {kinds} with C in "
                   f"{KERNEL_CHANNELS} in heads of D in {KERNEL_HEAD_DIMS} "
-                  f"(12, 24, 48, 96 and 192 at C 384 alone), got {x.dtype} "
-                  f"{tuple(x.shape)} in {nheads} heads")
+                  f"(12, 24, 48, 96 and 192 at C 384 alone, 384 and 512 in "
+                  f"one head), got {x.dtype} {tuple(x.shape)} in {nheads} "
+                  f"heads")
 
 
 def _kernel_inputs(name, x, pos, ws, win_id=None, key_valid=None):

@@ -42,7 +42,7 @@ is one kernel).
 The old widths against another checkout of the package (``parent``,
 ``--parent DIR``: a checkout whose kernels are built, ``DIR/build/
 geomae_tpu_torch/libgeomae_kernels_*.so``): the SASS of K6 / K7's and
-K8's kernels at every width but heads of 12 and 24 (``OLD_WIDTH``) in
+K8's kernels at every width but one head of 384 or 512 (``OLD_WIDTH``) in
 both libraries (``cuobjdump -sass``, names demangled, the anonymous
 namespace and addresses dropped), K8's forward and backward, f32 and
 bf16, at the width of any K8 kernel whose SASS differs, then K6, K7
@@ -386,11 +386,12 @@ def grads(C: int, heads: int) -> None:
               + ", ".join(ms))
 
 
-# K6 / K7's and K8's kernels at every width but heads of 12 and 24 (the
-# qkv kernels' template arguments <C> or <C, D>, K8's <D, C> or <T, D, C>)
-OLD_WIDTH = re.compile(r"(?:qkv\w*<\d+(?:, (?!12>|24>)\d+)?>"
+# K6 / K7's and K8's kernels at every width but one head of 384 or 512
+# (the qkv kernels' template arguments <C> or <C, D>, K8's <D, C> or <T,
+# D, C>)
+OLD_WIDTH = re.compile(r"(?:qkv\w*<\d+(?:, (?!384>|512>)\d+)?>"
                        r"|band_attention_(?!qkv)\w*<(?:[\w:]+, )?"
-                       r"(?!12,|24,)\d+, \d+>)$")
+                       r"(?!384,|512,)\d+, \d+>)$")
 # the mangled names of K8's kernels at (D, C) (the prologue's in bf16) and
 # of f32 K6 / K7's at (C, D)
 K8_KERNELS = {"f32": "band_attention_kernelILi{D}ELi{C}E",
@@ -406,9 +407,13 @@ QKV_F32_KERNELS = {"K6 f32": "band_attention_qkv_kernelILi{C}ELi{D}E",
 def resources() -> None:
     lib = _cuda.library()
     for C, D in attention.kernel_widths():
+        kernels = {**K8_KERNELS, **QKV_F32_KERNELS}
+        if D > 256:       # the two passes' kernel (band_attention.cuh)
+            kernels["bf16 backward"] = \
+                "band_attention_bwd_wide_kernelILi{D}ELi{C}E"
         print(f"C {C}, D {D}: " + "; ".join(
             f"{name} {probe.resources(lib, head.format(C=C, D=D))}"
-            for name, head in {**K8_KERNELS, **QKV_F32_KERNELS}.items()))
+            for name, head in kernels.items()))
 
 
 def k8_calls(C: int, D: int) -> dict:

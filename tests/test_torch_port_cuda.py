@@ -53,13 +53,14 @@ gradients by the backward rule; one launch a call, two launches bitwise
 equal, at one sample, a batch and the encoder's [4, 8192].  K6, K7 and
 the projections also at every width they take (``QKV_HEADS``: C 128,
 256, 384 and 512 in heads of 8 to 128, C 384 in heads of 12, 24, 48, 96
-and 192, C 256 and 512 in heads of 256), f32 and bf16, with K7's dbk
+and 192, C 256 and 512 in heads of 256, C 384 and 512 in one head), f32
+and bf16, with K7's dbk
 under F3's rule and its bf16 parameter gradients at ``K7_WGRAD_TOL`` of
 C (3e-3 at C 384 and 512), a dropped row failing it, and by their
 precision (``probe_k5_backward.low_bits_shares``, as K5's: at most a
 quarter of a gradient's elements ending in 16 zero bits), which the
 kernel's gradients rounded to bf16 fail; a width outside the set (C 640,
-C 384 in 64 heads of 6, C 384 and 512 in one head, heads of 4) raises.
+C 384 in 64 heads of 6 or 128 of 3, heads of 4) raises.
 
 K8 (window attention over projected q, k, v; ``ops/attention.py``): the
 output and the statistics at K6's bound, the backward's dq, dk, dv at the
@@ -69,13 +70,14 @@ windows of 1 to 300 tokens with one that has no valid key.  Its
 prologue (D = rowsum(dO * out)) sums D exact products in another order.
 K8 and K5 run at every width of their kernels: K8 in ``HEADS`` (C of 128,
 256, 384 or 512 in heads of 8, 16, 32, 64 or 128, C 384 in heads of 12,
-24, 48, 96 or 192, C 256 and 512 in heads of 256), K5 in
-``ffn.KERNEL_WIDTHS`` (F of 1 to 4 times C at C 128, 256, 384 and 512),
-and refuse widths outside them (K5 at (512, 2560) and (640, 1280), K8 at
-heads of 6, 4, 3, 384 and 512).  At heads of 12, 24, 48, 96 and 192 K8's
-and K6's outputs fail their rule against the plain versions with the
-scale a power of two (1/4, 1/4, 1/8, 1/8 and 1/16; at D 12 the scale of
-the 16-channel slots its bf16 kernels run over), a planted fault;
+24, 48, 96 or 192, C 256 and 512 in heads of 256, C 384 and 512 in one
+head), K5 in ``ffn.KERNEL_WIDTHS`` (F of 1 to 4 times C at C 128, 256,
+384 and 512), and refuse widths outside them (K5 at (512, 2560) and
+(640, 1280), K8 at heads of 6, 4 and 3 and at C 640 and 768).  At heads
+of 12, 24, 48, 96, 192, 384 and 512 K8's and K6's outputs fail their
+rule against the plain versions with the scale a power of two (1/4, 1/4,
+1/8, 1/8, 1/16, 1/16 and 1/16; at D 12 the scale of the 16-channel slots
+its bf16 kernels run over), a planted fault;
 K8's bf16 backward also under F3's key-bias rule: the column sums of its
 dk, an exact 0 (``probe_qkv.dbk_bound``).
 K4 also on spans with no key, a full span and an all-sentinel sample.
@@ -92,15 +94,18 @@ INT_MAX = 2 ** 31 - 1
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 DTYPES = [torch.float32, torch.bfloat16]
 # K8's widths, (heads, head width): C = 128, 256, 384 and 512 in heads of
-# 8, 16, 32, 64 and 128, C 384 in heads of 48, 96 and 192, C 256 and 512
-# in heads of 256 (``attention.kernel_widths``); K6's and K7's
-# (QKV_HEADS) the same; SHIPPED is the shipped width, 128 in 8 heads of 16
+# 8, 16, 32, 64 and 128, C 384 in heads of 12, 24, 48, 96 and 192, C 256
+# and 512 in heads of 256, C 384 and 512 in one head
+# (``attention.kernel_widths``); K6's and K7's (QKV_HEADS) the same;
+# SHIPPED is the shipped width, 128 in 8 heads of 16
 HEADS = [(C // D, D) for C, D in attention.kernel_widths()]
 QKV_HEADS = [(C // D, D) for C, D in attention.kernel_widths()
              if attention_qkv.kernel_takes(C, C // D)]
-# the widths whose head width is no power of two: C 384 in 32 heads of
-# 12, 16 of 24, 8 of 48, 4 of 96 and 2 of 192
-ODD_HEADS = [(32, 12), (16, 24), (8, 48), (4, 96), (2, 192)]
+# the widths whose 1/sqrt(D) is no power of two: C 384 in 32 heads of
+# 12, 16 of 24, 8 of 48, 4 of 96, 2 of 192 and one of 384, C 512 in one
+# of 512
+ODD_HEADS = [(32, 12), (16, 24), (8, 48), (4, 96), (2, 192), (1, 384),
+             (1, 512)]
 SHIPPED = (8, 16)
 HEAD_IDS = [f"{h}x{d}" for h, d in HEADS]
 QKV_HEAD_IDS = [f"{h}x{d}" for h, d in QKV_HEADS]
@@ -700,13 +705,12 @@ def test_qkv_projections_take_bf16_only(dev):
                                            *[d.float() for d in ds])
 
 
-@pytest.mark.parametrize("C,H", [(640, 10), (384, 64), (384, 1), (128, 32),
-                                 (512, 1)])
+@pytest.mark.parametrize("C,H", [(640, 10), (384, 64), (384, 128),
+                                 (128, 32), (640, 1)])
 def test_qkv_wrappers_refuse_widths_outside_the_set(dev, C, H):
-    """C 640 (in heads of 64), C 384 in 64 heads of 6 or in one head of
-    384, heads of 4 or C 512 in one head of 512: K6, K7 and (at C 640)
-    the projections raise on a CUDA tensor rather than run a plain
-    version."""
+    """C 640 (in heads of 64 or in one head of 640), C 384 in 64 heads of
+    6 or 128 of 3, or heads of 4: K6, K7 and (at C 640) the projections
+    raise on a CUDA tensor rather than run a plain version."""
     x = torch.randn(1, 64, C, device=dev)
     win = torch.zeros(1, 64, dtype=torch.int32, device=dev)
     kv = torch.ones(1, 64, dtype=torch.bool, device=dev)
@@ -1183,7 +1187,8 @@ def test_band_attention_delta(dev, dtype, heads):
 
 def pow2_scale(D: int) -> float:
     """The power of two nearest 1/sqrt(D) in log2: 1/4 at D = 12 and 24,
-    1/8 at 48 and 96, 1/16 at 192, where the true scale is none."""
+    1/8 at 48 and 96, 1/16 at 192, 384 and 512, where the true scale is
+    none."""
     return 2.0 ** round(float(np.log2(D ** -0.5)))
 
 
@@ -1197,7 +1202,8 @@ def test_odd_head_widths_fail_a_power_of_two_scale(dev, dtype, heads):
     statistics``), fail it against the plain versions run with the scale
     a power of two (``pow2_scale``: 1/4 for 1/sqrt(12) = 0.289 and
     1/sqrt(24) = 0.204, 1/8 for 1/sqrt(48) = 0.144 and 1/sqrt(96) =
-    0.102, 1/16 for 1/sqrt(192) = 0.072), so a kernel that took such a
+    0.102, 1/16 for 1/sqrt(192) = 0.072, 1/sqrt(384) = 0.051 and
+    1/sqrt(512) = 0.044), so a kernel that took such a
     guess for 1/sqrt(D) would not pass; at D 12 that guess is the scale
     of the 16-channel slots the bf16 kernels run the head over."""
     H, D = heads
@@ -1242,9 +1248,9 @@ def test_band_attention_fused_autograd_and_refusals(dev):
         f(q, k, v, win, kv)
         assert [c - a for c, a in zip(counts(), before)] == [1, 0, 0]
     w64, kv64 = win[:, :64].contiguous(), kv[:, :64].contiguous()
-    # C 32, C 384 in one head of 384, heads of 4 (at C 128 and 256), C 384
-    # in heads of 6 and 3, C 512 in one head of 512, C 640
-    for heads in ((4, 8), (1, 384), (32, 4), (64, 6), (128, 3), (1, 512),
+    # C 32, C 768 in one head of 768, heads of 4 (at C 128 and 256), C 384
+    # in heads of 6 and 3, C 640 in one head and in heads of 64
+    for heads in ((4, 8), (1, 768), (32, 4), (64, 6), (128, 3), (1, 640),
                   (64, 4), (10, 64)):
         bad = torch.randn(1, 64, *heads, device=dev)
         with pytest.raises(ValueError):

@@ -14,10 +14,10 @@ may move a rounding to the other side).  One SST block at C = 256 in 8
 heads of 32 on the band / fused route against the JAX stack's Pallas
 routes in interpret mode; the route table at every width of the sets
 (K8, K6 and K5 at C 128, 256, 384 and 512, C 384 in heads of 12, 24,
-48, 96 and 192 and C 256 and 512 in heads of 256 among them) and at
-nine widths outside them (C 384 and 512 in one head, heads of 4, F of 8
-C, of 320 and of 2,048 at C 256, C 384 in heads of 6, F of 5 C at C 512,
-C 640), beside JAX's own decision; and F4:
+48, 96 and 192, C 256 and 512 in heads of 256 and C 384 and 512 in one
+head among them) and at nine widths outside them (heads of 3, 4 and 1,
+F of 8 C, of 320 and of 2,048 at C 256, C 384 in heads of 6, F of 5 C
+at C 512, C 640), beside JAX's own decision; and F4:
 the tiny fine-tune step at width 256 (``vfe.feat_channels=16,256
 sst.d_model=256 sst.nhead=8 sst.dim_feedforward=512``), where SECOND
 takes the SST's width, against the JAX step, from flax variables on the shapes of the JAX init
@@ -172,8 +172,9 @@ def test_sst_block_at_256_matches_the_jax_pallas_routes():
 # stated apart from the gates under test: K8 and K6 / K7 C 128, 256, 384
 # or 512 in heads of 8, 16, 32, 64 or 128 channels, C 384 in heads of 12,
 # 24, 48, 96 or 192 (the only C of the four they divide), C 256 and 512
-# in heads of 256; K5 F of 1, 2, 3 or 4 times C at C 128, 256, 384 or 512
-HEAD_DIMS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+# in heads of 256, C 384 and 512 in one head; K5 F of 1, 2, 3 or 4 times
+# C at C 128, 256, 384 or 512
+HEAD_DIMS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512)
 ATTENTION_KERNEL_WIDTHS = {(C, C // D) for C in (128, 256, 384, 512)
                            for D in HEAD_DIMS if C % D == 0}
 QKV_KERNEL_WIDTHS = {(C, C // D) for C in (128, 256, 384, 512)
@@ -183,11 +184,11 @@ FFN_KERNEL_WIDTHS = {(C, k * C) for C in (128, 256, 384, 512)
 WIDTHS = [(C, C // D, F) for C in (128, 256, 384, 512) for D in HEAD_DIMS
           for F in (C, 2 * C, 3 * C, 4 * C)
           if C % D == 0 and (C, F) in FFN_KERNEL_WIDTHS]
-# widths outside the sets: C 384 in one head of 384; heads of 4; F of 8
+# widths outside the sets: C 384 in 128 heads of 3; heads of 4; F of 8
 # C; F not a multiple of 128; F of 2,048 at C 256; C 384 in 64 heads of
-# 6; C 512 in one head of 512; F of 5 C at C 512; C 640 in 10 heads of 64
-OUTSIDE = [(384, 1, 768), (128, 32, 256), (128, 8, 1024), (128, 8, 320),
-           (256, 8, 2048), (384, 64, 768), (512, 1, 1024), (512, 8, 2560),
+# 6; C 128 in 128 heads of 1; F of 5 C at C 512; C 640 in 10 heads of 64
+OUTSIDE = [(384, 128, 768), (128, 32, 256), (128, 8, 1024), (128, 8, 320),
+           (256, 8, 2048), (384, 64, 768), (128, 128, 256), (512, 8, 2560),
            (640, 10, 1280)]
 
 
@@ -212,14 +213,15 @@ def jax_routes(jc, V=128):
 def test_route_resolution_at_widths(width):
     """At every width of the sets (C of 128, 256, 384 or 512 in heads of
     D of 8, 16, 32, 64 or 128, C 384 in 32 heads of 12, 16 of 24, 8 of
-    48, 4 of 96 or 2 of 192, C 256 in one head of 256 and 512 in two, F
-    of 1, 2, 3 or 4 times C) "band", "fused" and "auto" resolve to the kernels (K8, K5;
-    "auto" to K8), and "qkv" to K6 at every C of the set, 384 and 512
-    included; JAX resolves "band", "qkv" / "fused" to its kernels
-    throughout.  At C 384 in one head of 384, at 32 heads of 4, at C 384
-    in 64 heads of 6 and at C 512 in one head of 512 the port's
-    attention takes the plain route under every name (its FFN, of a
-    width K5 takes, the kernel), JAX its kernels; at F of 8 C,
+    48, 4 of 96 or 2 of 192, C 256 in one head of 256 and 512 in two, C
+    384 and 512 in one head, F of 1, 2, 3 or 4 times C) "band", "fused"
+    and "auto" resolve to the kernels (K8, K5; "auto" to K8), and "qkv" to
+    K6 at every C of the set, 384 and 512 included; JAX resolves "band",
+    "qkv" / "fused" to its kernels throughout.  At C 384 in 128 heads of
+    3, at 32 heads of 4, at C 384 in 64 heads of 6 and at C 128 in 128
+    heads of 1 the port's attention takes the plain route under every
+    name (its FFN, of a width K5 takes, the kernel), JAX its kernels; at
+    F of 8 C,
     of 320, of 2,048 at C 256 and of 2,560 at C 512 the port's FFN takes
     the unfused chain under every name (its attention, of a width K8
     takes, the kernel), JAX its kernel; at C 640 both take the plain
