@@ -24,14 +24,13 @@ const geomae::K8Kernels* k8_kernels(int H, int D) {
 
 extern "C" {
 
-// q, k, v, out [B, V, H * D] in dtype (H heads of D in {8, 16, 32, 64,
-// 128}, H * D of 128, 256, 384 or 512, or of D in {12, 24, 48, 96, 192}
-// at H * D = 384, or of D 256 at H * D = 256 or 512, or of D = H * D =
-// 384 or 512; heads flattened),
-// each 16-byte aligned.  win [B, V] int32 ascending per row (INT32_MAX
-// padding suffix); key_valid [B, V] bytes.  lse: null, or f32 [B, V, H]
-// for the per-(row, head) log-sum-exp of the scaled scores (0 where a row
-// sees no key).
+// q, k, v, out [B, V, H * D] in dtype (H heads of D in {1, 2, 4, 8, 16,
+// 32, 64, 128}, H * D of 128, 256, 384 or 512, or of D in {3, 6, 12, 24,
+// 48, 96, 192} at H * D = 384, or of D 256 at H * D = 256 or 512, or of
+// D = H * D = 384 or 512; heads flattened), each 16-byte aligned.  win
+// [B, V] int32 ascending per row (INT32_MAX padding suffix); key_valid
+// [B, V] bytes.  lse: null, or f32 [B, V, H] for the per-(row, head)
+// log-sum-exp of the scaled scores (0 where a row sees no key).
 int geomae_band_attention(int dtype, const void* q, const void* k,
                           const void* v, const int* win,
                           const uint8_t* key_valid, void* out, float* lse,

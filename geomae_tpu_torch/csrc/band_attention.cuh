@@ -10,10 +10,10 @@
 // return exactly 0.  The q/k/v projections happen outside (three Linears
 // in models/sst.py), as on the JAX route.
 //
-// Widths: every kernel is a template over the head width D (8, 16, 32,
-// 64 or 128; 12, 24, 48, 96 and 192 at C 384, the one C that splits
-// into them; 256 at C 256 and 512; 384 and 512 at C 384 and 512, one
-// head) and the row width C (128, 256, 384 or
+// Widths: every kernel is a template over the head width D (1, 2, 4, 8,
+// 16, 32, 64 or 128; 3, 6, 12, 24, 48, 96 and 192 at C 384, the one C
+// that splits into them; 256 at C 256 and 512; 384 and 512 at C 384 and
+// 512, one head) and the row width C (128, 256, 384 or
 // 512), so the head count H = C / D, the row stride and every index are
 // constants; each C is a translation unit of its own
 // (band_attention_c*.cu, compiled in parallel), and the entry points
@@ -58,8 +58,13 @@
 // bf16 forward splits the output columns over two blocks too, and the
 // backward runs JAX's two passes, the tile as queries and as keys, in one
 // launch (band_attention_bwd_wide_kernel): the four arrays of a tile
-// beside two chunks of four would stage 301 and 399 KB.  D of 6 or less
-// is not taken.
+// beside two chunks of four would stage 301 and 399 KB.  Below 8 (D = 6,
+// 4, 3, 2 and 1: C 384 in 64 and 128 heads, any C in 32 to 512) the bf16
+// kernels stage each head into an 8-channel slot whose channels past D
+// are zero and run D = 8's products and blocks over the slots
+// (stage_slots: 8-, 4-byte or register copies by where a head starts),
+// and the f32 kernels give a lane one whole head, 16 heads a block as at
+// D = 8, loading it in float4s, float2s or floats.
 //
 // Bound: with no projection inside, a call moves 4 rows of C values per
 // token and computes 4 * C operations per same-window pair forward (10 * C
@@ -168,11 +173,11 @@ template <int D>
 struct Head {
   static constexpr float kScale = HeadScale<D>::kValue;
   // the f32 kernels: channels a block stages (whole heads: 128, or 96 at
-  // D = 12, 24, 48 and 96, which do not divide 128, one head above 128),
-  // heads a block, lanes a (query, head) (D / 16 of 16 channels, one of 8
-  // at D = 8, D / 12 of 12 at D = 12, 24, 48, 96 and 192; the lanes'
-  // partial dot products summed by shuffles, as in K6's f32 kernels),
-  // channels a
+  // D = 12, 24, 48 and 96, which do not divide 128, one head above 128,
+  // 16 heads below 8, as at D = 8), heads a block, lanes a (query, head)
+  // (D / 16 of 16 channels, one of 8 at D = 8, D / 12 of 12 at D = 12,
+  // 24, 48, 96 and 192, one of the whole head below 8; the lanes' partial
+  // dot products summed by shuffles, as in K6's f32 kernels), channels a
   // lane, queries a block (and keys a chunk: the chunk's rows map onto
   // the tile's lanes) and threads.  At D = 192 and 256 a (query, head)
   // takes 16 lanes, so a block takes 16 queries: 256 threads, as at D =
@@ -180,7 +185,9 @@ struct Head {
   // 7 x 16 floats of a head in registers); at D = 384 and 512 a whole
   // warp of 12 and 16 channels a lane, and a block 8 queries, 256
   // threads again
-  static constexpr int kW = D > 128 ? D : D % 3 == 0 ? 96 : 128;
+  static constexpr int kW = D > 128 ? D
+                            : D < 8 ? 16 * D
+                            : D % 3 == 0 ? 96 : 128;
   static constexpr int kGH = kW / D;
   static constexpr int kLC = f32_lane_channels(D);
   static constexpr int kLanes = D / kLC;
@@ -190,8 +197,10 @@ struct Head {
       2 * kTQ * kW * sizeof(float) + 2 * kTQ * sizeof(int);
   static constexpr int kBwdSmemBytes =
       4 * kTQ * kW * sizeof(float) + (2 * kTQ + 2 * kTQ * kGH) * sizeof(int);
-  static_assert(kGH * D == kW && kLanes * kLC == D && kLC % 4 == 0,
-                "whole heads of whole float4 lanes");
+  static_assert(kGH * D == kW && kLanes * kLC == D &&
+                    (kLC % 4 == 0 || D < 8) && kW % 4 == 0,
+                "whole heads of whole float4 lanes (below 8 whole heads a "
+                "lane); float4 rows");
   static_assert(kThreads <= 512 && kThreads >= kTQ * kGH,
                 "a block of whole lane groups");
 
@@ -211,6 +220,9 @@ static_assert(Head<24>::kThreads == 256 && Head<12>::kThreads == 256,
               "4 heads of 2 lanes, 8 heads of 1 lane, x 32");
 static_assert(Head<384>::kThreads == 256 && Head<512>::kThreads == 256,
               "1 head of 32 lanes x 8");
+static_assert(Head<6>::kThreads == 512 && Head<1>::kThreads == 512 &&
+                  Head<8>::kThreads == 512,
+              "below 8 D 8's block: 16 heads of 1 lane x 32");
 
 // four consecutive values (16-byte aligned in f32, 8-byte in bf16) as f32
 template <typename T>
@@ -241,32 +253,66 @@ __device__ __forceinline__ void stage(const T* __restrict__ src, int r0,
   }
 }
 
+// The D f32 values at p (a lane's channels) into v, in d order: float4
+// loads where D is a multiple of 4 (every width of 8 or more, and 4,
+// whose heads start 16 bytes apart), float2 at D = 6 and 2 (heads 24 and
+// 8 bytes apart), one float at D = 3 and 1.
+template <int D>
+__device__ __forceinline__ void load_f32(const float* __restrict__ p,
+                                         float (&v)[D]) {
+  constexpr int kVec = D % 4 == 0 ? 4 : D % 2 == 0 ? 2 : 1;
+#pragma unroll
+  for (int d = 0; d < D; d += kVec) {
+    if constexpr (kVec == 4) {
+      const float4 u = *reinterpret_cast<const float4*>(p + d);
+      v[d] = u.x, v[d + 1] = u.y, v[d + 2] = u.z, v[d + 3] = u.w;
+    } else if constexpr (kVec == 2) {
+      const float2 u = *reinterpret_cast<const float2*>(p + d);
+      v[d] = u.x, v[d + 1] = u.y;
+    } else {
+      v[d] = p[d];
+    }
+  }
+}
+
 // One token's head slice (D values) from global memory, as f32.
 template <typename T, int D>
 __device__ __forceinline__ void load_head(const T* __restrict__ p,
                                           float (&r)[D]) {
+  if constexpr (D % 4 != 0) {
+    static_assert(std::is_same_v<T, float>, "heads below 8: f32 rows");
+    load_f32<D>(p, r);
+  } else {
 #pragma unroll
-  for (int d4 = 0; d4 < D / 4; ++d4) {
-    const float4 v = load4<T>(p + 4 * d4);
-    r[4 * d4 + 0] = v.x;
-    r[4 * d4 + 1] = v.y;
-    r[4 * d4 + 2] = v.z;
-    r[4 * d4 + 3] = v.w;
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      const float4 v = load4<T>(p + 4 * d4);
+      r[4 * d4 + 0] = v.x;
+      r[4 * d4 + 1] = v.y;
+      r[4 * d4 + 2] = v.z;
+      r[4 * d4 + 3] = v.w;
+    }
   }
 }
 
 template <int D>
 __device__ __forceinline__ float dot_head(const float (&a)[D],
                                           const float* __restrict__ b) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
   float s = 0.f;
+  if constexpr (D % 4 != 0) {
+    float v[D];
+    load_f32<D>(b, v);
 #pragma unroll
-  for (int d4 = 0; d4 < D / 4; ++d4) {
-    const float4 v = b4[d4];
-    s = fmaf(a[4 * d4 + 0], v.x, s);
-    s = fmaf(a[4 * d4 + 1], v.y, s);
-    s = fmaf(a[4 * d4 + 2], v.z, s);
-    s = fmaf(a[4 * d4 + 3], v.w, s);
+    for (int d = 0; d < D; ++d) s = fmaf(a[d], v[d], s);
+  } else {
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+#pragma unroll
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      const float4 v = b4[d4];
+      s = fmaf(a[4 * d4 + 0], v.x, s);
+      s = fmaf(a[4 * d4 + 1], v.y, s);
+      s = fmaf(a[4 * d4 + 2], v.z, s);
+      s = fmaf(a[4 * d4 + 3], v.w, s);
+    }
   }
   return s;
 }
@@ -275,14 +321,21 @@ __device__ __forceinline__ float dot_head(const float (&a)[D],
 template <int D>
 __device__ __forceinline__ void axpy_head(float w, const float* __restrict__ b,
                                           float (&acc)[D]) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
+  if constexpr (D % 4 != 0) {
+    float v[D];
+    load_f32<D>(b, v);
 #pragma unroll
-  for (int d4 = 0; d4 < D / 4; ++d4) {
-    const float4 v = b4[d4];
-    acc[4 * d4 + 0] = fmaf(w, v.x, acc[4 * d4 + 0]);
-    acc[4 * d4 + 1] = fmaf(w, v.y, acc[4 * d4 + 1]);
-    acc[4 * d4 + 2] = fmaf(w, v.z, acc[4 * d4 + 2]);
-    acc[4 * d4 + 3] = fmaf(w, v.w, acc[4 * d4 + 3]);
+    for (int d = 0; d < D; ++d) acc[d] = fmaf(w, v[d], acc[d]);
+  } else {
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+#pragma unroll
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      const float4 v = b4[d4];
+      acc[4 * d4 + 0] = fmaf(w, v.x, acc[4 * d4 + 0]);
+      acc[4 * d4 + 1] = fmaf(w, v.y, acc[4 * d4 + 1]);
+      acc[4 * d4 + 2] = fmaf(w, v.z, acc[4 * d4 + 2]);
+      acc[4 * d4 + 3] = fmaf(w, v.w, acc[4 * d4 + 3]);
+    }
   }
 }
 
@@ -472,7 +525,10 @@ struct BwdArgs {
 
 // The prologue: D[r, h] = sum_d dO[r, h, d] out[r, h, d] in f32, one
 // thread per (row, head), the terms added in d order (a bf16 product is
-// exact in f32, as in the JAX einsum with preferred_element_type=f32).
+// exact in f32, as in the JAX einsum with preferred_element_type=f32;
+// below D = 8 each product is rounded before its sum, as the plain
+// version rounds f32 products and adds them in d order there: the two
+// agree bitwise).
 // A padding row (win == INT32_MAX) reads nothing and takes D = 0: the
 // backward reads D of real rows only.
 constexpr int kDeltaThreads = 256;
@@ -488,14 +544,22 @@ band_attention_delta_kernel(const T* __restrict__ dout,
   if (i >= n) return;
   float d = 0.f;
   if (win[i / H] != kInt32Max) {   // four channels at a time, in d order
+    if constexpr (D < 8) {         // one at a time, each product rounded
+                                   // as the plain version's (exact in bf16)
 #pragma unroll
-    for (int e = 0; e < D; e += 4) {
-      const float4 g = load4<T>(dout + (size_t)i * D + e);
-      const float4 o = load4<T>(out + (size_t)i * D + e);
-      d = fmaf(g.x, o.x, d);
-      d = fmaf(g.y, o.y, d);
-      d = fmaf(g.z, o.z, d);
-      d = fmaf(g.w, o.w, d);
+      for (int e = 0; e < D; ++e)
+        d = __fadd_rn(d, __fmul_rn(to_f<T>(dout[(size_t)i * D + e]),
+                                   to_f<T>(out[(size_t)i * D + e])));
+    } else {
+#pragma unroll
+      for (int e = 0; e < D; e += 4) {
+        const float4 g = load4<T>(dout + (size_t)i * D + e);
+        const float4 o = load4<T>(out + (size_t)i * D + e);
+        d = fmaf(g.x, o.x, d);
+        d = fmaf(g.y, o.y, d);
+        d = fmaf(g.z, o.z, d);
+        d = fmaf(g.w, o.w, d);
+      }
     }
   }
   delta[i] = d;
@@ -685,15 +749,107 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kTile == kChunk && kChunk % 16 == 0, "one row loader");
 
+// The bf16 kernels' slots: at D = 12 and below 8 a head is staged into a
+// slot of kSlotWidth channels of shared memory (16 at D = 12, 8 below 8)
+// whose channels past D are zero, and the products of the slot's width
+// (D 16's or D 8's) run over the slots: the zeros add exact zeros to S,
+// dP and the outputs' unwritten columns, and the scale stays the head's
+// own.  A head's D bf16 channels move in pieces of kSlotPiece bytes, the
+// widest cp.async takes that its start allows: 8 at D = 12 and 4 (heads
+// 24 and 8 bytes apart), 4 at D = 6 and 2 (12 and 4 bytes apart); at D =
+// 3 and 1 the heads start 2 bytes apart, which no cp.async takes, so a
+// thread loads its slot's D channels into registers and stores the slot
+// whole (kSlotPiece 2).
+template <int D>
+constexpr bool kSlotted = D == 12 || D < 8;
+template <int D>
+constexpr int kSlotWidth = D == 12 ? 16 : 8;
+template <int D>
+constexpr int kSlotPiece = 2 * D % 8 == 0 ? 8 : 2 * D % 4 == 0 ? 4 : 2;
+
+template <int PB>
+using SlotPiece = std::conditional_t<
+    PB == 8, uint2, std::conditional_t<PB == 4, uint32_t, uint16_t>>;
+
+// Rows [r0, r0 + n) of NS heads of D channels of NA arrays (src(a) + base
+// + row * C, a < NA) into slots: dst [NA][R][RS], NS slots of kSlotWidth
+// channels a row from its first; rows past n zero-filled (finite: a
+// masked product with them stays 0).  Copies go through cp.async but at
+// D = 3 and 1 (kSlotPiece), whose stores are plain.
+template <int D, int C, int NS, int RS, int R, int NA, int kThreads,
+          typename Src>
+__device__ __forceinline__ void stage_slots(Src src, size_t base, int r0,
+                                            int n, __nv_bfloat16* dst) {
+  constexpr int DS = kSlotWidth<D>, PB = kSlotPiece<D>;
+  if constexpr (PB >= 4) {
+    constexpr int kE = PB / 2;       // channels a piece
+    constexpr int kQ = DS / kE;      // pieces a slot
+    constexpr int kQD = D / kE;      // of them the head's
+    for (int e = threadIdx.x; e < NA * R * NS * kQ; e += kThreads) {
+      const int a = e / (R * NS * kQ);
+      const int r = (e / (NS * kQ)) % R;
+      const int pc = e % (NS * kQ);  // slot pc / kQ, its piece pc % kQ
+      const int i = pc % kQ;
+      const __nv_bfloat16* from = src(a) + base +
+                                  (size_t)(r0 + (r < n ? r : 0)) * C +
+                                  (pc / kQ) * D + (i < kQD ? i : 0) * kE;
+      __nv_bfloat16* to = dst + (a * R + r) * RS + kE * pc;
+      if constexpr (PB == 8) cp_async_8(to, from, r < n && i < kQD);
+      else cp_async_4(to, from, r < n && i < kQD);
+    }
+  } else {
+    static_assert(DS == 8, "one 16-byte store a slot");
+    for (int e = threadIdx.x; e < NA * R * NS; e += kThreads) {
+      const int a = e / (R * NS);
+      const int r = (e / NS) % R, h = e % NS;
+      uint4 slot = make_uint4(0u, 0u, 0u, 0u);   // 8 bf16 zeros
+      if (r < n) {
+        const __nv_bfloat16* from =
+            src(a) + base + (size_t)(r0 + r) * C + h * D;
+        __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&slot);
+#pragma unroll
+        for (int d = 0; d < D; ++d) v[d] = from[d];
+      }
+      *reinterpret_cast<uint4*>(dst + (a * R + r) * RS + h * DS) = slot;
+    }
+  }
+}
+
+// The D channels of NS slots of NA arrays' 16 rows from row r0 (src [NA]
+// rows of RS bf16) to dst(a) + base + row * C, rows from nt on not
+// written; a warp, kSlotPiece bytes a lane a store.
+template <int D, int C, int NS, int RS, int NA, typename Dst>
+__device__ __forceinline__ void write_slots(const __nv_bfloat16* src,
+                                            int src_stride, Dst dst,
+                                            size_t base, int r0, int t0,
+                                            int nt) {
+  constexpr int DS = kSlotWidth<D>, PB = kSlotPiece<D>;
+  constexpr int kE = PB / 2;         // channels a piece
+  constexpr int kQD = D / kE;        // pieces a head
+  constexpr int kQ = kQD * NS;       // pieces a row
+  using P = SlotPiece<PB>;
+  for (int e = threadIdx.x % 32; e < NA * 16 * kQ; e += 32) {
+    const int a = e / (16 * kQ);
+    const int r = r0 + (e / kQ) % 16;
+    const int pc = e % kQ;           // head pc / kQD, its piece pc % kQD
+    if (r >= nt) continue;
+    *reinterpret_cast<P*>(dst(a) + base + (size_t)(t0 + r) * C + kE * pc) =
+        *reinterpret_cast<const P*>(src + a * src_stride + r * RS +
+                                    (pc / kQD) * DS + (pc % kQD) * kE);
+  }
+}
+
 template <int D>
 struct BwdTc {
-  static constexpr int kHG = D < 32 ? 32 / D : 1;   // heads a block
+  // D = 12 and below 8: each head staged into a slot of 16 or 8 channels
+  // (kSlotWidth), its last 4 (8 - D) channels 0, and D 16's (D 8's)
+  // products run over the slots (kDS channels a head in shared memory,
+  // kSW a staged row): 2 heads a block at D = 12, 4 below 8, as D 16's
+  // and D 8's blocks
+  static constexpr bool kSlot = kSlotted<D>;
+  static constexpr int kDS = kSlot ? kSlotWidth<D> : D;
+  static constexpr int kHG = kSlot ? 32 / kDS : D < 32 ? 32 / D : 1;
   static constexpr int kCW = kHG * D;       // channels a block stages
-  // D = 12: each head staged into a 16-channel slot, its last 4 channels
-  // 0, and D 16's products run over the slots (kDS channels a head in
-  // shared memory, kSW a staged row)
-  static constexpr bool kSlot = D == 12;
-  static constexpr int kDS = kSlot ? 16 : D;
   static constexpr int kSW = kHG * kDS;
   // bf16 row stride of the rows: an odd count of 16-byte pieces, so the 8
   // rows of an ldmatrix phase hit distinct banks (D = 24's 3 pieces take
@@ -711,7 +867,8 @@ struct BwdTc {
   // fragments and stage 88 and 110 KB: two blocks an SM; D = 96, 128, 192
   // and 256 stage 158, 206, 151 and 199 KB: one
   static constexpr int kMinBlocks = D >= 96 ? 1 : D >= 48 ? 2 : 3;
-  static_assert(kCW % 8 == 0 && kRS / 8 % 2 == 1, "16-byte rows");
+  static_assert((kSlot || kCW % 8 == 0) && kRS / 8 % 2 == 1,
+                "16-byte rows");
   static_assert(kRows % 16 == 0 && kRows <= kChunk,
                 "whole s-steps; a thread per chunk row's statistics");
 
@@ -740,6 +897,8 @@ static_assert(BwdTc<192>::kPieces / BwdTc<192>::kSplit == 8 &&
 static_assert(BwdTc<24>::kHG == 1 && BwdTc<24>::kRS == 40 &&
                   BwdTc<12>::kHG == 2 && BwdTc<12>::kRS == 40,
               "D = 24 one head a block; D = 12 two heads in slots of 16");
+static_assert(BwdTc<6>::kHG == 4 && BwdTc<1>::kRS == BwdTc<8>::kRS,
+              "below 8: D 8's block of 4 heads, in slots of 8");
 
 // 2^x on the special-function unit; a result below 2^-126 flushes to 0
 // (such a p adds nothing that survives the bf16 rounding of a product)
@@ -751,27 +910,20 @@ __device__ __forceinline__ float ex2(float x) {
 
 // cp.async rows [r0, r0 + n) of the block's heads of q, k, v and dO into
 // dst [4][R][kRS]; rows past n are zero-filled (finite: a masked
-// product of 0 with them stays 0).  At D = 12 a head's 24 bytes start 8
-// bytes past a 16-byte boundary: 8-byte copies into its 16-channel slot,
-// whose last 8 bytes are zero-filled.
+// product of 0 with them stays 0).  At D = 12 and below 8 into the
+// heads' slots (stage_slots).
 template <int D, int C, int R>
 __device__ __forceinline__ void stage_rows(const BwdArgs& p, size_t base,
                                            int r0, int n,
                                            __nv_bfloat16* dst) {
   using K = BwdTc<D>;
   if constexpr (K::kSlot) {
-    constexpr int kQ = K::kSW / 4;   // 8-byte pieces a staged row
-    for (int e = threadIdx.x; e < 4 * R * kQ; e += kTcThreads) {
-      const int a = e / (R * kQ);
-      const int r = (e / kQ) % R;
-      const int pc = e % kQ;         // slot pc / 4, its piece pc % 4
-      const int c = (pc / 4) * D + (pc % 4 % 3) * 4;
-      const void* src = a == 0 ? p.q : a == 1 ? p.k : a == 2 ? p.v : p.dout;
-      cp_async_8(dst + (a * R + r) * K::kRS + 4 * pc,
-                 static_cast<const __nv_bfloat16*>(src) + base +
-                     (size_t)(r0 + (r < n ? r : 0)) * C + c,
-                 r < n && pc % 4 < 3);
-    }
+    stage_slots<D, C, K::kHG, K::kRS, R, 4, kTcThreads>(
+        [&](int a) {
+          return static_cast<const __nv_bfloat16*>(
+              a == 0 ? p.q : a == 1 ? p.k : a == 2 ? p.v : p.dout);
+        },
+        base, r0, n, dst);
   } else {
     for (int e = threadIdx.x; e < 4 * R * K::kPieces; e += kTcThreads) {
       const int a = e / (R * K::kPieces);
@@ -1086,19 +1238,15 @@ band_attention_bwd_tc_kernel(BwdArgs p) {
             pack_bf16(dv[hh][j][e], dv[hh][j][e + 1]);
       }
   __syncwarp();
-  if constexpr (K::kSlot) {        // 8 bytes a lane: 3 pieces a head
-    constexpr int kQ = 3 * kHG;
-    for (int e = lane; e < 3 * 16 * kQ; e += 32) {
-      const int a = e / (16 * kQ);
-      const int r = 16 * warp + (e / kQ) % 16;
-      const int pc = e % kQ;       // head pc / 3, its piece pc % 3
-      if (r >= nt) continue;
-      void* dst = a == 0 ? p.dq : a == 1 ? p.dk : p.dv;
-      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(dst) + base +
-                                (size_t)(t0 + r) * C + 4 * pc) =
-          *reinterpret_cast<const uint2*>(sm.tile[a] + r * kRS +
-                                          (pc / 3) * DS + (pc % 3) * 4);
-    }
+  if constexpr (K::kSlot) {        // the heads' D columns of their slots
+    write_slots<D, C, kHG, kRS, 3>(
+        sm.tile[0], kTile * kRS,
+        [&](int a) {
+          return static_cast<__nv_bfloat16*>(a == 0   ? p.dq
+                                             : a == 1 ? p.dk
+                                                      : p.dv);
+        },
+        base, 16 * warp, t0, nt);
   } else {
     for (int e = lane; e < 3 * 16 * kOutPieces; e += 32) {
       const int a = e / (16 * kOutPieces);
@@ -1443,9 +1591,11 @@ struct FwdTc {
   // at D = 12, where 64 / 12 = 5 heads (60 channels) would make no whole
   // head groups of C 384: each head in a 16-channel slot of shared memory
   // whose last 4 channels are 0 (kSlot), so a block is D 16's four slots
-  // and registers, and D 16's products run over them
-  static constexpr bool kSlot = D == 12;
-  static constexpr int kDS = kSlot ? 16 : D;      // a head's shared channels
+  // and registers, and D 16's products run over them; below 8 likewise 4
+  // heads in slots of 8 channels, D 8's block
+  static constexpr bool kSlot = kSlotted<D>;
+  static constexpr int kDS = kSlot ? kSlotWidth<D> : D;   // a head's shared
+                                                          // channels
   static constexpr int kHeads = D == 8 || kSlot    ? 4
                                 : D < kFwdChannels ? kFwdChannels / D
                                                    : 1;
@@ -1497,6 +1647,8 @@ struct FwdTc {
 static_assert(FwdTc<16>::kHeads == 4, "the shipped block: 4 heads of 16");
 static_assert(FwdTc<24>::kHeads * 24 == 48 && FwdTc<12>::kRS == FwdTc<16>::kRS,
               "D = 24: 2 heads a block; D = 12: D 16's block of 4 slots");
+static_assert(FwdTc<3>::kHeads == 4 && FwdTc<6>::kRS == FwdTc<8>::kRS,
+              "below 8: D 8's block of 4 slots");
 static_assert(FwdTc<384>::kOW == 192 && FwdTc<512>::kOW == 256 &&
                   FwdTc<384>::kBufs == 2 && FwdTc<512>::kBufs == 1,
               "D = 384 and 512: D 192's and 256's output a block");
@@ -1524,7 +1676,7 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   static_assert(16 * KS + 8 * KT == DS && (KT == 0 || K::kHoldQ) &&
                     (K::kSplit == 1 || (KT == 0 && kHeads == 1)),
                 "the k-steps cover the head; split heads alone");
-  // the head's own 1/sqrt(D), at D = 12 too (not its slot's 1/4)
+  // the head's own 1/sqrt(D), in slots too (at D = 12 not its slot's 1/4)
   constexpr float kScaleLog2e = Head<D>::kScale * kLog2e;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   typename K::Smem& sm = *reinterpret_cast<typename K::Smem*>(smem_raw);
@@ -1546,19 +1698,12 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // rows [r0, r0 + n) of the block's heads of src into dst [kChunk][kRS];
   // rows past n are zero-filled (finite: a masked product with them
-  // stays 0); at D = 12, whose heads start 24 bytes apart, 8-byte copies
-  // into each head's slot, the slot's last 8 bytes zero-filled
+  // stays 0); at D = 12 and below 8 into each head's slot (stage_slots)
   auto copy_rows = [&](const __nv_bfloat16* src, int r0, int n,
                        __nv_bfloat16* dst) {
     if constexpr (K::kSlot) {
-      constexpr int kQ = kHeads * DS / 4;   // 8-byte pieces a row
-      for (int e = threadIdx.x; e < kChunk * kQ; e += kFwdThreads) {
-        const int r = e / kQ, pc = e % kQ;  // slot pc / 4, piece pc % 4
-        cp_async_8(dst + r * kRS + 4 * pc,
-                   src + (row0 + r0 + (r < n ? r : 0)) * C + h0 * D +
-                       (pc / 4) * D + (pc % 4 % 3) * 4,
-                   r < n && pc % 4 < 3);
-      }
+      stage_slots<D, C, kHeads, kRS, kChunk, 1, kFwdThreads>(
+          [&](int) { return src; }, row0 * C + h0 * D, r0, n, dst);
     } else {
       for (int e = threadIdx.x; e < kChunk * kPieces; e += kFwdThreads) {
         const int r = e / kPieces, c = (e % kPieces) * 8;
@@ -1800,15 +1945,10 @@ band_attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncwarp();
-  if constexpr (K::kSlot) {        // 8 bytes a lane: 3 pieces a head
-    constexpr int kQ = 3 * kHeads;
-    for (int e = lane; e < 16 * kQ; e += 32) {
-      const int r = 16 * warp + e / kQ, pc = e % kQ;
-      if (r >= nt) continue;
-      *reinterpret_cast<uint2*>(out + (row0 + t0 + r) * C + h0 * D + 4 * pc) =
-          *reinterpret_cast<const uint2*>(sm.q + r * kRS + (pc / 3) * DS +
-                                          (pc % 3) * 4);
-    }
+  if constexpr (K::kSlot) {        // the heads' D columns of their slots
+    write_slots<D, C, kHeads, kRS, 1>(
+        sm.q, 0, [&](int) { return out; }, row0 * C + h0 * D, 16 * warp,
+        t0, nt);
   } else {                         // the block's columns, from oc
     for (int e = lane; e < 16 * kOutPieces; e += 32) {
       const int r = 16 * warp + e / kOutPieces, c = (e % kOutPieces) * 8;
@@ -1880,15 +2020,17 @@ struct Width {
 };
 
 // The kernels of row width C at head width D, null for a D not taken
-// (heads of 12, 24, 48, 96 and 192 only where C splits into them: at C
-// 384; heads of 256 at C 256 and 512; one head of 384 or 512 at C 384 or
-// 512)
+// (heads of 3, 6, 12, 24, 48, 96 and 192 only where C splits into them:
+// at C 384; heads of 256 at C 256 and 512; one head of 384 or 512 at C
+// 384 or 512)
 template <int C>
 const K8Kernels* k8_kernels_at(int D) {
   if constexpr (C > 256) {
     if (D == C) return &Width<C, C>::kernels();
   }
   if constexpr (C % 3 == 0) {
+    if (D == 3) return &Width<3, C>::kernels();
+    if (D == 6) return &Width<6, C>::kernels();
     if (D == 12) return &Width<12, C>::kernels();
     if (D == 24) return &Width<24, C>::kernels();
     if (D == 48) return &Width<48, C>::kernels();
@@ -1899,6 +2041,9 @@ const K8Kernels* k8_kernels_at(int D) {
     if (D == 256) return &Width<256, C>::kernels();
   }
   switch (D) {
+    case 1: return &Width<1, C>::kernels();
+    case 2: return &Width<2, C>::kernels();
+    case 4: return &Width<4, C>::kernels();
     case 8: return &Width<8, C>::kernels();
     case 16: return &Width<16, C>::kernels();
     case 32: return &Width<32, C>::kernels();

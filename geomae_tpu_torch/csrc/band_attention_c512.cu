@@ -1,7 +1,7 @@
-// K8's kernels at C = 512 (heads of 8, 16, 32, 64, 128, 256 and 512
-// channels; 512 at this C alone), one translation unit, so that the row
-// widths compile in parallel; the kernels are in band_attention.cuh, the
-// entry points in band_attention.cu.
+// K8's kernels at C = 512 (heads of 1, 2, 4, 8, 16, 32, 64, 128, 256 and 512
+// channels; 512 at this C alone), one translation unit, so that the row widths
+// compile in parallel; the kernels are in band_attention.cuh, the entry points
+// in band_attention.cu.
 #include "band_attention.cuh"
 
 namespace geomae {

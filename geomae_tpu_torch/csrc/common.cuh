@@ -46,15 +46,21 @@ __device__ __forceinline__ int lower_bound_i32(const int* a, int n, int v) {
 
 // 1/sqrt(D) at the head widths the attention kernels take: the f32 value
 // nearest it (JAX's 1.0 / head_dim ** 0.5 cast to f32), a power of two at
-// D = 16, 64 and 256
+// D = 1, 4, 16, 64 and 256
 template <int D>
 struct HeadScale {
-  static_assert(D == 8 || D == 12 || D == 16 || D == 24 || D == 32 ||
-                    D == 48 || D == 64 || D == 96 || D == 128 || D == 192 ||
+  static_assert(D == 1 || D == 2 || D == 3 || D == 4 || D == 6 || D == 8 ||
+                    D == 12 || D == 16 || D == 24 || D == 32 || D == 48 ||
+                    D == 64 || D == 96 || D == 128 || D == 192 ||
                     D == 256 || D == 384 || D == 512,
-                "head widths 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, "
-                "384, 512");
-  static constexpr float kValue = D == 8     ? 0.35355339059327376f
+                "head widths 1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, "
+                "128, 192, 256, 384, 512");
+  static constexpr float kValue = D == 1     ? 1.0f
+                                  : D == 2   ? 0.7071067811865476f
+                                  : D == 3   ? 0.5773502691896258f
+                                  : D == 4   ? 0.5f
+                                  : D == 6   ? 0.4082482904638631f
+                                  : D == 8   ? 0.35355339059327376f
                                   : D == 12  ? 0.28867513459481287f
                                   : D == 16  ? 0.25f
                                   : D == 24  ? 0.2041241452319315f
@@ -71,14 +77,24 @@ struct HeadScale {
                 "kValue is 1/sqrt(D)");
 };
 
-// The f32 attention kernels' lanes of a (query, head): the D channels
-// split over a power of two of lanes (lane_group_sum) of whole float4s,
-// 16 channels a lane (all 8 at D = 8), 12 at D = 12, 24, 48, 96, 192 and
-// 384 (1, 2, 4, 8, 16 and 32 lanes: 16 would give no whole lane at D = 12
-// and 24, and 3, 6, 12 and 24 lanes at the others); D = 384 and 512 take
-// a whole warp
+// The f32 attention kernels' channels of a head that one lane keeps: the
+// D channels split over a power of two of lanes (lane_group_sum) of whole
+// float4s, 16 channels a lane (all 8 at D = 8), 12 at D = 12, 24, 48, 96,
+// 192 and 384 (1, 2, 4, 8, 16 and 32 lanes: 16 would give no whole lane
+// at D = 12 and 24, and 3, 6, 12 and 24 lanes at the others); D = 384 and
+// 512 take a whole warp.  Below 8 a lane keeps the whole head (never more
+// channels than the head has)
 __host__ __device__ constexpr int f32_lane_channels(int D) {
-  return D % 3 == 0 ? 12 : D < 16 ? D : 16;
+  return D < 8 ? D : D % 3 == 0 ? 12 : D < 16 ? D : 16;
+}
+
+// Heads one lane of K6 / K7's f32 kernels keeps: one from D = 8 up;
+// below, as many whole heads as make 8 channels (D = 1, 2 and 4) or 12
+// (D = 3 and 6), so a lane keeps whole float4s and a tile as many tokens
+// as at D = 8 or 12 (one head a lane would leave C 512 in 512 heads no
+// token a block of 256 threads)
+__host__ __device__ constexpr int f32_lane_heads(int D) {
+  return D < 8 ? (D % 3 == 0 ? 12 : 8) / D : 1;
 }
 
 // v summed over the S adjacent lanes of the calling thread's group (S a

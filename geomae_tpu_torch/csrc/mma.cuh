@@ -1,6 +1,6 @@
 // Tensor-core helpers of the bf16 kernels: warp-level mma.sync
 // m16n8k16 and m16n8k8 (bf16 in, f32 accumulate), ldmatrix fragment loads
-// from shared memory, and 16- and 8-byte cp.async copies from device
+// from shared memory, and 16-, 8- and 4-byte cp.async copies from device
 // memory.
 //
 // Fragments of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
@@ -110,6 +110,18 @@ __device__ __forceinline__ void cp_async_8(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// 4 bytes from device memory to shared memory, through L1, both
+// addresses 4-byte aligned: the heads of 6 and 2 bf16 channels, which
+// start 12 and 4 bytes apart; with valid false nothing is read and the 4
+// bytes are zero-filled
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

@@ -38,12 +38,12 @@ const geomae::QkvProjKernels* proj_kernels(int C) {
 extern "C" {
 
 // x, pos, out [B, V, C]; W [C, C] (in x out); b [C]; all dtype; C of 128,
-// 256, 384 or 512 in H heads of 8, 16, 32, 64 or 128, C 384 in heads of
-// 12, 24, 48, 96 or 192, C 256 or 512 in heads of 256, or C 384 or 512 in
-// one head.  win [B, V] int32
-// ascending per row (INT32_MAX padding suffix); key_valid [B, V] bytes.
-// lse: null, or f32 [B, V, H] for the per-(row, head) log-sum-exp of the
-// scores (0 where a row sees no key).
+// 256, 384 or 512 in H heads of 1, 2, 4, 8, 16, 32, 64 or 128, C 384 in
+// heads of 3, 6, 12, 24, 48, 96 or 192, C 256 or 512 in heads of 256, or
+// C 384 or 512 in one head.  win [B, V] int32 ascending per row
+// (INT32_MAX padding suffix); key_valid [B, V] bytes.  lse: null, or f32
+// [B, V, H] for the per-(row, head) log-sum-exp of the scores (0 where a
+// row sees no key).
 int geomae_band_attention_qkv(int dtype, const void* x, const void* pos,
                               const void* wq, const void* bq, const void* wk,
                               const void* bk, const void* wv, const void* bv,

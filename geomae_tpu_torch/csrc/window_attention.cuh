@@ -15,20 +15,21 @@
 // compute dtype, f32 accumulation, the product rounded, then the bias
 // added in the compute dtype.
 //
-// Widths: C (channels) of 128, 256, 384 or 512 in heads of D = 8, 16,
-// 32, 64 or 128, C 384 in heads of 12, 24, 48, 96 or 192, C 256 and 512
-// in heads of 256 and C 384 and 512 in one head, the widths K8 takes.
+// Widths: C (channels) of 128, 256, 384 or 512 in heads of D = 1, 2, 4,
+// 8, 16, 32, 64 or 128, C 384 in heads of 3, 6, 12, 24, 48, 96 or 192, C
+// 256 and 512 in heads of 256 and C 384 and 512 in one head, the widths
+// K8 takes.
 // Every kernel is a template over C (the f32 ones over C and D); each C
 // is a translation unit of its own
 // (window_attention_c*.cu, compiled in parallel), and the entry points
 // (window_attention.cu) pick the unit by C and the instantiation by D.
 // At the shipped width (128 in 8 heads of 16) each is the kernel it was
-// before the widths.  The scale 1/sqrt(D) is a power of two at D = 16,
-// 64 and 256 (D a power of four), and JAX folds it into q there
-// (_scale_pow2); at D = 8, 12, 24, 32, 48, 96, 128, 192, 384 and 512 it
-// multiplies the f32 score, and dq and dk after their f32 sums.  Both give
-// the same numbers where the fold is exact, so the kernels below keep each
-// JAX dtype point.
+// before the widths.  The scale 1/sqrt(D) is a power of two at D = 1, 4,
+// 16, 64 and 256 (D a power of four), and JAX folds it into q there
+// (_scale_pow2); at D = 2, 3, 6, 8, 12, 24, 32, 48, 96, 128, 192, 384 and
+// 512 it multiplies the f32 score, and dq and dk after their f32 sums.
+// Both give the same numbers where the fold is exact, so the kernels below
+// keep each JAX dtype point.
 //
 // bfloat16, on the tensor cores: the projections and the attention are
 // separate launches.  The TPU kernel projects each key inside the
@@ -37,8 +38,9 @@
 // kernels (csrc/band_attention.cuh, reached through their C entry points)
 // run the attention on the projected rows.  Their dtype points are K6's:
 // K8 multiplies the f32 score by 1/sqrt(D), which at D = 16 and 64 equals
-// K6's score of q folded by that power of two (and at D = 256), and at
-// D = 32 is K6's own point (and D = 12's, 24's, 48's, 96's and 192's);
+// K6's score of q folded by that power of two (and at D = 1, 4 and 256),
+// and at D = 32 is K6's own point (and D = 2's, 3's, 6's, 12's, 24's,
+// 48's, 96's and 192's);
 // ds and p are
 // rounded before their
 // products, dq, dk and dv once,
@@ -70,7 +72,10 @@
 // head): TQ = 4096 / C up to C 256, 8 at C 384 and 512 (at D = 8, where a
 // lane keeps a whole head, half of that; 6 at C 384 in heads of 12, 24,
 // 48, 96, 192 or 384, 32 lanes a token of 12 channels each; 8 at C 512 in
-// one head, 32 lanes of 16).  The projections give each
+// one head, 32 lanes of 16).  Below 8 one lane keeps several whole heads
+// (F32W::HL: 8 channels of heads of 1, 2 or 4, 12 of heads of 3 or 6), so
+// a tile holds D = 8's or D = 12's tokens and a lane its float4s, with a
+// running max, sum, statistics and D per head.  The projections give each
 // thread CPT columns and RPT rows of a chunk: one column up to C 256 (256
 // / C row groups), two at C 384 and 512.
 //
@@ -196,14 +201,19 @@ struct F32W {
   // a block: 256 threads up to C 256, C / 2 at 384 and 512
   static constexpr int kThreads = C <= 256 ? 256 : C / 2;
   static constexpr int H = C / D;              // heads
-  // channels a lane (16, all 8 at D = 8, 12 at D = 12 to 384) and
-  // lanes a (token, head), a power of two (common.cuh)
-  static constexpr int LC = f32_lane_channels(D);
-  static constexpr int S = D / LC;
+  // heads a lane (one; below 8 the whole heads of 8 or 12 channels,
+  // common.cuh), channels a lane (16, all 8 at D = 8, 12 at D = 12 to
+  // 384; HL whole heads below 8: 8 at D = 1, 2 and 4, 12 at D = 3 and 6)
+  // and lanes a (token, head), a power of two (common.cuh)
+  static constexpr int HL = f32_lane_heads(D);
+  static constexpr int HD = f32_lane_channels(D);   // a lane's of a head
+  static constexpr int LC = HL * HD;
+  static constexpr int S = D / HD;
   // tokens a tile: 4096 / C up to C 256, 8 at C 384 and 512; half that
-  // at D = 8; 6 at D = 12, 24, 48, 96, 192 and 384 (32 lanes a token, as
-  // at D = 8 up to C 256), 8 at D = 512 (32 lanes)
-  static constexpr int TQ = kThreads / (H * S);
+  // at D = 8 (and at D = 1, 2 and 4); 6 at D = 12, 24, 48, 96, 192 and
+  // 384 (32 lanes a token, as at D = 8 up to C 256; and at D = 3 and 6),
+  // 8 at D = 512 (32 lanes)
+  static constexpr int TQ = kThreads / (H / HL * S);
   static constexpr int KC = TQ;                // keys a chunk
   // the projections: thread t owns columns t % CW + CW u (u < CPT) and
   // rows t / CW + RG j (j < RPT) of a chunk
@@ -213,7 +223,8 @@ struct F32W {
   static constexpr int RPT = KC / RG;          // rows a thread projects
   // 1/sqrt(D); folded into q (exact: a power of two) where D is a power
   // of four, as JAX folds it, else on the f32 score and after the sums
-  static constexpr bool kFold = D == 16 || D == 64 || D == 256;
+  static constexpr bool kFold =
+      D == 1 || D == 4 || D == 16 || D == 64 || D == 256;
   static constexpr float kScale = HeadScale<D>::kValue;
   static constexpr int kSmemBytes = 4 * KC * C * sizeof(float) +
                                     2 * KC * sizeof(int);
@@ -222,13 +233,16 @@ struct F32W {
   // parameter gradients, f32: dWq, dWk, dWv [C][C], dbq, dbk, dbv [C]
   // (ops/attention_qkv.py splits them in this order)
   static constexpr int kGradFloats = 3 * C * C + 3 * C;
-  static_assert(H * S * TQ == kThreads && RG * CW == kThreads &&
-                    C % CW == 0 && KC % RG == 0 && S <= 32 && (32 % S) == 0 &&
-                    S * LC == D && LC % 4 == 0,
-                "one lane group per (token, head), whole rows a group");
+  static_assert(H % HL == 0 && H / HL * S * TQ == kThreads &&
+                    RG * CW == kThreads && C % CW == 0 && KC % RG == 0 &&
+                    S <= 32 && (32 % S) == 0 && S * HD == D &&
+                    (HL == 1 || S == 1) && LC % 4 == 0,
+                "one lane group per (token, head), or HL heads a lane; "
+                "whole rows a group");
 
-  // the calling thread's head h, token i of the tile and channel slice sl
-  __device__ static int head() { return threadIdx.x / (S * TQ); }
+  // the calling thread's (first) head h, token i of the tile and channel
+  // slice sl
+  __device__ static int head() { return threadIdx.x / (S * TQ) * HL; }
   __device__ static int token() { return (threadIdx.x / S) % TQ; }
   __device__ static int slice() { return threadIdx.x % S; }
   // the first channel of the calling thread's slice in a row
@@ -383,7 +397,12 @@ band_attention_qkv_kernel(const float* __restrict__ x,
     }
   }
 
-  float m = -INFINITY, l = 0.f, acc[K::LC];
+  // per head of the lane (HL, channels d of head d / HD): running max and
+  // sum; the accumulator
+  constexpr int HL = K::HL, HD = K::HD;
+  float m[HL], l[HL], acc[K::LC];
+#pragma unroll
+  for (int hl = 0; hl < HL; ++hl) m[hl] = -INFINITY, l[hl] = 0.f;
 #pragma unroll
   for (int d = 0; d < K::LC; ++d) acc[d] = 0.f;
 
@@ -404,42 +423,53 @@ band_attention_qkv_kernel(const float* __restrict__ x,
     for (int j = 0; j < nk; ++j) {
       if (s_win[j] != my_win || !s_kv[j]) continue;
       const float4* kr = reinterpret_cast<const float4*>(&s_k[j * C + ch]);
-      float s = 0.f;
+      // channel 4 d4 + e of the lane belongs to its head (4 d4 + e) / HD
+      float s[HL] = {};
 #pragma unroll
       for (int d4 = 0; d4 < K::LC / 4; ++d4) {
         const float4 kk = kr[d4];
-        s = fmaf(q[4 * d4 + 0], kk.x, s);
-        s = fmaf(q[4 * d4 + 1], kk.y, s);
-        s = fmaf(q[4 * d4 + 2], kk.z, s);
-        s = fmaf(q[4 * d4 + 3], kk.w, s);
+        s[4 * d4 / HD] = fmaf(q[4 * d4 + 0], kk.x, s[4 * d4 / HD]);
+        s[(4 * d4 + 1) / HD] = fmaf(q[4 * d4 + 1], kk.y, s[(4 * d4 + 1) / HD]);
+        s[(4 * d4 + 2) / HD] = fmaf(q[4 * d4 + 2], kk.z, s[(4 * d4 + 2) / HD]);
+        s[(4 * d4 + 3) / HD] = fmaf(q[4 * d4 + 3], kk.w, s[(4 * d4 + 3) / HD]);
       }
-      s = lane_group_sum<K::S>(s);
-      if (!K::kFold) s *= K::kScale;
-      const float mn = fmaxf(m, s);
-      const float corr = expf(m - mn);
-      const float p = expf(s - mn);
-      l = l * corr + p;
+      float mn[HL], corr[HL], p[HL];
+#pragma unroll
+      for (int hl = 0; hl < HL; ++hl) {
+        s[hl] = lane_group_sum<K::S>(s[hl]);
+        if (!K::kFold) s[hl] *= K::kScale;
+        mn[hl] = fmaxf(m[hl], s[hl]);
+        corr[hl] = expf(m[hl] - mn[hl]);
+        p[hl] = expf(s[hl] - mn[hl]);
+        l[hl] = l[hl] * corr[hl] + p[hl];
+      }
       const float4* vr = reinterpret_cast<const float4*>(&s_v[j * C + ch]);
 #pragma unroll
       for (int d4 = 0; d4 < K::LC / 4; ++d4) {
         const float4 vv = vr[d4];
-        acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0] * corr);
-        acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1] * corr);
-        acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2] * corr);
-        acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3] * corr);
+        const int h0 = 4 * d4 / HD, h1 = (4 * d4 + 1) / HD;
+        const int h2 = (4 * d4 + 2) / HD, h3 = (4 * d4 + 3) / HD;
+        acc[4 * d4 + 0] = fmaf(p[h0], vv.x, acc[4 * d4 + 0] * corr[h0]);
+        acc[4 * d4 + 1] = fmaf(p[h1], vv.y, acc[4 * d4 + 1] * corr[h1]);
+        acc[4 * d4 + 2] = fmaf(p[h2], vv.z, acc[4 * d4 + 2] * corr[h2]);
+        acc[4 * d4 + 3] = fmaf(p[h3], vv.w, acc[4 * d4 + 3] * corr[h3]);
       }
-      m = mn;
+#pragma unroll
+      for (int hl = 0; hl < HL; ++hl) m[hl] = mn[hl];
     }
   }
 
   if (i < nq) {
-    const bool seen = my_win != kInt32Max && l > 0.f;
-    const float inv = seen ? 1.f / l : 0.f;
-    float* o = ob + (size_t)qi * C + ch;
 #pragma unroll
-    for (int d = 0; d < K::LC; ++d) o[d] = acc[d] * inv;
-    if (lse && K::slice() == 0)
-      lse[(row0 + qi) * H + h] = seen ? m + logf(l) : 0.f;
+    for (int hl = 0; hl < HL; ++hl) {
+      const bool seen = my_win != kInt32Max && l[hl] > 0.f;
+      const float inv = seen ? 1.f / l[hl] : 0.f;
+      float* o = ob + (size_t)qi * C + ch;
+#pragma unroll
+      for (int d = hl * HD; d < (hl + 1) * HD; ++d) o[d] = acc[d] * inv;
+      if (lse && K::slice() == 0)
+        lse[(row0 + qi) * H + h + hl] = seen ? m[hl] + logf(l[hl]) : 0.f;
+    }
   }
 }
 
@@ -536,9 +566,10 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
     project<C, D>(s_xp, wk, bk, s_k);
     project<C, D>(s_x, wv, bv, s_v);
     __syncthreads();
+    constexpr int HL = K::HL, HD = K::HD;   // heads a lane, their channels
     float q[K::LC], k[K::LC], v[K::LC], g[K::LC];
     float dq[K::LC] = {}, dk[K::LC] = {}, dv[K::LC] = {};
-    float lse_i = 0.f, d_i = 0.f;
+    float lse_i[HL] = {}, d_i[HL] = {};
 #pragma unroll
     for (int d = 0; d < K::LC; ++d) {
       const int c = i * C + ch + d;
@@ -551,11 +582,13 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
 #pragma unroll
       for (int d = 0; d < K::LC; ++d) {
         g[d] = dout[qi * C + ch + d];
-        d_i = fmaf(g[d], out[qi * C + ch + d], d_i);
+        d_i[d / HD] = fmaf(g[d], out[qi * C + ch + d], d_i[d / HD]);
       }
-      lse_i = p.lse[qi * H + h];
+#pragma unroll
+      for (int hl = 0; hl < HL; ++hl) lse_i[hl] = p.lse[qi * H + h + hl];
     }
-    d_i = lane_group_sum<K::S>(d_i);
+#pragma unroll
+    for (int hl = 0; hl < HL; ++hl) d_i[hl] = lane_group_sum<K::S>(d_i[hl]);
 
     for (int k0 = ks; k0 < ke; k0 += KC) {
       const int nk = min(KC, ke - k0);
@@ -602,38 +635,45 @@ band_attention_qkv_bwd_kernel(BwdArgs p) {
         const float* kj = &s_k[j * C + ch];
         const float* vj = &s_v[j * C + ch];
         if (s_kv[j]) {             // token i as query, j as key
-          float sc = 0.f, dp = 0.f;
+          float sc[HL] = {}, dp[HL] = {}, ds[HL];
 #pragma unroll
           for (int d = 0; d < K::LC; ++d) {
-            sc = fmaf(q[d], kj[d], sc);
-            dp = fmaf(g[d], vj[d], dp);
+            sc[d / HD] = fmaf(q[d], kj[d], sc[d / HD]);
+            dp[d / HD] = fmaf(g[d], vj[d], dp[d / HD]);
           }
-          sc = lane_group_sum<K::S>(sc);
-          dp = lane_group_sum<K::S>(dp);
-          if (!K::kFold) sc *= K::kScale;
-          const float pr = expf(sc - lse_i);
-          const float ds = pr * (dp - d_i);
 #pragma unroll
-          for (int d = 0; d < K::LC; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
+          for (int hl = 0; hl < HL; ++hl) {
+            float sh = lane_group_sum<K::S>(sc[hl]);
+            const float dh = lane_group_sum<K::S>(dp[hl]);
+            if (!K::kFold) sh *= K::kScale;
+            const float pr = expf(sh - lse_i[hl]);
+            ds[hl] = pr * (dh - d_i[hl]);
+          }
+#pragma unroll
+          for (int d = 0; d < K::LC; ++d)
+            dq[d] = fmaf(ds[d / HD], kj[d], dq[d]);
         }
         if (my_kv) {               // token i as key, j as query
           const float* qj = &s_q[j * C + ch];
           const float* gj = &s_do[j * C + ch];
-          float sc = 0.f, dp = 0.f;
+          float sc[HL] = {}, dp[HL] = {}, pr[HL], ds[HL];
 #pragma unroll
           for (int d = 0; d < K::LC; ++d) {
-            sc = fmaf(qj[d], k[d], sc);
-            dp = fmaf(gj[d], v[d], dp);
+            sc[d / HD] = fmaf(qj[d], k[d], sc[d / HD]);
+            dp[d / HD] = fmaf(gj[d], v[d], dp[d / HD]);
           }
-          sc = lane_group_sum<K::S>(sc);
-          dp = lane_group_sum<K::S>(dp);
-          if (!K::kFold) sc *= K::kScale;
-          const float pr = expf(sc - s_lse[j * H + h]);
-          const float ds = pr * (dp - s_dd[j * H + h]);
+#pragma unroll
+          for (int hl = 0; hl < HL; ++hl) {
+            float sh = lane_group_sum<K::S>(sc[hl]);
+            const float dh = lane_group_sum<K::S>(dp[hl]);
+            if (!K::kFold) sh *= K::kScale;
+            pr[hl] = expf(sh - s_lse[j * H + h + hl]);
+            ds[hl] = pr[hl] * (dh - s_dd[j * H + h + hl]);
+          }
 #pragma unroll
           for (int d = 0; d < K::LC; ++d) {
-            dv[d] = fmaf(pr, gj[d], dv[d]);
-            dk[d] = fmaf(ds, qj[d], dk[d]);
+            dv[d] = fmaf(pr[d / HD], gj[d], dv[d]);
+            dk[d] = fmaf(ds[d / HD], qj[d], dk[d]);
           }
         }
       }
@@ -1233,12 +1273,16 @@ cudaError_t launch_project_bwd(const DxArgs& d, const QwArgs& w, int chunks,
 // The tables a translation unit of one C hands the entry points
 template <int C>
 const QkvF32Kernels* qkv_f32_at(int D) {
-  if constexpr (C % 3 == 0) {   // heads of 12 to 192: at C 384 alone
+  if constexpr (C % 3 == 0) {   // heads of 3 to 192: at C 384 alone
+    static const QkvF32Kernels k3{launch<C, 3>, launch_bwd<C, 3>};
+    static const QkvF32Kernels k6{launch<C, 6>, launch_bwd<C, 6>};
     static const QkvF32Kernels k12{launch<C, 12>, launch_bwd<C, 12>};
     static const QkvF32Kernels k24{launch<C, 24>, launch_bwd<C, 24>};
     static const QkvF32Kernels k48{launch<C, 48>, launch_bwd<C, 48>};
     static const QkvF32Kernels k96{launch<C, 96>, launch_bwd<C, 96>};
     static const QkvF32Kernels k192{launch<C, 192>, launch_bwd<C, 192>};
+    if (D == 3) return &k3;
+    if (D == 6) return &k6;
     if (D == 12) return &k12;
     if (D == 24) return &k24;
     if (D == 48) return &k48;
@@ -1253,12 +1297,18 @@ const QkvF32Kernels* qkv_f32_at(int D) {
     static const QkvF32Kernels k1{launch<C, C>, launch_bwd<C, C>};
     if (D == C) return &k1;
   }
+  static const QkvF32Kernels k1{launch<C, 1>, launch_bwd<C, 1>};
+  static const QkvF32Kernels k2{launch<C, 2>, launch_bwd<C, 2>};
+  static const QkvF32Kernels k4{launch<C, 4>, launch_bwd<C, 4>};
   static const QkvF32Kernels k8{launch<C, 8>, launch_bwd<C, 8>};
   static const QkvF32Kernels k16{launch<C, 16>, launch_bwd<C, 16>};
   static const QkvF32Kernels k32{launch<C, 32>, launch_bwd<C, 32>};
   static const QkvF32Kernels k64{launch<C, 64>, launch_bwd<C, 64>};
   static const QkvF32Kernels k128{launch<C, 128>, launch_bwd<C, 128>};
   switch (D) {
+    case 1: return &k1;
+    case 2: return &k2;
+    case 4: return &k4;
     case 8: return &k8;
     case 16: return &k16;
     case 32: return &k32;

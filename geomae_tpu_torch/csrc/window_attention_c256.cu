@@ -1,7 +1,7 @@
-// K6 / K7's kernels at C = 256 (the f32 kernels in heads of 8, 16, 32, 64,
-// 128 and 256 channels, the bf16 projections), one translation unit, so that
-// the widths compile in parallel; the kernels are in
-// window_attention.cuh, the entry points in window_attention.cu.
+// K6 / K7's kernels at C = 256 (the f32 kernels in heads of 1, 2, 4, 8, 16, 32,
+// 64, 128 and 256 channels, the bf16 projections), one translation unit, so
+// that the widths compile in parallel; the kernels are in window_attention.cuh,
+// the entry points in window_attention.cu.
 #include "window_attention.cuh"
 
 namespace geomae {

@@ -1,6 +1,6 @@
-// K6 / K7's kernels at C = 512 (the f32 kernels in heads of 8, 16, 32, 64,
-// 128, 256 and 512 channels, the bf16 projections), one translation unit, so that
-// the widths compile in parallel; the kernels are in
+// K6 / K7's kernels at C = 512 (the f32 kernels in heads of 1, 2, 4, 8, 16, 32,
+// 64, 128, 256 and 512 channels, the bf16 projections), one translation unit,
+// so that the widths compile in parallel; the kernels are in
 // window_attention.cuh, the entry points in window_attention.cu.
 #include "window_attention.cuh"
 

@@ -22,13 +22,16 @@ dk scaled after the f32 sum.  Padding rows (``win_id == INT32_MAX``) and
 rows with no visible key return 0 and get zero gradients.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.  The kernels take heads of D in ``KERNEL_HEAD_DIMS`` (8, 12,
-16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512) that make C = H D one
-of ``KERNEL_CHANNELS`` (128, 256, 384, 512; D 12, 24, 48, 96 and 192
-only at C 384, in 32, 16, 8, 4 and 2 heads; D 256 at C 256 and 512, in
-1 and 2; D 384 and 512 at C 384 and 512, in one head), in float32 or
-bfloat16; the plain versions take any H and D (heads of 6 or less, such
-as C 384 in 64 heads of 6, have no kernel).  The bf16 forward runs on
+or raises.  The kernels take heads of D in ``KERNEL_HEAD_DIMS`` (1, 2, 3,
+4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512) that make C
+= H D one of ``KERNEL_CHANNELS`` (128, 256, 384, 512; D 3, 6, 12, 24,
+48, 96 and 192 only at C 384, in 128, 64, 32, 16, 8, 4 and 2 heads; D
+256 at C 256 and 512, in 1 and 2; D 384 and 512 at C 384 and 512, in
+one head; D 1, 2 and 4 at every C, in 32 to 512 heads), in float32 or
+bfloat16; the plain versions take any H and D.  Below D 8 the bf16
+kernels run D 8's over heads staged into 8-channel slots whose channels
+past D are zero, and the f32 kernels give a lane whole heads.  The bf16
+forward runs on
 the tensor cores over 64-token tiles with an online softmax per 64-key
 chunk (``band_attention_tiles_plain`` is its order in plain PyTorch; at
 D 384 and 512 two blocks share a head's output columns, each with the
@@ -48,15 +51,18 @@ plain`` is its decomposition in plain PyTorch), f32 on the CUDA cores.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _cuda
 
 INT32_MAX = 2 ** 31 - 1
 KERNEL_CHANNELS = (128, 256, 384, 512)   # C = H D the kernels take
-# and D: 12, 24, 48, 96 and 192 at C 384 alone, 256 at C 256 and 512, 384
-# and 512 in one head
-KERNEL_HEAD_DIMS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512)
+# and D: 3, 6, 12, 24, 48, 96 and 192 at C 384 alone, 256 at C 256 and
+# 512, 384 and 512 in one head
+KERNEL_HEAD_DIMS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192,
+                    256, 384, 512)
 PLAIN_Q_CHUNK = 1024      # queries per score block of the plain versions
 KERNEL_TILE = 64          # tokens a tile (and rows a chunk) of the bf16
                           # kernels
@@ -197,8 +203,11 @@ def band_attention_lse_plain(q, k, win_id, key_valid) -> torch.Tensor:
 def band_attention_delta_plain(out, g, win_id) -> torch.Tensor:
     """The backward's prologue: D = rowsum(g * out) per (row, head) in
     f32, [B, V, H] for out, g [B, V, H, D] (a bf16 product is exact in
-    f32); 0 on padding rows (``win_id == INT32_MAX``)."""
-    d = (g.float() * out.float()).sum(-1)
+    f32); 0 on padding rows (``win_id == INT32_MAX``).  Below D 8 the
+    products are added in d order, as the kernel adds them."""
+    p = g.float() * out.float()
+    d = p.sum(-1) if p.shape[-1] >= 8 else functools.reduce(
+        torch.add, p.unbind(-1))
     return torch.where((win_id != INT32_MAX)[..., None], d, 0.0)
 
 
@@ -290,9 +299,9 @@ def band_attention_backward_tiles_plain(q, k, v, win_id, key_valid, out,
 def kernel_takes(channels: int, heads: int) -> bool:
     """Whether the kernels take ``heads`` heads over ``channels``: D =
     C / H in KERNEL_HEAD_DIMS and C in KERNEL_CHANNELS (of which only C
-    384 splits into heads of 12, 24, 48, 96 or 192, only 256 and 512
-    into heads of 256, and heads of 384 and 512 are C 384 and 512 in one
-    head)."""
+    384 splits into heads of 3, 6, 12, 24, 48, 96 or 192, only 256 and
+    512 into heads of 256, and heads of 384 and 512 are C 384 and 512 in
+    one head)."""
     return (heads > 0 and channels % heads == 0
             and channels in KERNEL_CHANNELS
             and channels // heads in KERNEL_HEAD_DIMS)
@@ -315,9 +324,9 @@ def _check_rows(name, q, *more):
                   and kernel_takes(q.shape[2] * q.shape[3], q.shape[2])
                   and q.dtype in _cuda.DTYPE_CODE,
                   f"{name}: the kernel takes [B, V, H, D] with D in "
-                  f"{KERNEL_HEAD_DIMS} and H D in {KERNEL_CHANNELS} (D 12, "
-                  f"24, 48, 96 and 192 at H D = 384 alone, D 384 and 512 "
-                  f"in one head), float32 or bfloat16, "
+                  f"{KERNEL_HEAD_DIMS} and H D in {KERNEL_CHANNELS} (D 3, "
+                  f"6, 12, 24, 48, 96 and 192 at H D = 384 alone, D 384 "
+                  f"and 512 in one head), float32 or bfloat16, "
                   f"got {q.dtype} {tuple(q.shape)}")
     for t in more:
         _cuda.require(t.shape == q.shape and t.dtype == q.dtype,

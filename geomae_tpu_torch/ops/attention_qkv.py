@@ -20,15 +20,16 @@ that dtype (``pallas_attention_qkv._proj``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels
 or raises.  The kernels take every width K8 takes: C in
-``KERNEL_CHANNELS`` (128, 256, 384 or 512) in heads of 8, 16, 32, 64 or
-128, C 384 in heads of 12, 24, 48, 96 or 192, C 256 and 512 in heads of
-256 and C 384 and 512 in one head (``kernel_takes``), in float32 or
-bfloat16 (the bf16 projections own 128-, 64- or 32-column slices of the
-three products, the f32 kernels blocks of 256 threads, C / 2 at C 384
-and 512); windows may be of any size.  The scale 1/sqrt(D) folds into q
-where D is a power of four (16, 64, 256), as in the JAX package, and
-multiplies the f32 score elsewhere (8, 12, 24, 32, 48, 96, 128, 192,
-384, 512).  In bfloat16
+``KERNEL_CHANNELS`` (128, 256, 384 or 512) in heads of 1, 2, 4, 8, 16,
+32, 64 or 128, C 384 in heads of 3, 6, 12, 24, 48, 96 or 192, C 256 and
+512 in heads of 256 and C 384 and 512 in one head (``kernel_takes``), in
+float32 or bfloat16 (the bf16 projections own 128-, 64- or 32-column
+slices of the three products, the f32 kernels blocks of 256 threads, C /
+2 at C 384 and 512, a lane several whole heads below D 8); windows may
+be of any size.  The scale 1/sqrt(D) folds into q where D is a power of
+four (1, 4, 16, 64, 256), as in the JAX package, and multiplies the f32
+score elsewhere (2, 3, 6, 8, 12, 24, 32, 48, 96, 128, 192, 384, 512).
+In bfloat16
 each token is projected once on the tensor cores (``qkv_project``) and
 K8's bf16 kernels (``csrc/band_attention.cuh``, reached through their C
 entry points, so
@@ -57,9 +58,9 @@ from .attention import (INT32_MAX, KERNEL_CHANNELS, KERNEL_HEAD_DIMS,
 from .ffn import dense
 
 # K6, K7 and the projections take K8's widths: C in KERNEL_CHANNELS (the
-# projections see no heads) in heads of KERNEL_HEAD_DIMS, 12, 24, 48, 96
-# and 192 at C 384 alone, 256 at C 256 and 512, 384 and 512 in one head
-# (kernel_takes)
+# projections see no heads) in heads of KERNEL_HEAD_DIMS, 3, 6, 12, 24,
+# 48, 96 and 192 at C 384 alone, 256 at C 256 and 512, 384 and 512 in one
+# head (kernel_takes)
 
 # The bf16 weight-gradient kernel stages 128 columns of its rows a block
 # (104 KB of shared memory at every C): two blocks an SM
@@ -207,10 +208,10 @@ def attention_grads_plain(x, pos, wq, bq, wk, bk, wv, bv, win_id, key_valid,
 
 def _check_qkv(name, x, nheads, dtypes=tuple(_cuda.DTYPE_CODE)):
     """x [B, V, C] on the card at a width the kernels take: C in
-    KERNEL_CHANNELS in ``nheads`` heads of D in KERNEL_HEAD_DIMS, 12, 24,
-    48, 96 and 192 at C 384 alone, 256 at C 256 and 512, 384 and 512 in
-    one head (``kernel_takes``; the projections see no heads: ``nheads``
-    None, C in KERNEL_CHANNELS)."""
+    KERNEL_CHANNELS in ``nheads`` heads of D in KERNEL_HEAD_DIMS, 3, 6,
+    12, 24, 48, 96 and 192 at C 384 alone, 256 at C 256 and 512, 384 and
+    512 in one head (``kernel_takes``; the projections see no heads:
+    ``nheads`` None, C in KERNEL_CHANNELS)."""
     _cuda.require(x.device.type == "cuda",
                   f"{name}: no kernel for device {x.device}")
     kinds = " or ".join(str(d)[6:] for d in dtypes)
@@ -220,9 +221,9 @@ def _check_qkv(name, x, nheads, dtypes=tuple(_cuda.DTYPE_CODE)):
     _cuda.require(x.dim() == 3 and takes and x.dtype in dtypes,
                   f"{name}: the kernel takes [B, V, C] {kinds} with C in "
                   f"{KERNEL_CHANNELS} in heads of D in {KERNEL_HEAD_DIMS} "
-                  f"(12, 24, 48, 96 and 192 at C 384 alone, 384 and 512 in "
-                  f"one head), got {x.dtype} {tuple(x.shape)} in {nheads} "
-                  f"heads")
+                  f"(3, 6, 12, 24, 48, 96 and 192 at C 384 alone, 384 and "
+                  f"512 in one head), got {x.dtype} {tuple(x.shape)} in "
+                  f"{nheads} heads")
 
 
 def _kernel_inputs(name, x, pos, ws, win_id=None, key_valid=None):
@@ -303,16 +304,28 @@ def wgrad_chunk_rows(x) -> int:
 def f32_lane_channels(head_dim: int) -> int:
     """Channels of a head one lane of the f32 kernels keeps: 16, all of D
     = 8, 12 at D = 12, 24, 48, 96 and 192 (so a head's lanes are a power
-    of two, 16 at D 192 and 256; ``common.cuh: f32_lane_channels``)."""
+    of two, 16 at D 192 and 256), the whole head below 8
+    (``common.cuh: f32_lane_channels``)."""
+    if head_dim < 8:
+        return head_dim
     return 12 if head_dim % 3 == 0 else min(head_dim, 16)
+
+
+def f32_lane_heads(head_dim: int) -> int:
+    """Heads one lane of K6 / K7's f32 kernels keeps: one from D 8 up,
+    below it the heads of 8 channels (D 1, 2, 4) or 12 (D 3, 6)
+    (``common.cuh: f32_lane_heads``)."""
+    return (12 if head_dim % 3 == 0 else 8) // head_dim if head_dim < 8 \
+        else 1
 
 
 def f32_tile(C: int, nheads: int) -> int:
     """Tokens a tile of the f32 kernels at C in ``nheads`` heads: a block
-    of ``f32_threads`` lanes, ``f32_lane_channels`` each: 4096 / C tokens
-    up to C 256, 8 at C 384 and 512, half that at D = 8, 6 at D = 12, 24,
-    48, 96 and 192."""
-    return f32_threads(C) * f32_lane_channels(C // nheads) // C
+    of ``f32_threads`` lanes, ``f32_lane_heads`` x ``f32_lane_channels``
+    each: 4096 / C tokens up to C 256, 8 at C 384 and 512, half that at D
+    = 8 (and 1, 2, 4), 6 at D = 12, 24, 48, 96 and 192 (and 3, 6)."""
+    D = C // nheads
+    return f32_threads(C) * f32_lane_heads(D) * f32_lane_channels(D) // C
 
 
 def bwd_blocks(x, nheads: int) -> int:

@@ -66,14 +66,14 @@ def one_thread():
 def test_narrow_heads_take_the_kernels(C, H):
     """The width gate admits both widths, and every attention name
     resolves to a kernel route there; the bf16 backward takes 64-row
-    chunks; 64 heads of 6 at the same C stay outside."""
+    chunks; the same head width at C 768 stays outside."""
     assert attention.kernel_takes(C, H) and (C, C // H) in \
         attention.kernel_widths()
     assert [attention_route(i, C, H) for i in ("auto", "band", "qkv")] \
         == ["band", "band", "qkv"]
     assert attention.backward_chunk(C // H) == attention.KERNEL_TILE
-    assert not attention.kernel_takes(C, 64)
-    assert attention_route("band", C, 64) == "einsum"
+    assert not attention.kernel_takes(768, 768 // (C // H))
+    assert attention_route("band", 768, 768 // (C // H)) == "einsum"
 
 
 @pytest.mark.parametrize("C,H,dtype", K8_CASES, ids=case_ids(K8_CASES))
