@@ -104,10 +104,14 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      in one, FFN 768, and 512 in one, FFN 1024, on both; and the heads
      below 8 (``P_TINY``: K8, K6 and K7 over 8-channel slots): the
      shipped d_model 128, FFN 256, in 32 heads of 4 on both routes and in
-     128 of 1 on ``band``, 384 in 64 heads of 6, FFN 768, on ``band``;
+     128 of 1 on ``band``, 384 in 64 heads of 6, FFN 768, on ``band``; and
+     the wide models (``P_WIDE_C``: K8 and K5 at C 640, 768 and 1024, K5's
+     tile pass streaming its hidden rows): d_model 640 in 10 heads of 64,
+     FFN 2560, 768 in 12, FFN 3072, and 1024 in 16, FFN 4096, on ``band``
+     (``qkv`` takes no C above 512), with each one's peak device memory;
      then the 512 model's step on each route, the FFN 2048 model's, the
      8-head and the 16-head 384 model's, the two-head and one-head 512
-     model's and the 32-head 128 model's on ``band`` as
+     model's, the 32-head 128 model's and the 768 model's on ``band`` as
      ``profile_pretrain`` times it: median and quartiles, peak memory,
      device busy ms, idle share and the SST kernels' ms a step;
   H. drives the trainer entry point (``python -m geomae_tpu_torch.train``,
@@ -301,6 +305,13 @@ P_WIDE_HEADS = {(256, 1): WIDE_OPTIONS[:2] + ["sst.nhead=1"]
 P_TINY = {(128, 32): ["sst.nhead=32"], (128, 128): ["sst.nhead=128"],
           (384, 64): P_OPTIONS[384][:2] + ["sst.nhead=64"]
           + P_OPTIONS[384][3:]}
+# and the wide models, by d_model: 640 in 10 heads of 64, FFN 2560, 768
+# in 12, FFN 3072 (timed), 1024 in 16, FFN 4096, the VFE widened to each,
+# on band (K8 and K5; K6 and K7 take no C above 512)
+P_WIDE_C = {C: [f"vfe.feat_channels=64,{C}", f"sst.d_model={C}",
+                f"sst.nhead={C // 64}", f"sst.dim_feedforward={4 * C}"]
+            for C in (640, 768, 1024)}
+P_WIDE_TIMED = 768
 # the profiled step's SST kernels on each route
 # (profile_pretrain.PRETRAIN_KERNELS) and their launches a layer: K8 and
 # K5 on band; on qkv also the projections (twice: K6 and K7's recompute),
@@ -417,8 +428,17 @@ GRAD_FLOOR = {torch.float32: 1e-2, torch.bfloat16: 1e-1}
 # (``probe_k5_backward phase_a``, three seeds) that rounding read
 # 1.09-1.53 of (1)'s bound at C 384 and 512, 0.02-0.04 of (2)'s and 4.0
 # of (3)'s; in the kernel's and the plain version's gradients at most
-# 0.004 of the elements ended in (3)'s zero bits, 0.016 of its limit.
-K5_GRAD_TOL = {128: 1e-3, 256: 1e-3, 384: 2.5e-3, 512: 2.5e-3}
+# 0.004 of the elements ended in (3)'s zero bits, 0.016 of its limit.  At
+# C 640, 768 and 1024 (``probe_k5_backward phase_a --channels 640 768
+# 1024``, every F, three seeds) the kernel read up to 1.76e-3 / 2.06e-3
+# / 2.32e-3 from the f64 computation, the plain version up to 0.93e-3 /
+# 1.41e-3 / 1.33e-3, the plain version on the tensor cores as far as the
+# kernel; their sums, 2.69e-3 / 3.46e-3 / 3.65e-3, set (1) there (the
+# kernel and the plain version read up to 1.82e-3 / 1.97e-3 / 2.20e-3
+# apart); a dropped token read 7.3 or more of 2.5e-3, the rounding to
+# bf16 1.19-1.63 of it and 4.0 of (3)'s limit.
+K5_GRAD_TOL = {128: 1e-3, 256: 1e-3, 384: 2.5e-3, 512: 2.5e-3, 640: 2.75e-3,
+               768: 3.5e-3, 1024: 3.75e-3}
 K5_FAULT_ROWS = (1, 8, 16)
 TOL = {
     ("segment_reduce", "max"): {torch.float32: (0.0, 0.0),
@@ -568,11 +588,15 @@ KERNELS = {
 # is larger.  One H100 SXM by NVIDIA's data sheet, at 700 W.
 HBM_BYTES_PER_S = 3.35e12
 HOST_PACED_MS = 1.0     # phase A times shorter calls at the host's pace too
-# phase A times a plain version or a library call of this many ms or more
-# by its first call alone (at 128 to 512 heads of 1 or 2 the plain
-# attention takes about 1.5 s a call, SDPA 0.35-0.8 s, and their repeats
-# would take minutes of the run); every shorter one as before
-LONG_CALL_MS = 250.0
+# phase A times a plain version or a library call of LONG_CALL_MS or more,
+# and a kernel of LONG_KERNEL_MS or more, by its first call alone (at 128
+# to 512 heads of 1 or 2 the plain attention takes about 1.5 s a call,
+# SDPA 0.35-0.8 s, the f32 K5 backward over tiles of 4 tokens at C 640
+# and more several hundred ms; repeating every plain and library call of
+# 20 ms or more took about 130 s of the run at C 128 to 1024); every
+# shorter one as before
+LONG_CALL_MS = 20.0
+LONG_KERNEL_MS = 250.0
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PARITY_TOL = (1e-3, 1e-3)      # f32 GPU against CPU, whole model
 # the band route against the qkv route, same weights: the two compute one
@@ -1334,8 +1358,7 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
             kern, plain, args = case(name, op, dt)
             label = (f"{name}{'(' + op + ')' if op else ''} {str(dt)[6:]} "
                      f"{tuple(args[0].shape)}")
-            got = kern(*args)
-            torch.cuda.synchronize()
+            got, kern_first_ms = once_ms(lambda: kern(*args))
             want, first_ms = once_ms(lambda: plain(*args))
             err = check(label, name, got, want, dt, tol, failures, args)
             if errors is not None:
@@ -1348,15 +1371,17 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
                 print(f"    two launches bitwise equal: {same}")
                 if not same:
                     failures.append(f"{label}: two launches differ")
-            ms = cuda_ms(lambda: kern(*args))
+            long_kern = kern_first_ms >= LONG_KERNEL_MS
+            ms = kern_first_ms if long_kern else cuda_ms(lambda: kern(*args))
             # a call of HOST_PACED_MS or more outlasts its enqueue: not
             # timed at the host's pace
             host = f"{cuda_ms(lambda: kern(*args), spin=False):.4f} ms" \
                 if ms < HOST_PACED_MS else "not timed"
             plain_ms = first_ms if first_ms >= LONG_CALL_MS else cuda_ms(
                 lambda: plain(*args), iters=3 if train else 5, warmup=1)
-            print(f"    kernel {ms:.4f} ms (host-paced {host}), plain "
-                  f"{plain_ms:.4f} ms"
+            print(f"    kernel {ms:.4f} ms" + (" (one call)" if long_kern
+                                                 else "")
+                  + f" (host-paced {host}), plain {plain_ms:.4f} ms"
                   + (" (one call)" if first_ms >= LONG_CALL_MS else ""))
             if PATH_DTYPE.get(key) != dt or (not train
                                              and name in NOT_SERVED):
@@ -1817,14 +1842,15 @@ def sst_width(cfg, C: int, heads: int, Fd: int):
 def phase_widths(pcfg, failures: list) -> list:
     """Phase A's K8, K6, K7 and projection rows at every width they take
     (C of 128, 256, 384 and 512 in heads of 8, 16, 32, 64 and 128, C 384
-    in heads of 12, 24, 48, 96 and 192, C 256 and 512 in heads of 256) and
-    its K5 rows at every (C, F) K5 takes, on the pretrain encoder's visible
-    tokens at batch 4 (positions of C channels); then K1 and K2 as the
-    wide VFE (64, 256) calls them.  Returns one summary a row: the bf16
-    call's time, bound and library call, the largest error of each dtype
-    and of both."""
+    in heads of 12, 24, 48, 96 and 192, C 256 and 512 in heads of 256; K8
+    alone at C 640, 768 and 1024 in heads of 8 to 128) and its K5 rows at
+    every (C, F) K5 takes, on the pretrain encoder's visible tokens at
+    batch 4 (positions of C channels); then K1 and K2 as the wide VFE (64,
+    256) calls them.  Returns one summary a row: the bf16 call's time,
+    bound and library call, the largest error of each dtype and of
+    both."""
     from geomae_tpu_torch.config import apply_overrides
-    from geomae_tpu_torch.ops import attention, ffn
+    from geomae_tpu_torch.ops import attention, attention_qkv, ffn
 
     dev = torch.device(DEVICE)
     rows = []
@@ -1845,10 +1871,12 @@ def phase_widths(pcfg, failures: list) -> list:
     for C in attention.KERNEL_CHANNELS:
         cfg = apply_overrides(pcfg, [f"sst.d_model={C}"])
         inputs = pretrain_inputs(cfg, dev)
+        qkv = C in attention_qkv.KERNEL_CHANNELS
         for D in (d for c, d in attention.kernel_widths() if c == C):
             run(sst_width(cfg, C, C // D, 2 * C),
-                f"K8, K6, K7 and the projections at C {C} in heads of {D}",
-                inputs, K8 + QKV, f"C {C}, D {D}")
+                f"K8{', K6, K7 and the projections' if qkv else ''} at C "
+                f"{C} in heads of {D}", inputs, K8 + QKV if qkv else K8,
+                f"C {C}, D {D}")
         for Fd in sorted(f for c, f in ffn.KERNEL_WIDTHS if c == C):
             run(sst_width(cfg, C, 8, Fd), f"K5 at (C, F) ({C}, {Fd})",
                 inputs, K5, f"C {C}, F {Fd}")
@@ -2026,16 +2054,18 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
     (``P_WIDE_HEADS``): 256 in one head of 256 and 512 in two on both
     routes, 384 in two of 192 on ``band``, 384 and 512 in one head on both
     routes, and the heads below 8 (``P_TINY``): 128 in 32 heads of 4 on
-    both routes, in 128 of 1 on ``band``, 384 in 64 of 6 on ``band``:
+    both routes, in 128 of 1 on ``band``, 384 in 64 of 6 on ``band``, and
+    the wide models (``P_WIDE_C``): 640, 768 and 1024 in heads of 64, FFN
+    4 C, on ``band``, each with its peak device memory:
     ``train_and_serve`` at each (on
     band K8, its prologue and backward, on qkv K6, K7, the projections
     (twice) and their backward, and K5 and its backward, once a layer a
     step, the attention and K5 once a layer a frame, no plain
     ``band_attention`` and no unfused FFN chain); then the 512 model's
     step on each route, the FFN 2048 model's, the 8-head and the
-    16-head 384 model's, the two-head and one-head 512 model's and the
-    32-head 128 model's on band timed (``p_step_timed``).  Returns
-    the launches of the steps and frames."""
+    16-head 384 model's, the two-head and one-head 512 model's, the
+    32-head 128 model's and the 768 model's on band timed
+    (``p_step_timed``).  Returns the launches of the steps and frames."""
     from geomae_tpu_torch.config import apply_overrides
 
     total: dict = {}
@@ -2061,6 +2091,8 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
                  (128, 32, BAND_OPTION, True), (128, 32, QKV_OPTION, False),
                  (128, 128, BAND_OPTION, False),
                  (384, 64, BAND_OPTION, False))]
+    runs += [(C, opts, BAND_OPTION, C == P_WIDE_TIMED)
+             for C, opts in P_WIDE_C.items()]
     timed = []
     for C, opts, route, timed_too in runs:
         wp, wf = (apply_overrides(c, opts + [route]) for c in (pcfg, cfg))
@@ -2069,11 +2101,18 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
                 f"FFN {sst.dim_feedforward}, {route}")
         print(f"phase P: {what}: {N_STEPS} bf16 pretrain steps at batch "
               f"{wp.data.batch_size}, one served frame")
+        torch.cuda.reset_peak_memory_stats()
         add_launches(total, train_and_serve(wp, wf, what, failures))
+        if C in P_WIDE_C:
+            print(f"  peak device memory ({what}): "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
         if timed_too:
             timed.append((wp, route, what))
     for wp, route, what in timed:
         p_step_timed(wp, route, what, failures)
+    # the wide models leave tens of GB in the caching allocator; phase I's
+    # subprocesses need them on the card
+    torch.cuda.empty_cache()
     return total
 
 
@@ -3749,10 +3788,10 @@ def main() -> None:
         rows = results[name]
         t_bytes, t_ops = sum(r[3] for r in rows), sum(r[4] for r in rows)
         libs = [r[5] for r in rows if r[5] is not None]
-        # K6's, K7's, their projections' and K5's entries also name the
-        # widths phase A ran them at
+        # K8's, K6's, K7's, their projections' and K5's entries also name
+        # the widths phase A ran them at
         at = {"widths": [w["width"] for w in widths if w["name"] == name]} \
-            if name.startswith(("band_attention_qkv", "qkv_project",
+            if name.startswith(("band_attention", "qkv_project",
                                 "post_attention")) else {}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

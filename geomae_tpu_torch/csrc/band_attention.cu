@@ -1,10 +1,10 @@
 // K8 band attention: the C entry points.  The kernels and their design
 // notes are in band_attention.cuh; each row width C = H D the port builds
-// (128, 256, 384, 512) is a translation unit of its own
+// (128, 256, 384, 512, 640, 768, 1024) is a translation unit of its own
 // (band_attention_c*.cu), and an entry point hands its arguments to the
 // kernels of the width it is given, or returns cudaErrorInvalidValue for
 // any other.
-#include "band_attention.cuh"
+#include "band_attention_wide.cuh"
 
 namespace {
 
@@ -16,6 +16,9 @@ const geomae::K8Kernels* k8_kernels(int H, int D) {
     case 256: return k8_kernels_c256(D);
     case 384: return k8_kernels_c384(D);
     case 512: return k8_kernels_c512(D);
+    case 640: return k8_kernels_c640(D);
+    case 768: return k8_kernels_c768(D);
+    case 1024: return k8_kernels_c1024(D);
     default: return nullptr;
   }
 }
@@ -27,7 +30,8 @@ extern "C" {
 // q, k, v, out [B, V, H * D] in dtype (H heads of D in {1, 2, 4, 8, 16,
 // 32, 64, 128}, H * D of 128, 256, 384 or 512, or of D in {3, 6, 12, 24,
 // 48, 96, 192} at H * D = 384, or of D 256 at H * D = 256 or 512, or of
-// D = H * D = 384 or 512; heads flattened), each 16-byte aligned.  win
+// D = H * D = 384 or 512, or of D in {8, 16, 32, 64, 128} at H * D = 640,
+// 768 or 1024; heads flattened), each 16-byte aligned.  win
 // [B, V] int32 ascending per row (INT32_MAX padding suffix); key_valid
 // [B, V] bytes.  lse: null, or f32 [B, V, H] for the per-(row, head)
 // log-sum-exp of the scaled scores (0 where a row sees no key).

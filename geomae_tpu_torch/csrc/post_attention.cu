@@ -25,6 +25,18 @@ const geomae::K5Kernels* k5_kernels(int C, int F) {
   if (C == 512 && F == 1024) return &k5_kernels_c512_f1024();
   if (C == 512 && F == 1536) return &k5_kernels_c512_f1536();
   if (C == 512 && F == 2048) return &k5_kernels_c512_f2048();
+  if (C == 640 && F == 640) return &k5_kernels_c640_f640();
+  if (C == 640 && F == 1280) return &k5_kernels_c640_f1280();
+  if (C == 640 && F == 1920) return &k5_kernels_c640_f1920();
+  if (C == 640 && F == 2560) return &k5_kernels_c640_f2560();
+  if (C == 768 && F == 768) return &k5_kernels_c768_f768();
+  if (C == 768 && F == 1536) return &k5_kernels_c768_f1536();
+  if (C == 768 && F == 2304) return &k5_kernels_c768_f2304();
+  if (C == 768 && F == 3072) return &k5_kernels_c768_f3072();
+  if (C == 1024 && F == 1024) return &k5_kernels_c1024_f1024();
+  if (C == 1024 && F == 2048) return &k5_kernels_c1024_f2048();
+  if (C == 1024 && F == 3072) return &k5_kernels_c1024_f3072();
+  if (C == 1024 && F == 4096) return &k5_kernels_c1024_f4096();
   return nullptr;
 }
 

@@ -15,18 +15,37 @@
 // Widths: every kernel is a template over (C, F), the model width and the
 // FFN width; Widths<C, F> derives the tiles, chunk streams and buffers
 // from them (C a multiple of 128, F a multiple of 128 and at least C).
-// The port builds C of 128, 256, 384 and 512 with F of 1, 2, 3 or 4 times
-// C, one translation unit each (post_attention_c*_f*.cu, compiled in
-// parallel); post_attention.cu picks one by the widths it is given.  The
-// token tile shrinks as the rows widen, so that a block's rows fit its
-// shared memory (the bf16 tile pass 64, 32 or 16 tokens, the f32 kernels
-// 32, 16 or 8), and the bf16 forward runs two blocks an SM where two fit,
-// else one.  Where a tile's rows are too short to hold a block's last
-// reduction (the f32 backward at C >= 384, the bf16 tile pass at C 512)
-// it goes to the start of the block's shared memory, all of it consumed
-// by then.  At (512, 1536) and (512, 2048) a 16-token tile's two F-wide
-// rows do not fit the tile pass (Widths::kOneHiddenRow): it keeps one,
-// parks a1 in the da1 workspace and sums db1 in shared memory.
+// The port builds C of 128, 256, 384, 512, 640, 768 and 1024 with F of 1,
+// 2, 3 or 4 times C, one translation unit each (post_attention_c*_f*.cu,
+// compiled in parallel); post_attention.cu picks one by the widths it is
+// given.  The token tile shrinks as the rows widen, so that a block's
+// rows fit its shared memory (the bf16 tile pass 64, 32 or 16 tokens, the
+// f32 kernels 32, 16, 8 or 4), and the bf16 forward runs two blocks an SM
+// where two fit, else one.  Where a tile's rows are too short to hold a
+// block's last reduction (the f32 backward at C >= 384, the bf16 tile
+// pass at C 512) it goes to the start of the block's shared memory, all
+// of it consumed by then, one [C] vector at a time where the whole does
+// not fit there.  At (512, 1536), (512, 2048), (640, 1280) and (640,
+// 1920) a 16-token tile's two F-wide rows do not fit the tile pass
+// (Widths::kOneHiddenRow): it keeps one, parks a1 in the da1 workspace
+// and sums db1 in shared memory.  At the other widths of C 640 and more
+// but (640, 640) and (768, 768) not even one fits (kNoHiddenRow: 2,432
+// to 143,744 bytes over at 16 tokens): the tile pass keeps three C-wide
+// rows (dy is read from device memory where LN2's backward needs it) and
+// a 128-column pass buffer, and streams the hidden rows through it, one
+// 128-column pass of F at a time: a1 = xm W1 + b1 into the buffer, to
+// the da1 workspace, h = gelu(a1) over it and to the h workspace, then
+// the pass's share of o2 = h W2 (its 128 k-rows) added to f32
+// accumulators that each warp holds in registers over all passes (8 C /
+// 128 floats a lane, 64 at C 1024); in the backward dh = dz2 W2^T into
+// the buffer, da1 = dh gelu'(a1) with a1 read back from the workspace by
+// the thread that wrote it, then dxm += da1 W1^T the same way.  The
+// weight chunks stream in that order (stream_chunk), and each f32
+// accumulator adds its k-rows in the order of the stage order, so the
+// kernel rounds where the other widths' kernels round and
+// post_attention_block_backward_tile_plain stays its plain twin.  The
+// bf16 forward streams the same way at (1024, 3072) and (1024, 4096)
+// (kFwdStream), where an F-wide row does not fit beside its tile.
 //
 // Forward.  Bound at (128, 256): 2*(C*C + 2*C*F) = 147,456 operations a
 // token against 768 bytes moved in bf16 (x and attn read, y written; the
@@ -156,6 +175,18 @@ const K5Kernels& k5_kernels_c512_f512();
 const K5Kernels& k5_kernels_c512_f1024();
 const K5Kernels& k5_kernels_c512_f1536();
 const K5Kernels& k5_kernels_c512_f2048();
+const K5Kernels& k5_kernels_c640_f640();
+const K5Kernels& k5_kernels_c640_f1280();
+const K5Kernels& k5_kernels_c640_f1920();
+const K5Kernels& k5_kernels_c640_f2560();
+const K5Kernels& k5_kernels_c768_f768();
+const K5Kernels& k5_kernels_c768_f1536();
+const K5Kernels& k5_kernels_c768_f2304();
+const K5Kernels& k5_kernels_c768_f3072();
+const K5Kernels& k5_kernels_c1024_f1024();
+const K5Kernels& k5_kernels_c1024_f2048();
+const K5Kernels& k5_kernels_c1024_f3072();
+const K5Kernels& k5_kernels_c1024_f4096();
 
 namespace {
 
@@ -208,6 +239,15 @@ __host__ __device__ constexpr int tile_bytes(int C, int F, int tt,
              2 +
          (6 * C + F) * 4 + 2 * tt * 4 + (hidden_rows == 1 ? F * 4 : 0);
 }
+// the tile pass with no F-wide row (the hidden rows stream through a
+// 128-column pass buffer, dy is read from device memory): three C-wide
+// rows, the pass buffer, the ring, the vector parameters, LN1's
+// statistics and db1's sums
+__host__ __device__ constexpr int stream_tile_bytes(int C, int F, int tt) {
+  return (3 * tt * (C + kPad) + tt * (kNP + kPad) + kRing * kChunkElems) *
+             2 +
+         (6 * C + F) * 4 + 2 * tt * 4 + F * 4;
+}
 
 template <int C_, int F_>
 struct Widths {
@@ -217,11 +257,12 @@ struct Widths {
   static_assert(C % kNP == 0 && F % kNP == 0 && F >= C,
                 "C and F multiples of 128, F at least C");
 
-  // --- float32, CUDA cores: the token tile (32, 16 or 8: the most whose
-  // backward rows fit) and its shared memory
+  // --- float32, CUDA cores: the token tile (32, 16, 8 or 4: the most
+  // whose backward rows fit) and its shared memory
   static constexpr int TT = f32_bwd_bytes(C, F, 32) <= kMaxSmem   ? 32
                             : f32_bwd_bytes(C, F, 16) <= kMaxSmem ? 16
-                                                                  : 8;
+                            : f32_bwd_bytes(C, F, 8) <= kMaxSmem  ? 8
+                                                                  : 4;
   static constexpr int kSmemBytes = (3 * TT * C + TT * F) * 4;
   static constexpr int kBwdSmemBytes = f32_bwd_bytes(C, F, TT);
   static constexpr int CL = C / 32;   // channels per lane, row-wise passes
@@ -244,19 +285,42 @@ struct Widths {
   // --- bfloat16, tensor cores: the tile pass
   static constexpr int kSC = C + kPad;   // shared row strides
   static constexpr int kSF = F + kPad;
+  static constexpr int kSP = kNP + kPad;  // of a 128-column pass buffer
   // one F-wide row a token where two do not fit at 16 tokens ((512,
-  // 1536), (512, 2048)): a1 waits in the da1 workspace, db1 sums in shared
-  // memory (the tile pass, below)
-  static constexpr bool kOneHiddenRow = tile_bytes(C, F, 16) > kMaxSmem;
-  static constexpr int kHiddenRows = kOneHiddenRow ? 1 : 2;
+  // 1536), (512, 2048), (640, 1280), (640, 1920)): a1 waits in the da1
+  // workspace, db1 sums in shared memory (the tile pass, below); none
+  // where one does not fit either (the other widths of C 640 and more but
+  // (640, 640) and (768, 768), which keep both): the hidden rows stream,
+  // 128 columns a pass (kNoHiddenRow)
+  static constexpr bool kNoHiddenRow = tile_bytes(C, F, 16, 1) > kMaxSmem;
+  static constexpr bool kOneHiddenRow =
+      !kNoHiddenRow && tile_bytes(C, F, 16) > kMaxSmem;
+  static constexpr int kHiddenRows = kNoHiddenRow ? 0 : kOneHiddenRow ? 1 : 2;
+  // db1 summed in shared memory by column, not in registers by lane
+  static constexpr bool kDb1Shared = kHiddenRows < 2;
   // tokens a tile: 64 where the backward's rows fit, else 32, else 16
   static constexpr int kTT =
-      tile_bytes(C, F, 64, kHiddenRows) <= kMaxSmem   ? 64
+      kNoHiddenRow                                    ? 16
+      : tile_bytes(C, F, 64, kHiddenRows) <= kMaxSmem ? 64
       : tile_bytes(C, F, 32, kHiddenRows) <= kMaxSmem ? 32
                                                       : 16;
-  static constexpr int kTileSmemBytes = tile_bytes(C, F, kTT, kHiddenRows);
-  static constexpr int kFwdSmemBytes =
+  static constexpr int kTileSmemBytes =
+      kNoHiddenRow ? stream_tile_bytes(C, F, kTT)
+                   : tile_bytes(C, F, kTT, kHiddenRows);
+  // the row stride of the tile pass's h: an F-wide row, or the pass
+  // buffer
+  static constexpr int kSH = kNoHiddenRow ? kSP : kSF;
+  // the forward: an F-wide row (o, then a1 and h) where the tile and two
+  // C-wide rows leave room for it, else a C-wide one (o, then each pass's
+  // a1 and h in its first 128 columns) with o2 summed over the passes in
+  // registers ((1024, 3072), (1024, 4096): kFwdStream)
+  static constexpr bool kFwdStream =
       (2 * kTT * kSC + kTT * kSF + kFwdRing * kChunkElems) * 2 +
+          kVecFloats * 4 >
+      kMaxSmem;
+  static constexpr int kSHF = kFwdStream ? kSC : kSF;
+  static constexpr int kFwdSmemBytes =
+      (2 * kTT * kSC + kTT * kSHF + kFwdRing * kChunkElems) * 2 +
       kVecFloats * 4;
   static constexpr int kWarpRows = kTT / kTileWarps;  // rows a warp's loops
   // a product pass: kTT / 16 row groups of 16 rows, each over the pass's
@@ -267,6 +331,7 @@ struct Widths {
   static constexpr int kFG = F / kNP;    // of an F row (and passes of F)
   static_assert(kTT >= 16 && kWN >= 16, "16-row, 16-column warp tiles");
   static_assert(kTileSmemBytes <= kMaxSmem, "one tile-pass block an SM");
+  static_assert(!kNoHiddenRow || kTT == 16, "16-token streaming tiles");
   // forward blocks an SM by their shared memory: 2 where two fit, else 1
   static constexpr int kFwdBlocks =
       kSmemPerSM / (kFwdSmemBytes + kSmemPerBlock) >= 2 ? 2 : 1;
@@ -278,8 +343,14 @@ struct Widths {
   static constexpr bool kVecRedInRows =
       kTileWarps * kVecFloats * 4 <=
       (kHiddenRows * kTT * kSF + kRing * kChunkElems) * 2;
-  static_assert(kTileWarps * kVecFloats * 4 <= kTileSmemBytes,
+  static_assert(kNoHiddenRow ||
+                    kTileWarps * kVecFloats * 4 <= kTileSmemBytes,
                 "the vector gradients' reduction fits the block's rows");
+  // with no hidden row the six [C] gradients reduce one at a time, each
+  // [kTileWarps][C] from the start of shared memory, short of db1's sums
+  static_assert(!kNoHiddenRow ||
+                    kTileWarps * C * 4 <= 3 * kTT * kSC * 2,
+                "a [C] gradient's reduction fits the consumed rows");
   static_assert(!kOneHiddenRow ||
                     kTileWarps * kVecFloats * 4 <=
                         (4 * kTT * kSC + kTT * kSF + kRing * kChunkElems) * 2,
@@ -291,7 +362,12 @@ struct Widths {
   static constexpr int kF32RedFloats =
       kWarps * 6 * C + kThreads / pass_columns(F, kThreads) * F;
   static constexpr bool kF32RedInRows = kF32RedFloats <= 2 * TT * F;
-  static_assert(kF32RedFloats * 4 <= kBwdSmemBytes, "f32 reduction fits");
+  // where the whole reduction does not fit ((768, 2304), (1024, 2048),
+  // (1024, 3072)) the six [C] vectors reduce one at a time, then db1's
+  static constexpr bool kF32RedByVector = kF32RedFloats * 4 > kBwdSmemBytes;
+  static_assert((kWarps * C + kThreads / pass_columns(F, kThreads) * F) * 4 <=
+                    kBwdSmemBytes,
+                "f32 reduction fits");
 
   // each stage's first chunk in a tile's stream, and the stream's length:
   // the forward's (stages kO-kO2) and the backward's
@@ -302,6 +378,12 @@ struct Widths {
                        kStartDATTN = stage_start(C, F, kDATTN);
   static constexpr int kFwdChunks = kStartDH;
   static constexpr int kTileChunks = stage_start(C, F, kDATTN + 1);
+  // the streaming order (kNoHiddenRow's tile pass, kFwdStream's forward):
+  // kO, then per 128-column pass of F its a1 chunks (C / kKc) and the o2
+  // chunks it feeds (C / kNP column groups of kNP / kKc), then the same
+  // for dh and dxm, then kDATTN; every stage starts where it does in the
+  // stage order
+  static constexpr int kPerF = 2 * (C / kKc);
 };
 static_assert(Widths<128, 256>::kTT == 64 &&
                   Widths<128, 256>::kTileSmemBytes == 197120 &&
@@ -328,6 +410,28 @@ static_assert(Widths<384, 384>::kTT == 32 && Widths<384, 384>::TT == 16 &&
                   !Widths<512, 512>::kVecRedInRows,
               "the tiles and reduction homes of C 384 and 512");
 // one hidden row at F 3 C and 4 C of C 512 alone
+// at C 640 and more two at (640, 640) and (768, 768), one at (640, 1280)
+// and (640, 1920), none elsewhere; the forward streams at (1024, 3072) and
+// (1024, 4096) alone; the f32 tile drops to 4 tokens at 7 of the 12
+static_assert(Widths<640, 640>::kHiddenRows == 2 &&
+                  Widths<768, 768>::kHiddenRows == 2 &&
+                  Widths<640, 1280>::kOneHiddenRow &&
+                  Widths<640, 1920>::kOneHiddenRow &&
+                  Widths<640, 2560>::kNoHiddenRow &&
+                  Widths<768, 1536>::kNoHiddenRow &&
+                  Widths<1024, 1024>::kNoHiddenRow &&
+                  !Widths<1024, 2048>::kFwdStream &&
+                  Widths<1024, 3072>::kFwdStream &&
+                  Widths<1024, 4096>::kFwdStream &&
+                  Widths<1024, 4096>::kTileSmemBytes == 216192 &&
+                  Widths<1024, 4096>::kFwdSmemBytes == 176896 &&
+                  Widths<640, 1920>::TT == 8 && Widths<640, 2560>::TT == 4 &&
+                  Widths<1024, 1024>::TT == 8 &&
+                  Widths<1024, 4096>::TT == 4 &&
+                  Widths<1024, 2048>::kF32RedByVector &&
+                  !Widths<1024, 4096>::kF32RedByVector &&
+                  !Widths<512, 2048>::kF32RedByVector,
+              "the tiles of C 640, 768 and 1024");
 static_assert(!Widths<512, 1024>::kOneHiddenRow &&
                   !Widths<384, 1536>::kOneHiddenRow &&
                   Widths<512, 1536>::kOneHiddenRow &&
@@ -746,30 +850,51 @@ post_attention_bwd_kernel(BwdArgs p) {
   __syncthreads();
   float* red = Wd::kF32RedInRows ? s_a1 : smem;   // [kWarps][6][C]
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if constexpr (Wd::kF32RedByVector) {   // one [kWarps][C] vector at a time
 #pragma unroll
-  for (int u = 0; u < CL; ++u) {
-    float* w = red + warp * 6 * C + lane + 32 * u;
-    w[0 * C] = dbo[u];
-    w[1 * C] = ds1[u];
-    w[2 * C] = dt1[u];
-    w[3 * C] = db2[u];
-    w[4 * C] = ds2[u];
-    w[5 * C] = dt2[u];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 6 * C; i += kThreads) {
-    float sum = 0.f;
-    for (int w = 0; w < kWarps; ++w) sum += red[w * 6 * C + i];
-    const int q = i / C;         // the six [C] vectors, around db1
-    P[(q < 3 ? Wd::kOffW2 + F * C + q * C : Wd::kOffB1 + F + (q - 3) * C) +
-      i % C] = sum;
+    for (int q = 0; q < 6; ++q) {
+#pragma unroll
+      for (int u = 0; u < CL; ++u)
+        red[warp * C + lane + 32 * u] =
+            q == 0 ? dbo[u] : q == 1 ? ds1[u] : q == 2 ? dt1[u]
+            : q == 3 ? db2[u] : q == 4 ? ds2[u] : dt2[u];
+      __syncthreads();
+      for (int i = threadIdx.x; i < C; i += kThreads) {
+        float sum = 0.f;
+        for (int w = 0; w < kWarps; ++w) sum += red[w * C + i];
+        P[(q < 3 ? Wd::kOffW2 + F * C + q * C
+                 : Wd::kOffB1 + F + (q - 3) * C) +
+          i] = sum;
+      }
+      __syncthreads();
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < CL; ++u) {
+      float* w = red + warp * 6 * C + lane + 32 * u;
+      w[0 * C] = dbo[u];
+      w[1 * C] = ds1[u];
+      w[2 * C] = dt1[u];
+      w[3 * C] = db2[u];
+      w[4 * C] = ds2[u];
+      w[5 * C] = dt2[u];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 6 * C; i += kThreads) {
+      float sum = 0.f;
+      for (int w = 0; w < kWarps; ++w) sum += red[w * 6 * C + i];
+      const int q = i / C;
+      P[(q < 3 ? Wd::kOffW2 + F * C + q * C
+               : Wd::kOffB1 + F + (q - 3) * C) +
+        i % C] = sum;
+    }
   }
   if constexpr (PF::RG == 1) {   // a thread a column
 #pragma unroll
     for (int q = 0; q < PF::kPasses; ++q)
       P[Wd::kOffB1 + PF::col(q)] = db1[q];
   } else {   // F below 256 or 384: the row groups' db1, in group order
-    float* rb = red + kWarps * 6 * C;   // [RG][F]
+    float* rb = red + (Wd::kF32RedByVector ? 0 : kWarps * 6 * C);  // [RG][F]
 #pragma unroll
     for (int q = 0; q < PF::kPasses; ++q)
       rb[threadIdx.x / PF::NW * F + PF::col(q)] = db1[q];
@@ -965,22 +1090,59 @@ __device__ __forceinline__ PassW stage_weight(const Args& p, int stage) {
   }
 }
 
+// Chunk q of the streaming order (Widths::kPerF): its stage s, output
+// columns n0.. and k-rows k0..
+template <int C, int F>
+__device__ __forceinline__ void stream_chunk(int q, int& s, int& n0,
+                                             int& k0) {
+  using Wd = Widths<C, F>;
+  constexpr int kc = C / kKc, S1 = Wd::kStartA1, S3 = Wd::kStartDH,
+                S5 = Wd::kStartDATTN;
+  if (q < S1 || q >= S5) {      // kO, kDATTN: C / kNP passes over C
+    const int local = q < S1 ? q : q - S5;
+    s = q < S1 ? kO : kDATTN;
+    n0 = (local / kc) * kNP;
+    k0 = (local % kc) * kKc;
+    return;
+  }
+  const bool bwd = q >= S3;
+  const int local = q - (bwd ? S3 : S1);
+  const int f = local / Wd::kPerF, j = local % Wd::kPerF;
+  if (j < kc) {                 // pass f of a1 (dh): F columns over C
+    s = bwd ? kDH : kA1;
+    n0 = f * kNP;
+    k0 = j * kKc;
+  } else {                      // o2 (dxm) over pass f's 128 rows of K
+    const int i = j - kc;
+    s = bwd ? kDXM : kO2;
+    n0 = (i / (kNP / kKc)) * kNP;
+    k0 = f * kNP + (i % (kNP / kKc)) * kKc;
+  }
+}
+
 // chunk q of the tile's stream into buf: its stage's weight, the pass's
 // W rows k0.. (cols n0..n0+127) or W^T's, i.e. W rows n0..n0+127, cols
-// k0..; 1024 16-byte pieces
-template <int C, int F, class Args>
+// k0..; 1024 16-byte pieces.  kStream: the streaming order, else the
+// stage order.
+template <int C, int F, bool kStream = false, class Args>
 __device__ __forceinline__ void load_chunk(const Args& p, int q,
                                            __nv_bfloat16* buf) {
   using Wd = Widths<C, F>;
-  constexpr int S1 = Wd::kStartA1, S2 = Wd::kStartO2, S3 = Wd::kStartDH,
-                S4 = Wd::kStartDXM, S5 = Wd::kStartDATTN;
-  const int s = q < S1 ? kO : q < S2 ? kA1 : q < S3 ? kO2
-                : q < S4 ? kDH : q < S5 ? kDXM : kDATTN;
-  const int start = s == kO ? 0 : s == kA1 ? S1 : s == kO2 ? S2
-                    : s == kDH ? S3 : s == kDXM ? S4 : S5;
-  const int kc = stage_k(C, F, s) / kKc;    // chunks a pass
-  const int local = q - start;
-  const int n0 = (local / kc) * kNP, k0 = (local % kc) * kKc;
+  int s, n0, k0;
+  if constexpr (kStream) {
+    stream_chunk<C, F>(q, s, n0, k0);
+  } else {
+    constexpr int S1 = Wd::kStartA1, S2 = Wd::kStartO2, S3 = Wd::kStartDH,
+                  S4 = Wd::kStartDXM, S5 = Wd::kStartDATTN;
+    s = q < S1 ? kO : q < S2 ? kA1 : q < S3 ? kO2
+        : q < S4 ? kDH : q < S5 ? kDXM : kDATTN;
+    const int start = s == kO ? 0 : s == kA1 ? S1 : s == kO2 ? S2
+                      : s == kDH ? S3 : s == kDXM ? S4 : S5;
+    const int kc = stage_k(C, F, s) / kKc;    // chunks a pass
+    const int local = q - start;
+    n0 = (local / kc) * kNP;
+    k0 = (local % kc) * kKc;
+  }
   const PassW w = stage_weight<C, F>(p, s);
   for (int i = threadIdx.x; i < kKc * kNP / 8; i += kTileThreads) {
     if (w.trans) {
@@ -1032,24 +1194,28 @@ __device__ __forceinline__ void chunk_product(
 // the tile's first also for the tile's rows, committed after the chunks
 // in flight), frees the buffer of the chunk before it and prefetches the
 // chunk Ring - 1 ahead, into the next tile's stream while the block has
-// one (more_tiles).
-template <int C, int F, int Ring, int kChunks, class Args>
+// one (more_tiles).  kStream: the stream in the streaming order; without
+// kZero acc adds the pass to what it holds (o2 and dxm over F's passes).
+template <int C, int F, int Ring, int kChunks, bool kStream = false,
+          bool kZero = true, class Args>
 __device__ __forceinline__ void product_pass(
     const Args& p, int q0, int n, const __nv_bfloat16* A, int lda,
     bool more_tiles, bool trans, __nv_bfloat16* s_w, int& cnt,
     float (&acc)[Widths<C, F>::kWN / 8][4]) {
+  if constexpr (kZero) {
 #pragma unroll
-  for (int nb = 0; nb < Widths<C, F>::kWN / 8; ++nb)
+    for (int nb = 0; nb < Widths<C, F>::kWN / 8; ++nb)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  }
   for (int q = q0; q < q0 + n; ++q, ++cnt) {
     if (q == 0) cp_async_wait<0>();
     else cp_async_wait<Ring - 2>();
     __syncthreads();               // chunk q landed; chunk q - 1 consumed
     const int ahead = q + Ring - 1;
     if (ahead < kChunks || more_tiles)
-      load_chunk<C, F>(p, ahead % kChunks,
-                       s_w + ((cnt + Ring - 1) % Ring) * kChunkElems);
+      load_chunk<C, F, kStream>(p, ahead % kChunks,
+                                s_w + ((cnt + Ring - 1) % Ring) * kChunkElems);
     cp_async_commit();
     chunk_product<C, F>(acc, A, lda, (q - q0) * kKc,
                         s_w + (cnt % Ring) * kChunkElems, trans);
@@ -1188,17 +1354,23 @@ __device__ __forceinline__ void load_vector_params(const Args& p,
 // at (128, 256)) lets two blocks share an SM, so one block's row-wise
 // work overlaps the other's products; at F = 3 C one block fits
 // (kFwdBlocks), and its registers are not held to two blocks' share.
+// Where an F-wide row does not fit beside the tile (kFwdStream) s_h is
+// C wide: o, then each 128-column pass of F's a1 and h in its first
+// columns, whose o2 products follow at once (the streaming order), each
+// warp's o2 columns summed over the passes in registers; every sum adds
+// its k-rows in the order of the stage order.
 template <int C, int F>
 __global__ void __launch_bounds__(kTileThreads, Widths<C, F>::kFwdBlocks)
 post_attention_fwd_tc_kernel(FwdArgs p) {
   using Wd = Widths<C, F>;
-  constexpr int kTT = Wd::kTT, kSC = Wd::kSC, kSF = Wd::kSF;
+  constexpr int kTT = Wd::kTT, kSC = Wd::kSC, kSH = Wd::kSHF;
   constexpr int G = Wd::kCG, kChunks = Wd::kFwdChunks;
+  constexpr bool kStream = Wd::kFwdStream;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* s_x = s_a + kTT * kSC;       // x, then o2 (stage kO2)
   __nv_bfloat16* s_h = s_x + kTT * kSC;       // o (stage kO), then a1, h
-  __nv_bfloat16* s_w = s_h + kTT * kSF;       // the weight chunk ring
+  __nv_bfloat16* s_w = s_h + kTT * kSH;       // the weight chunk ring
   float* s_par = reinterpret_cast<float*>(s_w + kFwdRing * kChunkElems);
   // s_a: attn, then xm (over attn, stage kO)
 
@@ -1210,7 +1382,7 @@ post_attention_fwd_tc_kernel(FwdArgs p) {
   const int tiles = p.B * tiles_per_row;
   for (int q = 0; q < kFwdRing - 1; ++q) {      // the stream's first chunks
     if ((int)blockIdx.x < tiles)
-      load_chunk<C, F>(p, q, s_w + q * kChunkElems);
+      load_chunk<C, F, kStream>(p, q, s_w + q * kChunkElems);
     cp_async_commit();
   }
   int cnt = 0;                                  // chunks consumed
@@ -1240,10 +1412,10 @@ post_attention_fwd_tc_kernel(FwdArgs p) {
     float acc[Wd::kWN / 8][4];
     // o = attn Wo; z = x + (o + bo); xm = LN1(z), over attn
     for (int nb = 0; nb < C / kNP; ++nb) {
-      product_pass<C, F, kFwdRing, kChunks>(
+      product_pass<C, F, kFwdRing, kChunks, kStream>(
           p, Wd::kStartO + nb * (C / kKc), C / kKc, s_a, kSC, more,
           false, s_w, cnt, acc);
-      stage<C, F>(acc, s_h, kSF, nb * kNP);
+      stage<C, F>(acc, s_h, kSH, nb * kNP);
     }
     {
       float par[3][G][4];
@@ -1254,37 +1426,67 @@ post_attention_fwd_tc_kernel(FwdArgs p) {
       for (int i = 0; i < Wd::kWarpRows; ++i) {
         const int r = Wd::kWarpRows * warp + i;
         float z[G][4], x[G][4], xm[G][4], mu, rs;
-        ld4g<G>(s_h + r * kSF + c, z);
+        ld4g<G>(s_h + r * kSH + c, z);
         ld4g<G>(s_x + r * kSC + c, x);          // 0 on rows not real
         residual_stats<G>(z, x, par[0], p.eps, mu, rs);
         ln_out<G>(z, mu, rs, par[1], par[2], xm);
         st4g<G>(s_a + r * kSC + c, xm);
       }
     }
-    // a1 = xm W1 + b1, h = gelu(a1), 128 columns a pass
-    for (int nb = 0; nb < F / kNP; ++nb) {
-      const int n0 = nb * kNP;
-      product_pass<C, F, kFwdRing, kChunks>(
-          p, Wd::kStartA1 + nb * (C / kKc), C / kKc, s_a, kSC, more,
-          false, s_w, cnt, acc);
-      stage<C, F>(acc, s_h, kSF, n0);
-      float par[4];
-      ldf4(s_par + Wd::kVb1 + n0 + c, par);
+    if constexpr (!kStream) {
+      // a1 = xm W1 + b1, h = gelu(a1), 128 columns a pass
+      for (int nb = 0; nb < F / kNP; ++nb) {
+        const int n0 = nb * kNP;
+        product_pass<C, F, kFwdRing, kChunks>(
+            p, Wd::kStartA1 + nb * (C / kKc), C / kKc, s_a, kSC, more,
+            false, s_w, cnt, acc);
+        stage<C, F>(acc, s_h, kSH, n0);
+        float par[4];
+        ldf4(s_par + Wd::kVb1 + n0 + c, par);
 #pragma unroll 2
-      for (int i = 0; i < Wd::kWarpRows; ++i) {
-        const int r = Wd::kWarpRows * warp + i;
-        float a1[4], h[4];
-        ld4(s_h + r * kSF + n0 + c, a1);
-        bias_gelu(a1, par, r < nr, h);
-        st4(s_h + r * kSF + n0 + c, h);
+        for (int i = 0; i < Wd::kWarpRows; ++i) {
+          const int r = Wd::kWarpRows * warp + i;
+          float a1[4], h[4];
+          ld4(s_h + r * kSH + n0 + c, a1);
+          bias_gelu(a1, par, r < nr, h);
+          st4(s_h + r * kSH + n0 + c, h);
+        }
       }
-    }
-    // o2 = h W2; z2 = xm + (o2 + b2); y = LN2(z2), written out
-    for (int nb = 0; nb < C / kNP; ++nb) {
-      product_pass<C, F, kFwdRing, kChunks>(
-          p, Wd::kStartO2 + nb * (F / kKc), F / kKc, s_h, kSF, more,
-          false, s_w, cnt, acc);
-      stage<C, F>(acc, s_x, kSC, nb * kNP);     // x was consumed in kO
+      // o2 = h W2; z2 = xm + (o2 + b2); y = LN2(z2), written out
+      for (int nb = 0; nb < C / kNP; ++nb) {
+        product_pass<C, F, kFwdRing, kChunks>(
+            p, Wd::kStartO2 + nb * (F / kKc), F / kKc, s_h, kSH, more,
+            false, s_w, cnt, acc);
+        stage<C, F>(acc, s_x, kSC, nb * kNP);   // x was consumed in kO
+      }
+    } else {
+      // per 128-column pass of F: a1 = xm W1 + b1, h = gelu(a1) in s_h's
+      // first columns, then o2 += h W2 over the pass's 128 k-rows
+      float o2[G][Wd::kWN / 8][4] = {};
+      for (int f = 0; f < Wd::kFG; ++f) {
+        const int n0 = f * kNP, q0 = Wd::kStartA1 + f * Wd::kPerF;
+        product_pass<C, F, kFwdRing, kChunks, true>(
+            p, q0, C / kKc, s_a, kSC, more, false, s_w, cnt, acc);
+        stage<C, F>(acc, s_h, kSH, 0);
+        float par[4];
+        ldf4(s_par + Wd::kVb1 + n0 + c, par);
+#pragma unroll 2
+        for (int i = 0; i < Wd::kWarpRows; ++i) {
+          const int r = Wd::kWarpRows * warp + i;
+          float a1[4], h[4];
+          ld4(s_h + r * kSH + c, a1);
+          bias_gelu(a1, par, r < nr, h);
+          st4(s_h + r * kSH + c, h);
+        }
+#pragma unroll
+        for (int nb = 0; nb < G; ++nb)
+          product_pass<C, F, kFwdRing, kChunks, true, false>(
+              p, q0 + C / kKc + nb * (kNP / kKc), kNP / kKc, s_h, kSH,
+              more, false, s_w, cnt, o2[nb]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < G; ++nb)             // x was consumed in kO
+        stage<C, F>(o2[nb], s_x, kSC, nb * kNP);
     }
     {
       float par[3][G][4];
@@ -1314,24 +1516,32 @@ template <int C, int F>
 __global__ void __launch_bounds__(kTileThreads, 1)
 post_attention_bwd_tile_kernel(TileArgs p) {
   using Wd = Widths<C, F>;
-  constexpr int kTT = Wd::kTT, kSC = Wd::kSC, kSF = Wd::kSF;
+  constexpr int kTT = Wd::kTT, kSC = Wd::kSC, kSF = Wd::kSF, kSH = Wd::kSH;
   constexpr int G = Wd::kCG, FG = Wd::kFG, kChunks = Wd::kTileChunks;
+  constexpr bool kStream = Wd::kNoHiddenRow;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* s_b0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* s_z = s_b0 + kTT * kSC;      // z = x + o
   __nv_bfloat16* s_dz2 = s_z + kTT * kSC;     // x, then dz2 (stage kO2)
-  __nv_bfloat16* s_dy = s_dz2 + kTT * kSC;    // dy
-  __nv_bfloat16* s_a1 = s_dy + kTT * kSC;     // a1, then da1
-  __nv_bfloat16* s_h = s_a1 + (Wd::kHiddenRows - 1) * kTT * kSF;  // h
-  __nv_bfloat16* s_w = s_h + kTT * kSF;       // the weight chunk ring
+  __nv_bfloat16* s_dy = s_dz2 + kTT * kSC;    // dy (none with kStream)
+  __nv_bfloat16* s_a1 = s_dy + (kStream ? 0 : kTT * kSC);  // a1, then da1
+  __nv_bfloat16* s_h =                        // h
+      s_a1 + (Wd::kHiddenRows == 2 ? kTT * kSF : 0);
+  __nv_bfloat16* s_w = s_h + kTT * kSH;       // the weight chunk ring
   float* s_par = reinterpret_cast<float*>(s_w + kRing * kChunkElems);
   float* s_stat = s_par + Wd::kVecFloats;     // LN1 (mu, rs) per row
   // s_b0: attn, then xm (over attn, stage kO), then dz1 (stage kDXM).
   // With one hidden row s_a1 is s_h: h, then dh, then da1 over it; a1
   // waits in p.da1, and s_db1 holds the block's db1 sums, column c by
-  // thread c % kTileThreads
+  // thread c % kTileThreads.  With none (kStream) s_a1 is s_h, a buffer
+  // of 128 columns: each pass of F's a1, then h, whose o2 products
+  // follow at once, and in the backward each pass's dh, then da1, whose
+  // dxm products follow (the streaming order); a1 waits in p.da1, dy is
+  // read from device memory, db1 sums by column in s_db1 (column c by
+  // thread c % kNP), and o2 and dxm sum over the passes in registers,
+  // every sum adding its k-rows in the order of the stage order
   float* s_db1 = s_stat + 2 * kTT;
-  if constexpr (Wd::kOneHiddenRow) {
+  if constexpr (Wd::kDb1Shared) {
     for (int i = threadIdx.x; i < F; i += kTileThreads) s_db1[i] = 0.f;
   }
 
@@ -1347,7 +1557,7 @@ post_attention_bwd_tile_kernel(TileArgs p) {
   const int tiles = p.B * tiles_per_row;
   for (int q = 0; q < kRing - 1; ++q) {         // the stream's first chunks
     if ((int)blockIdx.x < tiles)
-      load_chunk<C, F>(p, q, s_w + q * kChunkElems);
+      load_chunk<C, F, kStream>(p, q, s_w + q * kChunkElems);
     cp_async_commit();
   }
   int cnt = 0;                                  // chunks consumed
@@ -1378,7 +1588,8 @@ post_attention_bwd_tile_kernel(TileArgs p) {
       const size_t g = (row0 + (r < nr ? r : 0)) * C + k;
       cp_async_16(s_b0 + r * kSC + k, p.attn + g, r < nr);
       cp_async_16(s_dz2 + r * kSC + k, p.x + g, r < nr);
-      cp_async_16(s_dy + r * kSC + k, p.dy + g, r < nr);
+      if constexpr (!kStream)
+        cp_async_16(s_dy + r * kSC + k, p.dy + g, r < nr);
     }
     cp_async_commit();
     const bool more = tile + (int)gridDim.x < tiles;
@@ -1390,7 +1601,7 @@ post_attention_bwd_tile_kernel(TileArgs p) {
 
     // kO: z = x + (o + bo); xm = LN1(z)
     for (int nb = 0; nb < C / kNP; ++nb) {
-      product_pass<C, F, kRing, kChunks>(
+      product_pass<C, F, kRing, kChunks, kStream>(
           p, Wd::kStartO + nb * (C / kKc), C / kKc, s_b0, kSC, more,
           false, s_w, cnt, acc);
       stage<C, F>(acc, s_z, kSC, nb * kNP);
@@ -1423,36 +1634,70 @@ post_attention_bwd_tile_kernel(TileArgs p) {
         }
       }
     }
-    // kA1: a1 = xm W1 + b1; h = gelu(a1), 128 columns a pass
-    for (int nb = 0; nb < FG; ++nb) {
-      const int n0 = nb * kNP;
-      product_pass<C, F, kRing, kChunks>(
-          p, Wd::kStartA1 + nb * (C / kKc), C / kKc, s_b0, kSC, more,
-          false, s_w, cnt, acc);
-      stage<C, F>(acc, s_a1, kSF, n0);
-      float par[4];
-      ldf4(s_par + Wd::kVb1 + n0 + c, par);
+    if constexpr (!kStream) {
+      // kA1: a1 = xm W1 + b1; h = gelu(a1), 128 columns a pass
+      for (int nb = 0; nb < FG; ++nb) {
+        const int n0 = nb * kNP;
+        product_pass<C, F, kRing, kChunks>(
+            p, Wd::kStartA1 + nb * (C / kKc), C / kKc, s_b0, kSC, more,
+            false, s_w, cnt, acc);
+        stage<C, F>(acc, s_a1, kSF, n0);
+        float par[4];
+        ldf4(s_par + Wd::kVb1 + n0 + c, par);
 #pragma unroll 2
-      for (int i = 0; i < Wd::kWarpRows; ++i) {
-        const int r = Wd::kWarpRows * warp + i;
-        float a1[4], h[4];
-        ld4(s_a1 + r * kSF + n0 + c, a1);
-        bias_gelu(a1, par, r < nr, h);
-        if constexpr (Wd::kOneHiddenRow) {   // a1 waits for kDH in p.da1
-          if (r < rows) st4(p.da1 + (row0 + r) * F + n0 + c, a1);
-        } else {
-          st4(s_a1 + r * kSF + n0 + c, a1);
+        for (int i = 0; i < Wd::kWarpRows; ++i) {
+          const int r = Wd::kWarpRows * warp + i;
+          float a1[4], h[4];
+          ld4(s_a1 + r * kSF + n0 + c, a1);
+          bias_gelu(a1, par, r < nr, h);
+          if constexpr (Wd::kOneHiddenRow) {   // a1 waits for kDH in p.da1
+            if (r < rows) st4(p.da1 + (row0 + r) * F + n0 + c, a1);
+          } else {
+            st4(s_a1 + r * kSF + n0 + c, a1);
+          }
+          st4(s_h + r * kSF + n0 + c, h);
+          if (r < rows) st4(p.h + (row0 + r) * F + n0 + c, h);
         }
-        st4(s_h + r * kSF + n0 + c, h);
-        if (r < rows) st4(p.h + (row0 + r) * F + n0 + c, h);
       }
-    }
-    // kO2: z2 = xm + (h W2 + b2); LN2 backward
-    for (int nb = 0; nb < C / kNP; ++nb) {
-      product_pass<C, F, kRing, kChunks>(
-          p, Wd::kStartO2 + nb * (F / kKc), F / kKc, s_h, kSF, more,
-          false, s_w, cnt, acc);
-      stage<C, F>(acc, s_dz2, kSC, nb * kNP);   // x was consumed in kO
+      // kO2: z2 = xm + (h W2 + b2); LN2 backward
+      for (int nb = 0; nb < C / kNP; ++nb) {
+        product_pass<C, F, kRing, kChunks>(
+            p, Wd::kStartO2 + nb * (F / kKc), F / kKc, s_h, kSF, more,
+            false, s_w, cnt, acc);
+        stage<C, F>(acc, s_dz2, kSC, nb * kNP);   // x was consumed in kO
+      }
+    } else {
+      // per 128-column pass of F: a1 = xm W1 + b1 (to p.da1), h =
+      // gelu(a1) (to p.h), then o2 += h W2 over the pass's 128 k-rows
+      float o2[G][Wd::kWN / 8][4] = {};
+      for (int f = 0; f < FG; ++f) {
+        const int n0 = f * kNP, q0 = Wd::kStartA1 + f * Wd::kPerF;
+        product_pass<C, F, kRing, kChunks, true>(
+            p, q0, C / kKc, s_b0, kSC, more, false, s_w, cnt, acc);
+        stage<C, F>(acc, s_h, kSH, 0);
+        float par[4];
+        ldf4(s_par + Wd::kVb1 + n0 + c, par);
+#pragma unroll 2
+        for (int i = 0; i < Wd::kWarpRows; ++i) {
+          const int r = Wd::kWarpRows * warp + i;
+          float a1[4], h[4];
+          ld4(s_h + r * kSH + c, a1);
+          bias_gelu(a1, par, r < nr, h);
+          if (r < rows) {   // a1 waits for kDH, read back by this thread
+            st4(p.da1 + (row0 + r) * F + n0 + c, a1);
+            st4(p.h + (row0 + r) * F + n0 + c, h);
+          }
+          st4(s_h + r * kSH + c, h);
+        }
+#pragma unroll
+        for (int nb = 0; nb < G; ++nb)
+          product_pass<C, F, kRing, kChunks, true, false>(
+              p, q0 + C / kKc + nb * (kNP / kKc), kNP / kKc, s_h, kSH,
+              more, false, s_w, cnt, o2[nb]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < G; ++nb)             // x was consumed in kO
+        stage<C, F>(o2[nb], s_dz2, kSC, nb * kNP);
     }
     {
       constexpr float kInv = 1.f / C;
@@ -1465,7 +1710,13 @@ post_attention_bwd_tile_kernel(TileArgs p) {
         float z2[G][4], xm[G][4], dy[G][4], mu, rs;
         ld4g<G>(s_dz2 + r * kSC + c, z2);
         ld4g<G>(s_b0 + r * kSC + c, xm);
-        ld4g<G>(s_dy + r * kSC + c, dy);        // 0 on rows not real
+        if constexpr (kStream) {                // 0 on rows not real
+          for (int g = 0; g < G; ++g)
+            dy[g][0] = dy[g][1] = dy[g][2] = dy[g][3] = 0.f;
+          if (r < nr) ld4g<G>(p.dy + (row0 + r) * C + c, dy);
+        } else {
+          ld4g<G>(s_dy + r * kSC + c, dy);      // 0 on rows not real
+        }
         residual_stats<G>(z2, xm, par[0], p.eps, mu, rs);
         float sg = 0.f, sgx = 0.f;
 #pragma unroll
@@ -1493,51 +1744,91 @@ post_attention_bwd_tile_kernel(TileArgs p) {
         if (r < rows) st4g<G>(p.dz2 + (row0 + r) * C + c, dz);
       }
     }
-    // kDH: da1 = (dz2 W2^T) gelu'(a1), over a1, 128 columns a pass
-    for (int nb = 0; nb < FG; ++nb) {
-      const int n0 = nb * kNP;
-      product_pass<C, F, kRing, kChunks>(
-          p, Wd::kStartDH + nb * (C / kKc), C / kKc, s_dz2, kSC, more,
-          true, s_w, cnt, acc);
-      stage<C, F>(acc, s_h, kSF, n0);           // h was consumed in kO2
+    if constexpr (!kStream) {
+      // kDH: da1 = (dz2 W2^T) gelu'(a1), over a1, 128 columns a pass
+      for (int nb = 0; nb < FG; ++nb) {
+        const int n0 = nb * kNP;
+        product_pass<C, F, kRing, kChunks>(
+            p, Wd::kStartDH + nb * (C / kKc), C / kKc, s_dz2, kSC, more,
+            true, s_w, cnt, acc);
+        stage<C, F>(acc, s_h, kSF, n0);           // h was consumed in kO2
 #pragma unroll 2
-      for (int i = 0; i < Wd::kWarpRows; ++i) {
-        const int r = Wd::kWarpRows * warp + i;
-        float dh[4], a1[4];
-        ld4(s_h + r * kSF + n0 + c, dh);
-        if constexpr (Wd::kOneHiddenRow) {   // kA1's store, this thread's
-          a1[0] = a1[1] = a1[2] = a1[3] = 0.f;
-          if (r < nr) ld4(p.da1 + (row0 + r) * F + n0 + c, a1);
-        } else {
-          ld4(s_a1 + r * kSF + n0 + c, a1);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          a1[u] = r < nr ? rbf(dh[u] * dgelu(a1[u])) : 0.f;
-          if constexpr (!Wd::kOneHiddenRow) {
-#pragma unroll
-            for (int j = 0; j < FG; ++j)   // a static index: registers
-              if (j == nb) vb1[j][u] += a1[u];
+        for (int i = 0; i < Wd::kWarpRows; ++i) {
+          const int r = Wd::kWarpRows * warp + i;
+          float dh[4], a1[4];
+          ld4(s_h + r * kSF + n0 + c, dh);
+          if constexpr (Wd::kOneHiddenRow) {   // kA1's store, this thread's
+            a1[0] = a1[1] = a1[2] = a1[3] = 0.f;
+            if (r < nr) ld4(p.da1 + (row0 + r) * F + n0 + c, a1);
+          } else {
+            ld4(s_a1 + r * kSF + n0 + c, a1);
           }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            a1[u] = r < nr ? rbf(dh[u] * dgelu(a1[u])) : 0.f;
+            if constexpr (!Wd::kOneHiddenRow) {
+#pragma unroll
+              for (int j = 0; j < FG; ++j)   // a static index: registers
+                if (j == nb) vb1[j][u] += a1[u];
+            }
+          }
+          st4(s_a1 + r * kSF + n0 + c, a1);
+          if (r < rows) st4(p.da1 + (row0 + r) * F + n0 + c, a1);
         }
-        st4(s_a1 + r * kSF + n0 + c, a1);
-        if (r < rows) st4(p.da1 + (row0 + r) * F + n0 + c, a1);
       }
-    }
-    if constexpr (Wd::kOneHiddenRow) {   // db1 += the tile's da1 columns
-      __syncthreads();
-      for (int i = threadIdx.x; i < F; i += kTileThreads) {
-        float sum = 0.f;
-        for (int r = 0; r < kTT; ++r) sum += to_f(s_a1[r * kSF + i]);
-        s_db1[i] += sum;
+      if constexpr (Wd::kOneHiddenRow) {   // db1 += the tile's da1 columns
+        __syncthreads();
+        for (int i = threadIdx.x; i < F; i += kTileThreads) {
+          float sum = 0.f;
+          for (int r = 0; r < kTT; ++r) sum += to_f(s_a1[r * kSF + i]);
+          s_db1[i] += sum;
+        }
       }
-    }
-    // kDXM: dxm = dz2 + da1 W1^T; LN1 backward
-    for (int nb = 0; nb < C / kNP; ++nb) {
-      product_pass<C, F, kRing, kChunks>(
-          p, Wd::kStartDXM + nb * (F / kKc), F / kKc, s_a1, kSF, more,
-          true, s_w, cnt, acc);
-      stage<C, F>(acc, s_b0, kSC, nb * kNP);    // xm was consumed in kO2
+      // kDXM: dxm = dz2 + da1 W1^T; LN1 backward
+      for (int nb = 0; nb < C / kNP; ++nb) {
+        product_pass<C, F, kRing, kChunks>(
+            p, Wd::kStartDXM + nb * (F / kKc), F / kKc, s_a1, kSF, more,
+            true, s_w, cnt, acc);
+        stage<C, F>(acc, s_b0, kSC, nb * kNP);    // xm was consumed in kO2
+      }
+    } else {
+      // per 128-column pass of F: da1 = (dz2 W2^T) gelu'(a1), a1 read
+      // back from p.da1 and da1 written over it, db1 += its columns, then
+      // dxm += da1 W1^T over the pass's 128 k-rows
+      float dxm[G][Wd::kWN / 8][4] = {};
+      for (int f = 0; f < FG; ++f) {
+        const int n0 = f * kNP, q0 = Wd::kStartDH + f * Wd::kPerF;
+        product_pass<C, F, kRing, kChunks, true>(
+            p, q0, C / kKc, s_dz2, kSC, more, true, s_w, cnt, acc);
+        stage<C, F>(acc, s_h, kSH, 0);
+#pragma unroll 2
+        for (int i = 0; i < Wd::kWarpRows; ++i) {
+          const int r = Wd::kWarpRows * warp + i;
+          float dh[4], a1[4] = {};
+          ld4(s_h + r * kSH + c, dh);
+          if (r < nr) ld4(p.da1 + (row0 + r) * F + n0 + c, a1);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            a1[u] = r < nr ? rbf(dh[u] * dgelu(a1[u])) : 0.f;
+          st4(s_h + r * kSH + c, a1);
+          if (r < rows) st4(p.da1 + (row0 + r) * F + n0 + c, a1);
+        }
+        __syncthreads();
+        if (threadIdx.x < kNP) {   // db1 += the tile's da1 columns
+          float sum = 0.f;
+          for (int r = 0; r < kTT; ++r)
+            sum += to_f(s_h[r * kSH + threadIdx.x]);
+          s_db1[n0 + threadIdx.x] += sum;
+        }
+#pragma unroll
+        for (int nb = 0; nb < G; ++nb)
+          product_pass<C, F, kRing, kChunks, true, false>(
+              p, q0 + C / kKc + nb * (kNP / kKc), kNP / kKc, s_h, kSH,
+              more, true, s_w, cnt, dxm[nb]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < G; ++nb)             // xm was consumed in kO2
+        stage<C, F>(dxm[nb], s_b0, kSC, nb * kNP);
     }
     {
       constexpr float kInv = 1.f / C;
@@ -1580,7 +1871,7 @@ post_attention_bwd_tile_kernel(TileArgs p) {
     }
     // kDATTN: dattn = dz1 Wo^T, from the fragments
     for (int nb = 0; nb < C / kNP; ++nb) {
-      product_pass<C, F, kRing, kChunks>(
+      product_pass<C, F, kRing, kChunks, kStream>(
           p, Wd::kStartDATTN + nb * (C / kKc), C / kKc, s_b0, kSC,
           more, true, s_w, cnt, acc);
       const int g = lane / 4, t = lane % 4;
@@ -1602,18 +1893,40 @@ post_attention_bwd_tile_kernel(TileArgs p) {
   // holds [kTileWarps][kVecFloats] f32)
   cp_async_wait<0>();
   __syncthreads();
+  const int off[6] = {Wd::kVbo, Wd::kVs1, Wd::kVt1,
+                      Wd::kVb2, Wd::kVs2, Wd::kVt2};
+  if constexpr (kStream) {   // one [kTileWarps][C] vector at a time
+    float* s_red = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+    for (int v = 0; v < 6; ++v) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          s_red[warp * C + kNP * g + c + u] = vs[v][g][u];
+      __syncthreads();
+      for (int i = threadIdx.x; i < C; i += kTileThreads) {
+        float sum = 0.f;
+        for (int w = 0; w < kTileWarps; ++w) sum += s_red[w * C + i];
+        p.vpartial[(size_t)blockIdx.x * Wd::kVecFloats + off[v] + i] = sum;
+      }
+      __syncthreads();
+    }
+    for (int i = threadIdx.x; i < F; i += kTileThreads)   // db1 as it is
+      p.vpartial[(size_t)blockIdx.x * Wd::kVecFloats + Wd::kVb1 + i] =
+          s_db1[i];
+    return;
+  }
   float* s_red = Wd::kVecRedInRows ? reinterpret_cast<float*>(s_a1)
                                    : reinterpret_cast<float*>(smem_raw);
   float* red = s_red + warp * Wd::kVecFloats;
-  const int off[6] = {Wd::kVbo, Wd::kVs1, Wd::kVt1,
-                      Wd::kVb2, Wd::kVs2, Wd::kVt2};
 #pragma unroll
   for (int v = 0; v < 6; ++v)
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int u = 0; u < 4; ++u) red[off[v] + kNP * g + c + u] = vs[v][g][u];
-  if constexpr (!Wd::kOneHiddenRow) {
+  if constexpr (!Wd::kDb1Shared) {
 #pragma unroll
     for (int j = 0; j < FG; ++j)
 #pragma unroll
@@ -1621,7 +1934,7 @@ post_attention_bwd_tile_kernel(TileArgs p) {
   }
   __syncthreads();
   for (int i = threadIdx.x; i < Wd::kVecFloats; i += kTileThreads) {
-    if constexpr (Wd::kOneHiddenRow) {   // db1: the block's sums as they are
+    if constexpr (Wd::kDb1Shared) {   // db1: the block's sums as they are
       if (i >= Wd::kVb1 && i < Wd::kVb1 + F) {
         p.vpartial[(size_t)blockIdx.x * Wd::kVecFloats + i] =
             s_db1[i - Wd::kVb1];

@@ -38,6 +38,7 @@ from ..config import SSTConfig
 from ..ops.attention import (band_attention, band_attention_fused,
                              kernel_takes)
 from ..ops.attention_qkv import band_attention_qkv
+from ..ops.attention_qkv import kernel_takes as qkv_kernel_takes
 from ..ops.ffn import KERNEL_WIDTHS, post_attention_block
 from ..ops.windows import INT32_MAX, WindowLayout, positional_embedding
 from .norm import FastLayerNorm
@@ -97,27 +98,32 @@ def attention_route(impl: str, d_model: int, nhead: int) -> str:
     heads of 1, 2, 4, 8, 16, 32, 64 or 128, C 384 in 128 heads of 3, 64
     of 6, 32 of 12, 16 of 24, 8 of 48, 4 of 96 or 2 of 192, C 256 in one
     head of 256 or 512 in two, and C 384 and 512 in one head
-    (``attention.kernel_takes``): there "qkv" resolves to itself and
-    every other kernel name to "band".  At any other width every name
-    resolves to "einsum".  geomae_tpu/models/sst.py keeps its kernel
-    routes for any C a multiple of 128 and any head count (and V of 128,
-    a fact of the TPU's tiling: the port's kernels take any V), so the
-    port serves on the plain routes what JAX serves on kernels at C >=
-    640 alone.  "auto" is "band" (choosing between band and qkv by speed
-    is open: PERF.md)."""
+    (``attention_qkv.kernel_takes``): there "qkv" resolves to itself and
+    every other kernel name to "band".  K8 alone also takes C 640, 768
+    and 1024 in heads of 8, 16, 32, 64 or 128 (``attention.kernel_takes``):
+    there "qkv" resolves to "einsum" and every other kernel name to
+    "band".  At any other width every name resolves to "einsum".
+    geomae_tpu/models/sst.py keeps its kernel routes for any C a multiple
+    of 128 and any head count (and V of 128, a fact of the TPU's tiling:
+    the port's kernels take any V), so the port serves on the plain
+    routes what JAX serves on kernels at the other head widths of C 640
+    to 1024, at C above 1024, and on "qkv" at C 640 and more.  "auto" is
+    "band" (choosing between band and qkv by speed is open: PERF.md)."""
     _check("attention_impl", impl, ATTENTION_IMPLS)
     if impl == "einsum" or not kernel_takes(d_model, nhead):
         return "einsum"
-    return "qkv" if impl == "qkv" else "band"
+    if impl == "qkv":
+        return "qkv" if qkv_kernel_takes(d_model, nhead) else "einsum"
+    return "band"
 
 
 def ffn_route(cfg: SSTConfig) -> str:
     """``cfg.ffn_impl`` resolved: "fused" (K5) for GELU at the kernel's
-    widths, (C, F) in ``ffn.KERNEL_WIDTHS`` (C of 128, 256, 384 or 512, F
-    of 1, 2, 3 or 4 times C), else "xla" (the unfused chain).  JAX fuses
-    GELU at any C a multiple of 128 and any F; the port serves on the
-    unfused chain what JAX fuses at F not a multiple of 128, below C or
-    above 4 C, and at C of 640 or more."""
+    widths, (C, F) in ``ffn.KERNEL_WIDTHS`` (C of 128, 256, 384, 512, 640,
+    768 or 1024, F of 1, 2, 3 or 4 times C), else "xla" (the unfused
+    chain).  JAX fuses GELU at any C a multiple of 128 and any F; the port
+    serves on the unfused chain what JAX fuses at F not a multiple of 128,
+    below C or above 4 C, and at C above 1024."""
     _check("ffn_impl", cfg.ffn_impl, FFN_IMPLS)
     _check("activation", cfg.activation, ("gelu", "relu"))
     fits = (cfg.d_model, cfg.dim_feedforward) in KERNEL_WIDTHS \

@@ -24,14 +24,15 @@ rows with no visible key return 0 and get zero gradients.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  The kernels take heads of D in ``KERNEL_HEAD_DIMS`` (1, 2, 3,
 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512) that make C
-= H D one of ``KERNEL_CHANNELS`` (128, 256, 384, 512; D 3, 6, 12, 24,
-48, 96 and 192 only at C 384, in 128, 64, 32, 16, 8, 4 and 2 heads; D
-256 at C 256 and 512, in 1 and 2; D 384 and 512 at C 384 and 512, in
-one head; D 1, 2 and 4 at every C, in 32 to 512 heads), in float32 or
-bfloat16; the plain versions take any H and D.  Below D 8 the bf16
-kernels run D 8's over heads staged into 8-channel slots whose channels
-past D are zero, and the f32 kernels give a lane whole heads.  The bf16
-forward runs on
+= H D one of ``KERNEL_CHANNELS`` (128, 256, 384, 512, 640, 768, 1024; D
+3, 6, 12, 24, 48, 96 and 192 only at C 384, in 128, 64, 32, 16, 8, 4 and
+2 heads; D 256 at C 256 and 512, in 1 and 2; D 384 and 512 at C 384 and
+512, in one head; D 1, 2 and 4 at C 128 to 512, in 32 to 512 heads; at C
+640, 768 and 1024 heads of ``WIDE_HEAD_DIMS``, 8 to 128, in 5 to 128
+heads), in float32 or bfloat16; the plain versions take any H and D.
+Below D 8 the bf16 kernels run D 8's over heads staged into 8-channel
+slots whose channels past D are zero, and the f32 kernels give a lane
+whole heads.  The bf16 forward runs on
 the tensor cores over 64-token tiles with an online softmax per 64-key
 chunk (``band_attention_tiles_plain`` is its order in plain PyTorch; at
 D 384 and 512 two blocks share a head's output columns, each with the
@@ -58,11 +59,15 @@ import torch
 from . import _cuda
 
 INT32_MAX = 2 ** 31 - 1
-KERNEL_CHANNELS = (128, 256, 384, 512)   # C = H D the kernels take
+# C = H D the kernels take
+KERNEL_CHANNELS = (128, 256, 384, 512, 640, 768, 1024)
 # and D: 3, 6, 12, 24, 48, 96 and 192 at C 384 alone, 256 at C 256 and
-# 512, 384 and 512 in one head
+# 512, 384 and 512 in one head; at the C above 512 (WIDE_CHANNELS) the
+# heads of WIDE_HEAD_DIMS alone
 KERNEL_HEAD_DIMS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192,
                     256, 384, 512)
+WIDE_CHANNELS = (640, 768, 1024)
+WIDE_HEAD_DIMS = (8, 16, 32, 64, 128)
 PLAIN_Q_CHUNK = 1024      # queries per score block of the plain versions
 KERNEL_TILE = 64          # tokens a tile (and rows a chunk) of the bf16
                           # kernels
@@ -297,14 +302,16 @@ def band_attention_backward_tiles_plain(q, k, v, win_id, key_valid, out,
 
 
 def kernel_takes(channels: int, heads: int) -> bool:
-    """Whether the kernels take ``heads`` heads over ``channels``: D =
-    C / H in KERNEL_HEAD_DIMS and C in KERNEL_CHANNELS (of which only C
-    384 splits into heads of 3, 6, 12, 24, 48, 96 or 192, only 256 and
-    512 into heads of 256, and heads of 384 and 512 are C 384 and 512 in
-    one head)."""
-    return (heads > 0 and channels % heads == 0
-            and channels in KERNEL_CHANNELS
-            and channels // heads in KERNEL_HEAD_DIMS)
+    """Whether the kernels take ``heads`` heads over ``channels``: C in
+    KERNEL_CHANNELS and D = C / H in KERNEL_HEAD_DIMS (of which only C 384
+    splits into heads of 3, 6, 12, 24, 48, 96 or 192, only 256 and 512
+    into heads of 256, and heads of 384 and 512 are C 384 and 512 in one
+    head), in WIDE_HEAD_DIMS (8 to 128) at C 640, 768 and 1024."""
+    if not (heads > 0 and channels % heads == 0
+            and channels in KERNEL_CHANNELS):
+        return False
+    dims = WIDE_HEAD_DIMS if channels in WIDE_CHANNELS else KERNEL_HEAD_DIMS
+    return channels // heads in dims
 
 
 def kernel_widths() -> list:
@@ -326,7 +333,8 @@ def _check_rows(name, q, *more):
                   f"{name}: the kernel takes [B, V, H, D] with D in "
                   f"{KERNEL_HEAD_DIMS} and H D in {KERNEL_CHANNELS} (D 3, "
                   f"6, 12, 24, 48, 96 and 192 at H D = 384 alone, D 384 "
-                  f"and 512 in one head), float32 or bfloat16, "
+                  f"and 512 in one head, D in {WIDE_HEAD_DIMS} alone at "
+                  f"H D in {WIDE_CHANNELS}), float32 or bfloat16, "
                   f"got {q.dtype} {tuple(q.shape)}")
     for t in more:
         _cuda.require(t.shape == q.shape and t.dtype == q.dtype,

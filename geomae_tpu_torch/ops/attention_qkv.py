@@ -19,7 +19,7 @@ projections accumulate in f32, cast to x's dtype, then add the bias in
 that dtype (``pallas_attention_qkv._proj``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels
-or raises.  The kernels take every width K8 takes: C in
+or raises.  The kernels take K8's widths up to C 512: C in
 ``KERNEL_CHANNELS`` (128, 256, 384 or 512) in heads of 1, 2, 4, 8, 16,
 32, 64 or 128, C 384 in heads of 3, 6, 12, 24, 48, 96 or 192, C 256 and
 512 in heads of 256 and C 384 and 512 in one head (``kernel_takes``), in
@@ -51,16 +51,24 @@ from __future__ import annotations
 
 import torch
 
-from . import _cuda
-from .attention import (INT32_MAX, KERNEL_CHANNELS, KERNEL_HEAD_DIMS,
-                        band_attention, kernel_takes, plain_blocks,
-                        plain_lse)
+from . import _cuda, attention
+from .attention import (INT32_MAX, KERNEL_HEAD_DIMS, band_attention,
+                        plain_blocks, plain_lse)
 from .ffn import dense
 
-# K6, K7 and the projections take K8's widths: C in KERNEL_CHANNELS (the
-# projections see no heads) in heads of KERNEL_HEAD_DIMS, 3, 6, 12, 24,
-# 48, 96 and 192 at C 384 alone, 256 at C 256 and 512, 384 and 512 in one
-# head (kernel_takes)
+# K6, K7 and the projections take K8's widths up to C 512: C in
+# KERNEL_CHANNELS (the projections see no heads) in heads of
+# KERNEL_HEAD_DIMS, 3, 6, 12, 24, 48, 96 and 192 at C 384 alone, 256 at C
+# 256 and 512, 384 and 512 in one head (kernel_takes); K8 alone takes C
+# 640, 768 and 1024
+KERNEL_CHANNELS = (128, 256, 384, 512)
+
+
+def kernel_takes(channels: int, heads: int) -> bool:
+    """Whether K6 and K7 take ``heads`` heads over ``channels``: C in
+    KERNEL_CHANNELS at a width K8 takes (``attention.kernel_takes``)."""
+    return channels in KERNEL_CHANNELS and attention.kernel_takes(channels,
+                                                                 heads)
 
 # The bf16 weight-gradient kernel stages 128 columns of its rows a block
 # (104 KB of shared memory at every C): two blocks an SM

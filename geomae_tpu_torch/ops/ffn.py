@@ -20,7 +20,8 @@ its tile's end are padding tokens that no consumer reads.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  The kernels take (C, F) in ``KERNEL_WIDTHS`` (C of 128, 256,
-384 or 512 with F of 1, 2, 3 or 4 times C) in float32 or bfloat16.
+384, 512, 640, 768 or 1024 with F of 1, 2, 3 or 4 times C) in float32 or
+bfloat16.
 Under grad the block is an ``autograd.Function`` whose backward
 (``post_attention_block_backward``)
 returns dx, dattn and the ten parameter gradients in f32 with the dtype
@@ -42,21 +43,27 @@ import torch.nn.functional as F
 
 from . import _cuda
 
-# (C, F) the kernels take, F of 1, 2, 3 or 4 times C (at (512, 1536) and
-# (512, 2048) the bf16 tile pass keeps one F-wide row a token of 16, not
-# two: a1 waits in the da1 workspace, post_attention.cuh); the first is
-# the shipped SST width, the rest by C, then F
+# (C, F) the kernels take, F of 1, 2, 3 or 4 times C (at (512, 1536),
+# (512, 2048), (640, 1280) and (640, 1920) the bf16 tile pass keeps one
+# F-wide row a token of 16, not two: a1 waits in the da1 workspace; at
+# the other widths of C 640 and more but (640, 640) and (768, 768) none:
+# the hidden rows stream through a 128-column pass buffer,
+# post_attention.cuh); the first is the shipped SST width, the rest by C,
+# then F
 KERNEL_WIDTHS = ((128, 256), (128, 128), (128, 384), (128, 512), (256, 256),
                  (256, 512), (256, 768), (256, 1024), (384, 384), (384, 768),
                  (384, 1152), (384, 1536), (512, 512), (512, 1024),
-                 (512, 1536), (512, 2048))
+                 (512, 1536), (512, 2048), (640, 640), (640, 1280),
+                 (640, 1920), (640, 2560), (768, 768), (768, 1536),
+                 (768, 2304), (768, 3072), (1024, 1024), (1024, 2048),
+                 (1024, 3072), (1024, 4096))
 KERNEL_C, KERNEL_F = KERNEL_WIDTHS[0]
-# the backward kernels run one block per SM, at most one a tile of the
-# smallest token tile any width takes (post_attention.cuh, Widths: the
-# tiles shrink as the rows widen, to 8 tokens in f32 at (384, 1152),
-# (384, 1536) and (512, 1024-2048); a block left without a tile writes
-# zero partials); the bf16 weight gradients over chunks of 2,048 token
-# rows
+# the backward kernels run one block per SM, at most one a tile of 8
+# tokens (post_attention.cuh, Widths: the tiles shrink as the rows widen,
+# to 8 tokens in f32 at (384, 1152), (384, 1536), (512, 1024-2048) and 5
+# widths of C 640 and more, 4 at the other 7; a tile of 4 is no fewer
+# tiles than one of 8, and a block left without a tile writes zero
+# partials); the bf16 weight gradients over chunks of 2,048 token rows
 MIN_TILE = 8
 BWD_BLOCKS_PER_SM = 1
 WGRAD_CHUNK = 2048

@@ -27,8 +27,9 @@ dropped, ``dropped_token``) under the new rule too.
     python -m geomae_tpu_torch.probe_k5_backward phase_a
 
 runs, from the repo's root, ``chip_smoke.py``'s phase A rows of the bf16
-backward at every (C, F) on the pretrain encoder's tokens, three seeds at
-C 384 and 512 (``phase_a_rule``): the three rules of ``compare_grads``,
+backward at every (C, F) on the pretrain encoder's tokens (at the C of
+``--channels`` alone where given), three seeds at C 384 and more
+(``phase_a_rule``): the three rules of ``compare_grads``,
 the kernel's, the plain version's and the plain version's with its
 products on the tensor cores (``tensor_core_grads``) distances from the
 f64 computation, and the planted faults.
@@ -271,12 +272,13 @@ def noise() -> None:
               f"token dropped {rule_shares(fault[2:], exact, bounds)}")
 
 
-def phase_a_rule(seeds: int = 3) -> None:
+def phase_a_rule(seeds: int = 3, channels=None) -> None:
     """Phase A's bf16 K5 backward rows (``chip_smoke.phase_a``: its two
     rules, the distances from the f64 computation and the planted faults)
-    at every (C, F) of KERNEL_WIDTHS on the pretrain encoder's tokens,
-    with ``seeds`` seeds of the tokens and weights at C 384 and 512: the
-    readings behind ``chip_smoke.K5_GRAD_TOL``."""
+    at every (C, F) of KERNEL_WIDTHS (of C in ``channels`` where given) on
+    the pretrain encoder's tokens, with ``seeds`` seeds of the tokens and
+    weights at C 384 and more: the readings behind
+    ``chip_smoke.K5_GRAD_TOL``."""
     import chip_smoke
     from .config import apply_overrides, geomae_pretrain_nus
 
@@ -286,6 +288,8 @@ def phase_a_rule(seeds: int = 3) -> None:
     pcfg, dev, failures = geomae_pretrain_nus(), torch.device("cuda"), []
     seed = chip_smoke.SEED
     for C in sorted({c for c, _ in ffn.KERNEL_WIDTHS}):
+        if channels and C not in channels:
+            continue
         cfg = apply_overrides(pcfg, [f"sst.d_model={C}"])
         inputs = chip_smoke.pretrain_inputs(cfg, dev)
         for F in sorted(f for c, f in ffn.KERNEL_WIDTHS if c == C):
@@ -300,7 +304,7 @@ def phase_a_rule(seeds: int = 3) -> None:
 
 # the widths this package adds to a parent's (parent), and the old widths
 # timed against the parent: the shipped one and the widest
-NEW_WIDTHS = ((512, 1536), (512, 2048))
+NEW_WIDTHS = tuple((C, k * C) for C in (640, 768, 1024) for k in (1, 2, 3, 4))
 PARENT_TIMED = ((128, 256), (512, 1024))
 # K5's kernels by the head of their mangled names, before the widths
 KERNELS = {"f32 forward": "post_attention_kernelI",
@@ -341,13 +345,15 @@ def main() -> None:
                     choices=("noise", "phase_a", "resources", "parent"))
     ap.add_argument("--parent", type=Path,
                     help="parent: the checkout whose kernels to compare")
+    ap.add_argument("--channels", type=int, nargs="+",
+                    help="phase_a: the C to run (default every one)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_k5_backward: no CUDA GPU")
     if args.what == "phase_a":
         import chip_smoke
         chip_smoke.startup()
-        phase_a_rule()
+        phase_a_rule(channels=args.channels)
         return
     print(probe.card())
     if args.what == "noise":

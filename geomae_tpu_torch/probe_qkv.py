@@ -42,7 +42,7 @@ is one kernel).
 The old widths against another checkout of the package (``parent``,
 ``--parent DIR``: a checkout whose kernels are built, ``DIR/build/
 geomae_tpu_torch/libgeomae_kernels_*.so``): the SASS of K6 / K7's and
-K8's kernels at every width but one head of 384 or 512 (``OLD_WIDTH``) in
+K8's kernels at every width but C 640, 768 and 1024 (``OLD_WIDTH``) in
 both libraries (``cuobjdump -sass``, names demangled, the anonymous
 namespace and addresses dropped), K8's forward and backward, f32 and
 bf16, at the width of any K8 kernel whose SASS differs, then K6, K7
@@ -228,8 +228,9 @@ def rule(widths=None, seeds=(0, 1, 2)) -> None:
     against it computed in f64, and with dropped rows, at ``widths``
     ((C, heads); every width by default)."""
     worst: dict = {}
-    for C, D in (attention.kernel_widths() if widths is None else
-                 [(C, C // H) for C, H in widths]):
+    for C, D in ([w for w in attention.kernel_widths()
+                  if attention_qkv.kernel_takes(w[0], w[0] // w[1])]
+                 if widths is None else [(C, C // H) for C, H in widths]):
         for (B, V), seed in ((bv, s) for bv in ((2, 1024), (4, 8192))
                              for s in seeds):
             heads = C // D
@@ -412,12 +413,12 @@ def grads(C: int, heads: int) -> None:
               + ", ".join(ms))
 
 
-# K6 / K7's and K8's kernels at every width but one head of 384 or 512
-# and the heads below 8 (the qkv kernels' template arguments <C> or <C,
-# D>, K8's <D, C> or <T, D, C>)
-OLD_WIDTH = re.compile(r"(?:qkv\w*<\d+(?:, (?!(?:384|512|[12346])>)\d+)?>"
+# K6 / K7's kernels at every width and K8's at every width but C 640,
+# 768 and 1024 (the qkv kernels' template arguments <C> or <C, D>, K8's
+# <D, C> or <T, D, C>)
+OLD_WIDTH = re.compile(r"(?:qkv\w*<\d+(?:, \d+)?>"
                        r"|band_attention_(?!qkv)\w*<(?:[\w:]+, )?"
-                       r"(?!(?:384|512|[12346]),)\d+, \d+>)$")
+                       r"\d+, (?!(?:640|768|1024)>)\d+>)$")
 # the mangled names of K8's kernels at (D, C) (the prologue's in bf16) and
 # of f32 K6 / K7's at (C, D)
 K8_KERNELS = {"f32": "band_attention_kernelILi{D}ELi{C}E",
@@ -433,7 +434,9 @@ QKV_F32_KERNELS = {"K6 f32": "band_attention_qkv_kernelILi{C}ELi{D}E",
 def resources() -> None:
     lib = _cuda.library()
     for C, D in attention.kernel_widths():
-        kernels = {**K8_KERNELS, **QKV_F32_KERNELS}
+        kernels = dict(K8_KERNELS)
+        if attention_qkv.kernel_takes(C, C // D):
+            kernels.update(QKV_F32_KERNELS)
         if D > 256:       # the two passes' kernel (band_attention.cuh)
             kernels["bf16 backward"] = \
                 "band_attention_bwd_wide_kernelILi{D}ELi{C}E"

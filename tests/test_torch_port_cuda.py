@@ -61,7 +61,7 @@ heads of 8), a dropped row failing it, and by their precision
 (``probe_k5_backward.low_bits_shares``, as K5's: at most a quarter of a
 gradient's elements ending in 16 zero bits), which the kernel's
 gradients rounded to bf16 fail; a width outside the set (C 640, 768 or
-1024) raises.
+1024, which K8 alone takes) raises.
 
 K8 (window attention over projected q, k, v; ``ops/attention.py``): the
 output and the statistics at K6's bound, the backward's dq, dk, dv at the
@@ -72,9 +72,12 @@ prologue (D = rowsum(dO * out)) sums D exact products in another order.
 K8 and K5 run at every width of their kernels: K8 in ``HEADS`` (C of 128,
 256, 384 or 512 in heads of 1, 2, 4, 8, 16, 32, 64 or 128, C 384 in
 heads of 3, 6, 12, 24, 48, 96 or 192, C 256 and 512 in heads of 256, C
-384 and 512 in one head), K5 in ``ffn.KERNEL_WIDTHS`` (F of 1 to 4 times
-C at C 128, 256, 384 and 512), and refuse widths outside them (K5 at
-(512, 2560) and (640, 1280), K8 at C 32, 640, 768 and 1024).  At heads
+384 and 512 in one head, C 640, 768 and 1024 in heads of 8 to 128), K5
+in ``ffn.KERNEL_WIDTHS`` (F of 1 to 4 times C at C 128, 256, 384, 512,
+640, 768 and 1024), and refuse widths outside them (K5 at (512, 2560),
+(640, 5120) and C 1152, K8 at C 32, at 640 in heads of 4 and 5, at 768
+in one head and in heads of 6 and 256, at 1024 in heads of 4 and at C
+1152).  At heads
 of 2, 3, 6, 12, 24, 48, 96, 192, 384 and 512 K8's and K6's outputs fail
 their rule against the plain versions with the scale a power of two (1,
 1/2, 1/2, 1/4, 1/4, 1/8, 1/8, 1/16, 1/16 and 1/16; at D 12 the scale of
@@ -96,8 +99,9 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 DTYPES = [torch.float32, torch.bfloat16]
 # K8's widths, (heads, head width): C = 128, 256, 384 and 512 in heads of
 # 1, 2, 4, 8, 16, 32, 64 and 128, C 384 in heads of 3, 6, 12, 24, 48, 96
-# and 192, C 256 and 512 in heads of 256, C 384 and 512 in one head
-# (``attention.kernel_widths``); K6's and K7's (QKV_HEADS) the same;
+# and 192, C 256 and 512 in heads of 256, C 384 and 512 in one head, C
+# 640, 768 and 1024 in heads of 8 to 128 (``attention.kernel_widths``);
+# K6's and K7's (QKV_HEADS) the same up to C 512;
 # SHIPPED is the shipped width, 128 in 8 heads of 16
 HEADS = [(C // D, D) for C, D in attention.kernel_widths()]
 QKV_HEADS = [(C // D, D) for C, D in attention.kernel_widths()
@@ -518,11 +522,13 @@ def test_post_attention_block_backward_is_deterministic(dev, C, F):
 
 
 @pytest.mark.parametrize("C,F", [(128, 1024), (128, 320), (256, 2048),
-                                 (256, 128), (512, 2560), (640, 1280)])
+                                 (256, 128), (512, 2560), (640, 5120),
+                                 (1152, 2304)])
 def test_k5_wrappers_refuse_widths_outside_the_set(dev, C, F):
-    """F of 8 C, F not a multiple of 128, (256, 2048), F below C, F of 5
-    C at C 512, and C 640: K5's forward, backward and weight-gradient
-    wrappers raise on a CUDA tensor rather than run a plain version."""
+    """F of 8 C (at C 128 and 640), F not a multiple of 128, (256,
+    2048), F below C, F of 5 C at C 512, and C 1152: K5's forward,
+    backward and weight-gradient wrappers raise on a CUDA tensor rather
+    than run a plain version."""
     args = ffn_case(torch.bfloat16, dev, B=1, V=64, C=C, F=F)
     with pytest.raises(ValueError):
         ffn.post_attention_block(*args[:13])
@@ -1256,11 +1262,11 @@ def test_band_attention_fused_autograd_and_refusals(dev):
         f(q, k, v, win, kv)
         assert [c - a for c, a in zip(counts(), before)] == [1, 0, 0]
     w64, kv64 = win[:, :64].contiguous(), kv[:, :64].contiguous()
-    # C 32, C 768 in one head of 768, in 12 heads of 64 and in 128 of 6,
-    # C 640 in 160 heads of 4, in one head and in heads of 64, C 1024 in
-    # 64 heads of 16
-    for heads in ((4, 8), (1, 768), (160, 4), (12, 64), (128, 6), (1, 640),
-                  (64, 16), (10, 64)):
+    # C 32, C 768 in one head of 768, in 3 heads of 256 and in 128 of 6,
+    # C 640 in 160 heads of 4, in one head and in 128 heads of 5, C 1024
+    # in 256 heads of 4, C 1152 in 18 heads of 64
+    for heads in ((4, 8), (1, 768), (160, 4), (3, 256), (128, 6), (1, 640),
+                  (256, 4), (128, 5), (18, 64)):
         bad = torch.randn(1, 64, *heads, device=dev)
         with pytest.raises(ValueError):
             f(bad, bad, bad, w64, kv64)

@@ -172,25 +172,32 @@ def test_sst_block_at_256_matches_the_jax_pallas_routes():
 # stated apart from the gates under test: K8 and K6 / K7 C 128, 256, 384
 # or 512 in heads of 1, 2, 4, 8, 16, 32, 64 or 128 channels, C 384 in
 # heads of 3, 6, 12, 24, 48, 96 or 192 (the only C of the four they
-# divide), C 256 and 512 in heads of 256, C 384 and 512 in one head; K5 F
-# of 1, 2, 3 or 4 times C at C 128, 256, 384 or 512
+# divide), C 256 and 512 in heads of 256, C 384 and 512 in one head; K8
+# alone also C 640, 768 and 1024 in heads of 8, 16, 32, 64 or 128; K5 F
+# of 1, 2, 3 or 4 times C at C 128, 256, 384, 512, 640, 768 or 1024
 HEAD_DIMS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256,
              384, 512)
+WIDE_HEAD_DIMS = (8, 16, 32, 64, 128)
 ATTENTION_KERNEL_WIDTHS = {(C, C // D) for C in (128, 256, 384, 512)
-                           for D in HEAD_DIMS if C % D == 0}
+                           for D in HEAD_DIMS if C % D == 0} | {
+    (C, C // D) for C in (640, 768, 1024) for D in WIDE_HEAD_DIMS}
 QKV_KERNEL_WIDTHS = {(C, C // D) for C in (128, 256, 384, 512)
                      for D in HEAD_DIMS if C % D == 0}
-FFN_KERNEL_WIDTHS = {(C, k * C) for C in (128, 256, 384, 512)
+FFN_KERNEL_WIDTHS = {(C, k * C) for C in (128, 256, 384, 512, 640, 768, 1024)
                      for k in (1, 2, 3, 4)}
 WIDTHS = [(C, C // D, F) for C in (128, 256, 384, 512) for D in HEAD_DIMS
           for F in (C, 2 * C, 3 * C, 4 * C)
-          if C % D == 0 and (C, F) in FFN_KERNEL_WIDTHS]
+          if C % D == 0 and (C, F) in FFN_KERNEL_WIDTHS] + [
+    (C, C // D, k * C) for C in (640, 768, 1024) for D in WIDE_HEAD_DIMS
+    for k in (1, 2, 3, 4)]
 # widths outside the sets: F of 8 C; F not a multiple of 128; F of 2,048
-# at C 256; F of 5 C at C 512; C 640 in 10 heads of 64 and in 160 of 4;
-# C 768 in 64 heads of 12 and in one head; C 1024 in 64 heads of 16
+# at C 256; F of 5 C at C 512; C 640 in 160 heads of 4 and in 128 of 5;
+# C 768 in 64 heads of 12, in 3 of 256 and in one head; C 1024 in 256
+# heads of 4 and with F of 8 C; C 1152 in 18 heads of 64
 OUTSIDE = [(128, 8, 1024), (128, 8, 320), (256, 8, 2048), (512, 8, 2560),
-           (640, 10, 1280), (640, 160, 1280), (768, 64, 1536),
-           (768, 1, 1536), (1024, 64, 2048)]
+           (640, 160, 1280), (640, 128, 1280), (768, 64, 1536),
+           (768, 3, 1536), (768, 1, 1536), (1024, 256, 2048),
+           (1024, 16, 8192), (1152, 18, 2304)]
 
 
 def routes(sst):
@@ -215,15 +222,18 @@ def test_route_resolution_at_widths(width):
     """At every width of the sets (C of 128, 256, 384 or 512 in heads of
     D of 1, 2, 4, 8, 16, 32, 64 or 128, C 384 in 128 heads of 3, 64 of
     6, 32 of 12, 16 of 24, 8 of 48, 4 of 96 or 2 of 192, C 256 in one
-    head of 256 and 512 in two, C 384 and 512 in one head, F of 1, 2, 3
-    or 4 times C) "band", "fused" and "auto" resolve to the kernels (K8,
-    K5; "auto" to K8), and "qkv" to K6 at every C of the set, 384 and 512
-    included; JAX resolves "band", "qkv" / "fused" to its kernels
+    head of 256 and 512 in two, C 384 and 512 in one head, C 640, 768
+    and 1024 in heads of 8 to 128, F of 1, 2, 3 or 4 times C) "band",
+    "fused" and "auto" resolve to the kernels (K8, K5; "auto" to K8), and
+    "qkv" to K6 at every C up to 512, to the plain route at C 640, 768
+    and 1024; JAX resolves "band", "qkv" / "fused" to its kernels
     throughout, heads narrower than 8 among them.  At F of 8 C, of 320,
     of 2,048 at C 256 and of 2,560 at C 512 the port's FFN takes the
     unfused chain under every name (its attention, of a width K8 takes,
-    the kernel), JAX its kernel; at C 640, 768 and 1024 both take the
-    plain routes, JAX its kernels: widths the port serves on the plain
+    the kernel), JAX its kernel; at C 640 in heads of 4 and 5, 768 in
+    heads of 12, 256 and 768 and 1024 in heads of 4 the port's attention
+    takes the plain route under every name, and at C 1152 both its
+    routes do, JAX its kernels: widths the port serves on the plain
     routes."""
     d_model, nhead, dim_ff = width
     attn_in = (d_model, nhead) in ATTENTION_KERNEL_WIDTHS
