@@ -28,9 +28,10 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      with the same weights, at the shipped width and the wide model's;
      then K8 (forward, backward, prologue), K6 (with statistics), K7 and
      the projections' two kernels at every width they take (d_model 128,
-     256, 384 and 512 in heads of 8, 16, 32, 64 and 128, 384 in heads of
-     12, 24, 48, 96 and 192, 256 and 512 in heads of 256, and 384 and
-     512 in one head) and K5
+     256, 384, 512, 640, 768 and 1024 in heads of 8, 16, 32, 64 and 128,
+     128 to 512 also in heads of 1, 2 and 4, 384 in heads of 3, 6, 12,
+     24, 48, 96 and 192, 256 and 512 in heads of 256, and 384 and 512 in
+     one head) and K5
      (forward, backward) at every (C, F) it takes, on the pretrain
      encoder's tokens, and K1 and K2 as the wide VFE (64, 256) calls
      them, each with its time, bound, library call and each dtype's
@@ -105,13 +106,14 @@ Builds the CUDA kernels of ``geomae_tpu_torch/csrc`` with ``nvcc``, then
      below 8 (``P_TINY``: K8, K6 and K7 over 8-channel slots): the
      shipped d_model 128, FFN 256, in 32 heads of 4 on both routes and in
      128 of 1 on ``band``, 384 in 64 heads of 6, FFN 768, on ``band``; and
-     the wide models (``P_WIDE_C``: K8 and K5 at C 640, 768 and 1024, K5's
-     tile pass streaming its hidden rows): d_model 640 in 10 heads of 64,
-     FFN 2560, 768 in 12, FFN 3072, and 1024 in 16, FFN 4096, on ``band``
-     (``qkv`` takes no C above 512), with each one's peak device memory;
-     then the 512 model's step on each route, the FFN 2048 model's, the
-     8-head and the 16-head 384 model's, the two-head and one-head 512
-     model's, the 32-head 128 model's and the 768 model's on ``band`` as
+     the wide models (``P_WIDE_C``: K8, K6, K7 and K5 at C 640, 768 and
+     1024, K5's tile pass streaming its hidden rows, the projections their
+     contraction): d_model 640 in 10 heads of 64, FFN 2560, 768 in 12,
+     FFN 3072, and 1024 in 16, FFN 4096, on both routes, with each one's
+     peak device memory; then the 512 model's step on each route, the FFN
+     2048 model's, the 8-head and the 16-head 384 model's, the two-head
+     and one-head 512 model's and the 32-head 128 model's on ``band`` and
+     the 768 model's on each route as
      ``profile_pretrain`` times it: median and quartiles, peak memory,
      device busy ms, idle share and the SST kernels' ms a step;
   H. drives the trainer entry point (``python -m geomae_tpu_torch.train``,
@@ -306,8 +308,9 @@ P_TINY = {(128, 32): ["sst.nhead=32"], (128, 128): ["sst.nhead=128"],
           (384, 64): P_OPTIONS[384][:2] + ["sst.nhead=64"]
           + P_OPTIONS[384][3:]}
 # and the wide models, by d_model: 640 in 10 heads of 64, FFN 2560, 768
-# in 12, FFN 3072 (timed), 1024 in 16, FFN 4096, the VFE widened to each,
-# on band (K8 and K5; K6 and K7 take no C above 512)
+# in 12, FFN 3072 (timed on both routes), 1024 in 16, FFN 4096, the VFE
+# widened to each, on band (K8 and K5) and on qkv (K6, K7, the
+# projections and K5)
 P_WIDE_C = {C: [f"vfe.feat_channels=64,{C}", f"sst.d_model={C}",
                 f"sst.nhead={C // 64}", f"sst.dim_feedforward={4 * C}"]
             for C in (640, 768, 1024)}
@@ -315,7 +318,8 @@ P_WIDE_TIMED = 768
 # the profiled step's SST kernels on each route
 # (profile_pretrain.PRETRAIN_KERNELS) and their launches a layer: K8 and
 # K5 on band; on qkv also the projections (twice: K6 and K7's recompute),
-# their dx and weight-gradient kernels
+# their dx and weight-gradient kernels (above C 512 the projections' and
+# dx's streamed kernels)
 K5_PROFILED = {"post_attention_fwd_tc_kernel": 1,
                "post_attention_bwd_tile_kernel": 1, "wgrad_kernel": 1}
 K8_PROFILED = {"band_attention_fwd_tc_kernel": 1,
@@ -329,13 +333,17 @@ P_KERNELS = {
 
 
 def p_kernels(wp, route: str) -> dict:
-    """``P_KERNELS[route]`` at ``wp``'s head width: above 256 K8's bf16
-    backward is ``band_attention_bwd_wide_kernel`` (its two passes in one
-    launch)."""
+    """``P_KERNELS[route]`` at ``wp``'s width: above head width 256 K8's
+    bf16 backward is ``band_attention_bwd_wide_kernel`` (its two passes in
+    one launch); above d_model 512 the projections and their dx run the
+    kernels that stream the contraction."""
     ks = dict(P_KERNELS[route])
     if wp.sst.d_model // wp.sst.nhead > 256:
         ks["band_attention_bwd_wide_kernel"] = ks.pop(
             "band_attention_bwd_tc_kernel")
+    if wp.sst.d_model > 512 and route == QKV_OPTION:
+        for k in ("qkv_project_kernel", "qkv_project_dx_kernel"):
+            ks[k.replace("_kernel", "_stream_kernel")] = ks.pop(k)
     return ks
 
 
@@ -592,11 +600,12 @@ HOST_PACED_MS = 1.0     # phase A times shorter calls at the host's pace too
 # and a kernel of LONG_KERNEL_MS or more, by its first call alone (at 128
 # to 512 heads of 1 or 2 the plain attention takes about 1.5 s a call,
 # SDPA 0.35-0.8 s, the f32 K5 backward over tiles of 4 tokens at C 640
-# and more several hundred ms; repeating every plain and library call of
+# and more several hundred ms, f32 K6 and K7 over tiles of 4 tokens at C
+# 640 to 1024 about 0.1-1 s; repeating every plain and library call of
 # 20 ms or more took about 130 s of the run at C 128 to 1024); every
 # shorter one as before
 LONG_CALL_MS = 20.0
-LONG_KERNEL_MS = 250.0
+LONG_KERNEL_MS = 100.0
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PARITY_TOL = (1e-3, 1e-3)      # f32 GPU against CPU, whole model
 # the band route against the qkv route, same weights: the two compute one
@@ -1196,12 +1205,14 @@ def pretrain_inputs(cfg, device):
 
 
 def phase_a(cfg, what: str, inputs, keys, results: dict,
-            failures: list, errors: dict | None = None) -> None:
+            failures: list, errors: dict | None = None,
+            timings: dict | None = None) -> None:
     """The rows ``keys`` of TOL on ``inputs`` = (scene, shift data): the
     segment and target kernels on the scene's points and pillars, the SST
     kernels on the shift data's tokens.  A train step's forward runs under
     grad (K6 then writes its statistics).  ``errors``, where given,
-    collects each row's largest error by (kernel name, dtype)."""
+    collects each row's largest error by (kernel name, dtype), and
+    ``timings`` its (kernel ms, plain ms, bound ms)."""
     from geomae_tpu_torch.models import mae
     from geomae_tpu_torch.ops import (attention, attention_qkv, ffn, segment,
                                       targets)
@@ -1383,8 +1394,18 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
                                                  else "")
                   + f" (host-paced {host}), plain {plain_ms:.4f} ms"
                   + (" (one call)" if first_ms >= LONG_CALL_MS else ""))
-            if PATH_DTYPE.get(key) != dt or (not train
-                                             and name in NOT_SERVED):
+            if key not in PATH_DTYPE:     # a row the kernels line omits
+                continue
+            nb, ops = work(name, args, got)
+            t_bytes = nb / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[dt] * 1e3
+            bound = (f"bound {max(t_bytes, t_ops):.4f} ms: {nb / 1e6:.1f} MB "
+                     f"({t_bytes:.4f} ms), {ops / 1e9:.3f} GFLOP "
+                     f"({t_ops:.4f} ms)")
+            if timings is not None:
+                timings[name, dt] = (ms, plain_ms, max(t_bytes, t_ops))
+            if PATH_DTYPE[key] != dt or (not train and name in NOT_SERVED):
+                print(f"    {bound}")
                 continue
             lib = library_call(name, op, args)
             lib_ms = lib_host = None
@@ -1396,14 +1417,9 @@ def phase_a(cfg, what: str, inputs, keys, results: dict,
                     lib_host = f"{host_ms:.4f} ms"
                 else:
                     lib_host = "not timed; one call"
-            nb, ops = work(name, args, got)
-            t_bytes = nb / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS[dt] * 1e3
             print("    library call " + ("none" if lib is None else
                                          f"{lib_ms:.4f} ms (host-paced "
-                                         f"{lib_host})")
-                  + f"; bound {max(t_bytes, t_ops):.4f} ms: {nb / 1e6:.1f} MB "
-                  f"({t_bytes:.4f} ms), {ops / 1e9:.3f} GFLOP ({t_ops:.4f} ms)")
+                                         f"{lib_host})") + f"; {bound}")
             results.setdefault(name, []).append(
                 (err, ms, plain_ms, t_bytes, t_ops, lib_ms))
 
@@ -1841,14 +1857,15 @@ def sst_width(cfg, C: int, heads: int, Fd: int):
 
 def phase_widths(pcfg, failures: list) -> list:
     """Phase A's K8, K6, K7 and projection rows at every width they take
-    (C of 128, 256, 384 and 512 in heads of 8, 16, 32, 64 and 128, C 384
-    in heads of 12, 24, 48, 96 and 192, C 256 and 512 in heads of 256; K8
-    alone at C 640, 768 and 1024 in heads of 8 to 128) and its K5 rows at
+    (C of 128, 256, 384, 512, 640, 768 and 1024 in heads of 8, 16, 32, 64
+    and 128, C 128 to 512 in heads of 1, 2 and 4, C 384 in heads of 3, 6,
+    12, 24, 48, 96 and 192, C 256 and 512 in heads of 256, C 384 and 512
+    in one head) and its K5 rows at
     every (C, F) K5 takes, on the pretrain encoder's visible tokens at
     batch 4 (positions of C channels); then K1 and K2 as the wide VFE (64,
     256) calls them.  Returns one summary a row: the bf16 call's time,
     bound and library call, the largest error of each dtype and of
-    both."""
+    both, and each dtype's kernel, plain and bound ms."""
     from geomae_tpu_torch.config import apply_overrides
     from geomae_tpu_torch.ops import attention, attention_qkv, ffn
 
@@ -1856,8 +1873,8 @@ def phase_widths(pcfg, failures: list) -> list:
     rows = []
 
     def run(cfg, what, inputs, keys, width):
-        res, errors = {}, {}
-        phase_a(cfg, what, inputs, keys, res, failures, errors)
+        res, errors, timings = {}, {}, {}
+        phase_a(cfg, what, inputs, keys, res, failures, errors, timings)
         for name, ((err, ms, plain_ms, tb, to, lib),) in res.items():
             by_dtype = {str(dt)[6:]: e for (n, dt), e in errors.items()
                         if n == name}
@@ -1866,17 +1883,18 @@ def phase_widths(pcfg, failures: list) -> list:
                              bound_by="bytes" if tb >= to else "operations",
                              library_ms=lib,
                              max_abs_err=max([err, *by_dtype.values()]),
-                             max_abs_err_by_dtype=by_dtype))
+                             max_abs_err_by_dtype=by_dtype,
+                             ms_by_dtype={str(dt)[6:]: t for (n, dt), t
+                                          in timings.items() if n == name}))
 
     for C in attention.KERNEL_CHANNELS:
         cfg = apply_overrides(pcfg, [f"sst.d_model={C}"])
         inputs = pretrain_inputs(cfg, dev)
-        qkv = C in attention_qkv.KERNEL_CHANNELS
         for D in (d for c, d in attention.kernel_widths() if c == C):
+            assert attention_qkv.kernel_takes(C, C // D), (C, D)
             run(sst_width(cfg, C, C // D, 2 * C),
-                f"K8{', K6, K7 and the projections' if qkv else ''} at C "
-                f"{C} in heads of {D}", inputs, K8 + QKV if qkv else K8,
-                f"C {C}, D {D}")
+                f"K8, K6, K7 and the projections at C {C} in heads of {D}",
+                inputs, K8 + QKV, f"C {C}, D {D}")
         for Fd in sorted(f for c, f in ffn.KERNEL_WIDTHS if c == C):
             run(sst_width(cfg, C, 8, Fd), f"K5 at (C, F) ({C}, {Fd})",
                 inputs, K5, f"C {C}, F {Fd}")
@@ -1886,14 +1904,17 @@ def phase_widths(pcfg, failures: list) -> list:
         [("segment_reduce", "max"), ("segment_broadcast", "max")],
         "VFE (64, 256)")
     print("  widths (bf16 ms / bound ms / library ms; plain ms; largest "
-          "error against the plain version by dtype):")
+          "error against the plain version by dtype; kernel / bound / "
+          "plain ms by dtype):")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         errs = ", ".join(f"{k} {v:.3e}"
                          for k, v in r["max_abs_err_by_dtype"].items())
+        times = ", ".join(f"{k} {m:.4f} / {b:.4f} / {p:.4f}"
+                          for k, (m, p, b) in r["ms_by_dtype"].items())
         print(f"    {r['name']} at {r['width']}: {r['ms']:.4f} / "
               f"{r['bound_ms']:.4f} ({r['bound_by']}) / {lib}; plain "
-              f"{r['plain_ms']:.4f}; error {errs}")
+              f"{r['plain_ms']:.4f}; error {errs}; {times}")
     return rows
 
 
@@ -2056,15 +2077,15 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
     routes, and the heads below 8 (``P_TINY``): 128 in 32 heads of 4 on
     both routes, in 128 of 1 on ``band``, 384 in 64 of 6 on ``band``, and
     the wide models (``P_WIDE_C``): 640, 768 and 1024 in heads of 64, FFN
-    4 C, on ``band``, each with its peak device memory:
+    4 C, on both routes, each with its peak device memory:
     ``train_and_serve`` at each (on
     band K8, its prologue and backward, on qkv K6, K7, the projections
     (twice) and their backward, and K5 and its backward, once a layer a
     step, the attention and K5 once a layer a frame, no plain
     ``band_attention`` and no unfused FFN chain); then the 512 model's
     step on each route, the FFN 2048 model's, the 8-head and the
-    16-head 384 model's, the two-head and one-head 512 model's, the
-    32-head 128 model's and the 768 model's on band timed
+    16-head 384 model's, the two-head and one-head 512 model's and the
+    32-head 128 model's on band and the 768 model's on each route timed
     (``p_step_timed``).  Returns the launches of the steps and frames."""
     from geomae_tpu_torch.config import apply_overrides
 
@@ -2091,8 +2112,9 @@ def phase_p(pcfg, cfg, failures: list) -> dict:
                  (128, 32, BAND_OPTION, True), (128, 32, QKV_OPTION, False),
                  (128, 128, BAND_OPTION, False),
                  (384, 64, BAND_OPTION, False))]
-    runs += [(C, opts, BAND_OPTION, C == P_WIDE_TIMED)
-             for C, opts in P_WIDE_C.items()]
+    runs += [(C, opts, route, C == P_WIDE_TIMED)
+             for C, opts in P_WIDE_C.items()
+             for route in (BAND_OPTION, QKV_OPTION)]
     timed = []
     for C, opts, route, timed_too in runs:
         wp, wf = (apply_overrides(c, opts + [route]) for c in (pcfg, cfg))

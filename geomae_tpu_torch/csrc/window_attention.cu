@@ -1,10 +1,10 @@
 // K6 band_attention_qkv and K7, its backward: the C entry points.  The
 // kernels and their design notes are in window_attention.cuh; each C
-// (128, 256, 384, 512) is a translation unit of its own
+// (128, 256, 384, 512, 640, 768, 1024) is a translation unit of its own
 // (window_attention_c*.cu), and an entry point hands its arguments to the
 // kernels of the width it is given, or returns cudaErrorInvalidValue for
 // any other.
-#include "window_attention.cuh"
+#include "window_attention_wide.cuh"
 
 namespace {
 
@@ -17,6 +17,9 @@ const geomae::QkvF32Kernels* f32_kernels(int C, int H) {
     case 256: return qkv_f32_c256(C / H);
     case 384: return qkv_f32_c384(C / H);
     case 512: return qkv_f32_c512(C / H);
+    case 640: return qkv_f32_c640(C / H);
+    case 768: return qkv_f32_c768(C / H);
+    case 1024: return qkv_f32_c1024(C / H);
     default: return nullptr;
   }
 }
@@ -29,6 +32,9 @@ const geomae::QkvProjKernels* proj_kernels(int C) {
     case 256: return qkv_proj_c256();
     case 384: return qkv_proj_c384();
     case 512: return qkv_proj_c512();
+    case 640: return qkv_proj_c640();
+    case 768: return qkv_proj_c768();
+    case 1024: return qkv_proj_c1024();
     default: return nullptr;
   }
 }
@@ -39,8 +45,9 @@ extern "C" {
 
 // x, pos, out [B, V, C]; W [C, C] (in x out); b [C]; all dtype; C of 128,
 // 256, 384 or 512 in H heads of 1, 2, 4, 8, 16, 32, 64 or 128, C 384 in
-// heads of 3, 6, 12, 24, 48, 96 or 192, C 256 or 512 in heads of 256, or
-// C 384 or 512 in one head.  win [B, V] int32 ascending per row
+// heads of 3, 6, 12, 24, 48, 96 or 192, C 256 or 512 in heads of 256, C
+// 384 or 512 in one head, or C 640, 768 or 1024 in heads of 8, 16, 32, 64
+// or 128.  win [B, V] int32 ascending per row
 // (INT32_MAX padding suffix); key_valid [B, V] bytes.  lse: null, or f32
 // [B, V, H] for the per-(row, head) log-sum-exp of the scores (0 where a
 // row sees no key).
@@ -81,8 +88,8 @@ int geomae_band_attention_qkv_bwd(
 }
 
 // bf16 projections of K6 on the tensor cores: x, pos, q, k, v [B, V, C],
-// C of 128, 256, 384 or 512; W [C, C] (in x out); b [C]; win [B, V]
-// int32.  Per row q = round(round((x + pos) Wq) + bq), k likewise with
+// C of 128, 256, 384, 512, 640, 768 or 1024; W [C, C] (in x out); b [C];
+// win [B, V] int32.  Per row q = round(round((x + pos) Wq) + bq), k likewise with
 // Wk, v from x with Wv, x + pos rounded first; 0 on padding rows (win ==
 // INT32_MAX).
 int geomae_qkv_project(const void* x, const void* pos, const void* wq,
@@ -108,9 +115,9 @@ int geomae_qkv_project(const void* x, const void* pos, const void* wq,
 // C] of q, k, v: dx [B, V, C] = round(round(dq Wq^T) + round(dk Wk^T +
 // dv Wv^T)), and grads [3 C C + 3 C] f32 (dWq, dWk, dWv, dbq, dbk, dbv) =
 // ((x+pos)^T dq, (x+pos)^T dk, x^T dv, the column sums of dq, dk, dv)
-// over every row; C of 128, 256, 384 or 512.  The weight gradients split
-// the rows into chunks of chunk_rows (a multiple of 64); partial: f32
-// [chunks, len(grads)], chunks = ceil(B * V / chunk_rows).
+// over every row; C of 128, 256, 384, 512, 640, 768 or 1024.  The weight
+// gradients split the rows into chunks of chunk_rows (a multiple of 64);
+// partial: f32 [chunks, len(grads)], chunks = ceil(B * V / chunk_rows).
 int geomae_qkv_project_bwd(const void* x, const void* pos, const void* wq,
                            const void* wk, const void* wv, const void* dq,
                            const void* dk, const void* dv, void* dx,

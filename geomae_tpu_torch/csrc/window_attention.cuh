@@ -17,11 +17,12 @@
 //
 // Widths: C (channels) of 128, 256, 384 or 512 in heads of D = 1, 2, 4,
 // 8, 16, 32, 64 or 128, C 384 in heads of 3, 6, 12, 24, 48, 96 or 192, C
-// 256 and 512 in heads of 256 and C 384 and 512 in one head, the widths
-// K8 takes.
+// 256 and 512 in heads of 256, C 384 and 512 in one head, and C 640, 768
+// and 1024 in heads of 8, 16, 32, 64 or 128, the widths K8 takes.
 // Every kernel is a template over C (the f32 ones over C and D); each C
 // is a translation unit of its own
-// (window_attention_c*.cu, compiled in parallel), and the entry points
+// (window_attention_c*.cu, compiled in parallel; the wide C's table of
+// head widths in window_attention_wide.cuh), and the entry points
 // (window_attention.cu) pick the unit by C and the instantiation by D.
 // At the shipped width (128 in 8 heads of 16) each is the kernel it was
 // before the widths.  The scale 1/sqrt(D) is a power of two at D = 1, 4,
@@ -60,7 +61,10 @@
 // projections move 10 C bytes a token (x and pos read, q, k, v written),
 // their backward's two kernels about 18 C (dq, dk, dv read by both, x and
 // pos, dx written); at C 512 their 6 C^2 and 12 C^2 operations a token
-// are level with the bytes or above them.
+// are level with the bytes or above them, and above it the operations
+// bound them.  Above C 512 the projections and dx stream their
+// contraction (qkv_project_stream_kernel, qkv_project_dx_stream_kernel):
+// a slice's weights no longer fit beside a tile.
 //
 // float32, on the CUDA cores (band_attention_qkv_kernel and
 // band_attention_qkv_bwd_kernel, first below): the projections stay
@@ -68,21 +72,22 @@
 // rounding).  Blocks of 256 threads up to C 256, of C / 2 at C 384 and
 // 512 (no tile of whole lane groups fills 256 threads there: C 384 has 24
 // lanes a token, 48 at D 8, and 512 threads of up to 255 registers
-// overrun the register file); TQ tokens a tile, one lane group a (token,
-// head): TQ = 4096 / C up to C 256, 8 at C 384 and 512 (at D = 8, where a
-// lane keeps a whole head, half of that; 6 at C 384 in heads of 12, 24,
+// overrun the register file), of C / 4 at C 640, 768 and 1024; TQ tokens
+// a tile, one lane group a (token, head): TQ = 4096 / C up to C 256, 8 at
+// C 384 and 512, 4 above (at D = 8, where a lane keeps a whole head, half
+// of that; 6 at C 384 in heads of 12, 24,
 // 48, 96, 192 or 384, 32 lanes a token of 12 channels each; 8 at C 512 in
 // one head, 32 lanes of 16).  Below 8 one lane keeps several whole heads
 // (F32W::HL: 8 channels of heads of 1, 2 or 4, 12 of heads of 3 or 6), so
 // a tile holds D = 8's or D = 12's tokens and a lane its float4s, with a
 // running max, sum, statistics and D per head.  The projections give each
 // thread CPT columns and RPT rows of a chunk: one column up to C 256 (256
-// / C row groups), two at C 384 and 512.
+// / C row groups), two at C 384 and 512, four above.
 //
 // f32 forward (K6): per TQ-query tile the block projects the tile's
 // queries once and the keys of every window the tile touches (about 2-5x
 // the tile in keys, since a 12x12 window holds up to 144 tokens; more at
-// the 8-token tiles of C 384 and 512), 2*C*C
+// the 8-token tiles of C 384 and 512 and the 4-token tiles above), 2*C*C
 // FLOPs per projected row; scores and the value sum add about 4*C FLOPs
 // per (query, key) pair of one window.  The block finds the exact key
 // range [first token of the first query's window, last token of the last
@@ -198,8 +203,10 @@ namespace {
 // The f32 kernels' shapes at C channels in heads of D.
 template <int C, int D>
 struct F32W {
-  // a block: 256 threads up to C 256, C / 2 at 384 and 512
-  static constexpr int kThreads = C <= 256 ? 256 : C / 2;
+  // a block: 256 threads up to C 256, C / 2 at 384 and 512, C / 4 at 640,
+  // 768 and 1024 (160, 192 and 256: C / 2 threads of up to 255 registers
+  // would need 81,600 to 130,560 of an SM's 65,536)
+  static constexpr int kThreads = C <= 256 ? 256 : C <= 512 ? C / 2 : C / 4;
   static constexpr int H = C / D;              // heads
   // heads a lane (one; below 8 the whole heads of 8 or 12 channels,
   // common.cuh), channels a lane (16, all 8 at D = 8, 12 at D = 12 to
@@ -209,10 +216,10 @@ struct F32W {
   static constexpr int HD = f32_lane_channels(D);   // a lane's of a head
   static constexpr int LC = HL * HD;
   static constexpr int S = D / HD;
-  // tokens a tile: 4096 / C up to C 256, 8 at C 384 and 512; half that
-  // at D = 8 (and at D = 1, 2 and 4); 6 at D = 12, 24, 48, 96, 192 and
-  // 384 (32 lanes a token, as at D = 8 up to C 256; and at D = 3 and 6),
-  // 8 at D = 512 (32 lanes)
+  // tokens a tile: 4096 / C up to C 256, 8 at C 384 and 512, 4 at C 640
+  // to 1024; half that at D = 8 (and at D = 1, 2 and 4); 6 at D = 12, 24,
+  // 48, 96, 192 and 384 (32 lanes a token, as at D = 8 up to C 256; and at
+  // D = 3 and 6), 8 at D = 512 (32 lanes)
   static constexpr int TQ = kThreads / (H / HL * S);
   static constexpr int KC = TQ;                // keys a chunk
   // the projections: thread t owns columns t % CW + CW u (u < CPT) and
@@ -1270,6 +1277,318 @@ cudaError_t launch_project_bwd(const DxArgs& d, const QwArgs& w, int chunks,
   return sum_partials(w.partial, chunks, 3 * C * C + 3 * C, grads, stream);
 }
 
+// ---------------------------------------------------------------------------
+// C 640, 768 and 1024: the projections and dx with the contraction streamed
+// ---------------------------------------------------------------------------
+
+// A resident slice ends at C 640: there 32 columns of the three weights
+// and a 32-row tile take 244,608 bytes forward (past the 232,448 a block
+// may hold), at C 768 even 16-row tiles 238,208, and at C 1024 the slice's
+// weights alone 245,760.  So above C 512 a block owns one kPT-row tile
+// and one NB-column slice of the three products (a grid of tiles x
+// slices, a tile's slices adjacent, so that they read its rows from L2
+// while the whole of the weights stays there), and the contraction
+// streams through a two-stage cp.async ring in chunks of KC channels:
+// the chunk's columns of the tile's x and pos rows (dq, dk and dv for dx)
+// and the matching KC rows of the slice's weight columns (for dx the
+// slice's NB weight rows, the chunk's KC columns).  The f32 accumulators
+// persist across the chunks and every warp walks k upwards in steps of
+// 16, as the resident kernels do, so the sums and the dtype points are
+// theirs.  Eight warps (16 rows and 32 columns each, all three products),
+// 92,928 bytes forward and 110,592 for dx: two blocks an SM; the ring
+// holds the staged output tile once the last chunk is consumed.
+template <int C>
+struct PS {
+  static_assert(C > 512 && C % 128 == 0, "the wide row widths");
+  static constexpr int NB = 64;          // output columns a block
+  static constexpr int kPT = 64;         // rows a tile
+  static constexpr int KC = 64;          // channels a chunk
+  static constexpr int kChunks = C / KC;
+  static constexpr int kSlices = C / NB;
+  static constexpr int kColGroups = NB / kWarpCols;
+  static constexpr int kThreads = 32 * (kPT / 16) * kColGroups;
+  static constexpr int kAS = KC + kPad;  // bf16 row stride of a chunk
+  static constexpr int kOS = NB + kPad;  // bf16 row stride of a slice
+  static constexpr int kAElems = kPT * kAS;
+  static constexpr int kOutElems = kPT * kOS;
+  static constexpr int kChunkPieces = KC / 8;   // 16-byte pieces a row
+  static constexpr int kOutPieces = NB / 8;
+};
+
+template <int C>
+struct ProjStreamSmem {                  // forward
+  struct Stage {
+    bf16 in[2][PS<C>::kAElems];          // x, pos: the chunk's columns
+    bf16 w[3][PS<C>::KC * PS<C>::kOS];   // Wq, Wk, Wv: its rows, the slice
+  } ring[2];
+  float bias[3][PS<C>::NB];
+};
+template <int C>
+struct DxStreamSmem {                    // backward's dx
+  struct Stage {
+    bf16 in[3][PS<C>::kAElems];          // dq, dk, dv: the chunk's columns
+    bf16 w[3][PS<C>::NB * PS<C>::kAS];   // the slice's rows of Wq, Wk, Wv
+  } ring[2];
+};
+static_assert(sizeof(ProjStreamSmem<1024>) == 92928 &&
+                  sizeof(DxStreamSmem<1024>) == 110592 &&
+                  3 * PS<1024>::kOutElems * sizeof(bf16) <=
+                      sizeof(ProjStreamSmem<1024>::ring),
+              "two blocks an SM; the output tile fits the ring");
+
+// acc += A (the warp's fragment, 16 rows x 16 k) times W over the warp's
+// output columns nw.. and k rows kk..kk+15 of a staged chunk: W as stored
+// [k][n] with row stride kS (kWT false), or W^T read from W's rows [n][k]
+// with row stride kS (kWT true)
+template <int kS, bool kWT>
+__device__ __forceinline__ void mma_chunk(float (&acc)[kWarpCols / 8][4],
+                                          const uint32_t (&a)[4],
+                                          const bf16* w, int kk, int nw) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < kWarpCols / 16; ++j) {
+    uint32_t b[4];
+    if (kWT)
+      ldmatrix_x4(b, w + (nw + 16 * j + lane % 8 + (lane / 16) * 8) * kS +
+                         kk + ((lane / 8) % 2) * 8);
+    else
+      ldmatrix_x4_trans(b, w + (kk + lane % 8 + ((lane / 8) % 2) * 8) * kS +
+                               nw + 16 * j + (lane / 16) * 8);
+    mma_bf16_16816(acc[2 * j], a, &b[0]);
+    mma_bf16_16816(acc[2 * j + 1], a, &b[2]);
+  }
+}
+
+// the chunk at column k0 of rows r0.. of the [rows][C] tensors s0..s(N-1)
+// into the N [kPT][kAS] tiles at dst; rows past `rows` zero-filled
+template <int C, int N>
+__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* s0,
+                                            const bf16* s1, const bf16* s2,
+                                            int r0, int k0, int rows) {
+  using S = PS<C>;
+  for (int e = threadIdx.x; e < N * S::kPT * S::kChunkPieces;
+       e += S::kThreads) {
+    const int a = e / (S::kPT * S::kChunkPieces),
+              r = (e / S::kChunkPieces) % S::kPT;
+    const int c = (e % S::kChunkPieces) * 8;
+    const bool ok = r0 + r < rows;
+    const bf16* src = a == 0 ? s0 : a == 1 ? s1 : s2;
+    cp_async_16(dst + a * S::kAElems + r * S::kAS + c,
+                src + (size_t)(ok ? r0 + r : 0) * C + k0 + c, ok);
+  }
+}
+
+// the N staged [kPT][kOS] slice tiles at src, rows below `rows`, to rows
+// r0.. and columns n0.. of d0, d1 (and d2 when N is 3), 16 bytes a lane
+template <int C, int N>
+__device__ __forceinline__ void write_slice(bf16* d0, bf16* d1, bf16* d2,
+                                            const bf16* src, int r0, int n0,
+                                            int rows) {
+  using S = PS<C>;
+  for (int e = threadIdx.x; e < N * S::kPT * S::kOutPieces;
+       e += S::kThreads) {
+    const int a = e / (S::kPT * S::kOutPieces),
+              r = (e / S::kOutPieces) % S::kPT;
+    const int c = (e % S::kOutPieces) * 8;
+    bf16* dst = a == 0 ? d0 : a == 1 ? d1 : d2;
+    if (r0 + r < rows)
+      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * C + n0 + c) =
+          *reinterpret_cast<const uint4*>(src + a * S::kOutElems +
+                                          r * S::kOS + c);
+  }
+}
+
+// qkv_project_kernel's function above C 512: q, k, v [rows][C], per row
+// round(round((x + pos) W) + b) (x for v), 0 on padding rows
+template <int C>
+__global__ void __launch_bounds__(PS<C>::kThreads, 2)
+qkv_project_stream_kernel(ProjArgs p) {
+  using S = PS<C>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ProjStreamSmem<C>& sm = *reinterpret_cast<ProjStreamSmem<C>*>(smem_raw);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r16 = 16 * (warp / S::kColGroups);
+  const int nw = kWarpCols * (warp % S::kColGroups);
+  const int n0 = (blockIdx.x % S::kSlices) * S::NB;
+  const int r0 = (blockIdx.x / S::kSlices) * S::kPT;
+
+  // chunk c: its columns of x and pos, its KC rows of the slice's weights
+  auto stage = [&](int c, int b) {
+    const int k0 = c * S::KC;
+    stage_chunk<C, 2>(sm.ring[b].in[0], p.x, p.pos, nullptr, r0, k0,
+                      p.rows);
+    for (int e = threadIdx.x; e < 3 * S::KC * S::kOutPieces;
+         e += S::kThreads) {
+      const int m = e / (S::KC * S::kOutPieces),
+                r = (e / S::kOutPieces) % S::KC;
+      const int col = (e % S::kOutPieces) * 8;
+      const bf16* src = m == 0 ? p.wq : m == 1 ? p.wk : p.wv;
+      cp_async_16(&sm.ring[b].w[m][r * S::kOS + col],
+                  src + (size_t)(k0 + r) * C + n0 + col);
+    }
+    cp_async_commit();
+  };
+  stage(0, 0);
+  for (int e = threadIdx.x; e < 3 * S::NB; e += S::kThreads) {
+    const int o = e / S::NB, c = e % S::NB;
+    const bf16* b = o == 0 ? p.bq : o == 1 ? p.bk : p.bv;
+    sm.bias[o][c] = to_f<bf16>(b[n0 + c]);
+  }
+
+  float acc[3][kWarpCols / 8][4] = {};
+  for (int c = 0; c < S::kChunks; ++c) {
+    const int b = c & 1;
+    cp_async_wait<0>();
+    __syncthreads();               // chunk c landed; chunk c - 1's stage
+                                   // is consumed
+    if (c + 1 < S::kChunks) stage(c + 1, b ^ 1);
+    const bf16* xs = sm.ring[b].in[0] + (r16 + lane % 16) * S::kAS +
+                     (lane / 16) * 8;
+    const bf16* ps = xs + S::kAElems;
+#pragma unroll
+    for (int kk = 0; kk < S::KC; kk += 16) {
+      uint32_t ax[4], axp[4];
+      ldmatrix_x4(ax, xs + kk);
+      ldmatrix_x4(axp, ps + kk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) axp[i] = add_bf16x2(ax[i], axp[i]);
+      mma_chunk<S::kOS, false>(acc[0], axp, sm.ring[b].w[0], kk, nw);
+      mma_chunk<S::kOS, false>(acc[1], axp, sm.ring[b].w[1], kk, nw);
+      mma_chunk<S::kOS, false>(acc[2], ax, sm.ring[b].w[2], kk, nw);
+    }
+  }
+  // the lane's rows g, g + 8: real (not padding, not past the end)
+  bool real[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int r = r0 + r16 + g + 8 * rh;
+    real[rh] = r < p.rows && __ldg(p.win + r) != kInt32Max;
+  }
+  __syncthreads();                 // the ring is consumed: it takes the
+                                   // output tile
+  bf16* out = sm.ring[0].in[0];
+#pragma unroll
+  for (int o = 0; o < 3; ++o)
+#pragma unroll
+    for (int nb = 0; nb < kWarpCols / 8; ++nb) {
+      const int c = nw + 8 * nb + 2 * t;
+      const float b0 = sm.bias[o][c], b1 = sm.bias[o][c + 1];
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const float* a = &acc[o][nb][2 * rh];
+        *reinterpret_cast<uint32_t*>(
+            &out[o * S::kOutElems + (r16 + g + 8 * rh) * S::kOS + c]) =
+            real[rh] ? pack_bf16(rbf(a[0]) + b0, rbf(a[1]) + b1) : 0u;
+      }
+    }
+  __syncthreads();
+  write_slice<C, 3>(p.q, p.k, p.v, out, r0, n0, p.rows);
+}
+
+// qkv_project_dx_kernel's function above C 512: dx [rows][C] =
+// round(round(dq Wq^T) + round(dk Wk^T + dv Wv^T))
+template <int C>
+__global__ void __launch_bounds__(PS<C>::kThreads, 2)
+qkv_project_dx_stream_kernel(DxArgs p) {
+  using S = PS<C>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DxStreamSmem<C>& sm = *reinterpret_cast<DxStreamSmem<C>*>(smem_raw);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r16 = 16 * (warp / S::kColGroups);
+  const int nw = kWarpCols * (warp % S::kColGroups);
+  const int n0 = (blockIdx.x % S::kSlices) * S::NB;
+  const int r0 = (blockIdx.x / S::kSlices) * S::kPT;
+
+  // chunk c: its columns of dq, dk, dv and of the slice's weight rows
+  auto stage = [&](int c, int b) {
+    const int k0 = c * S::KC;
+    stage_chunk<C, 3>(sm.ring[b].in[0], p.dq, p.dk, p.dv, r0, k0, p.rows);
+    for (int e = threadIdx.x; e < 3 * S::NB * S::kChunkPieces;
+         e += S::kThreads) {
+      const int m = e / (S::NB * S::kChunkPieces),
+                r = (e / S::kChunkPieces) % S::NB;
+      const int col = (e % S::kChunkPieces) * 8;
+      const bf16* src = m == 0 ? p.wq : m == 1 ? p.wk : p.wv;
+      cp_async_16(&sm.ring[b].w[m][r * S::kAS + col],
+                  src + (size_t)(n0 + r) * C + k0 + col);
+    }
+    cp_async_commit();
+  };
+  stage(0, 0);
+
+  float aq[kWarpCols / 8][4] = {}, akv[kWarpCols / 8][4] = {};
+  for (int c = 0; c < S::kChunks; ++c) {
+    const int b = c & 1;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (c + 1 < S::kChunks) stage(c + 1, b ^ 1);
+    const bf16* in = sm.ring[b].in[0] + (r16 + lane % 16) * S::kAS +
+                     (lane / 16) * 8;
+#pragma unroll
+    for (int kk = 0; kk < S::KC; kk += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, in + kk);
+      mma_chunk<S::kAS, true>(aq, a, sm.ring[b].w[0], kk, nw);
+      ldmatrix_x4(a, in + S::kAElems + kk);
+      mma_chunk<S::kAS, true>(akv, a, sm.ring[b].w[1], kk, nw);
+      ldmatrix_x4(a, in + 2 * S::kAElems + kk);
+      mma_chunk<S::kAS, true>(akv, a, sm.ring[b].w[2], kk, nw);
+    }
+  }
+  __syncthreads();                 // the ring takes the output tile
+  bf16* out = sm.ring[0].in[0];
+#pragma unroll
+  for (int nb = 0; nb < kWarpCols / 8; ++nb)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int e = 2 * rh;
+      *reinterpret_cast<uint32_t*>(
+          &out[(r16 + g + 8 * rh) * S::kOS + nw + 8 * nb + 2 * t]) =
+          pack_bf16(rbf(aq[nb][e]) + rbf(akv[nb][e]),
+                    rbf(aq[nb][e + 1]) + rbf(akv[nb][e + 1]));
+    }
+  __syncthreads();
+  write_slice<C, 1>(p.dx, nullptr, nullptr, out, r0, n0, p.rows);
+}
+
+// a grid of every (tile, slice) pair, at least one tile
+template <int C>
+int stream_blocks(int rows) {
+  const int tiles = (rows + PS<C>::kPT - 1) / PS<C>::kPT;
+  return (tiles > 0 ? tiles : 1) * PS<C>::kSlices;
+}
+
+template <int C>
+cudaError_t launch_project_stream(const ProjArgs& a, cudaStream_t stream) {
+  constexpr int kBytes = sizeof(ProjStreamSmem<C>);
+  cudaError_t e = allow_smem(qkv_project_stream_kernel<C>, kBytes);
+  if (e != cudaSuccess) return e;
+  qkv_project_stream_kernel<C>
+      <<<stream_blocks<C>(a.rows), PS<C>::kThreads, kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_project_bwd_stream(const DxArgs& d, const QwArgs& w,
+                                      int chunks, float* grads,
+                                      cudaStream_t stream) {
+  constexpr int kDxBytes = sizeof(DxStreamSmem<C>), kWgBytes = sizeof(WgSmem);
+  constexpr int T = C / kQwTile;
+  cudaError_t e = allow_smem(qkv_project_dx_stream_kernel<C>, kDxBytes);
+  if (e == cudaSuccess) e = allow_smem(qkv_wgrad_kernel<C>, kWgBytes);
+  if (e != cudaSuccess) return e;
+  qkv_project_dx_stream_kernel<C>
+      <<<stream_blocks<C>(d.rows), PS<C>::kThreads, kDxBytes, stream>>>(d);
+  if (chunks > 0)
+    qkv_wgrad_kernel<C>
+        <<<3 * T * T * chunks, kQwThreads, kWgBytes, stream>>>(w);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return sum_partials(w.partial, chunks, 3 * C * C + 3 * C, grads, stream);
+}
+
 // The tables a translation unit of one C hands the entry points
 template <int C>
 const QkvF32Kernels* qkv_f32_at(int D) {
@@ -1320,8 +1639,14 @@ const QkvF32Kernels* qkv_f32_at(int D) {
 
 template <int C>
 const QkvProjKernels* qkv_proj_at() {
-  static const QkvProjKernels k{launch_project<C>, launch_project_bwd<C>};
-  return &k;
+  if constexpr (C > 512) {        // the contraction streamed
+    static const QkvProjKernels k{launch_project_stream<C>,
+                                  launch_project_bwd_stream<C>};
+    return &k;
+  } else {
+    static const QkvProjKernels k{launch_project<C>, launch_project_bwd<C>};
+    return &k;
+  }
 }
 
 }  // namespace

@@ -97,17 +97,15 @@ def attention_route(impl: str, d_model: int, nhead: int) -> str:
     band_attention).  K8, K6 and K7 take C of 128, 256, 384 or 512 in
     heads of 1, 2, 4, 8, 16, 32, 64 or 128, C 384 in 128 heads of 3, 64
     of 6, 32 of 12, 16 of 24, 8 of 48, 4 of 96 or 2 of 192, C 256 in one
-    head of 256 or 512 in two, and C 384 and 512 in one head
-    (``attention_qkv.kernel_takes``): there "qkv" resolves to itself and
-    every other kernel name to "band".  K8 alone also takes C 640, 768
-    and 1024 in heads of 8, 16, 32, 64 or 128 (``attention.kernel_takes``):
-    there "qkv" resolves to "einsum" and every other kernel name to
-    "band".  At any other width every name resolves to "einsum".
-    geomae_tpu/models/sst.py keeps its kernel routes for any C a multiple
-    of 128 and any head count (and V of 128, a fact of the TPU's tiling:
-    the port's kernels take any V), so the port serves on the plain
-    routes what JAX serves on kernels at the other head widths of C 640
-    to 1024, at C above 1024, and on "qkv" at C 640 and more.  "auto" is
+    head of 256 or 512 in two, C 384 and 512 in one head, and C 640, 768
+    and 1024 in heads of 8, 16, 32, 64 or 128 (``attention.kernel_takes``,
+    ``attention_qkv.kernel_takes``): there "qkv" resolves to itself and
+    every other kernel name to "band".  At any other width every name
+    resolves to "einsum".  geomae_tpu/models/sst.py keeps its kernel
+    routes for any C a multiple of 128 and any head count (and V of 128,
+    a fact of the TPU's tiling: the port's kernels take any V), so the
+    port serves on the plain routes what JAX serves on kernels at the
+    other head widths of C 640 to 1024 and at C above 1024.  "auto" is
     "band" (choosing between band and qkv by speed is open: PERF.md)."""
     _check("attention_impl", impl, ATTENTION_IMPLS)
     if impl == "einsum" or not kernel_takes(d_model, nhead):

@@ -19,19 +19,21 @@ projections accumulate in f32, cast to x's dtype, then add the bias in
 that dtype (``pallas_attention_qkv._proj``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels
-or raises.  The kernels take K8's widths up to C 512: C in
-``KERNEL_CHANNELS`` (128, 256, 384 or 512) in heads of 1, 2, 4, 8, 16,
-32, 64 or 128, C 384 in heads of 3, 6, 12, 24, 48, 96 or 192, C 256 and
-512 in heads of 256 and C 384 and 512 in one head (``kernel_takes``), in
-float32 or bfloat16 (the bf16 projections own 128-, 64- or 32-column
-slices of the three products, the f32 kernels blocks of 256 threads, C /
-2 at C 384 and 512, a lane several whole heads below D 8); windows may
-be of any size.  The scale 1/sqrt(D) folds into q where D is a power of
-four (1, 4, 16, 64, 256), as in the JAX package, and multiplies the f32
-score elsewhere (2, 3, 6, 8, 12, 24, 32, 48, 96, 128, 192, 384, 512).
-In bfloat16
-each token is projected once on the tensor cores (``qkv_project``) and
-K8's bf16 kernels (``csrc/band_attention.cuh``, reached through their C
+or raises.  The kernels take every width K8 takes (``KERNEL_CHANNELS``):
+C of 128, 256, 384 or 512 in heads of 1, 2, 4, 8, 16, 32, 64 or 128, C
+384 in heads of 3, 6, 12, 24, 48, 96 or 192, C 256 and 512 in heads of
+256, C 384 and 512 in one head, and C 640, 768 and 1024 in heads of 8,
+16, 32, 64 or 128 (``kernel_takes``), in float32 or bfloat16 (the bf16
+projections own 128-, 64- or 32-column slices of the three products
+with the weights they read resident, above C 512 a 64-row tile and a
+64-column slice with the contraction streamed; the f32 kernels blocks
+of 256 threads, C / 2 at C 384 and 512, C / 4 above, a lane several
+whole heads below D 8); windows may be of any size.  The scale
+1/sqrt(D) folds into q where D is a power of four (1, 4, 16, 64, 256),
+as in the JAX package, and multiplies the f32 score elsewhere (2, 3, 6,
+8, 12, 24, 32, 48, 96, 128, 192, 384, 512).  In bfloat16 each token is
+projected once on the tensor cores (``qkv_project``) and K8's bf16
+kernels (``csrc/band_attention.cuh``, reached through their C
 entry points, so
 ``attention.band_attention_fused``'s counts stay the band route's) run
 the attention; the backward recomputes the projections, runs K8's D
@@ -56,19 +58,18 @@ from .attention import (INT32_MAX, KERNEL_HEAD_DIMS, band_attention,
                         plain_blocks, plain_lse)
 from .ffn import dense
 
-# K6, K7 and the projections take K8's widths up to C 512: C in
-# KERNEL_CHANNELS (the projections see no heads) in heads of
-# KERNEL_HEAD_DIMS, 3, 6, 12, 24, 48, 96 and 192 at C 384 alone, 256 at C
-# 256 and 512, 384 and 512 in one head (kernel_takes); K8 alone takes C
-# 640, 768 and 1024
-KERNEL_CHANNELS = (128, 256, 384, 512)
+# K6, K7 and the projections take K8's widths: C in KERNEL_CHANNELS (the
+# projections see no heads) in heads of KERNEL_HEAD_DIMS, 3, 6, 12, 24,
+# 48, 96 and 192 at C 384 alone, 256 at C 256 and 512, 384 and 512 in one
+# head, and heads of 8 to 128 alone at C 640, 768 and 1024 (kernel_takes)
+KERNEL_CHANNELS = attention.KERNEL_CHANNELS
 
 
 def kernel_takes(channels: int, heads: int) -> bool:
-    """Whether K6 and K7 take ``heads`` heads over ``channels``: C in
-    KERNEL_CHANNELS at a width K8 takes (``attention.kernel_takes``)."""
-    return channels in KERNEL_CHANNELS and attention.kernel_takes(channels,
-                                                                 heads)
+    """Whether K6 and K7 take ``heads`` heads over ``channels``: every
+    width K8 takes (``attention.kernel_takes``), the 15 widths of C 640,
+    768 and 1024 among them."""
+    return attention.kernel_takes(channels, heads)
 
 # The bf16 weight-gradient kernel stages 128 columns of its rows a block
 # (104 KB of shared memory at every C): two blocks an SM
@@ -79,18 +80,20 @@ WGRAD_TILE = 128          # its output tile, a side
 # registers leave no room for a second block: one block an SM.
 # Each block owns an f32 partial of the weight gradients, [3 C C + 3 C],
 # so the grid is also held to F32_PARTIAL_BYTES of them up to C 256 (85
-# blocks at C = 256, every SM at 128).  At C 384 and 512 a partial is 1.8
-# and 3.1 MB, and 64 MiB would leave 37 and 20 blocks for 132 SMs:
-# F32_PARTIAL_BYTES_WIDE admits a block an SM there (233 and 416 MB on an
-# H100, the scratch of one call)
+# blocks at C = 256, every SM at 128).  At C 384, 512, 640, 768 and 1024
+# a partial is 1.8, 3.1, 4.9, 7.1 and 12.6 MB, and 64 MiB would leave 37,
+# 20, 13, 9 and 5 blocks for 132 SMs: F32_PARTIAL_BYTES_WIDE admits a
+# block an SM there (233 MB to 1.66 GB on an H100, the scratch of one
+# call)
 F32_PARTIAL_BYTES = 64 << 20
-F32_PARTIAL_BYTES_WIDE = 512 << 20
+F32_PARTIAL_BYTES_WIDE = 2 << 30
 
 
 def f32_threads(C: int) -> int:
     """Threads a block of the f32 kernels at C channels: 256 up to C 256,
-    C / 2 at 384 and 512 (``F32W::kThreads``)."""
-    return 256 if C <= 256 else C // 2
+    C / 2 at 384 and 512, C / 4 at 640, 768 and 1024
+    (``F32W::kThreads``)."""
+    return 256 if C <= 256 else C // 2 if C <= 512 else C // 4
 
 
 def _scale_pow2(head_dim: int) -> bool:
@@ -218,8 +221,9 @@ def _check_qkv(name, x, nheads, dtypes=tuple(_cuda.DTYPE_CODE)):
     """x [B, V, C] on the card at a width the kernels take: C in
     KERNEL_CHANNELS in ``nheads`` heads of D in KERNEL_HEAD_DIMS, 3, 6,
     12, 24, 48, 96 and 192 at C 384 alone, 256 at C 256 and 512, 384 and
-    512 in one head (``kernel_takes``; the projections see no heads:
-    ``nheads`` None, C in KERNEL_CHANNELS)."""
+    512 in one head, 8 to 128 alone at C 640, 768 and 1024
+    (``kernel_takes``; the projections see no heads: ``nheads`` None, C in
+    KERNEL_CHANNELS)."""
     _cuda.require(x.device.type == "cuda",
                   f"{name}: no kernel for device {x.device}")
     kinds = " or ".join(str(d)[6:] for d in dtypes)
@@ -230,8 +234,9 @@ def _check_qkv(name, x, nheads, dtypes=tuple(_cuda.DTYPE_CODE)):
                   f"{name}: the kernel takes [B, V, C] {kinds} with C in "
                   f"{KERNEL_CHANNELS} in heads of D in {KERNEL_HEAD_DIMS} "
                   f"(3, 6, 12, 24, 48, 96 and 192 at C 384 alone, 384 and "
-                  f"512 in one head), got {x.dtype} {tuple(x.shape)} in "
-                  f"{nheads} heads")
+                  f"512 in one head, 8 to 128 alone at C 640, 768 and "
+                  f"1024), got {x.dtype} {tuple(x.shape)} in {nheads} "
+                  f"heads")
 
 
 def _kernel_inputs(name, x, pos, ws, win_id=None, key_valid=None):
@@ -330,8 +335,9 @@ def f32_lane_heads(head_dim: int) -> int:
 def f32_tile(C: int, nheads: int) -> int:
     """Tokens a tile of the f32 kernels at C in ``nheads`` heads: a block
     of ``f32_threads`` lanes, ``f32_lane_heads`` x ``f32_lane_channels``
-    each: 4096 / C tokens up to C 256, 8 at C 384 and 512, half that at D
-    = 8 (and 1, 2, 4), 6 at D = 12, 24, 48, 96 and 192 (and 3, 6)."""
+    each: 4096 / C tokens up to C 256, 8 at C 384 and 512, 4 at C 640 to
+    1024, half that at D = 8 (and 1, 2, 4), 6 at D = 12, 24, 48, 96 and
+    192 (and 3, 6)."""
     D = C // nheads
     return f32_threads(C) * f32_lane_heads(D) * f32_lane_channels(D) // C
 

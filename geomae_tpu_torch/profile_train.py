@@ -50,7 +50,8 @@ KERNEL_NAMES = ("segment_rows_kernel", "segment_scan_kernel",
                 "band_attention_bwd_tc_kernel",
                 "band_attention_bwd_wide_kernel",
                 "band_attention_bwd_f32_kernel", "qkv_project_kernel",
-                "qkv_project_dx_kernel", "qkv_wgrad_kernel")
+                "qkv_project_dx_kernel", "qkv_project_stream_kernel",
+                "qkv_project_dx_stream_kernel", "qkv_wgrad_kernel")
 
 
 def main() -> None:

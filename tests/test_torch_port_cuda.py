@@ -54,14 +54,17 @@ equal, at one sample, a batch and the encoder's [4, 8192].  K6, K7 and
 the projections also at every width they take (``QKV_HEADS``: C 128,
 256, 384 and 512 in heads of 1, 2, 4 and 8 to 128, C 384 in heads of 3,
 6, 12, 24, 48, 96 and 192, C 256 and 512 in heads of 256, C 384 and 512
-in one head), f32 and bf16, with K7's dbk under F3's rule in both
-dtypes and its bf16 parameter gradients at ``probe_qkv.wgrad_tol`` of
-the width (6e-3 at C 128, 3e-3 at 256 to 512, 1e-2 to 1.5e-2 below
-heads of 8), a dropped row failing it, and by their precision
+in one head, C 640, 768 and 1024 in heads of 8 to 128; the projections
+at every C, streaming their contraction above 512), f32 and bf16, with
+K7's dbk under F3's rule in both dtypes and its bf16 parameter
+gradients at ``probe_qkv.wgrad_tol`` of the width (6e-3 at C 128, 3e-3
+at 256 to 512, 6e-3 / 7e-3 / 6e-3 at 640 / 768 / 1024, 1e-2 to 1.5e-2
+below heads of 8), a dropped row failing it, and by their precision
 (``probe_k5_backward.low_bits_shares``, as K5's: at most a quarter of a
 gradient's elements ending in 16 zero bits), which the kernel's
-gradients rounded to bf16 fail; a width outside the set (C 640, 768 or
-1024, which K8 alone takes) raises.
+gradients rounded to bf16 fail; a width outside the set (C 640 in heads
+of 4 or one head, 768 and 1024 in heads of 256, 1024 in heads of 4, and
+C 1152) raises.
 
 K8 (window attention over projected q, k, v; ``ops/attention.py``): the
 output and the statistics at K6's bound, the backward's dq, dk, dv at the
@@ -101,7 +104,7 @@ DTYPES = [torch.float32, torch.bfloat16]
 # 1, 2, 4, 8, 16, 32, 64 and 128, C 384 in heads of 3, 6, 12, 24, 48, 96
 # and 192, C 256 and 512 in heads of 256, C 384 and 512 in one head, C
 # 640, 768 and 1024 in heads of 8 to 128 (``attention.kernel_widths``);
-# K6's and K7's (QKV_HEADS) the same up to C 512;
+# K6's and K7's (QKV_HEADS) the same;
 # SHIPPED is the shipped width, 128 in 8 heads of 16
 HEADS = [(C // D, D) for C, D in attention.kernel_widths()]
 QKV_HEADS = [(C // D, D) for C, D in attention.kernel_widths()
@@ -670,7 +673,8 @@ def test_qkv_project_bf16(dev, C, B, V):
     """K6's projections on the tensor cores against the plain version at
     the bf16 bound, per row (a block owns a 128-, 64- or 32-column slice
     of the three products at C 128, 256 or 384 and 512, 32-row tiles at
-    C 512); padding rows exactly 0; V not a multiple of the tile; one
+    C 512; a 64-row tile and a 64-column slice with the contraction
+    streamed at C 640, 768 and 1024); padding rows exactly 0; V not a multiple of the tile; one
     launch a call, two launches bitwise equal."""
     args, _ = projection_case(dev, B, V, C=C)
     before = attention_qkv.qkv_project.launches
@@ -691,8 +695,9 @@ def test_qkv_project_backward_bf16(dev, C, B, V):
     gradients split over SM-sized row chunks, ``wgrad_chunk_rows``)
     against the plain version: dx per row, the parameter gradients by the
     rule of the other backward kernels; one launch a call, two launches
-    bitwise equal; at C 128, 256, 384 and 512 (1, 4, 9 and 16 output
-    tiles of 128 x 128 a product)."""
+    bitwise equal; at C 128, 256, 384, 512, 640, 768 and 1024 (1, 4, 9,
+    16, 25, 36 and 64 output tiles of 128 x 128 a product; dx streams its
+    contraction above 512)."""
     args, ds = projection_case(dev, B, V, C=C)
     x, pos, wq, _, wk, _, wv, _, _ = args
     before = attention_qkv.qkv_project_backward.launches
@@ -716,12 +721,14 @@ def test_qkv_projections_take_bf16_only(dev):
                                            *[d.float() for d in ds])
 
 
-@pytest.mark.parametrize("C,H", [(640, 10), (640, 160), (768, 12),
-                                 (1024, 16), (640, 1)])
+@pytest.mark.parametrize("C,H", [(640, 160), (768, 3), (1024, 4),
+                                 (1024, 256), (640, 1), (1152, 18)])
 def test_qkv_wrappers_refuse_widths_outside_the_set(dev, C, H):
-    """C 640 (in heads of 64, of 4 or in one head of 640), C 768 in 12
-    heads of 64 or C 1024 in 16 of 64: K6, K7 and the projections raise
-    on a CUDA tensor rather than run a plain version."""
+    """C 640 in heads of 4 or in one head of 640, C 768 in heads of
+    256, C 1024 in heads of 256 or of 4, and C 1152 in heads of 64: K6
+    and K7 raise on a CUDA tensor rather than run a plain version, and at
+    C 1152 (a C outside KERNEL_CHANNELS; they see no heads) so do the
+    projections."""
     x = torch.randn(1, 64, C, device=dev)
     win = torch.zeros(1, 64, dtype=torch.int32, device=dev)
     kv = torch.ones(1, 64, dtype=torch.bool, device=dev)

@@ -12,8 +12,9 @@ once a width, this file shares).  The rules are
 ``test_torch_port_widths.py``'s: f32 2e-5 + 2e-4 relative, the
 statistics 1e-5; bf16 2e-2 + 2e-2 relative with atol times each row's
 max(1, largest |ref|).  The gate admits the five head widths of each C
-and refuses the others there.  K5 and one SST block at these widths are
-in ``test_torch_port_wide_channels_ffn.py``."""
+on both kernel routes and refuses the others there.  K5 and one SST
+block at these widths are in ``test_torch_port_wide_channels_ffn.py``,
+K6 / K7 and a qkv block in ``test_torch_port_wide_channels_qkv.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,18 +50,18 @@ def one_thread():
 @pytest.mark.parametrize("C", [640, 768, 1024])
 def test_wide_channels_take_heads_of_8_to_128(C):
     """At C 640, 768 and 1024 the gate takes heads of 8, 16, 32, 64 and
-    128 channels on the band route, K6 / K7 none of them (``qkv``
-    resolves to the plain route), and no other head width: heads of 4,
-    of 256 and one head of C."""
+    128 channels on the band route and on K6 / K7's (``qkv`` resolves to
+    itself), and no other head width: heads of 4, of 256 and one head of
+    C."""
     takes = [D for D in attention.KERNEL_HEAD_DIMS + (C,)
              if C % D == 0 and attention.kernel_takes(C, C // D)]
     assert takes == [8, 16, 32, 64, 128]
     for D in takes:
         assert (C, D) in attention.kernel_widths()
-        assert not attention_qkv.kernel_takes(C, C // D)
+        assert attention_qkv.kernel_takes(C, C // D)
         assert [attention_route(i, C, C // D) for i in ("auto", "band",
                                                         "qkv")] == \
-            ["band", "band", "einsum"]
+            ["band", "band", "qkv"]
     for D in (4, 256, C):
         if C % D == 0:
             assert attention_route("band", C, C // D) == "einsum"

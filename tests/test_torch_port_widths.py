@@ -172,9 +172,9 @@ def test_sst_block_at_256_matches_the_jax_pallas_routes():
 # stated apart from the gates under test: K8 and K6 / K7 C 128, 256, 384
 # or 512 in heads of 1, 2, 4, 8, 16, 32, 64 or 128 channels, C 384 in
 # heads of 3, 6, 12, 24, 48, 96 or 192 (the only C of the four they
-# divide), C 256 and 512 in heads of 256, C 384 and 512 in one head; K8
-# alone also C 640, 768 and 1024 in heads of 8, 16, 32, 64 or 128; K5 F
-# of 1, 2, 3 or 4 times C at C 128, 256, 384, 512, 640, 768 or 1024
+# divide), C 256 and 512 in heads of 256, C 384 and 512 in one head, and
+# C 640, 768 and 1024 in heads of 8, 16, 32, 64 or 128; K5 F of 1, 2, 3 or
+# 4 times C at C 128, 256, 384, 512, 640, 768 or 1024
 HEAD_DIMS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256,
              384, 512)
 WIDE_HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -182,7 +182,8 @@ ATTENTION_KERNEL_WIDTHS = {(C, C // D) for C in (128, 256, 384, 512)
                            for D in HEAD_DIMS if C % D == 0} | {
     (C, C // D) for C in (640, 768, 1024) for D in WIDE_HEAD_DIMS}
 QKV_KERNEL_WIDTHS = {(C, C // D) for C in (128, 256, 384, 512)
-                     for D in HEAD_DIMS if C % D == 0}
+                     for D in HEAD_DIMS if C % D == 0} | {
+    (C, C // D) for C in (640, 768, 1024) for D in WIDE_HEAD_DIMS}
 FFN_KERNEL_WIDTHS = {(C, k * C) for C in (128, 256, 384, 512, 640, 768, 1024)
                      for k in (1, 2, 3, 4)}
 WIDTHS = [(C, C // D, F) for C in (128, 256, 384, 512) for D in HEAD_DIMS
@@ -225,8 +226,8 @@ def test_route_resolution_at_widths(width):
     head of 256 and 512 in two, C 384 and 512 in one head, C 640, 768
     and 1024 in heads of 8 to 128, F of 1, 2, 3 or 4 times C) "band",
     "fused" and "auto" resolve to the kernels (K8, K5; "auto" to K8), and
-    "qkv" to K6 at every C up to 512, to the plain route at C 640, 768
-    and 1024; JAX resolves "band", "qkv" / "fused" to its kernels
+    "qkv" to K6 at every C, 640, 768 and 1024 among them; JAX resolves
+    "band", "qkv" / "fused" to its kernels
     throughout, heads narrower than 8 among them.  At F of 8 C, of 320,
     of 2,048 at C 256 and of 2,560 at C 512 the port's FFN takes the
     unfused chain under every name (its attention, of a width K8 takes,
